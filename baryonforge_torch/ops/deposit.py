@@ -1,0 +1,189 @@
+"""Scatter phase A: the per-halo disc deposit of tangent-angle offsets.
+
+``disc_deposit`` is the wrapper of kernel K2 (``csrc/deposit.cu``);
+``disc_deposit_plain`` is its plain version, a port of the JAX runner's
+``_make_body_factory`` (``one_halo`` / ``body``) and its padded-window
+loop ``_bucketed_accumulate`` / ``_prepare_groups``
+(baryonforge_tpu/Runners/HealpixRunner.py:462-564, 849-953).
+
+Both return the (npix, 2) accumulator of (d theta, sin theta d phi)
+offsets in the curves' dtype.
+"""
+
+import numpy as np
+import torch
+
+from . import _build
+from . import healpix as hpx
+from ..Profiles.BaryonCorrection import BaryonificationClass
+
+__all__ = ["disc_deposit", "disc_deposit_plain"]
+
+_HALO_COLUMNS = ("theta", "phi", "radius", "D", "a", "Rcom", "rscale")
+
+# colatitude classes of _prepare_groups: a disc whose band keeps
+# sin(theta) >= s gets the phi window of disc_pad_sizes(..., sin_min=s)
+_SIN_CLASSES = (0.25, 0.05, 0.0)
+
+
+def _chunks(nside, theta, radius, budget):
+    """Halo index chunks with their padded (K_ring, K_phi) windows: halos
+    grouped by colatitude class, sorted by radius, cut so that a chunk's
+    padded pixel count stays within ``budget``."""
+    lo = np.minimum(np.sin(theta - radius), np.sin(theta + radius))
+    pole = (theta - radius < 0) | (theta + radius > np.pi)
+    smin = np.where(pole, 0.0, np.maximum(lo, 0.0))
+    cls = np.select([smin >= _SIN_CLASSES[0], smin >= _SIN_CLASSES[1]],
+                    [0, 1], 2)
+    out = []
+    for c, s_band in enumerate(_SIN_CLASSES):
+        idx = np.where(cls == c)[0]
+        idx = idx[np.argsort(radius[idx], kind="stable")]
+        start = 0
+        while start < idx.size:
+            def window(stop):
+                return hpx.disc_pad_sizes(nside, float(radius[idx[stop - 1]]),
+                                          s_band)
+
+            def fits(stop):
+                kr, kp = window(stop)
+                return (stop - start) * kr * kp <= budget
+
+            stop = start + 1
+            step = 1
+            while stop + step <= idx.size and fits(stop + step):
+                stop += step
+                step *= 2
+            while step > 1:
+                step //= 2
+                if stop + step <= idx.size and fits(stop + step):
+                    stop += step
+            out.append((idx[start:stop], *window(stop)))
+            start = stop
+    return out
+
+
+def disc_deposit_plain(nside, halos, curves, ln_r0, dlnr, eps_max,
+                       pixel_budget=1 << 22):
+    """Plain version of K2: padded disc windows, vectorised over halo
+    chunks, summed with ``index_add_``. Arguments as :func:`disc_deposit`.
+
+    Precision mirrors one_halo under x64: the geometry is in the curves'
+    dtype, except the halo's own cos/sin(theta), the fallback's phi offset
+    and the fallback haversine's first term, which the JAX code computes
+    from the float64 halo columns before rounding."""
+    dt = curves.dtype
+    dev = curves.device
+    acc = torch.zeros((hpx.npix(nside), 2), dtype=dt, device=dev)
+    n = curves.shape[0]
+    if n == 0:
+        return acc
+    theta_np = halos["theta"].cpu().numpy()
+    radius_np = halos["radius"].cpu().numpy()
+    for idx_np, K_ring, K_phi in _chunks(nside, theta_np, radius_np,
+                                         pixel_budget):
+        idx = torch.as_tensor(idx_np, device=dev)
+        th, ph, rad, D, a, Rcom, rscale = (halos[k][idx]
+                                           for k in _HALO_COLUMNS)
+        (pix, cos_t, sin_t, dphi_pix, sinhd,
+         mask) = hpx.disc_candidates(nside, th, ph, rad, K_ring, K_phi, dt)
+        # fewer than 4 disc pixels -> the 4 interpolation neighbours
+        # (reference HealpixRunner.py:332-334)
+        use4 = (mask.sum(dim=1) < 4)[:, None]
+        pix4, _ = hpx.get_interp_weights(nside, th, ph, dt)
+        t4, p4 = hpx.pix2ang(nside, pix4, dt)
+        st0 = torch.sin(th).to(dt)[:, None]
+        ct0 = torch.cos(th).to(dt)[:, None]
+        dphi4 = (p4.double() - ph[:, None]).to(dt)
+        sdp4 = torch.sin(0.5 * dphi4)
+        sdt4 = torch.sin(0.5 * (t4.double() - th[:, None]))
+        hav4 = sdt4 * sdt4 + (torch.sin(t4) * st0 * (sdp4 * sdp4)).double()
+        pix = torch.cat([pix, pix4], dim=1)
+        mask = torch.cat([mask & ~use4, use4.expand(-1, 4)], dim=1)
+        cos_t = torch.cat([cos_t, torch.cos(t4)], dim=1)
+        sin_t = torch.cat([sin_t, torch.sin(t4)], dim=1)
+        dphi_pix = torch.cat([dphi_pix, dphi4], dim=1)
+        sinhd = torch.cat(
+            [sinhd, torch.sqrt(torch.clamp(hav4, 0.0, 1.0)).to(dt)], dim=1)
+
+        # chord on the unit sphere -> comoving separation -> curve lookup
+        chord = 2.0 * sinhd
+        D_t = D.to(dt)[:, None]
+        a_t = a.to(dt)[:, None]
+        r_com = chord * D_t / a_t
+        r_safe = torch.where(r_com > 0, r_com, torch.full_like(r_com, 1e-30))
+        d = BaryonificationClass.curve_lookup(
+            curves[idx], ln_r0, dlnr, r_safe * rscale.to(dt)[:, None])
+        d = torch.where(r_com < float(eps_max) * Rcom.to(dt)[:, None], d,
+                        torch.zeros_like(d)) * a_t
+        d = torch.where(torch.isfinite(d), d, torch.zeros_like(d))
+
+        # tangent components of (d/D) (vec - vec_h)/chord at the pixel
+        chord_safe = torch.where(chord > 0, chord, torch.ones_like(chord))
+        amp = d / (D_t * chord_safe)
+        t_th = amp * (ct0 * sin_t - st0 * cos_t * torch.cos(dphi_pix))
+        t_ph = amp * (st0 * torch.sin(dphi_pix))
+        delta = torch.stack([t_th, t_ph], dim=-1)
+        delta = torch.where(torch.isfinite(delta), delta,
+                            torch.zeros_like(delta))
+        acc.index_add_(0, pix[mask].long(), delta[mask])
+    return acc
+
+
+def _check_inputs(nside, halos, curves):
+    if not 1 <= nside <= hpx.MAX_NSIDE:
+        raise ValueError(f"disc_deposit: NSIDE {nside} outside "
+                         f"[1, {hpx.MAX_NSIDE}] (int32 pixel math)")
+    if curves.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"disc_deposit: unsupported dtype {curves.dtype}")
+    if curves.dim() != 2 or curves.shape[1] < 2:
+        raise ValueError("disc_deposit: curves must be (n_halos, n_r >= 2)")
+    n = curves.shape[0]
+    for k in _HALO_COLUMNS:
+        x = halos[k]
+        if (x.dtype != torch.float64 or x.shape != (n,)
+                or x.device != curves.device):
+            raise ValueError(f"disc_deposit: halos[{k!r}] must be a "
+                             f"float64 ({n},) tensor on {curves.device}")
+
+
+def disc_deposit(nside, halos, curves, ln_r0, dlnr, eps_max):
+    """Deposit every halo's tangent displacement on the pixels of its disc.
+
+    nside   : HEALPix NSIDE (<= 8192)
+    halos   : dict of float64 (n,) tensors: ``theta``, ``phi`` (disc centre,
+              rad), ``radius`` (angular disc radius), ``D`` (angular
+              diameter distance), ``a`` (scale factor), ``Rcom`` (comoving
+              R_Delta), ``rscale`` (radius scale of the curve lookup)
+    curves  : (n, n_r) per-halo displacement curves on the log-uniform
+              radial grid ln r = ln_r0 + i dlnr; their dtype (float32 or
+              float64) is the dtype of the geometry and the accumulator
+    eps_max : displacement is zero beyond eps_max * Rcom
+
+    Returns the (npix, 2) accumulator. Kernel K2 for tensors on CUDA, the
+    plain version for tensors on the CPU.
+    """
+    _check_inputs(nside, halos, curves)
+    dev = curves.device
+    if dev.type == "cpu":
+        return disc_deposit_plain(nside, halos, curves, float(ln_r0),
+                                  float(dlnr), eps_max)
+    if dev.type != "cuda":
+        raise ValueError(f"disc_deposit: unsupported device {dev}")
+    dt = curves.dtype
+    acc = torch.zeros((hpx.npix(nside), 2), dtype=dt, device=dev)
+    n, n_r = curves.shape
+    if n == 0:
+        return acc
+    curves = curves.contiguous()
+    cols = [halos[k].contiguous() for k in _HALO_COLUMNS]
+    lib = _build.library()
+    fn = lib.bf_disc_deposit_f32 if dt == torch.float32 \
+        else lib.bf_disc_deposit_f64
+    with torch.cuda.device(dev):
+        err = fn(nside, n, *[_build.ptr(c) for c in cols],
+                 _build.ptr(curves), n_r, float(ln_r0), float(dlnr),
+                 float(eps_max), _build.ptr(acc), _build.stream_of(acc))
+    _build.check(err, "disc_deposit")
+    _build.launches["disc_deposit"] += 1
+    return acc
