@@ -7,10 +7,12 @@ plain PyTorch version beside it. It imports torch and numpy, never jax.
 
 Ported so far (ROADMAP.md lists the rest):
   cosmo/      background, distances, mass definitions (float64)
-  ops/        HEALPix geometry; kernels K1 curve collapse (interp),
-              K2 disc deposit (deposit), K3 scatter regrid (regrid)
+  ops/        HEALPix geometry and the sky tiling; kernels K1 curve
+              collapse (interp), K2 disc deposit (deposit), K3 scatter
+              regrid (regrid), K4 tile deposit (tile_deposit), K5 stencil
+              regrid and K6 its complement (stencil), K7 tile layout (tiles)
   Profiles/   Baryonification2D/3D table readout and checkpoint
-  Runners/    BaryonifyShell, scatter path
+  Runners/    BaryonifyShell: the tiled engine (default) and the scatter path
   utils/      constants, io containers, JAX-object conversion
 """
 

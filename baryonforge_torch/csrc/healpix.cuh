@@ -219,4 +219,24 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
   }
 }
 
+// 4 neighbours and weights of a source at pixel centre (theta_p, phi_p)
+// moved by the tangent offset (o0, o1) = (d theta, sin theta d phi): a pole
+// overshoot passes through the pole (theta reflected, phi turned by pi).
+// The caller handles an unmoved source (o0 == o1 == 0: itself, weight 1).
+template <typename T>
+__device__ __forceinline__ void displaced_weights(int N, T theta_p, T phi_p,
+                                                  T o0, T o1, int pix[4],
+                                                  T wgt[4]) {
+  const T sin_t = m_sin(theta_p);
+  const T sin_safe = sin_t > T(1e-12) ? sin_t : T(1);
+  T theta = theta_p + o0;
+  T phi = phi_p + o1 / sin_safe;
+  const bool over = theta < T(0) || theta > T(kPi);
+  theta = m_fabs(theta);
+  if (theta > T(kPi)) theta = T(kTwoPi) - theta;
+  if (over) phi = phi + T(kPi);
+  phi = floor_fmod(phi, T(kTwoPi));
+  interp_weights<T>(N, theta, phi, pix, wgt);
+}
+
 }  // namespace bf

@@ -41,19 +41,9 @@ __global__ void regrid_kernel(int N, int npix, const P* __restrict__ po,
   }
   T theta_p, phi_p;
   bf::pix2ang<T>(N, p, theta_p, phi_p);
-  const T sin_t = bf::m_sin(theta_p);
-  const T sin_safe = sin_t > T(1e-12) ? sin_t : T(1);
-  T theta = theta_p + T(o0);
-  T phi = phi_p + T(o1) / sin_safe;
-  // a pole overshoot passes through the pole: reflect theta, turn phi by pi
-  const bool over = theta < T(0) || theta > T(bf::kPi);
-  theta = bf::m_fabs(theta);
-  if (theta > T(bf::kPi)) theta = T(bf::kTwoPi) - theta;
-  if (over) phi = phi + T(bf::kPi);
-  phi = bf::floor_fmod(phi, T(bf::kTwoPi));
   int pix[4];
   T w[4];
-  bf::interp_weights<T>(N, theta, phi, pix, w);
+  bf::displaced_weights<T>(N, theta_p, phi_p, T(o0), T(o1), pix, w);
 #pragma unroll
   for (int k = 0; k < 4; ++k) atomicAdd(out + pix[k], w[k] * src);
 }

@@ -1,15 +1,19 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-At first use, ``library()`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface (``nvcc ... -shared``) under
-``baryonforge_torch/_build/``, keyed by a hash of the sources and flags,
-and loads it with ``ctypes``. Nothing is built on import: the CPU tests
-import every module, and only the machine with the card has ``nvcc``.
+At first use, ``library()`` compiles every ``csrc/*.cu`` (one ``nvcc`` per
+source, all started together) and links them into one shared library with
+a plain C interface under ``baryonforge_torch/_build/``, keyed by a hash of
+the sources and flags, and loads it with ``ctypes``. Nothing is built on
+import: the CPU tests import every module, and only the machine with the
+card has ``nvcc``.
 
-``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/interp.py``, ``ops/deposit.py`` and ``ops/regrid.py``; each wrapper
-adds one right where it launches its kernel, so a run can show that its
-main path went through the kernels.
+``launches`` counts, per kernel entry point, the launches made by the
+wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
+``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4), ``ops/stencil.py``
+(K5 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
+``stencil_complement``) and ``ops/tiles.py`` (K7 ``flat_view`` and
+``tile_view``); each wrapper adds one right where it launches its kernel,
+so a run can show that its main path went through the kernels.
 """
 
 import collections
@@ -31,8 +35,8 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 # --fmad=false keeps a*b+c as two rounded operations, as the plain
-# versions (one torch op each) compute them; the kernels are bound by
-# atomics, not by arithmetic
+# versions (one torch op each) compute them; no kernel here is bound by
+# its multiply-adds
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -43,16 +47,34 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 
-_SIGNATURES = {
-    "bf_collapse_curves_f32": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _P],
-    "bf_collapse_curves_f64": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _D, _P, _P],
-    "bf_disc_deposit_f32": [_I, _I] + [_P] * 8 + [_I, _F, _F, _F, _P, _P],
-    "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
-    "bf_regrid_f32_f32": [_I, _P, _P, _P, _P],
-    "bf_regrid_f32_f64": [_I, _P, _P, _P, _P],
-    "bf_regrid_f64_f32": [_I, _P, _P, _P, _P],
-    "bf_regrid_f64_f64": [_I, _P, _P, _P, _P],
-}
+
+def _signatures():
+    """ctypes argument types of every C entry point, by name."""
+    sig = {
+        "bf_collapse_curves_f32": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _F,
+                                   _P, _P],
+        "bf_collapse_curves_f64": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _D,
+                                   _P, _P],
+        "bf_disc_deposit_f32": [_I, _I] + [_P] * 8 + [_I, _F, _F, _F, _P, _P],
+        "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
+        "bf_tile_deposit_f32": [_I] * 4 + [_P] * 14 + [_I, _F, _F, _P, _P],
+        "bf_tile_deposit_f64": [_I] * 4 + [_P] * 14 + [_I, _D, _D, _P, _P],
+    }
+    for sfx in ("f32", "f64"):
+        sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 5 + [_I] + [_P] * 3
+        sig[f"bf_tile_view_{sfx}"] = sig[f"bf_flat_view_{sfx}"]
+        sig[f"bf_stencil_hot_{sfx}"] = [_I, _I] + [_P] * 6
+        sig[f"bf_stencil_geo_{sfx}"] = [_I] * 4 + [_P] * 10
+        for rsfx in ("f32", "f64"):
+            # offsets in the first dtype, maps in the second
+            sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I, _P, _P, _P, _P]
+            sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 9
+            sig[f"bf_stencil_complement_{sfx}_{rsfx}"] = \
+                [_I] * 4 + [_P] * 4 + [_I] + [_P] * 8
+    return sig
+
+
+_SIGNATURES = _signatures()
 
 _lib = None
 
@@ -87,21 +109,36 @@ def _digest():
 
 def build():
     """Compile the kernels (if this source hash has no library yet) and
-    return the library's path. Raises with nvcc's output on failure."""
+    return the library's path: one nvcc per source, all started together,
+    then one link. Raises with nvcc's output on failure."""
     out = _BUILD / f"libbf_kernels_{_digest()}.so"
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(_CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)            # atomic: a concurrent build loses nothing
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=_BUILD) as work:
+        jobs = []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc] + compile_flags + ["-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            so, se = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{so}\n{se}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + [o for _, o, _ in jobs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)        # atomic: a concurrent build loses nothing
     return out
 
 

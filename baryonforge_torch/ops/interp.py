@@ -5,11 +5,17 @@
 ``baryonforge_tpu.ops.interp.collapse_curves``.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
 
-__all__ = ["multilinear_interp", "collapse_curves", "collapse_curves_plain"]
+__all__ = ["multilinear_interp", "collapse_curves", "collapse_curves_plain",
+           "MAX_P_AXES"]
+
+# parameter axes K1 takes besides z and M (kMaxAxes - 2 in csrc/curves.cu)
+MAX_P_AXES = 4
 
 
 def _locate(ax, x):
@@ -107,46 +113,64 @@ def collapse_curves(table, axes, r_axis, M, a, p_keys, kwargs, fill=0.0):
     version for a table on the CPU. Same arguments and results as
     :func:`collapse_curves_plain`.
 
-    The kernel takes (z, M, r) tables with the radial axis last and
-    float32 or float64 values; tables with parameter axes (``p_keys``)
-    raise on CUDA (ROADMAP Queue 2 row 7).
+    The kernel takes float32 or float64 (z, M, r, p1, ...) tables with the
+    radial axis at index 2 and at most ``MAX_P_AXES`` parameter axes.
     """
     if table.device.type == "cpu":
         return collapse_curves_plain(table, axes, r_axis, M, a, p_keys,
                                      kwargs, fill)
     if table.device.type != "cuda":
         raise ValueError(f"collapse_curves: unsupported device {table.device}")
-    if p_keys or table.dim() != 3 or r_axis != 2:
+    if r_axis != 2 or table.dim() != 3 + len(p_keys):
+        raise ValueError("collapse_curves: the table must be (z, M, r, p...) "
+                         "with one trailing axis per p_key")
+    if len(p_keys) > MAX_P_AXES:
         raise NotImplementedError(
-            "collapse_curves on CUDA takes (z, M, r) tables only; p_keys "
-            "tables are ROADMAP Queue 2 row 7")
+            f"collapse_curves on CUDA: {len(p_keys)} parameter axes; the "
+            f"kernel keeps each axis' bracket in registers and takes at most "
+            f"{MAX_P_AXES}")
     dt = table.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"collapse_curves: unsupported dtype {dt}")
-    ax_z, ax_M, ln_r = axes[0], axes[1], axes[2]
-    for name, x in (("axis z", ax_z), ("axis M", ax_M), ("axis r", ln_r)):
+    if len(axes) != table.dim():
+        raise ValueError("collapse_curves: one axis grid per table axis")
+    for d, x in enumerate(axes):
         if x.dtype != dt or x.device != table.device or x.dim() != 1:
-            raise ValueError(f"collapse_curves: {name} must be a 1-D "
+            raise ValueError(f"collapse_curves: axis {d} must be a 1-D "
                              f"{dt} tensor on {table.device}")
-    nz, nM, nr = table.shape
-    if ax_z.numel() != nz or ax_M.numel() != nM or ln_r.numel() != nr:
-        raise ValueError("collapse_curves: axes do not match the table")
-    if min(nz, nM, nr) < 2:
-        raise ValueError("collapse_curves: every axis needs >= 2 points")
+        if x.numel() != table.shape[d]:
+            raise ValueError("collapse_curves: axes do not match the table")
+        if x.numel() < 2:
+            raise ValueError("collapse_curves: every axis needs >= 2 points")
+    for k in p_keys:
+        if k not in kwargs:
+            raise ValueError(f"need {k} as input (table built with it)")
+    dev = table.device
     table = table.contiguous()
-    ax_z, ax_M = ax_z.contiguous(), ax_M.contiguous()
+    grids = [axes[d].contiguous() for d in [0, 1] + list(range(3,
+                                                                table.dim()))]
     M_use, a_use = _halo_columns(table, M, a)
     n = M_use.numel()
     a_use = a_use.expand(n).contiguous()
     M_use = M_use.contiguous()
-    out = torch.empty((n, nr), dtype=dt, device=table.device)
+    p_vals = (torch.stack([torch.as_tensor(kwargs[k], dtype=dt, device=dev)
+                           .expand(n) for k in p_keys]).contiguous()
+              if p_keys else torch.zeros(1, dtype=dt, device=dev))
+    ln_r = axes[r_axis]
+    nr = table.shape[r_axis]
+    out = torch.empty((n, nr), dtype=dt, device=dev)
     if n:
         fn = (_build.library().bf_collapse_curves_f32 if dt == torch.float32
               else _build.library().bf_collapse_curves_f64)
-        with torch.cuda.device(table.device):
-            err = fn(_build.ptr(table), _build.ptr(ax_z), _build.ptr(ax_M),
-                     nz, nM, nr, _build.ptr(M_use), _build.ptr(a_use), n,
-                     float(fill), _build.ptr(out), _build.stream_of(table))
+        grid_ptrs = (ctypes.c_void_p * len(grids))(
+            *[g.data_ptr() for g in grids])
+        sizes = (ctypes.c_int * len(grids))(*[g.numel() for g in grids])
+        with torch.cuda.device(dev):
+            err = fn(_build.ptr(table),
+                     ctypes.cast(grid_ptrs, ctypes.c_void_p),
+                     ctypes.cast(sizes, ctypes.c_void_p), len(grids), nr,
+                     _build.ptr(M_use), _build.ptr(a_use), _build.ptr(p_vals),
+                     n, float(fill), _build.ptr(out), _build.stream_of(table))
         _build.check(err, "collapse_curves")
         _build.launches["collapse_curves"] += 1
     return out, ln_r[0], ln_r[1] - ln_r[0]

@@ -9,7 +9,9 @@ tests/conftest.py imports jax, so there run it as
 Tolerances: float64 to 1e-10 of the largest value (atomic sums in another
 order); float32 deposits to the JAX package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
-weight noise, 1e-6 * nside of the largest source value.
+weight noise, 1e-6 * nside of the largest source value. The tile layouts
+(K7), the hot-tile test (K5) and the source list's integers (K6) must be
+equal; its angles agree to a few ulps (the device's asin against torch's).
 """
 
 import os
@@ -22,6 +24,8 @@ torch = pytest.importorskip("torch")
 import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch.ops import _build                    # noqa: E402
 from baryonforge_torch.ops import deposit, interp, regrid   # noqa: E402
+from baryonforge_torch.ops import stencil, tile_deposit     # noqa: E402
+from baryonforge_torch.ops import tiles as tt               # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -132,15 +136,180 @@ def test_regrid_kernel(dev, pdt, rdt, nside):
 
 
 def test_shell_cuda_matches_cpu(dev):
-    """The whole scatter path on the card against the plain versions on
-    the CPU, float64 (tests/test_tiled_deposit.py:80's bound)."""
+    """The whole default path (the tiled engine; at NSIDE 64 every disc of
+    this catalog is small, so phase A is K2 through K7's tile_view) on the
+    card against the plain versions on the CPU, float64
+    (tests/test_tiled_deposit.py:80's bound)."""
     cat, shell = _inputs(64, 300)
     kw = dict(epsilon_max=20, model=_model(), dtype=torch.float64,
               regrid_dtype=torch.float64)
     _build.reset_launches()
     out_gpu = bf.BaryonifyShell(cat, shell, device=dev, **kw).process()
-    assert all(_build.launches[k] == 1
-               for k in ("collapse_curves", "disc_deposit", "regrid"))
+    assert all(_build.launches[k] >= 1
+               for k in ("collapse_curves", "disc_deposit", "tile_view",
+                         "stencil_hot", "stencil", "flat_view",
+                         "stencil_complement"))
     out_cpu = bf.BaryonifyShell(cat, shell, device="cpu", **kw).process()
     scale = np.abs(out_cpu - shell.map).max()
     np.testing.assert_allclose(out_gpu, out_cpu, rtol=0, atol=1e-9 * scale)
+
+
+@pytest.mark.parametrize("deposit_mode,regrid_mode,nside",
+                         [("auto", "auto", 256), ("tiles", "scatter", 256),
+                          ("scatter", "scatter", 64)])
+def test_shell_paths_cuda_match_cpu(dev, deposit_mode, regrid_mode, nside):
+    """Each engine on the card against the CPU, float64: the tiled engine
+    at NSIDE 256 (K4 and K5 at work), its tiles + scatter-regrid mix, and
+    the scatter path."""
+    cat, shell = _inputs(nside, 300)
+    kw = dict(epsilon_max=20, model=_model(), dtype=torch.float64,
+              regrid_dtype=torch.float64, deposit=deposit_mode,
+              regrid=regrid_mode)
+    _build.reset_launches()
+    out_gpu = bf.BaryonifyShell(cat, shell, device=dev, **kw).process()
+    want = {("auto", "auto"): ("tile_deposit", "stencil", "flat_view"),
+            ("tiles", "scatter"): ("tile_deposit", "flat_view", "regrid"),
+            ("scatter", "scatter"): ("disc_deposit", "regrid")}
+    assert all(_build.launches[k] >= 1
+               for k in want[(deposit_mode, regrid_mode)]), _build.launches
+    out_cpu = bf.BaryonifyShell(cat, shell, device="cpu", **kw).process()
+    scale = np.abs(out_cpu - shell.map).max()
+    np.testing.assert_allclose(out_gpu, out_cpu, rtol=0, atol=1e-9 * scale)
+
+
+# ---- K1 with parameter axes ------------------------------------------------
+@pytest.mark.parametrize("n_p", [1, 2])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+def test_collapse_curves_kernel_p_keys(dev, dt, n_p):
+    rng = np.random.default_rng(15)
+    shape = (5, 7, 16) + (4, 3)[:n_p]
+    axes = tuple(torch.as_tensor(np.cumsum(rng.uniform(0.2, 1.0, n)),
+                                 dtype=dt, device=dev) for n in shape)
+    table = torch.as_tensor(rng.normal(size=shape), dtype=dt, device=dev)
+    n = 500
+    M = np.exp(rng.uniform(axes[1][0].item(), axes[1][-1].item(), n))
+    a = 1.0 / np.exp(rng.uniform(axes[0][0].item(), axes[0][-1].item(), n))
+    p = {f"p{k}": rng.uniform(axes[3 + k][0].item() - 0.1,
+                              axes[3 + k][-1].item() + 0.1, n)
+         for k in range(n_p)}
+    args = (table, axes, 2, M, a, sorted(p), p)
+    _build.reset_launches()
+    ck, _, _ = interp.collapse_curves(*args, fill=-3.0)
+    assert _build.launches["collapse_curves"] == 1
+    cp, _, _ = interp.collapse_curves_plain(*args, fill=-3.0)
+    rel = 1e-6 if dt == torch.float32 else 1e-12
+    torch.testing.assert_close(ck, cp, rtol=rel,
+                               atol=rel * cp.abs().max().item())
+    assert (cp == -3.0).any() and (cp != -3.0).any()
+
+
+# ---- the tiled engine's kernels: K4, K5, K6, K7 ----------------------------
+def _tiled(nside, eps, dt, dev):
+    """The tile deposit's inputs for every halo of the test catalog (the
+    runner's own host pieces), with curves from K1's plain version."""
+    cat, shell = _inputs(nside, 300)
+    r = bf.BaryonifyShell(cat, shell, epsilon_max=eps, model=_model(),
+                          dtype=dt, device=dev)
+    hd = r._host_halo_data(bf.cosmo.cosmology_from_dict(r.cosmo))
+    tiling = r._get_tiling(nside)
+    st = np.sin(hd["theta"])
+    vh = np.stack([st * np.cos(hd["phi"]), st * np.sin(hd["phi"]),
+                   np.cos(hd["theta"])], 1)
+    t_ids, h_ids = tt.bin_halos_to_tiles(tiling, hd["theta"], hd["phi"],
+                                         hd["radius"])
+    t_ids, h_ids = tt.refine_pairs(
+        tiling, t_ids, h_ids, vh,
+        2.0 * np.sin(np.minimum(hd["radius"], np.pi) / 2.0))
+    csr = tuple(torch.as_tensor(x, device=dev)
+                for x in tt.pairs_csr(t_ids, h_ids))
+    pack = r._tile_base_pack(hd)
+    m = _model().with_dtype(dt, device=dev)
+    pack["curves"], r0, dl = interp.collapse_curves_plain(
+        m._table, m._axes, 2, hd["M"], hd["a"], [], {})
+    return r, shell, tiling, csr, pack, float(r0), 1.0 / float(dl)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+def test_tile_deposit_kernel(dev, dt, nside, eps):
+    _, _, tiling, csr, pack, r0, inv = _tiled(nside, eps, dt, dev)
+    assert csr[0].numel() > 0
+    _build.reset_launches()
+    ak = tile_deposit.tile_deposit(tiling, csr, pack, r0, inv)
+    assert _build.launches["tile_deposit"] == 1
+    ap = tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
+    scale = ap.abs().max().item()
+    assert scale > 0
+    if dt == torch.float64:
+        torch.testing.assert_close(ak, ap, rtol=0, atol=1e-10 * scale)
+    else:
+        torch.testing.assert_close(ak, ap, rtol=0, atol=0.02 * scale)
+        assert (ak - ap).abs().sum() < 3e-3 * ap.abs().sum()
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside", [64, 256])
+def test_tile_layout_kernel(dev, dt, nside):
+    tiling = tt.SkyTiling(nside)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for trail in ((), (2,)):
+        flat = torch.randn((tiling.npix,) + trail, dtype=dt, device=dev,
+                           generator=g)
+        _build.reset_launches()
+        tk = tiling.tile_view(flat)
+        fk = tiling.flat_view(tk)
+        assert _build.launches["tile_view"] == _build.launches[
+            "flat_view"] == 1
+        assert torch.equal(tk, tiling.tile_view_plain(flat))
+        assert torch.equal(fk, tiling.flat_view_plain(tk))
+        assert torch.equal(fk, flat)
+
+
+@pytest.mark.parametrize("pdt,rdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.float64),
+                                     (torch.float64, torch.float64)],
+                         ids=["f32-f32", "f32-f64", "f64-f64"])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+def test_stencil_kernels(dev, pdt, rdt, nside, eps):
+    """K5 (hot test, stencil) and K6 (source list, complement) against
+    their plain versions on the tile deposit's offsets, with the polar
+    rings pushed through the poles and two tiles made hot."""
+    r, shell, tiling, csr, pack, r0, inv = _tiled(nside, eps, pdt, dev)
+    acc = tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
+    acc[tiling.n_tiles // 3, :, 0] = 0.05
+    acc[2 * tiling.n_tiles // 3, 5:40, 1] = -0.05
+    tables = r._stencil_tables(nside)
+    orig = torch.as_tensor(shell.map, device=dev).to(rdt)
+    og_t = tiling.tile_view(orig)
+    _build.reset_launches()
+    ek = stencil.hot_tiles(acc, tables)
+    ep = stencil.hot_tiles_plain(acc, tables)
+    assert torch.equal(ek, ep)
+    hot = torch.nonzero(ek & ~tables["D_geom"])[:, 0].to(torch.int32)
+    assert nside < 256 or (hot.numel() >= 2 and not ek.all())
+    ok = stencil.stencil_regrid(tiling, tables, acc, og_t, ek)
+    op = stencil.stencil_regrid_plain(tiling, tables, acc, og_t, ek)
+    tol = (1e-12 if rdt == torch.float64 else 1e-5) \
+        * orig.abs().max().item()
+    torch.testing.assert_close(ok, op, rtol=0, atol=tol)
+    gk = stencil.stencil_geo(tiling, tables, rdt)
+    gp = stencil.stencil_geo_plain(tiling, tables, rdt)
+    for a, b in zip(gk[:2], gp[:2]):
+        assert torch.equal(a, b)
+    for a, b in zip(gk[2:], gp[2:]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=16 * torch.finfo(rdt).eps)
+    base = tiling.flat_view(op)
+    fk = stencil.stencil_complement(tiling, base.clone(), acc, og_t, gk, hot)
+    fp = stencil.stencil_complement_plain(tiling, base.clone(), acc, og_t,
+                                          gp, hot)
+    assert all(_build.launches[k] == 1 for k in
+               ("stencil_hot", "stencil", "stencil_geo",
+                "stencil_complement"))
+    if rdt == torch.float64:
+        atol = 1e-9 * (fp - orig).abs().max().item()
+    else:
+        atol = 1e-6 * nside * orig.abs().max().item()
+    torch.testing.assert_close(fk, fp, rtol=0, atol=atol)
+    assert abs(fk.double().sum().item() / orig.double().sum().item()
+               - 1) < 1e-5

@@ -22,7 +22,10 @@ from baryonforge_tpu.Profiles.BaryonCorrection import \
     Baryonification2D as JBaryonification2D                 # noqa: E402
 from baryonforge_torch.Profiles.BaryonCorrection import \
     Baryonification2D                                       # noqa: E402
+from baryonforge_tpu.ops import interp as jinterp          # noqa: E402
 from baryonforge_torch.cosmo import core as tcore           # noqa: E402
+from baryonforge_torch.ops import _build                    # noqa: E402
+from baryonforge_torch.ops import interp as tinterp         # noqa: E402
 from baryonforge_torch.utils import convert                 # noqa: E402
 
 TABLE = os.path.join(os.path.dirname(__file__), os.pardir, "tools",
@@ -160,3 +163,91 @@ def test_cosmology_from_jax():
 def test_setup_interpolator_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_model().setup_interpolator()
+
+
+def p_key_table(n_p, seed=15):
+    """A random (z, M, r, p1[, p2]) table with its axis grids and halos:
+    increasing but unevenly spaced axes, raw (not log) parameter values,
+    and halos inside the table plus rows off each axis."""
+    rng = np.random.default_rng(seed)
+    shape = (5, 7, 16) + (4, 3)[:n_p]
+    axes = [np.cumsum(rng.uniform(0.2, 1.0, n)) for n in shape]
+    table = rng.normal(size=shape)
+    n = 200
+    M = np.exp(rng.uniform(axes[1][0], axes[1][-1], n))
+    a = 1.0 / np.exp(rng.uniform(axes[0][0], axes[0][-1], n))
+    p = {f"p{k}": rng.uniform(axes[3 + k][0], axes[3 + k][-1], n)
+         for k in range(n_p)}
+    M[0] = np.exp(axes[1][-1]) * 1.5
+    a[1] = 1.0 / np.exp(axes[0][0] * 0.5)
+    for k in range(n_p):
+        p[f"p{k}"][2 + k] = axes[3 + k][-1] + 1.0
+        p[f"p{k}"][4] = axes[3 + k][0]          # on the first grid point
+    return table, axes, M, a, p
+
+
+@pytest.mark.parametrize("n_p", [1, 2])
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_collapse_curves_p_keys_match_jax(n_p, dt):
+    """K1's plain version on tables with parameter axes against the JAX
+    collapse_curves: float64 to rtol 1e-12, float32 to rtol 1e-6 (with an
+    absolute floor at that fraction of the largest value); rows with a
+    coordinate off any axis come back as fill."""
+    table, axes, M, a, p = p_key_table(n_p)
+    jdt, tdt = ((jnp.float64, torch.float64) if dt == "f64"
+                else (jnp.float32, torch.float32))
+    keys = sorted(p)
+    jc, jr0, jdl = jax.jit(lambda t, ax, M, a, p: jinterp.collapse_curves(
+        t, ax, 2, M, a, keys, p, fill=-3.0))(
+        jnp.asarray(table, jdt), tuple(jnp.asarray(x, jdt) for x in axes),
+        M, a, p)
+    _build.reset_launches()
+    tc, tr0, tdl = tinterp.collapse_curves(
+        torch.as_tensor(table, dtype=tdt),
+        tuple(torch.as_tensor(x, dtype=tdt) for x in axes), 2, M, a, keys, p,
+        fill=-3.0)
+    assert not _build.launches          # CPU tensors: the plain version
+    jc = np.asarray(jc)
+    rtol = 1e-12 if dt == "f64" else 1e-6
+    assert tc.dtype == tdt and tc.shape == jc.shape == (M.size, 16)
+    np.testing.assert_allclose(tc.numpy(), jc, rtol=rtol,
+                               atol=rtol * np.abs(jc).max())
+    assert float(tr0) == float(jr0) and float(tdl) == float(jdl)
+    off = [0, 1] + [2 + k for k in range(n_p)]
+    assert (tc[off] == -3.0).all() and (tc[5:] != -3.0).all()
+
+
+def test_p_key_model_crosses_over(tmp_path):
+    """A JAX model whose table has a parameter axis converts with its
+    table, axes and p_keys intact, and its halo curves (K1's plain
+    version) match the JAX model's, float64 to rtol 1e-12."""
+    with np.load(TABLE, allow_pickle=True) as f:
+        d = f["d"]
+        ranges = {k: f[k] for k in ("z_range", "M_range", "r_range")}
+    c_grid = np.array([2.0, 4.0, 7.0])
+    d_p = d[..., None] * (1.0 + 0.1 * c_grid)
+    path = tmp_path / "pkey_table.npz"
+    np.savez(path, d=d_p, p_keys=np.array(["conc"], dtype=object),
+             p_conc=c_grid, Rdelta_sampling=np.array(False),
+             allow_pickle=True, **ranges)
+    jm = jax_model().load_table(str(path))
+    ported = convert.baryonification_from_jax(jm)
+    _same_model(ported, torch_model().load_table(path))
+    assert ported.p_keys == ["conc"]
+    np.testing.assert_array_equal(ported.raw_input_conc_range, c_grid)
+    M, a = _halos(n=100, seed=16)
+    conc = np.random.default_rng(17).uniform(1.5, 7.5, M.size)
+    jc = np.asarray(jm.halo_curves(M, a, conc=conc)[0])
+    tc = ported.halo_curves(M, a, conc=conc)[0].numpy()
+    np.testing.assert_allclose(tc, jc, rtol=1e-12,
+                               atol=1e-12 * np.abs(jc).max())
+    assert not tc[:4].any() and not tc[conc < 2.0].any()
+    assert np.abs(tc[4:][conc[4:] >= 2.0]).max() > 0
+
+
+def test_collapse_curves_rejects_bad_tables():
+    table, axes, M, a, p = p_key_table(2)
+    t = torch.as_tensor(table)
+    ax = tuple(torch.as_tensor(x) for x in axes)
+    with pytest.raises(ValueError, match="p9"):
+        tinterp.collapse_curves_plain(t, ax, 2, M, a, ["p0", "p9"], p)

@@ -1,6 +1,7 @@
-"""The whole torch BaryonifyShell (scatter path, plain versions on the CPU)
-against the JAX runner's BaryonifyShell(deposit="scatter",
-regrid="scatter").process(), on the bench-like catalog at small sizes."""
+"""The whole torch BaryonifyShell (plain versions on the CPU) against the
+JAX runner's BaryonifyShell.process(), on the bench-like catalog at small
+sizes: the scatter path (deposit="scatter", regrid="scatter") and the
+default tiled engine (tile deposit, stencil regrid and its complement)."""
 
 import numpy as np
 import pytest
@@ -135,12 +136,14 @@ def test_host_prep_matches_jax():
 
 
 def test_auto_is_scatter_and_zero_map_passes_through():
+    """"auto" is the tiled engine, the JAX package's default: the same map
+    as deposit="tiles", regrid="stencil". A zero map passes through."""
     cat, shell = make_inputs(32, 20)
     tcat, tshell = _torch_inputs(cat, shell)
     kw = dict(epsilon_max=20, model=torch_model(), device="cpu")
     np.testing.assert_array_equal(
         BaryonifyShell(tcat, tshell, **kw).process(),
-        BaryonifyShell(tcat, tshell, deposit="scatter", regrid="scatter",
+        BaryonifyShell(tcat, tshell, deposit="tiles", regrid="stencil",
                        **kw).process())
     zero = tutils.LightconeShell(map=np.zeros(12 * 32 ** 2),
                                  cosmo=COSMO_DICT)
@@ -154,18 +157,133 @@ def test_unsupported_configurations_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             BaryonifyShell(tcat, tshell, **kw)
-    for bad in (dict(deposit="tiles"), dict(regrid="stencil"),
-                dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BaryonifyShell(tcat, tshell, device="cpu", mesh=object(), **kw)
+    for bad in (dict(deposit="stencil"), dict(regrid="tiles")):
+        with pytest.raises(ValueError, match="expected one of"):
             BaryonifyShell(tcat, tshell, device="cpu", **bad, **kw)
 
 
 def test_mass_loss_raises(monkeypatch):
-    """The conservation check is a raise, not an assert (it survives -O)."""
+    """The conservation check is a raise, not an assert (it survives -O),
+    on the scatter path and on the tiled engine."""
     cat, shell = make_inputs(32, 20)
     tcat, tshell = _torch_inputs(cat, shell)
     monkeypatch.setattr(THR, "_regrid",
                         lambda nside, po, orig: orig * 0.5)
-    with pytest.raises(RuntimeError, match="sum"):
-        BaryonifyShell(tcat, tshell, epsilon_max=20, model=torch_model(),
-                       device="cpu").process()
+    monkeypatch.setattr(THR._stencil, "stencil_complement",
+                        lambda tiling, out, *a: out * 0.5)
+    for kw in (dict(deposit="scatter"), {}):
+        with pytest.raises(RuntimeError, match="sum"):
+            BaryonifyShell(tcat, tshell, epsilon_max=20, model=torch_model(),
+                           device="cpu", **kw).process()
+
+
+# ---- the default tiled engine ---------------------------------------------
+def _jax_default_out(cat, shell, dt, rdt):
+    """The JAX runner's default map (tile deposit, stencil regrid). Its
+    small-disc halos go through the scatter body with one radius bucket,
+    and the assert keeps the reference clear of the compile-cache fault of
+    ``_jax_out``."""
+    jr = JRunners.BaryonifyShell(
+        cat, shell, epsilon_max=20, model=jax_model(), dtype=JDT[dt],
+        regrid_dtype=JDT[rdt], n_size_buckets=1, verbose=False)
+    jr._refresh_tokens()
+    hd = jr._host_halo_data(cosmology_from_dict(jr.cosmo))
+    small = jr._small_disc_mask(hd, shell.NSIDE)
+    groups = jr._prepare_groups({k: v[small] for k, v in hd.items()}, [],
+                                shell.NSIDE)
+    shapes = [b[0].shape for _, _, b in groups]
+    assert len(set(shapes)) == len(shapes), shapes
+    return jr.process(), small
+
+
+@pytest.fixture(scope="module", params=[(64, 150), (256, 300)],
+                ids=["nside64", "nside256"])
+def default_case(request):
+    nside, n_halos = request.param
+    cat, shell = _inputs(nside, n_halos)
+    ref = {}
+    for dt in ("f64", "f32"):
+        ref[dt], small = _jax_default_out(cat, shell, dt, dt)
+    return nside, cat, shell, ref, small
+
+
+def _run_default(cat, shell, dt):
+    tcat, tshell = _torch_inputs(cat, shell)
+    runner = BaryonifyShell(tcat, tshell, epsilon_max=20,
+                            model=torch_model(), dtype=TDT[dt],
+                            regrid_dtype=TDT[dt], device="cpu")
+    return runner.process(), runner
+
+
+def test_default_shell_f64_matches_jax(default_case):
+    """float64 deposit and regrid, the tiled engine against the JAX
+    default: sum to rtol 1e-10, map to atol 1e-9 of the largest pixel
+    change. Small discs take K2's plain version (at NSIDE 64 every disc of
+    this catalog is small); at NSIDE 256 some 40% take the tiles (K4's)."""
+    nside, cat, shell, ref, small = default_case
+    out_t, runner = _run_default(cat, shell, "f64")
+    orig = np.asarray(shell.map)
+    assert small.any() and (nside < 256 or small.mean() < 0.7)
+    np.testing.assert_allclose(out_t.sum(), orig.sum(), rtol=1e-10)
+    scale = np.abs(ref["f64"] - orig).max()
+    assert scale > 0
+    np.testing.assert_allclose(out_t, ref["f64"], rtol=0, atol=1e-9 * scale)
+    assert set(runner.timings) == {"host_prep", "curves", "binning",
+                                   "deposit", "regrid", "download"}
+
+
+def test_default_shell_bench_dtypes_match_jax(default_case):
+    """float32 deposit and regrid (the bench's dtypes), held as
+    test_shell_bench_dtypes_match_jax holds the scatter path: the
+    per-pixel edge-jitter bound against the JAX float32 map, and the
+    port's error against the JAX float64 map at most 1.25 times the JAX
+    float32 error (per pixel, or the float32 weight noise where that is
+    larger, and summed). The summed edge-jitter bound is left out: the
+    float32 regrid's rounding (~1e-7 of each pixel) summed over every
+    pixel exceeds it in either package."""
+    nside, cat, shell, ref, _ = default_case
+    out_t, _ = _run_default(cat, shell, "f32")
+    orig = np.asarray(shell.map)
+    out_j, out_64 = ref["f32"], ref["f64"]
+    assert np.isfinite(out_t).all()
+    np.testing.assert_allclose(out_t.sum(), orig.sum(), rtol=1e-5)
+    scale = np.abs(out_64 - orig).max()
+    np.testing.assert_allclose(out_t, out_j, atol=0.02 * scale)
+    err_t, err_j = np.abs(out_t - out_64), np.abs(out_j - out_64)
+    assert err_t.max() <= max(1.25 * err_j.max(), 1e-6 * nside * orig.max())
+    assert err_t.sum() <= 1.25 * err_j.sum()
+
+
+def test_stencil_needs_tiles(monkeypatch):
+    """As in the JAX runner, regrid="stencil" with deposit="scatter" takes
+    the scatter regrid; deposit="tiles" with regrid="scatter" runs the
+    tiled phase A, its flat view and the scatter regrid, which give the
+    stencil's map in float64."""
+    cat, shell = _inputs(64, 60)
+    tcat, tshell = _torch_inputs(cat, shell)
+    kw = dict(epsilon_max=20, model=torch_model(), dtype=torch.float64,
+              regrid_dtype=torch.float64, device="cpu")
+    calls = []
+    real = THR.BaryonifyShell._regrid_stencil
+
+    def spy(self, *a):
+        calls.append(a[0])
+        return real(self, *a)
+
+    monkeypatch.setattr(THR.BaryonifyShell, "_regrid_stencil", spy)
+    out_ss = BaryonifyShell(tcat, tshell, deposit="scatter",
+                            regrid="stencil", **kw).process()
+    assert not calls
+    np.testing.assert_array_equal(
+        out_ss, BaryonifyShell(tcat, tshell, deposit="scatter",
+                               regrid="scatter", **kw).process())
+    out_ts = BaryonifyShell(tcat, tshell, deposit="tiles", regrid="scatter",
+                            **kw).process()
+    assert not calls
+    out_auto = BaryonifyShell(tcat, tshell, **kw).process()
+    assert calls == [64]
+    orig = np.asarray(shell.map)
+    scale = np.abs(out_auto - orig).max()
+    np.testing.assert_allclose(out_ts, out_auto, rtol=0, atol=1e-9 * scale)
