@@ -1,19 +1,26 @@
-"""Displacement model: Baryonification2D / Baryonification3D (table half).
+"""Displacement model: Baryonification2D / Baryonification3D.
 
-Port of ``baryonforge_tpu.Profiles.BaryonCorrection``: the table readout
-(``displacement``), the per-halo curves the runners use (``halo_curves``,
-kernel K1 on CUDA) and the table checkpoint (``save_table`` /
-``load_table``). Building a table from profiles (``setup_interpolator``)
-needs the profile physics, which is not ported yet.
+Port of ``baryonforge_tpu.Profiles.BaryonCorrection``. The table build
+(``setup_interpolator``) evaluates the DMO and DMB profiles in plain torch
+on the model's device, one redshift after the other, and turns them into
+table rows with kernel K9 (``ops/table_rows.py``: the enclosed-mass curves
+and their inversion) on CUDA, or its plain versions on the CPU. The table
+half reads the table back: ``displacement``, the per-halo curves the
+runners use (``halo_curves``, kernel K1 on CUDA) and the checkpoint
+(``save_table`` / ``load_table``).
 """
 
 import copy
+import warnings
+from itertools import product
 
 import numpy as np
 import torch
 
 from ..cosmo import massdef as _massdef
 from ..ops.interp import multilinear_interp, collapse_curves
+from ..ops import table_rows
+from ..utils.Tabulate import _set_parameter
 
 __all__ = ["BaryonificationClass", "Baryonification3D", "Baryonification2D"]
 
@@ -21,17 +28,18 @@ __all__ = ["BaryonificationClass", "Baryonification3D", "Baryonification2D"]
 class BaryonificationClass:
     """Base displacement-function model (reference BaryonCorrection.py:15).
 
-    ``DMO`` and ``DMB`` are the dark-matter-only and baryonified profiles;
-    they are only needed to build a table, so until the profiles are
-    ported they may be ``None`` (a table then comes from
-    :meth:`load_table` or ``utils.convert.baryonification_from_jax``).
-    The table lives on the CPU in float64; :meth:`with_dtype` makes the
-    copy a runner reads on its device.
+    ``DMO`` and ``DMB`` are the dark-matter-only and baryonified profiles
+    (their cutoffs are set to 1 Gpc); they are needed to build a table, and
+    may be ``None`` for a model whose table comes from :meth:`load_table`
+    or ``utils.convert.baryonification_from_jax``. ``device`` is where
+    :meth:`setup_interpolator` runs: "cuda" (the default; it raises there
+    without a card) or "cpu". The table itself lives on the CPU in float64;
+    :meth:`with_dtype` makes the copy a runner reads on its device.
     """
 
     def __init__(self, DMO, DMB, cosmo, epsilon_max=20,
                  mass_def=_massdef.MassDef200c,
-                 r_min_int=1e-6, r_max_int=1000, N_int=500):
+                 r_min_int=1e-6, r_max_int=1000, N_int=500, device="cuda"):
         self.DMO = DMO
         self.DMB = DMB
         for prof in (DMO, DMB):
@@ -43,12 +51,130 @@ class BaryonificationClass:
         self.r_min_int = r_min_int
         self.r_max_int = r_max_int
         self.N_int = N_int
+        self.device = torch.device(device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
 
-    def setup_interpolator(self, *args, **kwargs):
-        raise NotImplementedError(
-            "building the displacement table needs the profile physics: "
-            "ROADMAP Queue 1 item 9 (S19 table build). Load a table with "
-            "load_table() instead")
+    # ------------------------------------------------------------------
+    def get_masses(self, model, r, M, a):
+        raise NotImplementedError("Implement a get_masses() method first")
+
+    def _enclosed_mass_curve(self, model, r, M, a, projected):
+        """Enclosed mass (len M, len r) of ``model`` at radii ``r`` (host
+        values): the profile on a padded log grid of N_int points (numpy
+        float64, as the JAX package builds it), the clipped integrand, and
+        K9's first entry (cumulative Simpson, rho > 0 mask, log-log PCHIP);
+        NaN outside a row's valid range."""
+        r = np.asarray(r, dtype=float)
+        r_min = min(float(r.min()), self.r_min_int)
+        r_max = max(float(r.max()), self.r_max_int)
+        r_int_np = np.geomspace(r_min / 1.2, r_max * 1.2, self.N_int)
+        dev = self.device
+        r_int = torch.as_tensor(r_int_np, device=dev)
+        dlnr = float(np.log(r_int_np[1] / r_int_np[0]))
+
+        M_use = torch.atleast_1d(torch.as_tensor(
+            np.asarray(M, dtype=np.float64), device=dev))
+        if projected:
+            dens = model.projected(self.cosmo, r_int_np, M_use, a) * a
+            dens = torch.atleast_2d(dens)
+            intgd = 2 * np.pi * r_int ** 2 * dens * dlnr
+        else:
+            dens = model.real(self.cosmo, r_int_np, M_use, a)
+            dens = torch.atleast_2d(dens)
+            intgd = 4 * np.pi * r_int ** 3 * dens * dlnr
+        zero = torch.zeros_like(dens)
+        dens = torch.where(dens < 0, zero, dens)
+        intgd = torch.where(intgd < 0, zero, intgd)
+        return table_rows.enclosed_mass(
+            intgd.contiguous(), dens.contiguous(), torch.log(r_int),
+            torch.log(torch.as_tensor(r, device=dev)))
+
+    def _check_device(self):
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: device='cuda' but CUDA is not "
+                "available; pass device='cpu' for the plain versions")
+
+    def setup_interpolator(self, z_min=1e-2, z_max=5, N_samples_z=30,
+                           z_linear_sampling=False,
+                           M_min=1e12, M_max=1e16, N_samples_Mass=30,
+                           R_min=1e-3, R_max=1e2, N_samples_R=100,
+                           Rdelta_min=1e-3, Rdelta_max=10,
+                           Rdelta_sampling=False,
+                           other_params=None, verbose=True):
+        """Build the (z, M, r[, p...]) displacement table.
+
+        Grids: M and r geometric, z geometric (or linear with
+        ``z_linear_sampling``); ``other_params`` maps parameter names to
+        value lists, each an extra table axis (p_keys) set on DMO and DMB
+        before their rows are built. With ``Rdelta_sampling`` the radial
+        axis is r / R_Delta on [Rdelta_min, Rdelta_max]. Rows whose
+        inversion fails (too few usable points) give d = 0 with a
+        UserWarning when ``verbose``. Runs on ``self.device``: per
+        redshift, K9 twice for the enclosed masses (DMO, DMB), once for the
+        displacement rows, and the TwoHalo terms' FFTLog (K8).
+        """
+        self._check_device()
+        if self.DMO is None or self.DMB is None:
+            raise ValueError("setup_interpolator needs the DMO and DMB "
+                             "profiles")
+        other_params = other_params or {}
+        if z_min <= 0 and not z_linear_sampling:
+            raise ValueError("need z_linear_sampling for z_min <= 0")
+
+        M_range = np.geomspace(M_min, M_max, N_samples_Mass)
+        r = np.geomspace(R_min, R_max, N_samples_R)
+        z_range = (np.linspace(z_min, z_max, N_samples_z)
+                   if z_linear_sampling
+                   else np.geomspace(z_min, z_max, N_samples_z))
+        a_range = 1.0 / (1.0 + z_range)
+        p_keys = list(other_params.keys())
+        p_vals = [np.asarray(other_params[k]) for k in p_keys]
+        if Rdelta_sampling:
+            rdelta_range = np.geomspace(Rdelta_min, Rdelta_max, N_samples_R)
+
+        d_interp = np.zeros([z_range.size, M_range.size, r.size]
+                            + [v.size for v in p_vals])
+        lnr = torch.log(torch.as_tensor(r, device=self.device))
+
+        combos = list(product(*[range(v.size) for v in p_vals])) or [()]
+        for c in combos:
+            for ki, key in enumerate(p_keys):
+                _set_parameter(self.DMO, key, p_vals[ki][c[ki]])
+                _set_parameter(self.DMB, key, p_vals[ki][c[ki]])
+            for j in range(z_range.size):
+                a_j = float(a_range[j])
+                M_DMO = self._enclosed_mass_curve(
+                    self.DMO, r, M_range, a_j, projected=self._projected)
+                M_DMB = self._enclosed_mass_curve(
+                    self.DMB, r, M_range, a_j, projected=self._projected)
+                offset = table_rows.displacement_rows(lnr, M_DMO, M_DMB) \
+                    .cpu().numpy()
+
+                bad = ~np.isfinite(offset).any(axis=-1)
+                offset = np.where(np.isfinite(offset), offset, 0.0)
+                if bad.any() and verbose:
+                    for i in np.where(bad)[0]:
+                        warnings.warn(
+                            f"Displacement for log10(M) = "
+                            f"{np.log10(M_range[i]):.2f} partially failed; "
+                            "affected radii default to d = 0.", UserWarning)
+
+                if Rdelta_sampling:
+                    for i in range(M_range.size):
+                        Rdelta = float(self.mass_def.get_radius(
+                            self.cosmo, M_range[i], a_range[j])) / a_range[j]
+                        offset[i] = np.interp(rdelta_range, r / Rdelta,
+                                              offset[i])
+
+                d_interp[tuple([j, slice(None), slice(None)] + list(c))] = \
+                    offset
+
+        input_rad = np.log(rdelta_range) if Rdelta_sampling else np.log(r)
+        return self._set_table(d_interp, np.log(1 + z_range),
+                               np.log(M_range), input_rad, p_keys, p_vals,
+                               Rdelta_sampling)
 
     # ------------------------------------------------------------------
     def _set_table(self, d, z_range, M_range, r_range, p_keys, p_vals,
@@ -137,7 +263,8 @@ class BaryonificationClass:
     def displacement(self, r, M, a, **kwargs):
         """Displacement d(r, M, a) in comoving Mpc (table readout only)."""
         if not hasattr(self, "_table"):
-            raise NameError("No table. Load one with load_table() first")
+            raise NameError("No table. Run setup_interpolator() or load_table() "
+                            "first")
         for k in self.p_keys:
             if k not in kwargs:
                 raise ValueError(f"need {k} as input (table built with it)")
@@ -182,9 +309,20 @@ class Baryonification3D(BaryonificationClass):
 
     _projected = False
 
+    def get_masses(self, model, r, M, a):
+        self._check_device()
+        out = self._enclosed_mass_curve(model, r, M, a, projected=False)
+        return out.cpu().numpy()
+
 
 class Baryonification2D(BaryonificationClass):
     """2D displacement: invert projected enclosed-mass curves
-    (reference BaryonCorrection.py:581-694)."""
+    M(<R) = ∫ 2 pi R Sigma(R) a dlnR (reference BaryonCorrection.py:
+    581-694)."""
 
     _projected = True
+
+    def get_masses(self, model, r, M, a):
+        self._check_device()
+        out = self._enclosed_mass_curve(model, r, M, a, projected=True)
+        return out.cpu().numpy()

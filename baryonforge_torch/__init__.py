@@ -6,12 +6,16 @@ rewritten as CUDA kernels for Hopper (sm_90a) under ``csrc/``, each with a
 plain PyTorch version beside it. It imports torch and numpy, never jax.
 
 Ported so far (ROADMAP.md lists the rest):
-  cosmo/      background, distances, mass definitions (float64)
-  ops/        HEALPix geometry and the sky tiling; kernels K1 curve
-              collapse (interp), K2 disc deposit (deposit), K3 scatter
-              regrid (regrid), K4 tile deposit (tile_deposit), K5 stencil
-              regrid and K6 its complement (stencil), K7 tile layout (tiles)
-  Profiles/   Baryonification2D/3D table readout and checkpoint
+  cosmo/      background, distances, growth, linear power, sigma(M),
+              xi(r), mass definitions, concentrations (float64)
+  ops/        HEALPix geometry and the sky tiling; integration and
+              interpolation; kernels K1 curve collapse (interp), K2 disc
+              deposit (deposit), K3 scatter regrid (regrid), K4 tile
+              deposit (tile_deposit), K5 stencil regrid and K6 its
+              complement (stencil), K7 tile layout (tiles), K8 FFTLog
+              transform (fftlog), K9 table rows (table_rows)
+  Profiles/   the profile framework and algebra, the Schneider19 family,
+              Baryonification2D/3D: table build, readout and checkpoint
   Runners/    BaryonifyShell: the tiled engine (default) and the scatter path
   utils/      constants, io containers, JAX-object conversion
 """

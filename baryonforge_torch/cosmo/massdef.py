@@ -1,13 +1,15 @@
-"""Spherical-overdensity mass definitions (port of
-``baryonforge_tpu.cosmo.massdef``). ``translate_mass`` is not ported yet
-(ROADMAP Queue 1)."""
+"""Spherical-overdensity mass definitions and the NFW mass translation
+(port of ``baryonforge_tpu.cosmo.massdef``), in float64."""
 
 import math
 from dataclasses import dataclass
 
+import torch
+
 from . import core
 
-__all__ = ["MassDef", "MassDef200c", "MassDef200m", "MassDef500c"]
+__all__ = ["MassDef", "MassDef200c", "MassDef200m", "MassDef500c",
+           "nfw_mu", "translate_mass"]
 
 
 @dataclass(frozen=True)
@@ -45,3 +47,35 @@ class MassDef:
 MassDef200c = MassDef(200, "critical")
 MassDef200m = MassDef(200, "matter")
 MassDef500c = MassDef(500, "critical")
+
+
+def nfw_mu(c):
+    """NFW dimensionless enclosed mass mu(c) = ln(1+c) - c/(1+c)."""
+    return torch.log1p(c) - c / (1.0 + c)
+
+
+def translate_mass(cosmo, M1, a, c1, mdef_in, mdef_out, n_iter=40):
+    """Translate halo masses between SO definitions for an NFW profile of
+    concentration ``c1`` in the input definition: solves
+    Delta2 rho2 R2^3 = Delta1 rho1 R1^3 mu(c1 R2/R1) / mu(c1) for R2 by
+    ``n_iter`` geometric bisection steps. Returns (M2, c2)."""
+    M1 = core._f64(M1)
+    c1 = core._f64(c1).to(M1.device)
+    R1 = mdef_in.get_radius(cosmo, M1, a)
+    rho1 = mdef_in._rho(cosmo, a) * mdef_in.Delta
+    rho2 = mdef_out._rho(cosmo, a) * mdef_out.Delta
+    if isinstance(rho1, torch.Tensor):
+        rho1, rho2 = rho1.to(M1.device), rho2.to(M1.device)
+
+    def f(x):
+        return rho2 * x ** 3 - rho1 * nfw_mu(c1 * x) / nfw_mu(c1)
+
+    lo = torch.full(M1.shape, 1e-3, dtype=torch.float64, device=M1.device)
+    hi = torch.full(M1.shape, 1e3, dtype=torch.float64, device=M1.device)
+    for _ in range(n_iter):
+        mid = torch.sqrt(lo * hi)
+        take_hi = f(mid) > 0.0          # f increases with x
+        lo, hi = torch.where(take_hi, lo, mid), torch.where(take_hi, mid, hi)
+    x = torch.sqrt(lo * hi)
+    M2 = mdef_out.get_mass(cosmo, x * R1.to(M1.device), a)
+    return M2, c1 * x

@@ -11,9 +11,11 @@ card has ``nvcc``.
 wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
 ``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4), ``ops/stencil.py``
 (K5 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
-``stencil_complement``) and ``ops/tiles.py`` (K7 ``flat_view`` and
-``tile_view``); each wrapper adds one right where it launches its kernel,
-so a run can show that its main path went through the kernels.
+``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
+``tile_view``), ``ops/fftlog.py`` (K8 ``fht``) and ``ops/table_rows.py``
+(K9 ``enclosed_mass`` and ``displacement_rows``); each wrapper adds one
+right where it launches its kernel, so a run can show that its main path
+went through the kernels.
 """
 
 import collections
@@ -59,6 +61,9 @@ def _signatures():
         "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
         "bf_tile_deposit_f32": [_I] * 4 + [_P] * 14 + [_I, _F, _F, _P, _P],
         "bf_tile_deposit_f64": [_I] * 4 + [_P] * 14 + [_I, _D, _D, _P, _P],
+        "bf_fht_f64": [_I, _I, _P, _P, _D, _D, _D, _P, _P, _P],
+        "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+        "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 5 + [_I] + [_P] * 3

@@ -25,7 +25,22 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      (float64) for the polar catalog through the default engine (its small
      discs take K2) and the scatter path, and the NSIDE 256 catalog through
      the default engine;
-  5. runs, at the bench configuration, the scatter path
+  5. holds the table build's kernels against their plain versions on the
+     card (float64): K8 FFTLog on correlation_3d's P(k) grid (1 x 1024) and
+     on a batch of profile rows (20 x 2048, mu = 0 and 1/2), and K9 on the
+     bench table's first redshift (20 masses, 64 radii);
+  6. builds the Schneider19 displacement table on the card from the bench's
+     profile parameters (bench.py:42-55: 8 z x 20 M x 64 r) through
+     Baryonification2D(DarkMatterOnly, DarkMatterBaryon).setup_interpolator,
+     with the launch counts set to 0 just before and read just after; checks
+     it is finite and within 2.5e-4 of its largest |d| of
+     tools/_northstar_table.npz (the JAX file's own drift from the current
+     JAX profiles is 1.2e-4), a small table (2 x 4 x 16) on the card against
+     the plain versions on the CPU to 1e-9, and prints the build's wall time
+     and per-redshift phases, among them the DMB profile's spline solves
+     (the host sweep against the same sweep as launches on the card and a
+     dense torch.linalg.solve there);
+  7. runs, at the bench configuration, the scatter path
      BaryonifyShell(deposit="scatter", regrid="scatter",
      regrid_dtype=float32) and the default (tiled) engine
      BaryonifyShell(regrid_dtype=float32), each with the launch counts set
@@ -34,9 +49,20 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      finite, that the scatter path agrees with its plain-version pipeline
      and the tiled engine with the scatter path (also with a float64
      regrid, to the JAX package's edge-jitter bounds), and prints each
-     path's halos/s and per-phase milliseconds;
-  6. prints one JSON line with each kernel's launches, error and times, and
-     last the line {"ok": true, "device": {...}}.
+     path's halos/s and per-phase milliseconds; then the default engine
+     again from the card-built table (the table file is not read on that
+     path), against the run from the file's table within the edge-jitter
+     bound;
+  8. times the full-width table (setup_interpolator() at its defaults, 30 z
+     x 30 M x 100 r) and counts its broken-row warnings;
+  9. prints one JSON line with each kernel's launches, error, times, bound
+     and library-call time, and last the line {"ok": true, "device": ...}.
+
+A kernel's bound (bound_ms) is the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over the H100's peak for their type (67 TFLOP/s float32, 34
+TFLOP/s float64, outside the tensor cores), counted from this run's shapes
+and data as ``bound()``'s callers state.
 
 Any failed check raises, and the exit code is then not 0. Times are
 informational: they hold for the card and power limit printed with them.
@@ -58,6 +84,19 @@ COSMO = dict(Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96,
 NSIDE, N_HALOS, SEED, EPS_MAX = 1024, 18512, 7, 20
 DEVICE = "cuda"
 N_CALLS = 10            # timed process() calls per path, after 2 warm ones
+# the bench's Schneider19 parameters and table grid (bench.py:42-55)
+H = 0.7
+BPAR = dict(theta_ej=4, theta_co=0.1, M_c=1e14 / H, mu_beta=0.4,
+            eta=0.3, eta_delta=0.3, tau=-1.5, tau_delta=0,
+            A=0.09 / 2, M1=2.5e11 / H, epsilon_h=0.015,
+            a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2, delta=7)
+BENCH_GRID = dict(z_min=0.7, z_max=1.1, N_samples_z=8, M_min=5e12,
+                  M_max=2e15, N_samples_Mass=20, R_min=1e-3, R_max=60,
+                  N_samples_R=64, verbose=False)
+SMALL_GRID = dict(BENCH_GRID, N_samples_z=2, N_samples_Mass=4,
+                  N_samples_R=16)
+# H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 
 
 def log(msg):
@@ -118,6 +157,37 @@ def time_ms(torch, fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over ``peak``."""
+    t_b, t_o = nbytes / HBM_BPS, flops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def nbytes(*objs):
+    """Bytes of the tensors in ``objs`` (tensors, or dicts / tuples of
+    them)."""
+    import torch
+    total = 0
+    for o in objs:
+        if isinstance(o, dict):
+            o = list(o.values())
+        if isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+        elif isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def s19_model(bf, device):
+    """The bench's Schneider19 Baryonification2D, unbuilt, on ``device``."""
+    return bf.Baryonification2D(
+        bf.Profiles.DarkMatterOnly(**BPAR, proj_cutoff=100),
+        bf.Profiles.DarkMatterBaryon(**BPAR, proj_cutoff=100),
+        bf.cosmo.cosmology_from_dict(COSMO), epsilon_max=EPS_MAX,
+        device=device)
 
 
 def check(name, err, tol):
@@ -193,19 +263,31 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
             ok = regrid.regrid(nside, pk, orig)
             op = regrid.regrid_plain(nside, pk, orig)
             torch.cuda.synchronize()
+            n, nr = cp.shape
+            npix = 12 * nside * nside
+            # K1: per output value 4 corner weights and multiply-adds
             out["collapse_curves"] = (err1, time_ms(
                 torch, lambda: interp.collapse_curves(*args), 50),
                 time_ms(torch, lambda: interp.collapse_curves_plain(*args),
-                        10))
+                        10)) + bound(
+                nbytes(m._table, m._axes, cp) + 2 * 4 * n, 16 * n * nr,
+                F32_FLOPS) + (None,)
+            # K2: its disc pixels (sum of pi r^2 over the pixel area), ~40
+            # operations each; the (npix, 2) offsets written once
+            pairs = npix * float(np.sum(hd["radius"] ** 2)) / 4.0
             out["disc_deposit"] = (err2, time_ms(
                 torch, lambda: deposit.disc_deposit(nside, halos, cp, r0, dl,
                                                     EPS_MAX), 10),
                 time_ms(torch, lambda: deposit.disc_deposit_plain(
-                    nside, halos, cp, r0, dl, EPS_MAX), 3))
+                    nside, halos, cp, r0, dl, EPS_MAX), 3)) + bound(
+                nbytes(halos, cp, pk), 40 * pairs, F32_FLOPS) + (None,)
+            # K3: per pixel its offset and value read, its value written,
+            # ~60 operations of neighbour geometry and weights
             out["regrid"] = ((ok - op).abs().max().item(), time_ms(
                 torch, lambda: regrid.regrid(nside, pk, orig), 10),
                 time_ms(torch, lambda: regrid.regrid_plain(nside, pk, orig),
-                        3))
+                        3)) + bound(nbytes(pk, orig, op), 60 * npix,
+                                    F32_FLOPS) + (None,)
     return out
 
 
@@ -386,24 +468,59 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
             base = tiling.flat_view_plain(
                 st.stencil_regrid_plain(tiling, tables, ap, og_p,
                                         st.hot_tiles_plain(ap, tables)))
+            slots = tiling.n_tiles * tiling.P
+            # K4: every (tile, halo) pair's slots, ~40 operations each; the
+            # accumulator written once
             out["tile_deposit"] = (err4, time_ms(
                 torch, lambda: td.tile_deposit(tiling, csr, pack, r0, inv),
                 20), time_ms(torch, lambda: td.tile_deposit_plain(
-                    tiling, csr, pack, r0, inv), 3))
+                    tiling, csr, pack, r0, inv), 3)) + bound(
+                nbytes(csr, pack, ap), 40.0 * csr[2].numel() * tiling.P,
+                F32_FLOPS) + (None,)
+            # K5: offsets and tiled map read, stencil output written; the
+            # regrid needs ~60 operations per pixel (K3's count for the same
+            # regrid: neighbour geometry and weights), not the 55 taps per
+            # slot the stencil evaluates
             out["stencil"] = (err5, time_ms(torch, lambda: st.stencil_regrid(
                 tiling, tables, ap, og_p, st.hot_tiles(ap, tables)), 20),
                 time_ms(torch, lambda: st.stencil_regrid_plain(
                     tiling, tables, ap, og_p,
-                    st.hot_tiles_plain(ap, tables)), 3))
+                    st.hot_tiles_plain(ap, tables)), 3)) + bound(
+                nbytes(ap, og_p) + slots * 4, 60.0 * tiling.npix,
+                F32_FLOPS) + (None,)
+            # K6: per source (the geometric list and the hot tiles' slots)
+            # its offset, value and geometry read and four neighbours
+            # updated, ~80 operations
+            n_src = gp[0].numel() + hot.numel() * tiling.P
             out["stencil_finish"] = (err6, time_ms(
                 torch, lambda: st.stencil_complement(
                     tiling, base.clone(), ap, og_p, gp, hot), 20),
                 time_ms(torch, lambda: st.stencil_complement_plain(
-                    tiling, base.clone(), ap, og_p, gp, hot), 3))
+                    tiling, base.clone(), ap, og_p, gp, hot), 3)) + bound(
+                n_src * (8 + 4 + 12 + 4 * 8), 80.0 * n_src,
+                F32_FLOPS) + (None,)
+            # K7: tile_view then flat_view, each reading and writing its
+            # map once; the library yardstick is the same two gathers as
+            # torch.index_select with precomputed indices (dead slots read
+            # pixel 0 instead of giving 0)
+            arr = tiling.device_arrays(dev)
+            pix, valid = tiling.slot_pix(arr["tile_i0"], arr["tile_s"],
+                                         arr["tile_S"])
+            idx_t = torch.where(valid, pix, 0).reshape(-1).long()
+            idx_f = tiling.slot_index(torch.arange(
+                tiling.npix, dtype=torch.int32, device=dev)).long()
+
+            def gathers():
+                tv = torch.index_select(orig, 0, idx_t)
+                return torch.index_select(tv, 0, idx_f)
+            if not torch.equal(gathers(), orig):
+                raise AssertionError("index_select yardstick of K7 is wrong")
             out["tile_layout"] = (err7, time_ms(
                 torch, lambda: tiling.flat_view(tiling.tile_view(orig)), 20),
                 time_ms(torch, lambda: tiling.flat_view_plain(
-                    tiling.tile_view_plain(orig)), 3))
+                    tiling.tile_view_plain(orig)), 3)) + bound(
+                2 * (nbytes(orig) + slots * 4), 0.0, F32_FLOPS) + (
+                time_ms(torch, gathers, 20),)
             geo_ms = (time_ms(torch, lambda: st.stencil_geo(tiling, tables,
                                                             dt), 5),
                       time_ms(torch, lambda: st.stencil_geo_plain(
@@ -444,6 +561,323 @@ def p_key_curves(torch, n, timing):
                    time_ms(torch, lambda: interp.collapse_curves_plain(*args),
                            5))
     return res
+
+
+def compare_table_kernels(bf, torch, gpu):
+    """K8 and K9 against their plain versions on the card, float64, at the
+    table build's shapes. Returns {kernel: (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms)}, timed on correlation_3d's grid for K8
+    and on one redshift's rows (two enclosed-mass calls and one
+    displacement call) for K9."""
+    from baryonforge_torch.cosmo import power
+    from baryonforge_torch.ops import fftlog, table_rows
+    dev = torch.device(DEVICE)
+    out = {}
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    a0 = 1.0 / (1.0 + BENCH_GRID["z_min"])
+
+    def fht_case(label, x, a, mu, q, reps):
+        lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
+        qs = fftlog._safe_q(mu, q)
+
+        def kern():
+            return fftlog.fht(x, a, mu, q)[1]
+
+        def plain():
+            return fftlog.fht_plain(a, lx, mu, qs, ln_kcrc)
+        ok, op = kern(), plain()
+        torch.cuda.synchronize()
+        err = (ok - op).abs().max().item()
+        # direct DFT sums against torch.fft's, each row against its own
+        # largest value. Two correct orders of the sums (the JAX package's
+        # matmul DFT and torch.fft) differ by up to 2.2e-12 of a row's
+        # largest value on the 20 x 2048 batch
+        # (tests/test_torch_fftlog.py::test_fht_summation_orders), so the
+        # bound is 1e-11
+        rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max()
+        check(f"K8 fht [{label}] (per row, of the row's largest value)",
+              rel.item(), 1e-11)
+        B, N = a.shape
+        # what the function needs: per row two real-data FFTs (2.5 N log2 N
+        # operations each), the bias and unbias products and the product
+        # with the coefficients (~8 operations a point); once for all rows
+        # the bias and unbias factors (an exp each, ~20 operations a point)
+        # and the coefficients of the N/2 + 1 distinct frequencies (the
+        # others are their conjugates), ~450 operations each (two Lanczos
+        # log-gammas with their complex logs, a complex exponential)
+        ops = (B * (5.0 * N * math.log2(N) + 8.0 * N) + 40.0 * N
+               + 450.0 * (N // 2 + 1))
+        return (err, time_ms(torch, kern, reps), time_ms(torch, plain, reps)
+                ) + bound(nbytes(a, lx, op), ops, F64_FLOPS) + (None,)
+
+    # correlation_3d's transform: P(k) k^1.5 on K_GRID, mu = 1/2, q = -1/2
+    k, pk = power.pk_grid(cosmo, a0, device=dev)
+    out["fht"] = fht_case("correlation_3d, 1 x 1024", k,
+                          (pk * k ** 1.5)[None], 0.5, -0.5, 50)
+    # a batch of 20 DarkMatter rows on a 2048-point Fourier-like grid
+    x = torch.as_tensor(np.geomspace(1e-7, 1e9, 2048), device=dev)
+    M20 = torch.as_tensor(np.geomspace(5e12, 2e15, 20), device=dev)
+    rows = bf.Profiles.DarkMatter(**BPAR).real(cosmo, x, M20, a0)
+    for mu in (0.0, 0.5):
+        res = fht_case(f"20 x 2048, mu = {mu}", x, rows * x ** 1.5, mu, -0.5,
+                       10)
+        log(f"[{gpu}] K8 fht 20 x 2048, mu = {mu}: kernel {res[1]:.4f} ms, "
+            f"plain {res[2]:.4f} ms, bound {res[3]:.4f} ms ({res[4]})")
+
+    # K9 on the bench table's first redshift
+    m = s19_model(bf, dev)
+    r = np.geomspace(BENCH_GRID["R_min"], BENCH_GRID["R_max"],
+                     BENCH_GRID["N_samples_R"])
+    M = torch.as_tensor(np.geomspace(BENCH_GRID["M_min"], BENCH_GRID["M_max"],
+                                     BENCH_GRID["N_samples_Mass"]),
+                        device=dev)
+    r_int = np.geomspace(min(r.min(), m.r_min_int) / 1.2,
+                         max(r.max(), m.r_max_int) * 1.2, m.N_int)
+    lnr_int = torch.log(torch.as_tensor(r_int, device=dev))
+    lnr = torch.log(torch.as_tensor(r, device=dev))
+    dlnr = float(np.log(r_int[1] / r_int[0]))
+    ins = []
+    for prof in (m.DMO, m.DMB):
+        dens = prof.projected(cosmo, r_int, M, a0) * a0
+        intgd = 2 * np.pi * torch.exp(lnr_int) ** 2 * dens * dlnr
+        ins.append((intgd.clamp(min=0), dens.clamp(min=0)))
+    masses = []
+    err = 0.0
+    for (i, d), name in zip(ins, ("DMO", "DMB")):
+        ek = table_rows.enclosed_mass(i, d, lnr_int, lnr)
+        ep = table_rows.enclosed_mass_plain(i, d, lnr_int, lnr)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(ek), torch.isnan(ep)):
+            raise AssertionError(f"K9 enclosed_mass [{name}]: masks differ")
+        e = ((ek - ep).abs() / ep.abs()).nan_to_num().max().item()
+        check(f"K9 enclosed_mass [{name}, 20 x 500 -> 64] (relative)", e,
+              1e-12)
+        err = max(err, (ek - ep).abs().nan_to_num().max().item())
+        masses.append(ep)
+    dk = table_rows.displacement_rows(lnr, *masses)
+    dp = table_rows.displacement_rows_plain(lnr, *masses)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isnan(dk), torch.isnan(dp)):
+        raise AssertionError("K9 displacement_rows: masks differ")
+    e = (dk - dp).abs().nan_to_num().max().item()
+    check("K9 displacement_rows [20 x 64]", e,
+          1e-12 * dp.nan_to_num().abs().max().item())
+    log(f"  K9 rows with NaN displacements: "
+        f"{int(torch.isnan(dp).any(1).sum())} of {dp.shape[0]}")
+
+    def k9(enc, disp):
+        def run():
+            ms = [enc(i, d, lnr_int, lnr) for i, d in ins]
+            return disp(lnr, *ms)
+        return run
+    B, n_int, n_r = ins[0][0].shape[0], ins[0][0].shape[1], lnr.numel()
+    # per row: Simpson, mask, compaction and PCHIP slopes ~30 operations a
+    # grid point, ~40 per evaluation; the inversion two masked PCHIPs of n_r
+    k9_bytes = 2 * (nbytes(*ins[0]) + nbytes(lnr_int, lnr)
+                    + B * n_r * 8) + nbytes(lnr, *masses, dp)
+    k9_ops = 2 * B * (30.0 * n_int + 40.0 * n_r) + B * 120.0 * n_r
+    out["table_rows"] = (max(err, e), time_ms(torch, k9(
+        table_rows.enclosed_mass, table_rows.displacement_rows), 50),
+        time_ms(torch, k9(table_rows.enclosed_mass_plain,
+                          table_rows.displacement_rows_plain), 5)
+    ) + bound(k9_bytes, k9_ops, F64_FLOPS) + (None,)
+    log(f"[{gpu}] K8 fht 1 x 1024: kernel {out['fht'][1]:.4f} ms, plain "
+        f"{out['fht'][2]:.4f} ms; K9 one redshift: kernel "
+        f"{out['table_rows'][1]:.4f} ms, plain {out['table_rows'][2]:.4f} ms")
+    return out
+
+
+def spline_solves(torch, solves, gpu):
+    """The spline solve of the DMB profile three ways on the first recorded
+    input: the port's host Thomas sweep with its copies, the same sweep as
+    launches on the card, and one dense torch.linalg.solve on the card.
+    Host-clock ms; the card's answers are held against the host's. Returns
+    the three times and the dense solve, (lower, main, upper, rhs) ->
+    derivatives."""
+    from baryonforge_torch.ops import interp
+    x, y, _ = solves[0]
+    lower, main, upper, rhs = interp.spline_system(x, y)
+    n = main.numel()
+
+    def dense(lower, main, upper, rhs):
+        A = (torch.diag(main) + torch.diag(lower[1:], -1)
+             + torch.diag(upper[:-1], 1))
+        m = rhs.shape[-1]
+        return torch.linalg.solve(A, rhs.reshape(-1, m).T).T.reshape(
+            (rhs.shape[:-1] or (1,)) + (m,))
+
+    def sweep_on_card():
+        r = rhs.reshape(-1, n).T
+        cps, dps = torch.empty_like(main), torch.empty_like(r)
+        cp, dp = main.new_zeros(()), r.new_zeros(r.shape[1])
+        for i in range(n):
+            denom = main[i] - lower[i] * cp
+            cp = upper[i] / denom
+            dp = (r[i] - lower[i] * dp) / denom
+            cps[i], dps[i] = cp, dp
+        ds, xn = torch.empty_like(r), r.new_zeros(r.shape[1])
+        for i in range(n - 1, -1, -1):
+            xn = dps[i] - cps[i] * xn
+            ds[i] = xn
+        return ds.T
+
+    def dense_on_card():
+        return dense(lower, main, upper, rhs)
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps, res
+    ms_host, ref = wall_ms(lambda: interp.cubic_spline_coeffs(x, y), 5)
+    ms_sweep, d_sweep = wall_ms(sweep_on_card, 1)
+    ms_dense, d_dense = wall_ms(dense_on_card, 5)
+    scale = ref.abs().max().item()
+    err_sweep = (d_sweep - ref).abs().max().item() / scale
+    err_dense = (d_dense - ref).abs().max().item() / scale
+    log(f"[{gpu}] spline solve of the DMB profile, {tuple(y.shape)}, "
+        f"{len(solves)} per DMB profile: host sweep with copies "
+        f"{ms_host:.3f} ms; the sweep as launches on the card "
+        f"{ms_sweep:.3f} ms (off by {err_sweep:.3e} of the largest "
+        f"derivative); dense torch.linalg.solve on the card {ms_dense:.3f} "
+        f"ms (off by {err_dense:.3e})")
+    return ms_host, ms_sweep, ms_dense, dense
+
+
+def table_phases(bf, torch, model, gpu):
+    """Host-clock milliseconds of one redshift of the bench table build,
+    phase by phase (each ends in a synchronize)."""
+    from baryonforge_torch.ops import interp, table_rows
+    r = np.geomspace(BENCH_GRID["R_min"], BENCH_GRID["R_max"],
+                     BENCH_GRID["N_samples_R"])
+    M = np.geomspace(BENCH_GRID["M_min"], BENCH_GRID["M_max"],
+                     BENCH_GRID["N_samples_Mass"])
+    a0 = 1.0 / (1.0 + BENCH_GRID["z_min"])
+    Mt = torch.as_tensor(M, device=DEVICE)
+    r_int = np.geomspace(min(r.min(), model.r_min_int) / 1.2,
+                         max(r.max(), model.r_max_int) * 1.2, model.N_int)
+    ph = {}
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ph[name] = (time.perf_counter() - t0) * 1e3
+        return res
+    for prof in (model.DMO, model.DMB):   # warm
+        prof.projected(model.cosmo, r_int, Mt, a0)
+    clock("DMO projected profile (K8 inside)",
+          lambda: model.DMO.projected(model.cosmo, r_int, Mt, a0))
+    # the not-a-knot spline solves inside the DMB profile, recorded with
+    # their host-clock time
+    s19 = bf.Profiles.Schneider19
+    host_solve = s19.cubic_spline_coeffs
+    solves = []
+
+    def record(x, y):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = host_solve(x, y)
+        torch.cuda.synchronize()
+        solves.append((x, y, (time.perf_counter() - t0) * 1e3))
+        return d
+    s19.cubic_spline_coeffs = record
+    try:
+        clock("DMB projected profile (K8 inside)",
+              lambda: model.DMB.projected(model.cosmo, r_int, Mt, a0))
+    finally:
+        s19.cubic_spline_coeffs = host_solve
+    ph["spline solves inside it (host sweep)"] = sum(s[2] for s in solves)
+    dense = spline_solves(torch, solves, gpu)[3]
+    s19.cubic_spline_coeffs = lambda x, y: dense(
+        *interp.spline_system(x, y))
+    try:
+        clock("DMB projected profile, dense spline solves on the card",
+              lambda: model.DMB.projected(model.cosmo, r_int, Mt, a0))
+    finally:
+        s19.cubic_spline_coeffs = host_solve
+    Mo = clock("DMO enclosed mass (profile + K9)",
+               lambda: model._enclosed_mass_curve(model.DMO, r, M, a0, True))
+    Mb = clock("DMB enclosed mass (profile + K9)",
+               lambda: model._enclosed_mass_curve(model.DMB, r, M, a0, True))
+    lnr = torch.log(torch.as_tensor(r, device=DEVICE))
+    clock("displacement rows (K9)",
+          lambda: table_rows.displacement_rows(lnr, Mo, Mb))
+    log(f"[{gpu}] one redshift of the bench table, host clock (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ph.items()))
+    return ph
+
+
+def build_bench_table(bf, torch, gpu):
+    """The bench's Schneider19 table built on the card from its profiles:
+    the table path, with the launch counts set to 0 just before and read
+    just after. Checks it against the JAX file and a small card table
+    against the CPU's. Returns (model, launches)."""
+    from baryonforge_torch.ops import _build
+    n_z = BENCH_GRID["N_samples_z"]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = s19_model(bf, DEVICE).setup_interpolator(**BENCH_GRID)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    want = {"fht": 2 * n_z, "enclosed_mass": 2 * n_z,
+            "displacement_rows": n_z}
+    for k, v in want.items():
+        if launches.get(k, 0) != v:
+            raise AssertionError(f"table build: {k} launched "
+                                 f"{launches.get(k, 0)} times, not {v}")
+    log(f"launches in the bench table build: {launches}")
+    t0 = time.perf_counter()
+    s19_model(bf, DEVICE).setup_interpolator(**BENCH_GRID)
+    warm = time.perf_counter() - t0
+    log(f"[{gpu}] bench table build (8 z x 20 M x 64 r) on the card: "
+        f"first {wall * 1e3:.1f} ms, again {warm * 1e3:.1f} ms = "
+        f"{warm * 1e3 / n_z:.1f} ms per redshift")
+    d = model.raw_input_d
+    if d.shape != (8, 20, 64) or not np.isfinite(d).all():
+        raise AssertionError("card-built table: not finite / wrong shape")
+    with np.load(TABLE) as f:
+        ref = f["d"]
+    drift = float(np.abs(d - ref).max())
+    log(f"  card table vs tools/_northstar_table.npz: max |diff| "
+        f"{drift:.3e} = {drift / np.abs(ref).max():.3e} of max |d|")
+    check("card-built bench table vs the JAX file", drift,
+          2.5e-4 * float(np.abs(ref).max()))
+
+    g = s19_model(bf, DEVICE).setup_interpolator(**SMALL_GRID)
+    c = s19_model(bf, "cpu").setup_interpolator(**SMALL_GRID)
+    check("table 2 x 4 x 16, card vs CPU (plain versions)",
+          float(np.abs(g.raw_input_d - c.raw_input_d).max()),
+          1e-9 * float(np.abs(c.raw_input_d).max()))
+    table_phases(bf, torch, model, gpu)
+    return model, launches
+
+
+def full_width_table(bf, torch, gpu):
+    """setup_interpolator() at its defaults (30 z x 30 M x 100 r), timed;
+    returns the number of broken-row warnings."""
+    import warnings
+    model = s19_model(bf, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        model.setup_interpolator()
+    wall = time.perf_counter() - t0
+    n_warn = sum(1 for x in w if issubclass(x.category, UserWarning)
+                 and "partially failed" in str(x.message))
+    d = model.raw_input_d
+    if d.shape != (30, 30, 100) or not np.isfinite(d).all():
+        raise AssertionError("full-width table: not finite / wrong shape")
+    log(f"[{gpu}] full-width table (30 z x 30 M x 100 r) on the card: "
+        f"{wall * 1e3:.1f} ms = {wall * 1e3 / 30:.1f} ms per redshift; "
+        f"broken-row warnings: {n_warn}")
+    return n_warn
 
 
 def card_vs_cpu(bf, torch, model, cat, shell, label, **kw):
@@ -521,6 +955,11 @@ KERNELS = [
     ("tile_layout", ("tile_view", "flat_view"),
      "baryonforge_torch/csrc/tile_layout.cu",
      "baryonforge_tpu/ops/tiles.py:425", "tiled"),
+    ("fht", ("fht",), "baryonforge_torch/csrc/fftlog.cu",
+     "baryonforge_tpu/ops/fftlog.py:194", "table"),
+    ("table_rows", ("enclosed_mass", "displacement_rows"),
+     "baryonforge_torch/csrc/table_rows.cu",
+     "baryonforge_tpu/Profiles/BaryonCorrection.py:62", "table"),
 ]
 
 
@@ -596,6 +1035,11 @@ def main():
                              f"{polar}")
     card_vs_cpu(bf, torch, model, cat_m, shell_m, "NSIDE 256, default path")
 
+    log("table build kernels against their plain versions (float64)")
+    measured.update(compare_table_kernels(bf, torch, gpu))
+    log("table path: the bench's Schneider19 table built on the card")
+    card_model, launches_table = build_bench_table(bf, torch, gpu)
+
     log(f"main path (scatter): BaryonifyShell(deposit='scatter', "
         f"regrid='scatter', regrid_dtype=float32).process(), NSIDE {NSIDE}, "
         f"{N_HALOS} halos")
@@ -648,18 +1092,49 @@ def main():
     check("tiled engine vs scatter path, float64 regrid, summed",
           float(diff64.sum()), 3e-3 * float(moved64.sum()))
 
-    launches = {"scatter": launches_s, "tiled": launches_t}
+    log(f"main path from the card-built table: BaryonifyShell("
+        f"regrid_dtype=float32).process(), NSIDE {NSIDE}, {N_HALOS} halos")
+    runner_c = bf.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX,
+                                 model=card_model,
+                                 regrid_dtype=torch.float32, device=DEVICE)
+    out_c, _ = drive(
+        bf, torch, runner_c, ("collapse_curves", "tile_deposit",
+                              "stencil_hot", "stencil", "stencil_complement",
+                              "flat_view", "tile_view"),
+        "tiled engine, card-built table", gpu)
+    # the two tables differ by the JAX file's drift (<= 2.5e-4 of max |d|):
+    # per pixel, the edge-jitter bound or the float32 regrid weight noise
+    check("tiled engine: card-built table vs the file's table, per pixel",
+          float(np.abs(out_c - out_t).max()), tol_map)
+    log(f"  moved mass: file's table {np.abs(out_t - shell.map).sum():.6e}, "
+        f"card's table {np.abs(out_c - shell.map).sum():.6e}")
+
+    full_width_table(bf, torch, gpu)
+
+    launches = {"scatter": launches_s, "tiled": launches_t,
+                "table": launches_table}
     kernels = []
     for name, entries, src, rep, path in KERNELS:
-        err, ms, plain_ms = measured[name]
+        err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]
         n = sum(launches[path].get(e, 0) for e in entries)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n, "path": path,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        log(f"[{gpu}] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"[{gpu}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), library {lib}, "
+            f"{n} launches on the {path} path")
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 "path")
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
+    if "jax" in sys.modules:
+        raise RuntimeError("the port imported jax")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

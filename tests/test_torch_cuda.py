@@ -7,7 +7,10 @@ tests/conftest.py imports jax, so there run it as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float64 to 1e-10 of the largest value (atomic sums in another
-order); float32 deposits to the JAX package's edge-jitter bounds
+order); K8 (FFTLog) to 1e-11 of the largest value (direct DFT sums against
+torch.fft's: two correct summation orders differ by up to ~4e-12 of it on
+wide grids), K9 (table rows) to 1e-12 with equal NaN masks; float32
+deposits to the JAX package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
@@ -25,6 +28,7 @@ import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch.ops import _build                    # noqa: E402
 from baryonforge_torch.ops import deposit, interp, regrid   # noqa: E402
 from baryonforge_torch.ops import stencil, tile_deposit     # noqa: E402
+from baryonforge_torch.ops import fftlog, table_rows        # noqa: E402
 from baryonforge_torch.ops import tiles as tt               # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -313,3 +317,91 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     torch.testing.assert_close(fk, fp, rtol=0, atol=atol)
     assert abs(fk.double().sum().item() / orig.double().sum().item()
                - 1) < 1e-5
+
+
+# ---- the table build: K8 FFTLog, K9 table rows -----------------------------
+@pytest.mark.parametrize("B,N,mu,q", [(1, 1024, 0.5, -0.5),
+                                      (20, 2048, 0.5, -0.5),
+                                      (20, 2048, 0.0, -0.5),
+                                      (3, 100, 0.0, -1.0)])
+def test_fht_kernel(dev, B, N, mu, q):
+    """K8 on correlation_3d's grid (B = 1, N = 1024), on a Fourier-like
+    batch (B = 20, N = 2048) and on a length that is no power of two with
+    q on a Gamma pole, against its plain version."""
+    rng = np.random.default_rng(N)
+    x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
+    a = torch.as_tensor(np.exp(-np.geomspace(1e-4, 1e4, N)[None]
+                               * rng.uniform(0.5, 2.0, (B, 1))), device=dev)
+    _build.reset_launches()
+    k, ok = fftlog.fht(x, a, mu, q)
+    assert _build.launches["fht"] == 1
+    lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
+    op = fftlog.fht_plain(a, lx, mu, fftlog._safe_q(mu, q), ln_kcrc)
+    # each row to 1e-11 of its own largest value (two correct summation
+    # orders differ by 2.2e-12: test_torch_fftlog.py)
+    assert ok.shape == op.shape and ok.dtype == op.dtype
+    rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max().item()
+    assert rel <= 1e-11, rel
+
+
+def _bench_model(dev):
+    h = 0.7
+    bpar = dict(theta_ej=4, theta_co=0.1, M_c=1e14 / h, mu_beta=0.4,
+                eta=0.3, eta_delta=0.3, tau=-1.5, tau_delta=0,
+                A=0.09 / 2, M1=2.5e11 / h, epsilon_h=0.015,
+                a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2, delta=7)
+    return bf.Baryonification2D(
+        bf.Profiles.DarkMatterOnly(**bpar, proj_cutoff=100),
+        bf.Profiles.DarkMatterBaryon(**bpar, proj_cutoff=100),
+        bf.cosmo.cosmology_from_dict(COSMO), epsilon_max=20, device=dev)
+
+
+def test_table_rows_kernel(dev):
+    """K9 on the bench table's first redshift (20 masses, 64 radii, 500
+    integration points), against its plain versions on the same inputs."""
+    m = _bench_model(dev)
+    r = np.geomspace(1e-3, 60, 64)
+    M = np.geomspace(5e12, 2e15, 20)
+    a = 1.0 / 1.7
+    r_int = np.geomspace(min(r.min(), m.r_min_int) / 1.2,
+                         max(r.max(), m.r_max_int) * 1.2, m.N_int)
+    lnr_int = torch.log(torch.as_tensor(r_int, device=dev))
+    lnr = torch.log(torch.as_tensor(r, device=dev))
+    dl = float(np.log(r_int[1] / r_int[0]))
+    masses = []
+    _build.reset_launches()
+    for prof in (m.DMO, m.DMB):
+        dens = prof.projected(m.cosmo, r_int, torch.as_tensor(M, device=dev),
+                              a) * a
+        intgd = 2 * np.pi * torch.exp(lnr_int) ** 2 * dens * dl
+        dens, intgd = dens.clamp(min=0), intgd.clamp(min=0)
+        ek = table_rows.enclosed_mass(intgd, dens, lnr_int, lnr)
+        ep = table_rows.enclosed_mass_plain(intgd, dens, lnr_int, lnr)
+        assert torch.equal(torch.isnan(ek), torch.isnan(ep))
+        torch.testing.assert_close(ek, ep, rtol=1e-12, atol=0,
+                                   equal_nan=True)
+        masses.append(ep)
+    dk = table_rows.displacement_rows(lnr, *masses)
+    dp = table_rows.displacement_rows_plain(lnr, *masses)
+    assert _build.launches["enclosed_mass"] == 2
+    assert _build.launches["displacement_rows"] == 1
+    assert torch.equal(torch.isnan(dk), torch.isnan(dp))
+    torch.testing.assert_close(dk, dp, rtol=0, equal_nan=True,
+                               atol=1e-12 * dp.nan_to_num().abs().max().item())
+
+
+def test_table_build_cuda_matches_cpu(dev):
+    """setup_interpolator on the card (K8, K9) against the plain versions
+    on the CPU, 2 z x 4 M x 16 r, to 1e-9 of the largest |d|."""
+    kw = dict(z_min=0.7, z_max=1.1, N_samples_z=2, M_min=5e12, M_max=2e15,
+              N_samples_Mass=4, R_min=1e-3, R_max=60, N_samples_R=16,
+              verbose=False)
+    _build.reset_launches()
+    g = _bench_model(dev).setup_interpolator(**kw)
+    assert _build.launches["fht"] == 2 * 2
+    assert _build.launches["enclosed_mass"] == 2 * 2
+    assert _build.launches["displacement_rows"] == 2
+    c = _bench_model("cpu").setup_interpolator(**kw)
+    scale = np.abs(c.raw_input_d).max()
+    np.testing.assert_allclose(g.raw_input_d, c.raw_input_d, rtol=0,
+                               atol=1e-9 * scale)

@@ -160,11 +160,6 @@ def test_cosmology_from_jax():
             rtol=1e-12)
 
 
-def test_setup_interpolator_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_model().setup_interpolator()
-
-
 def p_key_table(n_p, seed=15):
     """A random (z, M, r, p1[, p2]) table with its axis grids and halos:
     increasing but unevenly spaced axes, raw (not log) parameter values,
