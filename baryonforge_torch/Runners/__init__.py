@@ -1,4 +1,4 @@
-"""Execution engines: the HEALPix shell runner (scatter path)."""
+"""Execution engines: the HEALPix shell runners."""
 
 from . import HealpixRunner
-from .HealpixRunner import DefaultRunner, BaryonifyShell
+from .HealpixRunner import DefaultRunner, BaryonifyShell, PaintProfilesShell

@@ -11,13 +11,18 @@ Ported so far (ROADMAP.md lists the rest):
   ops/        HEALPix geometry and the sky tiling; integration and
               interpolation; kernels K1 curve collapse (interp), K2 disc
               deposit (deposit), K3 scatter regrid (regrid), K4 tile
-              deposit (tile_deposit), K5 stencil regrid and K6 its
-              complement (stencil), K7 tile layout (tiles), K8 FFTLog
-              transform (fftlog), K9 table rows (table_rows)
+              deposit and K10 tile paint (tile_deposit), K5 stencil regrid
+              and K6 its complement (stencil), K7 tile layout (tiles), K8
+              FFTLog transform (fftlog), K9 table rows (table_rows), K11
+              disc paint (paint)
   Profiles/   the profile framework and algebra, the Schneider19 family,
-              Baryonification2D/3D: table build, readout and checkpoint
-  Runners/    BaryonifyShell: the tiled engine (default) and the scatter path
-  utils/      constants, io containers, JAX-object conversion
+              the thermodynamic (tSZ) profiles, Baryonification2D/3D:
+              table build, readout and checkpoint
+  Runners/    BaryonifyShell: the tiled engine (default) and the scatter
+              path; PaintProfilesShell: the tiled paint (default) and the
+              disc paint
+  utils/      constants, io containers, tabulated profiles, pixel windows,
+              JAX-object conversion
 """
 
 from . import cosmo

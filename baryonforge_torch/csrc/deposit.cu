@@ -11,13 +11,9 @@
 //
 // The JAX version walks a padded (K_ring, K_phi) window whose size is fixed
 // per size bucket, because XLA needs static shapes. Here each halo walks its
-// own rings (from the ring below ring_above(theta0 - radius) to two rings
-// past theta0 + radius) and, on each ring, its own phi span (the exact
-// disc/ring half-width plus two pixels, cut to the no-duplicate range
-// [-(nr-1)/2, nr/2] around the centre column). Every pixel that can pass the
-// haversine test lies in that span, and no pixel appears twice, so the
-// member set is the JAX window's. The JAX accumulator's dummy row at index
-// npix becomes a plain `if`.
+// own rings and phi spans (healpix.cuh: DiscWalk), each member pixel
+// once; the member set is the JAX window's. The JAX accumulator's dummy row
+// at index npix becomes a plain `if`.
 //
 // Bound: atomics to device memory. Each member pixel costs about 30 flops
 // and 3 transcendentals, and two atomicAdds into the (npix, 2) accumulator
@@ -47,7 +43,7 @@ struct HaloIn {
 // per-halo values every pixel of the halo uses
 template <typename T>
 struct Halo {
-  T theta0, phi0, ct0, st0, sin_t0, D, a, Rcom, rscale;
+  T theta0, ct0, st0, D, a, Rcom, rscale;
   const T* curve;
 };
 
@@ -96,81 +92,33 @@ __global__ void disc_deposit_kernel(int N, HaloIn in,
   const double th_h = in.theta[hid];
   const double ph_h = in.phi[hid];
   const double rad_h = in.radius[hid];
+  const bf::DiscWalk<T> walk(N, th_h, ph_h, rad_h);
   Halo<T> h;
-  h.theta0 = T(th_h);
-  h.phi0 = T(ph_h);
-  h.ct0 = T(cos(th_h));
-  h.st0 = T(sin(th_h));
-  h.sin_t0 = bf::m_sin(h.theta0);
+  h.theta0 = walk.theta0;
+  h.ct0 = T(walk.cos_th);
+  h.st0 = T(walk.sin_th);
   h.D = T(in.D[hid]);
   h.a = T(in.a[hid]);
   h.Rcom = T(in.Rcom[hid]);
   h.rscale = T(in.rscale[hid]);
   h.curve = curves + (long long)hid * lk.n_r;
-  const T rad = T(rad_h);
-  const T crit = bf::m_sin(T(0.5) * rad);
-
-  T top = h.theta0 - rad;
-  const int ring_first =
-      bf::clampi(bf::ring_above_theta<T>(N, top > T(0) ? top : T(0)), 0,
-                 4 * N - 1) + 1;
-  T bot = h.theta0 + rad;
-  const int ring_last = bf::clampi(
-      bf::ring_above_theta<T>(N, bot < T(bf::kPi) ? bot : T(bf::kPi)) + 2, 1,
-      4 * N - 1);
-  const double cos_rad = cos(rad_h);
-  const double sin_th = sin(th_h), cos_th = cos(th_h);
-
   if (threadIdx.x == 0) members = 0;
   __syncthreads();
 
-  // pass 0 counts the disc's members; pass 1 deposits them, unless there
-  // are fewer than 4
-  for (int pass = 0; pass < 2; ++pass) {
-    if (pass == 1 && members < 4) break;
-    int count = 0;
-    for (int ring = ring_first; ring <= ring_last; ++ring) {
-      bf::Ring<T> ri = bf::ring_info<T>(N, ring);
-      const T theta_r = bf::ring_theta<T>(N, ring);
-      const T dphi = bf::ring_dphi<T>(ri.nr);
-      const int jc = int(bf::m_rint(h.phi0 / dphi - T(0.5) * ri.shifted));
-      // phi span: exact half-width of the disc on this ring, in float64,
-      // plus two pixels
-      int lo = -((ri.nr - 1) / 2), hi = ri.nr / 2;
-      const double s = sin(double(theta_r)) * sin_th;
-      if (s > 1e-12) {
-        double c = (cos_rad - cos(double(theta_r)) * cos_th) / s;
-        if (c > -1.0) {
-          double half = acos(c < 1.0 ? c : 1.0);
-          int hw = int(ceil(half / double(dphi))) + 2;
-          lo = max(lo, -hw);
-          hi = min(hi, hw);
-        }
-      }
-      const T cos_t = bf::m_cos(theta_r), sin_t = bf::m_sin(theta_r);
-      const T sdt = bf::m_sin(T(0.5) * (theta_r - h.theta0));
-      for (int dp = lo + int(threadIdx.x); dp <= hi; dp += blockDim.x) {
-        const int jw = bf::floor_mod(jc + dp, ri.nr);
-        const T dphi_pix = (T(jw) + T(0.5) * ri.shifted) * dphi - h.phi0;
-        const T sdp = bf::m_sin(T(0.5) * dphi_pix);
-        const T hav = sdt * sdt + sin_t * h.sin_t0 * (sdp * sdp);
-        const T sinhd = bf::m_sqrt(bf::clampf(hav, T(0), T(1)));
-        if (!(sinhd <= crit)) continue;
-        if (pass == 0)
-          ++count;
-        else
-          deposit_pixel(h, lk, ri.sp + jw, cos_t, sin_t, dphi_pix, sinhd,
-                        acc);
-      }
-    }
-    if (pass == 0) {
-      if (count) atomicAdd(&members, count);
-      __syncthreads();
-    }
+  // count the disc's members, then deposit them unless there are fewer
+  // than 4
+  int count = 0;
+  walk([&](int, T, T, T, T) { ++count; });
+  if (count) atomicAdd(&members, count);
+  __syncthreads();
+  if (members >= 4) {
+    walk([&](int pix, T cos_t, T sin_t, T dphi_pix, T sinhd) {
+      deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+    });
+    return;
   }
 
   // fewer than 4 members: the centre's 4 interpolation neighbours
-  if (members >= 4) return;
   int pix4[4];
   T w4[4];
   const T phi_w = T(bf::floor_fmod(ph_h, bf::kTwoPi));

@@ -32,6 +32,7 @@ BF_MATH1(m_sqrt, sqrtf, sqrt)
 BF_MATH1(m_floor, floorf, floor)
 BF_MATH1(m_rint, rintf, rint)
 BF_MATH1(m_log, logf, log)
+BF_MATH1(m_exp, expf, exp)
 BF_MATH1(m_fabs, fabsf, fabs)
 #undef BF_MATH1
 
@@ -218,6 +219,79 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
     wgt[3] = wgt3 * wt;
   }
 }
+
+// Every pixel whose centre lies inside the disc of angular radius rad_h
+// around (th_h, ph_h) (the haversine test sin(d/2) <= sin(rad/2) of
+// ops/healpix.py: disc_candidates, in T), each once: walk(visit) runs
+// visit(pix, cos_t, sin_t, dphi_pix, sinhd) in the calling thread for its
+// share of them, with the pixel centre's cos/sin colatitude, its phi minus
+// the centre's and sin(d/2). The threads of a block split each ring's phi
+// span. The constructor does the per-disc set-up once, so a kernel that
+// walks a disc twice (K2 counts its members first) pays for it once.
+//
+// The JAX version walks a padded (K_ring, K_phi) window whose size is
+// fixed per size bucket, because XLA needs static shapes. Here each disc
+// walks its own rings (from the ring below ring_above(theta0 - radius) to
+// two rings past theta0 + radius) and, on each ring, its own phi span (the
+// exact disc/ring half-width in float64 plus two pixels, cut to the
+// no-duplicate range [-(nr-1)/2, nr/2] around the centre column). Every
+// pixel that can pass the test lies in that span, and no pixel appears
+// twice, so the member set is the JAX window's.
+template <typename T>
+struct DiscWalk {
+  int N, ring_first, ring_last;
+  T theta0, phi0, sin_t0, crit;
+  double cos_rad, sin_th, cos_th;
+
+  __device__ __forceinline__ DiscWalk(int nside, double th_h, double ph_h,
+                                      double rad_h)
+      : N(nside), theta0(T(th_h)), phi0(T(ph_h)) {
+    sin_t0 = m_sin(theta0);
+    const T rad = T(rad_h);
+    crit = m_sin(T(0.5) * rad);
+    const T top = theta0 - rad;
+    ring_first =
+        clampi(ring_above_theta<T>(N, top > T(0) ? top : T(0)), 0, 4 * N - 1) +
+        1;
+    const T bot = theta0 + rad;
+    ring_last = clampi(ring_above_theta<T>(N, bot < T(kPi) ? bot : T(kPi)) + 2,
+                       1, 4 * N - 1);
+    cos_rad = cos(rad_h);
+    sin_th = sin(th_h);
+    cos_th = cos(th_h);
+  }
+
+  template <typename Visit>
+  __device__ __forceinline__ void operator()(Visit&& visit) const {
+    for (int ring = ring_first; ring <= ring_last; ++ring) {
+      Ring<T> ri = ring_info<T>(N, ring);
+      const T theta_r = ring_theta<T>(N, ring);
+      const T dphi = ring_dphi<T>(ri.nr);
+      const int jc = int(m_rint(phi0 / dphi - T(0.5) * ri.shifted));
+      int lo = -((ri.nr - 1) / 2), hi = ri.nr / 2;
+      const double s = sin(double(theta_r)) * sin_th;
+      if (s > 1e-12) {
+        const double c = (cos_rad - cos(double(theta_r)) * cos_th) / s;
+        if (c > -1.0) {
+          const double half = acos(c < 1.0 ? c : 1.0);
+          const int hw = int(ceil(half / double(dphi))) + 2;
+          lo = max(lo, -hw);
+          hi = min(hi, hw);
+        }
+      }
+      const T cos_t = m_cos(theta_r), sin_t = m_sin(theta_r);
+      const T sdt = m_sin(T(0.5) * (theta_r - theta0));
+      for (int dp = lo + int(threadIdx.x); dp <= hi; dp += blockDim.x) {
+        const int jw = floor_mod(jc + dp, ri.nr);
+        const T dphi_pix = (T(jw) + T(0.5) * ri.shifted) * dphi - phi0;
+        const T sdp = m_sin(T(0.5) * dphi_pix);
+        const T hav = sdt * sdt + sin_t * sin_t0 * (sdp * sdp);
+        const T sinhd = m_sqrt(clampf(hav, T(0), T(1)));
+        if (sinhd <= crit) visit(ri.sp + jw, cos_t, sin_t, dphi_pix, sinhd);
+      }
+    }
+  }
+};
 
 // 4 neighbours and weights of a source at pixel centre (theta_p, phi_p)
 // moved by the tangent offset (o0, o1) = (d theta, sin theta d phi): a pole

@@ -1,6 +1,6 @@
-// K4: tile deposit (tiled phase A).
+// K4: tile deposit (tiled phase A), and K10: tile paint.
 //
-// Replaces baryonforge_tpu/ops/tiles.py: make_tile_deposit(mode="displace")
+// K4 replaces baryonforge_tpu/ops/tiles.py: make_tile_deposit(mode="displace")
 // (its one_tile and run_all_into, with SkyTiling.slot_local(tangent=True)).
 // For every (slot, halo) pair of a touched tile: the chord from tile-local
 // coordinates, subtracting before squaring (dh = vh - c and the slot's
@@ -30,6 +30,16 @@
 // Precision: the geometry's float64 steps are those of slot_local under
 // x64 (ring data, 2 pi / nr, the azimuth offset and its wrap); ln_r0 and
 // inv_dlnr are used in T, as the JAX weak-typed Python floats are.
+//
+// K10 (kPaint) replaces make_tile_deposit(mode="paint"): one_tile's
+// non-displace branches (slot_local without the tangent basis; after the
+// lerp, exp for log curves; d = (use ? val : 0) afac summed per slot into
+// a (n_tiles, RB*K) map). It is the same kernel with the tangent terms
+// compiled out, so the pair loop, the staging and the bound are K4's; a
+// pair costs ~25 operations (one log, one exp for log curves). Paint discs
+// are small against a tile, so most of a touched tile's slots are masked:
+// the runner picks the 8 x 16 tiling (P = 128) when the median disc is
+// under 1.5 tile heights, as the JAX runner does.
 
 #include "tiles.cuh"
 
@@ -61,11 +71,12 @@ struct Tiling {
   const double* csc;     // (n_tiles, 5)
 };
 
-template <typename T>
-__global__ void tile_deposit_kernel(Tiling tl, const int* __restrict__ tiles,
-                                    const int* __restrict__ offsets,
-                                    const int* __restrict__ halos,
-                                    Pack<T> pk, int hc, T* __restrict__ acc) {
+template <typename T, bool kPaint>
+__global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
+                                  const int* __restrict__ offsets,
+                                  const int* __restrict__ halos, Pack<T> pk,
+                                  int hc, bool log_curves,
+                                  T* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sh_vals = reinterpret_cast<T*>(smem_raw);      // (hc, kHaloVals)
   T* sh_curves = sh_vals + hc * kHaloVals;          // (hc, n_r)
@@ -124,7 +135,7 @@ __global__ void tile_deposit_kernel(Tiling tl, const int* __restrict__ tiles,
       hv[3] = pk.lnDa[h];
       hv[4] = pk.crit2[h];
       hv[5] = pk.afac[h];
-      hv[6] = pk.invD[h];
+      if (!kPaint) hv[6] = pk.invD[h];
     }
     for (int k = threadIdx.x; k < nh * n_r; k += blockDim.x) {
       const int hk = k / n_r;
@@ -145,33 +156,43 @@ __global__ void tile_deposit_kernel(Tiling tl, const int* __restrict__ tiles,
       const T* cv = sh_curves + k * n_r;
       const T val = cv[i] * (T(1) - tt) + cv[i + 1] * tt;
       const bool use = x >= T(0) && x <= T(n_r - 1) && chord2 <= hv[4];
-      const T dd = (use ? val : T(0)) * hv[5];
-      const T amp = dd * m_rsqrt(chord2) * hv[6];
-      const T gth = dh0 * eth0 + dh1 * eth1 + dh2 * eth2;
-      const T gph = dh0 * eph0 + dh1 * eph1 + dh2 * eph2;
-      s0 = s0 + amp;
-      sth_sum = sth_sum + amp * gth;
-      sph_sum = sph_sum + amp * gph;
+      if constexpr (kPaint) {
+        const T pv = log_curves ? bf::m_exp(val) : val;
+        s0 = s0 + (use ? pv : T(0)) * hv[5];
+      } else {
+        const T dd = (use ? val : T(0)) * hv[5];
+        const T amp = dd * m_rsqrt(chord2) * hv[6];
+        const T gth = dh0 * eth0 + dh1 * eth1 + dh2 * eth2;
+        const T gph = dh0 * eph0 + dh1 * eph1 + dh2 * eph2;
+        s0 = s0 + amp;
+        sth_sum = sth_sum + amp * gth;
+        sph_sum = sph_sum + amp * gph;
+      }
     }
   }
   if (slot >= P) return;
-  T o0 = s0 * a_th - sth_sum;
-  T o1 = s0 * a_ph - sph_sum;
-  if (!valid) o0 = o1 = T(0);
-  if (!isfinite(o0)) o0 = T(0);
-  if (!isfinite(o1)) o1 = T(0);
-  T* out = acc + ((long long)t * P + slot) * 2;
-  out[0] = o0;
-  out[1] = o1;
+  if constexpr (kPaint) {
+    acc[(long long)t * P + slot] = (valid && isfinite(s0)) ? s0 : T(0);
+  } else {
+    T o0 = s0 * a_th - sth_sum;
+    T o1 = s0 * a_ph - sph_sum;
+    if (!valid) o0 = o1 = T(0);
+    if (!isfinite(o0)) o0 = T(0);
+    if (!isfinite(o1)) o1 = T(0);
+    T* out = acc + ((long long)t * P + slot) * 2;
+    out[0] = o0;
+    out[1] = o1;
+  }
 }
 
-template <typename T>
+template <typename T, bool kPaint>
 int launch(int nside, int RB, int K, int n_touched, const int* tiles,
            const int* offsets, const int* halos, const int* tile_i0,
            const int* tile_s, const int* tile_S, const double* center,
            const double* csc, const double* vh, const T* crit2,
            const T* lnDa, const T* invD, const T* afac, const T* curves,
-           int n_r, T ln_r0, T inv_dlnr, T* acc, void* stream) {
+           int n_r, T ln_r0, T inv_dlnr, bool log_curves, T* acc,
+           void* stream) {
   const int P = RB * K;
   if (P > 1024) return int(cudaErrorInvalidValue);
   // halos per shared-memory chunk: up to 64, within 48 KB
@@ -182,9 +203,9 @@ int launch(int nside, int RB, int K, int n_touched, const int* tiles,
   const int threads = (P + 31) / 32 * 32;
   Tiling tl{nside, RB, K, tile_i0, tile_s, tile_S, center, csc};
   Pack<T> pk{vh, crit2, lnDa, invD, afac, curves, n_r, ln_r0, inv_dlnr};
-  tile_deposit_kernel<T><<<n_touched, threads, size_t(hc) * per_halo,
-                           (cudaStream_t)stream>>>(tl, tiles, offsets, halos,
-                                                   pk, hc, acc);
+  tile_pairs_kernel<T, kPaint><<<n_touched, threads, size_t(hc) * per_halo,
+                                 (cudaStream_t)stream>>>(
+      tl, tiles, offsets, halos, pk, hc, log_curves, acc);
   return int(cudaGetLastError());
 }
 
@@ -200,9 +221,22 @@ extern "C" {
       const double* csc, const double* vh, const T* crit2, const T* lnDa,    \
       const T* invD, const T* afac, const T* curves, int n_r, T ln_r0,       \
       T inv_dlnr, T* acc, void* stream) {                                    \
-    return launch<T>(nside, RB, K, n_touched, tiles, offsets, halos,         \
-                     tile_i0, tile_s, tile_S, center, csc, vh, crit2, lnDa,  \
-                     invD, afac, curves, n_r, ln_r0, inv_dlnr, acc, stream); \
+    return launch<T, false>(nside, RB, K, n_touched, tiles, offsets, halos,  \
+                            tile_i0, tile_s, tile_S, center, csc, vh, crit2, \
+                            lnDa, invD, afac, curves, n_r, ln_r0, inv_dlnr,  \
+                            false, acc, stream);                             \
+  }                                                                          \
+  int bf_tile_paint_##SUF(                                                   \
+      int nside, int RB, int K, int n_touched, const int* tiles,             \
+      const int* offsets, const int* halos, const int* tile_i0,              \
+      const int* tile_s, const int* tile_S, const double* center,            \
+      const double* csc, const double* vh, const T* crit2, const T* lnDa,    \
+      const T* afac, const T* curves, int n_r, T ln_r0, T inv_dlnr,          \
+      int log_curves, T* acc, void* stream) {                                \
+    return launch<T, true>(nside, RB, K, n_touched, tiles, offsets, halos,   \
+                           tile_i0, tile_s, tile_S, center, csc, vh, crit2,  \
+                           lnDa, nullptr, afac, curves, n_r, ln_r0,          \
+                           inv_dlnr, log_curves != 0, acc, stream);          \
   }
 
 BF_TILE_DEPOSIT(float, f32)

@@ -1,8 +1,8 @@
 """Numerics: HEALPix geometry, the sky tiling, integration and
 interpolation, FFTLog, and the CUDA kernels' wrappers with their plain
-versions (curve collapse, disc deposit, scatter regrid, tile deposit,
-stencil regrid and its complement, tile layout, FFTLog transform, table
-rows)."""
+versions (curve collapse, disc deposit, scatter regrid, tile deposit and
+tile paint, stencil regrid and its complement, tile layout, FFTLog
+transform, table rows, disc paint)."""
 
 from . import healpix
 from . import integrate
@@ -14,3 +14,4 @@ from . import tiles
 from . import tile_deposit
 from . import stencil
 from . import table_rows
+from . import paint

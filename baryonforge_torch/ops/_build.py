@@ -9,11 +9,13 @@ card has ``nvcc``.
 
 ``launches`` counts, per kernel entry point, the launches made by the
 wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
-``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4), ``ops/stencil.py``
-(K5 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
-``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
-``tile_view``), ``ops/fftlog.py`` (K8 ``fht``) and ``ops/table_rows.py``
-(K9 ``enclosed_mass`` and ``displacement_rows``); each wrapper adds one
+``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4 ``tile_deposit``,
+K10 ``tile_paint``), ``ops/stencil.py`` (K5 ``stencil_hot`` and
+``stencil``, K6 ``stencil_geo`` and ``stencil_complement``),
+``ops/tiles.py`` (K7 ``flat_view`` and ``tile_view``), ``ops/fftlog.py``
+(K8 ``fht``), ``ops/table_rows.py`` (K9 ``enclosed_mass`` and
+``displacement_rows``) and ``ops/paint.py`` (K11 ``disc_paint``); each
+wrapper adds one
 right where it launches its kernel, so a run can show that its main path
 went through the kernels.
 """
@@ -61,6 +63,8 @@ def _signatures():
         "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
         "bf_tile_deposit_f32": [_I] * 4 + [_P] * 14 + [_I, _F, _F, _P, _P],
         "bf_tile_deposit_f64": [_I] * 4 + [_P] * 14 + [_I, _D, _D, _P, _P],
+        "bf_tile_paint_f32": [_I] * 4 + [_P] * 13 + [_I, _F, _F, _I, _P, _P],
+        "bf_tile_paint_f64": [_I] * 4 + [_P] * 13 + [_I, _D, _D, _I, _P, _P],
         "bf_fht_f64": [_I, _I, _P, _P, _D, _D, _D, _P, _P, _P],
         "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
         "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
@@ -70,12 +74,16 @@ def _signatures():
         sig[f"bf_tile_view_{sfx}"] = sig[f"bf_flat_view_{sfx}"]
         sig[f"bf_stencil_hot_{sfx}"] = [_I, _I] + [_P] * 6
         sig[f"bf_stencil_geo_{sfx}"] = [_I] * 4 + [_P] * 10
+        flt = _F if sfx == "f32" else _D
         for rsfx in ("f32", "f64"):
             # offsets in the first dtype, maps in the second
             sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I, _P, _P, _P, _P]
             sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 9
             sig[f"bf_stencil_complement_{sfx}_{rsfx}"] = \
                 [_I] * 4 + [_P] * 4 + [_I] + [_P] * 8
+            # curves in the first dtype, the painted map in the second
+            sig[f"bf_disc_paint_{sfx}_{rsfx}"] = \
+                [_I, _I] + [_P] * 6 + [_I, flt, flt, _I, _I, _D, _P, _P]
     return sig
 
 

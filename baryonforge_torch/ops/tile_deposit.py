@@ -1,5 +1,5 @@
 """Tiled phase A: the per-tile (slot, halo) pair deposit of tangent-angle
-offsets.
+offsets, and the tiled paint.
 
 ``tile_deposit`` is the wrapper of kernel K4 (``csrc/tile_deposit.cu``);
 ``tile_deposit_plain`` is its plain version, a port of
@@ -17,97 +17,140 @@ curve, amp = d * afac / (chord D); per slot the split sums
 s0 = sum amp, sth = sum amp (dh . e_th), sph = sum amp (dh . e_ph), and
 out = (s0 a_th - sth, s0 a_ph - sph). Dead slots and non-finite values
 are exact zeros: the stencil regrid reads neighbouring tiles' storage.
+
+``tile_paint`` is the wrapper of kernel K10 (K4's kernel in paint mode,
+entry point ``bf_tile_paint``); ``tile_paint_plain`` is its plain version,
+a port of ``make_tile_deposit(mode="paint")`` with the direct lerp: per
+pair the same chord, x and mask, then exp of the lerp for log curves,
+d = (use ? value : 0) afac, summed per slot into a (n_tiles, RB*K) map.
 """
 
 import torch
 
 from . import _build
 
-__all__ = ["tile_deposit", "tile_deposit_plain", "PACK_KEYS"]
+__all__ = ["tile_deposit", "tile_deposit_plain", "tile_paint",
+           "tile_paint_plain", "PACK_KEYS", "PAINT_KEYS"]
 
 # per-halo columns: vh (n, 3) float64 unit vectors; the rest in the
 # deposit dtype: crit2 = (2 sin(min(radius, pi)/2))^2, lnDa = ln(D/a) +
 # ln(rscale), invD = 1/D, afac = a, curves (n, n_r)
 PACK_KEYS = ("vh", "crit2", "lnDa", "invD", "afac", "curves")
+# the paint's columns: lnDa = ln(D/a), afac the per-halo paint scale (1/a,
+# times pixarea D^2 for a per-pixel integral), curves the paint curves
+PAINT_KEYS = ("vh", "crit2", "lnDa", "afac", "curves")
 
 # tiles and pairs per step of the plain version
 _TILE_CHUNK = 1024
 _PAIR_CHUNK = 2048
 
 
-def _check(tiling, csr, pack):
+def _check(tiling, csr, pack, keys=PACK_KEYS, name="tile_deposit"):
     curves = pack["curves"]
     dt, dev = curves.dtype, curves.device
     if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"tile_deposit: unsupported dtype {dt}")
+        raise TypeError(f"{name}: unsupported dtype {dt}")
     if curves.dim() != 2 or curves.shape[1] < 2:
-        raise ValueError("tile_deposit: curves must be (n_halos, n_r >= 2)")
+        raise ValueError(f"{name}: curves must be (n_halos, n_r >= 2)")
     n = curves.shape[0]
-    for k in PACK_KEYS:
+    for k in keys:
         x = pack[k]
         want = ((n, 3), torch.float64) if k == "vh" else (
             (n,) if k != "curves" else (n, curves.shape[1]), dt)
         if tuple(x.shape) != want[0] or x.dtype != want[1] \
                 or x.device != dev:
-            raise ValueError(f"tile_deposit: pack[{k!r}] must be a "
+            raise ValueError(f"{name}: pack[{k!r}] must be a "
                              f"{want[1]} {want[0]} tensor on {dev}")
     tiles, offsets, halos = csr
-    for name, x in (("tiles", tiles), ("offsets", offsets),
-                    ("halos", halos)):
+    for cname, x in (("tiles", tiles), ("offsets", offsets),
+                     ("halos", halos)):
         if x.dtype != torch.int32 or x.dim() != 1 or x.device != dev:
-            raise ValueError(f"tile_deposit: {name} must be a 1-D int32 "
+            raise ValueError(f"{name}: {cname} must be a 1-D int32 "
                              f"tensor on {dev}")
     if offsets.numel() != tiles.numel() + 1:
-        raise ValueError("tile_deposit: need len(offsets) == len(tiles) + 1")
+        raise ValueError(f"{name}: need len(offsets) == len(tiles) + 1")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda":
+        if tiling.P > 1024:
+            raise ValueError(f"{name}: the kernel runs one thread per slot "
+                             f"and takes tiles of at most 1024 slots, not "
+                             f"{tiling.P}")
+        if (7 + curves.shape[1]) * curves.element_size() > 48 * 1024:
+            raise ValueError(f"{name}: curves of {curves.shape[1]} points "
+                             "do not fit the kernel's 48 KB of shared "
+                             "memory for one halo")
+
+
+def _chunks(tiling, csr, dt, tangent):
+    """The plain versions' work, per chunk of touched tiles: their ids,
+    their slot geometry (``SkyTiling.slot_local``) and centres in ``dt``,
+    and their pairs in chunks of (local tile index, halo id)."""
+    tiles, offsets, halos = csr
+    dev = tiles.device
+    arr = tiling.device_arrays(dev)
+    offs = offsets.cpu().tolist()
+    pair_tile = torch.repeat_interleave(
+        torch.arange(tiles.numel(), device=dev),
+        (offsets[1:] - offsets[:-1]).long())
+    for t0 in range(0, tiles.numel(), _TILE_CHUNK):
+        t1 = min(t0 + _TILE_CHUNK, tiles.numel())
+        tid = tiles[t0:t1].long()
+        geo = tiling.slot_local(arr["tile_i0"][tid], arr["tile_s"][tid],
+                                arr["tile_S"][tid], arr["csc"][tid], dt,
+                                tangent=tangent)
+        pairs = []
+        for q0 in range(offs[t0], offs[t1], _PAIR_CHUNK):
+            q1 = min(q0 + _PAIR_CHUNK, offs[t1])
+            pairs.append((pair_tile[q0:q1] - t0, halos[q0:q1].long()))
+        yield tid, geo, arr["center"][tid].to(dt), pairs
+
+
+def _pair_lookup(dh, dpp, pack, h, ln_r0, inv_dlnr):
+    """The chord^2, curve lerp and mask of a chunk of (pair, slot): dh
+    (n, 3) the halos' offsets from their tiles' centres, dpp (n, 3, P) the
+    slots'."""
+    curves = pack["curves"]
+    n_r = curves.shape[1]
+    d0 = dh[:, 0:1] - dpp[:, 0]
+    d1 = dh[:, 1:2] - dpp[:, 1]
+    d2 = dh[:, 2:3] - dpp[:, 2]
+    chord2 = d0 * d0 + d1 * d1 + d2 * d2
+    chord2 = torch.clamp(chord2, min=1e-30)
+    lnr = 0.5 * torch.log(chord2) + pack["lnDa"][h][:, None]
+    x = (lnr - ln_r0) * inv_dlnr
+    i = torch.clamp(x.to(torch.int32), 0, n_r - 2)
+    t = x - i.to(x.dtype)
+    cv = curves[h]
+    il = i.long()
+    val = (torch.gather(cv, 1, il) * (1.0 - t)
+           + torch.gather(cv, 1, il + 1) * t)
+    use = ((x >= 0) & (x <= n_r - 1)
+           & (chord2 <= pack["crit2"][h][:, None]))
+    return chord2, val, use
+
+
+def _finish(out, valid):
+    """Dead slots and non-finite values as exact zeros."""
+    out = torch.where(valid, out, torch.zeros_like(out))
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
 def tile_deposit_plain(tiling, csr, pack, ln_r0, inv_dlnr):
     """Plain version of K4, in tile and pair chunks. Arguments as
     :func:`tile_deposit`."""
-    curves = pack["curves"]
-    dt, dev = curves.dtype, curves.device
-    n_r = curves.shape[1]
+    dt, dev = pack["curves"].dtype, pack["curves"].device
     P = tiling.P
     acc = torch.zeros((tiling.n_tiles, P, 2), dtype=dt, device=dev)
-    tiles, offsets, halos = csr
-    T = tiles.numel()
-    if T == 0:
-        return acc
-    arr = tiling.device_arrays(dev)
-    offs = offsets.cpu().tolist()
-    pair_tile = torch.repeat_interleave(
-        torch.arange(T, device=dev), (offsets[1:] - offsets[:-1]).long())
-    for t0 in range(0, T, _TILE_CHUNK):
-        t1 = min(t0 + _TILE_CHUNK, T)
-        tid = tiles[t0:t1].long()
-        dp, valid, e_th, e_ph, a_th, a_ph = tiling.slot_local(
-            arr["tile_i0"][tid], arr["tile_s"][tid], arr["tile_S"][tid],
-            arr["csc"][tid], dt, tangent=True)
-        c32 = arr["center"][tid].to(dt)
-        s0 = torch.zeros((t1 - t0, P), dtype=dt, device=dev)
+    for tid, geo, c, pairs in _chunks(tiling, csr, dt, tangent=True):
+        dp, valid, e_th, e_ph, a_th, a_ph = geo
+        s0 = torch.zeros((tid.numel(), P), dtype=dt, device=dev)
         sth = torch.zeros_like(s0)
         sph = torch.zeros_like(s0)
-        for q0 in range(offs[t0], offs[t1], _PAIR_CHUNK):
-            q1 = min(q0 + _PAIR_CHUNK, offs[t1])
-            lt = pair_tile[q0:q1] - t0
-            h = halos[q0:q1].long()
-            dh = pack["vh"][h].to(dt) - c32[lt]                  # (n, 3)
-            dpp = dp[lt]
-            d0 = dh[:, 0:1] - dpp[:, 0]
-            d1 = dh[:, 1:2] - dpp[:, 1]
-            d2 = dh[:, 2:3] - dpp[:, 2]
-            chord2 = d0 * d0 + d1 * d1 + d2 * d2
-            chord2 = torch.clamp(chord2, min=1e-30)
-            lnr = 0.5 * torch.log(chord2) + pack["lnDa"][h][:, None]
-            x = (lnr - ln_r0) * inv_dlnr
-            i = torch.clamp(x.to(torch.int32), 0, n_r - 2)
-            t = x - i.to(dt)
-            cv = curves[h]
-            il = i.long()
-            val = (torch.gather(cv, 1, il) * (1.0 - t)
-                   + torch.gather(cv, 1, il + 1) * t)
-            use = ((x >= 0) & (x <= n_r - 1)
-                   & (chord2 <= pack["crit2"][h][:, None]))
+        for lt, h in pairs:
+            dh = pack["vh"][h].to(dt) - c[lt]                    # (n, 3)
+            chord2, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0,
+                                            inv_dlnr)
             d = torch.where(use, val, torch.zeros_like(val)) \
                 * pack["afac"][h][:, None]
             amp = d * torch.rsqrt(chord2) * pack["invD"][h][:, None]
@@ -120,10 +163,27 @@ def tile_deposit_plain(tiling, csr, pack, ln_r0, inv_dlnr):
             sth.index_add_(0, lt, amp * gth)
             sph.index_add_(0, lt, amp * gph)
         out = torch.stack([s0 * a_th - sth, s0 * a_ph - sph], dim=-1)
-        out = torch.where(valid.reshape(t1 - t0, P, 1), out,
-                          torch.zeros_like(out))
-        acc[tid] = torch.where(torch.isfinite(out), out,
-                               torch.zeros_like(out))
+        acc[tid] = _finish(out, valid.reshape(tid.numel(), P, 1))
+    return acc
+
+
+def tile_paint_plain(tiling, csr, pack, ln_r0, inv_dlnr, log_curves):
+    """Plain version of K10, in tile and pair chunks. Arguments as
+    :func:`tile_paint`."""
+    dt, dev = pack["curves"].dtype, pack["curves"].device
+    P = tiling.P
+    acc = torch.zeros((tiling.n_tiles, P), dtype=dt, device=dev)
+    for tid, (dp, valid), c, pairs in _chunks(tiling, csr, dt,
+                                              tangent=False):
+        s0 = torch.zeros((tid.numel(), P), dtype=dt, device=dev)
+        for lt, h in pairs:
+            dh = pack["vh"][h].to(dt) - c[lt]
+            _, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0, inv_dlnr)
+            if log_curves:
+                val = torch.exp(val)
+            s0.index_add_(0, lt, torch.where(use, val, torch.zeros_like(val))
+                          * pack["afac"][h][:, None])
+        acc[tid] = _finish(s0, valid.reshape(tid.numel(), P))
     return acc
 
 
@@ -145,36 +205,58 @@ def tile_deposit(tiling, csr, pack, ln_r0, inv_dlnr):
     CUDA, the plain version for tensors on the CPU.
     """
     _check(tiling, csr, pack)
-    dev = pack["curves"].device
-    if dev.type == "cpu":
+    if pack["curves"].device.type == "cpu":
         return tile_deposit_plain(tiling, csr, pack, float(ln_r0),
                                   float(inv_dlnr))
-    if dev.type != "cuda":
-        raise ValueError(f"tile_deposit: unsupported device {dev}")
-    if tiling.P > 1024:
-        raise ValueError("tile_deposit: K4 runs one thread per slot and "
-                         f"takes tiles of at most 1024 slots, not {tiling.P}")
-    dt = pack["curves"].dtype
-    n_r = pack["curves"].shape[1]
-    if (7 + n_r) * pack["curves"].element_size() > 48 * 1024:
-        raise ValueError(f"tile_deposit: curves of {n_r} points do not fit "
-                         "K4's 48 KB of shared memory for one halo")
-    acc = torch.zeros((tiling.n_tiles, tiling.P, 2), dtype=dt, device=dev)
+    acc = torch.zeros((tiling.n_tiles, tiling.P, 2),
+                      dtype=pack["curves"].dtype, device=pack["curves"].device)
+    _launch("tile_deposit", tiling, csr, pack, PACK_KEYS, ln_r0, inv_dlnr,
+            (), acc)
+    return acc
+
+
+def tile_paint(tiling, csr, pack, ln_r0, inv_dlnr, log_curves):
+    """Paint every (tile, halo) pair's curve value on the tile's slots.
+
+    tiling, csr, ln_r0, inv_dlnr : as :func:`tile_deposit`
+    pack       : dict of per-halo tensors, ``PAINT_KEYS``; the curves' dtype
+                 (float32 or float64) is the paint's dtype
+    log_curves : the curves hold logs (TabulatedProfile), exponentiated
+                 after the lerp; else raw values (ParamTabulatedProfile)
+
+    Returns the tile-major (n_tiles, RB*K) map of sum over halos of
+    curve(r) afac; untouched tiles and dead slots are zero. Kernel K10 for
+    tensors on CUDA, the plain version for tensors on the CPU.
+    """
+    _check(tiling, csr, pack, PAINT_KEYS, "tile_paint")
+    if pack["curves"].device.type == "cpu":
+        return tile_paint_plain(tiling, csr, pack, float(ln_r0),
+                                float(inv_dlnr), bool(log_curves))
+    acc = torch.zeros((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
+                      device=pack["curves"].device)
+    _launch("tile_paint", tiling, csr, pack, PAINT_KEYS, ln_r0, inv_dlnr,
+            (int(bool(log_curves)),), acc)
+    return acc
+
+
+def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc):
+    """Launch ``bf_<name>`` (K4 or K10) over the touched tiles into the
+    zeroed ``acc``; no launch when no tile is touched."""
     tiles, offsets, halos = csr
     if tiles.numel() == 0:
-        return acc
+        return
+    dev = acc.device
     arr = tiling.device_arrays(dev)
-    cols = [pack[k].contiguous() for k in PACK_KEYS]
-    fn = getattr(_build.library(), "bf_tile_deposit_{}".format(
-        "f32" if dt == torch.float32 else "f64"))
+    cols = [pack[k].contiguous() for k in keys]
+    fn = getattr(_build.library(), "bf_{}_{}".format(
+        name, "f32" if acc.dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         err = fn(tiling.nside, tiling.RB, tiling.K, tiles.numel(),
                  _build.ptr(tiles), _build.ptr(offsets), _build.ptr(halos),
                  _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
                  _build.ptr(arr["tile_S"]), _build.ptr(arr["center"]),
                  _build.ptr(arr["csc"]), *[_build.ptr(c) for c in cols],
-                 n_r, float(ln_r0), float(inv_dlnr), _build.ptr(acc),
-                 _build.stream_of(acc))
-    _build.check(err, "tile_deposit")
-    _build.launches["tile_deposit"] += 1
-    return acc
+                 pack["curves"].shape[1], float(ln_r0), float(inv_dlnr),
+                 *extra, _build.ptr(acc), _build.stream_of(acc))
+    _build.check(err, name)
+    _build.launches[name] += 1

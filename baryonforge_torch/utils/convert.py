@@ -5,12 +5,16 @@ Python objects, so they convert by reading attributes:
 
   * ``cosmology_from_jax(cosmo)``: the port's Cosmology;
   * ``profile_from_jax(prof)``: the port's counterpart of a Schneider19
-    profile, with its nested sub-profiles and combined (algebra) profiles,
-    model and hyper parameters, FFTLog precision, mass definition and
-    concentration relation;
+    or thermodynamic profile, with its nested sub-profiles and combined
+    (algebra) profiles, model and hyper parameters, FFTLog precision, mass
+    definition and concentration relation; also of a ConvolvedProfile and
+    its pixel window;
   * ``baryonification_from_jax(model)``: the port's displacement model,
     with its table when it has one and its DMO/DMB profiles when it has
-    them.
+    them;
+  * ``tabulated_from_jax(tab)``: the port's TabulatedProfile or
+    ParamTabulatedProfile with the JAX object's tables, axes and p_keys,
+    and its model when that converts.
 """
 
 import dataclasses
@@ -22,10 +26,16 @@ from ..cosmo.core import Cosmology
 from ..cosmo.massdef import MassDef
 from ..Profiles import Base as _base
 from ..Profiles import Schneider19 as _s19
+from ..Profiles import Thermodynamic as _thermo
 from ..Profiles.BaryonCorrection import Baryonification2D, Baryonification3D
+from . import Pixel as _pixel
+from . import Tabulate as _tabulate
 
-__all__ = ["cosmology_from_jax", "profile_from_jax",
-           "baryonification_from_jax"]
+__all__ = ["cosmology_from_jax", "profile_from_jax", "pixel_from_jax",
+           "baryonification_from_jax", "tabulated_from_jax"]
+
+# the port's module for each JAX profile module it has a counterpart of
+_PROFILE_MODULES = {"Schneider19": _s19, "Thermodynamic": _thermo}
 
 
 def cosmology_from_jax(cosmo):
@@ -56,7 +66,7 @@ def _concentration(rel):
         object.__setattr__(new, "mass_def", _massdef(rel.mass_def))
         object.__setattr__(new, "n_grid", int(rel.n_grid))
         return new
-    kw = {f.name: _value(getattr(rel, f.name))
+    kw = {f.name: _value(getattr(rel, f.name), {})
           for f in dataclasses.fields(rel)}
     return cls(**kw)
 
@@ -66,10 +76,13 @@ def _is_jax_profile(v):
         and not isinstance(v, _base.Profile)
 
 
-def _value(v):
-    """One attribute value of a JAX-package object, in the port's terms."""
+def _value(v, memo):
+    """One attribute value of a JAX-package object, in the port's terms;
+    ``memo`` maps the ids of profiles converted so far to their
+    counterparts, so that a profile met twice (a thermodynamic profile's
+    ``prof4params``) converts to one object."""
     if _is_jax_profile(v):
-        return profile_from_jax(v)
+        return profile_from_jax(v, memo)
     if hasattr(v, "Delta") and hasattr(v, "rho_type"):
         return _massdef(v)
     if isinstance(v, type):
@@ -80,28 +93,55 @@ def _value(v):
             hasattr(v, "n_grid"):
         return _concentration(v)
     if isinstance(v, dict):
-        return {k: _value(x) for k, x in v.items()}
+        return {k: _value(x, memo) for k, x in v.items()}
     if type(v).__module__.split(".")[0] in ("jax", "jaxlib"):
         a = np.asarray(v)
         return a.item() if a.ndim == 0 else a
     return v
 
 
-def profile_from_jax(prof):
-    """The port's counterpart of a JAX-package Schneider19 profile (or a
-    combined profile built from them): same class, every attribute carried
-    across, sub-profiles converted recursively. A user ``xi_mm`` hook is
-    not carried (it would be a JAX callable): such a profile raises."""
-    if type(prof).__name__ == "_CombinedProfile":
+def pixel_from_jax(pix):
+    """The port's pixel window for a JAX-package one."""
+    name = type(pix).__name__
+    if name == "HealPixel":
+        return _pixel.HealPixel(pix.NSIDE)
+    if name == "GridPixelApprox":
+        return _pixel.GridPixelApprox(pix.size)
+    if name == "NoPix":
+        return _pixel.NoPix()
+    raise NotImplementedError(f"pixel window {name} is not ported")
+
+
+def profile_from_jax(prof, memo=None):
+    """The port's counterpart of a JAX-package Schneider19 or
+    thermodynamic profile (or a combined profile built from them): same
+    class, every attribute carried across, sub-profiles converted
+    recursively. A ConvolvedProfile converts with its profile and pixel
+    window. A user ``xi_mm`` hook is not carried (it would be a JAX
+    callable): such a profile raises."""
+    memo = {} if memo is None else memo
+    if id(prof) in memo:
+        return memo[id(prof)]
+    name = type(prof).__name__
+    if name == "ConvolvedProfile":
+        new = _pixel.ConvolvedProfile(profile_from_jax(prof.Profile, memo),
+                                      pixel_from_jax(prof.Pixel))
+        memo[id(prof)] = new
+        return new
+    if name == "_CombinedProfile":
         cls = _base._CombinedProfile
     else:
-        cls = _port_class(prof, _s19, "profile class")
+        module = _PROFILE_MODULES.get(type(prof).__module__.split(".")[-1])
+        if module is None:
+            raise NotImplementedError(f"profile class {name} is not ported")
+        cls = _port_class(prof, module, "profile class")
     if getattr(prof, "xi_mm", None) is not None:
         raise NotImplementedError("profile_from_jax: an xi_mm hook cannot "
                                   "be carried across")
     new = object.__new__(cls)
+    memo[id(prof)] = new
     for k, v in vars(prof).items():
-        setattr(new, k, _value(v))
+        setattr(new, k, _value(v, memo))
     return new
 
 
@@ -125,3 +165,28 @@ def baryonification_from_jax(model, device="cuda"):
         model.raw_input_r_range, p_keys,
         [getattr(model, f"raw_input_{k}_range") for k in p_keys],
         model.Rdelta_sampling)
+
+
+def tabulated_from_jax(tab, device="cuda"):
+    """The port's TabulatedProfile or ParamTabulatedProfile for a JAX one:
+    its tables and axes (as numpy float64), its ``raw_input_*`` arrays and
+    p_keys, and its model when that converts (else None: the table reads
+    back, but ``setup_interpolator`` then needs a model). ``device`` is
+    where the port's ``setup_interpolator`` runs."""
+    cls = _port_class(tab, _tabulate, "tabulated profile")
+    try:
+        model = profile_from_jax(tab.model)
+    except NotImplementedError:
+        model = None
+    new = object.__new__(cls)
+    _tabulate._Tabulated.__init__(new, model, cosmology_from_jax(tab.cosmo),
+                                  _massdef(tab.mass_def), device)
+    new.p_keys = [str(k) for k in tab.p_keys]
+    for k, v in vars(tab).items():
+        if k.startswith("raw_input_"):
+            setattr(new, k, np.asarray(v))
+    if hasattr(tab, "_tab2D"):
+        new._set_axes([np.array(x, dtype=np.float64) for x in tab._axes],
+                      np.array(tab._tab3D, dtype=np.float64),
+                      np.array(tab._tab2D, dtype=np.float64))
+    return new

@@ -55,7 +55,30 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      bound;
   8. times the full-width table (setup_interpolator() at its defaults, 30 z
      x 30 M x 100 r) and counts its broken-row warnings;
-  9. prints one JSON line with each kernel's launches, error, times, bound
+  9. holds the paint's kernels against their plain versions on the card,
+     with the bench's tSZ table as the JAX package built it
+     (tests/data/tsz_bench_table.npz) and its raw form (exp of the table):
+     K10 tile paint and K11 disc paint, log and raw curves, float64 (to
+     1e-10 of the largest value) and float32 (per pixel, to the relative
+     tolerance of ops.paint.float32_tolerance, with pixels painted on one
+     side only allowed at disc edges alone; at the bench shapes also K11's
+     plain version on the card against the CPU's), on the polar catalog
+     (NSIDE 64, epsilon_max 60), the NSIDE 256 catalog (epsilon_max 20) and
+     the bench shapes (epsilon_max 5), and the paint path card vs CPU in
+     float64 on the polar catalog;
+ 10. builds the tSZ table TabulatedProfile(ThermalSZ(Pressure(**bpar,
+     proj_cutoff=100), proj_cutoff=100)) on the card on the bench grid,
+     timed, against the JAX file (logs within 1e-9) and a small table on the
+     card against the CPU's;
+ 11. runs the paint path at the bench configuration, PaintProfilesShell(
+     epsilon_max=5, model=the card's tSZ table).process(), tiled (the
+     default: K1, K10, K7) and scatter (K1, K11), each with the launch
+     counts set to 0 just before and read just after; checks the two agree
+     to the JAX package's bound (tests/test_tiled_deposit.py:113), and the
+     card table's map agrees with the file table's; then one paint call at
+     the north star's size (NSIDE 4096, 10^6 halos), warm and twice timed,
+     with its phases;
+ 12. prints one JSON line with each kernel's launches, error, times, bound
      and library-call time, and last the line {"ok": true, "device": ...}.
 
 A kernel's bound (bound_ms) is the larger of the bytes it must move (each
@@ -79,6 +102,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TABLE = os.path.join(HERE, "tools", "_northstar_table.npz")
+TSZ_TABLE = os.path.join(HERE, "tests", "data", "tsz_bench_table.npz")
 COSMO = dict(Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96,
              w0=-1.0)
 NSIDE, N_HALOS, SEED, EPS_MAX = 1024, 18512, 7, 20
@@ -95,6 +119,10 @@ BENCH_GRID = dict(z_min=0.7, z_max=1.1, N_samples_z=8, M_min=5e12,
                   N_samples_R=64, verbose=False)
 SMALL_GRID = dict(BENCH_GRID, N_samples_z=2, N_samples_Mass=4,
                   N_samples_R=16)
+# the paint's bench configuration: the README's epsilon_max for the tSZ
+# paint, on the bench catalog; the north-star size (tools/northstar.py)
+PAINT_EPS = 5
+NS_NSIDE, NS_HALOS = 4096, 1_000_000
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 
@@ -525,8 +553,16 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
                                                             dt), 5),
                       time_ms(torch, lambda: st.stencil_geo_plain(
                           tiling, tables, dt), 3))
+            # K6 stencil_geo: the geometric tiles' ids, offsets and tile
+            # records read once, each listed slot's id, pixel, theta and phi
+            # written once; ~30 operations a listed slot (ring geometry,
+            # pixel index, theta and phi)
+            n_g = tables["g_tids"].numel()
+            geo_bound = bound(n_g * (4 + 4 + 3 * 4) + nbytes(gk),
+                              30.0 * gk[0].numel(), F32_FLOPS)
             log(f"  K6 stencil_geo (once per NSIDE): kernel {geo_ms[0]:.3f} "
-                f"ms, plain {geo_ms[1]:.3f} ms")
+                f"ms, plain {geo_ms[1]:.3f} ms, bound {geo_bound[0]:.4f} ms "
+                f"({geo_bound[1]}), {gk[0].numel()} slots of {n_g} tiles")
     return out
 
 
@@ -897,11 +933,12 @@ def card_vs_cpu(bf, torch, model, cat, shell, label, **kw):
     return launches
 
 
-def drive(bf, torch, runner, required, label, gpu):
+def drive(bf, torch, runner, required, label, gpu, paint=False):
     """Two warm calls and N_CALLS timed ones of ``runner.process()``, with
     the launch counts set to 0 just before and read just after. Checks the
     kernels in ``required`` were launched and the map is finite, of the
-    right shape, moved and mass-conserving. Returns (map, launches)."""
+    right shape, and moved and mass-conserving (a baryonified shell) or
+    painted (``paint``). Returns (map, launches)."""
     from baryonforge_torch.ops import _build
     shell = runner.LightconeShell
     _build.reset_launches()
@@ -920,9 +957,12 @@ def drive(bf, torch, runner, required, label, gpu):
             raise AssertionError(f"{label} did not launch {k}: {launches}")
     if out.shape != shell.map.shape or not np.isfinite(out).all():
         raise AssertionError(f"{label}: map not finite / wrong shape")
-    if not np.isclose(out.sum(), shell.map.sum()):
+    if paint:
+        if not out.max() > 0:
+            raise AssertionError(f"{label} painted nothing")
+    elif not np.isclose(out.sum(), shell.map.sum()):
         raise AssertionError(f"{label} lost mass")
-    if not np.abs(out - shell.map).max() > 0:
+    elif not np.abs(out - shell.map).max() > 0:
         raise AssertionError(f"{label} moved nothing")
     q = np.percentile(np.array(walls) * 1e3, [25, 50, 75])
     log(f"[{gpu}] {label}: {N_CALLS} calls, median {q[1]:.3f} ms "
@@ -932,6 +972,256 @@ def drive(bf, torch, runner, required, label, gpu):
             for k in phases[0]))
     log(f"launches in {label}'s {2 + N_CALLS} calls: {launches}")
     return out, launches
+
+
+def tsz_profile(bf):
+    """The bench's tSZ model (tools/northstar.py:50-58)."""
+    T = bf.Profiles.Thermodynamic
+    return T.ThermalSZ(T.Pressure(**BPAR, proj_cutoff=100), proj_cutoff=100)
+
+
+def tsz_models(bf, log_tab):
+    """A log tSZ table and its raw form (exp of its tables, as a
+    ParamTabulatedProfile without parameter axes), which runs the
+    raw-curve branches of K10 and K11."""
+    raw = bf.utils.ParamTabulatedProfile(None, log_tab.cosmo,
+                                         mass_def=log_tab.mass_def)
+    raw._set_axes(log_tab._axes, np.exp(log_tab.raw_input_3D),
+                  np.exp(log_tab.raw_input_2D))
+    return {"log": log_tab, "raw": raw}
+
+
+def paint_bound_check(name, k, p):
+    """The JAX package's bound between its tiled and scatter paint
+    (tests/test_tiled_deposit.py:113): |k - p| <= 2e-3 max|p| + 2e-3 |p|,
+    reported as the largest excess ratio (<= 1 passes)."""
+    k, p = np.asarray(k, np.float64), np.asarray(p, np.float64)
+    scale = np.abs(p).max()
+    if not scale > 0:
+        raise AssertionError(f"{name}: nothing painted")
+    ratio = float((np.abs(k - p) / (2e-3 * scale + 2e-3 * np.abs(p))).max())
+    check(f"{name} (|diff| / (2e-3 max + 2e-3 |value|))", ratio, 1.0)
+
+
+def paint_f32_check(name, k, p, rtol, marginal):
+    """A float32 paint kernel against its plain version, per pixel, on the
+    tolerances of ops.paint.float32_tolerance: |k - p| <= rtol |p| where
+    both paint and the pixel is not marginal; a pixel painted on one side
+    only must be marginal, and marginal pixels stay under 1% of the
+    painted ones (disc-edge pixels within the reach of float32)."""
+    k, p = k.double(), p.double()
+    nk, np_ = k != 0, p != 0
+    painted = int((nk | np_).sum())
+    if not painted:
+        raise AssertionError(f"{name}: nothing painted")
+    keep = nk & np_ & ~marginal
+    if not keep.any():
+        raise AssertionError(f"{name}: no pixel to hold")
+    ratio =((k - p).abs() / (rtol * p.abs()))[keep].max().item()
+    log(f"  {name}: {int(keep.sum())} of {painted} painted pixels held, "
+        f"{int((marginal & (nk | np_)).sum())} marginal, "
+        f"{int((nk ^ np_).sum())} painted on one side only; largest "
+        f"|diff| / |value| {((k - p).abs() / p.abs())[keep].max().item():.3e}")
+    check(f"{name} (per pixel |diff| / (rtol |value|))", ratio, 1.0)
+    check(f"{name}: pixels painted on one side only, not marginal",
+          int(((nk ^ np_) & ~marginal).sum()), 0)
+    check(f"{name}: marginal share of the painted pixels",
+          int((marginal & (nk | np_)).sum()) / painted, 1e-2)
+
+
+def compare_paint_kernels(bf, torch, models, cat, shell, eps, label, timing):
+    """K10 and K11 against their plain versions on the card, on this
+    catalog, with log and raw curves, in float64 and float32 (K11's map in
+    float64, the runner's default). Returns {kernel: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)} for the bench
+    configuration (float32, log curves) when ``timing``."""
+    from baryonforge_torch.ops import paint
+    from baryonforge_torch.ops import tile_deposit as td
+    dev = torch.device(DEVICE)
+    nside = shell.NSIDE
+    out = {}
+    for kind, model in models.items():
+        for dt in (torch.float64, torch.float32):
+            tag = f"{label}, {kind} curves, {str(dt).replace('torch.', '')}"
+            runner = bf.PaintProfilesShell(cat, shell, epsilon_max=eps,
+                                           model=model, dtype=dt, device=dev)
+            hd = runner._host_halo_data(
+                bf.cosmo.cosmology_from_dict(runner.cosmo))
+            curves, r0, dl = model.with_dtype(dt, device=dev).halo_curves(
+                hd["M"], hd["a"])
+            r0, dl = float(r0), float(dl)
+            logc = model.curves_are_log
+            tiling, csr, pack = runner._tile_paint_inputs(hd, curves, logc,
+                                                          nside)
+            ak = td.tile_paint(tiling, csr, pack, r0, 1.0 / dl, logc)
+            ap = td.tile_paint_plain(tiling, csr, pack, r0, 1.0 / dl, logc)
+            halos = {k: torch.as_tensor(hd[k], device=dev)
+                     for k in paint.HALO_COLUMNS}
+            kk = paint.disc_paint(nside, halos, curves, r0, dl, logc, False,
+                                  torch.float64)
+            kp = paint.disc_paint_plain(nside, halos, curves, r0, dl, logc,
+                                        False, torch.float64)
+            torch.cuda.synchronize()
+            err10 = (ak - ap).abs().max().item()
+            err11 = (kk - kp).abs().max().item()
+            log(f"  [{tag}] K10 on {tiling.RB} x {tiling.K} tiles: "
+                 f"{csr[0].numel()} touched, {csr[2].numel()} pairs")
+            if dt == torch.float64:
+                # sums in another order (K11: atomics)
+                check(f"K10 tile_paint [{tag}]", err10,
+                      1e-10 * ap.abs().max().item())
+                if not torch.equal(ak == 0, ap == 0):
+                    raise AssertionError(f"K10 [{tag}]: zero masks differ")
+                check(f"K11 disc_paint [{tag}]", err11,
+                      1e-10 * kp.abs().max().item())
+            else:
+                rtol, marginal = paint.float32_tolerance(nside, halos, curves,
+                                                         r0, dl, logc)
+                # K10's geometry is tile-local, well conditioned: 1e-4
+                paint_f32_check(f"K10 tile_paint [{tag}]",
+                                tiling.flat_view_plain(ak),
+                                tiling.flat_view_plain(ap),
+                                torch.full_like(rtol, 1e-4), marginal)
+                paint_f32_check(f"K11 disc_paint [{tag}]", kk, kp, rtol,
+                                marginal)
+                if timing and logc:
+                    # the same plain version on the CPU: the spread of two
+                    # correct float32 evaluations
+                    cpu = {k: v.cpu() for k, v in halos.items()}
+                    kc = paint.disc_paint_plain(nside, cpu, curves.cpu(), r0,
+                                                dl, logc, False,
+                                                torch.float64).to(dev)
+                    paint_f32_check(f"K11's plain version, CUDA vs CPU "
+                                    f"[{tag}]", kp, kc, rtol, marginal)
+            if not (timing and dt == torch.float32 and logc):
+                continue
+            npix = 12 * nside * nside
+            # K10: per pair-slot ~25 operations (chord, log, lerp, exp,
+            # mask); pack and curves read, the (n_tiles, P) map written
+            out["tile_paint"] = (err10, time_ms(
+                torch, lambda: td.tile_paint(tiling, csr, pack, r0, 1.0 / dl,
+                                             logc), 20),
+                time_ms(torch, lambda: td.tile_paint_plain(
+                    tiling, csr, pack, r0, 1.0 / dl, logc), 3)) + bound(
+                nbytes(csr, pack, ak), 25.0 * csr[2].numel() * tiling.P,
+                F32_FLOPS) + (None,)
+            # K11: its disc pixels (sum of pi r^2 over the pixel area), ~40
+            # operations each; halos and curves read, the map written
+            pixels = npix * float(np.sum(hd["radius"] ** 2)) / 4.0
+            out["disc_paint"] = (err11, time_ms(
+                torch, lambda: paint.disc_paint(nside, halos, curves, r0, dl,
+                                                logc, False, torch.float64),
+                10), time_ms(torch, lambda: paint.disc_paint_plain(
+                    nside, halos, curves, r0, dl, logc, False,
+                    torch.float64), 3)) + bound(
+                nbytes(halos, curves, kk), 40.0 * pixels,
+                F32_FLOPS) + (None,)
+            log(f"  K10 pair-slots {csr[2].numel() * tiling.P}, K11 disc "
+                 f"pixels ~{pixels:.0f}")
+    return out
+
+
+def paint_card_vs_cpu(bf, torch, model, cat, shell, eps, label):
+    """The paint path on the card against the plain versions on the CPU,
+    float64 with include_pixel_size, tiled and scatter, rtol 1e-9 per
+    pixel (the sums run in other orders)."""
+    for deposit in ("auto", "scatter"):
+        kw = dict(epsilon_max=eps, model=model, dtype=torch.float64,
+                  include_pixel_size=True, deposit=deposit)
+        g = bf.PaintProfilesShell(cat, shell, device=DEVICE, **kw).process()
+        c = bf.PaintProfilesShell(cat, shell, device="cpu", **kw).process()
+        if not c.max() > 0:
+            raise AssertionError(f"paint {label}: nothing painted")
+        rel = float((np.abs(g - c) / (1e-9 * np.abs(c) + 1e-12 * c.max()))
+                    .max())
+        check(f"paint {label}, {deposit}, float64, card vs CPU "
+              "(|diff| / (1e-9 |value| + 1e-12 max))", rel, 1.0)
+
+
+def build_tsz_table(bf, torch, gpu):
+    """The tSZ table built on the card on the bench grid (8 z x 20 M x 64
+    r), timed, against the JAX package's build of the same table
+    (tests/data/tsz_bench_table.npz) and a small table on the card
+    against the CPU's. Returns the table."""
+    from baryonforge_torch.ops import _build
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab = bf.utils.TabulatedProfile(tsz_profile(bf), cosmo).setup_interpolator(
+        **BENCH_GRID)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if launches.get("fht", 0) < 1:
+        raise AssertionError(f"tSZ table build launched no K8: {launches}")
+    t0 = time.perf_counter()
+    bf.utils.TabulatedProfile(tsz_profile(bf), cosmo).setup_interpolator(
+        **BENCH_GRID)
+    warm = time.perf_counter() - t0
+    log(f"[{gpu}] tSZ table build (TabulatedProfile(ThermalSZ), 8 z x 20 M "
+         f"x 64 r) on the card: first {wall * 1e3:.1f} ms, again "
+         f"{warm * 1e3:.1f} ms; launches {launches}")
+    with np.load(TSZ_TABLE) as f:
+        for key, mine in (("tab3D", tab.raw_input_3D),
+                          ("tab2D", tab.raw_input_2D)):
+            ref = f[key]
+            if mine.shape != ref.shape or not np.isfinite(mine).all():
+                raise AssertionError(f"tSZ table {key}: not finite / wrong "
+                                     "shape")
+            # log values: the card's build reads ~2e-12 from the JAX file;
+            # a float32 step anywhere in the build would read ~1e-7 or more
+            check(f"card-built tSZ table {key} vs the JAX file "
+                  "(max |diff| of the logs)",
+                  float(np.abs(mine - ref).max()), 1e-9)
+    small = dict(SMALL_GRID)
+    g = bf.utils.TabulatedProfile(tsz_profile(bf), cosmo).setup_interpolator(
+        **small)
+    c = bf.utils.TabulatedProfile(tsz_profile(bf), cosmo,
+                                  device="cpu").setup_interpolator(**small)
+    check("tSZ table 2 x 4 x 16, card vs CPU (max |diff| of the logs)",
+          float(max(np.abs(g.raw_input_2D - c.raw_input_2D).max(),
+                    np.abs(g.raw_input_3D - c.raw_input_3D).max())), 1e-9)
+    return tab
+
+
+def north_star_paint(bf, torch, tab, gpu):
+    """One paint call at the north star's size, NSIDE 4096 and 10^6 halos
+    from the bench generator (seed 7), tiled: one warm call and two timed,
+    with each call's phases. Returns the launches of the timed calls."""
+    from baryonforge_torch.ops import _build
+    rng = np.random.default_rng(SEED)
+    n = NS_HALOS
+    ra = rng.uniform(0, 360, n)
+    dec = np.degrees(np.arcsin(rng.uniform(-1, 1, n)))
+    M = 10 ** rng.uniform(13.0, 14.8, n)
+    z = rng.uniform(0.8, 1.0, n)
+    cat = bf.utils.HaloLightConeCatalog(ra=ra, dec=dec, M=M, z=z,
+                                        cosmo=COSMO)
+    # the paint does not read the map's values
+    shell = bf.utils.LightconeShell(map=np.zeros(12 * NS_NSIDE ** 2),
+                                    cosmo=COSMO)
+    runner = bf.PaintProfilesShell(cat, shell, epsilon_max=PAINT_EPS,
+                                   model=tab, device=DEVICE)
+    t0 = time.perf_counter()
+    out = runner.process()
+    log(f"[{gpu}] north-star paint (NSIDE {NS_NSIDE}, {n} halos), warm "
+         f"call: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if out.shape != (12 * NS_NSIDE ** 2,) or not np.isfinite(out).all() \
+            or not out.max() > 0:
+        raise AssertionError("north-star paint: map not finite / empty")
+    _build.reset_launches()
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.process()
+        wall = time.perf_counter() - t0
+        log(f"[{gpu}] north-star paint, timed call {i + 1}: "
+             f"{wall * 1e3:.1f} ms = {n / wall:.1f} halos/s; phases (ms, "
+             "CUDA events): " + ", ".join(
+                 f"{k} {v:.3f}" for k, v in runner.timings.items()))
+    launches = dict(_build.launches)
+    log(f"launches in the north-star paint's 2 timed calls: {launches}")
+    return launches
 
 
 KERNELS = [
@@ -960,6 +1250,10 @@ KERNELS = [
     ("table_rows", ("enclosed_mass", "displacement_rows"),
      "baryonforge_torch/csrc/table_rows.cu",
      "baryonforge_tpu/Profiles/BaryonCorrection.py:62", "table"),
+    ("tile_paint", ("tile_paint",), "baryonforge_torch/csrc/tile_deposit.cu",
+     "baryonforge_tpu/ops/tiles.py:775", "paint"),
+    ("disc_paint", ("disc_paint",), "baryonforge_torch/csrc/disc_paint.cu",
+     "baryonforge_tpu/Runners/HealpixRunner.py:1948", "paint"),
 ]
 
 
@@ -1007,10 +1301,20 @@ def main():
                           False)
     p_key_curves(torch, 400, False)
 
+    tsz_file = tsz_models(bf, bf.utils.TabulatedProfile(
+        None, bf.cosmo.cosmology_from_dict(COSMO),
+        mass_def=bf.cosmo.MassDef200c).load_table(TSZ_TABLE))
+    log("paint kernels against their plain versions, polar catalog "
+        "(NSIDE 64, epsilon_max 60), the JAX file's tSZ table")
+    compare_paint_kernels(bf, torch, tsz_file, cat_p, shell_p, 60,
+                          "NSIDE 64 poles", False)
+
     log("tiled kernels against their plain versions, NSIDE 256 catalog")
     cat_m, shell_m = bench_inputs(bf, 256, 2000, SEED)
     compare_tiled_kernels(bf, torch, model, cat_m, shell_m, "NSIDE 256",
                           False)
+    compare_paint_kernels(bf, torch, tsz_file, cat_m, shell_m, 20,
+                          "NSIDE 256", False)
 
     log(f"kernels against their plain versions, bench shapes (NSIDE {NSIDE},"
         f" {N_HALOS} halos)")
@@ -1019,6 +1323,8 @@ def main():
                                f"NSIDE {NSIDE}", True)
     measured.update(compare_tiled_kernels(bf, torch, model, cat, shell,
                                           f"NSIDE {NSIDE}", True))
+    measured.update(compare_paint_kernels(bf, torch, tsz_file, cat, shell,
+                                          PAINT_EPS, f"NSIDE {NSIDE}", True))
     k1p = p_key_curves(torch, N_HALOS, True)
     log(f"[{gpu}] collapse_curves, 2 parameter axes, {N_HALOS} halos: "
         f"kernel {k1p[1]:.3f} ms, plain {k1p[2]:.3f} ms")
@@ -1034,6 +1340,8 @@ def main():
         raise AssertionError(f"the polar default run did not launch K2: "
                              f"{polar}")
     card_vs_cpu(bf, torch, model, cat_m, shell_m, "NSIDE 256, default path")
+    paint_card_vs_cpu(bf, torch, tsz_file["log"], cat_p, shell_p, 60,
+                      "NSIDE 64 poles")
 
     log("table build kernels against their plain versions (float64)")
     measured.update(compare_table_kernels(bf, torch, gpu))
@@ -1111,8 +1419,37 @@ def main():
 
     full_width_table(bf, torch, gpu)
 
+    log("paint path: the bench's tSZ table built on the card")
+    tsz_card = build_tsz_table(bf, torch, gpu)
+    log(f"main path (paint, tiled): PaintProfilesShell(epsilon_max="
+        f"{PAINT_EPS}, model=tSZ table).process(), NSIDE {NSIDE}, "
+        f"{N_HALOS} halos")
+    paint_kw = dict(epsilon_max=PAINT_EPS, model=tsz_card, device=DEVICE)
+    out_pt, launches_pt = drive(
+        bf, torch, bf.PaintProfilesShell(cat, shell, **paint_kw),
+        ("collapse_curves", "tile_paint", "flat_view"), "tiled paint", gpu,
+        paint=True)
+    log(f"main path (paint, scatter): PaintProfilesShell(deposit='scatter', "
+        f"epsilon_max={PAINT_EPS}, model=tSZ table).process()")
+    out_ps, launches_ps = drive(
+        bf, torch, bf.PaintProfilesShell(cat, shell, deposit="scatter",
+                                         **paint_kw),
+        ("collapse_curves", "disc_paint"), "scatter paint", gpu, paint=True)
+    paint_bound_check("paint: tiled vs scatter, per pixel", out_pt, out_ps)
+    log(f"  painted pixels: tiled {int((out_pt > 0).sum())}, scatter "
+        f"{int((out_ps > 0).sum())}; sum tiled {out_pt.sum():.6e}, scatter "
+        f"{out_ps.sum():.6e}")
+    out_pf = bf.PaintProfilesShell(cat, shell, epsilon_max=PAINT_EPS,
+                                   model=tsz_file["log"],
+                                   device=DEVICE).process()
+    paint_bound_check("tiled paint: card-built tSZ table vs the JAX file's",
+                      out_pt, out_pf)
+    north_star_paint(bf, torch, tsz_card, gpu)
+
+    launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
+                      for k in set(launches_pt) | set(launches_ps)}
     launches = {"scatter": launches_s, "tiled": launches_t,
-                "table": launches_table}
+                "table": launches_table, "paint": launches_paint}
     kernels = []
     for name, entries, src, rep, path in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]

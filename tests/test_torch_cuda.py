@@ -7,10 +7,13 @@ tests/conftest.py imports jax, so there run it as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float64 to 1e-10 of the largest value (atomic sums in another
-order); K8 (FFTLog) to 1e-11 of the largest value (direct DFT sums against
-torch.fft's: two correct summation orders differ by up to ~4e-12 of it on
-wide grids), K9 (table rows) to 1e-12 with equal NaN masks; float32
-deposits to the JAX package's edge-jitter bounds
+order); float32 paint (K10, K11) per pixel to the relative tolerance of
+ops.paint.float32_tolerance (1e-4 for K10's tile-local geometry), pixels
+painted on one side only allowed at disc edges alone; K8 (FFTLog) to
+1e-11 of the largest value (direct DFT sums against torch.fft's: two
+correct summation orders differ by up to ~4e-12 of it on wide grids), K9
+(table rows) to 1e-12 with equal NaN masks; float32 deposits to the JAX
+package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
@@ -29,12 +32,15 @@ from baryonforge_torch.ops import _build                    # noqa: E402
 from baryonforge_torch.ops import deposit, interp, regrid   # noqa: E402
 from baryonforge_torch.ops import stencil, tile_deposit     # noqa: E402
 from baryonforge_torch.ops import fftlog, table_rows        # noqa: E402
+from baryonforge_torch.ops import paint                     # noqa: E402
 from baryonforge_torch.ops import tiles as tt               # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 TABLE = os.path.join(os.path.dirname(__file__), os.pardir, "tools",
                      "_northstar_table.npz")
+TSZ_TABLE = os.path.join(os.path.dirname(__file__), "data",
+                         "tsz_bench_table.npz")
 COSMO = dict(Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96,
              w0=-1.0)
 DTYPES = [torch.float32, torch.float64]
@@ -405,3 +411,118 @@ def test_table_build_cuda_matches_cpu(dev):
     scale = np.abs(c.raw_input_d).max()
     np.testing.assert_allclose(g.raw_input_d, c.raw_input_d, rtol=0,
                                atol=1e-9 * scale)
+
+
+# ---- the paint's kernels: K10 tile paint, K11 disc paint -------------------
+def _tsz_models():
+    """The bench's tSZ table (log curves, tests/data/tsz_bench_table.npz)
+    and its raw form (exp of the tables, raw curves)."""
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    log_tab = bf.utils.TabulatedProfile(
+        None, cosmo, mass_def=bf.cosmo.MassDef200c).load_table(TSZ_TABLE)
+    raw_tab = bf.utils.ParamTabulatedProfile(
+        None, cosmo, mass_def=bf.cosmo.MassDef200c)
+    raw_tab._set_axes(log_tab._axes, np.exp(log_tab.raw_input_3D),
+                      np.exp(log_tab.raw_input_2D))
+    return {"log": log_tab, "raw": raw_tab}
+
+
+def _paint_f32_close(k, p, rtol, marginal):
+    """Per pixel |k - p| <= rtol |p| where both paint and the pixel is not
+    marginal (ops.paint.float32_tolerance); a pixel painted on one side only
+    must be marginal, and marginal pixels are under 1% of the painted."""
+    k, p = k.double(), p.double()
+    nk, np_ = k != 0, p != 0
+    keep = nk & np_ & ~marginal
+    assert keep.sum() > 100
+    assert ((k - p).abs() <= rtol * p.abs())[keep].all()
+    assert not ((nk ^ np_) & ~marginal).any()
+    assert (marginal & (nk | np_)).sum() <= 1e-2 * (nk | np_).sum()
+
+
+def _halos(hd, dev):
+    return {k: torch.as_tensor(hd[k], device=dev) for k in paint.HALO_COLUMNS}
+
+
+def _paint_prep(nside, eps, kind, dt, dev):
+    """A paint runner's halo data and curves (K1's plain version) on the
+    test catalog."""
+    cat, shell = _inputs(nside, 300)
+    model = _tsz_models()[kind]
+    r = bf.PaintProfilesShell(cat, shell, epsilon_max=eps, model=model,
+                              dtype=dt, device=dev)
+    hd = r._host_halo_data(bf.cosmo.cosmology_from_dict(r.cosmo))
+    m = model.with_dtype(dt, device=dev)
+    curves, r0, dl = interp.collapse_curves_plain(
+        m._tab2D, m._axes, 2, hd["M"], hd["a"], [], {},
+        fill=-np.inf if model.curves_are_log else 0.0)
+    return r, hd, curves, float(r0), float(dl), model.curves_are_log
+
+
+@pytest.mark.parametrize("kind", ["log", "raw"])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside,eps,shape", [(64, 60, (8, 16)),
+                                             (256, 20, (16, 32)),
+                                             (256, 5, (8, 16))])
+def test_tile_paint_kernel(dev, kind, dt, nside, eps, shape):
+    r, hd, curves, r0, dl, log = _paint_prep(nside, eps, kind, dt, dev)
+    r._paint_tiling = lambda nside, hd: r._get_tiling(nside, shape)
+    tiling, csr, pack = r._tile_paint_inputs(hd, curves, log, nside)
+    assert (tiling.RB, tiling.K) == shape
+    _build.reset_launches()
+    ak = tile_deposit.tile_paint(tiling, csr, pack, r0, 1.0 / dl, log)
+    assert _build.launches["tile_paint"] == 1
+    ap = tile_deposit.tile_paint_plain(tiling, csr, pack, r0, 1.0 / dl, log)
+    assert ak.shape == (tiling.n_tiles, tiling.P)
+    if dt == torch.float64:
+        torch.testing.assert_close(ak, ap, rtol=0,
+                                   atol=1e-10 * ap.abs().max().item())
+        assert torch.equal(ak == 0, ap == 0)
+    else:
+        # tile-local geometry, well conditioned: rtol 1e-4 per pixel
+        rtol, marginal = paint.float32_tolerance(nside, _halos(hd, dev),
+                                                 curves, r0, dl, log)
+        _paint_f32_close(tiling.flat_view_plain(ak),
+                         tiling.flat_view_plain(ap),
+                         torch.full_like(rtol, 1e-4), marginal)
+
+
+@pytest.mark.parametrize("kind", ["log", "raw"])
+@pytest.mark.parametrize("dt,acc_dt", [(torch.float32, torch.float64),
+                                       (torch.float32, torch.float32),
+                                       (torch.float64, torch.float64)],
+                         ids=["f32_f64", "f32_f32", "f64_f64"])
+@pytest.mark.parametrize("pix", [False, True], ids=["value", "pixel_size"])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+def test_disc_paint_kernel(dev, kind, dt, acc_dt, pix, nside, eps):
+    _, hd, curves, r0, dl, log = _paint_prep(nside, eps, kind, dt, dev)
+    halos = _halos(hd, dev)
+    _build.reset_launches()
+    ak = paint.disc_paint(nside, halos, curves, r0, dl, log, pix, acc_dt)
+    assert _build.launches["disc_paint"] == 1 and ak.dtype == acc_dt
+    ap = paint.disc_paint_plain(nside, halos, curves, r0, dl, log, pix,
+                                acc_dt)
+    if dt == torch.float64:
+        torch.testing.assert_close(ak, ap, rtol=0,
+                                   atol=1e-10 * ap.abs().max().item())
+    else:
+        _paint_f32_close(ak, ap, *paint.float32_tolerance(nside, halos, curves,
+                                                          r0, dl, log))
+
+
+@pytest.mark.parametrize("deposit", ["auto", "scatter"])
+def test_paint_shell_cuda_matches_cpu(dev, deposit):
+    """PaintProfilesShell on the card (K1, K10 and K7 tiled; K1 and K11
+    scatter) against the plain versions on the CPU, float64, rtol 1e-9."""
+    cat, shell = _inputs(256, 400)
+    kw = dict(epsilon_max=20, model=_tsz_models()["log"], deposit=deposit,
+              dtype=torch.float64, include_pixel_size=True)
+    _build.reset_launches()
+    out_g = bf.PaintProfilesShell(cat, shell, device=dev, **kw).process()
+    want = (("collapse_curves", "disc_paint") if deposit == "scatter"
+            else ("collapse_curves", "tile_paint", "flat_view"))
+    assert all(_build.launches[k] == 1 for k in want), _build.launches
+    out_c = bf.PaintProfilesShell(cat, shell, device="cpu", **kw).process()
+    assert out_c.max() > 0
+    np.testing.assert_allclose(out_g, out_c, rtol=1e-9,
+                               atol=1e-12 * out_c.max())
