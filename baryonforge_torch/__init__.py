@@ -11,16 +11,19 @@ Ported so far (ROADMAP.md lists the rest):
   ops/        HEALPix geometry and the sky tiling; integration and
               interpolation; kernels K1 curve collapse (interp), K2 disc
               deposit (deposit), K3 scatter regrid (regrid), K4 tile
-              deposit and K10 tile paint (tile_deposit), K5 stencil regrid
-              and K6 its complement (stencil), K7 tile layout (tiles), K8
-              FFTLog transform (fftlog), K9 table rows (table_rows), K11
-              disc paint (paint)
+              deposit, K10 tile paint and K12 paint2 (tile_deposit), K5
+              stencil regrid and K6 its complement (stencil), K7 tile
+              layout (tiles), K8 FFTLog transform (fftlog), K9 table rows
+              (table_rows), K11 disc paint, K13 its anisotropic form and
+              K14 the anisotropic finish (paint), K15 grid cutouts (grid),
+              K16 grid deposit (scatter)
   Profiles/   the profile framework and algebra, the Schneider19 family,
               the thermodynamic (tSZ) profiles, Baryonification2D/3D:
               table build, readout and checkpoint
   Runners/    BaryonifyShell: the tiled engine (default) and the scatter
-              path; PaintProfilesShell: the tiled paint (default) and the
-              disc paint
+              path; PaintProfilesShell and PaintProfilesAnisShell: the
+              tiled paint (default) and the disc paint; the grid runners
+              BaryonifyGrid, PaintProfilesGrid and PaintProfilesAnisGrid
   utils/      constants, io containers, tabulated profiles, pixel windows,
               JAX-object conversion
 """

@@ -1,4 +1,4 @@
-// K11: disc paint (the scatter paint).
+// K11: disc paint (the scatter paint), and K13: the anisotropic disc paint.
 //
 // Replaces baryonforge_tpu/Runners/HealpixRunner.py:
 // PaintProfilesShell._paint_device's make_body / one_halo / body (with
@@ -22,8 +22,25 @@
 // per halo, threads across a ring's phi span, so that a warp's atomics land
 // on neighbouring addresses; the curve is read from L1. Sums by atomics
 // change order from run to run.
+//
+// K13 replaces the scatter body of PaintProfilesAnisShell
+// (baryonforge_tpu/Runners/HealpixRunner.py:2377-2428: make_body /
+// one_halo with disc_pixels, pix2vec and the curve lookups). It walks the
+// same member pixels as K11 (disc_pixels is disc_candidates' mask), but
+// measures each one as the JAX body does: r_sep = |pix2vec(pix) - vec_h| D
+// with the pixel's unit vector from its centre's (theta, phi) in T, vec_h
+// computed in float64 and rounded to T, and the difference times the
+// float64 D. Under x64 everything after that subtraction is float64: r_com
+// = r_sep / T(a), two lookups (the model's painting and the tracer's
+// canvas, each on its own grid, log curves exp'd, zero off the grid, no
+// -80 clamp) divided by T(a), non-finite values zeroed, mfrac = canvas /
+// Mtot[pix] (0 where Mtot <= 0; Mtot already holds the uniform background)
+// times orig[pix], the painting times pixarea D^2 when asked, and
+// painting * mfrac added into a float64 map. Bound as K11, with two curve
+// reads and two map reads more a pixel.
 
 #include "healpix.cuh"
+#include "lookup.cuh"
 
 namespace {
 
@@ -82,6 +99,52 @@ int launch(int nside, int n_h, const double* theta, const double* phi,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void disc_paint_anis_kernel(int N, HaloIn in, bf::Curve<T> cp,
+                                       bf::Curve<T> ct,
+                                       const double* __restrict__ mtot,
+                                       const double* __restrict__ orig,
+                                       bool pixel_size, double pixarea,
+                                       double* __restrict__ acc) {
+  const int hid = blockIdx.x;
+  const double th_h = in.theta[hid], ph_h = in.phi[hid], D = in.D[hid];
+  const double a = double(T(in.a[hid]));
+  const T vh0 = T(sin(th_h) * cos(ph_h));
+  const T vh1 = T(sin(th_h) * sin(ph_h));
+  const T vh2 = T(cos(th_h));
+  const T* curve_p = cp.c + (long long)hid * cp.n_r;
+  const T* curve_t = ct.c + (long long)hid * ct.n_r;
+  const double pixfac = pixarea * (D * D);
+  const bf::DiscWalk<T> walk(N, th_h, ph_h, in.radius[hid]);
+  walk([&](int pix, T, T, T, T) {
+    T th, ph;
+    bf::pix2ang<T>(N, pix, th, ph);
+    const T st = bf::m_sin(th);
+    const double d0 = double(st * bf::m_cos(ph) - vh0) * D;
+    const double d1 = double(st * bf::m_sin(ph) - vh1) * D;
+    const double d2 = double(bf::m_cos(th) - vh2) * D;
+    const double r_com = sqrt(d0 * d0 + d1 * d1 + d2 * d2) / a;
+    double painting = bf::lookup64(curve_p, cp, r_com) / a;
+    double canvas = bf::lookup64(curve_t, ct, r_com) / a;
+    if (!isfinite(painting)) painting = 0.0;
+    if (!isfinite(canvas)) canvas = 0.0;
+    const double mt = mtot[pix];
+    const double mfrac = (mt > 0.0 ? canvas / mt : 0.0) * orig[pix];
+    if (pixel_size) painting = painting * pixfac;
+    atomicAdd(acc + pix, painting * mfrac);
+  });
+}
+
+template <typename T>
+int launch_anis(int nside, int n_h, HaloIn in, bf::Curve<T> cp,
+                bf::Curve<T> ct,
+                const double* mtot, const double* orig, int pixel_size,
+                double pixarea, double* acc, void* stream) {
+  disc_paint_anis_kernel<T><<<n_h, 128, 0, (cudaStream_t)stream>>>(
+      nside, in, cp, ct, mtot, orig, pixel_size != 0, pixarea, acc);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -104,5 +167,26 @@ BF_DISC_PAINT(float, double, f32_f64)
 BF_DISC_PAINT(double, float, f64_f32)
 BF_DISC_PAINT(double, double, f64_f64)
 #undef BF_DISC_PAINT
+
+// geometry and curves in T, the lookups and the map in float64
+#define BF_DISC_PAINT_ANIS(T, SUF)                                            \
+  int bf_disc_paint_anis_##SUF(                                               \
+      int nside, int n_h, const double* theta, const double* phi,             \
+      const double* radius, const double* D, const double* a,                 \
+      const T* curves_p, int n_rp, double ln_r0_p, double dlnr_p, int log_p,  \
+      const T* curves_t, int n_rt, double ln_r0_t, double dlnr_t, int log_t,  \
+      const double* mtot, const double* orig, int pixel_size, double pixarea, \
+      double* acc, void* stream) {                                            \
+    return launch_anis<T>(nside, n_h, HaloIn{theta, phi, radius, D, a},       \
+                          bf::Curve<T>{curves_p, n_rp, ln_r0_p, dlnr_p,       \
+                                       log_p != 0},                           \
+                          bf::Curve<T>{curves_t, n_rt, ln_r0_t, dlnr_t,       \
+                                       log_t != 0},                           \
+                          mtot, orig, pixel_size, pixarea, acc, stream);      \
+  }
+
+BF_DISC_PAINT_ANIS(float, f32)
+BF_DISC_PAINT_ANIS(double, f64)
+#undef BF_DISC_PAINT_ANIS
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// K4: tile deposit (tiled phase A), and K10: tile paint.
+// K4: tile deposit (tiled phase A), K10: tile paint, K12: paint2.
 //
 // K4 replaces baryonforge_tpu/ops/tiles.py: make_tile_deposit(mode="displace")
 // (its one_tile and run_all_into, with SkyTiling.slot_local(tangent=True)).
@@ -40,6 +40,16 @@
 // are small against a tile, so most of a touched tile's slots are masked:
 // the runner picks the 8 x 16 tiling (P = 128) when the median disc is
 // under 1.5 tile heights, as the JAX runner does.
+//
+// K12 (kPaint2) replaces make_tile_deposit(mode="paint2"), the halo sum of
+// PaintProfilesAnisShell._tiled_paint2: per pair two lookups that share
+// ln r, the first curve's at x = (ln r - ln_r0) inv_dlnr and the second's
+// at x2 = (ln r - ln_r0_2) inv_dlnr_2, each on its own grid; the pair is
+// used only when x and x2 both lie on their grids. With two log curves the
+// value is exp(v1 + v2), one exp a pair; otherwise v1 v2 (the runner exps
+// a log operand up front). The second curve is staged beside the first, so
+// a halo takes 7 + n_r + n_r2 values of shared memory; a pair costs ~35
+// operations.
 
 #include "tiles.cuh"
 
@@ -49,6 +59,9 @@ __device__ __forceinline__ float m_rsqrt(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double m_rsqrt(double x) { return rsqrt(x); }
 
 constexpr int kHaloVals = 7;  // dh0, dh1, dh2, lnDa, crit2, afac, invD
+
+// the pair loop's modes: K4, K10, K12
+enum Mode { kDisplace = 0, kPaint = 1, kPaint2 = 2 };
 
 template <typename T>
 struct Pack {
@@ -60,6 +73,9 @@ struct Pack {
   const T* curves;
   int n_r;
   T ln_r0, inv_dlnr;
+  const T* curves2;  // kPaint2: the second curve and its grid
+  int n_r2;
+  T ln_r0_2, inv_dlnr_2;
 };
 
 struct Tiling {
@@ -71,15 +87,17 @@ struct Tiling {
   const double* csc;     // (n_tiles, 5)
 };
 
-template <typename T, bool kPaint>
+template <typename T, int kMode>
 __global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
                                   const int* __restrict__ offsets,
                                   const int* __restrict__ halos, Pack<T> pk,
                                   int hc, bool log_curves,
                                   T* __restrict__ acc) {
+  constexpr bool paints = kMode != kDisplace;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sh_vals = reinterpret_cast<T*>(smem_raw);      // (hc, kHaloVals)
   T* sh_curves = sh_vals + hc * kHaloVals;          // (hc, n_r)
+  T* sh_curves2 = sh_curves + hc * pk.n_r;          // (hc, n_r2), kPaint2
 
   const int t = tiles[blockIdx.x];
   const int P = tl.RB * tl.K;
@@ -135,11 +153,19 @@ __global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
       hv[3] = pk.lnDa[h];
       hv[4] = pk.crit2[h];
       hv[5] = pk.afac[h];
-      if (!kPaint) hv[6] = pk.invD[h];
+      if (!paints) hv[6] = pk.invD[h];
     }
     for (int k = threadIdx.x; k < nh * n_r; k += blockDim.x) {
       const int hk = k / n_r;
       sh_curves[k] = pk.curves[(long long)halos[base + hk] * n_r + k % n_r];
+    }
+    if constexpr (kMode == kPaint2) {
+      const int n_r2 = pk.n_r2;
+      for (int k = threadIdx.x; k < nh * n_r2; k += blockDim.x) {
+        const int hk = k / n_r2;
+        sh_curves2[k] =
+            pk.curves2[(long long)halos[base + hk] * n_r2 + k % n_r2];
+      }
     }
     __syncthreads();
     if (slot >= P) continue;
@@ -154,9 +180,19 @@ __global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
       const int i = bf::clampi(int(x), 0, n_r - 2);
       const T tt = x - T(i);
       const T* cv = sh_curves + k * n_r;
-      const T val = cv[i] * (T(1) - tt) + cv[i + 1] * tt;
-      const bool use = x >= T(0) && x <= T(n_r - 1) && chord2 <= hv[4];
-      if constexpr (kPaint) {
+      T val = cv[i] * (T(1) - tt) + cv[i + 1] * tt;
+      bool use = x >= T(0) && x <= T(n_r - 1) && chord2 <= hv[4];
+      if constexpr (kMode == kPaint2) {
+        const int n_r2 = pk.n_r2;
+        const T x2 = (lnr - pk.ln_r0_2) * pk.inv_dlnr_2;
+        const int i2 = bf::clampi(int(x2), 0, n_r2 - 2);
+        const T t2 = x2 - T(i2);
+        const T* cv2 = sh_curves2 + k * n_r2;
+        const T v2 = cv2[i2] * (T(1) - t2) + cv2[i2 + 1] * t2;
+        val = log_curves ? val + v2 : val * v2;
+        use = use && x2 >= T(0) && x2 <= T(n_r2 - 1);
+      }
+      if constexpr (paints) {
         const T pv = log_curves ? bf::m_exp(val) : val;
         s0 = s0 + (use ? pv : T(0)) * hv[5];
       } else {
@@ -171,7 +207,7 @@ __global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
     }
   }
   if (slot >= P) return;
-  if constexpr (kPaint) {
+  if constexpr (paints) {
     acc[(long long)t * P + slot] = (valid && isfinite(s0)) ? s0 : T(0);
   } else {
     T o0 = s0 * a_th - sth_sum;
@@ -185,26 +221,29 @@ __global__ void tile_pairs_kernel(Tiling tl, const int* __restrict__ tiles,
   }
 }
 
-template <typename T, bool kPaint>
+template <typename T, int kMode>
 int launch(int nside, int RB, int K, int n_touched, const int* tiles,
            const int* offsets, const int* halos, const int* tile_i0,
            const int* tile_s, const int* tile_S, const double* center,
            const double* csc, const double* vh, const T* crit2,
            const T* lnDa, const T* invD, const T* afac, const T* curves,
-           int n_r, T ln_r0, T inv_dlnr, bool log_curves, T* acc,
-           void* stream) {
+           int n_r, T ln_r0, T inv_dlnr, const T* curves2, int n_r2,
+           T ln_r0_2, T inv_dlnr_2, bool log_curves, T* acc, void* stream) {
   const int P = RB * K;
   if (P > 1024) return int(cudaErrorInvalidValue);
+  if (kMode == kPaint2 && n_r2 < 2) return int(cudaErrorInvalidValue);
   // halos per shared-memory chunk: up to 64, within 48 KB
-  const int per_halo = int(sizeof(T)) * (kHaloVals + n_r);
+  const int per_halo =
+      int(sizeof(T)) * (kHaloVals + n_r + (kMode == kPaint2 ? n_r2 : 0));
   int hc = 48 * 1024 / per_halo;
   hc = hc > 64 ? 64 : hc;
   if (hc < 1) return int(cudaErrorInvalidValue);
   const int threads = (P + 31) / 32 * 32;
   Tiling tl{nside, RB, K, tile_i0, tile_s, tile_S, center, csc};
-  Pack<T> pk{vh, crit2, lnDa, invD, afac, curves, n_r, ln_r0, inv_dlnr};
-  tile_pairs_kernel<T, kPaint><<<n_touched, threads, size_t(hc) * per_halo,
-                                 (cudaStream_t)stream>>>(
+  Pack<T> pk{vh,    crit2,    lnDa,    invD, afac,    curves,    n_r,
+             ln_r0, inv_dlnr, curves2, n_r2, ln_r0_2, inv_dlnr_2};
+  tile_pairs_kernel<T, kMode><<<n_touched, threads, size_t(hc) * per_halo,
+                                (cudaStream_t)stream>>>(
       tl, tiles, offsets, halos, pk, hc, log_curves, acc);
   return int(cudaGetLastError());
 }
@@ -221,10 +260,10 @@ extern "C" {
       const double* csc, const double* vh, const T* crit2, const T* lnDa,    \
       const T* invD, const T* afac, const T* curves, int n_r, T ln_r0,       \
       T inv_dlnr, T* acc, void* stream) {                                    \
-    return launch<T, false>(nside, RB, K, n_touched, tiles, offsets, halos,  \
-                            tile_i0, tile_s, tile_S, center, csc, vh, crit2, \
-                            lnDa, invD, afac, curves, n_r, ln_r0, inv_dlnr,  \
-                            false, acc, stream);                             \
+    return launch<T, kDisplace>(                                             \
+        nside, RB, K, n_touched, tiles, offsets, halos, tile_i0, tile_s,     \
+        tile_S, center, csc, vh, crit2, lnDa, invD, afac, curves, n_r,       \
+        ln_r0, inv_dlnr, nullptr, 0, T(0), T(0), false, acc, stream);        \
   }                                                                          \
   int bf_tile_paint_##SUF(                                                   \
       int nside, int RB, int K, int n_touched, const int* tiles,             \
@@ -233,10 +272,25 @@ extern "C" {
       const double* csc, const double* vh, const T* crit2, const T* lnDa,    \
       const T* afac, const T* curves, int n_r, T ln_r0, T inv_dlnr,          \
       int log_curves, T* acc, void* stream) {                                \
-    return launch<T, true>(nside, RB, K, n_touched, tiles, offsets, halos,   \
-                           tile_i0, tile_s, tile_S, center, csc, vh, crit2,  \
-                           lnDa, nullptr, afac, curves, n_r, ln_r0,          \
-                           inv_dlnr, log_curves != 0, acc, stream);          \
+    return launch<T, kPaint>(                                                \
+        nside, RB, K, n_touched, tiles, offsets, halos, tile_i0, tile_s,     \
+        tile_S, center, csc, vh, crit2, lnDa, nullptr, afac, curves, n_r,    \
+        ln_r0, inv_dlnr, nullptr, 0, T(0), T(0), log_curves != 0, acc,       \
+        stream);                                                             \
+  }                                                                          \
+  int bf_tile_paint2_##SUF(                                                  \
+      int nside, int RB, int K, int n_touched, const int* tiles,             \
+      const int* offsets, const int* halos, const int* tile_i0,              \
+      const int* tile_s, const int* tile_S, const double* center,            \
+      const double* csc, const double* vh, const T* crit2, const T* lnDa,    \
+      const T* afac, const T* curves, const T* curves2, int n_r, T ln_r0,    \
+      T inv_dlnr, int n_r2, T ln_r0_2, T inv_dlnr_2, int log_curves, T* acc, \
+      void* stream) {                                                        \
+    return launch<T, kPaint2>(                                               \
+        nside, RB, K, n_touched, tiles, offsets, halos, tile_i0, tile_s,     \
+        tile_S, center, csc, vh, crit2, lnDa, nullptr, afac, curves, n_r,    \
+        ln_r0, inv_dlnr, curves2, n_r2, ln_r0_2, inv_dlnr_2,                 \
+        log_curves != 0, acc, stream);                                       \
   }
 
 BF_TILE_DEPOSIT(float, f32)

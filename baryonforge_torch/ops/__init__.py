@@ -1,8 +1,9 @@
 """Numerics: HEALPix geometry, the sky tiling, integration and
 interpolation, FFTLog, and the CUDA kernels' wrappers with their plain
-versions (curve collapse, disc deposit, scatter regrid, tile deposit and
-tile paint, stencil regrid and its complement, tile layout, FFTLog
-transform, table rows, disc paint)."""
+versions (curve collapse, disc deposit, scatter regrid, tile deposit,
+tile paint and paint2, stencil regrid and its complement, tile layout,
+FFTLog transform, table rows, disc paint and its anisotropic form and
+finish, grid cutouts, grid deposit)."""
 
 from . import healpix
 from . import integrate
@@ -15,3 +16,5 @@ from . import tile_deposit
 from . import stencil
 from . import table_rows
 from . import paint
+from . import grid
+from . import scatter

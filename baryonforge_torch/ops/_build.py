@@ -10,14 +10,15 @@ card has ``nvcc``.
 ``launches`` counts, per kernel entry point, the launches made by the
 wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
 ``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4 ``tile_deposit``,
-K10 ``tile_paint``), ``ops/stencil.py`` (K5 ``stencil_hot`` and
-``stencil``, K6 ``stencil_geo`` and ``stencil_complement``),
-``ops/tiles.py`` (K7 ``flat_view`` and ``tile_view``), ``ops/fftlog.py``
-(K8 ``fht``), ``ops/table_rows.py`` (K9 ``enclosed_mass`` and
-``displacement_rows``) and ``ops/paint.py`` (K11 ``disc_paint``); each
-wrapper adds one
-right where it launches its kernel, so a run can show that its main path
-went through the kernels.
+K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
+``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
+``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
+``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
+``enclosed_mass`` and ``displacement_rows``), ``ops/paint.py`` (K11
+``disc_paint``, K13 ``disc_paint_anis``, K14 ``anis_finish``),
+``ops/grid.py`` (K15 ``grid_cutout``) and ``ops/scatter.py`` (K16
+``grid_deposit``); each wrapper adds one right where it launches its
+kernel, so a run can show that its main path went through the kernels.
 """
 
 import collections
@@ -50,6 +51,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_LL = ctypes.c_longlong
 
 
 def _signatures():
@@ -65,6 +67,10 @@ def _signatures():
         "bf_tile_deposit_f64": [_I] * 4 + [_P] * 14 + [_I, _D, _D, _P, _P],
         "bf_tile_paint_f32": [_I] * 4 + [_P] * 13 + [_I, _F, _F, _I, _P, _P],
         "bf_tile_paint_f64": [_I] * 4 + [_P] * 13 + [_I, _D, _D, _I, _P, _P],
+        "bf_tile_paint2_f32": [_I] * 4 + [_P] * 14
+        + [_I, _F, _F, _I, _F, _F, _I, _P, _P],
+        "bf_tile_paint2_f64": [_I] * 4 + [_P] * 14
+        + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
         "bf_fht_f64": [_I, _I, _P, _P, _D, _D, _D, _P, _P, _P],
         "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
         "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
@@ -84,6 +90,15 @@ def _signatures():
             # curves in the first dtype, the painted map in the second
             sig[f"bf_disc_paint_{sfx}_{rsfx}"] = \
                 [_I, _I] + [_P] * 6 + [_I, flt, flt, _I, _I, _D, _P, _P]
+            # offsets in the first dtype, maps in the second
+            sig[f"bf_grid_deposit_{sfx}_{rsfx}"] = [_I, _I] + [_P] * 4
+        curve = [_P, _I, _D, _D, _I]
+        sig[f"bf_disc_paint_anis_{sfx}"] = \
+            [_I, _I] + [_P] * 5 + curve + curve + [_P, _P, _I, _D, _P, _P]
+        sig[f"bf_anis_finish_{sfx}"] = [_LL] + [_P] * 3 + [_D] * 3 \
+            + [_I, _P, _P]
+        sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P, _P, _D] + [_P] * 3 \
+            + curve + curve + [_D] + [_P] * 4
     return sig
 
 

@@ -23,6 +23,14 @@ entry point ``bf_tile_paint``); ``tile_paint_plain`` is its plain version,
 a port of ``make_tile_deposit(mode="paint")`` with the direct lerp: per
 pair the same chord, x and mask, then exp of the lerp for log curves,
 d = (use ? value : 0) afac, summed per slot into a (n_tiles, RB*K) map.
+
+``tile_paint2`` is the wrapper of kernel K12 (the same kernel in paint2
+mode, entry point ``bf_tile_paint2``); ``tile_paint2_plain`` is its plain
+version, a port of ``make_tile_deposit(mode="paint2")`` with the direct
+lerp: per pair the chord, ln r and the first curve's x and mask as above,
+the second curve's lerp at x2 = (ln r - ln_r0_2) inv_dlnr_2 on its own
+grid, the pair used only when x2 lies on that grid too, and the value
+exp(v1 + v2) for two log curves, else v1 v2.
 """
 
 import torch
@@ -30,7 +38,8 @@ import torch
 from . import _build
 
 __all__ = ["tile_deposit", "tile_deposit_plain", "tile_paint",
-           "tile_paint_plain", "PACK_KEYS", "PAINT_KEYS"]
+           "tile_paint_plain", "tile_paint2", "tile_paint2_plain",
+           "PACK_KEYS", "PAINT_KEYS", "PAINT2_KEYS"]
 
 # per-halo columns: vh (n, 3) float64 unit vectors; the rest in the
 # deposit dtype: crit2 = (2 sin(min(radius, pi)/2))^2, lnDa = ln(D/a) +
@@ -39,6 +48,10 @@ PACK_KEYS = ("vh", "crit2", "lnDa", "invD", "afac", "curves")
 # the paint's columns: lnDa = ln(D/a), afac the per-halo paint scale (1/a,
 # times pixarea D^2 for a per-pixel integral), curves the paint curves
 PAINT_KEYS = ("vh", "crit2", "lnDa", "afac", "curves")
+# paint2's columns: PAINT_KEYS with afac the per-halo scale of the product
+# (1/a^2, times pixarea D^2 for a per-pixel integral) and curves2 (n, n_r2)
+# the second curve, on its own grid
+PAINT2_KEYS = PAINT_KEYS + ("curves2",)
 
 # tiles and pairs per step of the plain version
 _TILE_CHUNK = 1024
@@ -53,10 +66,13 @@ def _check(tiling, csr, pack, keys=PACK_KEYS, name="tile_deposit"):
     if curves.dim() != 2 or curves.shape[1] < 2:
         raise ValueError(f"{name}: curves must be (n_halos, n_r >= 2)")
     n = curves.shape[0]
+    if "curves2" in keys and (pack["curves2"].dim() != 2
+                              or pack["curves2"].shape[1] < 2):
+        raise ValueError(f"{name}: curves2 must be (n_halos, n_r2 >= 2)")
     for k in keys:
         x = pack[k]
         want = ((n, 3), torch.float64) if k == "vh" else (
-            (n,) if k != "curves" else (n, curves.shape[1]), dt)
+            (n, x.shape[-1]) if k.startswith("curves") else (n,), dt)
         if tuple(x.shape) != want[0] or x.dtype != want[1] \
                 or x.device != dev:
             raise ValueError(f"{name}: pack[{k!r}] must be a "
@@ -76,10 +92,11 @@ def _check(tiling, csr, pack, keys=PACK_KEYS, name="tile_deposit"):
             raise ValueError(f"{name}: the kernel runs one thread per slot "
                              f"and takes tiles of at most 1024 slots, not "
                              f"{tiling.P}")
-        if (7 + curves.shape[1]) * curves.element_size() > 48 * 1024:
-            raise ValueError(f"{name}: curves of {curves.shape[1]} points "
-                             "do not fit the kernel's 48 KB of shared "
-                             "memory for one halo")
+        n_pts = sum(pack[k].shape[1] for k in keys if k.startswith("curves"))
+        if (7 + n_pts) * curves.element_size() > 48 * 1024:
+            raise ValueError(f"{name}: curves of {n_pts} points do not fit "
+                             "the kernel's 48 KB of shared memory for one "
+                             "halo")
 
 
 def _chunks(tiling, csr, dt, tangent):
@@ -106,28 +123,32 @@ def _chunks(tiling, csr, dt, tangent):
         yield tid, geo, arr["center"][tid].to(dt), pairs
 
 
-def _pair_lookup(dh, dpp, pack, h, ln_r0, inv_dlnr):
-    """The chord^2, curve lerp and mask of a chunk of (pair, slot): dh
-    (n, 3) the halos' offsets from their tiles' centres, dpp (n, 3, P) the
-    slots'."""
-    curves = pack["curves"]
+def _lerp(curves, h, x):
+    """The lerp of halos ``h``'s curves at x (truncated bracket, clamped to
+    the grid) and the mask of x on the grid."""
     n_r = curves.shape[1]
-    d0 = dh[:, 0:1] - dpp[:, 0]
-    d1 = dh[:, 1:2] - dpp[:, 1]
-    d2 = dh[:, 2:3] - dpp[:, 2]
-    chord2 = d0 * d0 + d1 * d1 + d2 * d2
-    chord2 = torch.clamp(chord2, min=1e-30)
-    lnr = 0.5 * torch.log(chord2) + pack["lnDa"][h][:, None]
-    x = (lnr - ln_r0) * inv_dlnr
     i = torch.clamp(x.to(torch.int32), 0, n_r - 2)
     t = x - i.to(x.dtype)
     cv = curves[h]
     il = i.long()
     val = (torch.gather(cv, 1, il) * (1.0 - t)
            + torch.gather(cv, 1, il + 1) * t)
-    use = ((x >= 0) & (x <= n_r - 1)
-           & (chord2 <= pack["crit2"][h][:, None]))
-    return chord2, val, use
+    return val, (x >= 0) & (x <= n_r - 1)
+
+
+def _pair_lookup(dh, dpp, pack, h, ln_r0, inv_dlnr):
+    """The chord^2, ln r, curve lerp and mask of a chunk of (pair, slot):
+    dh (n, 3) the halos' offsets from their tiles' centres, dpp (n, 3, P)
+    the slots'."""
+    d0 = dh[:, 0:1] - dpp[:, 0]
+    d1 = dh[:, 1:2] - dpp[:, 1]
+    d2 = dh[:, 2:3] - dpp[:, 2]
+    chord2 = d0 * d0 + d1 * d1 + d2 * d2
+    chord2 = torch.clamp(chord2, min=1e-30)
+    lnr = 0.5 * torch.log(chord2) + pack["lnDa"][h][:, None]
+    val, on_grid = _lerp(pack["curves"], h, (lnr - ln_r0) * inv_dlnr)
+    use = on_grid & (chord2 <= pack["crit2"][h][:, None])
+    return chord2, lnr, val, use
 
 
 def _finish(out, valid):
@@ -149,8 +170,8 @@ def tile_deposit_plain(tiling, csr, pack, ln_r0, inv_dlnr):
         sph = torch.zeros_like(s0)
         for lt, h in pairs:
             dh = pack["vh"][h].to(dt) - c[lt]                    # (n, 3)
-            chord2, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0,
-                                            inv_dlnr)
+            chord2, _, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0,
+                                               inv_dlnr)
             d = torch.where(use, val, torch.zeros_like(val)) \
                 * pack["afac"][h][:, None]
             amp = d * torch.rsqrt(chord2) * pack["invD"][h][:, None]
@@ -178,10 +199,34 @@ def tile_paint_plain(tiling, csr, pack, ln_r0, inv_dlnr, log_curves):
         s0 = torch.zeros((tid.numel(), P), dtype=dt, device=dev)
         for lt, h in pairs:
             dh = pack["vh"][h].to(dt) - c[lt]
-            _, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0, inv_dlnr)
+            _, _, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0,
+                                          inv_dlnr)
             if log_curves:
                 val = torch.exp(val)
             s0.index_add_(0, lt, torch.where(use, val, torch.zeros_like(val))
+                          * pack["afac"][h][:, None])
+        acc[tid] = _finish(s0, valid.reshape(tid.numel(), P))
+    return acc
+
+
+def tile_paint2_plain(tiling, csr, pack, ln_r0, inv_dlnr, ln_r0_2,
+                      inv_dlnr_2, log_curves):
+    """Plain version of K12, in tile and pair chunks. Arguments as
+    :func:`tile_paint2`."""
+    dt, dev = pack["curves"].dtype, pack["curves"].device
+    P = tiling.P
+    acc = torch.zeros((tiling.n_tiles, P), dtype=dt, device=dev)
+    for tid, (dp, valid), c, pairs in _chunks(tiling, csr, dt,
+                                              tangent=False):
+        s0 = torch.zeros((tid.numel(), P), dtype=dt, device=dev)
+        for lt, h in pairs:
+            dh = pack["vh"][h].to(dt) - c[lt]
+            _, lnr, val, use = _pair_lookup(dh, dp[lt], pack, h, ln_r0,
+                                            inv_dlnr)
+            v2, on2 = _lerp(pack["curves2"], h, (lnr - ln_r0_2) * inv_dlnr_2)
+            val = torch.exp(val + v2) if log_curves else val * v2
+            s0.index_add_(0, lt, torch.where(use & on2, val,
+                                             torch.zeros_like(val))
                           * pack["afac"][h][:, None])
         acc[tid] = _finish(s0, valid.reshape(tid.numel(), P))
     return acc
@@ -239,9 +284,41 @@ def tile_paint(tiling, csr, pack, ln_r0, inv_dlnr, log_curves):
     return acc
 
 
-def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc):
-    """Launch ``bf_<name>`` (K4 or K10) over the touched tiles into the
-    zeroed ``acc``; no launch when no tile is touched."""
+def tile_paint2(tiling, csr, pack, ln_r0, inv_dlnr, ln_r0_2, inv_dlnr_2,
+                log_curves):
+    """Paint every (tile, halo) pair's product of two curve lookups on the
+    tile's slots: the halo sum of the anisotropic paint.
+
+    tiling, csr : as :func:`tile_deposit`
+    pack       : dict of per-halo tensors, ``PAINT2_KEYS``; the curves'
+                 dtype (float32 or float64) is the paint's dtype
+    ln_r0, inv_dlnr     : the first curve's grid (floats, used in that dtype)
+    ln_r0_2, inv_dlnr_2 : the second curve's grid
+    log_curves : both curves hold logs: the pair's value is exp(v1 + v2);
+                 else both hold raw values and it is v1 v2
+
+    Returns the tile-major (n_tiles, RB*K) map of sum over halos of
+    afac v(r); untouched tiles and dead slots are zero. Kernel K12 for
+    tensors on CUDA, the plain version for tensors on the CPU.
+    """
+    _check(tiling, csr, pack, PAINT2_KEYS, "tile_paint2")
+    if pack["curves"].device.type == "cpu":
+        return tile_paint2_plain(tiling, csr, pack, float(ln_r0),
+                                 float(inv_dlnr), float(ln_r0_2),
+                                 float(inv_dlnr_2), bool(log_curves))
+    acc = torch.zeros((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
+                      device=pack["curves"].device)
+    _launch("tile_paint2", tiling, csr, pack, PAINT_KEYS, ln_r0, inv_dlnr,
+            (pack["curves2"].shape[1], float(ln_r0_2), float(inv_dlnr_2),
+             int(bool(log_curves))), acc, (pack["curves2"].contiguous(),))
+    return acc
+
+
+def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc,
+            more=()):
+    """Launch ``bf_<name>`` (K4, K10 or K12) over the touched tiles into the
+    zeroed ``acc``, with the tensors ``more`` after the pack's columns; no
+    launch when no tile is touched."""
     tiles, offsets, halos = csr
     if tiles.numel() == 0:
         return
@@ -256,6 +333,7 @@ def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc):
                  _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
                  _build.ptr(arr["tile_S"]), _build.ptr(arr["center"]),
                  _build.ptr(arr["csc"]), *[_build.ptr(c) for c in cols],
+                 *[_build.ptr(c) for c in more],
                  pack["curves"].shape[1], float(ln_r0), float(inv_dlnr),
                  *extra, _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, name)

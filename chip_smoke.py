@@ -78,7 +78,34 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      card table's map agrees with the file table's; then one paint call at
      the north star's size (NSIDE 4096, 10^6 halos), warm and twice timed,
      with its phases;
- 12. prints one JSON line with each kernel's launches, error, times, bound
+ 12. holds the anisotropic paint's kernels against their plain versions on
+     the card: K12 tile paint2 (on the runner's own pack), K13 anisotropic
+     disc paint and K14 finish (both forms), with (log, log) and (raw, log)
+     curve pairs, float64 (to 1e-10 of the largest value; K14 to 1e-15
+     relative) and float32 (per pixel, to ops.paint.float32_tolerance with
+     both curves' slopes, K13's unit vectors with their own reach), on the
+     polar catalog (epsilon_max 60) and at the bench shapes (epsilon_max
+     5); runs PaintProfilesAnisShell card vs CPU (polar, float64, the halo
+     term) and, at its bench configuration (tools/anis_bench.py:76-93: the
+     card's tSZ table as model, tracer and Mtot, the shell at z 0.9), the
+     tiled (K1, K10, K7, K12, K14) and scatter (K1, K11, K13, K14) paths
+     with drive_path(), and holds the two to the JAX package's bounds
+     (tests/test_runners_extra.py:243-261) in float32, float64 and on the
+     halo term alone;
+ 13. builds the ΔP(k) recipe's tables on the card (examples/06_delta_pk.py:
+     46-87) and runs the grid runners: on a small grid (32^3, 128^2) K15
+     grid cutouts and K16 grid deposit against their plain versions in
+     float64 and float32 and every runner card vs CPU in float64; then, at
+     the recipe's configuration (7,088 halos of seed 3 at z 0.2 in a 256
+     Mpc box, BASELINE.md:13), in 3D (256^3) the DMO paint
+     (PaintProfilesGrid, epsilon_max 10) and BaryonifyGrid (epsilon_max
+     20) of its map plus a 10% floor, and in 2D (2048^2) the same with
+     ellipticity and PaintProfilesAnisGrid (epsilon_max 5): each driven
+     with the launch counts set to 0 just before and read just after, mass
+     conserved, K15 and K16 held against their plain versions on each
+     runner's own inputs (float32 offsets to 1e-5 of the largest,
+     float64 maps to 1e-10), halos/s and phases printed;
+ 14. prints one JSON line with each kernel's launches, error, times, bound
      and library-call time, and last the line {"ok": true, "device": ...}.
 
 A kernel's bound (bound_ms) is the larger of the bytes it must move (each
@@ -123,6 +150,23 @@ SMALL_GRID = dict(BENCH_GRID, N_samples_z=2, N_samples_Mass=4,
 # paint, on the bench catalog; the north-star size (tools/northstar.py)
 PAINT_EPS = 5
 NS_NSIDE, NS_HALOS = 4096, 1_000_000
+# the anisotropic paint's configuration (tools/anis_bench.py:60-93 on the
+# bench catalog): epsilon_max 5 (PAINT_EPS), the shell at z 0.9, background
+ANIS_Z, ANIS_BG, ANIS_FRAC = 0.9, 1.0, 0.1
+# the grid configurations: the ΔP(k) recipe of examples/06_delta_pk.py:46-87
+# (its cosmology and S19 parameters, seed 3, z 0.2, epsilon_max 10 paint and
+# 20 baryonify, its table grids) at the reference's ΔP(k) size, 7,088 halos
+# (BASELINE.md:13), in a 256 Mpc box: 256^3 cells, and 2048^2 in 2D
+GRID_SEED, GRID_HALOS, GRID_Z, GRID_L = 3, 7088, 0.2, 256.0
+GRID3D_N, GRID2D_N = 256, 2048
+GRID_PAINT_EPS, GRID_BARYON_EPS, GRID_ANIS_EPS = 10, 20, 5
+DMO_GRID = dict(z_min=0.1, z_max=0.3, N_samples_z=2, M_min=1e13, M_max=1e15,
+                N_samples_Mass=8, R_min=1e-3, R_max=60, N_samples_R=64,
+                verbose=False)
+B_GRID = dict(z_min=0.1, z_max=0.3, N_samples_z=2, M_min=1e13, M_max=3e15,
+              N_samples_Mass=8, R_min=1e-3, R_max=50, N_samples_R=48,
+              verbose=False)
+GRID_CALLS = 3          # timed process() calls per grid path, after one warm
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 
@@ -1224,6 +1268,526 @@ def north_star_paint(bf, torch, tab, gpu):
     return launches
 
 
+def anis_shell(bf, shell):
+    """``shell``'s map at the anisotropic paint's redshift
+    (tools/anis_bench.py:60-62)."""
+    return bf.utils.LightconeShell(map=shell.map, cosmo=COSMO,
+                                   redshift=ANIS_Z)
+
+
+def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
+    """K12, K13 and K14 against their plain versions on the card, on this
+    catalog, with (log, log) and (raw, log) curve pairs, in float64 and
+    float32: K12 on the runner's own pack, K13 on a canvas 1 + orig with
+    every 7th pixel 0, K14 in both forms. Returns {kernel: (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms)} for the bench
+    configuration (float32, log curves) when ``timing``."""
+    from baryonforge_torch.ops import paint
+    from baryonforge_torch.ops import tile_deposit as td
+    dev = torch.device(DEVICE)
+    nside = shell.NSIDE
+    npix = 12 * nside * nside
+    orig = torch.as_tensor(shell.map, device=dev)
+    mtot = 1.0 + orig
+    mtot[::7] = 0.0
+    out = {}
+    for kinds in (("log", "log"), ("raw", "log")):
+        for dt in (torch.float64, torch.float32):
+            tag = (f"{label}, {kinds[0]}/{kinds[1]} curves, "
+                   f"{str(dt).replace('torch.', '')}")
+            runner = bf.PaintProfilesAnisShell(
+                cat, anis_shell(bf, shell), epsilon_max=eps,
+                model=models[kinds[0]], Tracer_model=models[kinds[1]],
+                Mtot_model=models[kinds[1]], background_val=ANIS_BG,
+                global_tracer_fraction=ANIS_FRAC, dtype=dt, device=dev)
+            hd = runner._host_halo_data(
+                bf.cosmo.cosmology_from_dict(runner.cosmo))
+            curves = []
+            for kind in kinds:
+                c, r0, dl = models[kind].with_dtype(
+                    torch.float64, device=dev).halo_curves(hd["M"], hd["a"])
+                curves.append((c, float(r0), float(dl),
+                               models[kind].curves_are_log))
+            tiling, csr, pack, grid = runner._tile_paint2_inputs(hd, curves,
+                                                                 nside)
+            ak = td.tile_paint2(tiling, csr, pack, *grid)
+            ap = td.tile_paint2_plain(tiling, csr, pack, *grid)
+            halos = {k: torch.as_tensor(hd[k], device=dev)
+                     for k in paint.HALO_COLUMNS}
+            painting, canvas = ((c.to(dt),) + tuple(rest)
+                                for c, *rest in curves)
+            kk = paint.disc_paint_anis(nside, halos, painting, canvas, mtot,
+                                       orig, False)
+            kp = paint.disc_paint_anis_plain(nside, halos, painting, canvas,
+                                             mtot, orig, False)
+            hs = tiling.flat_view_plain(ap)
+            mt = (2.0 * orig - 0.5).to(dt)
+            fk = paint.anis_finish(hs, mt, orig, 0.3, 0.1, tiled=True)
+            fp = paint.anis_finish_plain(hs, mt, orig, 0.3, 0.1, 1.0, True)
+            sk = paint.anis_finish(kp, mtot, orig, 0.3, 0.1, scale=2.0)
+            sp = paint.anis_finish_plain(kp, mtot, orig, 0.3, 0.1, 2.0,
+                                         False)
+            torch.cuda.synchronize()
+            err12 = (ak - ap).abs().max().item()
+            err13 = (kk - kp).abs().max().item()
+            err14 = max(((fk - fp).abs() / fp.abs()).nan_to_num().max()
+                        .item(), ((sk - sp).abs() / sp.abs()).nan_to_num()
+                        .max().item())
+            log(f"  [{tag}] K12 on {tiling.RB} x {tiling.K} tiles: "
+                f"{csr[0].numel()} touched, {csr[2].numel()} pairs")
+            # K14: the same operations in the same order
+            check(f"K14 anis_finish [{tag}] (relative)", err14, 1e-15)
+            (c1, r1, d1, l1), (c2, r2, d2, l2) = curves
+            second = (c2, r2, d2, l2)
+            if dt == torch.float64:
+                # sums in another order (K13: atomics)
+                check(f"K12 tile_paint2 [{tag}]", err12,
+                      1e-10 * ap.abs().max().item())
+                if not torch.equal(ak == 0, ap == 0):
+                    raise AssertionError(f"K12 [{tag}]: zero masks differ")
+                check(f"K13 disc_paint_anis [{tag}]", err13,
+                      1e-10 * kp.abs().max().item())
+            else:
+                # K12's geometry is tile-local, well conditioned: 1e-4
+                _, marginal = paint.float32_tolerance(
+                    nside, halos, c1, r1, d1, l1, second=second)
+                paint_f32_check(f"K12 tile_paint2 [{tag}]",
+                                tiling.flat_view_plain(ak), hs,
+                                torch.full_like(kp, 1e-4), marginal)
+                paint_f32_check(f"K13 disc_paint_anis [{tag}]", kk, kp,
+                                *paint.float32_tolerance(
+                                    nside, halos, c1, r1, d1, l1,
+                                    reach=paint.VEC_SINHD_REACH,
+                                    second=second))
+            if not (timing and dt == torch.float32 and kinds[0] == "log"):
+                continue
+            # K12: per pair-slot ~35 operations (chord, log, two lerps, one
+            # exp, masks); pack and both curves read, the map written
+            out["tile_paint2"] = (err12, time_ms(
+                torch, lambda: td.tile_paint2(tiling, csr, pack, *grid), 20),
+                time_ms(torch, lambda: td.tile_paint2_plain(
+                    tiling, csr, pack, *grid), 3)) + bound(
+                nbytes(csr, pack, ak), 35.0 * csr[2].numel() * tiling.P,
+                F32_FLOPS) + (None,)
+            # K13: its disc pixels (sum of pi r^2 over the pixel area), ~60
+            # float32 operations (pixel centre, unit vector) and ~60 float64
+            # ones (two lookups with their log and exp) each; halos and
+            # curves read, the canvas and map read at the disc pixels, the
+            # map written
+            pixels = npix * float(np.sum(hd["radius"] ** 2)) / 4.0
+            out["disc_paint_anis"] = (err13, time_ms(
+                torch, lambda: paint.disc_paint_anis(
+                    nside, halos, painting, canvas, mtot, orig, False), 10),
+                time_ms(torch, lambda: paint.disc_paint_anis_plain(
+                    nside, halos, painting, canvas, mtot, orig, False),
+                    3)) + bound(
+                nbytes(halos, painting[0], canvas[0], kk) + 16.0 * pixels,
+                60.0 * pixels, F64_FLOPS) + (None,)
+            # K14 (tiled form): per pixel the halo sum and canvas (float32)
+            # and orig read, the map written; ~8 float64 operations
+            out["anis_finish"] = (err14, time_ms(
+                torch, lambda: paint.anis_finish(hs, mt, orig, 0.3, 0.1,
+                                                 tiled=True), 50),
+                time_ms(torch, lambda: paint.anis_finish_plain(
+                    hs, mt, orig, 0.3, 0.1, 1.0, True), 10)) + bound(
+                nbytes(hs, mt, orig, fk), 8.0 * npix, F64_FLOPS) + (None,)
+            log(f"  K12 pair-slots {csr[2].numel() * tiling.P}, K13 disc "
+                f"pixels ~{pixels:.0f}")
+    return out
+
+
+def grid_inputs(bf, ndim, npix, n_halos=GRID_HALOS, seed=GRID_SEED):
+    """The ΔP(k) recipe's catalog (examples/06_delta_pk.py:57-63: seed 3,
+    x, y, z uniform in the box, M = 10^U(13.5, 14.8), z = 0.2) at the
+    reference's ΔP(k) size, in 2D its x and y with q_ell and A_ell as
+    tests/test_runners_extra.py:80-84; and an empty N^d map of the 256 Mpc
+    box."""
+    rng = np.random.default_rng(seed)
+    L = GRID_L
+    x, y, z = (rng.uniform(0, L, n_halos) for _ in range(3))
+    M = 10 ** rng.uniform(13.5, 14.8, n_halos)
+    extra = dict(z=z) if ndim == 3 else dict(
+        q_ell=rng.uniform(0.5, 0.9, n_halos),
+        A_ell=rng.normal(size=(n_halos, 2)))
+    cat = bf.utils.HaloNDCatalog(x=x, y=y, M=M, redshift=GRID_Z, cosmo=COSMO,
+                                 **extra)
+    gm = grid_map(bf, np.zeros((npix,) * ndim))
+    return cat, gm
+
+
+def grid_map(bf, m):
+    npix = m.shape[0]
+    return bf.utils.GriddedMap(map=m, bins=(np.arange(npix) + 0.5)
+                               * (GRID_L / npix), cosmo=COSMO,
+                               redshift=GRID_Z)
+
+
+def grid_tables(bf, torch, gpu):
+    """The ΔP(k) recipe's tables built on the card
+    (examples/06_delta_pk.py:66-82): the DMO paint table (3D; with
+    proj_cutoff=100 for 2D), Baryonification3D and Baryonification2D (its
+    profiles with proj_cutoff=100, as the bench's)."""
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    P = bf.Profiles
+    t0 = time.perf_counter()
+    tabs = {
+        "dmo3": bf.utils.TabulatedProfile(P.DarkMatter(**BPAR), cosmo)
+        .setup_interpolator(**DMO_GRID),
+        "dmo2": bf.utils.TabulatedProfile(
+            P.DarkMatter(**BPAR, proj_cutoff=100), cosmo)
+        .setup_interpolator(**DMO_GRID),
+        "b3": bf.Baryonification3D(
+            P.DarkMatterOnly(**BPAR), P.DarkMatterBaryon(**BPAR), cosmo,
+            epsilon_max=GRID_BARYON_EPS).setup_interpolator(**B_GRID),
+        "b2": bf.Baryonification2D(
+            P.DarkMatterOnly(**BPAR, proj_cutoff=100),
+            P.DarkMatterBaryon(**BPAR, proj_cutoff=100), cosmo,
+            epsilon_max=GRID_BARYON_EPS).setup_interpolator(**B_GRID)}
+    for k in ("b3", "b2"):
+        if not np.isfinite(tabs[k].raw_input_d).all():
+            raise AssertionError(f"grid table {k}: not finite")
+    log(f"[{gpu}] grid tables on the card (2 DMO paint tables "
+        f"2 z x 8 M x 64 r, Baryonification3D/2D 2 z x 8 M x 48 r): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return tabs
+
+
+def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False):
+    """K15 over every size bucket of ``runner``'s own inputs (and K16 on
+    the offsets when ``deposit``) against the plain versions on the card:
+    float64 maps to 1e-10 of the largest value (atomic sums in another
+    order), float32 offsets to 1e-5 of the largest (float32 sums in another
+    order), K16's float64 map to 1e-12 of the largest value and its mass to
+    1e-12. Returns {kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)} when ``timing``."""
+    from baryonforge_torch.ops import grid as tgrid
+    from baryonforge_torch.ops import scatter
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    dev = torch.device(DEVICE)
+    gm = runner.GriddedMap
+    ndim, npix = (2 if gm.is2D else 3), gm.Npix
+    inp = runner._cutout_inputs(_PhaseClock(dev))
+    ak = runner._cutouts(inp, runner._accumulator(inp))
+    ap = runner._cutouts(inp, runner._accumulator(inp),
+                         cutout=tgrid.grid_cutout_plain)
+    torch.cuda.synchronize()
+    err15 = (ak - ap).abs().max().item()
+    scale = ap.abs().max().item()
+    if not scale > 0:
+        raise AssertionError(f"K15 [{label}]: nothing deposited")
+    rel = 1e-5 if ak.dtype == torch.float32 else 1e-10
+    buckets = runner._buckets(inp["Nsize"])
+    cells = float(sum(idx.size * Ns ** ndim for idx, Ns in buckets))
+    log(f"  [{label}] K15 {inp['mode']}: {len(buckets)} buckets, cutouts "
+        f"{[Ns for _, Ns in buckets]}, {cells:.4g} cells")
+    check(f"K15 grid_cutout [{label}]", err15, rel * scale)
+    out = {}
+    if timing:
+        # K15: per cell ~50 float64 operations (geometry, a log, one or two
+        # lerps, masks); the halo columns and curves read, the
+        # accumulator written once (the anisotropic mode also reads the
+        # canvas and the map at its cells)
+        reads = nbytes(inp["halos"], inp["curve"][0]) + (
+            16.0 * cells if inp["mode"] == "anis" else 0.0)
+        out["grid_cutout"] = (err15, time_ms(
+            torch, lambda: runner._cutouts(inp, runner._accumulator(inp)),
+            3), time_ms(torch, lambda: runner._cutouts(
+                inp, runner._accumulator(inp),
+                cutout=tgrid.grid_cutout_plain), 1)) + bound(
+            reads + nbytes(ak), 50.0 * cells, F64_FLOPS) + (None,)
+    if not deposit:
+        return out
+    orig = inp["orig"]
+    dk = scatter.grid_deposit(ap, orig, npix, ndim)
+    dp = scatter.grid_deposit_plain(ap, orig, npix, ndim)
+    torch.cuda.synchronize()
+    err16 = (dk - dp).abs().max().item()
+    check(f"K16 grid_deposit [{label}]", err16,
+          1e-12 * dp.abs().max().item())
+    check(f"K16 grid_deposit mass [{label}]",
+          abs(dk.sum().item() / orig.sum().item() - 1.0), 1e-12)
+    if timing:
+        nflat = orig.numel()
+        idx, vals = deposit_corners(torch, ap, orig, npix, ndim)
+
+        def library():
+            return torch.zeros_like(orig).index_put_((idx,), vals,
+                                                     accumulate=True)
+        if not torch.allclose(library(), dp, rtol=0,
+                              atol=1e-12 * dp.abs().max().item()):
+            raise AssertionError("index_put_ yardstick of K16 is wrong")
+        # K16: per source its offsets and value read, ~15 operations an
+        # axis and 2^d weighted updates of the map, written once
+        out["grid_deposit"] = (err16, time_ms(
+            torch, lambda: scatter.grid_deposit(ap, orig, npix, ndim), 5),
+            time_ms(torch, lambda: scatter.grid_deposit_plain(
+                ap, orig, npix, ndim), 2)) + bound(
+            nbytes(ap, orig, dk), (15.0 * ndim + 2 ** ndim * ndim) * nflat,
+            F64_FLOPS) + (time_ms(torch, library, 5),)
+    return out
+
+
+def deposit_corners(torch, po, orig, npix, ndim):
+    """K16's 2^d corner cells and weighted values of every source,
+    concatenated (the plain version's weights): the inputs of one
+    index_put_(accumulate=True), K16's library yardstick."""
+    import itertools
+    from baryonforge_torch.ops import scatter
+    pos = scatter.lattice(npix, ndim, orig.device).to(orig.dtype) + \
+        torch.where(torch.isfinite(po), po, torch.zeros_like(po)).to(
+            orig.dtype)
+    cw = [scatter._corner_weights_1d(pos[d], npix) for d in range(ndim)]
+    idx, vals = [], []
+    for corner in itertools.product((0, 1), repeat=ndim):
+        ii, w = 0, orig
+        for d, c in enumerate(corner):
+            ii = ii * npix + cw[d][c]
+            w = w * cw[d][2 + c]
+        idx.append(ii)
+        vals.append(w)
+    return torch.cat(idx), torch.cat(vals)
+
+
+def drive_path(bf, torch, runner, required, label, gpu, n_halos, warm,
+               calls, check_map):
+    """``warm`` untimed and ``calls`` timed calls of ``runner.process()``,
+    with the launch counts set to 0 just before and read just after.
+    Checks that the kernels in ``required`` were launched on every call and
+    ``check_map(out)``. Returns (map, launches)."""
+    from baryonforge_torch.ops import _build
+    _build.reset_launches()
+    for _ in range(warm):
+        runner.process()
+    walls, phases = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.process()
+        walls.append(time.perf_counter() - t0)
+        phases.append(runner.timings)
+    launches = dict(_build.launches)
+    for k in required:
+        if launches.get(k, 0) < warm + calls:
+            raise AssertionError(f"{label} did not launch {k}: {launches}")
+    check_map(label, out)
+    q = np.percentile(np.array(walls) * 1e3, [25, 50, 75])
+    log(f"[{gpu}] {label}: {calls} calls, median {q[1]:.3f} ms "
+        f"({q[0]:.3f}-{q[2]:.3f}) = {n_halos / (q[1] / 1e3):.1f} halos/s; "
+        "median phases (ms, CUDA events): " + ", ".join(
+            f"{k} {np.median([p[k] for p in phases]):.3f}"
+            for k in phases[0]))
+    log(f"launches in {label}'s {warm + calls} calls: {launches}")
+    return out, launches
+
+
+def painted(shape):
+    def check_map(label, out):
+        if out.shape != shape or not np.isfinite(out).all():
+            raise AssertionError(f"{label}: map not finite / wrong shape")
+        if not out.max() > 0:
+            raise AssertionError(f"{label} painted nothing")
+    return check_map
+
+
+def moved(orig):
+    def check_map(label, out):
+        if out.shape != orig.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{label}: map not finite / wrong shape")
+        if not np.isclose(out.sum(), orig.sum()):
+            raise AssertionError(f"{label} lost mass")
+        if not np.abs(out - orig).max() > 0:
+            raise AssertionError(f"{label} moved nothing")
+    return check_map
+
+
+def anis_bound_check(name, t, s, f64):
+    """The JAX package's bounds between its tiled and scatter anisotropic
+    paints (tests/test_runners_extra.py:243-261): float64 rtol 1e-6 and
+    atol 1e-9 of the largest value, float32 rtol 2e-2 and atol 2e-5 of it;
+    reported as the largest excess ratio (<= 1 passes)."""
+    rtol, atol = (1e-6, 1e-9) if f64 else (2e-2, 2e-5)
+    scale = np.abs(s).max()
+    if not scale > 0:
+        raise AssertionError(f"{name}: nothing painted")
+    ratio = float((np.abs(t - s) / (atol * scale + rtol * np.abs(s))).max())
+    check(f"{name} (|diff| / (atol max + rtol |value|))", ratio, 1.0)
+
+
+def grid_card_vs_cpu(bf, torch, tabs):
+    """On a small grid of the same recipe (3D 32^3 and 2D 128^2 with
+    ellipticity, 32 Mpc, 300 halos): K15 and K16 against their plain
+    versions on the card in float64 and float32, and the grid runners on
+    the card against the plain versions on the CPU, float64, to 1e-9 of the
+    largest value (of the largest move for BaryonifyGrid)."""
+    for ndim, npix in ((3, 32), (2, 128)):
+        cat, _ = grid_inputs(bf, ndim, npix, n_halos=300, seed=GRID_SEED + 1)
+        cat.cat["x"] *= 32.0 / GRID_L
+        cat.cat["y"] *= 32.0 / GRID_L
+        if ndim == 3:
+            cat.cat["z"] *= 32.0 / GRID_L
+        rng = np.random.default_rng(ndim)
+        gm = bf.utils.GriddedMap(map=rng.exponential(1.0, (npix,) * ndim),
+                                 bins=(np.arange(npix) + 0.5) * 32.0 / npix,
+                                 cosmo=COSMO, redshift=GRID_Z)
+        tab = tabs["dmo3" if ndim == 3 else "dmo2"]
+        runs = [(bf.BaryonifyGrid, dict(
+            epsilon_max=GRID_BARYON_EPS, model=tabs[f"b{ndim}"],
+            use_ellipticity=ndim == 2)),
+            (bf.PaintProfilesGrid, dict(epsilon_max=GRID_PAINT_EPS,
+                                        model=tab))]
+        if ndim == 2:
+            runs.append((bf.PaintProfilesAnisGrid, dict(
+                epsilon_max=GRID_ANIS_EPS, model=tab, Tracer_model=tab,
+                Mtot_model=tab, background_val=ANIS_BG,
+                global_tracer_fraction=ANIS_FRAC)))
+        for cls, kw in runs:
+            for dt in (torch.float64, torch.float32):
+                compare_grid_kernels(
+                    bf, torch, cls(cat, gm, device=DEVICE, dtype=dt, **kw),
+                    f"{cls.__name__} {ndim}D {npix}^{ndim}, "
+                    f"{str(dt).replace('torch.', '')}", False,
+                    deposit=cls is bf.BaryonifyGrid)
+            kw.update(dtype=torch.float64)
+            g = cls(cat, gm, device=DEVICE, **kw).process()
+            c = cls(cat, gm, device="cpu", **kw).process()
+            ref = (np.abs(c - gm.map).max() if cls is bf.BaryonifyGrid
+                   else np.abs(c).max())
+            if not ref > 0:
+                raise AssertionError(f"{cls.__name__} {ndim}D: nothing")
+            check(f"{cls.__name__} {ndim}D {npix}^{ndim}, float64, card vs "
+                  "CPU", float(np.abs(g - c).max()), 1e-9 * ref)
+
+
+def sum_launches(*runs):
+    return {k: sum(r.get(k, 0) for r in runs)
+            for k in set().union(*runs)}
+
+
+def anis_card_vs_cpu(bf, torch, tab, cat, shell, eps, label):
+    """The anisotropic paint on the card against the plain versions on the
+    CPU, float64, tiled and scatter, to 1e-9 of the largest value; with
+    background_val 0, so that the halo term (K12 or K13 and K14) is the
+    whole map."""
+    for deposit in ("auto", "scatter"):
+        kw = dict(epsilon_max=eps, model=tab, Tracer_model=tab,
+                  Mtot_model=tab, background_val=0.0,
+                  global_tracer_fraction=ANIS_FRAC, dtype=torch.float64,
+                  deposit=deposit)
+        g = bf.PaintProfilesAnisShell(cat, anis_shell(bf, shell),
+                                      device=DEVICE, **kw).process()
+        c = bf.PaintProfilesAnisShell(cat, anis_shell(bf, shell),
+                                      device="cpu", **kw).process()
+        if not np.abs(c).max() > 0:
+            raise AssertionError(f"anisotropic paint {label}: nothing")
+        check(f"anisotropic paint {label}, {deposit}, float64, card vs CPU",
+              float(np.abs(g - c).max()), 1e-9 * float(np.abs(c).max()))
+
+
+def anis_paths(bf, torch, tab, cat, shell, gpu):
+    """The anisotropic paint at its bench configuration
+    (tools/anis_bench.py:76-93: model, tracer and Mtot the card's tSZ
+    table), tiled (the default) and scatter, each driven with the launch
+    counts set to 0 just before and read just after; the two routes held to
+    the JAX package's bounds in float32 and float64 and, with
+    background_val 0, on the halo term alone. Returns the launches of the
+    two drives."""
+    kw = dict(epsilon_max=PAINT_EPS, model=tab, Tracer_model=tab,
+              Mtot_model=tab, background_val=ANIS_BG,
+              global_tracer_fraction=ANIS_FRAC)
+    sh = anis_shell(bf, shell)
+    log(f"main path (anisotropic paint, tiled): PaintProfilesAnisShell("
+        f"epsilon_max={PAINT_EPS}, the tSZ table x 3).process(), NSIDE "
+        f"{NSIDE}, {N_HALOS} halos")
+    out_t, l_t = drive_path(
+        bf, torch, bf.PaintProfilesAnisShell(cat, sh, device=DEVICE, **kw),
+        ("collapse_curves", "tile_paint", "flat_view", "tile_paint2",
+         "anis_finish"), "anisotropic paint, tiled", gpu, N_HALOS, 2,
+        N_CALLS, painted(sh.map.shape))
+    log("main path (anisotropic paint, scatter): PaintProfilesAnisShell("
+        "deposit='scatter', ...).process()")
+    out_s, l_s = drive_path(
+        bf, torch, bf.PaintProfilesAnisShell(cat, sh, deposit="scatter",
+                                             device=DEVICE, **kw),
+        ("collapse_curves", "disc_paint", "disc_paint_anis", "anis_finish"),
+        "anisotropic paint, scatter", gpu, N_HALOS, 2, N_CALLS,
+        painted(sh.map.shape))
+    anis_bound_check("anisotropic paint: tiled vs scatter, float32", out_t,
+                     out_s, False)
+    runs = {}
+    for name, extra in (("float64", dict(dtype=torch.float64)),
+                        ("halo term, float32", dict(background_val=0.0))):
+        for deposit in ("auto", "scatter"):
+            runs[deposit] = bf.PaintProfilesAnisShell(
+                cat, sh, deposit=deposit, device=DEVICE,
+                **dict(kw, **extra)).process()
+        anis_bound_check(f"anisotropic paint: tiled vs scatter, {name}",
+                         runs["auto"], runs["scatter"], name == "float64")
+    log(f"  halo term: largest {np.abs(runs['scatter']).max():.6e}, of the "
+        f"map's {np.abs(out_s).max():.6e}")
+    return sum_launches(l_t, l_s)
+
+
+def grid_paths(bf, torch, tabs, gpu):
+    """The grid runners at the ΔP(k) recipe's configurations: in 3D the DMO
+    paint (PaintProfilesGrid, epsilon_max 10) and BaryonifyGrid
+    (Baryonification3D, epsilon_max 20) of its map plus a 10% floor; in 2D
+    the same with Baryonification2D and ellipticity, and
+    PaintProfilesAnisGrid (epsilon_max 5) on the 2D map. Each drive sets
+    the launch counts to 0 just before and reads them just after; K15 and
+    K16 are held against their plain versions on each runner's own inputs.
+    Returns (the drives' launches, the 3D baryonify's kernel rows)."""
+    runs, measured = [], {}
+    calls = dict(n_halos=GRID_HALOS, warm=1, calls=GRID_CALLS)
+    for ndim, npix in ((3, GRID3D_N), (2, GRID2D_N)):
+        cat, gm0 = grid_inputs(bf, ndim, npix)
+        tab = tabs[f"dmo{ndim}"]
+        size = f"{npix}^{ndim}"
+        log(f"main path (grid {ndim}D paint): PaintProfilesGrid(epsilon_max="
+            f"{GRID_PAINT_EPS}, DMO table).process(), {size}, "
+            f"{GRID_HALOS} halos")
+        r_p = bf.PaintProfilesGrid(cat, gm0, epsilon_max=GRID_PAINT_EPS,
+                                   model=tab, device=DEVICE)
+        dmo, l_p = drive_path(bf, torch, r_p, ("collapse_curves",
+                                               "grid_cutout"),
+                              f"grid {ndim}D paint", gpu,
+                              check_map=painted(gm0.map.shape), **calls)
+        compare_grid_kernels(bf, torch, r_p, f"{ndim}D paint, {size}", False)
+        gm = grid_map(bf, dmo + dmo.mean() * 0.1)
+        r_b = bf.BaryonifyGrid(cat, gm, epsilon_max=GRID_BARYON_EPS,
+                               model=tabs[f"b{ndim}"],
+                               use_ellipticity=ndim == 2, device=DEVICE)
+        label = f"{ndim}D baryonify{', ellipticity' if ndim == 2 else ''}"
+        measured_b = compare_grid_kernels(bf, torch, r_b,
+                                          f"{label}, {size}", ndim == 3,
+                                          deposit=True)
+        if ndim == 3:
+            measured = measured_b
+        log(f"main path (grid {label}): BaryonifyGrid(epsilon_max="
+            f"{GRID_BARYON_EPS}).process() on the painted map, {size}")
+        _, l_b = drive_path(bf, torch, r_b, ("collapse_curves",
+                                             "grid_cutout", "grid_deposit"),
+                            f"grid {label}", gpu,
+                            check_map=moved(gm.map), **calls)
+        runs += [l_p, l_b]
+        if ndim == 3:
+            continue
+        r_a = bf.PaintProfilesAnisGrid(
+            cat, gm, epsilon_max=GRID_ANIS_EPS, model=tab, Tracer_model=tab,
+            Mtot_model=tab, background_val=ANIS_BG,
+            global_tracer_fraction=ANIS_FRAC, device=DEVICE)
+        compare_grid_kernels(bf, torch, r_a, f"2D anisotropic paint, {size}",
+                             False)
+        log(f"main path (grid 2D anisotropic paint): PaintProfilesAnisGrid("
+            f"epsilon_max={GRID_ANIS_EPS}, DMO table x 3).process() on the "
+            f"painted map, {size}")
+        _, l_a = drive_path(bf, torch, r_a, ("collapse_curves",
+                                             "grid_cutout", "anis_finish"),
+                            "grid 2D anisotropic paint", gpu,
+                            check_map=painted(gm.map.shape), **calls)
+        runs.append(l_a)
+    return sum_launches(*runs), measured
+
+
 KERNELS = [
     # name, entry points, source, TPU kernel replaced, the path it runs on
     ("collapse_curves", ("collapse_curves",),
@@ -1254,6 +1818,19 @@ KERNELS = [
      "baryonforge_tpu/ops/tiles.py:775", "paint"),
     ("disc_paint", ("disc_paint",), "baryonforge_torch/csrc/disc_paint.cu",
      "baryonforge_tpu/Runners/HealpixRunner.py:1948", "paint"),
+    ("tile_paint2", ("tile_paint2",),
+     "baryonforge_torch/csrc/tile_deposit.cu",
+     "baryonforge_tpu/ops/tiles.py:985", "anis"),
+    ("disc_paint_anis", ("disc_paint_anis",),
+     "baryonforge_torch/csrc/disc_paint.cu",
+     "baryonforge_tpu/Runners/HealpixRunner.py:2377", "anis"),
+    ("anis_finish", ("anis_finish",), "baryonforge_torch/csrc/anis_finish.cu",
+     "baryonforge_tpu/Runners/HealpixRunner.py:2349", "anis"),
+    ("grid_cutout", ("grid_cutout",), "baryonforge_torch/csrc/grid_cutout.cu",
+     "baryonforge_tpu/Runners/Map2DRunner.py:366", "grid"),
+    ("grid_deposit", ("grid_deposit",),
+     "baryonforge_torch/csrc/grid_deposit.cu",
+     "baryonforge_tpu/ops/scatter.py:28", "grid"),
 ]
 
 
@@ -1446,10 +2023,29 @@ def main():
                       out_pt, out_pf)
     north_star_paint(bf, torch, tsz_card, gpu)
 
+    log("anisotropic paint kernels against their plain versions, polar "
+        "catalog (NSIDE 64, epsilon_max 60), the JAX file's tSZ table")
+    compare_anis_kernels(bf, torch, tsz_file, cat_p, shell_p, 60,
+                         "NSIDE 64 poles", False)
+    log(f"anisotropic paint kernels, bench shapes (NSIDE {NSIDE}, "
+        f"{N_HALOS} halos, epsilon_max {PAINT_EPS})")
+    measured.update(compare_anis_kernels(bf, torch, tsz_file, cat, shell,
+                                         PAINT_EPS, f"NSIDE {NSIDE}", True))
+    anis_card_vs_cpu(bf, torch, tsz_card, cat_p, shell_p, 60,
+                     "NSIDE 64 poles")
+    launches_anis = anis_paths(bf, torch, tsz_card, cat, shell, gpu)
+
+    log("grid paths: the ΔP(k) recipe's tables built on the card")
+    tabs = grid_tables(bf, torch, gpu)
+    grid_card_vs_cpu(bf, torch, tabs)
+    launches_grid, grid_measured = grid_paths(bf, torch, tabs, gpu)
+    measured.update(grid_measured)
+
     launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
                       for k in set(launches_pt) | set(launches_ps)}
     launches = {"scatter": launches_s, "tiled": launches_t,
-                "table": launches_table, "paint": launches_paint}
+                "table": launches_table, "paint": launches_paint,
+                "anis": launches_anis, "grid": launches_grid}
     kernels = []
     for name, entries, src, rep, path in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]

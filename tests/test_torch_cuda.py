@@ -7,11 +7,15 @@ tests/conftest.py imports jax, so there run it as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float64 to 1e-10 of the largest value (atomic sums in another
-order); float32 paint (K10, K11) per pixel to the relative tolerance of
-ops.paint.float32_tolerance (1e-4 for K10's tile-local geometry), pixels
-painted on one side only allowed at disc edges alone; K8 (FFTLog) to
-1e-11 of the largest value (direct DFT sums against torch.fft's: two
-correct summation orders differ by up to ~4e-12 of it on wide grids), K9
+order); float32 paint (K10, K11, K12, K13) per pixel to the relative
+tolerance of ops.paint.float32_tolerance (1e-4 for the tile-local
+geometry of K10 and K12; K13's unit vectors with their own reach and both
+curves' slopes), pixels painted on one side only allowed at disc edges
+alone; float32 grid offsets (K15) and maps (K16) to 1e-5 of the largest
+value (float32 sums in another order); K14 to 1e-15 (the same
+operations); K8 (FFTLog) to 1e-11 of the largest value (direct DFT sums
+against torch.fft's: two correct summation orders differ by up to ~4e-12
+of it on wide grids), K9
 (table rows) to 1e-12 with equal NaN masks; float32 deposits to the JAX
 package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
@@ -526,3 +530,295 @@ def test_paint_shell_cuda_matches_cpu(dev, deposit):
     assert out_c.max() > 0
     np.testing.assert_allclose(out_g, out_c, rtol=1e-9,
                                atol=1e-12 * out_c.max())
+
+
+# ---- the anisotropic paint's kernels: K12 paint2, K13, K14 -----------------
+def _anis_curves(hd, kinds, dev):
+    """The model's and the tracer's curves (K1's plain version on the
+    float64 tables, as the runner reads them): one (curves, ln_r0, dlnr,
+    log) per kind."""
+    out = []
+    for kind in kinds:
+        model = _tsz_models()[kind]
+        m = model.with_dtype(torch.float64, device=dev)
+        c, r0, dl = interp.collapse_curves_plain(
+            m._tab2D, m._axes, 2, hd["M"], hd["a"], [], {},
+            fill=-np.inf if model.curves_are_log else 0.0)
+        out.append((c, float(r0), float(dl), model.curves_are_log))
+    return out
+
+
+def _anis_prep(nside, eps, kinds, dt, dev):
+    cat, shell = _inputs(nside, 300)
+    tab = _tsz_models()["log"]
+    r = bf.PaintProfilesAnisShell(cat, shell, epsilon_max=eps, model=tab,
+                                  Tracer_model=tab, Mtot_model=tab,
+                                  background_val=1.0,
+                                  global_tracer_fraction=0.1, dtype=dt,
+                                  device=dev)
+    hd = r._host_halo_data(bf.cosmo.cosmology_from_dict(r.cosmo))
+    return r, shell, hd, _anis_curves(hd, kinds, dev)
+
+
+@pytest.mark.parametrize("kinds", [("log", "log"), ("raw", "raw"),
+                                   ("log", "raw")],
+                         ids=["log-log", "raw-raw", "log-raw"])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 5)])
+def test_tile_paint2_kernel(dev, kinds, dt, nside, eps):
+    """K12 against its plain version on the runner's own pack: float64 to
+    1e-10 of the largest value with equal zeros, float32 per pixel to 1e-4
+    (K10's tile-local geometry) away from disc edges and table ends."""
+    r, _, hd, curves = _anis_prep(nside, eps, kinds, dt, dev)
+    tiling, csr, pack, grid = r._tile_paint2_inputs(hd, curves, nside)
+    _build.reset_launches()
+    ak = tile_deposit.tile_paint2(tiling, csr, pack, *grid)
+    assert _build.launches["tile_paint2"] == 1
+    ap = tile_deposit.tile_paint2_plain(tiling, csr, pack, *grid)
+    assert ap.abs().max() > 0
+    if dt == torch.float64:
+        torch.testing.assert_close(ak, ap, rtol=0,
+                                   atol=1e-10 * ap.abs().max().item())
+        assert torch.equal(ak == 0, ap == 0)
+    else:
+        (c1, r1, d1, l1), (c2, r2, d2, l2) = curves
+        _, marginal = paint.float32_tolerance(
+            nside, _halos(hd, dev), c1, r1, d1, l1,
+            second=(c2, r2, d2, l2))
+        _paint_f32_close(tiling.flat_view_plain(ak),
+                         tiling.flat_view_plain(ap),
+                         torch.full_like(marginal, 1e-4, dtype=torch.float64),
+                         marginal)
+
+
+@pytest.mark.parametrize("kinds", [("log", "log"), ("raw", "log")],
+                         ids=["log-log", "raw-log"])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("pix", [False, True], ids=["value", "pixel_size"])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+def test_disc_paint_anis_kernel(dev, kinds, dt, pix, nside, eps):
+    """K13 against its plain version: float64 to 1e-10 of the largest
+    value (atomic sums in another order), float32 per pixel to
+    ops.paint.float32_tolerance with the unit vectors' reach and both
+    curves' slopes."""
+    _, shell, hd, curves = _anis_prep(nside, eps, kinds, dt, dev)
+    halos = _halos(hd, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    npix = 12 * nside * nside
+    mtot = torch.rand(npix, dtype=torch.float64, device=dev, generator=g)
+    mtot[::7] = 0.0
+    orig = torch.as_tensor(shell.map, device=dev)
+    painting, canvas = ((c.to(dt),) + tuple(rest) for c, *rest in curves)
+    _build.reset_launches()
+    ak = paint.disc_paint_anis(nside, halos, painting, canvas, mtot, orig, pix)
+    assert _build.launches["disc_paint_anis"] == 1
+    ap = paint.disc_paint_anis_plain(nside, halos, painting, canvas, mtot,
+                                     orig, pix)
+    assert ak.dtype == torch.float64 and ap.abs().max() > 0
+    if dt == torch.float64:
+        torch.testing.assert_close(ak, ap, rtol=0,
+                                   atol=1e-10 * ap.abs().max().item())
+    else:
+        (c1, r1, d1, l1), (c2, r2, d2, l2) = curves
+        _paint_f32_close(ak, ap, *paint.float32_tolerance(
+            nside, halos, c1, r1, d1, l1, reach=paint.VEC_SINHD_REACH,
+            second=(c2, r2, d2, l2)))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "summed"])
+def test_anis_finish_kernel(dev, dt, tiled):
+    """K14 against its plain version: the same operations in the same
+    order, to 1e-15 relative."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n = 100_003
+    hs = torch.rand(n, dtype=torch.float64, device=dev, generator=g).to(dt)
+    mt = (torch.rand(n, dtype=torch.float64, device=dev, generator=g)
+          - 0.1).to(dt)
+    og = torch.rand(n, dtype=torch.float64, device=dev, generator=g)
+    _build.reset_launches()
+    ok = paint.anis_finish(hs, mt, og, 0.05, 0.1, 4.0, tiled)
+    assert _build.launches["anis_finish"] == 1
+    op = paint.anis_finish_plain(hs, mt, og, 0.05, 0.1, 4.0, tiled)
+    torch.testing.assert_close(ok, op, rtol=1e-15, atol=0)
+
+
+def _dm_table(dev):
+    """TabulatedProfile(DarkMatter(**bpar, proj_cutoff=100)) built on
+    ``dev`` on a small grid around z = 0.9: a mass model whose halo sum
+    dominates the anisotropic paint (tests/test_runners_extra.py:19-32)."""
+    h = 0.7
+    bpar = dict(theta_ej=4, theta_co=0.1, M_c=1e14 / h, mu_beta=0.4,
+                eta=0.3, eta_delta=0.3, tau=-1.5, tau_delta=0,
+                A=0.09 / 2, M1=2.5e11 / h, epsilon_h=0.015,
+                a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2, delta=7)
+    return bf.utils.TabulatedProfile(
+        bf.Profiles.DarkMatter(**bpar, proj_cutoff=100),
+        bf.cosmo.cosmology_from_dict(COSMO), device=dev).setup_interpolator(
+        z_min=0.7, z_max=1.1, N_samples_z=3, M_min=1e13, M_max=3e15,
+        N_samples_Mass=6, R_min=1e-3, R_max=60, N_samples_R=48,
+        verbose=False)
+
+
+def test_anis_shell_cuda_matches_cpu(dev):
+    """PaintProfilesAnisShell on the card (tiled: K1, K10, K7, K12, K14;
+    scatter: K1, K11, K13, K14) against the plain versions on the CPU,
+    float64, to 1e-9 of the largest value."""
+    cat, shell = _inputs(256, 400)
+    shell.redshift = 0.9
+    tab = _dm_table(dev)
+    for deposit in ("auto", "scatter"):
+        kw = dict(epsilon_max=20, model=tab, Tracer_model=tab,
+                  Mtot_model=tab, background_val=1.0,
+                  global_tracer_fraction=0.1, dtype=torch.float64,
+                  deposit=deposit)
+        _build.reset_launches()
+        out_g = bf.PaintProfilesAnisShell(cat, shell, device=dev,
+                                          **kw).process()
+        want = (("collapse_curves", "disc_paint", "disc_paint_anis",
+                 "anis_finish") if deposit == "scatter" else
+                ("collapse_curves", "tile_paint", "tile_paint2", "flat_view",
+                 "anis_finish"))
+        assert all(_build.launches[k] >= 1 for k in want), _build.launches
+        out_c = bf.PaintProfilesAnisShell(cat, shell, device="cpu",
+                                          **kw).process()
+        np.testing.assert_allclose(out_g, out_c, rtol=0,
+                                   atol=1e-9 * np.abs(out_c).max())
+
+
+# ---- the grid runners' kernels: K15 cutouts, K16 deposit -------------------
+@pytest.mark.parametrize("pdt,rdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.float64),
+                                     (torch.float64, torch.float64)],
+                         ids=["f32-f32", "f32-f64", "f64-f64"])
+@pytest.mark.parametrize("ndim,npix", [(2, 128), (3, 32)])
+def test_grid_deposit_kernel(dev, pdt, rdt, ndim, npix):
+    """K16 against its plain version, offsets of up to 3 cells (some
+    non-finite) across the periodic edges: float64 to 1e-12 of the largest
+    value, float32 to 1e-5 of it (sums of 2^d terms in another order);
+    mass to 1e-12 or 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    nflat = npix ** ndim
+    po = (torch.rand((ndim, nflat), dtype=torch.float64, device=dev,
+                     generator=g) * 6 - 3).to(pdt)
+    po[0, ::97] = float("nan")
+    orig = torch.rand(nflat, dtype=torch.float64, device=dev,
+                      generator=g).to(rdt)
+    _build.reset_launches()
+    ok = bf.ops.scatter.grid_deposit(po, orig, npix, ndim)
+    assert _build.launches["grid_deposit"] == 1
+    op = bf.ops.scatter.grid_deposit_plain(po, orig, npix, ndim)
+    rel = 1e-12 if rdt == torch.float64 else 1e-5
+    torch.testing.assert_close(ok, op, rtol=0,
+                               atol=rel * op.abs().max().item())
+    assert abs(ok.double().sum().item() / orig.double().sum().item()
+               - 1) < rel
+
+
+def _grid_case(ndim, ell, dev, npix=64, n=40):
+    rng = np.random.default_rng(21)
+    L = float(npix)
+    cen = rng.integers(0, npix, (n, ndim)).astype(np.int32)
+    halos = {"cen": torch.as_tensor(cen, device=dev),
+             "doff": torch.as_tensor(rng.uniform(-0.5, 0.5, (n, ndim)),
+                                     device=dev),
+             "rmax": torch.as_tensor(rng.uniform(3, 9, n), device=dev),
+             "rscale": torch.as_tensor(rng.uniform(0.5, 1.5, n), device=dev),
+             "rmat": None}
+    if ell:
+        from baryonforge_torch.Runners.Map2DRunner import _shear_matrix
+        halos["rmat"] = torch.as_tensor(
+            _shear_matrix(rng.normal(size=(n, 2)), rng.uniform(0.5, 0.9, n)),
+            device=dev)
+    return L / npix, halos
+
+
+@pytest.mark.parametrize("mode,ndim,ell",
+                         [("displace", 2, False), ("displace", 2, True),
+                          ("displace", 3, False), ("paint", 2, False),
+                          ("paint", 2, True), ("paint", 3, False),
+                          ("anis", 2, False)])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+def test_grid_cutout_kernel(dev, mode, ndim, ell, dt):
+    """K15 against its plain version, two cutout sizes into one
+    accumulator, with the paint's tSZ curves (log and raw) and the
+    Schneider19 table's displacement curves: float64 to 1e-10 of the
+    largest value, float32 offsets to 1e-5 of it (float32 sums in another
+    order)."""
+    npix = 64 if ndim == 2 else 24
+    res, halos = _grid_case(ndim, ell, dev, npix)
+    n = halos["cen"].shape[0]
+    M = np.geomspace(6e12, 1.5e15, n)
+    a = np.full(n, 1 / 1.9)
+    if mode == "displace":
+        m = _model().with_dtype(torch.float64, device=dev)
+        c, r0, dl = interp.collapse_curves_plain(m._table, m._axes, 2, M, a,
+                                                 [], {})
+        curve, curve2 = (c.to(dt), float(r0), float(dl), False), None
+        acc = torch.zeros((ndim, npix ** ndim), dtype=dt, device=dev)
+    else:
+        (c1, r1, d1, l1), (c2, r2, d2, l2) = _anis_curves(
+            {"M": M, "a": a}, ("log", "raw"), dev)
+        curve, curve2 = (c1.to(dt), r1, d1, l1), (c2.to(dt), r2, d2, l2)
+        acc = torch.zeros(npix ** ndim, dtype=torch.float64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    mtot = torch.rand(npix ** ndim, dtype=torch.float64, device=dev,
+                      generator=g)
+    orig = torch.rand(npix ** ndim, dtype=torch.float64, device=dev,
+                      generator=g)
+    kw = dict(a=1 / 1.9, mtot=mtot, orig=orig)
+    ak, ap = acc.clone(), acc.clone()
+    _build.reset_launches()
+    for sl, Ns in ((slice(0, n // 2), 8), (slice(n // 2, n), 14)):
+        sub = {k: None if v is None else v[sl] for k, v in halos.items()}
+        args = (mode, npix, Ns, res, sub, (curve[0][sl],) + curve[1:])
+        c2 = None if mode != "anis" else (curve2[0][sl],) + curve2[1:]
+        bf.ops.grid.grid_cutout(*args, ak, c2, **kw)
+        bf.ops.grid.grid_cutout_plain(*args, ap, c2, **kw)
+    assert _build.launches["grid_cutout"] == 2
+    scale = ap.abs().max().item()
+    assert scale > 0
+    rel = 1e-10 if dt == torch.float64 or mode != "displace" else 1e-5
+    torch.testing.assert_close(ak, ap, rtol=0, atol=rel * scale)
+
+
+def test_grid_runners_cuda_match_cpu(dev):
+    """BaryonifyGrid (3D and 2D with ellipticity), PaintProfilesGrid (3D)
+    and PaintProfilesAnisGrid (2D) on the card against the plain versions
+    on the CPU, float64, to 1e-9 of the largest value (of the moved mass
+    for BaryonifyGrid)."""
+    rng = np.random.default_rng(4)
+    tab = _dm_table(dev)
+    for ndim, npix in ((3, 32), (2, 96)):
+        L = float(npix)
+        n = 30
+        cols = dict(x=rng.uniform(0, L, n), y=rng.uniform(0, L, n),
+                    M=10 ** rng.uniform(13.5, 14.8, n))
+        if ndim == 3:
+            cols["z"] = rng.uniform(0, L, n)
+        else:
+            cols.update(q_ell=rng.uniform(0.5, 0.9, n),
+                        A_ell=rng.normal(size=(n, 2)))
+        cat = bf.utils.HaloNDCatalog(**cols, redshift=0.9, cosmo=COSMO)
+        gm = bf.utils.GriddedMap(map=rng.exponential(1.0, (npix,) * ndim),
+                                 bins=(np.arange(npix) + 0.5) * (L / npix),
+                                 cosmo=COSMO, redshift=0.9)
+        runs = [(bf.BaryonifyGrid, dict(epsilon_max=20, model=_model(),
+                                        use_ellipticity=ndim == 2))]
+        if ndim == 3:
+            runs.append((bf.PaintProfilesGrid, dict(epsilon_max=5,
+                                                    model=tab)))
+        else:
+            runs.append((bf.PaintProfilesAnisGrid, dict(
+                epsilon_max=5, model=tab, Tracer_model=tab, Mtot_model=tab,
+                background_val=1.0, global_tracer_fraction=0.1)))
+        for cls, kw in runs:
+            kw.update(dtype=torch.float64)
+            _build.reset_launches()
+            out_g = cls(cat, gm, device=dev, **kw).process()
+            assert _build.launches["grid_cutout"] >= 1, _build.launches
+            out_c = cls(cat, gm, device="cpu", **kw).process()
+            ref = (np.abs(out_c - gm.map).max() if cls is bf.BaryonifyGrid
+                   else np.abs(out_c).max())
+            assert ref > 0
+            np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-9 * ref)
