@@ -16,16 +16,19 @@ Ported so far (ROADMAP.md lists the rest):
               layout (tiles), K8 FFTLog transform (fftlog), K9 table rows
               (table_rows), K11 disc paint, K13 its anisotropic form and
               K14 the anisotropic finish (paint), K15 grid cutouts (grid),
-              K16 grid deposit (scatter)
+              K16 grid deposit (scatter), K17 snapshot displacement
+              (snapshot), K18 ring modes and K19 Legendre transform (sht)
+  native/     the snapshot runner's periodic cell list (host C++, g++)
   Profiles/   the profile framework and algebra, the Schneider19 family,
               the thermodynamic (tSZ) profiles, Baryonification2D/3D:
               table build, readout and checkpoint
   Runners/    BaryonifyShell: the tiled engine (default) and the scatter
               path; PaintProfilesShell and PaintProfilesAnisShell: the
               tiled paint (default) and the disc paint; the grid runners
-              BaryonifyGrid, PaintProfilesGrid and PaintProfilesAnisGrid
+              BaryonifyGrid, PaintProfilesGrid and PaintProfilesAnisGrid;
+              the particle snapshot runner BaryonifySnapshot
   utils/      constants, io containers, tabulated profiles, pixel windows,
-              JAX-object conversion
+              spherical-harmonic analysis (sht), JAX-object conversion
 """
 
 from . import cosmo

@@ -105,7 +105,32 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      conserved, K15 and K16 held against their plain versions on each
      runner's own inputs (float32 offsets to 1e-5 of the largest,
      float64 maps to 1e-10), halos/s and phases printed;
- 14. prints one JSON line with each kernel's launches, error, times, bound
+ 14. builds the snapshot bench's table on the card (tools/snapshot_bench.py:
+     29-73: Baryonification3D(DarkMatter, DarkMatter(epsilon 2)), 2 z x 12
+     M x 48 r) and holds K17 snapshot displacement against its plain
+     version on small boxes whose largest query radius exceeds L / 3 (2D
+     and 3D; float64 to 1e-10 of the largest offset, float32 to
+     tests/test_snapshot.py:67) and BaryonifySnapshot card vs CPU (float64);
+     then drives BaryonifySnapshot at the bench (10^6 particles, 20,000
+     halos, L 512, seed 11, z 0.2, float32) with the launch counts set to 0
+     just before and read just after: the first call (with the cell list)
+     and three steady calls timed, halos/s, particles/s and phases printed,
+     the output finite, a 256-halo subcatalog against the brute-force sum
+     on the card, K17 on the runner's own inputs timed against its plain
+     version and an index_add_ of the same pair vectors;
+ 15. holds K18 ring modes and K19 Legendre transform against their plain
+     versions on the card in float64 (K18 within ops.sht.
+     ring_modes_tolerance, the plain version's angle rounding; K19 within 4
+     n_ring eps of its absolute sum) at NSIDE 64 and at NSIDE 1024, lmax
+     3071, where both are timed (2 repetitions) beside torch.fft.rfft per
+     ring length; anafast card vs CPU at NSIDE 64 and the analytic maps of
+     tests/test_sht.py:38-58 at NSIDE 1024;
+ 16. runs the ΔCl recipe of examples/15_delta_cl.py at NSIDE 1024 (150
+     halos, its two tables built on the card): the paint, the
+     baryonification and the two anafast calls (lmax 3071) on the card,
+     with the launch counts set to 0 just before and read just after; prints
+     the four band ratios and the phases;
+ 17. prints one JSON line with each kernel's launches, error, times, bound
      and library-call time, and last the line {"ok": true, "device": ...}.
 
 A kernel's bound (bound_ms) is the larger of the bytes it must move (each
@@ -1788,6 +1813,410 @@ def grid_paths(bf, torch, tabs, gpu):
     return sum_launches(*runs), measured
 
 
+# the snapshot bench (tools/snapshot_bench.py:29-73): 10^6 particles, 20,000
+# halos in a 512 Mpc box, seed 11, z 0.2, float32, the DarkMatter /
+# DarkMatter(epsilon 2) Baryonification3D table of 2 z x 12 M x 48 r
+SNAP_PARTS, SNAP_HALOS, SNAP_L, SNAP_SEED, SNAP_Z = 1_000_000, 20_000, 512.0, \
+    11, 0.2
+SNAP_GRID = dict(z_min=0.1, z_max=0.3, N_samples_z=2, M_min=5e12, M_max=2e15,
+                 N_samples_Mass=12, R_min=1e-3, R_max=50, N_samples_R=48,
+                 verbose=False)
+SNAP_CALLS = 3          # steady process() calls, after the first
+# the ΔCl recipe (examples/15_delta_cl.py) at NSIDE 1024, lmax 3 NSIDE - 1
+CL_NSIDE, CL_HALOS, CL_SEED = 1024, 150, 1
+CL_GRID = dict(z_min=0.05, z_max=0.3, N_samples_z=3, M_min=5e13, M_max=3e15,
+               N_samples_Mass=8, R_min=1e-3, R_max=60, N_samples_R=64,
+               verbose=False)
+
+
+def snapshot_model(bf, device):
+    """The snapshot bench's Baryonification3D(DarkMatter, DarkMatter(epsilon
+    2)), built on ``device`` on SNAP_GRID."""
+    P = bf.Profiles
+    return bf.Baryonification3D(
+        P.DarkMatter(**BPAR), P.DarkMatter(**{**BPAR, "epsilon": 2.0}),
+        bf.cosmo.cosmology_from_dict(COSMO), epsilon_max=20,
+        device=device).setup_interpolator(**SNAP_GRID)
+
+
+def snapshot_inputs(bf, ndim, L, n_part, n_halos, seed, logM=(13.0, 14.8),
+                    z=SNAP_Z):
+    """(catalog, snapshot) of uniform particles and halos in a periodic box,
+    as tools/snapshot_bench.py:57-65 makes them."""
+    rng = np.random.default_rng(seed)
+    cols = {c: rng.uniform(0, L, n_part) for c in "xyz"[:ndim]}
+    hcols = {c: rng.uniform(0, L, n_halos) for c in "xyz"[:ndim]}
+    snap = bf.utils.ParticleSnapshot(**cols, M=np.ones(n_part), L=L,
+                                     cosmo=COSMO, redshift=z)
+    cat = bf.utils.HaloNDCatalog(**hcols, M=10 ** rng.uniform(*logM, n_halos),
+                                 redshift=z, cosmo=COSMO)
+    return cat, snap
+
+
+def moves(out, snap):
+    """Minimum-image displacements (ndim, n) of a snapshot runner's
+    output."""
+    L = snap.L
+    cols = "xy" if snap.is2D else "xyz"
+    d = np.stack([np.asarray(out[c], float) - snap.cat[c] for c in cols])
+    d = np.where(d > L / 2, d - L, d)
+    return np.where(d < -L / 2, d + L, d)
+
+
+def snapshot_f32_check(name, got, want):
+    """tests/test_snapshot.py:67: atol 5e-4, rtol 1e-3, as the largest
+    excess ratio (<= 1 passes)."""
+    ratio = float((np.abs(got - want) / (5e-4 + 1e-3 * np.abs(want))).max())
+    check(f"{name} (|diff| / (5e-4 + 1e-3 |value|))", ratio, 1.0)
+
+
+def compare_snapshot_kernels(bf, torch, model):
+    """K17 against its plain version on the card, on small boxes (2D and 3D)
+    whose largest query radius exceeds L / 3, from a runner's own inputs:
+    float64 to 1e-10 of the largest offset, float32 to tests/
+    test_snapshot.py:67; then BaryonifySnapshot on the card against the
+    plain versions on the CPU, float64, to 1e-10 of the largest
+    displacement."""
+    from baryonforge_torch.ops import snapshot
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    for ndim in (3, 2):
+        cat, snap = snapshot_inputs(bf, ndim, 96.0, 20000, 60, 17 + ndim,
+                                    logM=(13.0, 15.2))
+        kw = dict(epsilon_max=20, model=model)
+        for dt in (torch.float64, torch.float32):
+            r = bf.BaryonifySnapshot(cat, snap, dtype=dt, device=DEVICE, **kw)
+            args = r._displace_inputs(_PhaseClock(torch.device(DEVICE)))
+            if ndim == 3 and not float(args[-2].max()) > 96.0 / 3:
+                raise AssertionError("snapshot box: no radius above L / 3")
+            got = snapshot.snapshot_displace(*args)
+            want = snapshot.snapshot_displace_plain(*args)
+            scale = float(want.abs().max())
+            if not scale > 0:
+                raise AssertionError("snapshot box: nothing displaced")
+            label = (f"K17 snapshot_displace [{ndim}D, L 96, "
+                     f"{int(args[3][-1])} pairs, "
+                     f"{str(dt).replace('torch.', '')}]")
+            if dt == torch.float64:
+                check(label, float((got - want).abs().max()), 1e-10 * scale)
+            else:
+                snapshot_f32_check(label, got.double().cpu().numpy(),
+                                   want.double().cpu().numpy())
+        kw["dtype"] = torch.float64
+        g = moves(bf.BaryonifySnapshot(cat, snap, device=DEVICE,
+                                       **kw).process(), snap)
+        c = moves(bf.BaryonifySnapshot(cat, snap, device="cpu",
+                                       **kw).process(), snap)
+        check(f"BaryonifySnapshot {ndim}D, float64, card vs CPU",
+              float(np.abs(g - c).max()), 1e-10 * float(np.abs(c).max()))
+
+
+def brute_force_moves(bf, torch, model, cat, snap, eps=20, chunk=8):
+    """tests/test_snapshot.py:50-64 on the card: every halo's min-image
+    displacements over all particles, from the model's table readout
+    (float64), chunk halos at a time. Returns (3, n_part) numpy."""
+    dev = torch.device(DEVICE)
+    m = model.with_dtype(torch.float64, device=dev)
+    L = snap.L
+    a = 1.0 / (1.0 + cat.redshift)
+    M = np.asarray(cat.cat["M"], float)
+    R = m.mass_def.get_radius(bf.cosmo.cosmology_from_dict(COSMO), M,
+                              a).numpy()
+    pos = torch.as_tensor(np.stack([snap.cat[c] for c in "xyz"]), device=dev)
+    hpos = np.stack([cat.cat[c] for c in "xyz"], 1)
+    want = torch.zeros_like(pos)
+    for j in range(len(M)):
+        dx = pos - torch.as_tensor(hpos[j], device=dev)[:, None]
+        dx = torch.where(dx > L / 2, dx - L, dx)
+        dx = torch.where(dx < -L / 2, dx + L, dx)
+        d = torch.sqrt((dx ** 2).sum(0))
+        sel = d < min(eps * R[j] / a, L / 2)
+        off = m.displacement(d[sel], M[j], a).reshape(-1)
+        want[:, sel] += off[None, :] * dx[:, sel] / d[sel][None, :]
+    return want.cpu().numpy()
+
+
+def snapshot_bench(bf, torch, gpu):
+    """The snapshot path at tools/snapshot_bench.py:29-73 (10^6 particles,
+    20,000 halos, L 512, seed 11, z 0.2, float32), its table built on the
+    card: the first call (it includes the cell list) and SNAP_CALLS steady
+    calls timed, with the launch counts set to 0 just before and read just
+    after; halos/s, particles/s and phases printed; the output finite; a
+    256-halo subcatalog held against the brute-force sum on the card
+    (tests/test_snapshot.py:67); K17 on the runner's own inputs against its
+    plain version (timed) and a torch index_add_ of the same pair vectors.
+    Returns (launches, K17's kernel row)."""
+    from baryonforge_torch.ops import _build, snapshot
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    t0 = time.perf_counter()
+    model = snapshot_model(bf, DEVICE)
+    log(f"[{gpu}] snapshot table on the card (Baryonification3D, 2 z x 12 M "
+        f"x 48 r): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if not np.isfinite(model.raw_input_d).all():
+        raise AssertionError("snapshot table: not finite")
+    compare_snapshot_kernels(bf, torch, model)
+    cat, snap = snapshot_inputs(bf, 3, SNAP_L, SNAP_PARTS, SNAP_HALOS,
+                                SNAP_SEED)
+    runner = bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=model,
+                                  device=DEVICE)
+    log(f"main path (snapshot): BaryonifySnapshot(epsilon_max=20, "
+        f"Baryonification3D).process(), {SNAP_PARTS} particles, "
+        f"{SNAP_HALOS} halos, L {SNAP_L:g}")
+    _build.reset_launches()
+    walls, phases = [], []
+    for _ in range(1 + SNAP_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.process()
+        walls.append(time.perf_counter() - t0)
+        phases.append(runner.timings)
+    launches = dict(_build.launches)
+    for k in ("collapse_curves", "snapshot_displace"):
+        if launches.get(k, 0) < 1 + SNAP_CALLS:
+            raise AssertionError(f"the snapshot path did not launch {k}: "
+                                 f"{launches}")
+    for c in "xyz":
+        if not np.isfinite(out[c]).all():
+            raise AssertionError("snapshot bench: output not finite")
+    steady = np.array(walls[1:]) * 1e3
+    med = float(np.median(steady))
+    fmt = (lambda p: ", ".join(f"{k} {v:.3f}" for k, v in p.items()))
+    log(f"[{gpu}] snapshot bench: first call {walls[0] * 1e3:.1f} ms "
+        f"(phases: {fmt(phases[0])})")
+    log(f"[{gpu}] snapshot bench: {SNAP_CALLS} steady calls "
+        f"{', '.join(f'{t:.3f}' for t in steady)} ms, median {med:.3f} ms = "
+        f"{SNAP_HALOS / (med / 1e3):.1f} halos/s = "
+        f"{SNAP_PARTS / (med / 1e3):.1f} particles/s; median phases (ms, "
+        "CUDA events): " + ", ".join(
+            f"{k} {np.median([p[k] for p in phases[1:]]):.3f}"
+            for k in phases[1]))
+    log(f"launches in the snapshot path's {1 + SNAP_CALLS} calls: {launches}")
+
+    sub = cat[np.arange(256)]
+    got = moves(bf.BaryonifySnapshot(sub, snap, epsilon_max=20, model=model,
+                                     device=DEVICE).process(), snap)
+    snapshot_f32_check("snapshot bench, 256 halos, float32 vs the brute-"
+                       "force sum on the card", got,
+                       brute_force_moves(bf, torch, model, sub, snap))
+
+    args = runner._displace_inputs(_PhaseClock(torch.device(DEVICE)))
+    coords, hpos, halos, offsets, parts, curves = args[:6]
+    n_pairs = int(offsets[-1])
+    k = snapshot.snapshot_displace(*args)
+    p = snapshot.snapshot_displace_plain(*args)
+    snapshot_f32_check(f"K17 snapshot_displace [bench, {n_pairs} pairs]",
+                       k.double().cpu().numpy(), p.double().cpu().numpy())
+    err = float((k - p).abs().max())
+    ms = time_ms(torch, lambda: snapshot.snapshot_displace(*args), 10)
+    plain_ms = time_ms(torch, lambda: snapshot.snapshot_displace_plain(*args),
+                       3)
+    # the library yardstick: the pair vectors, made once, summed per
+    # particle by one index_add_
+    h = torch.repeat_interleave(halos.long(), (offsets[1:] - offsets[:-1])
+                                .long())
+    vec = (coords[parts.long()] - hpos[h]).float().T.contiguous()
+    pl = parts.long()
+    library_ms = time_ms(torch, lambda: torch.zeros_like(k).index_add_(
+        1, pl, vec), 10)
+    # bytes: the pairs' particle indices, the rows, the positions, curves
+    # and per-halo columns read once, the offsets written once; operations:
+    # per pair ~14 float64 (3 differences, 6 wrap compares and adds, 3
+    # squares and sums, a square root, 3 divisions) and ~12 float32 (log,
+    # lerp, cut, 3 products)
+    nb = nbytes(*args[:6], args[8], args[9]) + k.numel() * k.element_size()
+    b_ms, b_by = max(bound(nb, 14 * n_pairs, F64_FLOPS),
+                     bound(nb, 12 * n_pairs, F32_FLOPS))
+    log(f"[{gpu}] K17 snapshot_displace at the bench ({n_pairs} pairs): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return launches, {"snapshot_displace": (err, ms, plain_ms, b_ms, b_by,
+                                            library_ms)}
+
+
+def rfft_per_ring(torch, hmap, nside):
+    """K18's library yardstick: torch.fft.rfft of the rings, one call per
+    ring length, on the rings gathered beforehand (it leaves out the phi0
+    turn and the wrap of m past nr)."""
+    from baryonforge_torch.ops import sht
+    sp, nr, _, _ = sht.ring_geometry(nside)
+    rings = [hmap[torch.as_tensor(sp[nr == n][:, None] + np.arange(n)[None, :],
+                                  device=hmap.device)] for n in np.unique(nr)]
+    return lambda: [torch.fft.rfft(x, dim=-1) for x in rings]
+
+
+def compare_sht_kernels(bf, torch, gpu, nside, lmax, timing):
+    """K18 and K19 against their plain versions on the card, float64: K18
+    within ops.sht.ring_modes_tolerance (the plain version's angle rounding,
+    8 eps (2 pi (m + 1) + nr) sum_j |map_j| a ring), K19 within 4 n_ring
+    eps of the absolute contraction sum_r |F| |lambda| (the sums over rings
+    in another order). When ``timing``, times both with 2 repetitions and
+    returns their kernel rows."""
+    from baryonforge_torch.ops import sht
+    g = torch.Generator(device=DEVICE).manual_seed(nside)
+    hmap = torch.randn(12 * nside * nside, dtype=torch.float64,
+                       device=DEVICE, generator=g)
+    fr, fi = sht.ring_modes(hmap, nside, lmax)
+    pr, pi = sht.ring_modes_plain(hmap, nside, lmax)
+    tol = sht.ring_modes_tolerance(hmap, nside, lmax)
+    e18 = max(float(((fr - pr).abs() / tol).max()),
+              float(((fi - pi).abs() / tol).max()))
+    check(f"K18 ring_modes [NSIDE {nside}, lmax {lmax}] (|diff| / "
+          "tolerance)", e18, 1.0)
+    z = torch.as_tensor(sht.ring_geometry(nside)[2], device=DEVICE)
+    ar, ai = sht.legendre_alm(z, pr, pi, lmax)
+    wr, wi = sht.legendre_alm_plain(z, pr, pi, lmax)
+    sr, si = sht.legendre_alm_plain(z, pr, pi, lmax, absolute=True)
+    eps = float(np.finfo(np.float64).eps)
+    tol19 = 4 * z.numel() * eps
+    e19 = max(float(((ar - wr).abs() / (sr + 1e-300)).max()),
+              float(((ai - wi).abs() / (si + 1e-300)).max()))
+    check(f"K19 legendre_alm [NSIDE {nside}, lmax {lmax}] (|diff| / "
+          "sum |F| |lambda|)", e19, tol19)
+    if not timing:
+        return {}
+    L, n_ring = lmax + 1, z.numel()
+    _, nr, _, _ = sht.ring_geometry(nside)
+    out = {}
+    ms = time_ms(torch, lambda: sht.ring_modes(hmap, nside, lmax), 2)
+    plain_ms = time_ms(torch, lambda: sht.ring_modes_plain(hmap, nside, lmax),
+                       2)
+    lib_ms = time_ms(torch, rfft_per_ring(torch, hmap, nside), 2)
+    # bytes: the map read once, the modes written once; operations: a real
+    # FFT of each ring, ~2.5 nr log2 nr float64 operations
+    ops18 = float(np.sum(2.5 * nr * np.log2(nr)))
+    b = bound(hmap.numel() * 8 + 2 * n_ring * L * 8, ops18, F64_FLOPS)
+    out["ring_modes"] = (float((fr - pr).abs().max()), ms, plain_ms, *b,
+                         lib_ms)
+    ms = time_ms(torch, lambda: sht.legendre_alm(z, pr, pi, lmax), 2)
+    plain_ms = time_ms(torch, lambda: sht.legendre_alm_plain(z, pr, pi,
+                                                             lmax), 2)
+    # operations: 8 float64 a (ring, l, m) with l >= m (3 products and a
+    # difference of the recurrence, 2 multiply-adds of the contraction);
+    # bytes: the modes read once, a_lm written once
+    ops19 = 8.0 * n_ring * L * (L + 1) / 2
+    b = bound(2 * n_ring * L * 8 + 2 * L * L * 8, ops19, F64_FLOPS)
+    out["legendre_alm"] = (float(max((ar - wr).abs().max(),
+                                     (ai - wi).abs().max())), ms, plain_ms,
+                           *b, None)
+    log(f"[{gpu}] K18 ring_modes NSIDE {nside}, lmax {lmax}: kernel "
+        f"{out['ring_modes'][1]:.3f} ms, plain {out['ring_modes'][2]:.3f} "
+        f"ms, torch.fft.rfft per ring length {lib_ms:.3f} ms; K19 "
+        f"legendre_alm: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return out
+
+
+def sht_checks(bf, torch, gpu):
+    """anafast on the card against its plain version on the CPU (NSIDE 64,
+    float64, to 1e-10 of the largest C_l), and the analytic checks of
+    tests/test_sht.py:38-58 at NSIDE 1024: a constant map is a monopole
+    (C_0 = 4 pi v^2 to 1e-10, the rest under 1e-5 of it) and Re Y_40 has
+    its power at l = 4 (1/9 within 10%, the rest under 5e-3 of it)."""
+    from scipy.special import sph_harm_y
+    from baryonforge_torch.ops import healpix
+    from baryonforge_torch.utils import sht
+    hmap = np.random.default_rng(64).standard_normal(12 * 64 * 64)
+    cg = sht.anafast(hmap, device=DEVICE)
+    cc = sht.anafast(hmap, device="cpu")
+    check("anafast NSIDE 64, card vs CPU", float(np.abs(cg - cc).max()),
+          1e-10 * float(np.abs(cc).max()))
+    nside = CL_NSIDE
+    cl = sht.anafast(np.full(12 * nside * nside, 2.5), lmax=6,
+                     device=DEVICE)
+    check(f"anafast NSIDE {nside}: constant map, C_0 / (4 pi v^2) - 1",
+          abs(cl[0] / (4 * np.pi * 2.5 ** 2) - 1), 1e-10)
+    check(f"anafast NSIDE {nside}: constant map, max |C_l>0| / C_0",
+          float(np.abs(cl[1:]).max() / cl[0]), 1e-5)
+    pix = torch.arange(12 * nside * nside, device=DEVICE)
+    theta, phi = (x.cpu().numpy() for x in healpix.pix2ang(nside, pix))
+    cl = sht.anafast(np.real(sph_harm_y(4, 0, theta, phi)), lmax=10,
+                     device=DEVICE)
+    check(f"anafast NSIDE {nside}: Re Y_40, |9 C_4 - 1|",
+          abs(9 * cl[4] - 1), 0.1)
+    check(f"anafast NSIDE {nside}: Re Y_40, max C_l!=4 / C_4",
+          float(np.delete(cl, 4).max() / cl[4]), 5e-3)
+    log(f"[{gpu}] analytic maps at NSIDE {nside}: C_4 of Re Y_40 = "
+        f"{cl[4]:.6f} (1/9 = {1 / 9:.6f})")
+
+
+def delta_cl(bf, torch, gpu):
+    """The ΔCl recipe of examples/15_delta_cl.py at NSIDE 1024: 150 halos of
+    seed 1, its DMO paint table and S19 displacement table built on the
+    card, the DMO paint plus its mean, its baryonification, and anafast of
+    both contrasts (lmax 3071), all on the card, with the launch counts set
+    to 0 just before the paint and read after the second anafast; prints
+    the four band ratios and each phase's time; the ratios finite and the
+    largest scales (l 2-10) within 5% of 1 (tests/test_deltacl.py:69).
+    Returns the launches."""
+    from baryonforge_torch.ops import _build
+    from baryonforge_torch.utils import sht
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    P = bf.Profiles
+    rng = np.random.default_rng(CL_SEED)
+    n = CL_HALOS
+    cat = bf.utils.HaloLightConeCatalog(
+        ra=rng.uniform(0, 360, n),
+        dec=np.degrees(np.arcsin(rng.uniform(-1, 1, n))),
+        M=10 ** rng.uniform(14.0, 15.0, n), z=rng.uniform(0.08, 0.15, n),
+        cosmo=COSMO)
+    phases = {}
+    t0 = time.perf_counter()
+    tab = bf.utils.TabulatedProfile(
+        P.DarkMatterOnly(**BPAR, proj_cutoff=100), cosmo,
+        device=DEVICE).setup_interpolator(**CL_GRID)
+    phases["paint table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = bf.Baryonification2D(
+        P.DarkMatterOnly(**BPAR, proj_cutoff=100),
+        P.DarkMatterBaryon(**BPAR, proj_cutoff=100), cosmo, epsilon_max=20,
+        device=DEVICE).setup_interpolator(**CL_GRID)
+    phases["displacement table"] = time.perf_counter() - t0
+    npix = 12 * CL_NSIDE ** 2
+    lmax = 3 * CL_NSIDE - 1
+    log(f"main path (ΔCl): PaintProfilesShell(epsilon_max=10) + "
+        f"BaryonifyShell(epsilon_max=20) + 2 x anafast, NSIDE {CL_NSIDE}, "
+        f"{n} halos, lmax {lmax}")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero = bf.utils.LightconeShell(map=np.zeros(npix), cosmo=COSMO)
+    mass = bf.PaintProfilesShell(cat, zero, epsilon_max=10, model=tab,
+                                 include_pixel_size=True,
+                                 device=DEVICE).process()
+    mass = mass + mass.mean()
+    phases["paint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new = bf.BaryonifyShell(cat, bf.utils.LightconeShell(map=mass,
+                                                         cosmo=COSMO),
+                            epsilon_max=20, model=model,
+                            device=DEVICE).process()
+    phases["baryonify"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cl0 = sht.anafast(mass / mass.mean() - 1, lmax=lmax, device=DEVICE)
+    phases["anafast (DMO)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cl1 = sht.anafast(new / new.mean() - 1, lmax=lmax, device=DEVICE)
+    phases["anafast (baryonified)"] = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    for k in ("ring_modes", "legendre_alm"):
+        if launches.get(k, 0) != 2:
+            raise AssertionError(f"the ΔCl path launched {k} "
+                                 f"{launches.get(k, 0)} times: {launches}")
+    ell = np.arange(lmax + 1)
+    bands = []
+    for lo, hi in [(2, 10), (10, 40), (40, 100), (100, lmax)]:
+        m = (ell >= lo) & (ell <= hi)
+        bands.append((lo, hi, float(np.mean(cl1[m] / np.maximum(cl0[m],
+                                                                 1e-300)))))
+    if not all(np.isfinite(b[2]) for b in bands):
+        raise AssertionError(f"ΔCl ratios not finite: {bands}")
+    check("ΔCl: |C_l ratio - 1| at l 2-10", abs(bands[0][2] - 1), 0.05)
+    log(f"[{gpu}] ΔCl NSIDE {CL_NSIDE}: " + ", ".join(
+        f"l {lo}-{hi}: {r:.4f}" for lo, hi, r in bands))
+    log(f"[{gpu}] ΔCl phases (ms, host clock): " + ", ".join(
+        f"{k} {v * 1e3:.1f}" for k, v in phases.items()))
+    log(f"launches in the ΔCl path: {launches}")
+    return launches
+
+
 KERNELS = [
     # name, entry points, source, TPU kernel replaced, the path it runs on
     ("collapse_curves", ("collapse_curves",),
@@ -1831,6 +2260,13 @@ KERNELS = [
     ("grid_deposit", ("grid_deposit",),
      "baryonforge_torch/csrc/grid_deposit.cu",
      "baryonforge_tpu/ops/scatter.py:28", "grid"),
+    ("snapshot_displace", ("snapshot_displace",),
+     "baryonforge_torch/csrc/snapshot.cu",
+     "baryonforge_tpu/Runners/SnapshotRunner.py:175", "snapshot"),
+    ("ring_modes", ("ring_modes",), "baryonforge_torch/csrc/sht.cu",
+     "baryonforge_tpu/utils/sht.py:49", "delta_cl"),
+    ("legendre_alm", ("legendre_alm",), "baryonforge_torch/csrc/sht.cu",
+     "baryonforge_tpu/utils/sht.py:92", "delta_cl"),
 ]
 
 
@@ -2041,11 +2477,24 @@ def main():
     launches_grid, grid_measured = grid_paths(bf, torch, tabs, gpu)
     measured.update(grid_measured)
 
+    log("snapshot path: the snapshot bench's table built on the card")
+    launches_snap, snap_measured = snapshot_bench(bf, torch, gpu)
+    measured.update(snap_measured)
+
+    log("spherical-harmonic kernels against their plain versions (float64)")
+    compare_sht_kernels(bf, torch, gpu, 64, 191, False)
+    measured.update(compare_sht_kernels(bf, torch, gpu, CL_NSIDE,
+                                        3 * CL_NSIDE - 1, True))
+    sht_checks(bf, torch, gpu)
+    log("ΔCl path: its tables built on the card")
+    launches_cl = delta_cl(bf, torch, gpu)
+
     launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
                       for k in set(launches_pt) | set(launches_ps)}
     launches = {"scatter": launches_s, "tiled": launches_t,
                 "table": launches_table, "paint": launches_paint,
-                "anis": launches_anis, "grid": launches_grid}
+                "anis": launches_anis, "grid": launches_grid,
+                "snapshot": launches_snap, "delta_cl": launches_cl}
     kernels = []
     for name, entries, src, rep, path in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]

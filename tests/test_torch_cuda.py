@@ -22,6 +22,11 @@ package's edge-jitter bounds
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
 equal; its angles agree to a few ulps (the device's asin against torch's).
+K17 (snapshot displacement) float64 to 1e-10 of the largest offset, float32
+to tests/test_snapshot.py:67 (atol 5e-4, rtol 1e-3); K18 (ring modes)
+within ops.sht.ring_modes_tolerance, the plain version's angle rounding;
+K19 (Legendre transform) to 4 n_ring eps of its absolute sum (the sums over
+rings in another order).
 """
 
 import os
@@ -822,3 +827,132 @@ def test_grid_runners_cuda_match_cpu(dev):
                    else np.abs(out_c).max())
             assert ref > 0
             np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-9 * ref)
+
+
+def _snapshot_case(ndim, dt, dev, L=64.0, n=4000, nh=30, seed=5):
+    """Particles, halos and their pairs in a small box whose largest query
+    radius exceeds L / 3, with the S19 table's curves at z 0.9."""
+    from scipy.spatial import cKDTree
+    from baryonforge_torch import native
+    rng = np.random.default_rng(seed + ndim)
+    pos = rng.uniform(-0.5, L + 0.5, (n, ndim))
+    hpos = rng.uniform(0, L, (nh, ndim))
+    R_q = rng.uniform(2, 0.45 * L, nh)
+    if ndim == 3:
+        counts, idx = native.cell_query(pos, L, hpos, R_q)
+    else:
+        lists = cKDTree(np.mod(pos, L), boxsize=L).query_ball_point(
+            np.mod(hpos, L), R_q)
+        counts = np.array([len(x) for x in lists])
+        idx = np.concatenate([np.asarray(x, np.int32) for x in lists])
+    csr = tt.pairs_csr(np.repeat(np.arange(nh, dtype=np.int32), counts), idx)
+    m = _model().with_dtype(torch.float64, device=dev)
+    c, r0, dl = interp.collapse_curves_plain(
+        m._table, m._axes, 2, np.geomspace(1e13, 1e15, nh),
+        np.full(nh, 1 / 1.9), [], {})
+    T = lambda x, d=torch.float64: torch.as_tensor(x, device=dev).to(d)
+    return (T(pos), T(hpos), *[torch.as_tensor(x, device=dev) for x in csr],
+            c.to(dt), float(r0), float(dl), T(rng.uniform(0.5, 2, nh), dt),
+            T(R_q * 0.95, dt), L)
+
+
+@pytest.mark.parametrize("ndim", [3, 2])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+def test_snapshot_displace_kernel(dev, dt, ndim):
+    """K17 against its plain version on the card: float64 to 1e-10 of the
+    largest offset, float32 to tests/test_snapshot.py:67 (atol 5e-4, rtol
+    1e-3)."""
+    from baryonforge_torch.ops import snapshot
+    args = _snapshot_case(ndim, dt, dev)
+    _build.reset_launches()
+    got = snapshot.snapshot_displace(*args)
+    assert _build.launches["snapshot_displace"] == 1
+    want = snapshot.snapshot_displace_plain(*args)
+    scale = want.abs().max().item()
+    assert scale > 0 and got.dtype == dt
+    if dt == torch.float64:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("ndim", [3, 2])
+def test_snapshot_cuda_matches_cpu(dev, ndim):
+    """BaryonifySnapshot on the card against the plain versions on the CPU,
+    float64, to 1e-10 of the largest displacement."""
+    rng = np.random.default_rng(ndim)
+    L, n, nh = 96.0, 5000, 25
+    cols = {c: rng.uniform(0, L, n) for c in "xyz"[:ndim]}
+    hcols = {c: rng.uniform(0, L, nh) for c in "xyz"[:ndim]}
+    snap = bf.utils.ParticleSnapshot(**cols, M=np.ones(n), L=L, cosmo=COSMO,
+                                     redshift=0.9)
+    cat = bf.utils.HaloNDCatalog(**hcols, M=10 ** rng.uniform(13, 15, nh),
+                                 redshift=0.9, cosmo=COSMO)
+    kw = dict(epsilon_max=20, model=_model(), dtype=torch.float64)
+    _build.reset_launches()
+    out_g = bf.BaryonifySnapshot(cat, snap, device=dev, **kw).process()
+    assert _build.launches["snapshot_displace"] == 1, _build.launches
+    assert _build.launches["collapse_curves"] == 1, _build.launches
+    out_c = bf.BaryonifySnapshot(cat, snap, device="cpu", **kw).process()
+    move = max(np.abs(out_c[c] - snap.cat[c]).max() for c in cols)
+    assert move > 0
+    for c in cols:
+        np.testing.assert_allclose(out_g[c], out_c[c], rtol=0,
+                                   atol=1e-10 * move)
+
+
+@pytest.mark.parametrize("nside,lmax,smem_ring", [(8, 23, 8192),
+                                                  (64, 191, 8192),
+                                                  (64, 100, 40)],
+                         ids=["8", "64", "64-unstaged"])
+def test_ring_modes_kernel(dev, nside, lmax, smem_ring):
+    """K18 against its plain version on the card, within
+    ops.sht.ring_modes_tolerance (the plain version's angle rounding);
+    smem_ring 40 sends the rings longer than 40 pixels down the path that
+    computes each twiddle."""
+    from baryonforge_torch.ops import sht
+    g = torch.Generator(device=dev).manual_seed(nside)
+    hmap = torch.randn(12 * nside * nside, dtype=torch.float64, device=dev,
+                       generator=g)
+    _build.reset_launches()
+    fr, fi = sht._ring_modes_kernel(hmap, nside, lmax, smem_ring=smem_ring)
+    assert _build.launches["ring_modes"] == 1
+    pr, pi = sht.ring_modes_plain(hmap, nside, lmax)
+    tol = sht.ring_modes_tolerance(hmap, nside, lmax)
+    assert float(((fr - pr).abs() / tol).max()) <= 1.0
+    assert float(((fi - pi).abs() / tol).max()) <= 1.0
+
+
+@pytest.mark.parametrize("nside,lmax", [(16, 47), (64, 191), (2048, 16)])
+def test_legendre_alm_kernel(dev, nside, lmax):
+    """K19 against its plain version on the card, to 4 n_ring eps of the
+    absolute contraction sum_r |F| |lambda| (the sums over rings in another
+    order); NSIDE 2048 has more rings than a block takes (atomic sums)."""
+    from baryonforge_torch.ops import sht
+    z = torch.as_tensor(sht.ring_geometry(nside)[2], device=dev)
+    g = torch.Generator(device=dev).manual_seed(nside)
+    fr, fi = (torch.randn((z.numel(), lmax + 1), dtype=torch.float64,
+                          device=dev, generator=g) for _ in range(2))
+    _build.reset_launches()
+    ar, ai = sht.legendre_alm(z, fr, fi, lmax)
+    assert _build.launches["legendre_alm"] == 1
+    pr, pi = sht.legendre_alm_plain(z, fr, fi, lmax)
+    sr, si = sht.legendre_alm_plain(z, fr, fi, lmax, absolute=True)
+    eps = float(np.finfo(np.float64).eps)
+    for k, p, s in ((ar, pr, sr), (ai, pi, si)):
+        assert float(((k - p).abs() - 4 * z.numel() * eps * s).max()) <= 0
+        assert bool((k.tril(-1) == 0).all())
+
+
+def test_anafast_cuda_matches_cpu(dev):
+    """utils.sht.anafast on the card (K18, K19) against the plain versions
+    on the CPU, NSIDE 32, to 1e-10 of the largest C_l."""
+    from baryonforge_torch.utils import sht
+    hmap = np.random.default_rng(3).standard_normal(12 * 32 * 32)
+    _build.reset_launches()
+    cl_g = sht.anafast(hmap)
+    assert _build.launches["ring_modes"] == 1
+    assert _build.launches["legendre_alm"] == 1
+    cl_c = sht.anafast(hmap, device="cpu")
+    np.testing.assert_allclose(cl_g, cl_c, rtol=0,
+                               atol=1e-10 * np.abs(cl_c).max())
