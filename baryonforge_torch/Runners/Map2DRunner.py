@@ -241,8 +241,10 @@ class DefaultRunnerGrid:
         """K15 (``cutout``; its plain version when given) over every size
         bucket of ``inp``, a :meth:`_cutout_inputs` dict, into ``acc``."""
         npix, res = self.GriddedMap.Npix, self.GriddedMap.res
-        for idx, Ns in self._buckets(inp["Nsize"]):
-            ix = torch.as_tensor(idx, device=self.device)
+        # every bucket's halo ids uploaded before the first launch
+        buckets = [(torch.as_tensor(idx, device=self.device), Ns)
+                   for idx, Ns in self._buckets(inp["Nsize"])]
+        for ix, Ns in buckets:
             sub = {k: None if v is None else v[ix]
                    for k, v in inp["halos"].items()}
             c1, c2 = ((None if c is None else (c[0][ix],) + tuple(c[1:]))

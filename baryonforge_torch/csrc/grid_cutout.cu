@@ -4,35 +4,42 @@
 // (baryonforge_tpu/Runners/Map2DRunner.py: BaryonifyGrid 366-434,
 // PaintProfilesGrid 551-625, PaintProfilesAnisGrid 747-777, with
 // _cutout_geometry 276-289). Every halo of a launch walks the same cutout
-// of Ns^d cells (its size bucket's largest Ns), from -Ns/2 to Ns/2 - 1 on
-// each axis around its nearest grid centre `cen`, wrapped periodically:
-//   rel_d = (i_d - Ns/2) res + d_off_d (float64, as under x64),
+// of Ns^d cells (its size bucket's largest Ns), offsets o from -w to
+// Ns - 1 - w on each axis (w = floor(Ns/2); Ns may be odd) around its
+// nearest grid centre `cen`, wrapped periodically:
+//   rel_d = o_d res + d_off_d (float64, as under x64),
 //   r = |rel|, or |rel Rmat| for a 2D halo with ellipticity,
 // and, by mode:
 //   displace (T the offsets' type): d = raw curve at max(r, 1e-30) rscale,
 //     0 unless r < rmax (eps_max Rcom rounded to T), rounded to T, over
 //     res in float64, zeroed if not finite; per axis d T(rel_d / r) in
-//     float64, zeroed if not finite, rounded to T and added atomically into
-//     the (ndim, nflat) offsets (pixel widths);
+//     float64, zeroed if not finite, rounded to T and added into the
+//     (ndim, nflat) offsets (pixel widths) in T;
 //   paint: the curve (log curves exp'd) at r, over a in 2D (projected
 //     curves), added into the float64 map where finite and r < rmax
 //     (eps_max R_com);
 //   anis: painting and canvas (two curves at r, each over a, non-finite
 //     values zeroed), mfrac = canvas / Mtot[cell] (0 where Mtot <= 0) times
 //     orig[cell], painting mfrac added where finite and r < rmax.
-// The lookups are float64 from curves stored in T (lookup.cuh).
+// The lookups are float64 from curves stored in T (lookup.cuh). A cell
+// with r >= rmax adds nothing in any mode, so it takes no lookup.
 //
-// Bound: atomics. A cell costs ~40-60 operations (a square root, a log,
-// one or two lerps, an exp for log curves) and one to three atomicAdds
-// into a map of 4 or 8 bytes a cell (the 3D ΔP(k) grid: 134 MB f64 map, 201
-// MB f32 offsets, above the 50 MB L2). Design: blockIdx.x is the halo,
-// blockIdx.y a chunk of 1024 of its cells, 256 threads of 4 cells each,
-// neighbouring threads on neighbouring cells of the last axis so that a
-// warp's atomics land on neighbouring addresses; the halo's columns are
-// read once a block and the curve from L1. The JAX version pads a bucket's
-// halos to a static batch and scans the batches; here every halo of the
-// bucket is one row of the grid. Sums by atomics change order from run to
-// run.
+// Bound: float64 operations, ~50 a cell with r < rmax in a halo's box (a
+// square root, a log, one or two lerps, an exp for log curves); the maps
+// (the 3D grid's 134 MB float64 map, 201 MB float32 offsets) are read and
+// written once. Design: the grid is cut into tiles of kTile3^3 cells (3D)
+// or kTile2^2 (2D), the last ones partial when N is not a multiple; one
+// block a tile, one thread a cell. Each tile's halos are listed on the
+// card, in ascending halo index: bf_tile_pairs keys every (halo, candidate
+// tile) pair, dropping a tile whose nearest point lies beyond rmax (plus a
+// cell) when there is no ellipticity, and ops/grid.py sorts the keys. The
+// block
+// reads its cells' values of the accumulator (and, anis, of Mtot and the
+// map) once, stages the listed halos' columns in shared memory kBatch at a
+// time, adds every listed halo's terms in that order in registers,
+// and writes each touched cell once: tiles are disjoint, so no atomics,
+// and the sums come out the same on every call. A cell's box offset comes
+// from 32-bit integers: (x - (cen - Ns/2)) mod N, one conditional add.
 
 #include "healpix.cuh"
 #include "lookup.cuh"
@@ -41,8 +48,9 @@ namespace {
 
 enum Mode { kDisplace = 0, kPaint = 1, kAnis = 2 };
 
-constexpr int kThreads = 256;
-constexpr int kCellsPerThread = 4;
+constexpr int kTile3 = 8;   // 3D tiles: 8^3 cells, 512 threads
+constexpr int kTile2 = 16;  // 2D tiles: 16^2 cells, 256 threads
+constexpr int kBatch = 256;  // halo columns staged at a time
 
 template <typename T>
 struct Cutout {
@@ -60,114 +68,223 @@ struct Cutout {
   const double* orig;    // anis: the input map
 };
 
-template <typename T, int kMode>
-__global__ void grid_cutout_kernel(Cutout<T> p, void* acc_raw) {
-  const int h = blockIdx.x;
-  const int nd = p.ndim, Ns = p.Ns, N = p.N, w = Ns / 2;
-  int cen[3];
-  double doff[3];
-  for (int d = 0; d < nd; ++d) {
-    cen[d] = p.cen[h * nd + d];
-    doff[d] = p.doff[h * nd + d];
+template <typename T, int kMode, int kDim>
+__global__ void __launch_bounds__(kDim == 3 ? 512 : 256)
+grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
+                   const int* __restrict__ tile_halo, void* acc_raw) {
+  constexpr int TS = kDim == 3 ? kTile3 : kTile2;
+  const int t = blockIdx.x;
+  const int first = tile_start[t], last = tile_start[t + 1];
+  if (first == last) return;
+  const int N = p.N, Ns = p.Ns, w = Ns / 2;
+  const int nt = (N + TS - 1) / TS;
+  // this thread's cell: the tile's origin plus threadIdx, the last axis
+  // fastest
+  int x[3];
+  if (kDim == 3) {
+    x[0] = (t / (nt * nt)) * TS + int(threadIdx.x >> 6);
+    x[1] = ((t / nt) % nt) * TS + int((threadIdx.x >> 3) & 7);
+    x[2] = (t % nt) * TS + int(threadIdx.x & 7);
+  } else {
+    x[0] = (t / nt) * TS + int(threadIdx.x >> 4);
+    x[1] = (t % nt) * TS + int(threadIdx.x & 15);
   }
-  const double rmax = p.rmax[h];
+  bool inside = true;
+  long long flat = 0;
+  for (int d = 0; d < kDim; ++d) {
+    inside = inside && x[d] < N;
+    flat = flat * N + (x[d] < N ? x[d] : 0);
+  }
+  T sum[kDim];  // displace: the offsets' running sums, in T
+  double acc_v = 0.0, mt = 0.0, og = 0.0;
+  if (inside) {
+    if constexpr (kMode == kDisplace) {
+      const T* acc = static_cast<const T*>(acc_raw);
+      for (int d = 0; d < kDim; ++d) sum[d] = acc[d * p.nflat + flat];
+    } else {
+      acc_v = static_cast<const double*>(acc_raw)[flat];
+      if constexpr (kMode == kAnis) {
+        mt = p.mtot[flat];
+        og = p.orig[flat];
+      }
+    }
+  }
+  // the listed halos' columns, a batch at a time; lo = (cen - Ns/2) mod N
+  __shared__ int s_h[kBatch], s_lo[kBatch * kDim];
+  __shared__ double s_doff[kBatch * kDim], s_rmax[kBatch], s_rscale[kBatch];
+  __shared__ double s_rmat[kDim == 2 ? kBatch * 4 : 1];
   const bool ell = p.rmat != nullptr;
-  double R00 = 0, R01 = 0, R10 = 0, R11 = 0;
-  if (ell) {
-    R00 = p.rmat[4 * h];
-    R01 = p.rmat[4 * h + 1];
-    R10 = p.rmat[4 * h + 2];
-    R11 = p.rmat[4 * h + 3];
-  }
-  const double rscale = kMode == kDisplace ? p.rscale[h] : 1.0;
-  const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
-  const T* curve2 = kMode == kAnis ? p.c2.c + (long long)h * p.c2.n_r
-                                   : nullptr;
-  const long long n_cells =
-      nd == 2 ? (long long)Ns * Ns : (long long)Ns * Ns * Ns;
-  const long long per_block = (long long)kThreads * kCellsPerThread;
-  for (long long c0 = (long long)blockIdx.y * per_block; c0 < n_cells;
-       c0 += (long long)gridDim.y * per_block) {
-    for (int k = 0; k < kCellsPerThread; ++k) {
-      const long long c = c0 + (long long)k * kThreads + threadIdx.x;
-      if (c >= n_cells) break;
-      int o[3];
-      if (nd == 2) {
-        o[0] = int(c / Ns) - w;
-        o[1] = int(c % Ns) - w;
-      } else {
-        o[0] = int(c / ((long long)Ns * Ns)) - w;
-        o[1] = int((c / Ns) % Ns) - w;
-        o[2] = int(c % Ns) - w;
+  bool touched = false;
+  for (int q0 = first; q0 < last; q0 += kBatch) {
+    const int nb = min(kBatch, last - q0);
+    __syncthreads();  // the last batch is spent
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+      const int h = tile_halo[q0 + i];
+      s_h[i] = h;
+      for (int d = 0; d < kDim; ++d) {
+        s_lo[i * kDim + d] = bf::floor_mod(p.cen[h * kDim + d] - w, N);
+        s_doff[i * kDim + d] = p.doff[h * kDim + d];
       }
-      double g[3];
-      long long flat = 0;
-      for (int d = 0; d < nd; ++d) {
-        g[d] = double(o[d]) * p.res + doff[d];
-        flat = flat * N + bf::floor_mod(cen[d] + o[d], N);
+      s_rmax[i] = p.rmax[h];
+      if (kMode == kDisplace) s_rscale[i] = p.rscale[h];
+      if (kDim == 2 && ell)
+        for (int k = 0; k < 4; ++k) s_rmat[i * 4 + k] = p.rmat[4 * h + k];
+    }
+    __syncthreads();
+    if (!inside) continue;
+    for (int i = 0; i < nb; ++i) {
+      // box offsets o_d = od - Ns/2, od = (x - lo) mod N < Ns
+      double g[kDim];
+      bool in_box = true;
+      for (int d = 0; d < kDim; ++d) {
+        int od = x[d] - s_lo[i * kDim + d];
+        if (od < 0) od += N;
+        in_box = in_box && od < Ns;
+        g[d] = double(od - w) * p.res + s_doff[i * kDim + d];
       }
-      double r;
-      if (nd == 3) {
-        r = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+      if (!in_box) continue;
+      double r2;
+      if constexpr (kDim == 3) {
+        r2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
       } else if (ell) {
-        const double xe = g[0] * R00 + g[1] * R10;
-        const double ye = g[0] * R01 + g[1] * R11;
-        r = sqrt(xe * xe + ye * ye);
+        const double* R = s_rmat + 4 * i;
+        const double xe = g[0] * R[0] + g[1] * R[2];
+        const double ye = g[0] * R[1] + g[1] * R[3];
+        r2 = xe * xe + ye * ye;
       } else {
-        r = sqrt(g[0] * g[0] + g[1] * g[1]);
+        r2 = g[0] * g[0] + g[1] * g[1];
       }
+      // r >= rmax adds nothing in any mode; the square test skips the
+      // root where r is surely past rmax, the root decides the rest
+      const double rmax = s_rmax[i];
+      if (r2 > rmax * rmax * (1.0 + 1e-12)) continue;
+      const double r = sqrt(r2);
+      if (!(r < rmax)) continue;
+      const int h = s_h[i];
+      const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
       if constexpr (kMode == kDisplace) {
         const double r_safe = r > 1e-30 ? r : 1e-30;
-        double dv = bf::lookup64(curve1, p.c1, r_safe * rscale);
-        if (!(r < rmax)) dv = 0.0;
+        const double dv = bf::lookup64(curve1, p.c1, r_safe * s_rscale[i]);
         double dd = double(T(dv)) / p.res;  // pixel units
         if (!isfinite(dd)) dd = 0.0;
-        T* acc = static_cast<T*>(acc_raw);
-        for (int d = 0; d < nd; ++d) {
+        for (int d = 0; d < kDim; ++d) {
           double comp = dd * double(T(g[d] / r));
           if (!isfinite(comp)) comp = 0.0;
-          atomicAdd(acc + d * p.nflat + flat, T(comp));
+          sum[d] = sum[d] + T(comp);
         }
+        touched = true;
       } else {
         double v;
         if constexpr (kMode == kPaint) {
           v = bf::lookup64(curve1, p.c1, r);
-          if (nd == 2) v = v / p.a;
+          if (kDim == 2) v = v / p.a;
         } else {
+          const T* curve2 = p.c2.c + (long long)h * p.c2.n_r;
           double painting = bf::lookup64(curve1, p.c1, r) / p.a;
           double canvas = bf::lookup64(curve2, p.c2, r) / p.a;
           if (!isfinite(painting)) painting = 0.0;
           if (!isfinite(canvas)) canvas = 0.0;
-          const double mt = p.mtot[flat];
-          v = painting * ((mt > 0.0 ? canvas / mt : 0.0) * p.orig[flat]);
+          v = painting * ((mt > 0.0 ? canvas / mt : 0.0) * og);
         }
-        if (isfinite(v) && r < rmax)
-          atomicAdd(static_cast<double*>(acc_raw) + flat, v);
+        if (isfinite(v)) {
+          acc_v = acc_v + v;
+          touched = true;
+        }
       }
     }
   }
+  if (!inside || !touched) return;
+  if constexpr (kMode == kDisplace) {
+    T* acc = static_cast<T*>(acc_raw);
+    for (int d = 0; d < kDim; ++d) acc[d * p.nflat + flat] = sum[d];
+  } else {
+    static_cast<double*>(acc_raw)[flat] = acc_v;
+  }
+}
+
+// the (tile, halo) pairs of halos h0 .. h0 + m - 1, each one's K^d
+// candidate tiles from the tile of its box's first cell (halo-major, the
+// last axis fastest): key = the row-major tile id, or n_tiles where the
+// box misses the tile or, with prune, where the per-axis lower bounds of
+// |rel_d| over the tile's box cells, squared and summed, reach (rmax +
+// res)^2; the same operations as ops/grid.tile_pairs_plain
+__global__ void tile_pairs_kernel(int ndim, int N, int Ns, int TS, int K,
+                                  int h0, int m, const int* __restrict__ cen,
+                                  const double* __restrict__ doff, double res,
+                                  const double* __restrict__ rmax, int prune,
+                                  int* __restrict__ key,
+                                  int* __restrict__ owner) {
+  const int per = ndim == 3 ? K * K * K : K * K;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= m * per) return;
+  const int h = h0 + idx / per;
+  int c = idx % per, digit[3];
+  for (int d = ndim - 1; d >= 0; --d) {
+    digit[d] = c % K;
+    c /= K;
+  }
+  const int nt = (N + TS - 1) / TS, w = Ns / 2;
+  int tid = 0;
+  double lb2 = 0.0;
+  for (int d = 0; d < ndim; ++d) {
+    const int cd = cen[h * ndim + d];
+    const double od = doff[h * ndim + d];
+    const int t = (bf::floor_mod(cd - w, N) / TS + digit[d]) % nt;
+    const int lo_cell = t * TS, hi_cell = min(lo_cell + TS, N) - 1;
+    const double ostar = -od / res;
+    double lb = INFINITY;
+    for (int k = -1; k <= 1; ++k) {  // the tile's copies one period apart
+      const int lo = max(lo_cell + k * N - cd, -w);
+      const int hi = min(hi_cell + k * N - cd, Ns - 1 - w);
+      double dist = fmin(fabs(double(lo) * res + od),
+                         fabs(double(hi) * res + od));
+      if (double(lo) <= ostar && ostar <= double(hi)) dist = 0.0;
+      if (lo <= hi) lb = fmin(lb, dist);
+    }
+    tid = tid * nt + t;
+    lb2 = d == 0 ? lb * lb : lb2 + lb * lb;
+  }
+  bool keep = isfinite(lb2);
+  if (prune) {
+    const double reach = rmax[h] + res;
+    keep = keep && lb2 < reach * reach;
+  }
+  key[idx] = keep ? tid : (ndim == 3 ? nt * nt * nt : nt * nt);
+  owner[idx] = h;
+}
+
+template <typename T, int kMode, int kDim>
+int launch_tiles(int n_tiles, const Cutout<T>& p, const int* tile_start,
+                 const int* tile_halo, void* acc, cudaStream_t s) {
+  grid_cutout_kernel<T, kMode, kDim>
+      <<<n_tiles, kDim == 3 ? 512 : 256, 0, s>>>(p, tile_start, tile_halo,
+                                                 acc);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch(int n_h, Cutout<T> p, int mode, void* acc, void* stream) {
-  if (n_h <= 0) return 0;
-  if (p.ndim != 2 && p.ndim != 3) return int(cudaErrorInvalidValue);
-  const long long n_cells =
-      p.ndim == 2 ? (long long)p.Ns * p.Ns : (long long)p.Ns * p.Ns * p.Ns;
-  long long chunks = (n_cells + kThreads * kCellsPerThread - 1) /
-                     (kThreads * kCellsPerThread);
-  if (chunks > 65535) chunks = 65535;
-  const dim3 grid(n_h, unsigned(chunks));
+int launch(int tile, Cutout<T> p, int mode, const int* tile_start,
+           const int* tile_halo, void* acc, void* stream) {
+  const int nd = p.ndim;
+  if ((nd != 2 && nd != 3) || tile != (nd == 3 ? kTile3 : kTile2))
+    return int(cudaErrorInvalidValue);
+  const int nt = (p.N + tile - 1) / tile;
+  const int n_tiles = nd == 3 ? nt * nt * nt : nt * nt;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kDisplace)
-    grid_cutout_kernel<T, kDisplace><<<grid, kThreads, 0, s>>>(p, acc);
-  else if (mode == kPaint)
-    grid_cutout_kernel<T, kPaint><<<grid, kThreads, 0, s>>>(p, acc);
-  else if (mode == kAnis)
-    grid_cutout_kernel<T, kAnis><<<grid, kThreads, 0, s>>>(p, acc);
-  else
-    return int(cudaErrorInvalidValue);
-  return int(cudaGetLastError());
+    return nd == 3 ? launch_tiles<T, kDisplace, 3>(n_tiles, p, tile_start,
+                                                   tile_halo, acc, s)
+                   : launch_tiles<T, kDisplace, 2>(n_tiles, p, tile_start,
+                                                   tile_halo, acc, s);
+  if (mode == kPaint)
+    return nd == 3 ? launch_tiles<T, kPaint, 3>(n_tiles, p, tile_start,
+                                                tile_halo, acc, s)
+                   : launch_tiles<T, kPaint, 2>(n_tiles, p, tile_start,
+                                                tile_halo, acc, s);
+  if (mode == kAnis && nd == 2)
+    return launch_tiles<T, kAnis, 2>(n_tiles, p, tile_start, tile_halo, acc,
+                                     s);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -175,10 +292,13 @@ int launch(int n_h, Cutout<T> p, int mode, void* acc, void* stream) {
 extern "C" {
 
 // curves (and the displace offsets) in T; geometry, lookups and the paint
-// maps in float64
+// maps in float64; tile_start (n_tiles + 1) and tile_halo, each tile's
+// halos in ascending order, from ops/grid.py, with tiles of `tile` cells a
+// side
 #define BF_GRID_CUTOUT(T, SUF)                                                \
   int bf_grid_cutout_##SUF(                                                   \
-      int ndim, int N, int Ns, int n_h, int mode, const int* cen,             \
+      int ndim, int N, int Ns, int tile, int mode, const int* tile_start,     \
+      const int* tile_halo, const int* cen,                                   \
       const double* doff, double res, const double* rmax,                     \
       const double* rscale, const double* rmat, const T* curves, int n_r,     \
       double ln_r0, double dlnr, int log1, const T* curves2, int n_r2,        \
@@ -201,11 +321,28 @@ extern "C" {
                 a,                                                            \
                 mtot,                                                         \
                 orig};                                                        \
-    return launch<T>(n_h, p, mode, acc, stream);                              \
+    return launch<T>(tile, p, mode, tile_start, tile_halo, acc, stream);      \
   }
 
 BF_GRID_CUTOUT(float, f32)
 BF_GRID_CUTOUT(double, f64)
 #undef BF_GRID_CUTOUT
+
+int bf_tile_pairs(int ndim, int N, int Ns, int tile, int K, int h0, int m,
+                  const int* cen, const double* doff, double res,
+                  const double* rmax, int prune, int* key, int* owner,
+                  void* stream) {
+  const long long total =
+      (long long)m * (ndim == 3 ? (long long)K * K * K : (long long)K * K);
+  if (total == 0) return 0;
+  if ((ndim != 2 && ndim != 3) || tile != (ndim == 3 ? kTile3 : kTile2) ||
+      total > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  tile_pairs_kernel<<<unsigned((total + 255) / 256), 256, 0,
+                      (cudaStream_t)stream>>>(ndim, N, Ns, tile, K, h0, m,
+                                               cen, doff, res, rmax, prune,
+                                               key, owner);
+  return int(cudaGetLastError());
+}
 
 }  // extern "C"

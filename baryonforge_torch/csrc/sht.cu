@@ -7,18 +7,42 @@
 //   F_m = e^{-i m phi0} sum_j map_j e^{-2 pi i m j / nr}.
 // The JAX version forms the angles m (j 2 pi / nr) in float64 and runs
 // cos/sin matrix products over ring batches (the TPU has no complex type).
-// Here the phase of (m, j) is the exact integer (m j mod nr) into a table of
-// cos(2 pi k / nr), the sine being the same table a quarter turn on (nr is a
-// multiple of 4), so the kernel carries no angle rounding; the plain version
-// keeps the JAX angles, and the two differ by that rounding (ops/sht.py
-// states the bound). A real map's sums depend on m only through m mod nr
-// and G_{nr-k} = conj(G_k): each ring sums k = 0 .. min(nr / 2, lmax) only
-// and hands each G_k to every m = +-k mod nr. Bound: operations, nr (min(nr
-// / 2, lmax) + 1) multiply-adds of two a ring, the ring's values and table
-// read from shared memory (a direct DFT; an FFT would need O(nr log nr)).
-// Design: one block per ring, the ring's values and the cosine table
-// staged in shared memory (rings of up to kSmemRing pixels; longer rings
-// read the map and compute each twiddle, correct but slow), a thread a k.
+// Here each ring is one FFT. A real ring's sums depend on m only through
+// m mod nr and G_{nr-k} = conj(G_k), so G_k, k = 0 .. nr / 2, comes from
+// the complex FFT Z of the n = nr / 2 points z_j = x_{2j} + i x_{2j+1}:
+//   G_k = (Z_k + conj Z_{n-k}) / 2 - i e^{-2 pi i k / nr} (Z_k - conj
+//   Z_{n-k}) / 2,
+// and each output m takes G_{m mod nr} (conjugated past nr / 2) turned by
+// e^{-i m pi / nr} on shifted rings. Power-of-two n (the belt at
+// power-of-two NSIDE, cap rings 4i with i a power of two) run an FFT of n
+// points; any other n runs Bluestein's chirp convolution by
+// power-of-two FFTs of M >= 2n - 1 points, the chirp e^{-i pi j^2 / n}
+// from the exact integer j^2 mod 2n. Every phase is an exact integer index
+// (p / h with h a power of two in the butterflies, j^2 mod 2n, 2k / nr,
+// m / nr) into sincospi: no angle is rounded as the JAX angles are; the
+// plain version keeps those, and ops/sht.py bounds the difference.
+// Bound: bytes (the map read once, the (n_ring, lmax + 1) modes written
+// once; ~2.5 nr log2 nr float64 operations a ring are far under them).
+// Design: one block per ring. The block's working arrays (the M points,
+// Re and Im apart, the butterflies' twiddles, stage by stage, and for
+// Bluestein the chirp's spectrum) sit in shared memory (4 M doubles, 6 M
+// for Bluestein: 64 KB for the NSIDE 1024 belt, 192 KB for its longest
+// caps); rings that need more take the same code on a slot of device
+// memory (a grid of kLongBlocks blocks walking those rings). Rings are
+// launched in groups of one route and one M, each with its own shared
+// memory size. The FFTs run in place: decimation in frequency (natural
+// order in, bit-reversed out) forward, decimation in time back, so
+// Bluestein's product needs no reordering and no second buffer (a
+// Stockham FFT's ping-pong would take 2 M more doubles: 256 KB for
+// Bluestein's M = 4096 at NSIDE 1024, over the 227 KB a block may have).
+// The stages of half-size >= 16 run in radix-4 passes (two stages a pass,
+// four elements a thread in registers: half the passes and barriers),
+// the last four in radix-2. Element e lives at e ^ ((e >> 4) & 15); a
+// radix-4 pass's half-warp reads sixteen consecutive elements, and at the
+// radix-2 stages of half-size h < 16 each half-warp takes eight
+// butterflies from a 16-element block B and eight from B ^ h: every
+// half-warp's sixteen 8-byte reads and writes fall in sixteen different
+// bank pairs at every stage (M >= 32 h).
 //
 // K19 replaces _alm_from_modes of sht.py:92-150: for each m, the
 // normalised associated Legendre functions lambda_lm(z_r) run up in l from
@@ -45,65 +69,280 @@ namespace {
 
 // K18 -----------------------------------------------------------------------
 
-constexpr int kModesThreads = 256;
-constexpr int kSmemRing = 8192;  // values and table: 16 bytes a pixel
+constexpr int kFftThreads = 512;
+constexpr int kLongBlocks = 264;  // blocks of the device-memory route
 
-__global__ void ring_modes_kernel(const double* __restrict__ map,
-                                  const long long* __restrict__ sp,
-                                  const int* __restrict__ nr_all,
-                                  const int* __restrict__ shifted, int L,
-                                  int smem_ring, double* __restrict__ Fr,
-                                  double* __restrict__ Fi) {
-  extern __shared__ double sm[];
-  const int r = blockIdx.x;
-  const int nr = nr_all[r];
-  const double* vals = map + sp[r];
-  const bool staged = nr <= smem_ring;
-  double* sv = sm;
-  double* ct = sm + nr;
-  if (staged) {
-    for (int j = threadIdx.x; j < nr; j += blockDim.x) {
-      sv[j] = vals[j];
-      ct[j] = cospi(2.0 * double(j) / double(nr));
-    }
-    __syncthreads();
+// where element e of an M-point array lives
+__device__ __forceinline__ int swz(int e) { return e ^ ((e >> 4) & 15); }
+
+// the first element of butterfly t at the stage of half-size h = 2^hb
+__device__ __forceinline__ int first_of(int t, int h, int hb, int M) {
+  if (h >= 16 || (M >> 5) < h)
+    return ((t >> hb) << (hb + 1)) + (t & (h - 1));
+  const int u = t & 15, q = t >> 4, v = u & 7;
+  const int blk = (((q >> hb) << (hb + 1)) | (q & (h - 1))) | (u >= 8 ? h : 0);
+  return blk * 16 + ((v >> hb) << (hb + 1)) + (v & (h - 1));
+}
+
+// twiddles of every stage: e^{-i pi p / h} at h - 1 + p, p < h < M
+__device__ void make_twiddles(double* twr, double* twi, int M) {
+  for (int e = threadIdx.x; e < M - 1; e += blockDim.x) {
+    const int h = 1 << (31 - __clz(e + 1));
+    double s, c;
+    sincospi(double(e + 1 - h) / double(h), &s, &c);
+    twr[e] = c;
+    twi[e] = -s;
   }
-  const int quarter = 3 * (nr / 4);  // sin(2 pi k / nr) = table[k + 3 nr / 4]
-  const int kmax = min(nr / 2, L - 1);
-  const bool shift = shifted[r] != 0;
-  for (int k = threadIdx.x; k <= kmax; k += blockDim.x) {
-    double re = 0.0, im = 0.0;
-    int idx = 0;           // k j mod nr
-    int ids = quarter;     // (k j + 3 nr / 4) mod nr
-    for (int j = 0; j < nr; ++j) {
-      double v, c, s;
-      if (staged) {
-        v = sv[j];
-        c = ct[idx];
-        s = ct[ids];
+}
+
+// the butterflies of both directions: DIF (u, v) <- (u + v, (u - v) w),
+// DIT (u, x) <- (u + x conj w, u - x conj w)
+__device__ __forceinline__ void bfly_dif(double& ur, double& ui, double& vr,
+                                         double& vi, double wr, double wi) {
+  const double dr = ur - vr, di = ui - vi;
+  ur = ur + vr;
+  ui = ui + vi;
+  vr = dr * wr - di * wi;
+  vi = dr * wi + di * wr;
+}
+
+__device__ __forceinline__ void bfly_dit(double& ur, double& ui, double& xr,
+                                         double& xi, double wr, double wi) {
+  wi = -wi;
+  const double vr = xr * wr - xi * wi, vi = xr * wi + xi * wr;
+  xr = ur - vr;
+  xi = ui - vi;
+  ur = ur + vr;
+  ui = ui + vi;
+}
+
+// one radix-2 stage of half-size h = 2^hb
+template <bool kDif>
+__device__ void pass2(double* re, double* im, const double* twr,
+                      const double* twi, int M, int h, int hb) {
+  for (int t = threadIdx.x; t < M / 2; t += blockDim.x) {
+    const int i = first_of(t, h, hb, M), p = i & (h - 1);
+    const int a = swz(i), b = swz(i + h);
+    double ur = re[a], ui = im[a], vr = re[b], vi = im[b];
+    if (kDif)
+      bfly_dif(ur, ui, vr, vi, twr[h - 1 + p], twi[h - 1 + p]);
+    else
+      bfly_dit(ur, ui, vr, vi, twr[h - 1 + p], twi[h - 1 + p]);
+    re[a] = ur;
+    im[a] = ui;
+    re[b] = vr;
+    im[b] = vi;
+  }
+  __syncthreads();
+}
+
+// the two stages of half-sizes 2q and q (q = 2^qb >= 16) as one radix-4
+// pass, the same butterflies in the same order as two radix-2 stages (DIF:
+// 2q then q; DIT: q then 2q): a thread holds the elements i, i + q, i + 2q,
+// i + 3q of a block of 4q in registers; a half-warp's sixteen i are
+// sixteen consecutive elements, so each access meets sixteen bank pairs
+template <bool kDif>
+__device__ void pass4(double* re, double* im, const double* twr,
+                      const double* twi, int M, int q, int qb) {
+  for (int t = threadIdx.x; t < M / 4; t += blockDim.x) {
+    const int p = t & (q - 1);
+    const int i = ((t >> qb) << (qb + 2)) + p;
+    int e[4];
+    double xr[4], xi[4];
+    for (int k = 0; k < 4; ++k) {
+      e[k] = swz(i + k * q);
+      xr[k] = re[e[k]];
+      xi[k] = im[e[k]];
+    }
+    const int w1 = q - 1 + p, w2 = 2 * q - 1 + p;
+    if (kDif) {
+      bfly_dif(xr[0], xi[0], xr[2], xi[2], twr[w2], twi[w2]);
+      bfly_dif(xr[1], xi[1], xr[3], xi[3], twr[w2 + q], twi[w2 + q]);
+      bfly_dif(xr[0], xi[0], xr[1], xi[1], twr[w1], twi[w1]);
+      bfly_dif(xr[2], xi[2], xr[3], xi[3], twr[w1], twi[w1]);
+    } else {
+      bfly_dit(xr[0], xi[0], xr[1], xi[1], twr[w1], twi[w1]);
+      bfly_dit(xr[2], xi[2], xr[3], xi[3], twr[w1], twi[w1]);
+      bfly_dit(xr[0], xi[0], xr[2], xi[2], twr[w2], twi[w2]);
+      bfly_dit(xr[1], xi[1], xr[3], xi[3], twr[w2 + q], twi[w2 + q]);
+    }
+    for (int k = 0; k < 4; ++k) {
+      re[e[k]] = xr[k];
+      im[e[k]] = xi[k];
+    }
+  }
+  __syncthreads();
+}
+
+// in-place forward FFT, natural order in, bit-reversed order out: the
+// stages of half-size >= 16 in radix-4 passes (the first alone when their
+// count is odd), then radix-2 down to 1
+__device__ void fft_dif(double* re, double* im, const double* twr,
+                        const double* twi, int M) {
+  int hb = __ffs(M) - 2;
+  if (hb >= 4 && ((hb - 3) & 1)) {
+    pass2<true>(re, im, twr, twi, M, 1 << hb, hb);
+    --hb;
+  }
+  for (; hb >= 5; hb -= 2)
+    pass4<true>(re, im, twr, twi, M, 1 << (hb - 1), hb - 1);
+  for (; hb >= 0; --hb) pass2<true>(re, im, twr, twi, M, 1 << hb, hb);
+}
+
+// in-place inverse FFT (unnormalised), bit-reversed order in, natural out:
+// fft_dif's passes in reverse
+__device__ void ifft_dit(double* re, double* im, const double* twr,
+                         const double* twi, int M) {
+  const int lg = __ffs(M) - 1;
+  int hb = 0;
+  for (; hb < lg && hb < 4; ++hb)
+    pass2<false>(re, im, twr, twi, M, 1 << hb, hb);
+  for (; hb + 1 < lg; hb += 2)
+    pass4<false>(re, im, twr, twi, M, 1 << hb, hb);
+  if (hb < lg) pass2<false>(re, im, twr, twi, M, 1 << hb, hb);
+}
+
+// e^{-i pi (j^2 mod 2n) / n}
+__device__ __forceinline__ void chirp(long long j, int n, double* c,
+                                      double* s) {
+  const long long ph = (j * j) % (2LL * n);
+  sincospi(double(ph) / double(n), s, c);
+  *s = -*s;
+}
+
+// the ring's M (its own n for a power of two, else Bluestein's)
+__device__ __forceinline__ int fft_size(int n, bool bluestein) {
+  return bluestein ? 1 << (32 - __clz(2 * n - 2)) : n;
+}
+
+// Rings rings[0 .. n_rings) of one route, in blocks of kFftThreads; buf is
+// shared memory, or with scratch a slot of `slot` doubles a block.
+template <bool kBluestein>
+__global__ void __launch_bounds__(kFftThreads)
+ring_fft_kernel(const double* __restrict__ map,
+                const long long* __restrict__ sp,
+                const int* __restrict__ nr_all,
+                const int* __restrict__ shifted,
+                const int* __restrict__ rings, int n_rings, int L,
+                double* scratch, long long slot, double* __restrict__ Fr,
+                double* __restrict__ Fi) {
+  extern __shared__ double smem[];
+  double* buf = scratch ? scratch + (long long)blockIdx.x * slot : smem;
+  for (int q = blockIdx.x; q < n_rings; q += gridDim.x) {
+    const int r = rings[q];
+    const int nr = nr_all[r], n = nr / 2;
+    const int M = fft_size(n, kBluestein);
+    double *ar = buf, *ai = buf + M, *twr = buf + 2 * M, *twi = buf + 3 * M;
+    const double* x = map + sp[r];
+    make_twiddles(twr, twi, M);
+    if (kBluestein) {
+      double *br = buf + 4 * M, *bi = buf + 5 * M;
+      // b_m = conj chirp at m and M - m, m < n
+      for (int e = threadIdx.x; e < M; e += blockDim.x) {
+        const int m = e < n ? e : (e > M - n ? M - e : -1);
+        double c = 0.0, s = 0.0;
+        if (m >= 0) {
+          chirp(m, n, &c, &s);
+          s = -s;
+        }
+        br[swz(e)] = c;
+        bi[swz(e)] = s;
+      }
+      // a_j = z_j chirp_j, j < n
+      for (int j = threadIdx.x; j < M; j += blockDim.x) {
+        double zr = 0.0, zi = 0.0;
+        if (j < n) {
+          double c, s;
+          chirp(j, n, &c, &s);
+          const double xr = x[2 * j], xi = x[2 * j + 1];
+          zr = xr * c - xi * s;
+          zi = xr * s + xi * c;
+        }
+        ar[swz(j)] = zr;
+        ai[swz(j)] = zi;
+      }
+      __syncthreads();
+      fft_dif(br, bi, twr, twi, M);
+      fft_dif(ar, ai, twr, twi, M);
+      for (int e = threadIdx.x; e < M; e += blockDim.x) {
+        const double ur = ar[e], ui = ai[e], vr = br[e], vi = bi[e];
+        ar[e] = ur * vr - ui * vi;
+        ai[e] = ur * vi + ui * vr;
+      }
+      __syncthreads();
+      ifft_dit(ar, ai, twr, twi, M);
+    } else {
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        ar[swz(j)] = x[2 * j];
+        ai[swz(j)] = x[2 * j + 1];
+      }
+      __syncthreads();
+      fft_dif(ar, ai, twr, twi, M);
+    }
+    // Z_k: Bluestein's chirp_k c_k / M, or the FFT's bit-reversed slot
+    const int lg = __ffs(M) - 1;
+    const double inv_m = 1.0 / double(M);
+    auto Z = [&](int k, double* zr, double* zi) {
+      if (kBluestein) {
+        const int e = swz(k);
+        double c, s;
+        chirp(k, n, &c, &s);
+        const double cr = ar[e] * inv_m, ci = ai[e] * inv_m;
+        *zr = cr * c - ci * s;
+        *zi = cr * s + ci * c;
       } else {
-        v = vals[j];
-        sincospi(2.0 * double(idx) / double(nr), &s, &c);
+        const int e = swz(int(__brev(unsigned(k)) >> (32 - lg)));  // M >= 2
+        *zr = ar[e];
+        *zi = ai[e];
       }
-      re = re + v * c;
-      im = im + v * s;
-      idx += k;
-      if (idx >= nr) idx -= nr;
-      ids += k;
-      if (ids >= nr) ids -= nr;
+    };
+    const bool shift = shifted[r] != 0;
+    for (int m = threadIdx.x; m < L; m += blockDim.x) {
+      int k = m % nr;
+      const bool flip = 2 * k > nr;
+      if (flip) k = nr - k;
+      double pr, pi, qr, qi;
+      Z(k % n, &pr, &pi);
+      Z((n - k) % n, &qr, &qi);
+      qi = -qi;  // conj Z_{n-k}
+      const double er = 0.5 * (pr + qr), ei = 0.5 * (pi + qi);
+      const double orr = 0.5 * (pi - qi), oi = -0.5 * (pr - qr);
+      double ws, wc;
+      sincospi(double(2 * k) / double(nr), &ws, &wc);
+      const double gr = er + (wc * orr + ws * oi);
+      double gi = ei + (wc * oi - ws * orr);
+      if (flip) gi = -gi;
+      double s0 = 0.0, c0 = 1.0;
+      if (shift) sincospi(double(m) / double(nr), &s0, &c0);
+      Fr[(long long)r * L + m] = gr * c0 + gi * s0;
+      Fi[(long long)r * L + m] = gi * c0 - gr * s0;
     }
-    // G_k = re - i im; G_{nr-k} = conj(G_k)
-    for (int pass = 0; pass < 2; ++pass) {
-      if (pass == 1 && (k == 0 || 2 * k == nr)) break;
-      const double gr = re, gi = pass == 0 ? -im : im;
-      for (long long m = pass == 0 ? k : nr - k; m < L; m += nr) {
-        double s0 = 0.0, c0 = 1.0;
-        if (shift) sincospi(double(m) / double(nr), &s0, &c0);
-        Fr[(long long)r * L + m] = gr * c0 + gi * s0;
-        Fi[(long long)r * L + m] = gi * c0 - gr * s0;
-      }
-    }
+    __syncthreads();  // the buffer is the next ring's
   }
+}
+
+template <bool kBluestein>
+int launch_rings(const double* map, const long long* sp, const int* nr,
+                 const int* shifted, const int* rings, int count, int M,
+                 int L, bool in_shared, double* scratch, double* Fr,
+                 double* Fi, cudaStream_t stream) {
+  const long long slot = (kBluestein ? 6LL : 4LL) * M;
+  if (in_shared) {
+    const size_t smem = sizeof(double) * size_t(slot);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          ring_fft_kernel<kBluestein>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return int(e);
+    }
+    ring_fft_kernel<kBluestein><<<count, kFftThreads, smem, stream>>>(
+        map, sp, nr, shifted, rings, count, L, nullptr, 0, Fr, Fi);
+  } else {
+    const int blocks = count < kLongBlocks ? count : kLongBlocks;
+    ring_fft_kernel<kBluestein><<<blocks, kFftThreads, 0, stream>>>(
+        map, sp, nr, shifted, rings, count, L, scratch, slot, Fr, Fi);
+  }
+  return int(cudaGetLastError());
 }
 
 // K19 -----------------------------------------------------------------------
@@ -207,24 +446,42 @@ legendre_kernel(int n_ring, int L, const double* __restrict__ z,
 
 extern "C" {
 
-// F (n_ring, L) float64, Re and Im, of the RING map; the rings' first
-// pixels, lengths and shift flags from the host
-int bf_ring_modes_f64(int n_ring, int L, int smem_ring, const double* map,
-                      const long long* sp, const int* nr, const int* shifted,
-                      int nr_max, double* Fr, double* Fi, void* stream) {
-  if (n_ring == 0) return 0;
-  if (smem_ring > kSmemRing) smem_ring = kSmemRing;
-  const int staged = nr_max < smem_ring ? nr_max : smem_ring;
-  const size_t smem = sizeof(double) * 2 * size_t(staged);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ring_modes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (e != cudaSuccess) return int(e);
+// F (n_ring, L) float64, Re and Im, of the RING map, from the rings' first
+// pixels, lengths and shift flags on the card. `groups` (host memory, 5
+// ints a group: first, count, M, Bluestein, in shared memory) cut `rings`
+// into launches; scratch holds kLongBlocks slots of the largest
+// device-memory group (6 M doubles for Bluestein, else 4 M).
+int bf_ring_modes_f64(int L, const double* map, const long long* sp,
+                      const int* nr, const int* shifted, const int* rings,
+                      int n_groups, const int* groups, double* scratch,
+                      double* Fr, double* Fi, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int g = 0; g < n_groups; ++g) {
+    const int* G = groups + 5 * g;
+    const int* sub = rings + G[0];
+    const int count = G[1], M = G[2];
+    const bool shared = G[4] != 0;
+    if (count <= 0) continue;
+    if (!shared && scratch == nullptr) return int(cudaErrorInvalidValue);
+    const int err =
+        G[3] ? launch_rings<true>(map, sp, nr, shifted, sub, count, M, L,
+                                  shared, scratch, Fr, Fi, s)
+             : launch_rings<false>(map, sp, nr, shifted, sub, count, M, L,
+                                   shared, scratch, Fr, Fi, s);
+    if (err != 0) return err;
   }
-  ring_modes_kernel<<<n_ring, kModesThreads, smem, (cudaStream_t)stream>>>(
-      map, sp, nr, shifted, L, staged, Fr, Fi);
-  return int(cudaGetLastError());
+  return 0;
+}
+
+int bf_ring_modes_long_blocks(void) { return kLongBlocks; }
+
+// the dynamic shared memory a block may opt in to on `device` (bytes), as
+// the card reports it; minus the CUDA error on failure
+int bf_shared_memory_optin(int device) {
+  int v = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? v : -int(e);
 }
 
 // a (L, L) float64, Re and Im, indexed [m, l]; logfac (L,) the cumulative

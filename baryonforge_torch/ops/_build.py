@@ -16,7 +16,8 @@ K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 ``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
 ``enclosed_mass`` and ``displacement_rows``), ``ops/paint.py`` (K11
 ``disc_paint``, K13 ``disc_paint_anis``, K14 ``anis_finish``),
-``ops/grid.py`` (K15 ``grid_cutout``), ``ops/scatter.py`` (K16
+``ops/grid.py`` (K15 ``grid_cutout`` and its lists' ``tile_pairs``),
+``ops/scatter.py`` (K16
 ``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``) and
 ``ops/sht.py`` (K18 ``ring_modes``, K19 ``legendre_alm``); each wrapper
 adds one right where it launches its kernel, so a run can show that its
@@ -76,9 +77,12 @@ def _signatures():
         "bf_fht_f64": [_I, _I, _P, _P, _D, _D, _D, _P, _P, _P],
         "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
         "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
-        "bf_ring_modes_f64": [_I, _I, _I] + [_P] * 4 + [_I, _P, _P, _P],
+        "bf_ring_modes_f64": [_I] + [_P] * 5 + [_I] + [_P] * 5,
+        "bf_ring_modes_long_blocks": [],
+        "bf_shared_memory_optin": [_I],
         "bf_legendre_alm_f64": [_I, _I] + [_P] * 7,
         "bf_legendre_rings_per_block": [],
+        "bf_tile_pairs": [_I] * 7 + [_P, _P, _D, _P, _I, _P, _P, _P],
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 5 + [_I] + [_P] * 3
@@ -102,7 +106,7 @@ def _signatures():
             [_I, _I] + [_P] * 5 + curve + curve + [_P, _P, _I, _D, _P, _P]
         sig[f"bf_anis_finish_{sfx}"] = [_LL] + [_P] * 3 + [_D] * 3 \
             + [_I, _P, _P]
-        sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P, _P, _D] + [_P] * 3 \
+        sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _I, _D] + [_P] * 6 \
             + [_I, _D, _D] + [_P] * 4

@@ -6,11 +6,13 @@ Cartesian grid, displaced or painted.
 bodies (baryonforge_tpu/Runners/Map2DRunner.py: BaryonifyGrid 366-434,
 PaintProfilesGrid 551-625, PaintProfilesAnisGrid 747-777, with
 _cutout_geometry 276-289), vectorised over halo chunks and summed with
-``index_add_``.
+``index_add_``. On CUDA, ``cutout_tiles`` first lists each grid tile's
+halos (the pair kernel, ``tile_pairs_plain`` its plain version, then one
+sort), and K15 adds them tile by tile with no atomics.
 
 Every halo of one call walks the same cutout of Ns^d cells, its size
-bucket's largest Ns: offsets o = -Ns/2 .. Ns/2 - 1 on each axis around its
-nearest grid centre ``cen``, wrapped mod N. Under the JAX package's x64 the
+bucket's largest Ns: offsets o = -w .. Ns - 1 - w (w = Ns // 2; Ns may be
+odd) on each axis around its nearest grid centre ``cen``, wrapped mod N. Under the JAX package's x64 the
 geometry is float64 whatever the runner's dtype: rel_d = o_d res + d_off_d
 and r = |rel|, or |rel Rmat| for a 2D halo with ellipticity. The curve
 values are in the curves' dtype T and read in float64. The modes:
@@ -32,11 +34,15 @@ import torch
 
 from . import _build
 
-__all__ = ["grid_cutout", "grid_cutout_plain", "MODES"]
+__all__ = ["grid_cutout", "grid_cutout_plain", "cutout_tiles",
+           "tile_pairs_plain", "TILE", "MODES"]
 
 MODES = ("displace", "paint", "anis")
 
 _CHUNK_CELLS = 1 << 22      # cutout cells per halo chunk of the plain version
+# K15's tiles: cells a side by ndim (csrc/grid_cutout.cu kTile2, kTile3)
+TILE = {2: 16, 3: 8}
+_CHUNK_PAIRS = 1 << 24      # candidate (tile, halo) pairs per halo chunk
 
 
 def _lookup(log_curve):
@@ -123,6 +129,115 @@ def grid_cutout_plain(mode, npix, Ns, res, halos, curve, acc, curve2=None,
     return acc
 
 
+def _axis_bounds(npix, Ns, res, cen, doff, T, K):
+    """Per axis of each halo, the K tiles from the one holding its box's
+    first cell, (n, ndim, K) tile indices, and a lower bound of |rel_d|
+    over the box's cells in each, inf where the box misses the tile."""
+    nt = -(-npix // T)
+    w = Ns // 2
+    first = torch.div(torch.remainder(cen - w, npix), T,
+                      rounding_mode="floor")
+    cand = torch.remainder(
+        first[..., None] + torch.arange(K, device=cen.device), nt)
+    lo_cell = cand * T
+    hi_cell = torch.clamp(lo_cell + T, max=npix) - 1
+    ostar = (-doff / res)[..., None]
+    lb = torch.full(cand.shape, float("inf"), dtype=torch.float64,
+                    device=cen.device)
+    for k in (-1, 0, 1):          # the tile's copies one period apart
+        lo = torch.clamp(lo_cell + k * npix - cen[..., None], min=-w)
+        hi = torch.clamp(hi_cell + k * npix - cen[..., None], max=Ns - 1 - w)
+        dist = torch.minimum((lo * res + doff[..., None]).abs(),
+                             (hi * res + doff[..., None]).abs())
+        dist = torch.where((lo <= ostar) & (ostar <= hi),
+                           torch.zeros_like(dist), dist)
+        lb = torch.where(lo <= hi, torch.minimum(lb, dist), lb)
+    return cand, lb
+
+
+def tile_pairs_plain(npix, Ns, res, halos, h0, m, K):
+    """Plain version of K15's pair kernel: for halos h0 .. h0 + m - 1 and
+    each one's K^d candidate tiles (K a side, from the tile of its box's
+    first cell; halo-major, the last axis fastest), the pair's key, the
+    row-major tile id or n_tiles where the pair is dropped, and the halo,
+    both (m K^d,) int32."""
+    sl = slice(h0, h0 + m)
+    cen, doff = halos["cen"][sl].long(), halos["doff"][sl]
+    ndim = cen.shape[1]
+    T = TILE[ndim]
+    nt = -(-npix // T)
+    cand, lb = _axis_bounds(npix, Ns, res, cen, doff, T, K)
+    tid, lb2 = cand[:, 0], lb[:, 0] ** 2
+    for d in range(1, ndim):
+        view = (m,) + (1,) * d + (K,)
+        tid = tid[..., None] * nt + cand[:, d].reshape(view)
+        lb2 = lb2[..., None] + lb[:, d].reshape(view) ** 2
+    keep = torch.isfinite(lb2)
+    if halos.get("rmat") is None:
+        reach = (halos["rmax"][sl] + res) ** 2
+        keep &= lb2 < reach.reshape((-1,) + (1,) * ndim)
+    key = torch.where(keep, tid, nt ** ndim).reshape(-1).int()
+    own = torch.arange(h0, h0 + m, dtype=torch.int32, device=cen.device)
+    return key, own[:, None].expand(m, K ** ndim).reshape(-1)
+
+
+def _tile_pairs_kernel(npix, Ns, res, halos, h0, m, K):
+    """K15's pair kernel (``bf_tile_pairs``), as :func:`tile_pairs_plain`."""
+    ndim = halos["cen"].shape[1]
+    dev = halos["cen"].device
+    key = torch.empty(m * K ** ndim, dtype=torch.int32, device=dev)
+    own = torch.empty_like(key)
+    cols = [halos[k].contiguous() for k in ("cen", "doff", "rmax")]
+    with torch.cuda.device(dev):
+        err = _build.library().bf_tile_pairs(
+            ndim, npix, Ns, TILE[ndim], K, h0, m,
+            *[_build.ptr(c) for c in cols[:2]], res, _build.ptr(cols[2]),
+            int(halos.get("rmat") is None), _build.ptr(key),
+            _build.ptr(own), _build.stream_of(key))
+    _build.check(err, "tile_pairs")
+    _build.launches["tile_pairs"] += 1
+    return key, own
+
+
+def cutout_tiles(npix, Ns, res, halos):
+    """K15's lists: the halos whose cutout may add to each tile of TILE[d]^d
+    cells (row-major tile ids, the last tiles partial when TILE[d] does not
+    divide N), as CSR on the halos' device. Returns (tile_start (n_tiles +
+    1,) int32, tile_halo int32): tile t's halos, in ascending index, are
+    tile_halo[tile_start[t]:tile_start[t + 1]] (entries past
+    tile_start[-1] are dropped pairs).
+
+    A (tile, halo) pair is listed when the halo's wrapped box of Ns^d cells
+    meets the tile and, without ellipticity (``halos["rmat"]`` None), when
+    the tile's box cells may hold r < rmax: the per-axis lower bounds of
+    |rel_d| over them, squared and summed, under (rmax + res)^2. The pair
+    keys come from K15's pair kernel on CUDA (its plain version on the
+    CPU), then one stable sort by tile: nothing is read back to the host
+    while the halos fit one chunk of _CHUNK_PAIRS candidate pairs."""
+    n, ndim = halos["cen"].shape
+    dev = halos["cen"].device
+    T = TILE[ndim]
+    nt = -(-npix // T)
+    n_tiles = nt ** ndim
+    K = min(nt, Ns // T + 3)      # tiles a box can meet on an axis
+    if n == 0:
+        return (torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    pairs = tile_pairs_plain if dev.type == "cpu" else _tile_pairs_kernel
+    step = max(1, _CHUNK_PAIRS // K ** ndim)
+    keys, owners = [], []
+    for h0 in range(0, n, step):
+        key, own = pairs(npix, Ns, res, halos, h0, min(step, n - h0), K)
+        if step < n:            # several chunks: keep only listed pairs
+            key, own = key[key < n_tiles], own[key < n_tiles]
+        keys.append(key)
+        owners.append(own)
+    key, order = torch.sort(torch.cat(keys), stable=True)
+    start = torch.searchsorted(key, torch.arange(
+        n_tiles + 1, dtype=torch.int32, device=dev))
+    return start.int(), torch.cat(owners)[order]
+
+
 def _check(mode, npix, Ns, halos, curve, acc, curve2, mtot, orig):
     if mode not in MODES:
         raise ValueError(f"grid_cutout: mode {mode!r} not in {MODES}")
@@ -183,7 +298,7 @@ def grid_cutout(mode, npix, Ns, res, halos, curve, acc, curve2=None, a=1.0,
 
     mode   : "displace", "paint" or "anis" (see the module docstring)
     npix   : N, the grid's side in cells
-    Ns     : the cutout's side in cells, the same for every halo (even)
+    Ns     : the cutout's side in cells, the same for every halo (may be odd)
     res    : the grid's cell width
     halos  : dict of per-halo tensors: ``cen`` (n, ndim) int32 nearest grid
              centre, ``doff`` (n, ndim) float64 bins[cen] - pos, ``rmax``
@@ -212,10 +327,19 @@ def grid_cutout(mode, npix, Ns, res, halos, curve, acc, curve2=None, a=1.0,
     if dev.type == "cpu":
         return grid_cutout_plain(mode, npix, Ns, float(res), halos, curve,
                                  acc, curve2, float(a), mtot, orig)
+    return _grid_cutout_kernel(mode, npix, Ns, float(res), halos, curve,
+                               acc, curve2, float(a), mtot, orig)
+
+
+def _grid_cutout_kernel(mode, npix, Ns, res, halos, curve, acc, curve2, a,
+                        mtot, orig):
+    """K15 on checked arguments: the (tile, halo) lists, then one block a
+    tile."""
     n = curve[0].shape[0]
     if n == 0:
         return acc
     ndim = halos["cen"].shape[1]
+    tile_start, tile_halo = cutout_tiles(npix, Ns, res, halos)
     rmat = halos.get("rmat")
     cols = [halos["cen"], halos["doff"], halos["rmax"], halos.get("rscale"),
             None if rmat is None else rmat.reshape(n, 4)]
@@ -229,13 +353,14 @@ def grid_cutout(mode, npix, Ns, res, halos, curve, acc, curve2=None, a=1.0,
 
     fn = getattr(_build.library(), "bf_grid_cutout_{}".format(
         "f32" if curves1.dtype == torch.float32 else "f64"))
-    with torch.cuda.device(dev):
-        err = fn(ndim, npix, Ns, n, MODES.index(mode), ptr(cols[0]),
-                 ptr(cols[1]), float(res), ptr(cols[2]), ptr(cols[3]),
+    with torch.cuda.device(acc.device):
+        err = fn(ndim, npix, Ns, TILE[ndim], MODES.index(mode),
+                 ptr(tile_start), ptr(tile_halo), ptr(cols[0]),
+                 ptr(cols[1]), res, ptr(cols[2]), ptr(cols[3]),
                  ptr(cols[4]), ptr(curves1), curves1.shape[1], curve[1],
                  curve[2], int(curve[3]), ptr(curves2),
                  2 if curves2 is None else curves2.shape[1], c2[1], c2[2],
-                 int(c2[3]), float(a), ptr(mtot), ptr(orig), ptr(acc),
+                 int(c2[3]), a, ptr(mtot), ptr(orig), ptr(acc),
                  _build.stream_of(acc))
     _build.check(err, "grid_cutout")
     _build.launches["grid_cutout"] += 1

@@ -9,11 +9,14 @@ which follow the JAX formulas step by step (the angles m (j 2 pi / nr) of
 each ring, the scan over l). Each wrapper launches its kernel for a tensor
 on CUDA and runs the plain version for one on the CPU.
 
-K18 phases each term by the exact integer m j mod nr into a cosine table,
-while the plain version rounds the angle m (j dphi) as the JAX package
-does; ``ring_modes_tolerance`` bounds what that rounding can move.
+K18 runs one FFT a ring (``ring_plan`` groups the rings by route and
+size), every phase an exact integer index, while the plain version rounds
+the angle m (j dphi) as the JAX package does; ``ring_modes_tolerance``
+bounds what that rounding can move.
 """
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 
 from . import _build
 
-__all__ = ["ring_geometry", "ring_modes", "ring_modes_plain",
+__all__ = ["ring_geometry", "ring_plan", "ring_modes", "ring_modes_plain",
            "ring_modes_tolerance", "legendre_alm", "legendre_alm_plain",
            "log_factors"]
 
@@ -115,22 +118,74 @@ def ring_modes(hmap, nside, lmax):
     return _ring_modes_kernel(hmap, nside, lmax)
 
 
-def _ring_modes_kernel(hmap, nside, lmax, smem_ring=8192):
-    """K18; ``smem_ring`` is the longest ring it stages in shared memory
-    (longer rings compute each twiddle)."""
+def shared_memory_optin(device):
+    """The dynamic shared memory a block may opt in to on the CUDA
+    ``device`` (bytes), as the card reports it."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    v = _build.library().bf_shared_memory_optin(index)
+    _build.check(min(v, 0), "shared_memory_optin")
+    return v
+
+
+@functools.lru_cache(maxsize=16)
+def ring_plan(nside, smem_bytes):
+    """K18's launch plan, numpy: (rings, groups). ``rings`` lists the ring
+    ids group by group; ``groups`` (n_groups, 5) holds each group's first
+    index into ``rings``, its count, its FFT size M, whether it runs
+    Bluestein, and whether its working arrays fit ``smem_bytes`` of shared
+    memory (else they take slots of device memory). A ring of n = nr / 2
+    complex points runs a power-of-two FFT of M = n points when n is a
+    power of two (4 M doubles), else Bluestein's of the least power of two
+    M >= 2 n - 1 (6 M doubles); rings of one route and one M form a group,
+    the longest M first."""
+    _, nr, _, _ = ring_geometry(nside)
+    n = nr // 2
+    pow2 = (n & (n - 1)) == 0
+    M = np.where(pow2, n, 1 << np.ceil(np.log2(2 * n - 1)).astype(np.int64))
+    need = 8 * np.where(pow2, 4, 6) * M
+    shared = need <= smem_bytes
+    keys = sorted({(int(m), bool(b), bool(s))
+                   for m, b, s in zip(M, ~pow2, shared)}, reverse=True)
+    rings, groups = [], []
+    for m, blue, sh in keys:
+        ids = np.flatnonzero((M == m) & (~pow2 == blue) & (shared == sh))
+        groups.append((sum(r.size for r in rings), ids.size, m, int(blue),
+                       int(sh)))
+        rings.append(ids)
+    return (np.concatenate(rings).astype(np.int32),
+            np.asarray(groups, dtype=np.int32))
+
+
+def _ring_modes_kernel(hmap, nside, lmax, smem_bytes=None):
+    """K18; ``smem_bytes`` bounds the shared memory a ring's FFT may take,
+    by default what the card allows a block (rings that need more run on
+    slots of device memory)."""
     dev = hmap.device
     sp, nr, _, phi0 = ring_geometry(nside)
+    if smem_bytes is None:
+        smem_bytes = shared_memory_optin(dev)
+    rings, groups = ring_plan(nside, smem_bytes)
     L = lmax + 1
     Fr = torch.empty((nr.size, L), dtype=torch.float64, device=dev)
     Fi = torch.empty_like(Fr)
     geo = (torch.as_tensor(sp.astype(np.int64), device=dev),
            torch.as_tensor(nr.astype(np.int32), device=dev),
-           torch.as_tensor((phi0 > 0).astype(np.int32), device=dev))
+           torch.as_tensor((phi0 > 0).astype(np.int32), device=dev),
+           torch.as_tensor(rings, device=dev))
+    lib = _build.library()
+    slots = [min(c, lib.bf_ring_modes_long_blocks()) * (6 if b else 4) * m
+             for _, c, m, b, sh in groups if not sh]
+    scratch = torch.empty(max(slots, default=0), dtype=torch.float64,
+                          device=dev)
     hmap = hmap.contiguous()
+    groups = np.ascontiguousarray(groups)
     with torch.cuda.device(dev):
-        err = _build.library().bf_ring_modes_f64(
-            nr.size, L, smem_ring, _build.ptr(hmap),
-            *[_build.ptr(x) for x in geo], int(nr.max()), _build.ptr(Fr),
+        err = lib.bf_ring_modes_f64(
+            L, _build.ptr(hmap), *[_build.ptr(x) for x in geo],
+            len(groups), groups.ctypes.data_as(ctypes.c_void_p),
+            _build.ptr(scratch) if slots else None, _build.ptr(Fr),
             _build.ptr(Fi), _build.stream_of(Fr))
     _build.check(err, "ring_modes")
     _build.launches["ring_modes"] += 1

@@ -104,7 +104,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      with the launch counts set to 0 just before and read just after, mass
      conserved, K15 and K16 held against their plain versions on each
      runner's own inputs (float32 offsets to 1e-5 of the largest,
-     float64 maps to 1e-10), halos/s and phases printed;
+     float64 maps to 1e-10), K15's second call on each bitwise equal to
+     its first and its (tile, halo) lists equal to those of its pair
+     kernel's plain version on the CPU, halos/s and phases printed;
  14. builds the snapshot bench's table on the card (tools/snapshot_bench.py:
      29-73: Baryonification3D(DarkMatter, DarkMatter(epsilon 2)), 2 z x 12
      M x 48 r) and holds K17 snapshot displacement against its plain
@@ -123,8 +125,10 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      ring_modes_tolerance, the plain version's angle rounding; K19 within 4
      n_ring eps of its absolute sum) at NSIDE 64 and at NSIDE 1024, lmax
      3071, where both are timed (2 repetitions) beside torch.fft.rfft per
-     ring length; anafast card vs CPU at NSIDE 64 and the analytic maps of
-     tests/test_sht.py:38-58 at NSIDE 1024;
+     ring length; K18 also at NSIDE 8 with lmax 23 (m past nr), at NSIDE
+     48 (Bluestein rings) and at NSIDE 64 with 2048 bytes of shared memory
+     a ring (the device-memory route); anafast card vs CPU at NSIDE 64 and
+     the analytic maps of tests/test_sht.py:38-58 at NSIDE 1024;
  16. runs the ΔCl recipe of examples/15_delta_cl.py at NSIDE 1024 (150
      halos, its two tables built on the card): the paint, the
      baryonification and the two anafast calls (lmax 3071) on the card,
@@ -192,6 +196,11 @@ B_GRID = dict(z_min=0.1, z_max=0.3, N_samples_z=2, M_min=1e13, M_max=3e15,
               N_samples_Mass=8, R_min=1e-3, R_max=50, N_samples_R=48,
               verbose=False)
 GRID_CALLS = 3          # timed process() calls per grid path, after one warm
+# the redesigned kernels' earlier times, not measured by this script (PERF.md
+# §6, on an NVIDIA H100 80GB HBM3 at 700 W); printed beside this run's with
+# that label
+EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
+              "ring_modes": (36.623, "the direct DFT")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 
@@ -1477,9 +1486,11 @@ def grid_tables(bf, torch, gpu):
     return tabs
 
 
-def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False):
+def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False,
+                         odd=False):
     """K15 over every size bucket of ``runner``'s own inputs (and K16 on
-    the offsets when ``deposit``) against the plain versions on the card:
+    the offsets when ``deposit``; ``odd``: one bucket's Ns must be odd)
+    against the plain versions on the card:
     float64 maps to 1e-10 of the largest value (atomic sums in another
     order), float32 offsets to 1e-5 of the largest (float32 sums in another
     order), K16's float64 map to 1e-12 of the largest value and its mass to
@@ -1493,9 +1504,13 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False):
     ndim, npix = (2 if gm.is2D else 3), gm.Npix
     inp = runner._cutout_inputs(_PhaseClock(dev))
     ak = runner._cutouts(inp, runner._accumulator(inp))
+    ak2 = runner._cutouts(inp, runner._accumulator(inp))
     ap = runner._cutouts(inp, runner._accumulator(inp),
                          cutout=tgrid.grid_cutout_plain)
     torch.cuda.synchronize()
+    if not torch.equal(ak, ak2):
+        raise AssertionError(f"K15 [{label}]: two calls differ")
+    tile_pairs_check(torch, runner, inp, label)
     err15 = (ak - ap).abs().max().item()
     scale = ap.abs().max().item()
     if not scale > 0:
@@ -1506,20 +1521,28 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False):
     log(f"  [{label}] K15 {inp['mode']}: {len(buckets)} buckets, cutouts "
         f"{[Ns for _, Ns in buckets]}, {cells:.4g} cells")
     check(f"K15 grid_cutout [{label}]", err15, rel * scale)
+    if odd and not any(Ns % 2 for _, Ns in buckets):
+        raise AssertionError(f"K15 [{label}]: no odd cutout size")
     out = {}
     if timing:
-        # K15: per cell ~50 float64 operations (geometry, a log, one or two
-        # lerps, masks); the halo columns and curves read, the
-        # accumulator written once (the anisotropic mode also reads the
-        # canvas and the map at its cells)
-        reads = nbytes(inp["halos"], inp["curve"][0]) + (
-            16.0 * cells if inp["mode"] == "anis" else 0.0)
+        # K15: ~50 float64 operations (geometry, a log, one or two lerps,
+        # masks) a cell the inputs need, r < rmax inside a box; the halo
+        # columns and curves read, the accumulator read and written once
+        # (the anisotropic mode also reads the canvas and the map)
+        live = live_cells(torch, runner, inp)
+        reads = nbytes(inp["halos"], inp["curve"][0], ak) + (
+            16.0 * runner.GriddedMap.map.size if inp["mode"] == "anis"
+            else 0.0)
         out["grid_cutout"] = (err15, time_ms(
             torch, lambda: runner._cutouts(inp, runner._accumulator(inp)),
             3), time_ms(torch, lambda: runner._cutouts(
                 inp, runner._accumulator(inp),
                 cutout=tgrid.grid_cutout_plain), 1)) + bound(
-            reads + nbytes(ak), 50.0 * cells, F64_FLOPS) + (None,)
+            reads + nbytes(ak), 50.0 * live, F64_FLOPS) + (None,)
+        log(f"  [{label}] K15: {live:.6g} cells with r < rmax of "
+            f"{cells:.6g} box cells; bound on the box cells "
+            f"{bound(reads + nbytes(ak), 50.0 * cells, F64_FLOPS)[0]:.4f} "
+            "ms")
     if not deposit:
         return out
     orig = inp["orig"]
@@ -1550,6 +1573,47 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False):
             nbytes(ap, orig, dk), (15.0 * ndim + 2 ** ndim * ndim) * nflat,
             F64_FLOPS) + (time_ms(torch, library, 5),)
     return out
+
+
+def tile_pairs_check(torch, runner, inp, label):
+    """K15's lists on the card (its pair kernel, then the sort) equal to
+    those of the pair kernel's plain version on the CPU, every bucket."""
+    from baryonforge_torch.ops import grid as tgrid
+    gm = runner.GriddedMap
+    for idx, Ns in runner._buckets(inp["Nsize"]):
+        ix = torch.as_tensor(idx, device=DEVICE)
+        h = {k: None if v is None else v[ix]
+             for k, v in inp["halos"].items()}
+        card = tgrid.cutout_tiles(gm.Npix, Ns, gm.res, h)
+        cpu = tgrid.cutout_tiles(gm.Npix, Ns, gm.res, {
+            k: None if v is None else v.cpu() for k, v in h.items()})
+        n = int(cpu[0][-1])
+        if not (torch.equal(card[0].cpu(), cpu[0])
+                and torch.equal(card[1][:n].cpu(), cpu[1][:n])):
+            raise AssertionError(f"K15 [{label}]: the pair kernel's lists "
+                                 f"differ from its plain version's (Ns {Ns})")
+
+
+def live_cells(torch, runner, inp):
+    """The (cell, halo) pairs that K15's inputs need, the cells with r <
+    rmax inside each halo's box, counted on the card with the plain
+    version's geometry, bucket by bucket."""
+    from baryonforge_torch.ops import grid as tgrid
+    gm = runner.GriddedMap
+    ndim = 2 if gm.is2D else 3
+    live = 0
+    for idx, Ns in runner._buckets(inp["Nsize"]):
+        ix = torch.as_tensor(idx, device=DEVICE)
+        h = {k: None if v is None else v[ix]
+             for k, v in inp["halos"].items()}
+        step = max(1, tgrid._CHUNK_CELLS // Ns ** ndim)
+        for h0 in range(0, ix.numel(), step):
+            sl = slice(h0, h0 + step)
+            rmat = None if h["rmat"] is None else h["rmat"][sl]
+            _, _, r = tgrid._geometry(gm.Npix, Ns, gm.res, h["cen"][sl],
+                                      h["doff"][sl], rmat)
+            live += int((r < h["rmax"][sl, None]).sum())
+    return float(live)
 
 
 def deposit_corners(torch, po, orig, npix, ndim):
@@ -1639,12 +1703,13 @@ def anis_bound_check(name, t, s, f64):
 
 
 def grid_card_vs_cpu(bf, torch, tabs):
-    """On a small grid of the same recipe (3D 32^3 and 2D 128^2 with
-    ellipticity, 32 Mpc, 300 halos): K15 and K16 against their plain
+    """On small grids of the same recipe (3D 32^3 and 2D 128^2 with
+    ellipticity, 32 Mpc, 300 halos; and 3D 26^3 and 2D 50^2, whose cutouts
+    the runners clip to the odd N // 2): K15 and K16 against their plain
     versions on the card in float64 and float32, and the grid runners on
     the card against the plain versions on the CPU, float64, to 1e-9 of the
     largest value (of the largest move for BaryonifyGrid)."""
-    for ndim, npix in ((3, 32), (2, 128)):
+    for ndim, npix in ((3, 32), (2, 128), (3, 26), (2, 50)):
         cat, _ = grid_inputs(bf, ndim, npix, n_halos=300, seed=GRID_SEED + 1)
         cat.cat["x"] *= 32.0 / GRID_L
         cat.cat["y"] *= 32.0 / GRID_L
@@ -1671,7 +1736,7 @@ def grid_card_vs_cpu(bf, torch, tabs):
                     bf, torch, cls(cat, gm, device=DEVICE, dtype=dt, **kw),
                     f"{cls.__name__} {ndim}D {npix}^{ndim}, "
                     f"{str(dt).replace('torch.', '')}", False,
-                    deposit=cls is bf.BaryonifyGrid)
+                    deposit=cls is bf.BaryonifyGrid, odd=npix % 4 == 2)
             kw.update(dtype=torch.float64)
             g = cls(cat, gm, device=DEVICE, **kw).process()
             c = cls(cat, gm, device="cpu", **kw).process()
@@ -2104,6 +2169,33 @@ def compare_sht_kernels(bf, torch, gpu, nside, lmax, timing):
     return out
 
 
+def ring_modes_cases(torch):
+    """K18 where its design splits: NSIDE 8 with lmax 23 (m wraps past
+    nr), NSIDE 48 (Bluestein for every ring whose n = nr / 2 is not a power
+    of two, the belt's 96 among them) and NSIDE 64 with 2048 bytes of
+    shared memory a ring (its longer rings on slots of device memory), each
+    against the plain version within ops.sht.ring_modes_tolerance."""
+    from baryonforge_torch.ops import sht
+    card = sht.shared_memory_optin(torch.device(DEVICE))
+    log(f"  K18: {card} bytes of shared memory a block (the card's opt-in)")
+    for nside, lmax, smem in ((8, 23, card), (48, 143, card),
+                              (64, 191, 2048)):
+        g = torch.Generator(device=DEVICE).manual_seed(nside)
+        hmap = torch.randn(12 * nside * nside, dtype=torch.float64,
+                           device=DEVICE, generator=g)
+        groups = sht.ring_plan(nside, smem)[1]
+        fr, fi = sht._ring_modes_kernel(hmap, nside, lmax, smem_bytes=smem)
+        pr, pi = sht.ring_modes_plain(hmap, nside, lmax)
+        tol = sht.ring_modes_tolerance(hmap, nside, lmax)
+        routes = (f"{int(groups[groups[:, 3] == 1, 1].sum())} Bluestein "
+                  f"rings, {int(groups[groups[:, 4] == 0, 1].sum())} in "
+                  "device memory")
+        check(f"K18 ring_modes [NSIDE {nside}, lmax {lmax}, {routes}] "
+              "(|diff| / tolerance)",
+              max(float(((fr - pr).abs() / tol).max()),
+                  float(((fi - pi).abs() / tol).max())), 1.0)
+
+
 def sht_checks(bf, torch, gpu):
     """anafast on the card against its plain version on the CPU (NSIDE 64,
     float64, to 1e-10 of the largest C_l), and the analytic checks of
@@ -2255,7 +2347,8 @@ KERNELS = [
      "baryonforge_tpu/Runners/HealpixRunner.py:2377", "anis"),
     ("anis_finish", ("anis_finish",), "baryonforge_torch/csrc/anis_finish.cu",
      "baryonforge_tpu/Runners/HealpixRunner.py:2349", "anis"),
-    ("grid_cutout", ("grid_cutout",), "baryonforge_torch/csrc/grid_cutout.cu",
+    ("grid_cutout", ("grid_cutout", "tile_pairs"),
+     "baryonforge_torch/csrc/grid_cutout.cu",
      "baryonforge_tpu/Runners/Map2DRunner.py:366", "grid"),
     ("grid_deposit", ("grid_deposit",),
      "baryonforge_torch/csrc/grid_deposit.cu",
@@ -2483,6 +2576,7 @@ def main():
 
     log("spherical-harmonic kernels against their plain versions (float64)")
     compare_sht_kernels(bf, torch, gpu, 64, 191, False)
+    ring_modes_cases(torch)
     measured.update(compare_sht_kernels(bf, torch, gpu, CL_NSIDE,
                                         3 * CL_NSIDE - 1, True))
     sht_checks(bf, torch, gpu)
@@ -2505,8 +2599,12 @@ def main():
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"[{gpu}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), library {lib}, "
+        was = "" if name not in EARLIER_MS else (
+            f" (earlier: {EARLIER_MS[name][0]:.3f} ms, "
+            f"{EARLIER_MS[name][1]}, from PERF.md, not measured in this "
+            "run)")
+        log(f"[{gpu}] {name}: kernel {ms:.4f} ms{was}, plain {plain_ms:.3f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), library {lib}, "
             f"{n} launches on the {path} path")
         if n < 1:
             raise AssertionError(f"{name} was not launched on the {path} "

@@ -22,6 +22,7 @@ package's edge-jitter bounds
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
 equal; its angles agree to a few ulps (the device's asin against torch's).
+K15 bitwise equal from call to call (no atomics).
 K17 (snapshot displacement) float64 to 1e-10 of the largest offset, float32
 to tests/test_snapshot.py:67 (atol 5e-4, rtol 1e-3); K18 (ring modes)
 within ops.sht.ring_modes_tolerance, the plain version's angle rounding;
@@ -744,15 +745,39 @@ def _grid_case(ndim, ell, dev, npix=64, n=40):
                           ("paint", 2, True), ("paint", 3, False),
                           ("anis", 2, False)])
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
-def test_grid_cutout_kernel(dev, mode, ndim, ell, dt):
+@pytest.mark.parametrize("grid", ["whole", "partial", "odd"])
+def test_grid_cutout_kernel(dev, mode, ndim, ell, dt, grid):
     """K15 against its plain version, two cutout sizes into one
     accumulator, with the paint's tSZ curves (log and raw) and the
     Schneider19 table's displacement curves: float64 to 1e-10 of the
     largest value, float32 offsets to 1e-5 of it (float32 sums in another
-    order)."""
-    npix = 64 if ndim == 2 else 24
-    res, halos = _grid_case(ndim, ell, dev, npix)
-    n = halos["cen"].shape[0]
+    order); two calls bitwise equal (each tile adds its halos in ascending
+    order, no atomics). "whole": grids of whole tiles (2D N 64, 3D N 24),
+    cutouts of 8 and 14 cells; "partial": grids whose last tiles are
+    partial (2D N 100 with 16^2 tiles, 3D N 20 with 8^3), two halos on the
+    periodic edges, cutouts of 20 cells and of the whole grid; "odd": grids
+    of N 26 (partial tiles; the runners clip cutouts to N // 2 = 13), odd
+    cutouts of 13 and 5 cells, halo 0's box of 13 ending on a tile's first
+    cell."""
+    if grid == "whole":
+        npix = 64 if ndim == 2 else 24
+        res, halos = _grid_case(ndim, ell, dev, npix)
+        n = halos["cen"].shape[0]
+        buckets = ((slice(0, n // 2), 8), (slice(n // 2, n), 14))
+    elif grid == "partial":
+        npix = 100 if ndim == 2 else 20
+        res, halos = _grid_case(ndim, ell, dev, npix, n=24)
+        halos["cen"][0] = 0
+        halos["cen"][1] = npix - 1
+        n = halos["cen"].shape[0]
+        buckets = ((slice(0, n - 2), 20), (slice(n - 2, n), npix))
+    else:
+        npix = 26
+        res, halos = _grid_case(ndim, ell, dev, npix, n=24)
+        halos["cen"][0] = bf.ops.grid.TILE[ndim] - 6
+        halos["rmax"][0] = 9.0
+        n = halos["cen"].shape[0]
+        buckets = ((slice(0, n // 2), 13), (slice(n // 2, n), 5))
     M = np.geomspace(6e12, 1.5e15, n)
     a = np.full(n, 1 / 1.9)
     if mode == "displace":
@@ -772,19 +797,45 @@ def test_grid_cutout_kernel(dev, mode, ndim, ell, dt):
     orig = torch.rand(npix ** ndim, dtype=torch.float64, device=dev,
                       generator=g)
     kw = dict(a=1 / 1.9, mtot=mtot, orig=orig)
-    ak, ap = acc.clone(), acc.clone()
+    ak, ak2, ap = acc.clone(), acc.clone(), acc.clone()
     _build.reset_launches()
-    for sl, Ns in ((slice(0, n // 2), 8), (slice(n // 2, n), 14)):
+    for sl, Ns in buckets:
         sub = {k: None if v is None else v[sl] for k, v in halos.items()}
         args = (mode, npix, Ns, res, sub, (curve[0][sl],) + curve[1:])
         c2 = None if mode != "anis" else (curve2[0][sl],) + curve2[1:]
         bf.ops.grid.grid_cutout(*args, ak, c2, **kw)
+        bf.ops.grid.grid_cutout(*args, ak2, c2, **kw)
         bf.ops.grid.grid_cutout_plain(*args, ap, c2, **kw)
-    assert _build.launches["grid_cutout"] == 2
+    assert _build.launches["grid_cutout"] == 4
+    assert torch.equal(ak, ak2)
     scale = ap.abs().max().item()
     assert scale > 0
     rel = 1e-10 if dt == torch.float64 or mode != "displace" else 1e-5
     torch.testing.assert_close(ak, ap, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("ndim,npix,ell", [(2, 100, False), (2, 64, True),
+                                           (2, 26, True), (3, 20, False),
+                                           (3, 24, False), (3, 26, False)])
+@pytest.mark.parametrize("Ns", [5, 6, 13, 14, "N"])
+def test_tile_pairs_kernel(dev, ndim, npix, ell, Ns):
+    """K15's (tile, halo) lists on the card (its pair kernel, then the
+    sort) equal to those of the pair kernel's plain version on the CPU;
+    odd Ns, and halo 2's box ending on a tile's first cell."""
+    Ns = npix if Ns == "N" else Ns
+    res, halos = _grid_case(ndim, ell, dev, npix)
+    halos["cen"][0] = 0
+    halos["cen"][1] = npix - 1
+    halos["cen"][2] = (bf.ops.grid.TILE[ndim] - (Ns - 1 - Ns // 2)) % npix
+    _build.reset_launches()
+    card = bf.ops.grid.cutout_tiles(npix, Ns, res, halos)
+    assert _build.launches["tile_pairs"] == 1
+    cpu = bf.ops.grid.cutout_tiles(npix, Ns, res, {
+        k: None if v is None else v.cpu() for k, v in halos.items()})
+    n = int(cpu[0][-1])
+    assert n > 0
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1][:n].cpu(), cpu[1][:n])
 
 
 def test_grid_runners_cuda_match_cpu(dev):
@@ -901,21 +952,29 @@ def test_snapshot_cuda_matches_cpu(dev, ndim):
                                    atol=1e-10 * move)
 
 
-@pytest.mark.parametrize("nside,lmax,smem_ring", [(8, 23, 8192),
-                                                  (64, 191, 8192),
-                                                  (64, 100, 40)],
-                         ids=["8", "64", "64-unstaged"])
-def test_ring_modes_kernel(dev, nside, lmax, smem_ring):
+@pytest.mark.parametrize("nside,lmax,smem_bytes", [(8, 23, None),
+                                                   (64, 191, None),
+                                                   (64, 100, 2048),
+                                                   (48, 143, None)],
+                         ids=["8", "64", "64-long", "48"])
+def test_ring_modes_kernel(dev, nside, lmax, smem_bytes):
     """K18 against its plain version on the card, within
-    ops.sht.ring_modes_tolerance (the plain version's angle rounding);
-    smem_ring 40 sends the rings longer than 40 pixels down the path that
-    computes each twiddle."""
+    ops.sht.ring_modes_tolerance (the plain version's angle rounding):
+    NSIDE 8 with lmax 23 (m wraps past nr), 64, 48 (cap lengths with large
+    prime factors and a belt of 192: Bluestein), and 64 with 2048 bytes of
+    shared memory a ring, which sends the longer rings to slots of device
+    memory."""
     from baryonforge_torch.ops import sht
     g = torch.Generator(device=dev).manual_seed(nside)
     hmap = torch.randn(12 * nside * nside, dtype=torch.float64, device=dev,
                        generator=g)
+    kw = {} if smem_bytes is None else dict(smem_bytes=smem_bytes)
+    groups = sht.ring_plan(nside, smem_bytes
+                           or sht.shared_memory_optin(hmap.device))[1]
+    if smem_bytes is not None:
+        assert not groups[:, 4].all()       # some rings in device memory
     _build.reset_launches()
-    fr, fi = sht._ring_modes_kernel(hmap, nside, lmax, smem_ring=smem_ring)
+    fr, fi = sht._ring_modes_kernel(hmap, nside, lmax, **kw)
     assert _build.launches["ring_modes"] == 1
     pr, pi = sht.ring_modes_plain(hmap, nside, lmax)
     tol = sht.ring_modes_tolerance(hmap, nside, lmax)

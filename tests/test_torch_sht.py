@@ -57,6 +57,39 @@ def test_ring_modes_plain_matches_jax(nside, lmax):
     assert _rel(tr, jr) < 1e-10 and _rel(ti, ji) < 1e-10
 
 
+# the H100's dynamic shared memory a block may opt in to (bytes)
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("nside,smem", [(8, H100_SMEM), (48, H100_SMEM),
+                                        (1024, H100_SMEM), (2048, H100_SMEM),
+                                        (64, 2048)])
+def test_ring_plan_covers_every_ring(nside, smem):
+    """K18's launch plan: every ring in one group, the ring ids ascending
+    in each; a power-of-two n = nr / 2 runs its own FFT size, any other n
+    Bluestein's least power of two M >= 2 n - 1; shared-memory groups fit
+    ``smem`` bytes (4 M doubles, 6 M for Bluestein) and the others do
+    not."""
+    _, nr, _, _ = osht.ring_geometry(nside)
+    rings, groups = osht.ring_plan(nside, smem)
+    assert sorted(rings.tolist()) == list(range(nr.size))
+    assert groups[:, 1].sum() == nr.size
+    for first, count, M, blue, shared in groups.tolist():
+        ids = rings[first:first + count]
+        assert (np.diff(ids) > 0).all()
+        n = nr[ids] // 2
+        if blue:
+            assert ((n & (n - 1)) != 0).all()
+            assert ((2 * n - 1 <= M) & (M < 4 * n - 2)).all()
+        else:
+            assert (n == M).all() and M & (M - 1) == 0
+        need = 8 * (6 if blue else 4) * M
+        assert (need <= smem) == bool(shared)
+    if nside == 1024:
+        # the belt (n 2048) and the longest caps (M 4096) in shared memory
+        assert groups[:, 4].all()
+
+
 @pytest.mark.parametrize("nside,lmax", [(8, 23), (16, 47), (32, 60)])
 def test_legendre_plain_matches_jax(nside, lmax):
     hmap = _map(nside, nside + 1)
