@@ -15,12 +15,19 @@
 // once; the member set is the JAX window's. The JAX accumulator's dummy row
 // at index npix becomes a plain `if`.
 //
-// Bound: atomics to device memory. Each member pixel costs about 30 flops
+// Bound: atomics to device memory. Each member pixel costs about 40 flops
 // and 3 transcendentals, and two atomicAdds into the (npix, 2) accumulator
-// (100 MB in float32 at NSIDE 1024: it misses the 50 MB L2). Design: one
-// block per halo, threads across a ring's phi span, so that the atomics of
-// a warp land on neighbouring addresses; the halo's curve (64 values) is
-// read from L1. Sums by atomics change order from run to run.
+// (100 MB in float32 at NSIDE 1024: it misses the 50 MB L2); each ring of
+// a disc costs four float64 transcendentals (its phi span). Design: a flat
+// disc walk. A ring's geometry is worked out once, by one thread, into
+// shared memory; a scan of the rings' span lengths lays the disc out as
+// one flat (ring, dp) index, and the threads walk that index, so every
+// lane holds a candidate pixel whatever the rings' lengths, and neighbouring
+// lanes deposit on neighbouring addresses. A block takes 8 halos, one a
+// warp (warp_route, which also counts the members); a disc of more than 32
+// rings is walked by the whole block (block_route), so a large disc is
+// spread over 256 threads and a small one keeps a warp busy. Sums by
+// atomics change order from run to run.
 //
 // Precision follows one_halo under x64 (see healpix.cuh): the geometry is
 // in T, the halo's cos/sin of theta are float64 rounded to T, and the
@@ -29,6 +36,11 @@
 #include "healpix.cuh"
 
 namespace {
+
+constexpr int kWarps = 8;             // halos a block takes, one a warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSplitRings = 32;       // a disc of more rings: the whole block
+constexpr unsigned kFull = 0xffffffffu;
 
 struct HaloIn {
   const double* theta;
@@ -84,15 +96,10 @@ __device__ __forceinline__ void deposit_pixel(const Halo<T>& h,
 }
 
 template <typename T>
-__global__ void disc_deposit_kernel(int N, HaloIn in,
-                                    const T* __restrict__ curves,
-                                    Lookup<T> lk, T* __restrict__ acc) {
-  __shared__ int members;
-  const int hid = blockIdx.x;
-  const double th_h = in.theta[hid];
-  const double ph_h = in.phi[hid];
-  const double rad_h = in.radius[hid];
-  const bf::DiscWalk<T> walk(N, th_h, ph_h, rad_h);
+__device__ __forceinline__ Halo<T> make_halo(const HaloIn& in,
+                                             const T* curves, int n_r,
+                                             int hid,
+                                             const bf::DiscWalk<T>& walk) {
   Halo<T> h;
   h.theta0 = walk.theta0;
   h.ct0 = T(walk.cos_th);
@@ -101,39 +108,184 @@ __global__ void disc_deposit_kernel(int N, HaloIn in,
   h.a = T(in.a[hid]);
   h.Rcom = T(in.Rcom[hid]);
   h.rscale = T(in.rscale[hid]);
-  h.curve = curves + (long long)hid * lk.n_r;
-  if (threadIdx.x == 0) members = 0;
-  __syncthreads();
+  h.curve = curves + (long long)hid * n_r;
+  return h;
+}
 
-  // count the disc's members, then deposit them unless there are fewer
-  // than 4
-  int count = 0;
-  walk([&](int, T, T, T, T) { ++count; });
-  if (count) atomicAdd(&members, count);
-  __syncthreads();
-  if (members >= 4) {
-    walk([&](int pix, T cos_t, T sin_t, T dphi_pix, T sinhd) {
-      deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
-    });
-    return;
+// Flat candidate q of n rings laid out in shared memory (ring k holds the
+// candidates first[k] .. first[k] + hi - lo): true for a member, with what
+// deposit_pixel needs
+template <typename T>
+__device__ __forceinline__ bool candidate(const bf::DiscWalk<T>& walk,
+                                          const bf::DiscRing<T>* rings,
+                                          const int* first, int n, int q,
+                                          int& pix, T& cos_t, T& sin_t,
+                                          T& dphi_pix, T& sinhd) {
+  int lo = 0, hi = n - 1;          // the last ring with first <= q
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= q)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
+  const bf::DiscRing<T>& r = rings[lo];
+  cos_t = r.cos_t;
+  sin_t = r.sin_t;
+  return walk.pixel(r, r.lo + (q - first[lo]), pix, dphi_pix, sinhd);
+}
 
-  // fewer than 4 members: the centre's 4 interpolation neighbours
+// fewer than 4 members: lane k < 4 deposits on the centre's k-th
+// interpolation neighbour
+template <typename T>
+__device__ void deposit_fallback(int N, const Halo<T>& h, const Lookup<T>& lk,
+                                 double th_h, double ph_h, int k, T* acc) {
   int pix4[4];
   T w4[4];
   const T phi_w = T(bf::floor_fmod(ph_h, bf::kTwoPi));
   bf::interp_weights<T>(N, h.theta0, phi_w, pix4, w4);
-  for (int k = threadIdx.x; k < 4; k += blockDim.x) {
-    const int pix = pix4[k];
-    T t4, p4;
-    bf::pix2ang<T>(N, pix, t4, p4);
-    const T cos_t = bf::m_cos(t4), sin_t = bf::m_sin(t4);
-    const T dphi_pix = T(double(p4) - ph_h);
-    const T sdp = bf::m_sin(T(0.5) * dphi_pix);
-    const double sdt = sin(0.5 * (double(t4) - th_h));
-    double hav = sdt * sdt + double(sin_t * h.st0 * (sdp * sdp));
-    hav = hav < 0.0 ? 0.0 : (hav > 1.0 ? 1.0 : hav);
-    deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, T(sqrt(hav)), acc);
+  const int pix = pix4[k];
+  T t4, p4;
+  bf::pix2ang<T>(N, pix, t4, p4);
+  const T cos_t = bf::m_cos(t4), sin_t = bf::m_sin(t4);
+  const T dphi_pix = T(double(p4) - ph_h);
+  const T sdp = bf::m_sin(T(0.5) * dphi_pix);
+  const double sdt = sin(0.5 * (double(t4) - th_h));
+  double hav = sdt * sdt + double(sin_t * h.st0 * (sdp * sdp));
+  hav = hav < 0.0 ? 0.0 : (hav > 1.0 ? 1.0 : hav);
+  deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, T(sqrt(hav)), acc);
+}
+
+// A disc of at most kSplitRings rings, on one warp: lane k lays out ring
+// k, a warp scan of the span lengths gives the flat index, and the lanes
+// walk it 32 candidates at a time. The count of members runs along (ballot
+// and popc); members met while it is under 4 (at most 3) are held back by
+// flat index and deposited when it reaches 4, or never, and then the disc
+// deposits on the centre's 4 interpolation neighbours instead.
+template <typename T>
+__device__ void warp_route(int N, const bf::DiscWalk<T>& walk,
+                           const Halo<T>& h, const Lookup<T>& lk,
+                           double th_h, double ph_h, bf::DiscRing<T>* rings,
+                           int* first, int* held, T* acc) {
+  const int lane = threadIdx.x & 31;
+  const int n = walk.ring_last - walk.ring_first + 1;  // may be 0
+  int len = 0;
+  if (lane < n) {
+    rings[lane] = walk.ring(walk.ring_first + lane);
+    len = rings[lane].hi - rings[lane].lo + 1;
+  }
+  int incl = len;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane < n) first[lane] = incl - len;
+  const int total = __shfl_sync(kFull, incl, 31);
+  __syncwarp();
+
+  int count = 0;                   // members so far, the same in every lane
+  for (int base = 0; base < total; base += 32) {
+    const int q = base + lane;
+    int pix = 0;
+    T cos_t, sin_t, dphi_pix, sinhd;
+    const bool m = q < total && candidate(walk, rings, first, n, q, pix,
+                                          cos_t, sin_t, dphi_pix, sinhd);
+    const unsigned mask = __ballot_sync(kFull, m);
+    const int cnt = __popc(mask);
+    if (count + cnt >= 4) {
+      if (m) deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+      if (count < 4 && lane < count) {
+        candidate(walk, rings, first, n, held[lane], pix, cos_t, sin_t,
+                  dphi_pix, sinhd);
+        deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+      }
+    } else if (m) {
+      held[count + __popc(mask & ((1u << lane) - 1u))] = q;
+    }
+    count += cnt;
+    __syncwarp();
+  }
+  if (count < 4 && lane < 4)
+    deposit_fallback(N, h, lk, th_h, ph_h, lane, acc);
+}
+
+// A disc of more than kSplitRings rings, on the whole block: kThreads rings
+// at a time, one a thread, a block scan of their span lengths, and the
+// block's threads over the flat index. Such a disc has more than 4 members,
+// so nothing is counted: its rings ring_first .. ring_last - 2 (at least
+// 31) have their centres inside the disc's colatitude band, so the radius
+// spans more than 15 ring spacings, and a pixel is at most ~2.4 ring
+// spacings wide along its ring (3 pi / 4 sin^2 theta in the belt, pi / 2
+// in the caps), so the ring nearest the disc centre alone holds more than
+// 4 members (tests/test_torch_layout_disc.py checks it at the threshold).
+template <typename T>
+__device__ void block_route(const bf::DiscWalk<T>& walk, const Halo<T>& h,
+                            const Lookup<T>& lk, bf::DiscRing<T>* rings,
+                            int* first, int* wsum, T* acc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int r0 = walk.ring_first; r0 <= walk.ring_last; r0 += kThreads) {
+    const int n = min(kThreads, walk.ring_last - r0 + 1);
+    int len = 0;
+    if (tid < n) {
+      rings[tid] = walk.ring(r0 + tid);
+      len = rings[tid].hi - rings[tid].lo + 1;
+    }
+    int incl = len;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+    if (tid < n) first[tid] = before + incl - len;
+    __syncthreads();
+    for (int q = tid; q < total; q += kThreads) {
+      int pix;
+      T cos_t, sin_t, dphi_pix, sinhd;
+      if (candidate(walk, rings, first, n, q, pix, cos_t, sin_t, dphi_pix,
+                    sinhd))
+        deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+    }
+    __syncthreads();               // before the next chunk's rings
+  }
+}
+
+// A block takes kWarps halos, one a warp; a disc of more than kSplitRings
+// rings is left for the whole block, after the warps' own discs.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    disc_deposit_kernel(int N, int n_h, HaloIn in,
+                        const T* __restrict__ curves, Lookup<T> lk,
+                        T* __restrict__ acc) {
+  __shared__ bf::DiscRing<T> rings[kThreads];
+  __shared__ int first[kThreads];
+  __shared__ int held[kWarps][3];
+  __shared__ int wsum[kWarps];
+  __shared__ bool big[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hid = blockIdx.x * kWarps + warp;
+  bool is_big = false;
+  if (hid < n_h) {
+    const double th_h = in.theta[hid], ph_h = in.phi[hid];
+    const bf::DiscWalk<T> walk(N, th_h, ph_h, in.radius[hid]);
+    is_big = walk.ring_last - walk.ring_first + 1 > kSplitRings;
+    if (!is_big)
+      warp_route(N, walk, make_halo(in, curves, lk.n_r, hid, walk), lk, th_h,
+                 ph_h, rings + 32 * warp, first + 32 * warp, held[warp], acc);
+  }
+  if (lane == 0) big[warp] = is_big;
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) {
+    if (!big[w]) continue;
+    const int bh = blockIdx.x * kWarps + w;
+    const bf::DiscWalk<T> walk(N, in.theta[bh], in.phi[bh], in.radius[bh]);
+    block_route(walk, make_halo(in, curves, lk.n_r, bh, walk), lk, rings,
+                first, wsum, acc);
   }
 }
 
@@ -144,8 +296,9 @@ int launch(int nside, int n_h, const double* theta, const double* phi,
            T ln_r0, T dlnr, T eps_max, T* acc, void* stream) {
   HaloIn in{theta, phi, radius, D, a, Rcom, rscale};
   Lookup<T> lk{n_r, ln_r0, dlnr, eps_max};
-  disc_deposit_kernel<T><<<n_h, 128, 0, (cudaStream_t)stream>>>(
-      nside, in, curves, lk, acc);
+  disc_deposit_kernel<T>
+      <<<(n_h + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
+          nside, n_h, in, curves, lk, acc);
   return int(cudaGetLastError());
 }
 

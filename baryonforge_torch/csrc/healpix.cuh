@@ -220,14 +220,25 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
   }
 }
 
+// One ring of a disc walk: the ring's first pixel, length, shift and phi
+// step, the in-ring index jc of the column nearest the disc centre, the
+// span lo .. hi of offsets from jc that can hold members, and the ring
+// centre's cos/sin colatitude and sin((theta_r - theta0) / 2).
+template <typename T>
+struct DiscRing {
+  int sp, nr, jc, lo, hi;
+  T shifted, dphi, cos_t, sin_t, sdt;
+};
+
 // Every pixel whose centre lies inside the disc of angular radius rad_h
 // around (th_h, ph_h) (the haversine test sin(d/2) <= sin(rad/2) of
 // ops/healpix.py: disc_candidates, in T), each once: walk(visit) runs
 // visit(pix, cos_t, sin_t, dphi_pix, sinhd) in the calling thread for its
 // share of them, with the pixel centre's cos/sin colatitude, its phi minus
 // the centre's and sin(d/2). The threads of a block split each ring's phi
-// span. The constructor does the per-disc set-up once, so a kernel that
-// walks a disc twice (K2 counts its members first) pays for it once.
+// span. The constructor does the per-disc set-up once; ring() and pixel()
+// are the per-ring and per-pixel halves, for kernels that lay the disc's
+// pixels out themselves (K2).
 //
 // The JAX version walks a padded (K_ring, K_phi) window whose size is
 // fixed per size bucket, because XLA needs static shapes. Here each disc
@@ -261,33 +272,56 @@ struct DiscWalk {
     cos_th = cos(th_h);
   }
 
+  __device__ __forceinline__ DiscRing<T> ring(int i) const {
+    DiscRing<T> d;
+    const Ring<T> ri = ring_info<T>(N, i);
+    const T theta_r = ring_theta<T>(N, i);
+    d.sp = ri.sp;
+    d.nr = ri.nr;
+    d.shifted = ri.shifted;
+    d.dphi = ring_dphi<T>(ri.nr);
+    d.jc = int(m_rint(phi0 / d.dphi - T(0.5) * ri.shifted));
+    d.lo = -((ri.nr - 1) / 2);
+    d.hi = ri.nr / 2;
+    const double s = sin(double(theta_r)) * sin_th;
+    if (s > 1e-12) {
+      const double c = (cos_rad - cos(double(theta_r)) * cos_th) / s;
+      if (c > -1.0) {
+        const double half = acos(c < 1.0 ? c : 1.0);
+        const int hw = int(ceil(half / double(d.dphi))) + 2;
+        d.lo = max(d.lo, -hw);
+        d.hi = min(d.hi, hw);
+      }
+    }
+    d.cos_t = m_cos(theta_r);
+    d.sin_t = m_sin(theta_r);
+    d.sdt = m_sin(T(0.5) * (theta_r - theta0));
+    return d;
+  }
+
+  // offset dp of ring r: true for a member, with its pixel, phi minus the
+  // centre's and sin(d/2)
+  __device__ __forceinline__ bool pixel(const DiscRing<T>& r, int dp,
+                                        int& pix, T& dphi_pix,
+                                        T& sinhd) const {
+    const int jw = floor_mod(r.jc + dp, r.nr);
+    dphi_pix = (T(jw) + T(0.5) * r.shifted) * r.dphi - phi0;
+    const T sdp = m_sin(T(0.5) * dphi_pix);
+    const T hav = r.sdt * r.sdt + r.sin_t * sin_t0 * (sdp * sdp);
+    sinhd = m_sqrt(clampf(hav, T(0), T(1)));
+    pix = r.sp + jw;
+    return sinhd <= crit;
+  }
+
   template <typename Visit>
   __device__ __forceinline__ void operator()(Visit&& visit) const {
-    for (int ring = ring_first; ring <= ring_last; ++ring) {
-      Ring<T> ri = ring_info<T>(N, ring);
-      const T theta_r = ring_theta<T>(N, ring);
-      const T dphi = ring_dphi<T>(ri.nr);
-      const int jc = int(m_rint(phi0 / dphi - T(0.5) * ri.shifted));
-      int lo = -((ri.nr - 1) / 2), hi = ri.nr / 2;
-      const double s = sin(double(theta_r)) * sin_th;
-      if (s > 1e-12) {
-        const double c = (cos_rad - cos(double(theta_r)) * cos_th) / s;
-        if (c > -1.0) {
-          const double half = acos(c < 1.0 ? c : 1.0);
-          const int hw = int(ceil(half / double(dphi))) + 2;
-          lo = max(lo, -hw);
-          hi = min(hi, hw);
-        }
-      }
-      const T cos_t = m_cos(theta_r), sin_t = m_sin(theta_r);
-      const T sdt = m_sin(T(0.5) * (theta_r - theta0));
-      for (int dp = lo + int(threadIdx.x); dp <= hi; dp += blockDim.x) {
-        const int jw = floor_mod(jc + dp, ri.nr);
-        const T dphi_pix = (T(jw) + T(0.5) * ri.shifted) * dphi - phi0;
-        const T sdp = m_sin(T(0.5) * dphi_pix);
-        const T hav = sdt * sdt + sin_t * sin_t0 * (sdp * sdp);
-        const T sinhd = m_sqrt(clampf(hav, T(0), T(1)));
-        if (sinhd <= crit) visit(ri.sp + jw, cos_t, sin_t, dphi_pix, sinhd);
+    for (int i = ring_first; i <= ring_last; ++i) {
+      const DiscRing<T> r = ring(i);
+      for (int dp = r.lo + int(threadIdx.x); dp <= r.hi; dp += blockDim.x) {
+        int pix;
+        T dphi_pix, sinhd;
+        if (pixel(r, dp, pix, dphi_pix, sinhd))
+          visit(pix, r.cos_t, r.sin_t, dphi_pix, sinhd);
       }
     }
   }

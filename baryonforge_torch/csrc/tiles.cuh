@@ -1,6 +1,6 @@
 // Sky-tiling slot geometry as device functions: the integer ring/segment
-// math of baryonforge_torch/ops/tiles.py (SkyTiling._segments, slot_pix,
-// slot_index), which ports baryonforge_tpu/ops/tiles.py:285-381.
+// math of baryonforge_torch/ops/tiles.py (SkyTiling._segments, slot_pix),
+// which ports baryonforge_tpu/ops/tiles.py:285-330.
 //
 // Tile (b, s) covers rings i0 .. i0 + RB - 1 and, on each ring, the pixels
 // j0(s) .. j0(s+1) - 1 of sector s of S, with j0(s) = ceil(s nr / S - sh/2)
@@ -51,40 +51,6 @@ __device__ __forceinline__ bool slot_of(const Seg& g, int v, int& jw,
   jw = j < g.nr ? j : j - g.nr;
   pix = g.sp + jw;
   return g.ok && v < g.len;
-}
-
-// RING pixel -> linear slot index into the (n_tiles * RB * K) layout
-__device__ __forceinline__ int slot_index(int N, int RB, int K, int p,
-                                          const int* S_blk,
-                                          const int* tile_off) {
-  const int ncap = 2 * N * (N - 1);
-  const int npx = 12 * N * N;
-  int i, j, nr, sh;
-  if (p < ncap) {
-    i = cap_ring(p);
-    j = p - 2 * i * (i - 1);
-    nr = 4 * i;
-    sh = 1;
-  } else if (p >= npx - ncap) {
-    const int ps = npx - 1 - p;
-    const int is = cap_ring(ps);
-    j = 4 * is - 1 - (ps - 2 * is * (is - 1));
-    i = 4 * N - is;
-    nr = 4 * is;
-    sh = 1;
-  } else {
-    const int pe = p - ncap;
-    i = N + pe / (4 * N);
-    j = pe % (4 * N);
-    nr = 4 * N;
-    sh = floor_mod(i - N, 2) == 0 ? 1 : 0;
-  }
-  const int b = (i - 1) / RB;
-  const int u = (i - 1) - b * RB;
-  const int S = S_blk[b];
-  const int s = (2 * j + sh) * S / (2 * nr);
-  const int v = j - sector_j0(s, nr, sh, S);
-  return ((tile_off[b] + s) * RB + u) * K + v;
 }
 
 }  // namespace bf

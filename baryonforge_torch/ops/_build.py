@@ -85,7 +85,7 @@ def _signatures():
         "bf_tile_pairs": [_I] * 7 + [_P, _P, _D, _P, _I, _P, _P, _P],
     }
     for sfx in ("f32", "f64"):
-        sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 5 + [_I] + [_P] * 3
+        sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
         sig[f"bf_tile_view_{sfx}"] = sig[f"bf_flat_view_{sfx}"]
         sig[f"bf_stencil_hot_{sfx}"] = [_I, _I] + [_P] * 6
         sig[f"bf_stencil_geo_{sfx}"] = [_I] * 4 + [_P] * 10

@@ -7,8 +7,14 @@ loop ``_bucketed_accumulate`` / ``_prepare_groups``
 (baryonforge_tpu/Runners/HealpixRunner.py:462-564, 849-953).
 
 Both return the (npix, 2) accumulator of (d theta, sin theta d phi)
-offsets in the curves' dtype.
+offsets in the curves' dtype. ``disc_walk_plain`` is the plain version of
+the kernel's own layout of a disc (its rings, their phi spans and the flat
+(ring, dp) index the threads walk), and ``disc_members_plain`` the member
+set of the padded windows that ``disc_deposit_plain`` uses; the tests hold
+one against the other.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -17,13 +23,20 @@ from . import _build
 from . import healpix as hpx
 from ..Profiles.BaryonCorrection import BaryonificationClass
 
-__all__ = ["disc_deposit", "disc_deposit_plain"]
+_TWO_PI = 2.0 * math.pi
+
+__all__ = ["disc_deposit", "disc_deposit_plain", "disc_walk_plain",
+           "disc_members_plain", "SPLIT_RINGS"]
 
 _HALO_COLUMNS = ("theta", "phi", "radius", "D", "a", "Rcom", "rscale")
 
 # colatitude classes of _prepare_groups: a disc whose band keeps
 # sin(theta) >= s gets the phi window of disc_pad_sizes(..., sin_min=s)
 _SIN_CLASSES = (0.25, 0.05, 0.0)
+
+# K2 walks a disc of more rings with a whole block and counts no members
+# (csrc/deposit.cu: kSplitRings)
+SPLIT_RINGS = 32
 
 
 def _chunks(nside, theta, radius, budget):
@@ -63,6 +76,116 @@ def _chunks(nside, theta, radius, budget):
     return out
 
 
+def _windows(nside, halos, dt, pixel_budget):
+    """Per chunk of halos (``_chunks``): their ids and the padded disc
+    query of ``hpx.disc_candidates`` in ``dt``."""
+    dev = halos["theta"].device
+    for idx_np, K_ring, K_phi in _chunks(nside,
+                                         halos["theta"].cpu().numpy(),
+                                         halos["radius"].cpu().numpy(),
+                                         pixel_budget):
+        idx = torch.as_tensor(idx_np, device=dev)
+        yield idx, hpx.disc_candidates(nside, halos["theta"][idx],
+                                       halos["phi"][idx],
+                                       halos["radius"][idx], K_ring, K_phi,
+                                       dt)
+
+
+def disc_members_plain(nside, halos, dtype, pixel_budget=1 << 22):
+    """The disc members of ``disc_deposit_plain``'s padded windows, before
+    its fewer-than-4 fallback: (halo ids, pixel ids), int64, sorted by
+    halo then pixel. ``halos`` needs ``theta``, ``phi`` and ``radius``."""
+    empty = torch.zeros(0, dtype=torch.int64, device=halos["theta"].device)
+    hs, ps = [empty], [empty]
+    for idx, cand in _windows(nside, halos, dtype, pixel_budget):
+        pix, mask = cand[0], cand[5]
+        hs.append(idx[:, None].expand_as(pix)[mask].long())
+        ps.append(pix[mask].long())
+    h, p = torch.cat(hs), torch.cat(ps)
+    order = torch.argsort(h * (1 << 32) + p)
+    return h[order], p[order]
+
+
+def _ring_range(nside, theta, radius, dtype):
+    """A disc's rings as K2 walks them: (ring_first int32, n_rings int64),
+    from the ring below ring_above(theta - radius) to two rings past
+    theta + radius, in ``dtype``."""
+    N = nside
+    theta0, rad = theta.to(dtype), radius.to(dtype)
+    ring_first = torch.clamp(hpx.ring_above_theta(
+        N, torch.clamp(theta0 - rad, min=0.0)), 0, 4 * N - 1) + 1
+    ring_last = torch.clamp(hpx.ring_above_theta(
+        N, torch.clamp(theta0 + rad, max=math.pi)) + 2, 1, 4 * N - 1)
+    return ring_first, torch.clamp(ring_last - ring_first + 1, min=0).long()
+
+
+def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
+    """Plain version of K2's layout of each disc (csrc/deposit.cu, with
+    healpix.cuh: DiscWalk), for float64 (n,) ``theta``, ``phi``,
+    ``radius``; the geometry in ``dtype`` and the phi spans in float64, as
+    the kernel computes them.
+
+    Returns a dict: ``n_rings`` (n,) int64; ``span`` (n, max n_rings),
+    each ring's candidate count (0 past the disc's rings), whose exclusive
+    scan along the rings lays each disc out as one flat index; ``block``
+    (n,) bool, the discs of more than SPLIT_RINGS rings that the whole
+    block walks; and over the flat candidates, in walk order, ``halo``,
+    ``q`` (flat index), ``pix`` and ``member`` (the haversine test)."""
+    N = nside
+    dev = theta.device
+    th64, ph64, rad64 = theta.double(), phi.double(), radius.double()
+    theta0, phi0, rad = th64.to(dtype), ph64.to(dtype), rad64.to(dtype)
+    ring_first, n_rings = _ring_range(nside, th64, rad64, dtype)
+    R = max(int(n_rings.max()) if n_rings.numel() else 0, 1)
+    k = torch.arange(R, device=dev)
+    valid = k[None, :] < n_rings[:, None]
+    rings = torch.clamp(ring_first[:, None] + k[None, :].to(torch.int32),
+                        1, 4 * N - 1)
+    sp, nr, _, shifted = hpx.ring_info(N, rings, dtype)
+    theta_r = hpx.ring_theta(N, rings, dtype)
+    dphi = (_TWO_PI / nr.double()).to(dtype)
+    jc = torch.round(phi0[:, None] / dphi - 0.5 * shifted).to(torch.int32)
+    lo = -torch.div(nr - 1, 2, rounding_mode="floor")
+    hi = torch.div(nr, 2, rounding_mode="floor")
+    # the exact disc/ring half-width in float64, plus two pixels
+    s = torch.sin(theta_r.double()) * torch.sin(th64)[:, None]
+    c = ((torch.cos(rad64)[:, None]
+          - torch.cos(theta_r.double()) * torch.cos(th64)[:, None])
+         / torch.where(s > 1e-12, s, torch.ones_like(s)))
+    cut = (s > 1e-12) & (c > -1.0)
+    half = torch.acos(torch.clamp(c, max=1.0))
+    hw = torch.where(cut, torch.ceil(half / dphi.double()),
+                     torch.zeros_like(half)).to(torch.int32) + 2
+    lo = torch.where(cut, torch.maximum(lo, -hw), lo)
+    hi = torch.where(cut, torch.minimum(hi, hw), hi)
+    span = torch.where(valid, hi - lo + 1, torch.zeros_like(hi)).long()
+    first = torch.cumsum(span, dim=1) - span
+
+    # the flat candidates, ring by ring
+    cell = span.reshape(-1)
+    src = torch.repeat_interleave(torch.arange(cell.numel(), device=dev),
+                                  cell)
+    off = torch.arange(src.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(cell, 0) - cell, cell)
+    halo = src // R
+
+    def at(x):
+        return x.reshape(-1)[src]
+
+    dp = at(lo) + off.to(torch.int32)
+    jw = torch.remainder(at(jc) + dp, at(nr))
+    dphi_pix = (jw + 0.5 * at(shifted)) * at(dphi) - phi0[halo]
+    th_r = at(theta_r)
+    sdt = torch.sin(0.5 * (th_r - theta0[halo]))
+    sdp = torch.sin(0.5 * dphi_pix)
+    hav = sdt * sdt + torch.sin(th_r) * torch.sin(theta0)[halo] * (sdp * sdp)
+    sinhd = torch.sqrt(torch.clamp(hav, 0.0, 1.0))
+    member = sinhd <= torch.sin(0.5 * rad)[halo]
+    return dict(n_rings=n_rings, span=span, block=n_rings > SPLIT_RINGS,
+                halo=halo, q=first.reshape(-1)[src] + off,
+                pix=(at(sp) + jw).long(), member=member)
+
+
 def disc_deposit_plain(nside, halos, curves, ln_r0, dlnr, eps_max,
                        pixel_budget=1 << 22):
     """Plain version of K2: padded disc windows, vectorised over halo
@@ -78,15 +201,10 @@ def disc_deposit_plain(nside, halos, curves, ln_r0, dlnr, eps_max,
     n = curves.shape[0]
     if n == 0:
         return acc
-    theta_np = halos["theta"].cpu().numpy()
-    radius_np = halos["radius"].cpu().numpy()
-    for idx_np, K_ring, K_phi in _chunks(nside, theta_np, radius_np,
-                                         pixel_budget):
-        idx = torch.as_tensor(idx_np, device=dev)
+    for idx, (pix, cos_t, sin_t, dphi_pix, sinhd, mask) in _windows(
+            nside, halos, dt, pixel_budget):
         th, ph, rad, D, a, Rcom, rscale = (halos[k][idx]
                                            for k in _HALO_COLUMNS)
-        (pix, cos_t, sin_t, dphi_pix, sinhd,
-         mask) = hpx.disc_candidates(nside, th, ph, rad, K_ring, K_phi, dt)
         # fewer than 4 disc pixels -> the 4 interpolation neighbours
         # (reference HealpixRunner.py:332-334)
         use4 = (mask.sum(dim=1) < 4)[:, None]

@@ -411,8 +411,7 @@ class SkyTiling:
         with torch.cuda.device(src.device):
             err = fn(self.nside, self.RB, self.K, self.n_tiles,
                      _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
-                     _build.ptr(arr["tile_S"]), _build.ptr(arr["S"]),
-                     _build.ptr(arr["tile_off"]), C, _build.ptr(src),
+                     _build.ptr(arr["tile_S"]), C, _build.ptr(src),
                      _build.ptr(out), _build.stream_of(src))
         _build.check(err, name)
         _build.launches[name] += 1

@@ -21,6 +21,10 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
          catalog, on an NSIDE 256 catalog (where the stencil handles the
          belt's tiles) and at the bench shapes, and K1 on a table with two
          parameter axes;
+     K7 also on the shell's and the paint's tilings at NSIDE 64, 256 and
+     1024 (C 1 and 2, float32 and float64, bitwise), and K2 also at NSIDE
+     1024 on discs at both poles, across phi = 0, under 4 members and of
+     1.2 to 8 degrees (the kernel's whole-block route);
   4. runs the whole path on the card against the plain versions on the CPU
      (float64) for the polar catalog through the default engine (its small
      discs take K2) and the scatter path, and the NSIDE 256 catalog through
@@ -200,7 +204,9 @@ GRID_CALLS = 3          # timed process() calls per grid path, after one warm
 # §6, on an NVIDIA H100 80GB HBM3 at 700 W); printed beside this run's with
 # that label
 EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
-              "ring_modes": (36.623, "the direct DFT")}
+              "ring_modes": (36.623, "the direct DFT"),
+              "disc_deposit": (2.772, "the block-per-halo walk"),
+              "tile_layout": (0.230, "the per-element slot math")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 
@@ -378,9 +384,13 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
                         10)) + bound(
                 nbytes(m._table, m._axes, cp) + 2 * 4 * n, 16 * n * nr,
                 F32_FLOPS) + (None,)
-            # K2: its disc pixels (sum of pi r^2 over the pixel area), ~40
-            # operations each; the (npix, 2) offsets written once
-            pairs = npix * float(np.sum(hd["radius"] ** 2)) / 4.0
+            # K2: the member pixels of these discs, ~40 operations each;
+            # the (npix, 2) offsets written once
+            mh = torch.bincount(deposit.disc_members_plain(
+                nside, halos, dt)[0], minlength=n)
+            pairs = float(mh.sum())
+            log(f"  K2 members at the bench: {int(mh.sum())} in all, "
+                f"{int(mh.max())} in the largest disc")
             out["disc_deposit"] = (err2, time_ms(
                 torch, lambda: deposit.disc_deposit(nside, halos, cp, r0, dl,
                                                     EPS_MAX), 10),
@@ -395,6 +405,106 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
                         3)) + bound(nbytes(pk, orig, op), 60 * npix,
                                     F32_FLOPS) + (None,)
     return out
+
+
+def layout_cases(torch):
+    """K7 on the shell's 16 x 32 and the paint's 8 x 16 tilings at NSIDE
+    64, 256 and 1024, for C = 1 and 2, float32 and float64: both views
+    equal to their plain versions, and flat_view undoes tile_view."""
+    from baryonforge_torch.ops import tiles as tt
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 0
+    for nside in (64, 256, 1024):
+        for shape in ((16, 32), (8, 16)):
+            tiling = tt.SkyTiling(nside, *shape)
+            for dt in (torch.float32, torch.float64):
+                for trail in ((), (2,)):
+                    flat = torch.randn((tiling.npix,) + trail, dtype=dt,
+                                       device=dev, generator=g)
+                    tk = tiling.tile_view(flat)
+                    fk = tiling.flat_view(tk)
+                    if not (torch.equal(tk, tiling.tile_view_plain(flat))
+                            and torch.equal(fk, tiling.flat_view_plain(tk))
+                            and torch.equal(fk, flat)):
+                        raise AssertionError(
+                            f"K7 NSIDE {nside} {shape} {dt} C "
+                            f"{trail or 1}: kernel and plain differ")
+                    n += 1
+    log(f"  K7 tile_view / flat_view: {n} cases (NSIDE 64, 256, 1024; "
+        "16 x 32 and 8 x 16; C 1, 2; f32, f64) equal to the plain versions")
+
+
+def disc_cases(bf, torch, model):
+    """K2 against its plain version on discs that the bench catalog lacks:
+    at NSIDE 1024, the polar catalog of 300 halos, with a disc across phi
+    = 0 from either side, two under 4 members, one through each pole, and
+    five of 1.2 to 8 degrees (walked by a whole block; the widest over
+    two chunks of rings), with Rcom and rscale set so that every member
+    moves; float64 and float32, to compare_kernels' bounds."""
+    from baryonforge_torch.ops import deposit, interp
+    dev = torch.device(DEVICE)
+    nside, n = 1024, 300
+    cat, shell = polar_inputs(bf, nside, n, SEED)
+    runner = bf.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
+                               device=dev)
+    hd = runner._host_halo_data(bf.cosmo.cosmology_from_dict(runner.cosmo))
+    for dt in (torch.float64, torch.float32):
+        tag = f"NSIDE {nside} discs {str(dt).replace('torch.', '')}"
+        halos = runner._halo_tensors(hd)
+        m = model.with_dtype(dt, device=dev)
+        cp, r0, dl = interp.collapse_curves_plain(
+            m._table, m._axes, 2, hd["M"], hd["a"], [], {})
+        r0, dl = float(r0), float(dl)
+        pix = math.pi / (2 * nside)
+        for i, th, ph, rad in ((6, None, 0.2 * pix, None),
+                               (7, None, 2 * math.pi - 0.4 * pix, None),
+                               (8, 1.3, 0.7, 0.3 * pix),
+                               (9, 2.2, 5.1, 0.6 * pix),
+                               (10, 0.2 * pix, 1.0, 2.5 * pix),
+                               (11, math.pi - 0.3 * pix, 3.0, 3.0 * pix)):
+            if th is not None:
+                halos["theta"][i] = th
+            halos["phi"][i] = ph
+            if rad is not None:
+                halos["radius"][i] = rad
+        for i, th, ph, deg in ((0, None, None, 2.0), (1, None, None, 1.5),
+                               (3, 1.2, 0.3 * pix, 1.2),
+                               (4, 1.6, 2 * math.pi - 0.6 * pix, 8.0),
+                               (5, 0.9, 4.0, 3.0)):
+            if th is not None:
+                halos["theta"][i] = th
+                halos["phi"][i] = ph
+            rad = math.radians(deg)
+            halos["radius"][i] = rad
+            halos["Rcom"][i] = 1e30
+            r_max = 2 * math.sin(rad / 2) * float(halos["D"][i]
+                                                  / halos["a"][i])
+            halos["rscale"][i] = math.exp(r0 + dl * (cp.shape[1] - 2)) / r_max
+        walk = deposit.disc_walk_plain(nside, halos["theta"], halos["phi"],
+                                       halos["radius"], dt)
+        counts = torch.bincount(deposit.disc_members_plain(
+            nside, halos, dt)[0], minlength=n)
+        if not (int(walk["block"].sum()) >= 5 and int(
+                walk["n_rings"].max()) > 256 and (counts < 4).any()):
+            raise AssertionError(f"K2 [{tag}]: the cases miss a route")
+        pk = deposit.disc_deposit(nside, halos, cp, r0, dl, EPS_MAX)
+        pp = deposit.disc_deposit_plain(nside, halos, cp, r0, dl, EPS_MAX)
+        torch.cuda.synchronize()
+        scale = pp.abs().max().item()
+        diff = (pk - pp).abs()
+        log(f"  [{tag}] {int((counts < 4).sum())} discs under 4 members, "
+            f"{int(walk['block'].sum())} on the block route (up to "
+            f"{int(walk['n_rings'].max())} rings), {int(counts.sum())} "
+            "members")
+        if dt == torch.float64:
+            check(f"K2 disc_deposit [{tag}]", diff.max().item(),
+                  1e-10 * scale)
+        else:
+            check(f"K2 disc_deposit [{tag}]", diff.max().item(),
+                  0.02 * scale)
+            check(f"K2 disc_deposit summed [{tag}]", diff.sum().item(),
+                  3e-3 * pp.abs().sum().item())
 
 
 def pole_regrid(bf, torch, nside):
@@ -2074,8 +2184,10 @@ def snapshot_bench(bf, torch, gpu):
     ms = time_ms(torch, lambda: snapshot.snapshot_displace(*args), 10)
     plain_ms = time_ms(torch, lambda: snapshot.snapshot_displace_plain(*args),
                        3)
-    # the library yardstick: the pair vectors, made once, summed per
-    # particle by one index_add_
+    # the library yardstick, a partial one: the pair vectors, made once
+    # and untimed, summed per particle by one index_add_; the displacement
+    # of each pair, most of K17's work, is left out, so no single call
+    # computes K17's function
     h = torch.repeat_interleave(halos.long(), (offsets[1:] - offsets[:-1])
                                 .long())
     vec = (coords[parts.long()] - hpos[h]).float().T.contiguous()
@@ -2406,6 +2518,10 @@ def main():
     compare_tiled_kernels(bf, torch, model, cat_p, shell_p, "NSIDE 64 poles",
                           False)
     p_key_curves(torch, 400, False)
+    log("K7 on every tiling the runners build, K2 on poles, phi = 0, "
+        "discs under 4 members and discs of several degrees")
+    layout_cases(torch)
+    disc_cases(bf, torch, model)
 
     tsz_file = tsz_models(bf, bf.utils.TabulatedProfile(
         None, bf.cosmo.cosmology_from_dict(COSMO),

@@ -112,10 +112,56 @@ def test_collapse_curves_kernel(dev, dt):
                                atol=rel * cp.abs().max().item())
 
 
+def _wide_discs(halos, curves, r0, dl, nside):
+    """Give a few halos discs of 1-8 degrees (the whole-block route of K2,
+    the widest over two chunks of rings): at each pole, across phi = 0 and
+    in the belt, with Rcom and rscale set so that the curve lookup spans
+    the table across each disc (every member moves)."""
+    pix = np.pi / (2 * nside)
+    for i, th, ph, deg in ((0, None, None, 2.0), (1, None, None, 1.5),
+                           (3, 1.2, 0.3 * pix, 1.2),
+                           (4, 1.6, 2 * np.pi - 0.6 * pix, 8.0),
+                           (5, 0.9, 4.0, 3.0)):
+        if th is not None:
+            halos["theta"][i] = th
+            halos["phi"][i] = ph
+        rad = np.radians(deg)
+        halos["radius"][i] = rad
+        halos["Rcom"][i] = 1e30
+        r_max = 2 * np.sin(rad / 2) * (halos["D"][i] / halos["a"][i]).item()
+        halos["rscale"][i] = np.exp(r0 + dl * (curves.shape[1] - 2)) / r_max
+
+
+def _disc_cases(halos, nside):
+    """Discs across phi = 0 from either side (halos 6, 7), under 4 members
+    (8, 9) and through each pole (10, 11), on top of _inputs' halos at the
+    poles and at the table's lowest masses."""
+    pix = np.pi / (2 * nside)
+    for i, th, ph, rad in ((6, None, 0.2 * pix, None),
+                           (7, None, 2 * np.pi - 0.4 * pix, None),
+                           (8, 1.3, 0.7, 0.3 * pix), (9, 2.2, 5.1, 0.6 * pix),
+                           (10, 0.2 * pix, 1.0, 2.5 * pix),
+                           (11, np.pi - 0.3 * pix, 3.0, 3.0 * pix)):
+        if th is not None:
+            halos["theta"][i] = th
+        halos["phi"][i] = ph
+        if rad is not None:
+            halos["radius"][i] = rad
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
-@pytest.mark.parametrize("nside,n", [(64, 300), (256, 400)])
-def test_disc_deposit_kernel(dev, dt, nside, n):
+@pytest.mark.parametrize("nside,n,wide", [(64, 300, False),
+                                          (256, 400, False),
+                                          (1024, 300, True)],
+                         ids=["64", "256", "1024-wide"])
+def test_disc_deposit_kernel(dev, dt, nside, n, wide):
     _, _, _, halos, curves, r0, dl = _prep(nside, n, dt, dev)
+    _disc_cases(halos, nside)
+    if wide:
+        _wide_discs(halos, curves, r0, dl, nside)
+    counts = torch.bincount(deposit.disc_members_plain(
+        nside, halos, dt)[0], minlength=n)
+    assert (counts < 4).any() and (counts >= 4).any()
     _build.reset_launches()
     pk = deposit.disc_deposit(nside, halos, curves, r0, dl, 20)
     assert _build.launches["disc_deposit"] == 1
@@ -268,9 +314,10 @@ def test_tile_deposit_kernel(dev, dt, nside, eps):
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
-@pytest.mark.parametrize("nside", [64, 256])
-def test_tile_layout_kernel(dev, dt, nside):
-    tiling = tt.SkyTiling(nside)
+@pytest.mark.parametrize("shape", [(16, 32), (8, 16)], ids=["shell", "paint"])
+@pytest.mark.parametrize("nside", [64, 256, 1024])
+def test_tile_layout_kernel(dev, dt, nside, shape):
+    tiling = tt.SkyTiling(nside, *shape)
     g = torch.Generator(device=dev).manual_seed(3)
     for trail in ((), (2,)):
         flat = torch.randn((tiling.npix,) + trail, dtype=dt, device=dev,
