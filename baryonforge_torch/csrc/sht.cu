@@ -53,14 +53,27 @@
 //   a_lm = sqrt((2l+1)(2l-1) / max((l-m)(l+m), 1)),
 //   b_lm = sqrt(max((2l+1)(l-1-m)(l-1+m), 0) / max((2l-3)(l-m)(l+m), 1)),
 // each l contracted with the ring modes over the rings: a_lm = sum_r F_rm
-// lambda_lm(z_r) (Re and Im), zero for l < m; the same operations in the
-// same order as the JAX scan (with --fmad=false), only the sum over rings in
-// another order. Bound: operations, ~8 float64 operations a (ring, l, m)
-// with l >= m. Design: one block per m (and per chunk of kRings * kThreads
-// rings when there are more, added atomically), each thread carrying
-// kRings rings' two recurrence values in registers; a_lm and b_lm of a
-// chunk of kChunk l staged in shared memory, each l's per-warp sums by
-// shuffles, the warps' sums added once a chunk.
+// lambda_lm(z_r) (Re and Im), zero for l < m. The recurrence is the JAX
+// scan's, operation for operation (--fmad=false); the contraction is summed
+// in another order, with fma.
+// Mirrored rings: s is the same for z and -z and the recurrence commutes
+// with negation, so lambda_lm(-z) = (-1)^(l-m) lambda_lm(z) bitwise. The
+// wrapper lists chains (ops.sht.mirror_pairs): a ring and its exact mirror,
+// or a ring alone. A chain runs one recurrence on its first ring's z and
+// contracts it with E = F_r + F_r' where l - m is even, O = F_r - F_r' where
+// it is odd (F_r' = 0 alone): 2,048 chains for the 4,095 rings at NSIDE
+// 1024 with ops.sht.ring_heights.
+// Bound: operations, a chain-step (l, m) costs 6 float64 instructions (3
+// products and a difference, 2 fma), ~8 as counted operations.
+// Design: one block per m (and per chunk of kChains * kMaxThreads chains
+// when there are more, added atomically; a chain is never split), each
+// thread carrying kChains chains' z, E, O and two recurrence values in
+// registers. A thread keeps its partial sums of kChunk consecutive l and
+// the warp adds them in one transposed reduction (kChunk + 1 shuffle-adds
+// for kChunk l, not 5 a l) into shared memory. The block meets at a
+// barrier once a round of kRound l: the round's warp sums are added and
+// written, and a_lm, b_lm of the round after next are formed, in double
+// buffers, while the warps run on into the next round.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -348,18 +361,64 @@ int launch_rings(const double* map, const long long* sp, const int* nr,
 // K19 -----------------------------------------------------------------------
 
 constexpr double kPi = 3.141592653589793;
-constexpr int kRings = 16;     // rings a thread
+constexpr int kChains = 8;       // chains a thread
 constexpr int kMaxThreads = 256;
-constexpr int kChunk = 32;     // l a chunk
+constexpr int kChunk = 16;       // l a chunk (partial sums a thread keeps)
+constexpr int kRound = 64;       // l between two barriers of the block
+constexpr unsigned kFull = 0xffffffffu;
+
+// the sums over the warp of v[0 .. kChunk): lane j ends with the sum of
+// v[j >> kShift]. Each halving step keeps the upper or the lower half of
+// the H live values by one lane bit and adds the partner's other half.
+constexpr int kShift = kChunk == 8 ? 2 : (kChunk == 16 ? 1 : 0);
+static_assert(32 >> kShift == kChunk, "kChunk must be 8, 16 or 32");
+static_assert(kRound % kChunk == 0, "a round is whole chunks");
+
+template <int H>
+__device__ __forceinline__ void transpose_halve(double (&v)[kChunk],
+                                                int lane) {
+  constexpr int o = 32 * H / kChunk;
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const double send = up ? v[j] : v[j + H];
+    const double keep = up ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, o);
+  }
+  if constexpr (H > 1) transpose_halve<H / 2>(v, lane);
+}
+
+__device__ __forceinline__ double warp_transposed_sum(double (&v)[kChunk],
+                                                      int lane) {
+  transpose_halve<kChunk / 2>(v, lane);
+#pragma unroll
+  for (int o = (1 << kShift) >> 1; o > 0; o >>= 1)
+    v[0] += __shfl_xor_sync(kFull, v[0], o);
+  return v[0];
+}
+
+// a_lm and b_lm of l = l0 .. l0 + kRound - 1 (those below L) into ca, cb
+__device__ __forceinline__ void round_coefficients(int l0, int L, double md,
+                                                   double* ca, double* cb) {
+  for (int k = threadIdx.x; k < kRound && l0 + k < L; k += blockDim.x) {
+    const double l = double(l0 + k);
+    ca[k] = sqrt(((2 * l + 1) * (2 * l - 1)) /
+                 fmax((l - md) * (l + md), 1.0));
+    cb[k] = sqrt(fmax((2 * l + 1) * (l - 1 - md) * (l - 1 + md), 0.0) /
+                 fmax((2 * l - 3) * (l - md) * (l + md), 1.0));
+  }
+}
 
 __global__ void __launch_bounds__(kMaxThreads)
-legendre_kernel(int n_ring, int L, const double* __restrict__ z,
+legendre_kernel(int n_chain, int L, const double* __restrict__ z,
                 const double* __restrict__ Fr, const double* __restrict__ Fi,
+                const int2* __restrict__ chains,
                 const double* __restrict__ logfac, int atomic,
                 double* __restrict__ alm_r, double* __restrict__ alm_i) {
-  __shared__ double sa[kChunk], sb[kChunk];
-  __shared__ double red_r[kMaxThreads / 32][kChunk];
-  __shared__ double red_i[kMaxThreads / 32][kChunk];
+  // two of everything: round r uses [r & 1] while round r - 1's sums are
+  // added and round r + 1's coefficients are formed in the other
+  __shared__ double ca[2][kRound], cb[2][kRound];
+  __shared__ double red[2][2][kMaxThreads / 32][kRound];   // [buf][re, im]
   const int m = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -367,15 +426,29 @@ legendre_kernel(int n_ring, int L, const double* __restrict__ z,
   const double half_log4pi = 0.5 * log(4.0 * kPi);
   const double inv_sqrt4pi = 1.0 / sqrt(4.0 * kPi);
 
-  double zz[kRings], fr[kRings], fi[kRings], p1[kRings], p2[kRings];
-  const int base = blockIdx.y * kRings * blockDim.x + threadIdx.x;
+  // chain q: z, E and O (Re, Im), and lambda_{l-1}, lambda_{l-2}
+  double zz[kChains], er[kChains], ei[kChains], orr[kChains], oi[kChains];
+  double p1[kChains], p2[kChains];
+  const int base = blockIdx.y * kChains * blockDim.x + threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < kRings; ++q) {
-    const int r = base + q * blockDim.x;
-    const bool ok = r < n_ring;
-    zz[q] = ok ? z[r] : 0.0;
-    fr[q] = ok ? Fr[(long long)r * L + m] : 0.0;
-    fi[q] = ok ? Fi[(long long)r * L + m] : 0.0;
+  for (int q = 0; q < kChains; ++q) {
+    const int c = base + q * blockDim.x;
+    double f1r = 0.0, f1i = 0.0, f2r = 0.0, f2i = 0.0;
+    zz[q] = 0.0;
+    if (c < n_chain) {
+      const int2 rr = chains[c];
+      zz[q] = z[rr.x];
+      f1r = Fr[(long long)rr.x * L + m];
+      f1i = Fi[(long long)rr.x * L + m];
+      if (rr.y >= 0) {
+        f2r = Fr[(long long)rr.y * L + m];
+        f2i = Fi[(long long)rr.y * L + m];
+      }
+    }
+    er[q] = f1r + f2r;
+    ei[q] = f1i + f2i;
+    orr[q] = f1r - f2r;
+    oi[q] = f1i - f2i;
     const double s = sqrt(fmax(1.0 - zz[q] * zz[q], 0.0));
     const double log_s = log(fmax(s, 2.2250738585072014e-308));
     double lam = exp(0.5 * logfac[m] + md * log_s - half_log4pi);
@@ -389,56 +462,77 @@ legendre_kernel(int n_ring, int L, const double* __restrict__ z,
       alm_i[(long long)m * L + l] = 0.0;
     }
   }
+  round_coefficients(m, L, md, ca[0], cb[0]);
+  round_coefficients(m + kRound, L, md, ca[1], cb[1]);
+  __syncthreads();
 
-  for (int l0 = m; l0 < L; l0 += kChunk) {
-    const int nl = min(kChunk, L - l0);
-    if (threadIdx.x < nl) {
-      const double l = double(l0 + threadIdx.x);
-      sa[threadIdx.x] = sqrt(((2 * l + 1) * (2 * l - 1)) /
-                             fmax((l - md) * (l + md), 1.0));
-      sb[threadIdx.x] = sqrt(fmax((2 * l + 1) * (l - 1 - md) * (l - 1 + md),
-                                  0.0) /
-                             fmax((2 * l - 3) * (l - md) * (l + md), 1.0));
-    }
-    __syncthreads();
-    for (int k = 0; k < nl; ++k) {
-      const double a = sa[k], b = sb[k];
-      const bool first = l0 + k == m;
-      double sr = 0.0, si = 0.0;
+  for (int l0 = m, r = 0; l0 < L; l0 += kRound, ++r) {
+    const int buf = r & 1, nround = min(kRound, L - l0);
+    for (int c0 = 0; c0 < nround; c0 += kChunk) {
+      const int nl = min(kChunk, nround - c0);
+      double sr[kChunk], si[kChunk];
+      if (nl == kChunk && (r > 0 || c0 > 0)) {
+        // a whole chunk past lambda_mm: no branch, so the recurrence
+        // values rotate through registers
 #pragma unroll
-      for (int q = 0; q < kRings; ++q) {
-        double cur = p1[q];
-        if (!first) {
-          cur = a * (zz[q] * p1[q]) - b * p2[q];
-          p2[q] = p1[q];
-          p1[q] = cur;
+        for (int k = 0; k < kChunk; ++k) {
+          const double a = ca[buf][c0 + k], b = cb[buf][c0 + k];
+          sr[k] = 0.0;
+          si[k] = 0.0;
+#pragma unroll
+          for (int q = 0; q < kChains; ++q) {
+            const double cur = a * (zz[q] * p1[q]) - b * p2[q];
+            p2[q] = p1[q];
+            p1[q] = cur;
+            // l - m = (l0 + c0 - m) + k, and l0 + c0 - m is a multiple
+            // of kChunk
+            sr[k] = fma((k & 1) ? orr[q] : er[q], cur, sr[k]);
+            si[k] = fma((k & 1) ? oi[q] : ei[q], cur, si[k]);
+          }
         }
-        sr = sr + fr[q] * cur;
-        si = si + fi[q] * cur;
-      }
+      } else {
+        // the first chunk (lambda_mm as it is) and a last partial one
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sr += __shfl_xor_sync(0xffffffffu, sr, o);
-        si += __shfl_xor_sync(0xffffffffu, si, o);
+        for (int k = 0; k < kChunk; ++k) {
+          sr[k] = 0.0;
+          si[k] = 0.0;
+          if (k < nl) {
+            const double a = ca[buf][c0 + k], b = cb[buf][c0 + k];
+            const bool first = k == 0 && c0 == 0 && r == 0;
+#pragma unroll
+            for (int q = 0; q < kChains; ++q) {
+              double cur = p1[q];
+              if (!first) {
+                cur = a * (zz[q] * p1[q]) - b * p2[q];
+                p2[q] = p1[q];
+                p1[q] = cur;
+              }
+              sr[k] = fma((k & 1) ? orr[q] : er[q], cur, sr[k]);
+              si[k] = fma((k & 1) ? oi[q] : ei[q], cur, si[k]);
+            }
+          }
+        }
       }
-      if (lane == 0) {
-        red_r[warp][k] = sr;
-        red_i[warp][k] = si;
+      const double tr = warp_transposed_sum(sr, lane);
+      const double ti = warp_transposed_sum(si, lane);
+      if ((lane & ((1 << kShift) - 1)) == 0) {
+        red[buf][0][warp][c0 + (lane >> kShift)] = tr;
+        red[buf][1][warp][c0 + (lane >> kShift)] = ti;
       }
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < 2 * nl; t += blockDim.x) {
-      const int k = t % nl;
-      const bool imag = t >= nl;
+    // the round's sums over the warps, and the coefficients of round r + 2
+    for (int t = threadIdx.x; t < 2 * nround; t += blockDim.x) {
+      const int k = t % nround, part = t / nround;
       double acc = 0.0;
-      for (int w = 0; w < nwarps; ++w) acc += imag ? red_i[w][k] : red_r[w][k];
-      double* out = (imag ? alm_i : alm_r) + (long long)m * L + l0 + k;
+      for (int w = 0; w < nwarps; ++w) acc += red[buf][part][w][k];
+      double* out = (part ? alm_i : alm_r) + (long long)m * L + l0 + k;
       if (atomic)
         atomicAdd(out, acc);
       else
         *out = acc;
     }
-    __syncthreads();
+    round_coefficients(l0 + 2 * kRound, L, md, ca[buf], cb[buf]);
   }
 }
 
@@ -484,23 +578,27 @@ int bf_shared_memory_optin(int device) {
   return e == cudaSuccess ? v : -int(e);
 }
 
-// a (L, L) float64, Re and Im, indexed [m, l]; logfac (L,) the cumulative
-// sums of log((2k+1)/(2k)); alm zeroed by the caller when the rings take
-// more than one block a row (they are then added atomically)
-int bf_legendre_alm_f64(int n_ring, int L, const double* z, const double* Fr,
-                        const double* Fi, const double* logfac,
-                        double* alm_r, double* alm_i, void* stream) {
-  if (n_ring == 0 || L == 0) return 0;
-  int threads = (n_ring + kRings - 1) / kRings;
+// a (L, L) float64, Re and Im, indexed [m, l], from the rings' z and
+// modes F (n_ring, L); chains (n_chain, 2) int32: a ring and its exact
+// mirror, or a ring and -1 (every ring in one chain); logfac (L,) the
+// cumulative sums of log((2k+1)/(2k)); alm zeroed by the caller when the
+// chains take more than one block a row (they are then added atomically)
+int bf_legendre_alm_f64(int n_ring, int n_chain, int L, const double* z,
+                        const double* Fr, const double* Fi, const int* chains,
+                        const double* logfac, double* alm_r, double* alm_i,
+                        void* stream) {
+  if (n_ring == 0 || n_chain == 0 || L == 0) return 0;
+  int threads = (n_chain + kChains - 1) / kChains;
   threads = (threads + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  const int chunks = (n_ring + kRings * threads - 1) / (kRings * threads);
+  const int chunks = (n_chain + kChains * threads - 1) / (kChains * threads);
   const dim3 grid(L, chunks);
   legendre_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      n_ring, L, z, Fr, Fi, logfac, chunks > 1 ? 1 : 0, alm_r, alm_i);
+      n_chain, L, z, Fr, Fi, reinterpret_cast<const int2*>(chains), logfac,
+      chunks > 1 ? 1 : 0, alm_r, alm_i);
   return int(cudaGetLastError());
 }
 
-int bf_legendre_rings_per_block(void) { return kRings * kMaxThreads; }
+int bf_legendre_chains_per_block(void) { return kChains * kMaxThreads; }
 
 }  // extern "C"

@@ -80,8 +80,9 @@ def _signatures():
         "bf_ring_modes_f64": [_I] + [_P] * 5 + [_I] + [_P] * 5,
         "bf_ring_modes_long_blocks": [],
         "bf_shared_memory_optin": [_I],
-        "bf_legendre_alm_f64": [_I, _I] + [_P] * 7,
-        "bf_legendre_rings_per_block": [],
+        "bf_legendre_alm_f64": [_I, _I, _I] + [_P] * 8,
+        "bf_legendre_chains_per_block": [],
+        "bf_stencil_smem_bytes": [_I] * 5,
         "bf_tile_pairs": [_I] * 7 + [_P, _P, _D, _P, _I, _P, _P, _P],
     }
     for sfx in ("f32", "f64"):
@@ -93,7 +94,7 @@ def _signatures():
         for rsfx in ("f32", "f64"):
             # offsets in the first dtype, maps in the second
             sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I, _P, _P, _P, _P]
-            sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 9
+            sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 14
             sig[f"bf_stencil_complement_{sfx}_{rsfx}"] = \
                 [_I] * 4 + [_P] * 4 + [_I] + [_P] * 8
             # curves in the first dtype, the painted map in the second

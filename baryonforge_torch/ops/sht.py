@@ -13,6 +13,14 @@ K18 runs one FFT a ring (``ring_plan`` groups the rings by route and
 size), every phase an exact integer index, while the plain version rounds
 the angle m (j dphi) as the JAX package does; ``ring_modes_tolerance``
 bounds what that rounding can move.
+
+K19 runs one recurrence for each pair of mirrored rings (``mirror_pairs``:
+z' = -z exactly, so lambda_lm(z') = (-1)^(l-m) lambda_lm(z) bitwise) and
+contracts it with the sum of the pair's modes where l - m is even and
+their difference where it is odd; ``legendre_alm_pairs_plain`` is the
+plain version of that layout. ``ring_heights`` gives the ring heights with
+the south belt mirrored exactly, which ``utils.sht`` passes to K19, so
+that every ring pairs.
 """
 
 import ctypes
@@ -24,8 +32,9 @@ import torch
 
 from . import _build
 
-__all__ = ["ring_geometry", "ring_plan", "ring_modes", "ring_modes_plain",
-           "ring_modes_tolerance", "legendre_alm", "legendre_alm_plain",
+__all__ = ["ring_geometry", "ring_heights", "ring_plan", "ring_modes",
+           "ring_modes_plain", "ring_modes_tolerance", "mirror_pairs",
+           "legendre_alm", "legendre_alm_plain", "legendre_alm_pairs_plain",
            "log_factors"]
 
 
@@ -48,6 +57,20 @@ def ring_geometry(nside):
                        np.where((i - N) % 2 == 0, 1.0, 0.0))
     phi0 = 0.5 * shifted * (2.0 * np.pi / nr)
     return sp, nr, z, phi0
+
+
+def ring_heights(nside):
+    """Ring heights z (4 nside - 1,) numpy float64, mirrored exactly: as
+    :func:`ring_geometry`'s, except that each ring of the south belt (ring
+    index 2 nside < i <= 3 nside) takes the negated z of its mirror 4 nside
+    - i. The JAX formula 4/3 - 2i/(3 nside) misses that by up to 2.2e-16
+    there; its caps are exact mirrors already."""
+    N = nside
+    z = ring_geometry(N)[2]
+    i = np.arange(1, 4 * N)
+    south = (i > 2 * N) & (i <= 3 * N)
+    z[south] = -z[4 * N - 1 - i[south]]
+    return z
 
 
 def _check_map(hmap, nside, name):
@@ -200,11 +223,9 @@ def log_factors(L, device):
                       torch.cumsum(torch.log((2 * k + 1) / (2 * k)), 0)])
 
 
-def legendre_alm_plain(z, Fr, Fi, lmax, absolute=False):
-    """Plain version of K19, the JAX scan: the (n_ring, L) rows of
-    lambda_lm for l = 0 .. lmax, each contracted with the ring modes over
-    the rings. With ``absolute`` the contraction takes |F| |lambda|
-    instead: the scale of each sum, for stating a tolerance."""
+def _legendre_rows(z, lmax):
+    """The JAX scan's rows: yields (l, lambda) for l = 0 .. lmax, lambda
+    the (n, L) values lambda_lm(z_r), zero for m > l."""
     dev = z.device
     L = lmax + 1
     dt = torch.float64
@@ -224,10 +245,6 @@ def legendre_alm_plain(z, Fr, Fi, lmax, absolute=False):
     b = torch.sqrt(torch.clamp((2 * l + 1) * (l - 1 - mm) * (l - 1 + mm),
                                min=0.0)
                    / torch.clamp((2 * l - 3) * (l - mm) * (l + mm), min=1.0))
-    if absolute:
-        Fr, Fi = Fr.abs(), Fi.abs()
-    alm_r = torch.empty((L, L), dtype=dt, device=dev)
-    alm_i = torch.empty_like(alm_r)
     prev = torch.zeros_like(lam_mm)
     prev2 = torch.zeros_like(lam_mm)
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -236,10 +253,67 @@ def legendre_alm_plain(z, Fr, Fi, lmax, absolute=False):
         cur = a[li] * (z[:, None] * prev) - b[li] * prev2
         cur = torch.where(li == li_all[None, :], lam_mm,
                           torch.where(li < li_all[None, :], zero, cur))
+        yield li, cur
+        prev2, prev = prev, cur
+
+
+def legendre_alm_plain(z, Fr, Fi, lmax, absolute=False):
+    """Plain version of K19, the JAX scan: the (n_ring, L) rows of
+    lambda_lm for l = 0 .. lmax, each contracted with the ring modes over
+    the rings. With ``absolute`` the contraction takes |F| |lambda|
+    instead: the scale of each sum, for stating a tolerance."""
+    L = lmax + 1
+    if absolute:
+        Fr, Fi = Fr.abs(), Fi.abs()
+    alm_r = torch.empty((L, L), dtype=torch.float64, device=z.device)
+    alm_i = torch.empty_like(alm_r)
+    for li, cur in _legendre_rows(z, lmax):
         c = cur.abs() if absolute else cur
         alm_r[:, li] = torch.sum(Fr * c, dim=0)
         alm_i[:, li] = torch.sum(Fi * c, dim=0)
-        prev2, prev = prev, cur
+    return alm_r, alm_i
+
+
+def mirror_pairs(z):
+    """K19's chains, numpy int32 (n_chain, 2): ring r with its mirror r' =
+    n - 1 - r where z[r'] == -z[r] bitwise (r < r'), else ring r alone
+    (r' = -1); the rings ascending by r, each in exactly one chain. ``z``
+    is a numpy array."""
+    z = np.asarray(z, dtype=np.float64)
+    n = z.size
+    r = np.arange(n)
+    rm = n - 1 - r
+    paired = (z[rm] == -z) & (r != rm)
+    keep = ~paired | (r < rm)
+    return np.stack([r[keep], np.where(paired, rm, -1)[keep]],
+                    1).astype(np.int32)
+
+
+def legendre_alm_pairs_plain(z, Fr, Fi, lmax):
+    """Plain version of K19's layout: one recurrence a chain of
+    :func:`mirror_pairs` (on the first ring's z), contracted with E = F_r
+    + F_r' where l - m is even and O = F_r - F_r' where it is odd (F_r' =
+    0 for a ring alone). The same function as :func:`legendre_alm_plain`,
+    the sums in another order."""
+    chains = mirror_pairs(z.cpu().numpy())
+    dev = z.device
+    r = torch.as_tensor(chains[:, 0].astype(np.int64), device=dev)
+    r2 = torch.as_tensor(chains[:, 1].astype(np.int64), device=dev)
+    alone = (r2 < 0)[:, None]
+    L = lmax + 1
+    m = torch.arange(L, device=dev)
+    ev, od = [], []
+    for F in (Fr, Fi):
+        F2 = torch.where(alone, torch.zeros((), dtype=F.dtype, device=dev),
+                         F[r2.clamp(min=0)])
+        ev.append(F[r] + F2)
+        od.append(F[r] - F2)
+    alm_r = torch.empty((L, L), dtype=torch.float64, device=dev)
+    alm_i = torch.empty_like(alm_r)
+    for li, cur in _legendre_rows(z[r], lmax):
+        even = ((li - m) % 2 == 0)[None, :]
+        alm_r[:, li] = torch.sum(torch.where(even, ev[0], od[0]) * cur, 0)
+        alm_i[:, li] = torch.sum(torch.where(even, ev[1], od[1]) * cur, 0)
     return alm_r, alm_i
 
 
@@ -251,7 +325,9 @@ def legendre_alm(z, Fr, Fi, lmax):
     z : (n_ring,) float64 ring heights; Fr, Fi : (n_ring, lmax + 1) float64
     ring modes. Returns (alm_r, alm_i), each (lmax + 1, lmax + 1) float64
     indexed [m, l], zero for l < m. Kernel K19 for tensors on CUDA, the plain
-    version for tensors on the CPU.
+    version for tensors on the CPU. The kernel runs one recurrence for each
+    chain of :func:`mirror_pairs` (built on the host from z): rings whose
+    heights are exact mirrors share one.
     """
     L = lmax + 1
     dev = z.device
@@ -267,16 +343,19 @@ def legendre_alm(z, Fr, Fi, lmax):
     if dev.type != "cuda":
         raise ValueError(f"legendre_alm: unsupported device {dev}")
     lib = _build.library()
-    atomic = n_ring > lib.bf_legendre_rings_per_block()
+    chains = mirror_pairs(z.cpu().numpy())
+    atomic = len(chains) > lib.bf_legendre_chains_per_block()
     alloc = torch.zeros if atomic else torch.empty
     alm_r = alloc((L, L), dtype=torch.float64, device=dev)
     alm_i = alloc((L, L), dtype=torch.float64, device=dev)
     logfac = log_factors(L, dev)
     args = [x.contiguous() for x in (z, Fr, Fi)]
+    chains = torch.as_tensor(chains, device=dev)
     with torch.cuda.device(dev):
         err = lib.bf_legendre_alm_f64(
-            n_ring, L, *[_build.ptr(x) for x in args], _build.ptr(logfac),
-            _build.ptr(alm_r), _build.ptr(alm_i), _build.stream_of(alm_r))
+            n_ring, len(chains), L, *[_build.ptr(x) for x in args],
+            _build.ptr(chains), _build.ptr(logfac), _build.ptr(alm_r),
+            _build.ptr(alm_i), _build.stream_of(alm_r))
     _build.check(err, "legendre_alm")
     _build.launches["legendre_alm"] += 1
     return alm_r, alm_i

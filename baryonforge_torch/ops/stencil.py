@@ -17,6 +17,8 @@ and the plain version for CPU tensors):
                                  (reference HealpixRunner.py:1066-1069)
   stencil_regrid / _plain        K5, entry stencil: the stencil
                                  (reference tiles.py:1387-1619)
+  stencil_weights_plain          K5's layout: the per-tile weight tables
+                                 and their sum in the kernel's order
   stencil_geo / _plain           K6, entry stencil_geo: the once-per-NSIDE
                                  source list of D_geom (HealpixRunner.py:
                                  1102-1179)
@@ -26,8 +28,9 @@ and the plain version for CPU tensors):
                                  ``ops.regrid.displaced_weights``)
 
 ``stencil_tables`` puts ``ops.tiles.stencil_host_info``'s arrays on a
-device. Offsets are (n_tiles, RB*K, 2) in the deposit dtype; maps and the
-stencil's output are in the regrid dtype.
+device, with the ring table the stencil kernel reads instead of evaluating
+the ring functions. Offsets are (n_tiles, RB*K, 2) in the deposit dtype;
+maps and the stencil's output are in the regrid dtype.
 """
 
 import math
@@ -40,9 +43,9 @@ from . import healpix as hpx
 from .regrid import displaced_weights
 from .tiles import _j0, valid_slot_counts
 
-__all__ = ["stencil_tables", "hot_tiles", "hot_tiles_plain",
-           "stencil_regrid", "stencil_regrid_plain", "stencil_geo",
-           "stencil_geo_plain", "stencil_complement",
+__all__ = ["stencil_tables", "ring_table", "hot_tiles", "hot_tiles_plain",
+           "stencil_regrid", "stencil_regrid_plain", "stencil_weights_plain",
+           "stencil_geo", "stencil_geo_plain", "stencil_complement",
            "stencil_complement_plain"]
 
 _TWO_PI = 2.0 * math.pi
@@ -51,12 +54,33 @@ _TILE_CHUNK = 1024
 _SRC_CHUNK = 1 << 21
 
 
+def ring_table(nside, device):
+    """Per-ring data of the stencil's slab rows, rings 1 .. 4 nside - 1 at
+    index i - 1, on ``device``, as :func:`_row_geometry` and
+    :func:`stencil_regrid_plain` form them: ``theta`` and ``dphi`` =
+    2 pi / nr (float64), ``nr`` and ``sh`` (shifted, int32), and
+    ``colscale`` by regrid dtype: sin(theta) (1 below 1e-12) times dphi,
+    both rounded to that dtype first."""
+    r = torch.arange(1, 4 * nside, dtype=torch.int32, device=device)
+    _, nr, _, sh = hpx.ring_info(nside, r, torch.float64)
+    theta = hpx.ring_theta(nside, r, torch.float64)
+    dphi = _TWO_PI / nr.double()
+    colscale = {}
+    for dt in (torch.float32, torch.float64):
+        sin_r = torch.sin(theta.to(dt))
+        sin_safe = torch.where(sin_r > 1e-12, sin_r, torch.ones_like(sin_r))
+        colscale[dt] = sin_safe * dphi.to(dt)
+    return dict(theta=theta, dphi=dphi, nr=nr.to(torch.int32),
+                sh=sh.to(torch.int32), colscale=colscale)
+
+
 def stencil_tables(tiling, info, device):
     """``stencil_host_info``'s arrays on ``device``: the neighbour table
     ``nbr`` (n_tiles, 9) int32, per-tile thresholds ``th_theta`` /
     ``th_phi`` (float64), ``D_geom`` (bool), the geometric tiles
     ``g_tids`` (int32) and, on the host, their valid-slot offsets
-    ``g_off`` ((n_g + 1,) int32), plus W and Wc."""
+    ``g_off`` ((n_g + 1,) int32), plus W and Wc; and the NSIDE's
+    :func:`ring_table` as ``ring``."""
     tb = tiling.tile_block
     g_tids = np.where(info["D_geom"])[0].astype(np.int32)
     counts = valid_slot_counts(tiling, g_tids)
@@ -68,7 +92,8 @@ def stencil_tables(tiling, info, device):
         th_phi=torch.as_tensor(info["th_phi"][tb], device=device),
         D_geom=torch.as_tensor(info["D_geom"], device=device),
         g_tids=torch.as_tensor(g_tids, device=device), g_off=g_off,
-        W=int(info["W"]), Wc=int(info["Wc"]))
+        W=int(info["W"]), Wc=int(info["Wc"]),
+        ring=ring_table(tiling.nside, device))
 
 
 def _suffix(*dts):
@@ -141,9 +166,10 @@ def _row_geometry(tiling, i0, s, S, M, rdt):
     return r_ok, theta, dphi, phi0, segC, segL
 
 
-def stencil_regrid_plain(tiling, tables, po_tiled, orig_tiled, excl):
-    """Plain version of :func:`stencil_regrid`, in tile chunks: the slab
-    of every tile built by index arithmetic, then the 55-tap sweep."""
+def _slabs(tiling, tables, po_tiled, orig_tiled, excl, t0, t1):
+    """The slabs of tiles t0 .. t1 - 1 built by index arithmetic: the rows'
+    theta (rdt), dphi and phi0 (float64), (T, R), and each cell's
+    theta_src, c_src and value, (T, R, Q)."""
     RB, K, P = tiling.RB, tiling.K, tiling.P
     W, Wc = tables["W"], tables["Wc"]
     M = W
@@ -158,48 +184,71 @@ def stencil_regrid_plain(tiling, tables, po_tiled, orig_tiled, excl):
     us = torch.where(rho < M, RB - M + rho,
                      torch.where(rho < M + RB, rho - M, rho - M - RB))
     jr = torch.arange(Q, device=dev) - Wc                           # (Q,)
+    T = t1 - t0
+    r_ok, theta_r, dphi_r, phi0_r, segC, segL = _row_geometry(
+        tiling, arr["tile_i0"][t0:t1], arr["tile_s"][t0:t1],
+        arr["tile_S"][t0:t1], M, rdt)
+    # slab placement: left segment for q < Wc, then the centre's segC
+    # slots, then the right segment
+    segC3, segL3 = segC[:, :, None].long(), segL[:, :, None].long()
+    left = (jr < 0).expand(T, R, Q)
+    centre = ~left & (jr < segC3)
+    v = torch.where(left, segL3 + jr,
+                    torch.where(centre, jr.expand(T, R, Q), jr - segC3))
+    col = torch.where(left, 0, torch.where(centre, 1, 2))
+    okv = torch.where(left, v >= 0, v < K)
+    nb = torch.gather(tables["nbr"][t0:t1].long(), 1,
+                      (db[None, :, None] * 3 + col).reshape(T, -1)
+                      ).reshape(T, R, Q)
+    nbc = torch.clamp(nb, min=0)
+    lin = (nbc * P + us[None, :, None] * K
+           + torch.clamp(v, 0, K - 1))
+    po = torch.where(okv[..., None], po_flat[lin],
+                     torch.zeros((), dtype=po_flat.dtype, device=dev))
+    og = og_flat[lin]
+    ex = (nb < 0) | excl[nbc]
+    og = torch.where(okv & ~ex & r_ok[:, :, None], og,
+                     torch.zeros_like(og))
+
+    sin_r = torch.sin(theta_r)
+    sin_safe = torch.where(sin_r > 1e-12, sin_r, torch.ones_like(sin_r))
+    col_scale = sin_safe * dphi_r.to(rdt)
+    theta_src = theta_r[:, :, None] + po[..., 0].to(rdt)
+    c_src = jr.to(rdt) + po[..., 1].to(rdt) / col_scale[:, :, None]
+    return theta_r, dphi_r, phi0_r, theta_src, c_src, og
+
+
+def _theta_steps(theta_r, M, RB):
+    """Each target row's theta and its clamped steps to the rows above and
+    below, (T, RB)."""
+    th_t = theta_r[:, M:M + RB]
+    dm = torch.clamp(th_t - theta_r[:, M - 1:M + RB - 1], min=1e-30)
+    dp = torch.clamp(theta_r[:, M + 1:M + RB + 1] - th_t, min=1e-30)
+    return th_t, dm, dp
+
+
+def _wth(d, dm, dp):
+    return torch.where(d <= 0, torch.clamp(1.0 + d / dm, min=0.0),
+                       torch.clamp(1.0 - d / dp, min=0.0))
+
+
+def stencil_regrid_plain(tiling, tables, po_tiled, orig_tiled, excl):
+    """Plain version of :func:`stencil_regrid`, in tile chunks: the slab
+    of every tile built by index arithmetic, then the 55-tap sweep."""
+    RB, K, P = tiling.RB, tiling.K, tiling.P
+    M, Wc = tables["W"], tables["Wc"]
+    rdt = orig_tiled.dtype
+    dev = orig_tiled.device
     vt = torch.arange(K, device=dev).to(rdt)
     out = torch.empty((tiling.n_tiles, P), dtype=rdt, device=dev)
     for t0 in range(0, tiling.n_tiles, _TILE_CHUNK):
         t1 = min(t0 + _TILE_CHUNK, tiling.n_tiles)
-        T = t1 - t0
-        r_ok, theta_r, dphi_r, phi0_r, segC, segL = _row_geometry(
-            tiling, arr["tile_i0"][t0:t1], arr["tile_s"][t0:t1],
-            arr["tile_S"][t0:t1], M, rdt)
-        # slab placement: left segment for q < Wc, then the centre's segC
-        # slots, then the right segment
-        segC3, segL3 = segC[:, :, None].long(), segL[:, :, None].long()
-        left = (jr < 0).expand(T, R, Q)
-        centre = ~left & (jr < segC3)
-        v = torch.where(left, segL3 + jr,
-                        torch.where(centre, jr.expand(T, R, Q), jr - segC3))
-        col = torch.where(left, 0, torch.where(centre, 1, 2))
-        okv = torch.where(left, v >= 0, v < K)
-        nb = torch.gather(tables["nbr"][t0:t1].long(), 1,
-                          (db[None, :, None] * 3 + col).reshape(T, -1)
-                          ).reshape(T, R, Q)
-        nbc = torch.clamp(nb, min=0)
-        lin = (nbc * P + us[None, :, None] * K
-               + torch.clamp(v, 0, K - 1))
-        po = torch.where(okv[..., None], po_flat[lin],
-                         torch.zeros((), dtype=po_flat.dtype, device=dev))
-        og = og_flat[lin]
-        ex = (nb < 0) | excl[nbc]
-        og = torch.where(okv & ~ex & r_ok[:, :, None], og,
-                         torch.zeros_like(og))
-
-        sin_r = torch.sin(theta_r)
-        sin_safe = torch.where(sin_r > 1e-12, sin_r, torch.ones_like(sin_r))
-        col_scale = sin_safe * dphi_r.to(rdt)
-        theta_src = theta_r[:, :, None] + po[..., 0].to(rdt)
-        c_src = jr.to(rdt) + po[..., 1].to(rdt) / col_scale[:, :, None]
-
-        th_t = theta_r[:, M:M + RB]
-        dm = torch.clamp(th_t - theta_r[:, M - 1:M + RB - 1], min=1e-30)
-        dp = torch.clamp(theta_r[:, M + 1:M + RB + 1] - th_t, min=1e-30)
+        theta_r, dphi_r, phi0_r, theta_src, c_src, og = _slabs(
+            tiling, tables, po_tiled, orig_tiled, excl, t0, t1)
+        th_t, dm, dp = _theta_steps(theta_r, M, RB)
         dphi_t = dphi_r[:, M:M + RB]
         phi0_t = phi0_r[:, M:M + RB]
-        acc = torch.zeros((T, RB, K), dtype=rdt, device=dev)
+        acc = torch.zeros((t1 - t0, RB, K), dtype=rdt, device=dev)
         for du in range(2 * M + 1):
             r0 = ((phi0_r[:, du:du + RB] - phi0_t) / dphi_t).to(rdt)
             rat = (dphi_r[:, du:du + RB] / dphi_t).to(rdt)
@@ -208,14 +257,68 @@ def stencil_regrid_plain(tiling, tables, po_tiled, orig_tiled, excl):
                 cs = c_src[:, du:du + RB, dv:dv + K]
                 vs = og[:, du:du + RB, dv:dv + K]
                 d = ts - th_t[:, :, None]
-                wth = torch.where(
-                    d <= 0, torch.clamp(1.0 + d / dm[:, :, None], min=0.0),
-                    torch.clamp(1.0 - d / dp[:, :, None], min=0.0))
+                wth = _wth(d, dm[:, :, None], dp[:, :, None])
                 x = r0[:, :, None] + cs * rat[:, :, None] - vt
                 wph = torch.clamp(1.0 - torch.abs(x), min=0.0)
                 acc = acc + wth * wph * vs
-        out[t0:t1] = acc.reshape(T, P)
+        out[t0:t1] = acc.reshape(t1 - t0, P)
     return out
+
+
+def stencil_weights_plain(tiling, tables, po_tiled, orig_tiled, excl):
+    """Plain version of K5's layout: each tile's weight tables and their
+    sum in the kernel's order. Returns (out, weights): ``out`` as
+    :func:`stencil_regrid`; ``weights`` of the tiles, by target row u and
+    tap row du: ``r0`` and ``rat`` (n_tiles, RB, 2W+1), ``wth`` and ``y``
+    = r0 + c_src rat where wth is not 0, else 0 (n_tiles, RB, 2W+1, K +
+    2Wc) in the regrid dtype, and
+    ``live`` (n_tiles, RB, 2W+1), the tap rows with a nonzero wth (the
+    kernel skips those of the others that the range of their theta
+    offsets rules out). Each slot then sums, tap rows outer and
+    columns inner, (wth wph) v with x = y - vt and wph = max(0, 1 - |x|):
+    bitwise :func:`stencil_regrid_plain` for finite inputs."""
+    RB, K, P = tiling.RB, tiling.K, tiling.P
+    M, Wc = tables["W"], tables["Wc"]
+    D = 2 * M + 1
+    rdt = orig_tiled.dtype
+    dev = orig_tiled.device
+    vt = torch.arange(K, device=dev).to(rdt)
+    out = torch.empty((tiling.n_tiles, P), dtype=rdt, device=dev)
+    parts = []
+    for t0 in range(0, tiling.n_tiles, _TILE_CHUNK):
+        t1 = min(t0 + _TILE_CHUNK, tiling.n_tiles)
+        theta_r, dphi_r, phi0_r, theta_src, c_src, og = _slabs(
+            tiling, tables, po_tiled, orig_tiled, excl, t0, t1)
+        th_t, dm, dp = _theta_steps(theta_r, M, RB)
+        dphi_t = dphi_r[:, M:M + RB]
+        phi0_t = phi0_r[:, M:M + RB]
+        rows = torch.arange(RB, device=dev)[:, None] \
+            + torch.arange(D, device=dev)[None, :]                  # (RB, D)
+        r0 = ((phi0_r[:, rows] - phi0_t[:, :, None])
+              / dphi_t[:, :, None]).to(rdt)
+        rat = (dphi_r[:, rows] / dphi_t[:, :, None]).to(rdt)
+        d = theta_src[:, rows] - th_t[:, :, None, None]     # (T, RB, D, Q)
+        wth = _wth(d, dm[:, :, None, None], dp[:, :, None, None])
+        # y only where wth is not 0, as the kernel forms it (a tap of wth 0
+        # adds 0 whatever its y)
+        y = torch.where(wth != 0,
+                        r0[..., None] + c_src[:, rows] * rat[..., None],
+                        torch.zeros((), dtype=rdt, device=dev))
+        live = (wth != 0).any(dim=3)
+        v = og[:, rows]
+        acc = torch.zeros((t1 - t0, RB, K), dtype=rdt, device=dev)
+        for du in range(D):
+            on = live[:, :, du, None]
+            for dv in range(2 * Wc + 1):
+                x = y[:, :, du, dv:dv + K] - vt
+                wph = torch.clamp(1.0 - torch.abs(x), min=0.0)
+                term = wth[:, :, du, dv:dv + K] * wph * v[:, :, du, dv:dv + K]
+                acc = torch.where(on, acc + term, acc)
+        out[t0:t1] = acc.reshape(t1 - t0, P)
+        parts.append((r0, rat, wth, y, live))
+    weights = {k: torch.cat([p[i] for p in parts])
+               for i, k in enumerate(("r0", "rat", "wth", "y", "live"))}
+    return out, weights
 
 
 def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
@@ -227,6 +330,9 @@ def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
     orig_tiled : (n_tiles, RB*K) map (``SkyTiling.tile_view``), in the
                  regrid dtype
     excl       : (n_tiles,) bool, from :func:`hot_tiles`
+
+    The kernel takes 1 <= W <= 127, Wc >= 2 and RB * ceil(K / 4) <= 256
+    (the runners' 16 x 32 tiles, W 2, Wc 5), else it raises.
     """
     _check_tiled(tiling, po_tiled, (2,), "stencil_regrid")
     _check_tiled(tiling, orig_tiled, (), "stencil_regrid")
@@ -239,6 +345,7 @@ def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
     if dev.type != "cuda":
         raise ValueError(f"stencil_regrid: unsupported device {dev}")
     arr = tiling.device_arrays(dev)
+    ring = tables["ring"]
     po = po_tiled.contiguous()
     og = orig_tiled.contiguous()
     out = torch.empty_like(og)
@@ -248,7 +355,11 @@ def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
         err = fn(tiling.nside, tiling.RB, tiling.K, tiling.n_tiles,
                  tables["W"], tables["Wc"], _build.ptr(arr["tile_i0"]),
                  _build.ptr(arr["tile_s"]), _build.ptr(arr["tile_S"]),
-                 _build.ptr(tables["nbr"]), _build.ptr(po), _build.ptr(og),
+                 _build.ptr(tables["nbr"]), _build.ptr(ring["theta"]),
+                 _build.ptr(ring["dphi"]), _build.ptr(ring["nr"]),
+                 _build.ptr(ring["sh"]),
+                 _build.ptr(ring["colscale"][og.dtype]), _build.ptr(po),
+                 _build.ptr(og),
                  _build.ptr(excl.contiguous()), _build.ptr(out),
                  _build.stream_of(out))
     _build.check(err, "stencil")

@@ -9,11 +9,14 @@ reference's Delta-Cl workflow), in float64:
        functions run up in l and contracted with the ring modes over the
        rings (ops/sht.legendre_alm)
 
-then a_lm times the pixel area 4 pi / npix, and C_l = (|a_l0|^2 + 2 sum_{m>0}
-|a_lm|^2) / (2l + 1). The functions run on ``device="cuda"`` unless the
-caller passes ``device="cpu"`` (the plain versions); the map may be numpy
-or a tensor. ``ring_batch`` bounds the JAX version's TPU buffers and has no
-effect here.
+The ring heights are ``ops.sht.ring_heights``: the JAX package's, with
+the south belt's set to the exact negatives of the north's (a shift of at
+most 2.2e-16), so that K19 runs one recurrence for each pair of mirrored
+rings. Then a_lm times the pixel area 4 pi / npix, and C_l = (|a_l0|^2
++ 2 sum_{m>0} |a_lm|^2) / (2l + 1). The functions run on
+``device="cuda"`` unless the caller passes ``device="cpu"`` (the plain
+versions); the map may be numpy or a tensor. ``ring_batch`` bounds the
+JAX version's TPU buffers and has no effect here.
 """
 
 import math
@@ -21,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-from ..ops.sht import legendre_alm, ring_geometry, ring_modes
+from ..ops.sht import (legendre_alm, ring_geometry, ring_heights,
+                       ring_modes)
 
 __all__ = ["ring_alm_real", "anafast"]
 
@@ -43,7 +47,7 @@ def ring_alm_real(nside, hmap, lmax, ring_batch=8, device="cuda"):
     """(Re, Im) of a_lm for m >= 0, float64 tensors (L, L) on ``device``
     indexed [m, l], zero for l < m."""
     dev = _device(device)
-    sp, nr, z, phi0 = ring_geometry(nside)
+    z = ring_heights(nside)
     npix = 12 * nside * nside
     omega = 4.0 * math.pi / npix
     hmap = torch.as_tensor(hmap, dtype=torch.float64).to(dev).reshape(-1)

@@ -20,7 +20,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
          source list and complement, K7 the tile layouts, on that polar
          catalog, on an NSIDE 256 catalog (where the stencil handles the
          belt's tiles) and at the bench shapes, and K1 on a table with two
-         parameter axes;
+         parameter axes; K5's two entries also timed apart, beside K3 (the
+         scatter path's regrid of the same map);
      K7 also on the shell's and the paint's tilings at NSIDE 64, 256 and
      1024 (C 1 and 2, float32 and float64, bitwise), and K2 also at NSIDE
      1024 on discs at both poles, across phi = 0, under 4 members and of
@@ -129,7 +130,10 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      ring_modes_tolerance, the plain version's angle rounding; K19 within 4
      n_ring eps of its absolute sum) at NSIDE 64 and at NSIDE 1024, lmax
      3071, where both are timed (2 repetitions) beside torch.fft.rfft per
-     ring length; K18 also at NSIDE 8 with lmax 23 (m past nr), at NSIDE
+     ring length, K19 on the mirrored ring heights (ops.sht.ring_heights)
+     and on the JAX heights, and the plain version's difference between
+     the two in units of K19's tolerance; K18 also at NSIDE 8 with lmax 23
+     (m past nr), at NSIDE
      48 (Bluestein rings) and at NSIDE 64 with 2048 bytes of shared memory
      a ring (the device-memory route); anafast card vs CPU at NSIDE 64 and
      the analytic maps of tests/test_sht.py:38-58 at NSIDE 1024;
@@ -138,8 +142,10 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      baryonification and the two anafast calls (lmax 3071) on the card,
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
- 17. prints one JSON line with each kernel's launches, error, times, bound
-     and library-call time, and last the line {"ok": true, "device": ...}.
+ 17. prints the registers, spills and resident warps of K5's and K19's
+     kernels (nvcc -Xptxas -v on their sources), one JSON line with each
+     kernel's launches, error, times, bound and library-call time, and last
+     the line {"ok": true, "device": ...}.
 
 A kernel's bound (bound_ms) is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -206,9 +212,14 @@ GRID_CALLS = 3          # timed process() calls per grid path, after one warm
 EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "ring_modes": (36.623, "the direct DFT"),
               "disc_deposit": (2.772, "the block-per-halo walk"),
-              "tile_layout": (0.230, "the per-element slot math")}
-# H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores
+              "tile_layout": (0.230, "the per-element slot math"),
+              "stencil": (2.066, "a thread a slot, ring math a block"),
+              "legendre_alm": (16.526, "a recurrence a ring")}
+# H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
+# float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
+# the 1.98 GHz boost clock
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+F64_INSTR = 132 * 64 * 1.98e9
 
 
 def log(msg):
@@ -704,6 +715,16 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
                     st.hot_tiles_plain(ap, tables)), 3)) + bound(
                 nbytes(ap, og_p) + slots * 4, 60.0 * tiling.npix,
                 F32_FLOPS) + (None,)
+            # the two entries apart, the stencil on the main path's own
+            # exclusions; the share of tap rows the stencil runs
+            ex = st.hot_tiles(ap, tables)
+            hot_ms = time_ms(torch, lambda: st.hot_tiles(ap, tables), 20)
+            st_ms = time_ms(torch, lambda: st.stencil_regrid(
+                tiling, tables, ap, og_p, ex), 20)
+            live = st.stencil_weights_plain(tiling, tables, ap, og_p,
+                                            ex)[1]["live"]
+            out["stencil_entries"] = (hot_ms, st_ms,
+                                      float(live.double().mean()))
             # K6: per source (the geometric list and the hot tiles' slots)
             # its offset, value and geometry read and four neighbours
             # updated, ~80 operations
@@ -2238,16 +2259,38 @@ def compare_sht_kernels(bf, torch, gpu, nside, lmax, timing):
               float(((fi - pi).abs() / tol).max()))
     check(f"K18 ring_modes [NSIDE {nside}, lmax {lmax}] (|diff| / "
           "tolerance)", e18, 1.0)
-    z = torch.as_tensor(sht.ring_geometry(nside)[2], device=DEVICE)
+    # the main path's mirrored heights (every ring in a pair) and the JAX
+    # heights (the south belt's rings alone)
+    z = torch.as_tensor(sht.ring_heights(nside), device=DEVICE)
+    zj = torch.as_tensor(sht.ring_geometry(nside)[2], device=DEVICE)
     ar, ai = sht.legendre_alm(z, pr, pi, lmax)
     wr, wi = sht.legendre_alm_plain(z, pr, pi, lmax)
     sr, si = sht.legendre_alm_plain(z, pr, pi, lmax, absolute=True)
     eps = float(np.finfo(np.float64).eps)
     tol19 = 4 * z.numel() * eps
-    e19 = max(float(((ar - wr).abs() / (sr + 1e-300)).max()),
-              float(((ai - wi).abs() / (si + 1e-300)).max()))
-    check(f"K19 legendre_alm [NSIDE {nside}, lmax {lmax}] (|diff| / "
-          "sum |F| |lambda|)", e19, tol19)
+
+    def rel(xr, xi, yr, yi):
+        return max(float(((xr - yr).abs() / (sr + 1e-300)).max()),
+                   float(((xi - yi).abs() / (si + 1e-300)).max()))
+    n_chain = len(sht.mirror_pairs(z.cpu().numpy()))
+    e19 = rel(ar, ai, wr, wi)
+    check(f"K19 legendre_alm [NSIDE {nside}, lmax {lmax}, {n_chain} chains "
+          f"of {z.numel()} rings] (|diff| / sum |F| |lambda|)", e19, tol19)
+    jr, ji = sht.legendre_alm(zj, pr, pi, lmax)
+    qr, qi = sht.legendre_alm_plain(zj, pr, pi, lmax)
+    n_chain_j = len(sht.mirror_pairs(zj.cpu().numpy()))
+    check(f"K19 legendre_alm [NSIDE {nside}, lmax {lmax}, JAX heights, "
+          f"{n_chain_j} chains] (|diff| / sum |F| |lambda|)",
+          rel(jr, ji, qr, qi), tol19)
+    # what the mirrored heights move (the plain version on both): they are
+    # kept only while that stays under half of K19's tolerance
+    dz = rel(wr, wi, qr, qi)
+    log(f"  K19 plain version, mirrored against JAX heights [NSIDE {nside}, "
+        f"lmax {lmax}]: {dz:.3e} of sum |F| |lambda| = {dz / tol19:.4f} of "
+        f"K19's tolerance ({tol19:.3e}); max |z - z_JAX| "
+        f"{float((z - zj).abs().max()):.3e}")
+    check(f"mirrored heights [NSIDE {nside}]: plain-version difference / "
+          "K19's tolerance", dz / tol19, 0.5)
     if not timing:
         return {}
     L, n_ring = lmax + 1, z.numel()
@@ -2266,14 +2309,21 @@ def compare_sht_kernels(bf, torch, gpu, nside, lmax, timing):
     ms = time_ms(torch, lambda: sht.legendre_alm(z, pr, pi, lmax), 2)
     plain_ms = time_ms(torch, lambda: sht.legendre_alm_plain(z, pr, pi,
                                                              lmax), 2)
-    # operations: 8 float64 a (ring, l, m) with l >= m (3 products and a
-    # difference of the recurrence, 2 multiply-adds of the contraction);
+    # operations: 8 float64 a (chain, l, m) with l >= m (3 products and a
+    # difference of the recurrence, 2 multiply-adds of the contraction),
+    # on this run's chains (a pair of mirrored rings runs one recurrence);
     # bytes: the modes read once, a_lm written once
-    ops19 = 8.0 * n_ring * L * (L + 1) / 2
-    b = bound(2 * n_ring * L * 8 + 2 * L * L * 8, ops19, F64_FLOPS)
+    steps = n_chain * L * (L + 1) / 2
+    b = bound(2 * n_ring * L * 8 + 2 * L * L * 8, 8.0 * steps, F64_FLOPS)
     out["legendre_alm"] = (float(max((ar - wr).abs().max(),
                                      (ai - wi).abs().max())), ms, plain_ms,
                            *b, None)
+    log(f"  K19 bound: {b[0]:.4f} ms on {n_chain} chains (8 operations a "
+        f"chain-step over {F64_FLOPS:.3g} FLOP/s); on every ring "
+        f"{8.0 * n_ring * L * (L + 1) / 2 / F64_FLOPS * 1e3:.4f} ms; the "
+        f"unfused float64 instructions ({6.0 * steps:.4g}: 4 of the "
+        f"recurrence and 2 fma) over {F64_INSTR:.3g}/s: "
+        f"{6.0 * steps / F64_INSTR * 1e3:.4f} ms")
     log(f"[{gpu}] K18 ring_modes NSIDE {nside}, lmax {lmax}: kernel "
         f"{out['ring_modes'][1]:.3f} ms, plain {out['ring_modes'][2]:.3f} "
         f"ms, torch.fft.rfft per ring length {lib_ms:.3f} ms; K19 "
@@ -2419,6 +2469,67 @@ def delta_cl(bf, torch, gpu):
         f"{k} {v * 1e3:.1f}" for k, v in phases.items()))
     log(f"launches in the ΔCl path: {launches}")
     return launches
+
+
+# H100 per-SM limits for resident warps: registers, shared memory (bytes,
+# with 1 KB a block reserved), warps, blocks
+SM_REGS, SM_SMEM, SM_WARPS, SM_BLOCKS = 65536, 233472, 64, 32
+
+
+def ptxas_report(bf):
+    """Registers and spills of K5's and K19's kernels (nvcc -Xptxas -v with
+    the build's own flags, both sources at once) and the warps an SM holds
+    at the bench's launch shapes (256 threads a block for each, the
+    stencil with its dynamic shared memory)."""
+    import re
+    import tempfile
+    from baryonforge_torch.ops import _build
+    lib = _build.library()
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    threads = {"stencil_kernel": 256, "stencil_hot_kernel": 256,
+               "legendre_kernel": 256}
+    smem = {"f": lib.bf_stencil_smem_bytes(16, 32, 2, 5, 0),
+            "d": lib.bf_stencil_smem_bytes(16, 32, 2, 5, 1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
+                                        str(_build._CSRC / src), "-o",
+                                        os.path.join(tmp, src + ".o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in ("stencil.cu", "sht.cu")]
+        outs = [p.communicate()[0] for p in procs]
+    for p, text in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
+        key, spill = None, 0
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"'\w*?\d+(stencil_kernel|stencil_hot_kernel|"
+                              r"legendre_kernel)(?:I([fd]+)E)?", line)
+                key, targs = (m.group(1), m.group(2) or "") if m else (
+                    None, "")
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if not (m and key):
+                continue
+            regs = int(m.group(1))
+            sm = smem[targs[1]] if key == "stencil_kernel" else 0
+            warps = threads[key] // 32
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(SM_REGS // (per_warp * warps), SM_WARPS // warps,
+                         SM_BLOCKS, SM_SMEM // (sm + 1024) if sm
+                         else SM_BLOCKS)
+            kinds = ", ".join("float" if c == "f" else "double"
+                              for c in targs)
+            name = f"{key}<{kinds}>" if targs else key
+            log(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled, "
+                f"{sm} bytes of dynamic shared memory; {threads[key]} "
+                f"threads a block: {blocks} blocks, {blocks * warps} warps "
+                "an SM")
+            key = None
 
 
 KERNELS = [
@@ -2727,6 +2838,12 @@ def main():
                                  "path")
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
+    hot_ms, st_ms, live = measured["stencil_entries"]
+    log(f"[{gpu}] K5 entries apart at the bench: stencil_hot {hot_ms:.4f} "
+        f"ms, stencil {st_ms:.4f} ms ({live:.3f} of the tap rows run); "
+        f"for context K3 (the scatter path's regrid of the same map) "
+        f"{measured['regrid'][1]:.4f} ms")
+    ptxas_report(bf)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported jax")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,9 @@ package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
-equal; its angles agree to a few ulps (the device's asin against torch's).
+equal, and so must the stencil (K5: the same operations in the same
+order as its plain version); K6's angles agree to a few ulps (the
+device's asin against torch's).
 K15 bitwise equal from call to call (no atomics).
 K17 (snapshot displacement) float64 to 1e-10 of the largest offset, float32
 to tests/test_snapshot.py:67 (atol 5e-4, rtol 1e-3); K18 (ring modes)
@@ -336,11 +338,15 @@ def test_tile_layout_kernel(dev, dt, nside, shape):
                                      (torch.float32, torch.float64),
                                      (torch.float64, torch.float64)],
                          ids=["f32-f32", "f32-f64", "f64-f64"])
-@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20), (1024, 20)])
 def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     """K5 (hot test, stencil) and K6 (source list, complement) against
     their plain versions on the tile deposit's offsets, with the polar
-    rings pushed through the poles and two tiles made hot."""
+    rings pushed through the poles and two tiles made hot. The stencil
+    is bitwise the plain version's (the same operations in the same order,
+    the ring data from the same table); a float64 regrid takes more than
+    48 KB of shared memory a block. The hot test also on offsets that are
+    not 16-byte aligned (its scalar route)."""
     r, shell, tiling, csr, pack, r0, inv = _tiled(nside, eps, pdt, dev)
     acc = tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
     acc[tiling.n_tiles // 3, :, 0] = 0.05
@@ -356,9 +362,11 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     assert nside < 256 or (hot.numel() >= 2 and not ek.all())
     ok = stencil.stencil_regrid(tiling, tables, acc, og_t, ek)
     op = stencil.stencil_regrid_plain(tiling, tables, acc, og_t, ek)
-    tol = (1e-12 if rdt == torch.float64 else 1e-5) \
-        * orig.abs().max().item()
-    torch.testing.assert_close(ok, op, rtol=0, atol=tol)
+    assert torch.equal(ok, op)
+    smem = _build.library().bf_stencil_smem_bytes(
+        tiling.RB, tiling.K, tables["W"], tables["Wc"],
+        rdt == torch.float64)
+    assert (smem > 48 * 1024) == (rdt == torch.float64)
     gk = stencil.stencil_geo(tiling, tables, rdt)
     gp = stencil.stencil_geo_plain(tiling, tables, rdt)
     for a, b in zip(gk[:2], gp[:2]):
@@ -380,6 +388,11 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     torch.testing.assert_close(fk, fp, rtol=0, atol=atol)
     assert abs(fk.double().sum().item() / orig.double().sum().item()
                - 1) < 1e-5
+    # the hot test's scalar route: the same offsets one element further on
+    buf = torch.empty(acc.numel() + 1, dtype=acc.dtype, device=dev)
+    shifted = buf[1:].view(acc.shape)
+    shifted.copy_(acc)
+    assert torch.equal(stencil.hot_tiles(shifted, tables), ep)
 
 
 # ---- the table build: K8 FFTLog, K9 table rows -----------------------------
@@ -1029,13 +1042,35 @@ def test_ring_modes_kernel(dev, nside, lmax, smem_bytes):
     assert float(((fi - pi).abs() / tol).max()) <= 1.0
 
 
-@pytest.mark.parametrize("nside,lmax", [(16, 47), (64, 191), (2048, 16)])
-def test_legendre_alm_kernel(dev, nside, lmax):
+@pytest.mark.parametrize("nside,lmax,heights",
+                         [(16, 47, "mirrored"), (48, 143, "mirrored"),
+                          (48, 143, "jax"), (64, 191, "mirrored"),
+                          (64, 191, "jax"), (2048, 16, "mirrored"),
+                          (2048, 16, "jax")])
+def test_legendre_alm_kernel(dev, nside, lmax, heights):
     """K19 against its plain version on the card, to 4 n_ring eps of the
     absolute contraction sum_r |F| |lambda| (the sums over rings in another
-    order); NSIDE 2048 has more rings than a block takes (atomic sums)."""
+    order), on the mirrored heights (ops.sht.ring_heights: every ring in a
+    pair) and on the JAX heights (the south belt unpaired); NSIDE 2048 has
+    more chains than a block takes (atomic sums over chunks of chains),
+    and no pair is split across chunks."""
     from baryonforge_torch.ops import sht
-    z = torch.as_tensor(sht.ring_geometry(nside)[2], device=dev)
+    zn = (sht.ring_heights(nside) if heights == "mirrored"
+          else sht.ring_geometry(nside)[2])
+    z = torch.as_tensor(zn, device=dev)
+    chains = sht.mirror_pairs(zn)
+    rings = chains[chains >= 0]
+    assert np.array_equal(np.sort(rings), np.arange(z.numel()))
+    per = _build.library().bf_legendre_chains_per_block()
+    chunk = np.arange(len(chains)) // per
+    paired = chains[:, 1] >= 0
+    where = np.empty(z.numel(), dtype=np.int64)
+    where[chains[:, 0]] = chunk
+    where[chains[paired, 1]] = chunk[paired]
+    assert np.array_equal(where[chains[paired, 0]], where[chains[paired, 1]])
+    assert (nside == 2048) == (chunk[-1] > 0)
+    if heights == "mirrored":
+        assert len(chains) == 2 * nside
     g = torch.Generator(device=dev).manual_seed(nside)
     fr, fi = (torch.randn((z.numel(), lmax + 1), dtype=torch.float64,
                           device=dev, generator=g) for _ in range(2))
