@@ -18,16 +18,16 @@
 // Bound: atomics to device memory. Each member pixel costs about 40 flops
 // and 3 transcendentals, and two atomicAdds into the (npix, 2) accumulator
 // (100 MB in float32 at NSIDE 1024: it misses the 50 MB L2); each ring of
-// a disc costs four float64 transcendentals (its phi span). Design: a flat
-// disc walk. A ring's geometry is worked out once, by one thread, into
-// shared memory; a scan of the rings' span lengths lays the disc out as
-// one flat (ring, dp) index, and the threads walk that index, so every
-// lane holds a candidate pixel whatever the rings' lengths, and neighbouring
-// lanes deposit on neighbouring addresses. A block takes 8 halos, one a
-// warp (warp_route, which also counts the members); a disc of more than 32
-// rings is walked by the whole block (block_route), so a large disc is
-// spread over 256 threads and a small one keeps a warp busy. Sums by
-// atomics change order from run to run.
+// a disc costs four float64 transcendentals (its phi span). Design: the
+// flat disc walk of healpix.cuh, shared with K13. A ring's geometry is
+// worked out once, by one thread, into shared memory; a scan of the rings'
+// span lengths lays the disc out as one flat (ring, dp) index, and the
+// threads walk that index, so every lane holds a candidate pixel whatever
+// the rings' lengths, and neighbouring lanes deposit on neighbouring
+// addresses. A block takes 8 halos, one a warp (warp_route, which also
+// counts the members); a disc of more than 32 rings is walked by the whole
+// block, so a large disc is spread over 256 threads and a small one keeps
+// a warp busy. Sums by atomics change order from run to run.
 //
 // Precision follows one_halo under x64 (see healpix.cuh): the geometry is
 // in T, the halo's cos/sin of theta are float64 rounded to T, and the
@@ -39,7 +39,6 @@ namespace {
 
 constexpr int kWarps = 8;             // halos a block takes, one a warp
 constexpr int kThreads = 32 * kWarps;
-constexpr int kSplitRings = 32;       // a disc of more rings: the whole block
 constexpr unsigned kFull = 0xffffffffu;
 
 struct HaloIn {
@@ -95,6 +94,13 @@ __device__ __forceinline__ void deposit_pixel(const Halo<T>& h,
   atomicAdd(acc + 2 * (long long)pix + 1, t_ph);
 }
 
+// deposit_pixel for a pixel of the flat walk
+template <typename T>
+__device__ __forceinline__ void deposit(const Halo<T>& h, const Lookup<T>& lk,
+                                        const bf::DiscPixel<T>& p, T* acc) {
+  deposit_pixel(h, lk, p.pix, p.cos_t, p.sin_t, p.dphi_pix, p.sinhd, acc);
+}
+
 template <typename T>
 __device__ __forceinline__ Halo<T> make_halo(const HaloIn& in,
                                              const T* curves, int n_r,
@@ -110,29 +116,6 @@ __device__ __forceinline__ Halo<T> make_halo(const HaloIn& in,
   h.rscale = T(in.rscale[hid]);
   h.curve = curves + (long long)hid * n_r;
   return h;
-}
-
-// Flat candidate q of n rings laid out in shared memory (ring k holds the
-// candidates first[k] .. first[k] + hi - lo): true for a member, with what
-// deposit_pixel needs
-template <typename T>
-__device__ __forceinline__ bool candidate(const bf::DiscWalk<T>& walk,
-                                          const bf::DiscRing<T>* rings,
-                                          const int* first, int n, int q,
-                                          int& pix, T& cos_t, T& sin_t,
-                                          T& dphi_pix, T& sinhd) {
-  int lo = 0, hi = n - 1;          // the last ring with first <= q
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (first[mid] <= q)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  const bf::DiscRing<T>& r = rings[lo];
-  cos_t = r.cos_t;
-  sin_t = r.sin_t;
-  return walk.pixel(r, r.lo + (q - first[lo]), pix, dphi_pix, sinhd);
 }
 
 // fewer than 4 members: lane k < 4 deposits on the centre's k-th
@@ -156,137 +139,70 @@ __device__ void deposit_fallback(int N, const Halo<T>& h, const Lookup<T>& lk,
   deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, T(sqrt(hav)), acc);
 }
 
-// A disc of at most kSplitRings rings, on one warp: lane k lays out ring
-// k, a warp scan of the span lengths gives the flat index, and the lanes
-// walk it 32 candidates at a time. The count of members runs along (ballot
-// and popc); members met while it is under 4 (at most 3) are held back by
-// flat index and deposited when it reaches 4, or never, and then the disc
-// deposits on the centre's 4 interpolation neighbours instead.
+// A disc of at most kSplitRings rings, on one warp (bf::warp_walk). The
+// count of members runs along the walk (ballot and popc); members met while
+// it is under 4 (at most 3) are held back by flat index and deposited when
+// it reaches 4, or never, and then the disc deposits on the centre's 4
+// interpolation neighbours instead.
 template <typename T>
 __device__ void warp_route(int N, const bf::DiscWalk<T>& walk,
                            const Halo<T>& h, const Lookup<T>& lk,
                            double th_h, double ph_h, bf::DiscRing<T>* rings,
                            int* first, int* held, T* acc) {
   const int lane = threadIdx.x & 31;
-  const int n = walk.ring_last - walk.ring_first + 1;  // may be 0
-  int len = 0;
-  if (lane < n) {
-    rings[lane] = walk.ring(walk.ring_first + lane);
-    len = rings[lane].hi - rings[lane].lo + 1;
-  }
-  int incl = len;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane < n) first[lane] = incl - len;
-  const int total = __shfl_sync(kFull, incl, 31);
-  __syncwarp();
-
+  const int n = walk.ring_last - walk.ring_first + 1;
   int count = 0;                   // members so far, the same in every lane
-  for (int base = 0; base < total; base += 32) {
-    const int q = base + lane;
-    int pix = 0;
-    T cos_t, sin_t, dphi_pix, sinhd;
-    const bool m = q < total && candidate(walk, rings, first, n, q, pix,
-                                          cos_t, sin_t, dphi_pix, sinhd);
+  bf::warp_walk(walk, rings, first,
+                [&](bool m, int q, const bf::DiscPixel<T>& p) {
     const unsigned mask = __ballot_sync(kFull, m);
     const int cnt = __popc(mask);
     if (count + cnt >= 4) {
-      if (m) deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+      if (m) deposit(h, lk, p, acc);
       if (count < 4 && lane < count) {
-        candidate(walk, rings, first, n, held[lane], pix, cos_t, sin_t,
-                  dphi_pix, sinhd);
-        deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
+        bf::DiscPixel<T> ph;
+        bf::flat_candidate(walk, rings, first, n, held[lane], ph);
+        deposit(h, lk, ph, acc);
       }
     } else if (m) {
       held[count + __popc(mask & ((1u << lane) - 1u))] = q;
     }
     count += cnt;
-    __syncwarp();
-  }
+  });
   if (count < 4 && lane < 4)
     deposit_fallback(N, h, lk, th_h, ph_h, lane, acc);
 }
 
-// A disc of more than kSplitRings rings, on the whole block: kThreads rings
-// at a time, one a thread, a block scan of their span lengths, and the
-// block's threads over the flat index. Such a disc has more than 4 members,
-// so nothing is counted: its rings ring_first .. ring_last - 2 (at least
-// 31) have their centres inside the disc's colatitude band, so the radius
-// spans more than 15 ring spacings, and a pixel is at most ~2.4 ring
-// spacings wide along its ring (3 pi / 4 sin^2 theta in the belt, pi / 2
-// in the caps), so the ring nearest the disc centre alone holds more than
-// 4 members (tests/test_torch_layout_disc.py checks it at the threshold).
-template <typename T>
-__device__ void block_route(const bf::DiscWalk<T>& walk, const Halo<T>& h,
-                            const Lookup<T>& lk, bf::DiscRing<T>* rings,
-                            int* first, int* wsum, T* acc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int r0 = walk.ring_first; r0 <= walk.ring_last; r0 += kThreads) {
-    const int n = min(kThreads, walk.ring_last - r0 + 1);
-    int len = 0;
-    if (tid < n) {
-      rings[tid] = walk.ring(r0 + tid);
-      len = rings[tid].hi - rings[tid].lo + 1;
-    }
-    int incl = len;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) wsum[warp] = incl;
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? wsum[w] : 0;
-      total += wsum[w];
-    }
-    if (tid < n) first[tid] = before + incl - len;
-    __syncthreads();
-    for (int q = tid; q < total; q += kThreads) {
-      int pix;
-      T cos_t, sin_t, dphi_pix, sinhd;
-      if (candidate(walk, rings, first, n, q, pix, cos_t, sin_t, dphi_pix,
-                    sinhd))
-        deposit_pixel(h, lk, pix, cos_t, sin_t, dphi_pix, sinhd, acc);
-    }
-    __syncthreads();               // before the next chunk's rings
-  }
-}
-
 // A block takes kWarps halos, one a warp; a disc of more than kSplitRings
-// rings is left for the whole block, after the warps' own discs.
+// rings is walked by the whole block after the warps' own discs
+// (bf::flat_disc_walks), and its members are not counted: its rings
+// ring_first .. ring_last - 2 (at least 31) have their centres inside the
+// disc's colatitude band, so the radius spans more than 15 ring spacings,
+// and a pixel is at most ~2.4 ring spacings wide along its ring (3 pi / 4
+// sin^2 theta in the belt, pi / 2 in the caps), so the ring nearest the
+// disc centre alone holds more than 4 members
+// (tests/test_torch_layout_disc.py checks it at the threshold).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     disc_deposit_kernel(int N, int n_h, HaloIn in,
                         const T* __restrict__ curves, Lookup<T> lk,
                         T* __restrict__ acc) {
-  __shared__ bf::DiscRing<T> rings[kThreads];
-  __shared__ int first[kThreads];
+  __shared__ bf::FlatDiscs<T, kWarps> s;
   __shared__ int held[kWarps][3];
-  __shared__ int wsum[kWarps];
-  __shared__ bool big[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int hid = blockIdx.x * kWarps + warp;
-  bool is_big = false;
-  if (hid < n_h) {
-    const double th_h = in.theta[hid], ph_h = in.phi[hid];
-    const bf::DiscWalk<T> walk(N, th_h, ph_h, in.radius[hid]);
-    is_big = walk.ring_last - walk.ring_first + 1 > kSplitRings;
-    if (!is_big)
-      warp_route(N, walk, make_halo(in, curves, lk.n_r, hid, walk), lk, th_h,
-                 ph_h, rings + 32 * warp, first + 32 * warp, held[warp], acc);
-  }
-  if (lane == 0) big[warp] = is_big;
-  __syncthreads();
-  for (int w = 0; w < kWarps; ++w) {
-    if (!big[w]) continue;
-    const int bh = blockIdx.x * kWarps + w;
-    const bf::DiscWalk<T> walk(N, in.theta[bh], in.phi[bh], in.radius[bh]);
-    block_route(walk, make_halo(in, curves, lk.n_r, bh, walk), lk, rings,
-                first, wsum, acc);
-  }
+  bf::flat_disc_walks<kWarps>(
+      N, n_h, in.theta, in.phi, in.radius, s,
+      [&](int hid, const bf::DiscWalk<T>& walk, bf::DiscRing<T>* rings,
+          int* first) {
+        warp_route(N, walk, make_halo(in, curves, lk.n_r, hid, walk), lk,
+                   in.theta[hid], in.phi[hid], rings, first,
+                   held[threadIdx.x >> 5], acc);
+      },
+      [&](int hid, const bf::DiscWalk<T>& walk) {
+        const Halo<T> h = make_halo(in, curves, lk.n_r, hid, walk);
+        bf::block_walk<kWarps>(walk, s.rings, s.first, s.wsum,
+                               [&](const bf::DiscPixel<T>& p) {
+          deposit(h, lk, p, acc);
+        });
+      });
 }
 
 template <typename T>

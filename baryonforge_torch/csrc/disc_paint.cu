@@ -6,7 +6,7 @@
 // utils/Tabulate.py: TabulatedProfile.curve_lookup for log curves and
 // Profiles/BaryonCorrection.py: curve_lookup for raw ones). For each halo,
 // every pixel whose centre lies inside the disc (healpix.cuh: DiscWalk,
-// K2's walk) gets, in T,
+// the member set of K2's walk) gets, in T,
 //   r_com = 2 sin(d/2) D / a,
 //   v = the halo curve's log-uniform lerp at r_com, exp'd for log curves,
 //       zero off the tabulated range,
@@ -37,12 +37,22 @@
 // Mtot[pix] (0 where Mtot <= 0; Mtot already holds the uniform background)
 // times orig[pix], the painting times pixarea D^2 when asked, and
 // painting * mfrac added into a float64 map. Bound as K11, with two curve
-// reads and two map reads more a pixel.
+// reads and two map reads more a pixel. Design: K2's flat disc walk
+// (healpix.cuh: flat_disc_walks): 8 halos a block, one a warp, a disc of
+// more than 32 rings on the whole block; the discs are small (~16 member
+// pixels over a few rings at the bench), so a ring's geometry is worked
+// out once by one lane and the warp's lanes take consecutive candidates
+// across the rings. A pixel's theta, and with it sin and cos theta, is its
+// ring's (ring_theta, bitwise pix2ang's: tested on the card); its phi is
+// pix2ang's formula on its ring and index.
 
 #include "healpix.cuh"
 #include "lookup.cuh"
 
 namespace {
+
+constexpr int kWarps = 8;  // K13: halos a block takes, one a warp
+constexpr int kThreads = 32 * kWarps;
 
 struct HaloIn {
   const double* theta;
@@ -99,40 +109,72 @@ int launch(int nside, int n_h, const double* theta, const double* phi,
   return int(cudaGetLastError());
 }
 
+// one halo's values that every pixel of K13 uses
 template <typename T>
-__global__ void disc_paint_anis_kernel(int N, HaloIn in, bf::Curve<T> cp,
-                                       bf::Curve<T> ct,
-                                       const double* __restrict__ mtot,
-                                       const double* __restrict__ orig,
-                                       bool pixel_size, double pixarea,
-                                       double* __restrict__ acc) {
-  const int hid = blockIdx.x;
-  const double th_h = in.theta[hid], ph_h = in.phi[hid], D = in.D[hid];
-  const double a = double(T(in.a[hid]));
-  const T vh0 = T(sin(th_h) * cos(ph_h));
-  const T vh1 = T(sin(th_h) * sin(ph_h));
-  const T vh2 = T(cos(th_h));
-  const T* curve_p = cp.c + (long long)hid * cp.n_r;
-  const T* curve_t = ct.c + (long long)hid * ct.n_r;
-  const double pixfac = pixarea * (D * D);
-  const bf::DiscWalk<T> walk(N, th_h, ph_h, in.radius[hid]);
-  walk([&](int pix, T, T, T, T) {
-    T th, ph;
-    bf::pix2ang<T>(N, pix, th, ph);
-    const T st = bf::m_sin(th);
-    const double d0 = double(st * bf::m_cos(ph) - vh0) * D;
-    const double d1 = double(st * bf::m_sin(ph) - vh1) * D;
-    const double d2 = double(bf::m_cos(th) - vh2) * D;
-    const double r_com = sqrt(d0 * d0 + d1 * d1 + d2 * d2) / a;
-    double painting = bf::lookup64(curve_p, cp, r_com) / a;
-    double canvas = bf::lookup64(curve_t, ct, r_com) / a;
+struct AnisHalo {
+  T vh0, vh1, vh2;             // its unit vector, float64 rounded to T
+  double D, a, pixfac;         // D, a (rounded to T), pixarea D^2
+  const T* curve_p;
+  const T* curve_t;
+};
+
+// A block takes kWarps halos on K2's flat walk (healpix.cuh), one a warp;
+// a disc of more than kSplitRings rings is walked by the whole block.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+disc_paint_anis_kernel(int N, int n_h, HaloIn in, bf::Curve<T> cp,
+                       bf::Curve<T> ct, const double* __restrict__ mtot,
+                       const double* __restrict__ orig, bool pixel_size,
+                       double pixarea, double* __restrict__ acc) {
+  __shared__ bf::FlatDiscs<T, kWarps> s;
+  auto halo = [&](int hid) {
+    const double th_h = in.theta[hid], ph_h = in.phi[hid], D = in.D[hid];
+    AnisHalo<T> h;
+    h.vh0 = T(sin(th_h) * cos(ph_h));
+    h.vh1 = T(sin(th_h) * sin(ph_h));
+    h.vh2 = T(cos(th_h));
+    h.D = D;
+    h.a = double(T(in.a[hid]));
+    h.pixfac = pixarea * (D * D);
+    h.curve_p = cp.c + (long long)hid * cp.n_r;
+    h.curve_t = ct.c + (long long)hid * ct.n_r;
+    return h;
+  };
+  // the pixel's unit vector in T: its ring's cos/sin theta, which are
+  // pix2ang's bit for bit (ring_theta is pix2ang's theta; the card test
+  // holds it), and its own phi
+  auto paint = [&](const AnisHalo<T>& h, const bf::DiscPixel<T>& p) {
+    const T ph = bf::ring_pixel_phi<T>(N, p.ring, p.j, p.shifted);
+    const double d0 = double(p.sin_t * bf::m_cos(ph) - h.vh0) * h.D;
+    const double d1 = double(p.sin_t * bf::m_sin(ph) - h.vh1) * h.D;
+    const double d2 = double(p.cos_t - h.vh2) * h.D;
+    const double r_com = sqrt(d0 * d0 + d1 * d1 + d2 * d2) / h.a;
+    double painting = bf::lookup64(h.curve_p, cp, r_com) / h.a;
+    double canvas = bf::lookup64(h.curve_t, ct, r_com) / h.a;
     if (!isfinite(painting)) painting = 0.0;
     if (!isfinite(canvas)) canvas = 0.0;
-    const double mt = mtot[pix];
-    const double mfrac = (mt > 0.0 ? canvas / mt : 0.0) * orig[pix];
-    if (pixel_size) painting = painting * pixfac;
-    atomicAdd(acc + pix, painting * mfrac);
-  });
+    const double mt = mtot[p.pix];
+    const double mfrac = (mt > 0.0 ? canvas / mt : 0.0) * orig[p.pix];
+    if (pixel_size) painting = painting * h.pixfac;
+    atomicAdd(acc + p.pix, painting * mfrac);
+  };
+  bf::flat_disc_walks<kWarps>(
+      N, n_h, in.theta, in.phi, in.radius, s,
+      [&](int hid, const bf::DiscWalk<T>& walk, bf::DiscRing<T>* rings,
+          int* first) {
+        const AnisHalo<T> h = halo(hid);
+        bf::warp_walk(walk, rings, first,
+                      [&](bool m, int, const bf::DiscPixel<T>& p) {
+          if (m) paint(h, p);
+        });
+      },
+      [&](int hid, const bf::DiscWalk<T>& walk) {
+        const AnisHalo<T> h = halo(hid);
+        bf::block_walk<kWarps>(walk, s.rings, s.first, s.wsum,
+                               [&](const bf::DiscPixel<T>& p) {
+          paint(h, p);
+        });
+      });
 }
 
 template <typename T>
@@ -140,9 +182,30 @@ int launch_anis(int nside, int n_h, HaloIn in, bf::Curve<T> cp,
                 bf::Curve<T> ct,
                 const double* mtot, const double* orig, int pixel_size,
                 double pixarea, double* acc, void* stream) {
-  disc_paint_anis_kernel<T><<<n_h, 128, 0, (cudaStream_t)stream>>>(
-      nside, in, cp, ct, mtot, orig, pixel_size != 0, pixarea, acc);
+  disc_paint_anis_kernel<T>
+      <<<(n_h + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
+          nside, n_h, in, cp, ct, mtot, orig, pixel_size != 0, pixarea, acc);
   return int(cudaGetLastError());
+}
+
+// Every pixel's (theta, phi) in T, a block a ring: from pix2ang, or with
+// per_ring as K13 takes them (its ring's ring_theta, ring_pixel_phi)
+template <typename T>
+__global__ void pixel_angles_kernel(int N, bool per_ring, T* __restrict__ theta,
+                                    T* __restrict__ phi) {
+  const int i = blockIdx.x + 1;
+  const bf::Ring<T> r = bf::ring_info<T>(N, i);
+  for (int j = threadIdx.x; j < r.nr; j += blockDim.x) {
+    T th, ph;
+    if (per_ring) {
+      th = bf::ring_theta<T>(N, i);
+      ph = bf::ring_pixel_phi<T>(N, i, j, r.shifted);
+    } else {
+      bf::pix2ang<T>(N, r.sp + j, th, ph);
+    }
+    theta[r.sp + j] = th;
+    phi[r.sp + j] = ph;
+  }
 }
 
 }  // namespace
@@ -188,5 +251,18 @@ BF_DISC_PAINT(double, double, f64_f64)
 BF_DISC_PAINT_ANIS(float, f32)
 BF_DISC_PAINT_ANIS(double, f64)
 #undef BF_DISC_PAINT_ANIS
+
+// theta, phi: (npix,) in T
+#define BF_PIXEL_ANGLES(T, SUF)                                              \
+  int bf_pixel_angles_##SUF(int nside, int per_ring, T* theta, T* phi,      \
+                            void* stream) {                                 \
+    pixel_angles_kernel<T><<<4 * nside - 1, 256, 0, (cudaStream_t)stream>>>( \
+        nside, per_ring != 0, theta, phi);                                  \
+    return int(cudaGetLastError());                                         \
+  }
+
+BF_PIXEL_ANGLES(float, f32)
+BF_PIXEL_ANGLES(double, f64)
+#undef BF_PIXEL_ANGLES
 
 }  // extern "C"

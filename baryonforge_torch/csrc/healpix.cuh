@@ -220,13 +220,25 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
   }
 }
 
-// One ring of a disc walk: the ring's first pixel, length, shift and phi
-// step, the in-ring index jc of the column nearest the disc centre, the
-// span lo .. hi of offsets from jc that can hold members, and the ring
-// centre's cos/sin colatitude and sin((theta_r - theta0) / 2).
+// phi of pixel j of ring i (shifted as ring_info gives it), with
+// pix2ang's operations: the cap rings' pi / (2 i) (j + 0.5), the belt's
+// pi / (2 N) (j + s / 2)
+template <typename T>
+__device__ __forceinline__ T ring_pixel_phi(int N, int i, int j, T shifted) {
+  if (i < N || i > 3 * N) {
+    const int ic = i < N ? i : 4 * N - i;
+    return (T(kPi) / (T(2) * T(ic))) * T(double(j) + 0.5);
+  }
+  return T(kPi / (2.0 * N)) * (T(j) + T(0.5) * shifted);
+}
+
+// One ring of a disc walk: the ring's index, first pixel, length, shift
+// and phi step, the in-ring index jc of the column nearest the disc
+// centre, the span lo .. hi of offsets from jc that can hold members, and
+// the ring centre's cos/sin colatitude and sin((theta_r - theta0) / 2).
 template <typename T>
 struct DiscRing {
-  int sp, nr, jc, lo, hi;
+  int i, sp, nr, jc, lo, hi;
   T shifted, dphi, cos_t, sin_t, sdt;
 };
 
@@ -236,9 +248,9 @@ struct DiscRing {
 // visit(pix, cos_t, sin_t, dphi_pix, sinhd) in the calling thread for its
 // share of them, with the pixel centre's cos/sin colatitude, its phi minus
 // the centre's and sin(d/2). The threads of a block split each ring's phi
-// span. The constructor does the per-disc set-up once; ring() and pixel()
-// are the per-ring and per-pixel halves, for kernels that lay the disc's
-// pixels out themselves (K2).
+// span (K11). The constructor does the per-disc set-up once; ring() and
+// pixel() are the per-ring and per-pixel halves, which the flat walk below
+// (K2, K13) lays out itself.
 //
 // The JAX version walks a padded (K_ring, K_phi) window whose size is
 // fixed per size bucket, because XLA needs static shapes. Here each disc
@@ -276,6 +288,7 @@ struct DiscWalk {
     DiscRing<T> d;
     const Ring<T> ri = ring_info<T>(N, i);
     const T theta_r = ring_theta<T>(N, i);
+    d.i = i;
     d.sp = ri.sp;
     d.nr = ri.nr;
     d.shifted = ri.shifted;
@@ -326,6 +339,158 @@ struct DiscWalk {
     }
   }
 };
+
+// The flat disc walk of K2 and K13. A disc's rings are worked out once
+// (DiscWalk::ring, one thread a ring) into shared memory, a scan of their
+// phi span lengths lays the disc out as one flat (ring, dp) index, and the
+// threads walk that index: every lane holds a candidate pixel whatever the
+// rings' lengths, and neighbouring lanes land on neighbouring pixels. A
+// block of kWarps warps takes kWarps discs, one a warp (warp_walk); a disc
+// of more than kSplitRings rings is walked by the whole block (block_walk),
+// after the warps' own discs (flat_disc_walks).
+constexpr int kSplitRings = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// a candidate pixel of the flat walk: the pixel, its ring, its index j in
+// the ring, the ring's shift and cos/sin colatitude, and as DiscWalk::pixel
+// gives them its phi minus the disc centre's and sin(d/2)
+template <typename T>
+struct DiscPixel {
+  int pix, ring, j;
+  T shifted, cos_t, sin_t, dphi_pix, sinhd;
+};
+
+// the shared memory of a block that walks discs flat
+template <typename T, int kWarps>
+struct FlatDiscs {
+  DiscRing<T> rings[32 * kWarps];
+  int first[32 * kWarps];
+  int wsum[kWarps];
+  bool big[kWarps];
+};
+
+// Flat candidate q of n rings laid out in shared memory (ring k holds the
+// candidates first[k] .. first[k] + hi - lo): true for a member
+template <typename T>
+__device__ __forceinline__ bool flat_candidate(const DiscWalk<T>& walk,
+                                               const DiscRing<T>* rings,
+                                               const int* first, int n, int q,
+                                               DiscPixel<T>& p) {
+  int lo = 0, hi = n - 1;          // the last ring with first <= q
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= q)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const DiscRing<T>& r = rings[lo];
+  p.ring = r.i;
+  p.shifted = r.shifted;
+  p.cos_t = r.cos_t;
+  p.sin_t = r.sin_t;
+  const bool member =
+      walk.pixel(r, r.lo + (q - first[lo]), p.pix, p.dphi_pix, p.sinhd);
+  p.j = p.pix - r.sp;
+  return member;
+}
+
+// A disc of at most kSplitRings rings, on one warp: lane k lays out ring
+// k, a warp scan of the span lengths gives the flat index, and the lanes
+// walk it 32 candidates at a time. Every lane runs visit(member, q, p) for
+// each of its candidates q (member false past the last), so visit may use
+// the warp's collectives.
+template <typename T, typename Visit>
+__device__ void warp_walk(const DiscWalk<T>& walk, DiscRing<T>* rings,
+                          int* first, Visit&& visit) {
+  const int lane = threadIdx.x & 31;
+  const int n = walk.ring_last - walk.ring_first + 1;  // may be 0
+  int len = 0;
+  if (lane < n) {
+    rings[lane] = walk.ring(walk.ring_first + lane);
+    len = rings[lane].hi - rings[lane].lo + 1;
+  }
+  int incl = len;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane < n) first[lane] = incl - len;
+  const int total = __shfl_sync(kFullMask, incl, 31);
+  __syncwarp();
+  for (int base = 0; base < total; base += 32) {
+    const int q = base + lane;
+    DiscPixel<T> p;
+    p.pix = 0;
+    const bool m = q < total && flat_candidate(walk, rings, first, n, q, p);
+    visit(m, q, p);
+    __syncwarp();
+  }
+}
+
+// A disc of more than kSplitRings rings, on the whole block: 32 kWarps
+// rings at a time, one a thread, a block scan of their span lengths, and
+// the block's threads over the flat index; visit(p) for each member.
+// Every thread of the block calls it.
+template <int kWarps, typename T, typename Visit>
+__device__ void block_walk(const DiscWalk<T>& walk, DiscRing<T>* rings,
+                           int* first, int* wsum, Visit&& visit) {
+  constexpr int kThreads = 32 * kWarps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int r0 = walk.ring_first; r0 <= walk.ring_last; r0 += kThreads) {
+    const int n = min(kThreads, walk.ring_last - r0 + 1);
+    int len = 0;
+    if (tid < n) {
+      rings[tid] = walk.ring(r0 + tid);
+      len = rings[tid].hi - rings[tid].lo + 1;
+    }
+    int incl = len;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? wsum[w] : 0;
+      total += wsum[w];
+    }
+    if (tid < n) first[tid] = before + incl - len;
+    __syncthreads();
+    for (int q = tid; q < total; q += kThreads) {
+      DiscPixel<T> p;
+      if (flat_candidate(walk, rings, first, n, q, p)) visit(p);
+    }
+    __syncthreads();               // before the next chunk's rings
+  }
+}
+
+// Discs d = blockIdx.x kWarps + warp of n (centres and radii in float64):
+// each warp runs on_warp(d, walk, rings, first) for its own disc of at
+// most kSplitRings rings, with its 32 entries of s; then the whole block
+// runs on_block(d, walk) for each of its discs of more rings, in turn.
+template <int kWarps, typename T, typename OnWarp, typename OnBlock>
+__device__ void flat_disc_walks(int N, int n, const double* theta,
+                                const double* phi, const double* radius,
+                                FlatDiscs<T, kWarps>& s, OnWarp&& on_warp,
+                                OnBlock&& on_block) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.x * kWarps + warp;
+  bool big = false;
+  if (d < n) {
+    const DiscWalk<T> walk(N, theta[d], phi[d], radius[d]);
+    big = walk.ring_last - walk.ring_first + 1 > kSplitRings;
+    if (!big) on_warp(d, walk, s.rings + 32 * warp, s.first + 32 * warp);
+  }
+  if (lane == 0) s.big[warp] = big;
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) {
+    if (!s.big[w]) continue;
+    const int bd = blockIdx.x * kWarps + w;
+    on_block(bd, DiscWalk<T>(N, theta[bd], phi[bd], radius[bd]));
+  }
+}
 
 // 4 neighbours and weights of a source at pixel centre (theta_p, phi_p)
 // moved by the tangent offset (o0, o1) = (d theta, sin theta d phi): a pole

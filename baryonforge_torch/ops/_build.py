@@ -15,7 +15,8 @@ K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 ``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
 ``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
 ``enclosed_mass`` and ``displacement_rows``), ``ops/paint.py`` (K11
-``disc_paint``, K13 ``disc_paint_anis``, K14 ``anis_finish``),
+``disc_paint``, K13 ``disc_paint_anis``, K14 ``anis_finish``, and the
+check kernel ``pixel_angles``),
 ``ops/grid.py`` (K15 ``grid_cutout`` and its lists' ``tile_pairs``),
 ``ops/scatter.py`` (K16
 ``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``) and
@@ -74,7 +75,8 @@ def _signatures():
         + [_I, _F, _F, _I, _F, _F, _I, _P, _P],
         "bf_tile_paint2_f64": [_I] * 4 + [_P] * 14
         + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
-        "bf_fht_f64": [_I, _I, _P, _P, _D, _D, _D, _P, _P, _P],
+        "bf_fht_f64": [_I] * 5 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
+        "bf_fht_long_blocks": [],
         "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
         "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
         "bf_ring_modes_f64": [_I] + [_P] * 5 + [_I] + [_P] * 5,
@@ -107,6 +109,7 @@ def _signatures():
             [_I, _I] + [_P] * 5 + curve + curve + [_P, _P, _I, _D, _P, _P]
         sig[f"bf_anis_finish_{sfx}"] = [_LL] + [_P] * 3 + [_D] * 3 \
             + [_I, _P, _P]
+        sig[f"bf_pixel_angles_{sfx}"] = [_I, _I, _P, _P, _P]
         sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _I, _D] + [_P] * 6 \
@@ -202,8 +205,10 @@ def check(err, name):
 
 
 def stream_of(t):
-    """Handle of the current PyTorch stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of the current PyTorch stream on ``t``'s device (the raw
+    handle, without building a torch.cuda.Stream: a few microseconds less
+    of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t):

@@ -34,8 +34,8 @@ _HALO_COLUMNS = ("theta", "phi", "radius", "D", "a", "Rcom", "rscale")
 # sin(theta) >= s gets the phi window of disc_pad_sizes(..., sin_min=s)
 _SIN_CLASSES = (0.25, 0.05, 0.0)
 
-# K2 walks a disc of more rings with a whole block and counts no members
-# (csrc/deposit.cu: kSplitRings)
+# K2 and K13 walk a disc of more rings with a whole block (K2 counts no
+# members there; csrc/healpix.cuh: kSplitRings)
 SPLIT_RINGS = 32
 
 
@@ -120,8 +120,8 @@ def _ring_range(nside, theta, radius, dtype):
 
 
 def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
-    """Plain version of K2's layout of each disc (csrc/deposit.cu, with
-    healpix.cuh: DiscWalk), for float64 (n,) ``theta``, ``phi``,
+    """Plain version of the flat layout of each disc that K2 and K13 walk
+    (csrc/healpix.cuh: flat_disc_walks), for float64 (n,) ``theta``, ``phi``,
     ``radius``; the geometry in ``dtype`` and the phi spans in float64, as
     the kernel computes them.
 

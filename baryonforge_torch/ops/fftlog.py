@@ -21,8 +21,9 @@ import torch
 
 from . import _build
 from .interp import interp
+from .sht import shared_memory_optin
 
-__all__ = ["loggamma", "fht", "fht_plain", "sph_fourier_3d",
+__all__ = ["loggamma", "fht", "fht_plain", "fht_plan", "sph_fourier_3d",
            "sph_inverse_3d", "proj_fourier_2d", "proj_inverse_2d",
            "xi_from_pk", "convolve_profile"]
 
@@ -129,17 +130,19 @@ def _safe_q(mu, q, eps=1e-4):
     return q
 
 
+def _log_kcrc(kcrc):
+    """log(kc rc) as the JAX package takes it: the host log of a number,
+    else the array log of a tensor."""
+    if isinstance(kcrc, (int, float)):
+        return math.log(kcrc)
+    return float(torch.log(torch.as_tensor(kcrc, dtype=torch.float64)
+                           .reshape(1))[0])
+
+
 def _fht_grids(x, kcrc):
     """(lx, ln_kcrc): the log grid and log(kc rc), both as the JAX package
     takes them (an array log for lx; the host log of a number kcrc)."""
-    lx = torch.log(x.to(torch.float64))
-    if isinstance(kcrc, (int, float)):
-        ln_kcrc = math.log(kcrc)
-    else:
-        ln_kcrc = float(torch.log(torch.as_tensor(kcrc,
-                                                  dtype=torch.float64)
-                                  .reshape(1))[0])
-    return lx, ln_kcrc
+    return torch.log(x.to(torch.float64)), _log_kcrc(kcrc)
 
 
 def fht_plain(a, lx, mu, q, ln_kcrc):
@@ -159,31 +162,55 @@ def fht_plain(a, lx, mu, q, ln_kcrc):
     return torch.exp(-q * (ln_k0x0 + j * dln)) * out
 
 
-# K8 keeps an N-entry twiddle table (16 bytes an entry) in shared memory
+# the longest row K8 takes (the card tests run it)
 FHT_MAX_N = 12288
 
 
-def _fht_kernel(a, lx, mu, q, ln_kcrc):
-    """K8 on a CUDA tensor: one block per row."""
-    N = lx.shape[0]
-    if N > FHT_MAX_N:
-        raise ValueError(f"fht on CUDA: N = {N} exceeds the kernel's "
-                         f"shared-memory twiddle table ({FHT_MAX_N})")
-    lead = a.shape[:-1]
+def fht_plan(N, smem_bytes):
+    """K8's route for rows of N points: (M, bluestein, in_shared). A power
+    of two runs an FFT of M = N points (4 M doubles a row: the points, Re
+    and Im, and the twiddles), any other N Bluestein's chirp convolution by
+    FFTs of the least power of two M >= 2 N - 1 (6 M doubles, the chirp's
+    spectrum too); the row's arrays sit in shared memory when they fit
+    ``smem_bytes``, else in a slot of device memory."""
+    bluestein = N & (N - 1) != 0
+    M = 1 << (2 * N - 2).bit_length() if bluestein else N
+    slot = (6 if bluestein else 4) * M
+    return M, bluestein, slot * 8 <= smem_bytes
+
+
+def _fht_kernel(x, a, mu, q, ln_kcrc, smem_bytes=None):
+    """K8 on CUDA tensors: one block a row, one launch for the transform
+    and the k grid. ``q`` is already off the Gamma poles; ``smem_bytes``
+    overrides the shared memory a block may take (the card's opt-in by
+    default), so a test can force the device-memory route. Returns (k,
+    the (..., N) transform)."""
+    N = x.shape[-1]
+    if not 2 <= N <= FHT_MAX_N:
+        raise ValueError(f"fht on CUDA: N = {N} outside [2, {FHT_MAX_N}]")
     rows = a.reshape(-1, N).to(torch.float64).contiguous()
-    lx = lx.to(device=a.device, dtype=torch.float64).contiguous()
-    out = torch.empty_like(rows)
-    scratch = torch.empty((rows.shape[0], 3, N), dtype=torch.float64,
-                          device=a.device)
-    if rows.shape[0]:
-        with torch.cuda.device(a.device):
-            err = _build.library().bf_fht_f64(
-                rows.shape[0], N, _build.ptr(rows), _build.ptr(lx),
-                float(mu), float(q), float(ln_kcrc), _build.ptr(scratch),
-                _build.ptr(out), _build.stream_of(rows))
-        _build.check(err, "fht")
-        _build.launches["fht"] += 1
-    return out.reshape(lead + (N,))
+    x = x.to(device=a.device, dtype=torch.float64).contiguous()
+    B = rows.shape[0]
+    if smem_bytes is None:
+        smem_bytes = shared_memory_optin(a.device)
+    M, bluestein, in_shared = fht_plan(N, smem_bytes)
+    lib = _build.library()
+    scratch = None
+    if not in_shared:
+        slots = min(max(B, 1), lib.bf_fht_long_blocks())
+        scratch = torch.empty(slots * (6 if bluestein else 4) * M,
+                              dtype=torch.float64, device=a.device)
+    k = torch.empty_like(x)
+    out = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.bf_fht_f64(
+            B, N, M, int(bluestein), int(in_shared), _build.ptr(rows),
+            _build.ptr(x), float(mu), float(q), float(ln_kcrc),
+            None if scratch is None else _build.ptr(scratch),
+            _build.ptr(k), _build.ptr(out), _build.stream_of(rows))
+    _build.check(err, "fht")
+    _build.launches["fht"] += 1
+    return k, out
 
 
 def fht(x, a, mu, q=0.0, kcrc=1.0):
@@ -194,17 +221,16 @@ def fht(x, a, mu, q=0.0, kcrc=1.0):
     for ``a`` on CUDA and its plain version for ``a`` on the CPU."""
     N = x.shape[-1]
     q = _safe_q(mu, q)
+    if a.device.type == "cuda":
+        return _fht_kernel(torch.as_tensor(x, device=a.device), a, mu, q,
+                           _log_kcrc(kcrc))
+    if a.device.type != "cpu":
+        raise ValueError(f"fht: unsupported device {a.device}")
     lx, ln_kcrc = _fht_grids(torch.as_tensor(x, device=a.device), kcrc)
     dln = (lx[-1] - lx[0]) / (N - 1)
     j = torch.arange(N, device=lx.device)
     k = torch.exp(ln_kcrc - lx[-1] + j * dln)
-    if a.device.type == "cpu":
-        at = fht_plain(a, lx, mu, q, ln_kcrc)
-    elif a.device.type == "cuda":
-        at = _fht_kernel(a, lx, mu, q, ln_kcrc)
-    else:
-        raise ValueError(f"fht: unsupported device {a.device}")
-    return k, at
+    return k, fht_plain(a, lx, mu, q, ln_kcrc)
 
 
 def _log_resample(x_src, y_src, x_query):

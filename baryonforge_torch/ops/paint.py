@@ -18,7 +18,11 @@ same disc windows: per member pixel r_sep = |pix2vec(pix) - vec_h| D (the
 unit vectors in the curves' dtype, the rest in float64, as under x64), the
 model's painting and the tracer's canvas (two lookups, each on its own
 grid, divided by a), mfrac = canvas / Mtot[pix] orig[pix], the painting
-times pixarea D^2 when asked, painting mfrac summed in float64.
+times pixarea D^2 when asked, painting mfrac summed in float64. K13
+walks each disc in K2's flat layout (``ops.deposit.disc_walk_plain``, the
+same members) and takes a pixel's theta from its ring;
+``pixel_angles`` (a check kernel) and ``pixel_angles_plain`` give every
+pixel's angles that way or by pix2ang, which agree bit for bit.
 
 ``anis_finish`` is the wrapper of kernel K14 (``csrc/anis_finish.cu``);
 ``anis_finish_plain`` is its plain version: the JAX runners' last pass,
@@ -26,6 +30,8 @@ which weights the halo sum by orig / Mtot and adds the uniform-background
 tracer term (HealpixRunner.py:2349-2360 tiled, 2440-2443 scatter;
 Map2DRunner.py:792-796 grid).
 """
+
+import math
 
 import torch
 
@@ -35,8 +41,8 @@ from .deposit import _chunks
 
 __all__ = ["disc_paint", "disc_paint_plain", "disc_paint_anis",
            "disc_paint_anis_plain", "anis_finish", "anis_finish_plain",
-           "float32_tolerance", "HALO_COLUMNS", "SINHD_REACH",
-           "VEC_SINHD_REACH"]
+           "pixel_angles", "pixel_angles_plain", "float32_tolerance",
+           "HALO_COLUMNS", "SINHD_REACH", "VEC_SINHD_REACH"]
 
 HALO_COLUMNS = ("theta", "phi", "radius", "D", "a")
 
@@ -337,6 +343,53 @@ def disc_paint_anis(nside, halos, painting, canvas, mtot, orig,
     _build.check(err, "disc_paint_anis")
     _build.launches["disc_paint_anis"] += 1
     return acc
+
+
+def pixel_angles_plain(nside, dtype, per_ring):
+    """Plain version of :func:`pixel_angles`."""
+    if not per_ring:
+        p = torch.arange(hpx.npix(nside), dtype=torch.int32)
+        return hpx.pix2ang(nside, p, dtype)
+    N = nside
+    rings = torch.arange(1, 4 * N, dtype=torch.int32)
+    sp, nr, _, shifted = hpx.ring_info(N, rings, dtype)
+    i = torch.repeat_interleave(rings, nr)
+    j = torch.arange(hpx.npix(nside), dtype=torch.int32) \
+        - torch.repeat_interleave(sp, nr)
+    theta = hpx.ring_theta(N, i, dtype)
+    cap = (i < N) | (i > 3 * N)
+    ic = torch.where(i < N, i, 4 * N - i).to(dtype)
+    phi_cap = (math.pi / (2.0 * ic)) * (j.double() + 0.5).to(dtype)
+    s = torch.repeat_interleave(shifted, nr)
+    phi_belt = (math.pi / (2.0 * N)) * (j + 0.5 * s)
+    return theta, torch.where(cap, phi_cap, phi_belt)
+
+
+def pixel_angles(nside, dtype, device, per_ring=True):
+    """Every pixel's centre (theta, phi), (npix,) in ``dtype``: from
+    pix2ang, or with ``per_ring`` as K13 takes them, its ring's colatitude
+    (ring_theta) and pix2ang's phi formula on its ring and index
+    (csrc/healpix.cuh: ring_pixel_phi). K13 takes a pixel's theta from its
+    ring only because the two agree bit for bit; the card test holds them
+    so. The device's kernel for a CUDA ``device``, the plain version for
+    the CPU."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"pixel_angles: unsupported dtype {dtype}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return pixel_angles_plain(nside, dtype, bool(per_ring))
+    if device.type != "cuda":
+        raise ValueError(f"pixel_angles: unsupported device {device}")
+    theta = torch.empty(hpx.npix(nside), dtype=dtype, device=device)
+    phi = torch.empty_like(theta)
+    fn = getattr(_build.library(), "bf_pixel_angles_{}".format(
+        "f32" if dtype == torch.float32 else "f64"))
+    with torch.cuda.device(device):
+        err = fn(nside, int(bool(per_ring)), _build.ptr(theta),
+                 _build.ptr(phi), _build.stream_of(theta))
+    _build.check(err, "pixel_angles")
+    _build.launches["pixel_angles"] += 1
+    return theta, phi
 
 
 def anis_finish_plain(halo_sum, mtot, orig, add, bgw, scale, tiled):

@@ -31,13 +31,18 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      discs take K2) and the scatter path, and the NSIDE 256 catalog through
      the default engine;
   5. holds the table build's kernels against their plain versions on the
-     card (float64): K8 FFTLog on correlation_3d's P(k) grid (1 x 1024) and
-     on a batch of profile rows (20 x 2048, mu = 0 and 1/2), and K9 on the
-     bench table's first redshift (20 masses, 64 radii);
+     card (float64): K8 FFTLog on correlation_3d's P(k) grid (1 x 1024, the
+     only shape the S19 and tSZ table builds launch), on a batch of profile
+     rows (20 x 2048, mu = 0 and 1/2), on Bluestein's route (3 x 100, q on
+     a Gamma pole) and on the device-memory route (1 x 8192), each timed
+     beside torch.fft.fft twice with the coefficients formed beforehand (a
+     partial yardstick), both also on the device alone (a CUDA graph), and
+     K9 on the bench table's first redshift (20 masses, 64 radii);
   6. builds the Schneider19 displacement table on the card from the bench's
      profile parameters (bench.py:42-55: 8 z x 20 M x 64 r) through
      Baryonification2D(DarkMatterOnly, DarkMatterBaryon).setup_interpolator,
-     with the launch counts set to 0 just before and read just after; checks
+     with the launch counts set to 0 just before and read just after, and
+     K8's shapes and callers logged; checks
      it is finite and within 2.5e-4 of its largest |d| of
      tools/_northstar_table.npz (the JAX file's own drift from the current
      JAX profiles is 1.2e-4), a small table (2 x 4 x 16) on the card against
@@ -73,8 +78,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      float64 on the polar catalog;
  10. builds the tSZ table TabulatedProfile(ThermalSZ(Pressure(**bpar,
      proj_cutoff=100), proj_cutoff=100)) on the card on the bench grid,
-     timed, against the JAX file (logs within 1e-9) and a small table on the
-     card against the CPU's;
+     timed (K8's shapes and callers logged), against the JAX file (logs
+     within 1e-9) and a small table on the card against the CPU's;
  11. runs the paint path at the bench configuration, PaintProfilesShell(
      epsilon_max=5, model=the card's tSZ table).process(), tiled (the
      default: K1, K10, K7) and scatter (K1, K11), each with the launch
@@ -90,8 +95,11 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      relative) and float32 (per pixel, to ops.paint.float32_tolerance with
      both curves' slopes, K13's unit vectors with their own reach), on the
      polar catalog (epsilon_max 60) and at the bench shapes (epsilon_max
-     5); runs PaintProfilesAnisShell card vs CPU (polar, float64, the halo
-     term) and, at its bench configuration (tools/anis_bench.py:76-93: the
+     5; K13's discs all a warp each, so K13 also with three discs of 1.2-3
+     degrees on the whole-block route, its map reads counted in warp
+     requests and 32-byte sectors, and its device time alone); runs
+     PaintProfilesAnisShell card vs CPU (polar, float64, the halo term)
+     and, at its bench configuration (tools/anis_bench.py:76-93: the
      card's tSZ table as model, tracer and Mtot, the shell at z 0.9), the
      tiled (K1, K10, K7, K12, K14) and scatter (K1, K11, K13, K14) paths
      with drive_path(), and holds the two to the JAX package's bounds
@@ -142,9 +150,10 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      baryonification and the two anafast calls (lmax 3071) on the card,
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
- 17. prints the registers, spills and resident warps of K5's and K19's
-     kernels (nvcc -Xptxas -v on their sources), one JSON line with each
-     kernel's launches, error, times, bound and library-call time, and last
+ 17. prints the registers, spills and resident warps of K5's, K8's,
+     K13's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
+     line with each kernel's launches, error, times, bound and
+     library-call time, and last
      the line {"ok": true, "device": ...}.
 
 A kernel's bound (bound_ms) is the larger of the bytes it must move (each
@@ -214,7 +223,9 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "disc_deposit": (2.772, "the block-per-halo walk"),
               "tile_layout": (0.230, "the per-element slot math"),
               "stencil": (2.066, "a thread a slot, ring math a block"),
-              "legendre_alm": (16.526, "a recurrence a ring")}
+              "legendre_alm": (16.526, "a recurrence a ring"),
+              "fht": (0.541, "the direct DFT"),
+              "disc_paint_anis": (0.654, "the block-per-halo walk")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -280,6 +291,32 @@ def time_ms(torch, fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(torch, fn, n=20, reps=5):
+    """Device milliseconds per call: ``n`` calls of ``fn`` captured in one
+    CUDA graph (after a warm-up on a side stream), replayed ``reps`` times
+    and timed by CUDA events, so the host's own time a call drops out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (reps * n)
 
 
 def bound(nbytes, flops, peak):
@@ -824,6 +861,9 @@ def compare_table_kernels(bf, torch, gpu):
     def fht_case(label, x, a, mu, q, reps):
         lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
         qs = fftlog._safe_q(mu, q)
+        B, N = a.shape
+        M, bluestein, in_shared = fftlog.fht_plan(
+            N, fftlog.shared_memory_optin(dev))
 
         def kern():
             return fftlog.fht(x, a, mu, q)[1]
@@ -833,16 +873,18 @@ def compare_table_kernels(bf, torch, gpu):
         ok, op = kern(), plain()
         torch.cuda.synchronize()
         err = (ok - op).abs().max().item()
-        # direct DFT sums against torch.fft's, each row against its own
+        # K8's FFT sums against torch.fft's, each row against its own
         # largest value. Two correct orders of the sums (the JAX package's
         # matmul DFT and torch.fft) differ by up to 2.2e-12 of a row's
         # largest value on the 20 x 2048 batch
         # (tests/test_torch_fftlog.py::test_fht_summation_orders), so the
         # bound is 1e-11
         rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max()
-        check(f"K8 fht [{label}] (per row, of the row's largest value)",
-              rel.item(), 1e-11)
-        B, N = a.shape
+        route = ("Bluestein" if bluestein else "power of two") + (
+            f", M = {M}, " + ("shared" if in_shared else "device")
+            + " memory")
+        check(f"K8 fht [{label}; {route}] (per row, of the row's largest "
+              "value)", rel.item(), 1e-11)
         # what the function needs: per row two real-data FFTs (2.5 N log2 N
         # operations each), the bias and unbias products and the product
         # with the coefficients (~8 operations a point); once for all rows
@@ -852,10 +894,32 @@ def compare_table_kernels(bf, torch, gpu):
         # log-gammas with their complex logs, a complex exponential)
         ops = (B * (5.0 * N * math.log2(N) + 8.0 * N) + 40.0 * N
                + 450.0 * (N // 2 + 1))
-        return (err, time_ms(torch, kern, reps), time_ms(torch, plain, reps)
-                ) + bound(nbytes(a, lx, op), ops, F64_FLOPS) + (None,)
+        # the library yardstick, partial: torch.fft.fft of the biased rows,
+        # the product with the coefficients (formed beforehand, untimed) and
+        # torch.fft.fft again, real part; the bias and unbias left out
+        dln = (lx[-1] - lx[0]) / (N - 1)
+        u = fftlog._u_coefficients(N, dln, mu, qs, ln_kcrc - lx[-1] + lx[0],
+                                   dev) / N
+        b = (a * torch.exp(-qs * (lx - lx[0]))).to(torch.float64)
 
-    # correlation_3d's transform: P(k) k^1.5 on K_GRID, mu = 1/2, q = -1/2
+        def library():
+            return torch.fft.fft(torch.fft.fft(b) * u).real
+        res = (err, time_ms(torch, kern, reps), time_ms(torch, plain, reps)
+               ) + bound(nbytes(a, lx, op), ops, F64_FLOPS) + (
+            time_ms(torch, library, reps),)
+        log(f"[{gpu}] K8 fht {label} ({route}): kernel {res[1]:.4f} ms, "
+            f"plain {res[2]:.4f} ms, bound {res[3]:.6f} ms ({res[4]}), "
+            f"library (torch.fft.fft twice, partial) {res[5]:.4f} ms; "
+            f"device alone (a CUDA graph of 20 calls): kernel "
+            f"{graph_ms(torch, kern):.4f} ms, library "
+            f"{graph_ms(torch, library):.4f} ms; f64 operations: the "
+            f"coefficients {450.0 * (N // 2 + 1):.0f}, the FFTs "
+            f"{B * 5.0 * N * math.log2(N):.0f}")
+        return res
+
+    # correlation_3d's transform: P(k) k^1.5 on K_GRID, mu = 1/2, q = -1/2:
+    # the only shape the S19 and tSZ table builds run (build_bench_table
+    # and build_tsz_table log theirs)
     k, pk = power.pk_grid(cosmo, a0, device=dev)
     out["fht"] = fht_case("correlation_3d, 1 x 1024", k,
                           (pk * k ** 1.5)[None], 0.5, -0.5, 50)
@@ -864,10 +928,14 @@ def compare_table_kernels(bf, torch, gpu):
     M20 = torch.as_tensor(np.geomspace(5e12, 2e15, 20), device=dev)
     rows = bf.Profiles.DarkMatter(**BPAR).real(cosmo, x, M20, a0)
     for mu in (0.0, 0.5):
-        res = fht_case(f"20 x 2048, mu = {mu}", x, rows * x ** 1.5, mu, -0.5,
-                       10)
-        log(f"[{gpu}] K8 fht 20 x 2048, mu = {mu}: kernel {res[1]:.4f} ms, "
-            f"plain {res[2]:.4f} ms, bound {res[3]:.4f} ms ({res[4]})")
+        fht_case(f"20 x 2048, mu = {mu}", x, rows * x ** 1.5, mu, -0.5, 10)
+    # Bluestein in shared memory (q on a Gamma pole) and a power of two on
+    # the device-memory route, on the DarkMatter profile of the first mass
+    for B, N, mu, q in ((3, 100, 0.0, -1.0), (1, 8192, 0.5, -0.5)):
+        xs = torch.as_tensor(np.geomspace(1e-7, 1e9, N), device=dev)
+        prof = bf.Profiles.DarkMatter(**BPAR).real(cosmo, xs, M20[:B], a0)
+        fht_case(f"{B} x {N}, mu = {mu}, q = {q}", xs, prof * xs ** 1.5, mu,
+                 q, 10)
 
     # K9 on the bench table's first redshift
     m = s19_model(bf, dev)
@@ -926,9 +994,8 @@ def compare_table_kernels(bf, torch, gpu):
         time_ms(torch, k9(table_rows.enclosed_mass_plain,
                           table_rows.displacement_rows_plain), 5)
     ) + bound(k9_bytes, k9_ops, F64_FLOPS) + (None,)
-    log(f"[{gpu}] K8 fht 1 x 1024: kernel {out['fht'][1]:.4f} ms, plain "
-        f"{out['fht'][2]:.4f} ms; K9 one redshift: kernel "
-        f"{out['table_rows'][1]:.4f} ms, plain {out['table_rows'][2]:.4f} ms")
+    log(f"[{gpu}] K9 one redshift: kernel {out['table_rows'][1]:.4f} ms, "
+        f"plain {out['table_rows'][2]:.4f} ms")
     return out
 
 
@@ -1057,6 +1124,31 @@ def table_phases(bf, torch, model, gpu):
     return ph
 
 
+def fht_shapes(fn):
+    """fn() with K8's wrapper logging each launch's (B, N) and the callers
+    that asked for it (the nearest three frames of the package outside
+    ops/). Returns (fn's result, {(B, N, callers): launches})."""
+    import collections
+    import traceback
+    from baryonforge_torch.ops import fftlog
+    seen = collections.Counter()
+    kernel = fftlog._fht_kernel
+
+    def recording(a, lx, *args, **kw):
+        frames = [f"{f.filename.split('baryonforge_torch/')[-1]}:{f.name}"
+                  for f in traceback.extract_stack()[:-1]
+                  if "baryonforge_torch/" in f.filename
+                  and "baryonforge_torch/ops/" not in f.filename]
+        B = a.numel() // lx.shape[0]
+        seen[(B, lx.shape[0], " < ".join(frames[::-1][:3]))] += 1
+        return kernel(a, lx, *args, **kw)
+    fftlog._fht_kernel = recording
+    try:
+        return fn(), dict(seen)
+    finally:
+        fftlog._fht_kernel = kernel
+
+
 def build_bench_table(bf, torch, gpu):
     """The bench's Schneider19 table built on the card from its profiles:
     the table path, with the launch counts set to 0 just before and read
@@ -1067,9 +1159,13 @@ def build_bench_table(bf, torch, gpu):
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = s19_model(bf, DEVICE).setup_interpolator(**BENCH_GRID)
+    model, shapes = fht_shapes(
+        lambda: s19_model(bf, DEVICE).setup_interpolator(**BENCH_GRID))
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
+    for (B, N, who), n in shapes.items():
+        log(f"  K8 in the bench table build: {n} launches at {B} x {N}, "
+            f"from {who}")
     want = {"fht": 2 * n_z, "enclosed_mass": 2 * n_z,
             "displacement_rows": n_z}
     for k, v in want.items():
@@ -1357,10 +1453,13 @@ def build_tsz_table(bf, torch, gpu):
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tab = bf.utils.TabulatedProfile(tsz_profile(bf), cosmo).setup_interpolator(
-        **BENCH_GRID)
+    tab, shapes = fht_shapes(lambda: bf.utils.TabulatedProfile(
+        tsz_profile(bf), cosmo).setup_interpolator(**BENCH_GRID))
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
+    for (B, N, who), n in shapes.items():
+        log(f"  K8 in the tSZ table build: {n} launches at {B} x {N}, "
+            f"from {who}")
     if launches.get("fht", 0) < 1:
         raise AssertionError(f"tSZ table build launched no K8: {launches}")
     t0 = time.perf_counter()
@@ -1440,6 +1539,40 @@ def anis_shell(bf, shell):
                                    redshift=ANIS_Z)
 
 
+def wide_anis_discs(halos, nside):
+    """Give three halos discs of 1.2-3 degrees (more than
+    ops.deposit.SPLIT_RINGS rings at NSIDE 1024: K13's whole-block route):
+    at the north pole, across phi = 0 and in the belt
+    (tests/test_torch_cuda.py: _wide_anis_discs)."""
+    pix = math.pi / (2 * nside)
+    for i, th, ph, deg in ((0, 0.0, None, 1.5), (3, 1.2, 0.3 * pix, 1.2),
+                           (4, 1.6, 2 * math.pi - 0.6 * pix, 3.0)):
+        halos["theta"][i] = th
+        if ph is not None:
+            halos["phi"][i] = ph
+        halos["radius"][i] = math.radians(deg)
+
+
+def k13_gathers(torch, w):
+    """K13's float64 map reads (mtot, orig) at its member pixels, from the
+    plain layout ``w`` (ops.deposit.disc_walk_plain): the warp requests
+    and the 32-byte sectors they touch in the flat walk (32 consecutive
+    candidates of a disc a request) and in the earlier ring walk (32
+    consecutive candidates of one ring a request)."""
+    m = w["member"]
+    halo, q, pix = w["halo"][m], w["q"][m], w["pix"][m]
+    first = torch.cumsum(w["span"], 1) - w["span"]
+    ring = torch.searchsorted(first[halo], q[:, None], right=True)[:, 0] - 1
+    off = q - first[halo, ring]
+    sector = pix // 4
+    out = []
+    for group in ((halo, q // 32), (halo, ring, off // 32)):
+        req = torch.unique(torch.stack(group, 1), dim=0).shape[0]
+        sec = torch.unique(torch.stack(group + (sector,), 1), dim=0).shape[0]
+        out.append((req, sec))
+    return out
+
+
 def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
     """K12, K13 and K14 against their plain versions on the card, on this
     catalog, with (log, log) and (raw, log) curve pairs, in float64 and
@@ -1447,7 +1580,7 @@ def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
     every 7th pixel 0, K14 in both forms. Returns {kernel: (max_abs_err,
     ms, plain_ms, bound_ms, bound_by, library_ms)} for the bench
     configuration (float32, log curves) when ``timing``."""
-    from baryonforge_torch.ops import paint
+    from baryonforge_torch.ops import deposit, paint
     from baryonforge_torch.ops import tile_deposit as td
     dev = torch.device(DEVICE)
     nside = shell.NSIDE
@@ -1524,6 +1657,36 @@ def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
                                     nside, halos, c1, r1, d1, l1,
                                     reach=paint.VEC_SINHD_REACH,
                                     second=second))
+            w = deposit.disc_walk_plain(nside, halos["theta"], halos["phi"],
+                                        halos["radius"], dt)
+            log(f"  [{tag}] K13 routes: {int((~w['block']).sum())} discs a "
+                f"warp, {int(w['block'].sum())} on the whole block; "
+                f"{int(w['member'].sum())} member pixels of "
+                f"{w['member'].numel()} candidates")
+            if timing:
+                # the whole-block route beside the warps' at the bench
+                wide = {k: v.clone() for k, v in halos.items()}
+                wide_anis_discs(wide, nside)
+                blk = deposit.disc_walk_plain(nside, wide["theta"],
+                                              wide["phi"], wide["radius"],
+                                              dt)["block"]
+                if not (blk.any() and (~blk).any()):
+                    raise AssertionError(f"K13 [{tag}]: a route is missing")
+                wk = paint.disc_paint_anis(nside, wide, painting, canvas,
+                                           mtot, orig, False)
+                wp = paint.disc_paint_anis_plain(nside, wide, painting,
+                                                 canvas, mtot, orig, False)
+                wtag = f"{tag}, {int(blk.sum())} discs on the block route"
+                if dt == torch.float64:
+                    check(f"K13 disc_paint_anis [{wtag}]",
+                          (wk - wp).abs().max().item(),
+                          1e-10 * wp.abs().max().item())
+                else:
+                    paint_f32_check(f"K13 disc_paint_anis [{wtag}]", wk, wp,
+                                    *paint.float32_tolerance(
+                                        nside, wide, c1, r1, d1, l1,
+                                        reach=paint.VEC_SINHD_REACH,
+                                        second=second))
             if not (timing and dt == torch.float32 and kinds[0] == "log"):
                 continue
             # K12: per pair-slot ~35 operations (chord, log, two lerps, one
@@ -1534,12 +1697,12 @@ def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
                     tiling, csr, pack, *grid), 3)) + bound(
                 nbytes(csr, pack, ak), 35.0 * csr[2].numel() * tiling.P,
                 F32_FLOPS) + (None,)
-            # K13: its disc pixels (sum of pi r^2 over the pixel area), ~60
-            # float32 operations (pixel centre, unit vector) and ~60 float64
-            # ones (two lookups with their log and exp) each; halos and
-            # curves read, the canvas and map read at the disc pixels, the
-            # map written
-            pixels = npix * float(np.sum(hd["radius"] ** 2)) / 4.0
+            # K13: its member pixels (this run's, ops.deposit.
+            # disc_walk_plain), ~60 float32 operations (pixel centre, unit
+            # vector) and ~60 float64 ones (two lookups with their log and
+            # exp) each; halos and curves read, the canvas and map read at
+            # the member pixels, the map written
+            pixels = float(w["member"].sum())
             out["disc_paint_anis"] = (err13, time_ms(
                 torch, lambda: paint.disc_paint_anis(
                     nside, halos, painting, canvas, mtot, orig, False), 10),
@@ -1556,8 +1719,20 @@ def compare_anis_kernels(bf, torch, models, cat, shell, eps, label, timing):
                 time_ms(torch, lambda: paint.anis_finish_plain(
                     hs, mt, orig, 0.3, 0.1, 1.0, True), 10)) + bound(
                 nbytes(hs, mt, orig, fk), 8.0 * npix, F64_FLOPS) + (None,)
+            k13_ms = graph_ms(torch, lambda: paint.disc_paint_anis(
+                nside, halos, painting, canvas, mtot, orig, False))
+            zeros_ms = graph_ms(torch, lambda: torch.zeros(
+                npix, dtype=torch.float64, device=dev))
+            log(f"[{gpu_line()}] K13 device alone (a CUDA graph of 20 "
+                f"calls): "
+                f"{k13_ms:.4f} ms, of which the map's torch.zeros "
+                f"{zeros_ms:.4f} ms")
+            (fr, fs), (rr, rs) = k13_gathers(torch, w)
             log(f"  K12 pair-slots {csr[2].numel() * tiling.P}, K13 disc "
-                f"pixels ~{pixels:.0f}")
+                f"pixels {pixels:.0f}; K13's map reads at its member "
+                f"pixels: {fr} warp requests over {fs} 32-byte sectors "
+                f"({fs / fr:.2f} a request) in the flat walk, {rr} over "
+                f"{rs} ({rs / rr:.2f}) in the earlier ring walk")
     return out
 
 
@@ -2477,26 +2652,33 @@ SM_REGS, SM_SMEM, SM_WARPS, SM_BLOCKS = 65536, 233472, 64, 32
 
 
 def ptxas_report(bf):
-    """Registers and spills of K5's and K19's kernels (nvcc -Xptxas -v with
-    the build's own flags, both sources at once) and the warps an SM holds
-    at the bench's launch shapes (256 threads a block for each, the
-    stencil with its dynamic shared memory)."""
+    """Registers and spills of K5's, K8's, K13's and K19's kernels (nvcc
+    -Xptxas -v with the build's own flags, their sources at once) and the
+    warps an SM holds at the bench's launch shapes (the stencil with its
+    dynamic shared memory, K8 with correlation_3d's 1 x 1024 row, 32 KB,
+    and its Bluestein route with N = 100's, 12 KB)."""
     import re
     import tempfile
     from baryonforge_torch.ops import _build
     lib = _build.library()
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     threads = {"stencil_kernel": 256, "stencil_hot_kernel": 256,
-               "legendre_kernel": 256}
-    smem = {"f": lib.bf_stencil_smem_bytes(16, 32, 2, 5, 0),
-            "d": lib.bf_stencil_smem_bytes(16, 32, 2, 5, 1)}
+               "legendre_kernel": 256, "fht_kernel": 512,
+               "disc_paint_anis_kernel": 256}
+    smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
+                16, 32, 2, 5, 0),
+            ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
+                16, 32, 2, 5, 1),
+            ("fht_kernel", "0"): 4 * 1024 * 8,
+            ("fht_kernel", "1"): 6 * 256 * 8}
+    sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
                                         str(_build._CSRC / src), "-o",
                                         os.path.join(tmp, src + ".o")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("stencil.cu", "sht.cu")]
+            for src in sources]
         outs = [p.communicate()[0] for p in procs]
     for p, text in zip(procs, outs):
         if p.returncode != 0:
@@ -2505,9 +2687,11 @@ def ptxas_report(bf):
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"'\w*?\d+(stencil_kernel|stencil_hot_kernel|"
-                              r"legendre_kernel)(?:I([fd]+)E)?", line)
-                key, targs = (m.group(1), m.group(2) or "") if m else (
-                    None, "")
+                              r"legendre_kernel|fht_kernel|"
+                              r"disc_paint_anis_kernel)"
+                              r"(?:I(?:([fd]+)|Lb([01]))E)?", line)
+                key, targs = (m.group(1), m.group(2) or m.group(3) or "") \
+                    if m else (None, "")
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
@@ -2516,14 +2700,17 @@ def ptxas_report(bf):
             if not (m and key):
                 continue
             regs = int(m.group(1))
-            sm = smem[targs[1]] if key == "stencil_kernel" else 0
+            sm = smem.get((key, targs[-1:]), 0)
             warps = threads[key] // 32
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(SM_REGS // (per_warp * warps), SM_WARPS // warps,
                          SM_BLOCKS, SM_SMEM // (sm + 1024) if sm
                          else SM_BLOCKS)
-            kinds = ", ".join("float" if c == "f" else "double"
-                              for c in targs)
+            if key == "fht_kernel":
+                kinds = "Bluestein" if targs == "1" else "power of two"
+            else:
+                kinds = ", ".join("float" if c == "f" else "double"
+                                  for c in targs)
             name = f"{key}<{kinds}>" if targs else key
             log(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled, "
                 f"{sm} bytes of dynamic shared memory; {threads[key]} "

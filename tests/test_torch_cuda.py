@@ -13,17 +13,16 @@ geometry of K10 and K12; K13's unit vectors with their own reach and both
 curves' slopes), pixels painted on one side only allowed at disc edges
 alone; float32 grid offsets (K15) and maps (K16) to 1e-5 of the largest
 value (float32 sums in another order); K14 to 1e-15 (the same
-operations); K8 (FFTLog) to 1e-11 of the largest value (direct DFT sums
+operations); K8 (FFTLog) to 1e-11 of each row's largest value (its FFTs
 against torch.fft's: two correct summation orders differ by up to ~4e-12
-of it on wide grids), K9
-(table rows) to 1e-12 with equal NaN masks; float32 deposits to the JAX
-package's edge-jitter bounds
+of it on wide grids), K9 (table rows) to 1e-12 with equal NaN masks;
+float32 deposits to the JAX package's edge-jitter bounds
 (tests/test_tiled_deposit.py:61-63); float32 regrids to the float32
 weight noise, 1e-6 * nside of the largest source value. The tile layouts
 (K7), the hot-tile test (K5) and the source list's integers (K6) must be
 equal, and so must the stencil (K5: the same operations in the same
-order as its plain version); K6's angles agree to a few ulps (the
-device's asin against torch's).
+order as its plain version) and K13's per-ring pixel angles and pix2ang's;
+K6's angles agree to a few ulps (the device's asin against torch's).
 K15 bitwise equal from call to call (no atomics).
 K17 (snapshot displacement) float64 to 1e-10 of the largest offset, float32
 to tests/test_snapshot.py:67 (atol 5e-4, rtol 1e-3); K18 (ring modes)
@@ -396,23 +395,43 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
 
 
 # ---- the table build: K8 FFTLog, K9 table rows -----------------------------
-@pytest.mark.parametrize("B,N,mu,q", [(1, 1024, 0.5, -0.5),
-                                      (20, 2048, 0.5, -0.5),
-                                      (20, 2048, 0.0, -0.5),
-                                      (3, 100, 0.0, -1.0)])
-def test_fht_kernel(dev, B, N, mu, q):
-    """K8 on correlation_3d's grid (B = 1, N = 1024), on a Fourier-like
-    batch (B = 20, N = 2048) and on a length that is no power of two with
-    q on a Gamma pole, against its plain version."""
+@pytest.mark.parametrize("B,N,mu,q,smem", [
+    (1, 1024, 0.5, -0.5, None), (20, 2048, 0.5, -0.5, None),
+    (20, 2048, 0.0, -0.5, None), (3, 100, 0.0, -1.0, None),
+    (1, 4096, 0.5, -0.5, None), (2, 3000, 0.0, -0.5, None),
+    (1, 8192, 0.5, -0.5, None), (2, 12288, 0.5, -0.5, None),
+    (20, 1024, 0.0, -0.5, None), (3, 100, 0.0, -1.0, 2048),
+    (200, 128, 0.5, -0.5, 2048)])
+def test_fht_kernel(dev, B, N, mu, q, smem):
+    """K8 on correlation_3d's grid (B = 1, N = 1024: the S19 and tSZ table
+    builds' only shape), on a Fourier-like batch (B = 20, N = 2048), on
+    a Pixel convolution's batch (20 x 1024), on a length that is no power
+    of two with q on a Gamma pole, on the longest power of two whose row
+    fits shared memory (4096), and on the device-memory route: Bluestein at
+    N = 3000, a power of two at 8192, FHT_MAX_N = 12288, and both routes
+    forced at small N with 2048 bytes of shared memory (200 rows: more
+    than the route's blocks, so a block takes several); against its plain
+    version."""
     rng = np.random.default_rng(N)
     x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
     a = torch.as_tensor(np.exp(-np.geomspace(1e-4, 1e4, N)[None]
                                * rng.uniform(0.5, 2.0, (B, 1))), device=dev)
-    _build.reset_launches()
-    k, ok = fftlog.fht(x, a, mu, q)
-    assert _build.launches["fht"] == 1
     lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
-    op = fftlog.fht_plain(a, lx, mu, fftlog._safe_q(mu, q), ln_kcrc)
+    qs = fftlog._safe_q(mu, q)
+    _build.reset_launches()
+    if smem is None:
+        k, ok = fftlog.fht(x, a, mu, q)
+        smem = fftlog.shared_memory_optin(dev)
+    else:
+        k, ok = fftlog._fht_kernel(x, a, mu, qs, ln_kcrc, smem_bytes=smem)
+    assert _build.launches["fht"] == 1
+    # the k grid, written by the kernel
+    kp = torch.exp(ln_kcrc - lx[-1] + torch.arange(N, device=dev)
+                   * ((lx[-1] - lx[0]) / (N - 1)))
+    torch.testing.assert_close(k, kp, rtol=1e-14, atol=0)
+    _, _, in_shared = fftlog.fht_plan(N, smem)
+    assert in_shared == (N in (100, 1024, 2048, 4096) and smem > 2048)
+    op = fftlog.fht_plain(a, lx, mu, qs, ln_kcrc)
     # each row to 1e-11 of its own largest value (two correct summation
     # orders differ by 2.2e-12: test_torch_fftlog.py)
     assert ok.shape == op.shape and ok.dtype == op.dtype
@@ -657,18 +676,39 @@ def test_tile_paint2_kernel(dev, kinds, dt, nside, eps):
                          marginal)
 
 
+def _wide_anis_discs(halos, nside):
+    """Give a few halos discs of 1-3 degrees, more than SPLIT_RINGS rings
+    at NSIDE 1024 (K13's whole-block route): at a pole, across phi = 0
+    and in the belt."""
+    pix = np.pi / (2 * nside)
+    for i, th, ph, deg in ((0, None, None, 1.5), (3, 1.2, 0.3 * pix, 1.2),
+                           (4, 1.6, 2 * np.pi - 0.6 * pix, 3.0)):
+        if th is not None:
+            halos["theta"][i] = th
+            halos["phi"][i] = ph
+        halos["radius"][i] = np.radians(deg)
+
+
 @pytest.mark.parametrize("kinds", [("log", "log"), ("raw", "log")],
                          ids=["log-log", "raw-log"])
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("pix", [False, True], ids=["value", "pixel_size"])
-@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20), (1024, 5)])
 def test_disc_paint_anis_kernel(dev, kinds, dt, pix, nside, eps):
     """K13 against its plain version: float64 to 1e-10 of the largest
     value (atomic sums in another order), float32 per pixel to
     ops.paint.float32_tolerance with the unit vectors' reach and both
-    curves' slopes."""
+    curves' slopes. At NSIDE 1024 the bench's epsilon_max 5 gives discs of
+    a few rings (a warp each) and three discs of 1.2-3 degrees run the
+    whole-block route."""
     _, shell, hd, curves = _anis_prep(nside, eps, kinds, dt, dev)
     halos = _halos(hd, dev)
+    if nside == 1024:
+        _wide_anis_discs(halos, nside)
+    block = deposit.disc_walk_plain(nside, halos["theta"], halos["phi"],
+                                    halos["radius"], dt)["block"]
+    assert (~block).any()
+    assert block.any() == (nside == 1024)
     g = torch.Generator(device=dev).manual_seed(5)
     npix = 12 * nside * nside
     mtot = torch.rand(npix, dtype=torch.float64, device=dev, generator=g)
@@ -689,6 +729,24 @@ def test_disc_paint_anis_kernel(dev, kinds, dt, pix, nside, eps):
         _paint_f32_close(ak, ap, *paint.float32_tolerance(
             nside, halos, c1, r1, d1, l1, reach=paint.VEC_SINHD_REACH,
             second=(c2, r2, d2, l2)))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside", [64, 256, 1024])
+def test_ring_angles_are_pix2ang(dev, dt, nside):
+    """K13 takes a pixel's theta (so sin and cos theta) from its ring
+    (ring_theta) and its phi from pix2ang's formula on the ring and index:
+    on the card both equal pix2ang's, bit for bit, for every pixel."""
+    _build.reset_launches()
+    tr, pr = paint.pixel_angles(nside, dt, dev, per_ring=True)
+    tp, pp = paint.pixel_angles(nside, dt, dev, per_ring=False)
+    assert _build.launches["pixel_angles"] == 2
+    assert torch.equal(tr, tp) and torch.equal(pr, pp)
+    # and the card's pix2ang is the plain version's to a few ulps
+    tc, pc = paint.pixel_angles_plain(nside, dt, False)
+    eps = torch.finfo(dt).eps
+    assert ((tp.cpu() - tc).abs() <= 8 * eps * tc.abs()).all()
+    assert ((pp.cpu() - pc).abs() <= 8 * eps * pc.abs()).all()
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)

@@ -1,0 +1,148 @@
+"""The routes of kernels K8 (FFTLog) and K13 (the anisotropic disc paint),
+checked on the CPU against the JAX package.
+
+K8 runs a row as one FFT in shared memory (a power of two up to 4096
+points on the H100), as Bluestein's chirp convolution in shared memory
+(any other N up to 2048), or as either on a slot of device memory (longer
+rows); ``ops.fftlog.fht_plan`` picks the route. Its plain version,
+``fht_plain``, is held against the JAX ``fht`` at the lengths where the
+route changes: N = 2048 (a power of two in shared memory) and N = 3000
+(Bluestein on device memory), to tests/test_torch_fftlog.py's tolerance
+(1e-12 of the largest value). A power of two past 4096 is left out: the
+JAX ``fht`` forms two N x N DFT matrices, 1 GB at N = 8192.
+
+K13 walks K2's flat layout of each disc (``deposit.disc_walk_plain``), so
+its member set must be the JAX scatter body's, the mask of
+``ops.healpix.disc_pixels``: on the catalog of tests/test_torch_anis.py
+(24 halos, z 0.1 to 0.4, epsilon_max 20) with discs added at both poles,
+across phi = 0 and under 4 members, at NSIDE 64 and 256, in float32 and
+float64. K13 also takes a pixel's theta from its ring: the plain per-ring
+angles equal pix2ang's bit for bit at NSIDE 64 and 256 (the card test
+holds the kernel's at NSIDE 64, 256 and 1024).
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax                                                  # noqa: E402
+import jax.numpy as jnp                                     # noqa: E402
+
+from baryonforge_tpu.ops import fftlog as jf                # noqa: E402
+from baryonforge_tpu.ops import healpix as jhpx             # noqa: E402
+import baryonforge_torch as bf                              # noqa: E402
+from baryonforge_torch.ops import deposit                   # noqa: E402
+from baryonforge_torch.ops import fftlog as tf              # noqa: E402
+from baryonforge_torch.ops import paint                     # noqa: E402
+
+from defaults import COSMO_DICT                             # noqa: E402
+from test_torch_anis import KW, catalog                     # noqa: E402
+from test_torch_integrate_interp import close               # noqa: E402
+
+# the H100's opt-in shared memory a block (bytes)
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("N,route", [
+    (2, (2, False, True)), (100, (256, True, True)),
+    (1024, (1024, False, True)), (2048, (2048, False, True)),
+    (2049, (8192, True, False)), (3000, (8192, True, False)),
+    (4096, (4096, False, True)), (8192, (8192, False, False)),
+    (tf.FHT_MAX_N, (32768, True, False))])
+def test_fht_plan_routes(N, route):
+    """A power of two runs its own FFT in 4 M doubles, any other N
+    Bluestein's of the least power of two M >= 2 N - 1 in 6 M; shared
+    memory holds M <= 4096 (power of two) or M <= 4096 with Bluestein
+    (N <= 2048) of the H100's 232,448 bytes."""
+    M, bluestein, in_shared = tf.fht_plan(N, H100_SMEM)
+    assert (M, bluestein, in_shared) == route
+    assert M & (M - 1) == 0
+    assert M >= 2 * N - 1 if bluestein else M == N
+    assert in_shared == ((6 if bluestein else 4) * M * 8 <= H100_SMEM)
+
+
+@pytest.mark.parametrize("N", [2048, 3000])
+@pytest.mark.parametrize("mu,q", [(0.5, -0.5), (0.0, -1.0)])
+def test_fht_plain_matches_jax_at_route_lengths(N, mu, q):
+    """(0, -1) puts q on a Gamma pole, nudged by both packages."""
+    rng = np.random.default_rng(N)
+    x = np.geomspace(1e-4, 1e3, N)
+    a = np.exp(-x[None] * rng.uniform(0.5, 2.0, (2, 1))) * x ** 0.5
+    kt, at = tf.fht(torch.as_tensor(x), torch.as_tensor(a), mu, q)
+    for b in range(2):
+        kj, aj = jf.fht(jnp.asarray(x), jnp.asarray(a[b]), mu, q)
+        close(kt, kj)
+        close(at[b], aj)
+
+
+def _halos(nside):
+    """The Anis test catalog's discs (epsilon_max 20, R200c over the
+    angular diameter distance, as the runners' _host_halo_data), with
+    discs through each pole, across phi = 0 from either side and under 4
+    members."""
+    cols, _ = catalog()
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO_DICT)
+    a = 1.0 / (1.0 + cols["z"])
+    R = bf.cosmo.MassDef200c.get_radius(cosmo, cols["M"], a).numpy()
+    D = bf.cosmo.angular_diameter_distance(cosmo, a).numpy()
+    theta = np.radians(90.0 - cols["dec"])
+    phi = np.radians(cols["ra"])
+    radius = R * KW["epsilon_max"] / D
+    pix = np.pi / (2 * nside)
+    for i, th, ph, rad in ((0, 0.2 * pix, 1.0, 2.5 * pix),
+                           (1, np.pi - 0.3 * pix, 3.0, 3.0 * pix),
+                           (2, None, 0.2 * pix, None),
+                           (3, None, 2 * np.pi - 0.4 * pix, None),
+                           (4, 1.3, 0.7, 0.3 * pix), (5, 2.2, 5.1, 0.6 * pix)):
+        if th is not None:
+            theta[i] = th
+        phi[i] = ph
+        if rad is not None:
+            radius[i] = rad
+    return theta, phi, radius
+
+
+def _pairs(halo, pix):
+    h, p = np.asarray(halo, np.int64), np.asarray(pix, np.int64)
+    return np.unique(h * (1 << 32) + p)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("nside", [64, 256])
+def test_flat_walk_members_match_jax(nside, dt):
+    theta, phi, radius = _halos(nside)
+    jdt = {"f64": jnp.float64, "f32": jnp.float32}[dt]
+    K_ring, K_phi = jhpx.disc_pad_sizes(nside, float(radius.max()))
+    pix, mask = jax.vmap(lambda t, p, r: jhpx.disc_pixels(
+        nside, t, p, r, K_ring, K_phi, jdt))(jnp.asarray(theta),
+                                             jnp.asarray(phi),
+                                             jnp.asarray(radius))
+    pix, mask = np.asarray(pix), np.asarray(mask)
+    halo = np.broadcast_to(np.arange(theta.size)[:, None], pix.shape)
+    want = _pairs(halo[mask], pix[mask])
+    w = deposit.disc_walk_plain(
+        nside, torch.as_tensor(theta), torch.as_tensor(phi),
+        torch.as_tensor(radius),
+        {"f64": torch.float64, "f32": torch.float32}[dt])
+    m = w["member"]
+    got = _pairs(w["halo"][m], w["pix"][m])
+    assert w["member"].sum() == got.size            # no pixel twice
+    np.testing.assert_array_equal(got, want)
+    counts = np.bincount(halo[mask], minlength=theta.size)
+    assert (counts < 4).any() and (counts > 4).any()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nside", [64, 256])
+def test_ring_angles_are_pix2ang_plain(nside, dt):
+    tr, pr = paint.pixel_angles(nside, dt, "cpu", per_ring=True)
+    tp, pp = paint.pixel_angles(nside, dt, "cpu", per_ring=False)
+    assert torch.equal(tr, tp) and torch.equal(pr, pp)
+    assert tr.numel() == 12 * nside * nside
+    # the belt's last pixel sits at 2 pi - pi / (4 N)
+    assert math.isclose(float(pr.max()), 2 * math.pi - math.pi / (4 * nside),
+                        rel_tol=1e-6)
