@@ -8,8 +8,10 @@ SnapshotRunner.py:162-275):
               scale and the cut eps Rcom (numpy float64)
   neighbours  the (halo, particle) pairs within R_q, grouped per halo: the
               port's periodic cell list in 3D (``native``), scipy's cKDTree
-              in 2D; cached on the device, keyed by the catalog's content
-              and the radii
+              in 2D; and their particle-major layout, K17's input
+              (ops/snapshot.particle_layout, a sort on the device); both
+              cached on the device, keyed by the catalog's content and the
+              radii
   K1          per-halo displacement curves at the single redshift
               (ops/interp.collapse_curves), in the runner's dtype
   K17         every pair's displacement summed per particle
@@ -29,7 +31,7 @@ import torch
 from ..cosmo import core as _core
 from ..cosmo import massdef as _massdef
 from ..native import cell_query
-from ..ops.snapshot import snapshot_displace
+from ..ops.snapshot import particle_layout, snapshot_displace
 from ..ops.tiles import pairs_csr
 from .HealpixRunner import _PhaseClock
 
@@ -86,7 +88,7 @@ class DefaultRunnerSnapshot:
         self._kdtree_kwargs = KDTree_kwargs or {}
         self._tree = None
         self._coords_dev = None
-        self._pairs = None          # (key, device CSR)
+        self._pairs = None          # (key, device CSR, K17's layout)
         # milliseconds of each phase of the last process() call (see
         # _PhaseClock): host_prep, neighbours, curves, displace, download
         self.timings = {}
@@ -118,14 +120,17 @@ class DefaultRunnerSnapshot:
         self._pairs = None
 
     def _neighbour_pairs(self, hpos, R_q):
-        """The (halo, particle) pairs within R_q, grouped per halo, on the
-        device: (halos, offsets, parts) int32, as ops.tiles.pairs_csr
-        groups them (halos without particles have no row)."""
+        """The (halo, particle) pairs within R_q on the device: (the
+        halo-major CSR (halos, offsets, parts) int32, as ops.tiles.pairs_csr
+        groups them, halos without particles having no row; its
+        particle-major layout (order, poff, prow), as
+        ops.snapshot.particle_layout builds it), built once per catalog
+        content and radii (a parameter sweep reuses them)."""
         key = (self._catalog_token(),
                hashlib.blake2b(np.ascontiguousarray(R_q).tobytes(),
                                digest_size=16).hexdigest())
         if self._pairs is not None and self._pairs[0] == key:
-            return self._pairs[1]
+            return self._pairs[1:]
         L = self.ParticleSnapshot.L
         if self.ParticleSnapshot.is2D:
             lists = self.tree.query_ball_point(np.mod(hpos, L), R_q)
@@ -141,8 +146,12 @@ class DefaultRunnerSnapshot:
         halo_of = np.repeat(np.arange(counts.size, dtype=np.int32), counts)
         csr = tuple(torch.as_tensor(x, device=self.device)
                     for x in pairs_csr(halo_of, idx))
-        self._pairs = (key, csr)
-        return csr
+        if self._coords_dev is None:
+            self._coords_dev = torch.as_tensor(self._coords,
+                                               device=self.device)
+        layout = particle_layout(self._coords_dev, L, *csr[1:])
+        self._pairs = (key, csr, layout)
+        return csr, layout
 
 
 class BaryonifySnapshot(DefaultRunnerSnapshot):
@@ -175,9 +184,10 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         return new_cat
 
     def _displace_inputs(self, clock):
-        """The host prep, the neighbour pairs and the curves (K1, in the
-        runner's dtype), marked host_prep, neighbours and curves on
-        ``clock``: the arguments of ops.snapshot.snapshot_displace."""
+        """The host prep, the neighbour pairs with their particle-major
+        layout and the curves (K1, in the runner's dtype), marked
+        host_prep, neighbours and curves on ``clock``: the arguments of
+        ops.snapshot.snapshot_displace."""
         model = self.model
         if not hasattr(model, "halo_curves"):
             raise NotImplementedError(
@@ -207,14 +217,12 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         if n_part >= np.iinfo(np.int32).max:
             raise ValueError(
                 f"n_part={n_part} exceeds int32 neighbour indexing")
-        if self._coords_dev is None:
-            self._coords_dev = torch.as_tensor(self._coords, device=dev)
         hpos_dev = torch.as_tensor(hpos, device=dev)
         rscale_dev = torch.as_tensor(rscale.astype(npdt), device=dev)
         edge_dev = torch.as_tensor(eps_edge.astype(npdt), device=dev)
         clock.mark("host_prep")
 
-        halos, offsets, parts = self._neighbour_pairs(hpos, R_q)
+        (halos, offsets, parts), layout = self._neighbour_pairs(hpos, R_q)
         clock.mark("neighbours")
 
         curves, ln_r0, dlnr = model.with_dtype(dt, device=dev).halo_curves(
@@ -222,4 +230,4 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         clock.mark("curves")
         return (self._coords_dev, hpos_dev, halos, offsets, parts,
                 curves.to(dt), float(ln_r0), float(dlnr), rscale_dev,
-                edge_dev, L)
+                edge_dev, L, layout)

@@ -307,8 +307,10 @@ int bf_fht_f64(int B, int N, int M, int bluestein, int in_shared,
                const double* a, const double* x, double mu, double q,
                double ln_kcrc, double* scratch, double* k, double* out,
                void* stream) {
-  const bool pow2 = M >= 2 && (M & (M - 1)) == 0;
-  if (B < 0 || N < 2 || !pow2 || (bluestein ? M < 2 * N - 1 : M != N))
+  // the slot's arrays start at up to 5 M doubles: int indices hold M <=
+  // 2^28
+  const bool pow2 = M >= 2 && M <= (1 << 28) && (M & (M - 1)) == 0;
+  if (B < 0 || N < 2 || !pow2 || (bluestein ? M < 2LL * N - 1 : M != N))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = (cudaStream_t)stream;
   return bluestein ? launch<true>(B, N, M, in_shared != 0, a, x, mu, q,

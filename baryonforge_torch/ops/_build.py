@@ -86,6 +86,8 @@ def _signatures():
         "bf_legendre_chains_per_block": [],
         "bf_stencil_smem_bytes": [_I] * 5,
         "bf_tile_pairs": [_I] * 7 + [_P, _P, _D, _P, _I, _P, _P, _P],
+        "bf_snapshot_record_bytes": [_I],
+        "bf_grid_deposit_tile": [_I, _I],
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
@@ -112,8 +114,8 @@ def _signatures():
         sig[f"bf_pixel_angles_{sfx}"] = [_I, _I, _P, _P, _P]
         sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
-        sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _I, _D] + [_P] * 6 \
-            + [_I, _D, _D] + [_P] * 4
+        sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \
+            + [_I, _D, _D, _P, _P]
     return sig
 
 

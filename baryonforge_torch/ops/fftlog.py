@@ -23,9 +23,9 @@ from . import _build
 from .interp import interp
 from .sht import shared_memory_optin
 
-__all__ = ["loggamma", "fht", "fht_plain", "fht_plan", "sph_fourier_3d",
-           "sph_inverse_3d", "proj_fourier_2d", "proj_inverse_2d",
-           "xi_from_pk", "convolve_profile"]
+__all__ = ["loggamma", "fht", "fht_plain", "fht_plan", "FHT_MAX_M",
+           "sph_fourier_3d", "sph_inverse_3d", "proj_fourier_2d",
+           "proj_inverse_2d", "xi_from_pk", "convolve_profile"]
 
 # Lanczos approximation, g=7, n=9 (the JAX package's coefficients; about
 # 1e-13 relative over the domain FFTLog uses). csrc/fftlog.cu holds the
@@ -162,8 +162,12 @@ def fht_plain(a, lx, mu, q, ln_kcrc):
     return torch.exp(-q * (ln_k0x0 + j * dln)) * out
 
 
-# the longest row K8 takes (the card tests run it)
-FHT_MAX_N = 12288
+# the longest FFT K8 runs for a row (its M): a power of two up to this
+# length, any other N up to half of it (Bluestein's M >= 2 N - 1). The
+# card tests hold both ends within 1e-11. At this M a row's one block
+# takes ~50 ms and a device-memory slot 32 or 48 bytes a point (64 or 100
+# MB); the kernel's int indices would hold M up to 2^28
+FHT_MAX_M = 1 << 21
 
 
 def fht_plan(N, smem_bytes):
@@ -186,14 +190,17 @@ def _fht_kernel(x, a, mu, q, ln_kcrc, smem_bytes=None):
     default), so a test can force the device-memory route. Returns (k,
     the (..., N) transform)."""
     N = x.shape[-1]
-    if not 2 <= N <= FHT_MAX_N:
-        raise ValueError(f"fht on CUDA: N = {N} outside [2, {FHT_MAX_N}]")
-    rows = a.reshape(-1, N).to(torch.float64).contiguous()
-    x = x.to(device=a.device, dtype=torch.float64).contiguous()
-    B = rows.shape[0]
+    if N < 2:
+        raise ValueError(f"fht on CUDA: N = {N} < 2")
     if smem_bytes is None:
         smem_bytes = shared_memory_optin(a.device)
     M, bluestein, in_shared = fht_plan(N, smem_bytes)
+    if M > FHT_MAX_M:
+        raise ValueError(f"fht on CUDA: N = {N} needs an FFT of {M} points, "
+                         f"over FHT_MAX_M = {FHT_MAX_M}")
+    rows = a.reshape(-1, N).to(torch.float64).contiguous()
+    x = x.to(device=a.device, dtype=torch.float64).contiguous()
+    B = rows.shape[0]
     lib = _build.library()
     scratch = None
     if not in_shared:

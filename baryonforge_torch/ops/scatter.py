@@ -12,15 +12,26 @@ right.
 BaryonifyGrid's regrid (Map2DRunner.py:447-466), every cell of the grid
 moved from its lattice point by its offset and deposited so; its plain
 version ``grid_deposit_plain`` builds the lattice plus offsets and calls
-the plain deposits.
+the plain deposits. K16 sums a tile of sources (``TILE``) into a window of
+the tile in shared memory, grown by one cell on each side; corners outside
+it go straight to the map, and the window is flushed into the map at the
+end. ``grid_deposit_windows_plain`` does that bookkeeping in torch (not
+the kernel's merge of neighbouring lanes' shared corners, which changes
+only the order of the sums).
 """
+
+import itertools
 
 import torch
 
 from . import _build
 
 __all__ = ["deposit_2d_plain", "deposit_3d_plain", "grid_deposit",
-           "grid_deposit_plain"]
+           "grid_deposit_plain", "grid_deposit_windows_plain", "TILE"]
+
+# K16's tile of sources a block, the last axis fastest (``Tile`` in
+# csrc/grid_deposit.cu; bf_grid_deposit_tile reports the kernel's)
+TILE = {2: (16, 64), 3: (8, 8, 32)}
 
 
 def _jnp_mod(x, n):
@@ -90,6 +101,77 @@ def grid_deposit_plain(offsets, orig, npix, ndim):
     grid = torch.zeros((npix,) * ndim, dtype=rdt, device=orig.device)
     deposit = deposit_2d_plain if ndim == 2 else deposit_3d_plain
     return deposit(grid, pos.T, orig).reshape(-1)
+
+
+def grid_deposit_windows_plain(offsets, orig, npix, ndim, tile=None,
+                               counts=None):
+    """K16's bookkeeping in torch, for any ``tile`` (K16's, ``TILE[ndim]``,
+    by default): each source's corners as the plain deposits weight them;
+    a corner whose value is exactly 0 skipped (adding +-0 to a map that
+    starts at +0 changes no sum; a non-finite value times a zero weight is
+    NaN, and kept); a corner inside its tile's window (the tile grown by one
+    cell on each side, indices wrapped periodically) summed into the
+    window, any other added into the map; then every nonzero window entry
+    added into the map at its wrapped cell. Arguments and result as
+    :func:`grid_deposit`. ``counts``, a dict, receives the numbers of
+    sources, of sources whose offsets are all 0 (a non-finite one counting
+    as 0), of corners kept, of those spilled past the window, and of window
+    entries flushed."""
+    tile = TILE[ndim] if tile is None else tuple(tile)
+    rdt, dev, N = orig.dtype, orig.device, npix
+    po = torch.where(torch.isfinite(offsets), offsets,
+                     torch.zeros_like(offsets))
+    lat = lattice(N, ndim, dev)
+    pos = lat.to(rdt) + po.to(rdt)
+    cw = [_corner_weights_1d(pos[d], N) for d in range(ndim)]
+    nt = [-(-N // t) for t in tile]
+    win = [t + 2 for t in tile]
+    wvol = 1
+    for w in win:
+        wvol *= w
+    tix = [lat[d] // tile[d] for d in range(ndim)]
+    org = [torch.remainder(tix[d] * tile[d] - 1, N) for d in range(ndim)]
+    tflat = tix[0]
+    for d in range(1, ndim):
+        tflat = tflat * nt[d] + tix[d]
+    n_tiles = 1
+    for n in nt:
+        n_tiles *= n
+    windows = torch.zeros(n_tiles * wvol, dtype=rdt, device=dev)
+    out = torch.zeros(N ** ndim, dtype=rdt, device=dev)
+    kept = spilled = 0
+    for corner in itertools.product((0, 1), repeat=ndim):
+        val, g, w = orig, 0, 0
+        in_win = torch.ones_like(lat[0], dtype=torch.bool)
+        for d, a in enumerate(corner):
+            cell = cw[d][a]
+            val = val * cw[d][2 + a]
+            loc = torch.remainder(cell - org[d], N)
+            g = g * N + cell
+            w = w * win[d] + loc
+            in_win &= loc < win[d]
+        keep = val != 0
+        spill = keep & ~in_win
+        stay = keep & in_win
+        windows.index_add_(0, (tflat * wvol + w)[stay], val[stay])
+        out.index_add_(0, g[spill], val[spill])
+        kept += int(keep.sum())
+        spilled += int(spill.sum())
+    ent = torch.nonzero(windows != 0)[:, 0]
+    t_id, e = ent // wvol, ent % wvol
+    le, tc = [None] * ndim, [None] * ndim
+    for d in range(ndim - 1, -1, -1):
+        le[d], e = e % win[d], e // win[d]
+        tc[d], t_id = t_id % nt[d], t_id // nt[d]
+    g = 0
+    for d in range(ndim):
+        g = g * N + torch.remainder(tc[d] * tile[d] - 1 + le[d], N)
+    out.index_add_(0, g, windows[ent])
+    if counts is not None:
+        counts.update(sources=N ** ndim,
+                      zero_offset=int((po == 0).all(0).sum()),
+                      corners=kept, spilled=spilled, flushed=int(ent.numel()))
+    return out
 
 
 def grid_deposit(offsets, orig, npix, ndim):

@@ -34,7 +34,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      card (float64): K8 FFTLog on correlation_3d's P(k) grid (1 x 1024, the
      only shape the S19 and tSZ table builds launch), on a batch of profile
      rows (20 x 2048, mu = 0 and 1/2), on Bluestein's route (3 x 100, q on
-     a Gamma pole) and on the device-memory route (1 x 8192), each timed
+     a Gamma pole) and on the device-memory route (1 x 8192 and 1 x
+     16,384, past the 12,288 points of its former limit), each timed
      beside torch.fft.fft twice with the coefficients formed beforehand (a
      partial yardstick), both also on the device alone (a CUDA graph), and
      K9 on the bench table's first redshift (20 masses, 64 radii);
@@ -117,22 +118,30 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      with the launch counts set to 0 just before and read just after, mass
      conserved, K15 and K16 held against their plain versions on each
      runner's own inputs (float32 offsets to 1e-5 of the largest,
-     float64 maps to 1e-10), K15's second call on each bitwise equal to
-     its first and its (tile, halo) lists equal to those of its pair
-     kernel's plain version on the CPU, halos/s and phases printed;
+     float64 maps to 1e-10; K16 also against the plain version of its tile
+     windows, ops.scatter.grid_deposit_windows_plain, with the share of
+     sources whose offsets are all 0 and of corners that spill past the
+     window logged, and at 256^3 its time against the 0.45 ms target),
+     K15's second call on each bitwise equal to its first and its (tile,
+     halo) lists equal to those of its pair kernel's plain version on the
+     CPU, halos/s and phases printed;
  14. builds the snapshot bench's table on the card (tools/snapshot_bench.py:
      29-73: Baryonification3D(DarkMatter, DarkMatter(epsilon 2)), 2 z x 12
      M x 48 r) and holds K17 snapshot displacement against its plain
-     version on small boxes whose largest query radius exceeds L / 3 (2D
-     and 3D; float64 to 1e-10 of the largest offset, float32 to
-     tests/test_snapshot.py:67) and BaryonifySnapshot card vs CPU (float64);
+     versions (the halo-major reference and the per-particle gather) on
+     small boxes whose largest query radius exceeds L / 3 (2D and 3D;
+     float64 to 1e-10 of the largest offset, float32 to
+     tests/test_snapshot.py:67; two launches bitwise equal) and
+     BaryonifySnapshot card vs CPU (float64);
      then drives BaryonifySnapshot at the bench (10^6 particles, 20,000
      halos, L 512, seed 11, z 0.2, float32) with the launch counts set to 0
      just before and read just after: the first call (with the cell list)
      and three steady calls timed, halos/s, particles/s and phases printed,
      the output finite, a 256-halo subcatalog against the brute-force sum
-     on the card, K17 on the runner's own inputs timed against its plain
-     version and an index_add_ of the same pair vectors;
+     on the card, K17's particle-major layout (pairs a particle: mean, 99th
+     percentile, max; its build time), K17 on the runner's own inputs (two
+     launches bitwise equal) timed against its plain version, the 0.30 ms
+     target and an index_add_ of the same pair vectors;
  15. holds K18 ring modes and K19 Legendre transform against their plain
      versions on the card in float64 (K18 within ops.sht.
      ring_modes_tolerance, the plain version's angle rounding; K19 within 4
@@ -151,7 +160,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
  17. prints the registers, spills and resident warps of K5's, K8's,
-     K13's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
+     K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v on their
+     sources), one JSON
      line with each kernel's launches, error, times, bound and
      library-call time, and last
      the line {"ok": true, "device": ...}.
@@ -225,7 +235,9 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "stencil": (2.066, "a thread a slot, ring math a block"),
               "legendre_alm": (16.526, "a recurrence a ring"),
               "fht": (0.541, "the direct DFT"),
-              "disc_paint_anis": (0.654, "the block-per-halo walk")}
+              "disc_paint_anis": (0.654, "the block-per-halo walk"),
+              "snapshot_displace": (0.634, "a block a halo, atomics"),
+              "grid_deposit": (0.933, "a thread a source, global atomics")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -929,9 +941,11 @@ def compare_table_kernels(bf, torch, gpu):
     rows = bf.Profiles.DarkMatter(**BPAR).real(cosmo, x, M20, a0)
     for mu in (0.0, 0.5):
         fht_case(f"20 x 2048, mu = {mu}", x, rows * x ** 1.5, mu, -0.5, 10)
-    # Bluestein in shared memory (q on a Gamma pole) and a power of two on
-    # the device-memory route, on the DarkMatter profile of the first mass
-    for B, N, mu, q in ((3, 100, 0.0, -1.0), (1, 8192, 0.5, -0.5)):
+    # Bluestein in shared memory (q on a Gamma pole) and powers of two on
+    # the device-memory route (16,384: past the 12,288 points of K8's
+    # former limit), on the DarkMatter profile of the first mass
+    for B, N, mu, q in ((3, 100, 0.0, -1.0), (1, 8192, 0.5, -0.5),
+                        (1, 16384, 0.5, -0.5)):
         xs = torch.as_tensor(np.geomspace(1e-7, 1e9, N), device=dev)
         prof = bf.Profiles.DarkMatter(**BPAR).real(cosmo, xs, M20[:B], a0)
         fht_case(f"{B} x {N}, mu = {mu}, q = {q}", xs, prof * xs ** 1.5, mu,
@@ -1854,12 +1868,23 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False,
     orig = inp["orig"]
     dk = scatter.grid_deposit(ap, orig, npix, ndim)
     dp = scatter.grid_deposit_plain(ap, orig, npix, ndim)
+    counts = {}
+    dw = scatter.grid_deposit_windows_plain(ap, orig, npix, ndim,
+                                            counts=counts)
     torch.cuda.synchronize()
     err16 = (dk - dp).abs().max().item()
     check(f"K16 grid_deposit [{label}]", err16,
           1e-12 * dp.abs().max().item())
+    check(f"K16 grid_deposit vs its windows' plain version [{label}]",
+          (dk - dw).abs().max().item(), 1e-12 * dp.abs().max().item())
     check(f"K16 grid_deposit mass [{label}]",
           abs(dk.sum().item() / orig.sum().item() - 1.0), 1e-12)
+    src, kept = counts["sources"], counts["corners"]
+    log(f"  [{label}] K16's windows (tile {scatter.TILE[ndim]}): "
+        f"{counts['zero_offset'] / src:.4f} of the sources with all offsets "
+        f"0; {kept / src:.3f} nonzero corners a source, "
+        f"{counts['spilled'] / kept:.3e} of them spilled past the window; "
+        f"{counts['flushed'] / src:.3f} window entries flushed a source")
     if timing:
         nflat = orig.numel()
         idx, vals = deposit_corners(torch, ap, orig, npix, ndim)
@@ -1878,6 +1903,11 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False,
                 ap, orig, npix, ndim), 2)) + bound(
             nbytes(ap, orig, dk), (15.0 * ndim + 2 ** ndim * ndim) * nflat,
             F64_FLOPS) + (time_ms(torch, library, 5),)
+        ms = out["grid_deposit"][1]
+        zeros_ms = time_ms(torch, lambda: torch.zeros_like(orig), 5)
+        log(f"  [{label}] K16 grid_deposit: {ms:.4f} ms (the 0.45 ms target "
+            f"{'met' if ms <= 0.45 else 'missed'}), of which the map's "
+            f"torch.zeros {zeros_ms:.4f} ms")
     return out
 
 
@@ -2242,12 +2272,13 @@ def snapshot_f32_check(name, got, want):
 
 
 def compare_snapshot_kernels(bf, torch, model):
-    """K17 against its plain version on the card, on small boxes (2D and 3D)
-    whose largest query radius exceeds L / 3, from a runner's own inputs:
-    float64 to 1e-10 of the largest offset, float32 to tests/
-    test_snapshot.py:67; then BaryonifySnapshot on the card against the
-    plain versions on the CPU, float64, to 1e-10 of the largest
-    displacement."""
+    """K17 against its plain versions on the card (the halo-major reference
+    and the gather in the particle-major layout), on small boxes (2D and
+    3D) whose largest query radius exceeds L / 3, from a runner's own
+    inputs: float64 to 1e-10 of the largest offset, float32 to tests/
+    test_snapshot.py:67, two launches bitwise equal; then
+    BaryonifySnapshot on the card against the plain versions on the CPU,
+    float64, to 1e-10 of the largest displacement."""
     from baryonforge_torch.ops import snapshot
     from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
     for ndim in (3, 2):
@@ -2257,21 +2288,28 @@ def compare_snapshot_kernels(bf, torch, model):
         for dt in (torch.float64, torch.float32):
             r = bf.BaryonifySnapshot(cat, snap, dtype=dt, device=DEVICE, **kw)
             args = r._displace_inputs(_PhaseClock(torch.device(DEVICE)))
-            if ndim == 3 and not float(args[-2].max()) > 96.0 / 3:
+            if ndim == 3 and not float(args[9].max()) > 96.0 / 3:
                 raise AssertionError("snapshot box: no radius above L / 3")
             got = snapshot.snapshot_displace(*args)
+            again = snapshot.snapshot_displace(*args)
             want = snapshot.snapshot_displace_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("K17: two launches differ")
             scale = float(want.abs().max())
             if not scale > 0:
                 raise AssertionError("snapshot box: nothing displaced")
-            label = (f"K17 snapshot_displace [{ndim}D, L 96, "
-                     f"{int(args[3][-1])} pairs, "
-                     f"{str(dt).replace('torch.', '')}]")
-            if dt == torch.float64:
-                check(label, float((got - want).abs().max()), 1e-10 * scale)
-            else:
-                snapshot_f32_check(label, got.double().cpu().numpy(),
-                                   want.double().cpu().numpy())
+            gather = snapshot.snapshot_gather_plain(*args)
+            for name, ref in (("", want), (", gather", gather)):
+                label = (f"K17 snapshot_displace [{ndim}D, L 96, "
+                         f"{int(args[3][-1])} pairs, "
+                         f"{str(dt).replace('torch.', '')}{name}]")
+                if dt == torch.float64:
+                    check(label, float((got - ref).abs().max()),
+                          1e-10 * scale)
+                else:
+                    snapshot_f32_check(label, got.double().cpu().numpy(),
+                                       ref.double().cpu().numpy())
         kw["dtype"] = torch.float64
         g = moves(bf.BaryonifySnapshot(cat, snap, device=DEVICE,
                                        **kw).process(), snap)
@@ -2371,11 +2409,28 @@ def snapshot_bench(bf, torch, gpu):
 
     args = runner._displace_inputs(_PhaseClock(torch.device(DEVICE)))
     coords, hpos, halos, offsets, parts, curves = args[:6]
+    layout = args[11]
     n_pairs = int(offsets[-1])
+    cnt = (layout[1][1:] - layout[1][:-1]).double()
+    layout_ms = time_ms(torch, lambda: snapshot.particle_layout(
+        coords, args[10], offsets, parts), 3)
+    log(f"[{gpu}] K17's particle-major layout at the bench: pairs a particle "
+        f"mean {cnt.mean().item():.3f}, 99th percentile "
+        f"{torch.quantile(cnt, 0.99).item():.0f}, max {cnt.max().item():.0f}"
+        f", {int((cnt == 0).sum())} particles without pairs; built (the "
+        f"space order and the sort, once per pair set) in {layout_ms:.3f} ms")
     k = snapshot.snapshot_displace(*args)
+    k2 = snapshot.snapshot_displace(*args)
     p = snapshot.snapshot_displace_plain(*args)
-    snapshot_f32_check(f"K17 snapshot_displace [bench, {n_pairs} pairs]",
-                       k.double().cpu().numpy(), p.double().cpu().numpy())
+    gp = snapshot.snapshot_gather_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        raise AssertionError("K17 at the bench: two launches differ")
+    log("  K17 at the bench: two launches bitwise equal")
+    for name, ref in (("", p), (", gather", gp)):
+        snapshot_f32_check(f"K17 snapshot_displace [bench, {n_pairs} pairs"
+                           f"{name}]", k.double().cpu().numpy(),
+                           ref.double().cpu().numpy())
     err = float((k - p).abs().max())
     ms = time_ms(torch, lambda: snapshot.snapshot_displace(*args), 10)
     plain_ms = time_ms(torch, lambda: snapshot.snapshot_displace_plain(*args),
@@ -2390,17 +2445,22 @@ def snapshot_bench(bf, torch, gpu):
     pl = parts.long()
     library_ms = time_ms(torch, lambda: torch.zeros_like(k).index_add_(
         1, pl, vec), 10)
-    # bytes: the pairs' particle indices, the rows, the positions, curves
-    # and per-halo columns read once, the offsets written once; operations:
-    # per pair ~14 float64 (3 differences, 6 wrap compares and adds, 3
-    # squares and sums, a square root, 3 divisions) and ~12 float32 (log,
-    # lerp, cut, 3 products)
-    nb = nbytes(*args[:6], args[8], args[9]) + k.numel() * k.element_size()
+    # bytes: the particle-major layout, the positions, the rows' halos,
+    # curves and per-halo columns read once, the offsets written once;
+    # operations: per pair ~14 float64 (3 differences, 6 wrap compares and
+    # adds, 3 squares and sums, a square root, 3 divisions) and ~12 float32
+    # (log, lerp, cut, 3 products)
+    nb = nbytes(coords, hpos, halos, layout, curves, args[8], args[9]) + \
+        k.numel() * k.element_size()
     b_ms, b_by = max(bound(nb, 14 * n_pairs, F64_FLOPS),
                      bound(nb, 12 * n_pairs, F32_FLOPS))
     log(f"[{gpu}] K17 snapshot_displace at the bench ({n_pairs} pairs): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"kernel {ms:.4f} ms (the 0.30 ms target "
+        f"{'met' if ms <= 0.30 else 'missed'}; device alone, a CUDA graph "
+        f"of 20 calls: "
+        f"{graph_ms(torch, lambda: snapshot.snapshot_displace(*args)):.4f} "
+        f"ms), plain {plain_ms:.3f} ms, index_add_ {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
     return launches, {"snapshot_displace": (err, ms, plain_ms, b_ms, b_by,
                                             library_ms)}
 
@@ -2652,11 +2712,12 @@ SM_REGS, SM_SMEM, SM_WARPS, SM_BLOCKS = 65536, 233472, 64, 32
 
 
 def ptxas_report(bf):
-    """Registers and spills of K5's, K8's, K13's and K19's kernels (nvcc
-    -Xptxas -v with the build's own flags, their sources at once) and the
-    warps an SM holds at the bench's launch shapes (the stencil with its
-    dynamic shared memory, K8 with correlation_3d's 1 x 1024 row, 32 KB,
-    and its Bluestein route with N = 100's, 12 KB)."""
+    """Registers and spills of K5's, K8's, K13's, K16's, K17's and K19's
+    kernels (nvcc -Xptxas -v with the build's own flags, their sources at
+    once) and the warps an SM holds at the bench's launch shapes (the
+    stencil with its dynamic shared memory, K8 with correlation_3d's 1 x
+    1024 row, 32 KB, and its Bluestein route with N = 100's, 12 KB; K16's
+    window is static shared memory, which ptxas reports)."""
     import re
     import tempfile
     from baryonforge_torch.ops import _build
@@ -2664,14 +2725,16 @@ def ptxas_report(bf):
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     threads = {"stencil_kernel": 256, "stencil_hot_kernel": 256,
                "legendre_kernel": 256, "fht_kernel": 512,
-               "disc_paint_anis_kernel": 256}
+               "disc_paint_anis_kernel": 256, "grid_deposit_kernel": 256,
+               "snapshot_gather_kernel": 128}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 1),
             ("fht_kernel", "0"): 4 * 1024 * 8,
             ("fht_kernel", "1"): 6 * 256 * 8}
-    sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu")
+    sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
+               "grid_deposit.cu", "snapshot.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -2680,18 +2743,21 @@ def ptxas_report(bf):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in sources]
         outs = [p.communicate()[0] for p in procs]
+    names = "|".join(threads)
     for p, text in zip(procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
         key, spill = None, 0
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"'\w*?\d+(stencil_kernel|stencil_hot_kernel|"
-                              r"legendre_kernel|fht_kernel|"
-                              r"disc_paint_anis_kernel)"
-                              r"(?:I(?:([fd]+)|Lb([01]))E)?", line)
-                key, targs = (m.group(1), m.group(2) or m.group(3) or "") \
-                    if m else (None, "")
+                # the kernel's name, then its template arguments: types
+                # (f, d), a dimension (Li3E) or a flag (Lb1E)
+                m = re.search(r"'\w*?\d+(" + names + r")"
+                              r"(?:I([fd]*)(?:Li(\d)E)?(?:Lb([01])E)?E)?",
+                              line)
+                key = m.group(1) if m else None
+                types, dim, flag = (m.groups()[1:] if m
+                                    else (None, None, None))
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
@@ -2700,22 +2766,24 @@ def ptxas_report(bf):
             if not (m and key):
                 continue
             regs = int(m.group(1))
-            sm = smem.get((key, targs[-1:]), 0)
+            st = re.search(r"(\d+) bytes smem", line)
+            sm = smem.get((key, flag or (types or "")[-1:]), 0) + (
+                int(st.group(1)) if st else 0)
             warps = threads[key] // 32
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(SM_REGS // (per_warp * warps), SM_WARPS // warps,
                          SM_BLOCKS, SM_SMEM // (sm + 1024) if sm
                          else SM_BLOCKS)
             if key == "fht_kernel":
-                kinds = "Bluestein" if targs == "1" else "power of two"
+                args = ["Bluestein" if flag == "1" else "power of two"]
             else:
-                kinds = ", ".join("float" if c == "f" else "double"
-                                  for c in targs)
-            name = f"{key}<{kinds}>" if targs else key
+                args = ["float" if c == "f" else "double"
+                        for c in types or ""]
+                args += [f"{dim}D"] if dim else []
+            name = f"{key}<{', '.join(args)}>" if args else key
             log(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled, "
-                f"{sm} bytes of dynamic shared memory; {threads[key]} "
-                f"threads a block: {blocks} blocks, {blocks * warps} warps "
-                "an SM")
+                f"{sm} bytes of shared memory; {threads[key]} threads a "
+                f"block: {blocks} blocks, {blocks * warps} warps an SM")
             key = None
 
 

@@ -401,17 +401,21 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     (1, 4096, 0.5, -0.5, None), (2, 3000, 0.0, -0.5, None),
     (1, 8192, 0.5, -0.5, None), (2, 12288, 0.5, -0.5, None),
     (20, 1024, 0.0, -0.5, None), (3, 100, 0.0, -1.0, 2048),
-    (200, 128, 0.5, -0.5, 2048)])
+    (200, 128, 0.5, -0.5, 2048), (1, 16384, 0.5, -0.5, None),
+    (2, 32768, 0.0, -0.5, None), (1, 20000, 0.5, -0.5, None),
+    (1, fftlog.FHT_MAX_M, 0.5, -0.5, None),
+    (1, fftlog.FHT_MAX_M // 2 - 1, 0.0, -0.5, None)])
 def test_fht_kernel(dev, B, N, mu, q, smem):
     """K8 on correlation_3d's grid (B = 1, N = 1024: the S19 and tSZ table
     builds' only shape), on a Fourier-like batch (B = 20, N = 2048), on
     a Pixel convolution's batch (20 x 1024), on a length that is no power
     of two with q on a Gamma pole, on the longest power of two whose row
     fits shared memory (4096), and on the device-memory route: Bluestein at
-    N = 3000, a power of two at 8192, FHT_MAX_N = 12288, and both routes
-    forced at small N with 2048 bytes of shared memory (200 rows: more
-    than the route's blocks, so a block takes several); against its plain
-    version."""
+    N = 3000, 12288 and 20000, powers of two at 8192, 16384 and 32768, the
+    longest rows of FHT_MAX_M (a power of two of that length, and Bluestein
+    just under half of it, of that M), and both routes forced at small N
+    with 2048 bytes of shared memory (200 rows: more than the route's
+    blocks, so a block takes several); against its plain version."""
     rng = np.random.default_rng(N)
     x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
     a = torch.as_tensor(np.exp(-np.geomspace(1e-4, 1e4, N)[None]
@@ -815,28 +819,70 @@ def test_anis_shell_cuda_matches_cpu(dev):
                                      (torch.float32, torch.float64),
                                      (torch.float64, torch.float64)],
                          ids=["f32-f32", "f32-f64", "f64-f64"])
-@pytest.mark.parametrize("ndim,npix", [(2, 128), (3, 32)])
-def test_grid_deposit_kernel(dev, pdt, rdt, ndim, npix):
-    """K16 against its plain version, offsets of up to 3 cells (some
-    non-finite) across the periodic edges: float64 to 1e-12 of the largest
-    value, float32 to 1e-5 of it (sums of 2^d terms in another order);
-    mass to 1e-12 or 1e-5."""
+@pytest.mark.parametrize("ndim,npix,reach", [
+    (2, 128, 3.0), (3, 32, 3.0), (2, 100, 0.999), (3, 33, 0.999),
+    (2, 24, 5.0), (3, 24, 5.0)])
+def test_grid_deposit_kernel(dev, pdt, rdt, ndim, npix, reach):
+    """K16 against its plain version, offsets within +-reach cells (some
+    non-finite; a fifth exactly 0) across the periodic edges: float64 to
+    1e-12 of the largest value, float32 to 1e-5 of it (sums of 2^d terms
+    in another order); mass to 1e-12 or 1e-5. Grids of 128^2 and 32^3 are
+    whole tiles, 100^2 and 33^3 are not, and 24 is less than a 2D tile's
+    rows and a 3D tile's row (the window wraps onto itself); reach 0.999
+    keeps every corner in its tile's window, 3 and 5 spill. The kernel's
+    tile is ops.scatter.TILE."""
+    from baryonforge_torch.ops import scatter
+    lib = _build.library()
+    assert tuple(lib.bf_grid_deposit_tile(ndim, d)
+                 for d in range(ndim)) == scatter.TILE[ndim]
     g = torch.Generator(device=dev).manual_seed(9)
     nflat = npix ** ndim
-    po = (torch.rand((ndim, nflat), dtype=torch.float64, device=dev,
-                     generator=g) * 6 - 3).to(pdt)
+    po = ((torch.rand((ndim, nflat), dtype=torch.float64, device=dev,
+                      generator=g) * 2 - 1) * reach).to(pdt)
+    po[:, ::5] = 0
     po[0, ::97] = float("nan")
+    po[ndim - 1, ::89] = float("inf")
     orig = torch.rand(nflat, dtype=torch.float64, device=dev,
                       generator=g).to(rdt)
     _build.reset_launches()
-    ok = bf.ops.scatter.grid_deposit(po, orig, npix, ndim)
+    ok = scatter.grid_deposit(po, orig, npix, ndim)
     assert _build.launches["grid_deposit"] == 1
-    op = bf.ops.scatter.grid_deposit_plain(po, orig, npix, ndim)
+    op = scatter.grid_deposit_plain(po, orig, npix, ndim)
+    counts = {}
+    ow = scatter.grid_deposit_windows_plain(po, orig, npix, ndim,
+                                            counts=counts)
+    assert (counts["spilled"] > 0) == (reach > 1)
     rel = 1e-12 if rdt == torch.float64 else 1e-5
-    torch.testing.assert_close(ok, op, rtol=0,
-                               atol=rel * op.abs().max().item())
+    for want in (op, ow):
+        torch.testing.assert_close(ok, want, rtol=0,
+                                   atol=rel * op.abs().max().item())
     assert abs(ok.double().sum().item() / orig.double().sum().item()
                - 1) < rel
+
+
+@pytest.mark.parametrize("ndim,npix", [(2, 40), (3, 20)])
+def test_grid_deposit_kernel_non_finite(dev, ndim, npix):
+    """K16 with an inf and a NaN in the map's values, one source moved by
+    exactly 0 (a zero weight times inf is NaN: kept) and one by half a
+    cell: the same non-finite cells as the plain version, the finite cells
+    to 1e-12 of the largest."""
+    from baryonforge_torch.ops import scatter
+    nflat = npix ** ndim
+    rng = np.random.default_rng(ndim)
+    po = torch.as_tensor(rng.uniform(-0.6, 0.6, (ndim, nflat)), device=dev)
+    orig = torch.as_tensor(rng.uniform(0, 1, nflat), device=dev)
+    po[:, 7] = 0.0
+    po[:, 300] = 0.5
+    orig[7] = float("inf")
+    orig[300] = float("nan")
+    ok = scatter.grid_deposit(po, orig, npix, ndim)
+    op = scatter.grid_deposit_plain(po, orig, npix, ndim)
+    assert torch.equal(torch.isnan(ok), torch.isnan(op))
+    assert torch.equal(torch.isinf(ok), torch.isinf(op))
+    fin = torch.isfinite(op)
+    assert int((~fin).sum()) > 1
+    torch.testing.assert_close(ok[fin], op[fin], rtol=0,
+                               atol=1e-12 * op[fin].abs().max().item())
 
 
 def _grid_case(ndim, ell, dev, npix=64, n=40):
@@ -998,9 +1044,10 @@ def test_grid_runners_cuda_match_cpu(dev):
             np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-9 * ref)
 
 
-def _snapshot_case(ndim, dt, dev, L=64.0, n=4000, nh=30, seed=5):
+def _snapshot_case(ndim, dt, dev, L=64.0, n=4000, nh=30, seed=5, n_r=None):
     """Particles, halos and their pairs in a small box whose largest query
-    radius exceeds L / 3, with the S19 table's curves at z 0.9."""
+    radius exceeds L / 3, with the S19 table's curves at z 0.9 (resampled
+    onto ``n_r`` radii over the same range when given)."""
     from scipy.spatial import cKDTree
     from baryonforge_torch import native
     rng = np.random.default_rng(seed + ndim)
@@ -1019,30 +1066,49 @@ def _snapshot_case(ndim, dt, dev, L=64.0, n=4000, nh=30, seed=5):
     c, r0, dl = interp.collapse_curves_plain(
         m._table, m._axes, 2, np.geomspace(1e13, 1e15, nh),
         np.full(nh, 1 / 1.9), [], {})
+    if n_r is not None:
+        lr = float(r0) + float(dl) * np.arange(c.shape[1])
+        fine = np.linspace(lr[0], lr[-1], n_r)
+        c = torch.as_tensor(np.stack([np.interp(fine, lr, row)
+                                      for row in c.cpu().numpy()]),
+                            device=dev)
+        dl = (lr[-1] - lr[0]) / (n_r - 1)
     T = lambda x, d=torch.float64: torch.as_tensor(x, device=dev).to(d)
     return (T(pos), T(hpos), *[torch.as_tensor(x, device=dev) for x in csr],
             c.to(dt), float(r0), float(dl), T(rng.uniform(0.5, 2, nh), dt),
             T(R_q * 0.95, dt), L)
 
 
+@pytest.mark.parametrize("n_r", [None, 8192])
 @pytest.mark.parametrize("ndim", [3, 2])
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
-def test_snapshot_displace_kernel(dev, dt, ndim):
-    """K17 against its plain version on the card: float64 to 1e-10 of the
-    largest offset, float32 to tests/test_snapshot.py:67 (atol 5e-4, rtol
-    1e-3)."""
+def test_snapshot_displace_kernel(dev, dt, ndim, n_r):
+    """K17 against its plain versions on the card (the halo-major
+    reference and the gather): float64 to 1e-10 of the largest offset,
+    float32 to tests/test_snapshot.py:67 (atol 5e-4, rtol 1e-3); two
+    launches bitwise equal (no atomics); curves of the table's radii and
+    of 8192 (a curve is read from device memory, not staged). The records'
+    size is the kernel's."""
     from baryonforge_torch.ops import snapshot
-    args = _snapshot_case(ndim, dt, dev)
+    args = _snapshot_case(ndim, dt, dev, n_r=n_r)
+    rec = snapshot._records(args[1], args[2], args[8], args[9])
+    assert rec.shape[1] * 8 == _build.library().bf_snapshot_record_bytes(
+        int(dt == torch.float64))
+    layout = snapshot.particle_layout(args[0], args[-1], args[3], args[4])
     _build.reset_launches()
-    got = snapshot.snapshot_displace(*args)
-    assert _build.launches["snapshot_displace"] == 1
+    got = snapshot.snapshot_displace(*args, layout)
+    again = snapshot.snapshot_displace(*args, layout)
+    assert _build.launches["snapshot_displace"] == 2
+    assert torch.equal(got, again)
     want = snapshot.snapshot_displace_plain(*args)
+    gather = snapshot.snapshot_gather_plain(*args, layout)
     scale = want.abs().max().item()
     assert scale > 0 and got.dtype == dt
-    if dt == torch.float64:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * scale)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=5e-4)
+    for ref in (want, gather):
+        if dt == torch.float64:
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-10 * scale)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-3, atol=5e-4)
 
 
 @pytest.mark.parametrize("ndim", [3, 2])

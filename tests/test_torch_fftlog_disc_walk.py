@@ -4,7 +4,8 @@ checked on the CPU against the JAX package.
 K8 runs a row as one FFT in shared memory (a power of two up to 4096
 points on the H100), as Bluestein's chirp convolution in shared memory
 (any other N up to 2048), or as either on a slot of device memory (longer
-rows); ``ops.fftlog.fht_plan`` picks the route. Its plain version,
+rows, up to an FFT of ``FHT_MAX_M`` points); ``ops.fftlog.fht_plan``
+picks the route. Its plain version,
 ``fht_plain``, is held against the JAX ``fht`` at the lengths where the
 route changes: N = 2048 (a power of two in shared memory) and N = 3000
 (Bluestein on device memory), to tests/test_torch_fftlog.py's tolerance
@@ -51,17 +52,33 @@ H100_SMEM = 232448
     (1024, (1024, False, True)), (2048, (2048, False, True)),
     (2049, (8192, True, False)), (3000, (8192, True, False)),
     (4096, (4096, False, True)), (8192, (8192, False, False)),
-    (tf.FHT_MAX_N, (32768, True, False))])
+    (12288, (32768, True, False)), (16384, (16384, False, False)),
+    (20000, (65536, True, False)), (32768, (32768, False, False)),
+    (tf.FHT_MAX_M // 2 - 1, (tf.FHT_MAX_M, True, False)),
+    (tf.FHT_MAX_M, (tf.FHT_MAX_M, False, False))])
 def test_fht_plan_routes(N, route):
     """A power of two runs its own FFT in 4 M doubles, any other N
     Bluestein's of the least power of two M >= 2 N - 1 in 6 M; shared
     memory holds M <= 4096 (power of two) or M <= 4096 with Bluestein
-    (N <= 2048) of the H100's 232,448 bytes."""
+    (N <= 2048) of the H100's 232,448 bytes; longer rows run on device
+    memory, up to M = FHT_MAX_M."""
     M, bluestein, in_shared = tf.fht_plan(N, H100_SMEM)
     assert (M, bluestein, in_shared) == route
     assert M & (M - 1) == 0
     assert M >= 2 * N - 1 if bluestein else M == N
     assert in_shared == ((6 if bluestein else 4) * M * 8 <= H100_SMEM)
+    assert M <= tf.FHT_MAX_M
+
+
+@pytest.mark.parametrize("N", [tf.FHT_MAX_M // 2 + 1, 2 * tf.FHT_MAX_M])
+def test_fht_kernel_refuses_rows_past_its_longest_fft(N):
+    """Past FHT_MAX_M points of FFT (Bluestein's M for N just over half of
+    it, or a longer power of two) K8's wrapper raises before it builds or
+    launches anything; the CPU's plain version takes any N."""
+    x = torch.as_tensor(np.geomspace(1e-4, 1e4, N))
+    with pytest.raises(ValueError, match="FHT_MAX_M"):
+        tf._fht_kernel(x, torch.exp(-x)[None], 0.5, -0.5, 0.0,
+                       smem_bytes=H100_SMEM)
 
 
 @pytest.mark.parametrize("N", [2048, 3000])

@@ -207,7 +207,7 @@ def test_runner_counts_equal_ckdtree_where_cells_wrap(models):
     tcat, tsnap_ = _objects(bf.utils, 3, L, pos, hpos, M)
     runner = bf.BaryonifySnapshot(tcat, tsnap_, epsilon_max=20, model=tm,
                                   device="cpu")
-    halos, offsets, _ = runner._neighbour_pairs(hpos, R_q)
+    (halos, offsets, _), _ = runner._neighbour_pairs(hpos, R_q)
     counts = np.zeros(len(M), dtype=np.int64)
     counts[halos.numpy()] = np.diff(offsets.numpy())
     lists = cKDTree(pos, boxsize=L).query_ball_point(hpos, R_q)
