@@ -18,10 +18,15 @@
 //
 // Bound: atomics to device memory. A member pixel costs ~40 operations (a
 // haversine, a log, an exp) and one atomicAdd into a map of 4 or 8 bytes a
-// pixel (50 or 100 MB at NSIDE 1024, about the 50 MB L2). Design: one block
-// per halo, threads across a ring's phi span, so that a warp's atomics land
-// on neighbouring addresses; the curve is read from L1. Sums by atomics
-// change order from run to run.
+// pixel (50 or 100 MB at NSIDE 1024, about the 50 MB L2). Design: K2's
+// flat disc walk (healpix.cuh: flat_disc_walks), 8 halos a block, one a
+// warp; a disc of more than 32 rings is walked by the whole block. The
+// discs are small (~16 member pixels over a few rings at the bench), so a
+// block per halo left most of its threads idle and repeated the per-disc
+// set-up; here a ring's geometry is worked out once by one lane and the
+// warp's lanes take consecutive candidates across the rings, so that its
+// atomics land on neighbouring addresses. The curve is read from L1. Sums
+// by atomics change order from run to run.
 //
 // K13 replaces the scatter body of PaintProfilesAnisShell
 // (baryonforge_tpu/Runners/HealpixRunner.py:2377-2428: make_body /
@@ -37,21 +42,17 @@
 // Mtot[pix] (0 where Mtot <= 0; Mtot already holds the uniform background)
 // times orig[pix], the painting times pixarea D^2 when asked, and
 // painting * mfrac added into a float64 map. Bound as K11, with two curve
-// reads and two map reads more a pixel. Design: K2's flat disc walk
-// (healpix.cuh: flat_disc_walks): 8 halos a block, one a warp, a disc of
-// more than 32 rings on the whole block; the discs are small (~16 member
-// pixels over a few rings at the bench), so a ring's geometry is worked
-// out once by one lane and the warp's lanes take consecutive candidates
-// across the rings. A pixel's theta, and with it sin and cos theta, is its
-// ring's (ring_theta, bitwise pix2ang's: tested on the card); its phi is
-// pix2ang's formula on its ring and index.
+// reads and two map reads more a pixel. Design: K11's flat walk. A
+// pixel's theta, and with it sin and cos theta, is its ring's (ring_theta,
+// bitwise pix2ang's: tested on the card); its phi is pix2ang's formula on
+// its ring and index.
 
 #include "healpix.cuh"
 #include "lookup.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // K13: halos a block takes, one a warp
+constexpr int kWarps = 8;  // halos a block takes, one a warp
 constexpr int kThreads = 32 * kWarps;
 
 struct HaloIn {
@@ -71,30 +72,62 @@ struct Paint {
   double pixarea;
 };
 
+// one halo's values that every pixel of K11 uses
+template <typename T>
+struct PaintHalo {
+  T D, a, pixfac;  // D and a rounded to T, T(pixarea D^2) or 1
+  const T* curve;
+};
+
+// A block takes kWarps halos on K2's flat walk (healpix.cuh), one a warp;
+// a disc of more than kSplitRings rings is walked by the whole block. A
+// pixel's sin(d/2) comes from DiscWalk::ring and ::pixel, so its value does
+// not depend on the walk's layout; only the order of the atomics does.
 template <typename T, typename A>
-__global__ void disc_paint_kernel(int N, HaloIn in,
-                                  const T* __restrict__ curves, Paint<T> pt,
-                                  A* __restrict__ acc) {
-  const int hid = blockIdx.x;
-  const double D64 = in.D[hid];
-  const T D = T(D64), a = T(in.a[hid]);
-  const T pixfac = pt.pixel_size ? T(pt.pixarea * (D64 * D64)) : T(1);
-  const T* curve = curves + (long long)hid * pt.n_r;
-  const bf::DiscWalk<T> walk(N, in.theta[hid], in.phi[hid], in.radius[hid]);
-  walk([&](int pix, T, T, T, T sinhd) {
-    const T r_com = T(2) * sinhd * D / a;
+__global__ void __launch_bounds__(kThreads)
+disc_paint_kernel(int N, int n_h, HaloIn in, const T* __restrict__ curves,
+                  Paint<T> pt, A* __restrict__ acc) {
+  __shared__ bf::FlatDiscs<T, kWarps> s;
+  auto halo = [&](int hid) {
+    const double D64 = in.D[hid];
+    PaintHalo<T> h;
+    h.D = T(D64);
+    h.a = T(in.a[hid]);
+    h.pixfac = pt.pixel_size ? T(pt.pixarea * (D64 * D64)) : T(1);
+    h.curve = curves + (long long)hid * pt.n_r;
+    return h;
+  };
+  auto paint = [&](const PaintHalo<T>& h, const bf::DiscPixel<T>& p) {
+    const T r_com = T(2) * p.sinhd * h.D / h.a;
     const T x = (bf::m_log(r_com > T(1e-30) ? r_com : T(1e-30)) - pt.ln_r0) /
                 pt.dlnr;
     const int i = bf::clampi(int(bf::m_floor(x)), 0, pt.n_r - 2);
     const T t = x - T(i);
-    T v = curve[i] * (T(1) - t) + curve[i + 1] * t;
+    T v = h.curve[i] * (T(1) - t) + h.curve[i + 1] * t;
     if (pt.log_curves) v = bf::m_exp(v);
     if (x < T(0) || x > T(pt.n_r - 1)) v = T(0);
-    T p = v / a;
-    if (!isfinite(p)) p = T(0);
-    if (pt.pixel_size) p = p * pixfac;
-    atomicAdd(acc + pix, A(p));
-  });
+    T val = v / h.a;
+    if (!isfinite(val)) val = T(0);
+    if (pt.pixel_size) val = val * h.pixfac;
+    atomicAdd(acc + p.pix, A(val));
+  };
+  bf::flat_disc_walks<kWarps>(
+      N, n_h, in.theta, in.phi, in.radius, s,
+      [&](int hid, const bf::DiscWalk<T>& walk, bf::DiscRing<T>* rings,
+          int* first) {
+        const PaintHalo<T> h = halo(hid);
+        bf::warp_walk(walk, rings, first,
+                      [&](bool m, int, const bf::DiscPixel<T>& p) {
+          if (m) paint(h, p);
+        });
+      },
+      [&](int hid, const bf::DiscWalk<T>& walk) {
+        const PaintHalo<T> h = halo(hid);
+        bf::block_walk<kWarps>(walk, s.rings, s.first, s.wsum,
+                               [&](const bf::DiscPixel<T>& p) {
+          paint(h, p);
+        });
+      });
 }
 
 template <typename T, typename A>
@@ -104,8 +137,9 @@ int launch(int nside, int n_h, const double* theta, const double* phi,
            int pixel_size, double pixarea, A* acc, void* stream) {
   HaloIn in{theta, phi, radius, D, a};
   Paint<T> pt{n_r, ln_r0, dlnr, log_curves != 0, pixel_size != 0, pixarea};
-  disc_paint_kernel<T, A><<<n_h, 128, 0, (cudaStream_t)stream>>>(
-      nside, in, curves, pt, acc);
+  disc_paint_kernel<T, A>
+      <<<(n_h + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
+          nside, n_h, in, curves, pt, acc);
   return int(cudaGetLastError());
 }
 

@@ -42,17 +42,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 4;  // 64 registers a thread at most
 
-// fmod(a, n), n > 0, without the library's loop for -2 n < a < 2 n: a, a -
-// n or a + n, each exact (Sterbenz), so bitwise fmod's (a = -n, whose fmod
-// is -0, and anything else goes to the library)
-template <typename R>
-__device__ __forceinline__ R fmod_near(R a, R n) {
-  if (a > -n && a < n) return a;
-  if (a >= n && a < R(2) * n) return a - n;
-  if (a < -n && a > R(-2) * n) return a + n;
-  return bf::m_fmod(a, n);
-}
-
 // the tile (sources) and its window (the tile plus a cell on each side)
 template <int NDIM>
 struct Tile;
@@ -138,7 +127,7 @@ grid_deposit_kernel(int N, long long nflat, const P* __restrict__ po,
         const R pos = R(base[d]) + R(off);
         // floor_fmod(pos, N) of the plain version: in [0, N], N itself
         // when a tiny negative remainder rounds up
-        R p = fmod_near(pos, R(N));
+        R p = bf::fmod_near(pos, R(N));
         if (p != R(0) && p < R(0)) p = p + R(N);
         const int i0 = int(bf::m_floor(p));
         const R frac = p - R(i0);

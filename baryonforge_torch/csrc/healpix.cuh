@@ -65,6 +65,24 @@ __device__ __forceinline__ T floor_fmod(T a, T b) {
   return (r != T(0) && ((r < T(0)) != (b < T(0)))) ? r + b : r;
 }
 
+// fmod(a, n), n > 0, without the library's loop for -2 n < a < 2 n: a, a -
+// n or a + n, each exact (Sterbenz), so bitwise fmod's (a = -n, whose fmod
+// is -0, and anything else goes to the library). K4 and K16.
+template <typename R>
+__device__ __forceinline__ R fmod_near(R a, R n) {
+  if (a > -n && a < n) return a;
+  if (a >= n && a < R(2) * n) return a - n;
+  if (a < -n && a > R(-2) * n) return a + n;
+  return m_fmod(a, n);
+}
+
+// floor_fmod by way of fmod_near: bitwise floor_fmod's
+template <typename R>
+__device__ __forceinline__ R floor_fmod_near(R a, R n) {
+  const R r = fmod_near(a, n);
+  return (r != R(0) && ((r < R(0)) != (n < R(0)))) ? r + n : r;
+}
+
 template <typename T>
 __device__ __forceinline__ T rt6N(int N) {
   return m_sqrt(T(6)) * T(N);
@@ -244,13 +262,9 @@ struct DiscRing {
 
 // Every pixel whose centre lies inside the disc of angular radius rad_h
 // around (th_h, ph_h) (the haversine test sin(d/2) <= sin(rad/2) of
-// ops/healpix.py: disc_candidates, in T), each once: walk(visit) runs
-// visit(pix, cos_t, sin_t, dphi_pix, sinhd) in the calling thread for its
-// share of them, with the pixel centre's cos/sin colatitude, its phi minus
-// the centre's and sin(d/2). The threads of a block split each ring's phi
-// span (K11). The constructor does the per-disc set-up once; ring() and
-// pixel() are the per-ring and per-pixel halves, which the flat walk below
-// (K2, K13) lays out itself.
+// ops/healpix.py: disc_candidates, in T), each once. The constructor does
+// the per-disc set-up once; ring() and pixel() are the per-ring and
+// per-pixel halves, which the flat walk below (K2, K11, K13) lays out.
 //
 // The JAX version walks a padded (K_ring, K_phi) window whose size is
 // fixed per size bucket, because XLA needs static shapes. Here each disc
@@ -325,22 +339,9 @@ struct DiscWalk {
     pix = r.sp + jw;
     return sinhd <= crit;
   }
-
-  template <typename Visit>
-  __device__ __forceinline__ void operator()(Visit&& visit) const {
-    for (int i = ring_first; i <= ring_last; ++i) {
-      const DiscRing<T> r = ring(i);
-      for (int dp = r.lo + int(threadIdx.x); dp <= r.hi; dp += blockDim.x) {
-        int pix;
-        T dphi_pix, sinhd;
-        if (pixel(r, dp, pix, dphi_pix, sinhd))
-          visit(pix, r.cos_t, r.sin_t, dphi_pix, sinhd);
-      }
-    }
-  }
 };
 
-// The flat disc walk of K2 and K13. A disc's rings are worked out once
+// The flat disc walk of K2, K11 and K13. A disc's rings are worked out once
 // (DiscWalk::ring, one thread a ring) into shared memory, a scan of their
 // phi span lengths lays the disc out as one flat (ring, dp) index, and the
 // threads walk that index: every lane holds a candidate pixel whatever the

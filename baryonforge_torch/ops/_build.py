@@ -67,13 +67,13 @@ def _signatures():
                                    _P, _P],
         "bf_disc_deposit_f32": [_I, _I] + [_P] * 8 + [_I, _F, _F, _F, _P, _P],
         "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
-        "bf_tile_deposit_f32": [_I] * 4 + [_P] * 14 + [_I, _F, _F, _P, _P],
-        "bf_tile_deposit_f64": [_I] * 4 + [_P] * 14 + [_I, _D, _D, _P, _P],
-        "bf_tile_paint_f32": [_I] * 4 + [_P] * 13 + [_I, _F, _F, _I, _P, _P],
-        "bf_tile_paint_f64": [_I] * 4 + [_P] * 13 + [_I, _D, _D, _I, _P, _P],
-        "bf_tile_paint2_f32": [_I] * 4 + [_P] * 14
+        "bf_tile_deposit_f32": [_I] * 5 + [_P] * 14 + [_I, _F, _F, _P, _P],
+        "bf_tile_deposit_f64": [_I] * 5 + [_P] * 14 + [_I, _D, _D, _P, _P],
+        "bf_tile_paint_f32": [_I] * 5 + [_P] * 13 + [_I, _F, _F, _I, _P, _P],
+        "bf_tile_paint_f64": [_I] * 5 + [_P] * 13 + [_I, _D, _D, _I, _P, _P],
+        "bf_tile_paint2_f32": [_I] * 5 + [_P] * 14
         + [_I, _F, _F, _I, _F, _F, _I, _P, _P],
-        "bf_tile_paint2_f64": [_I] * 4 + [_P] * 14
+        "bf_tile_paint2_f64": [_I] * 5 + [_P] * 14
         + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
         "bf_fht_f64": [_I] * 5 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
         "bf_fht_long_blocks": [],

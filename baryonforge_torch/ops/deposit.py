@@ -130,7 +130,8 @@ def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
     scan along the rings lays each disc out as one flat index; ``block``
     (n,) bool, the discs of more than SPLIT_RINGS rings that the whole
     block walks; and over the flat candidates, in walk order, ``halo``,
-    ``q`` (flat index), ``pix`` and ``member`` (the haversine test)."""
+    ``q`` (flat index), ``pix``, ``sinhd`` (sin(d/2) to the disc centre, in
+    ``dtype``) and ``member`` (the haversine test)."""
     N = nside
     dev = theta.device
     th64, ph64, rad64 = theta.double(), phi.double(), radius.double()
@@ -183,7 +184,7 @@ def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
     member = sinhd <= torch.sin(0.5 * rad)[halo]
     return dict(n_rings=n_rings, span=span, block=n_rings > SPLIT_RINGS,
                 halo=halo, q=first.reshape(-1)[src] + off,
-                pix=(at(sp) + jw).long(), member=member)
+                pix=(at(sp) + jw).long(), sinhd=sinhd, member=member)
 
 
 def disc_deposit_plain(nside, halos, curves, ln_r0, dlnr, eps_max,

@@ -27,7 +27,8 @@ import torch
 
 __all__ = ["MAX_NSIDE", "npix", "nside2pixarea", "ring_info",
            "ring_above_theta", "ring_theta", "pix2ang", "ang2pix",
-           "get_interp_weights", "disc_pad_sizes", "disc_candidates"]
+           "get_interp_weights", "disc_pad_sizes", "disc_candidates",
+           "fmod_near", "floor_fmod_near"]
 
 MAX_NSIDE = 8192
 _TWO_PI = 2.0 * math.pi
@@ -47,6 +48,28 @@ def _int32(x):
 
 def _fdiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
+
+
+def fmod_near(a, n):
+    """Plain version of csrc/healpix.cuh: fmod_near, for a float tensor
+    ``a`` and a float ``n`` > 0 (rounded to a's dtype): fmod(a, n) as a,
+    a - n or a + n, each exact, for -2 n < a < 2 n (a = -n, whose fmod is
+    -0, excepted), and torch.fmod elsewhere; bitwise torch.fmod's."""
+    n = torch.tensor(n, dtype=a.dtype, device=a.device)
+    two = 2.0 * n
+    return torch.where(
+        (a > -n) & (a < n), a,
+        torch.where((a >= n) & (a < two), a - n,
+                    torch.where((a < -n) & (a > -two), a + n,
+                                torch.fmod(a, n))))
+
+
+def floor_fmod_near(a, n):
+    """Plain version of csrc/healpix.cuh: floor_fmod_near, fmod_near moved
+    into the divisor's sign (jnp.mod, torch.remainder)."""
+    r = fmod_near(a, n)
+    return torch.where((r != 0) & (r < 0), r + torch.tensor(
+        n, dtype=a.dtype, device=a.device), r)
 
 
 def ring_info(nside, i, dtype=torch.float64):

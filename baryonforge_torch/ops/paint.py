@@ -9,7 +9,10 @@ padded disc windows of ``ops.deposit``. Per member pixel, in the curves'
 dtype: r_com = chord D / a, the curve lookup (log curves exp'd), / a, zero
 if not finite, times pixarea D^2 for the per-pixel integral; summed into an
 (npix,) map of the accumulator's dtype. There is no small-disc fallback
-and no eps_max cut: the disc is the only cut.
+and no eps_max cut: the disc is the only cut. K11 walks each disc in K2's
+flat layout (``ops.deposit.disc_walk_plain``, the same members);
+``disc_paint_walk_plain`` is the plain version of that walk, the same
+pixel values summed in its order.
 
 ``disc_paint_anis`` is the wrapper of kernel K13 (``csrc/disc_paint.cu``);
 ``disc_paint_anis_plain`` is its plain version, a port of the scatter body
@@ -37,9 +40,10 @@ import torch
 
 from . import _build
 from . import healpix as hpx
-from .deposit import _chunks
+from .deposit import _chunks, disc_walk_plain
 
-__all__ = ["disc_paint", "disc_paint_plain", "disc_paint_anis",
+__all__ = ["disc_paint", "disc_paint_plain", "disc_paint_walk_plain",
+           "disc_paint_anis",
            "disc_paint_anis_plain", "anis_finish", "anis_finish_plain",
            "pixel_angles", "pixel_angles_plain", "float32_tolerance",
            "HALO_COLUMNS", "SINHD_REACH", "VEC_SINHD_REACH"]
@@ -96,6 +100,36 @@ def disc_paint_plain(nside, halos, curves, ln_r0, dlnr, log_curves,
         if pixel_size:
             paint = paint * (pixarea * D ** 2).to(dt)[:, None]
         acc.index_add_(0, pix[mask].long(), paint[mask].to(acc_dtype))
+    return acc
+
+
+def disc_paint_walk_plain(nside, halos, curves, ln_r0, dlnr, log_curves,
+                          pixel_size, acc_dtype):
+    """Plain version of K11's walk: each disc's members in the flat order
+    of ``ops.deposit.disc_walk_plain`` (halo by halo, ring by ring), each
+    pixel's value as :func:`disc_paint_plain` forms it, summed with
+    ``index_add_`` in that order. Arguments as :func:`disc_paint`."""
+    dt, dev = curves.dtype, curves.device
+    acc = torch.zeros(hpx.npix(nside), dtype=acc_dtype, device=dev)
+    if curves.shape[0] == 0:
+        return acc
+    w = disc_walk_plain(nside, halos["theta"], halos["phi"],
+                        halos["radius"], dt)
+    m = w["member"]
+    h, pix, sinhd = w["halo"][m], w["pix"][m], w["sinhd"][m]
+    lookup = _lookup(log_curves)
+    for q0 in range(0, h.numel(), _CHUNK_PIXELS):
+        hq = h[q0:q0 + _CHUNK_PIXELS]
+        D, a_t = halos["D"][hq], halos["a"][hq].to(dt)[:, None]
+        r_com = 2.0 * sinhd[q0:q0 + _CHUNK_PIXELS, None] * D.to(dt)[:, None] \
+            / a_t
+        paint = lookup(curves[hq], ln_r0, dlnr, r_com) / a_t
+        paint = torch.where(torch.isfinite(paint), paint,
+                            torch.zeros_like(paint))
+        if pixel_size:
+            paint = paint * (hpx.nside2pixarea(nside) * D ** 2).to(dt)[:, None]
+        acc.index_add_(0, pix[q0:q0 + _CHUNK_PIXELS], paint[:, 0]
+                       .to(acc_dtype))
     return acc
 
 

@@ -17,6 +17,12 @@ curve, amp = d * afac / (chord D); per slot the split sums
 s0 = sum amp, sth = sum amp (dh . e_th), sph = sum amp (dh . e_ph), and
 out = (s0 a_th - sth, s0 a_ph - sph). Dead slots and non-finite values
 are exact zeros: the stencil regrid reads neighbouring tiles' storage.
+K4 writes every tile, touched or not, so its accumulator needs no clearing
+beforehand. It forms each (tile, ring row)'s float64 values once a row and
+each slot's from them (``slot_geometry_plain`` is the plain version of
+that layout, equal to ``SkyTiling.slot_local(tangent=True)``), and wraps
+the slot's azimuth offset by the exact remainder
+(``ops.healpix.floor_fmod_near``).
 
 ``tile_paint`` is the wrapper of kernel K10 (K4's kernel in paint mode,
 entry point ``bf_tile_paint``); ``tile_paint_plain`` is its plain version,
@@ -33,13 +39,19 @@ grid, the pair used only when x2 lies on that grid too, and the value
 exp(v1 + v2) for two log curves, else v1 v2.
 """
 
+import math
+
 import torch
 
 from . import _build
+from . import healpix as hpx
 
 __all__ = ["tile_deposit", "tile_deposit_plain", "tile_paint",
            "tile_paint_plain", "tile_paint2", "tile_paint2_plain",
-           "PACK_KEYS", "PAINT_KEYS", "PAINT2_KEYS"]
+           "row_geometry_plain", "slot_geometry_plain", "PACK_KEYS",
+           "PAINT_KEYS", "PAINT2_KEYS"]
+
+_TWO_PI = 2.0 * math.pi
 
 # per-halo columns: vh (n, 3) float64 unit vectors; the rest in the
 # deposit dtype: crit2 = (2 sin(min(radius, pi)/2))^2, lnDa = ln(D/a) +
@@ -56,6 +68,10 @@ PAINT2_KEYS = PAINT_KEYS + ("curves2",)
 # tiles and pairs per step of the plain version
 _TILE_CHUNK = 1024
 _PAIR_CHUNK = 2048
+# the kernel's shared memory a block: one row of ring values takes at
+# most 64 bytes, a staged halo 7 + n_r values (+ n_r2 for paint2)
+_ROW_BYTES = 64
+_SMEM = 48 * 1024 - 16
 
 
 def _check(tiling, csr, pack, keys=PACK_KEYS, name="tile_deposit"):
@@ -88,15 +104,72 @@ def _check(tiling, csr, pack, keys=PACK_KEYS, name="tile_deposit"):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if dev.type == "cuda":
-        if tiling.P > 1024:
-            raise ValueError(f"{name}: the kernel runs one thread per slot "
-                             f"and takes tiles of at most 1024 slots, not "
-                             f"{tiling.P}")
         n_pts = sum(pack[k].shape[1] for k in keys if k.startswith("curves"))
-        if (7 + n_pts) * curves.element_size() > 48 * 1024:
+        if ((7 + n_pts) * curves.element_size() + tiling.RB * _ROW_BYTES
+                > _SMEM):
             raise ValueError(f"{name}: curves of {n_pts} points do not fit "
                              "the kernel's 48 KB of shared memory for one "
-                             "halo")
+                             "halo beside the tile's rows")
+
+
+def row_geometry_plain(tiling, tids):
+    """Plain version of K4's per-row layout (csrc/tile_deposit.cu: Row,
+    row_geometry): for int64 tile ids ``tids`` (T,), each (tile, ring row)'s
+    values as the kernel forms them once a row, (T, RB) each: ``ok`` (ring
+    on the sphere), ``len`` (int32 segment length), ``jb`` = j0 + sh / 2
+    (the segment start and shift, exact), ``dphi`` = 2 pi / nr and sin/cos
+    of the ring's colatitude, ``sth``, ``cth``, and minus the tile
+    centre's, ``dsin``, ``dcos`` (float64)."""
+    arr = tiling.device_arrays(tids.device)
+    ring_ok, i_c, _, nr, sh, j0, j1 = tiling._segments(
+        arr["tile_i0"][tids], arr["tile_s"][tids], arr["tile_S"][tids])
+    csc = arr["csc"][tids]
+    theta_r = hpx.ring_theta(tiling.nside, i_c, torch.float64)
+    sth, cth = torch.sin(theta_r), torch.cos(theta_r)
+    return dict(ok=ring_ok, len=j1 - j0, jb=j0.double() + 0.5 * sh,
+                dphi=_TWO_PI / nr.double(), sth=sth, cth=cth,
+                dsin=sth - csc[:, 0:1], dcos=cth - csc[:, 1:2])
+
+
+def slot_geometry_plain(tiling, tids, dtype):
+    """Plain version of K4's slot geometry (csrc/tile_deposit.cu:
+    slot_geometry) from :func:`row_geometry_plain`'s rows: each slot's
+    azimuth offset in float64, wrapped by the exact remainder, then the
+    tile-local quantities in ``dtype``. Returns, as
+    ``SkyTiling.slot_local(..., tangent=True)``: dp (T, 3, P), valid (T,
+    RB, K), e_th, e_ph (T, 3, P), a_th, a_ph (T, P)."""
+    r = row_geometry_plain(tiling, tids)
+    T, P = tids.numel(), tiling.P
+    csc = tiling.device_arrays(tids.device)["csc"][tids]
+    v = torch.arange(tiling.K, dtype=torch.int32, device=tids.device)
+    valid = r["ok"][:, :, None] & (v < r["len"][:, :, None])
+    d = ((v.double() + r["jb"][:, :, None]) * r["dphi"][:, :, None]
+         - csc[:, 4, None, None])
+    d = hpx.floor_fmod_near(d + math.pi, _TWO_PI) - math.pi
+    d32 = d.to(dtype)
+    s2 = torch.sin(0.5 * d32)
+    c2 = torch.cos(0.5 * d32)
+    sind = 2.0 * s2 * c2
+    cosm1 = -2.0 * s2 * s2
+    dsin, dcos, sth, cth = (r[k].to(dtype)[:, :, None]
+                            for k in ("dsin", "dcos", "sth", "cth"))
+    A = dsin + sth * cosm1
+    B = sth * sind
+    sphc, cphc = (csc[:, k, None, None].to(dtype) for k in (2, 3))
+    dp = torch.stack([cphc * A - sphc * B, sphc * A + cphc * B,
+                      dcos.expand(A.shape)], dim=1).reshape(T, 3, P)
+    cosd = 1.0 + cosm1
+    sinp = sphc * cosd + cphc * sind
+    cosp = cphc * cosd - sphc * sind
+    e_th = torch.stack([cth * cosp, cth * sinp, (-sth).expand(A.shape)],
+                       dim=1).reshape(T, 3, P)
+    e_ph = torch.stack([-sinp, cosp, torch.zeros_like(sinp)],
+                       dim=1).reshape(T, 3, P)
+    a_th = dp[:, 0] * e_th[:, 0] + dp[:, 1] * e_th[:, 1] \
+        + dp[:, 2] * e_th[:, 2]
+    a_ph = dp[:, 0] * e_ph[:, 0] + dp[:, 1] * e_ph[:, 1] \
+        + dp[:, 2] * e_ph[:, 2]
+    return dp, valid, e_th, e_ph, a_th, a_ph
 
 
 def _chunks(tiling, csr, dt, tangent):
@@ -253,7 +326,7 @@ def tile_deposit(tiling, csr, pack, ln_r0, inv_dlnr):
     if pack["curves"].device.type == "cpu":
         return tile_deposit_plain(tiling, csr, pack, float(ln_r0),
                                   float(inv_dlnr))
-    acc = torch.zeros((tiling.n_tiles, tiling.P, 2),
+    acc = torch.empty((tiling.n_tiles, tiling.P, 2),
                       dtype=pack["curves"].dtype, device=pack["curves"].device)
     _launch("tile_deposit", tiling, csr, pack, PACK_KEYS, ln_r0, inv_dlnr,
             (), acc)
@@ -277,7 +350,7 @@ def tile_paint(tiling, csr, pack, ln_r0, inv_dlnr, log_curves):
     if pack["curves"].device.type == "cpu":
         return tile_paint_plain(tiling, csr, pack, float(ln_r0),
                                 float(inv_dlnr), bool(log_curves))
-    acc = torch.zeros((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
+    acc = torch.empty((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
                       device=pack["curves"].device)
     _launch("tile_paint", tiling, csr, pack, PAINT_KEYS, ln_r0, inv_dlnr,
             (int(bool(log_curves)),), acc)
@@ -306,7 +379,7 @@ def tile_paint2(tiling, csr, pack, ln_r0, inv_dlnr, ln_r0_2, inv_dlnr_2,
         return tile_paint2_plain(tiling, csr, pack, float(ln_r0),
                                  float(inv_dlnr), float(ln_r0_2),
                                  float(inv_dlnr_2), bool(log_curves))
-    acc = torch.zeros((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
+    acc = torch.empty((tiling.n_tiles, tiling.P), dtype=pack["curves"].dtype,
                       device=pack["curves"].device)
     _launch("tile_paint2", tiling, csr, pack, PAINT_KEYS, ln_r0, inv_dlnr,
             (pack["curves2"].shape[1], float(ln_r0_2), float(inv_dlnr_2),
@@ -316,19 +389,18 @@ def tile_paint2(tiling, csr, pack, ln_r0, inv_dlnr, ln_r0_2, inv_dlnr_2,
 
 def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc,
             more=()):
-    """Launch ``bf_<name>`` (K4, K10 or K12) over the touched tiles into the
-    zeroed ``acc``, with the tensors ``more`` after the pack's columns; no
-    launch when no tile is touched."""
+    """Launch ``bf_<name>`` (K4, K10 or K12) into ``acc``, every tile of
+    which it writes (the untouched ones as zeros), with the tensors
+    ``more`` after the pack's columns."""
     tiles, offsets, halos = csr
-    if tiles.numel() == 0:
-        return
     dev = acc.device
     arr = tiling.device_arrays(dev)
     cols = [pack[k].contiguous() for k in keys]
     fn = getattr(_build.library(), "bf_{}_{}".format(
         name, "f32" if acc.dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
-        err = fn(tiling.nside, tiling.RB, tiling.K, tiles.numel(),
+        err = fn(tiling.nside, tiling.RB, tiling.K, tiling.n_tiles,
+                 tiles.numel(),
                  _build.ptr(tiles), _build.ptr(offsets), _build.ptr(halos),
                  _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
                  _build.ptr(arr["tile_S"]), _build.ptr(arr["center"]),

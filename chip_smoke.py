@@ -159,9 +159,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      baryonification and the two anafast calls (lmax 3071) on the card,
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
- 17. prints the registers, spills and resident warps of K5's, K8's,
-     K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v on their
-     sources), one JSON
+ 17. prints the registers, spills and resident warps of K4's (with K10's
+     and K12's, the same template), K5's, K8's, K11's, K13's, K16's,
+     K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
      line with each kernel's launches, error, times, bound and
      library-call time, and last
      the line {"ok": true, "device": ...}.
@@ -237,7 +237,10 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "fht": (0.541, "the direct DFT"),
               "disc_paint_anis": (0.654, "the block-per-halo walk"),
               "snapshot_displace": (0.634, "a block a halo, atomics"),
-              "grid_deposit": (0.933, "a thread a source, global atomics")}
+              "grid_deposit": (0.933, "a thread a source, global atomics"),
+              "tile_deposit": (0.509, "a thread a slot, f64 ring math a "
+                               "slot"),
+              "disc_paint": (0.450, "the block-per-halo walk")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -2711,13 +2714,28 @@ def delta_cl(bf, torch, gpu):
 SM_REGS, SM_SMEM, SM_WARPS, SM_BLOCKS = 65536, 233472, 64, 32
 
 
+def tile_pairs_shape(mode, dtype_bytes):
+    """K4's, K10's and K12's launch at the bench (csrc/tile_deposit.cu:
+    launch): threads a block (a warp a tile) and dynamic shared memory,
+    for 16 x 32 shell tiles (K4) or 8 x 16 paint tiles (K10, K12), 64
+    curve points (both curves for K12), a row of ring values 16 + 4 T + 8
+    bytes, up to 16 halos a chunk of 7 + n_r (+ n_r2) values."""
+    RB = 16 if mode == 0 else 8
+    rows = RB * (24 + 4 * dtype_bytes)
+    per_halo = dtype_bytes * (7 + 64 + (64 if mode == 2 else 0))
+    hc = min(16, (48 * 1024 - 16 - rows) // per_halo)
+    return 32, rows + hc * per_halo
+
+
 def ptxas_report(bf):
-    """Registers and spills of K5's, K8's, K13's, K16's, K17's and K19's
-    kernels (nvcc -Xptxas -v with the build's own flags, their sources at
-    once) and the warps an SM holds at the bench's launch shapes (the
-    stencil with its dynamic shared memory, K8 with correlation_3d's 1 x
-    1024 row, 32 KB, and its Bluestein route with N = 100's, 12 KB; K16's
-    window is static shared memory, which ptxas reports)."""
+    """Registers and spills of K4's (and K10's, K12's), K5's, K8's, K11's,
+    K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v with the
+    build's own flags, their sources at once) and the warps an SM holds at
+    the bench's launch shapes (the stencil with its dynamic shared memory,
+    K4's template with its rows and halo chunk (tile_pairs_shape), K8
+    with correlation_3d's 1 x 1024 row, 32 KB, and its Bluestein route
+    with N = 100's, 12 KB; K16's window and K11's and K13's flat-walk
+    layout are static shared memory, which ptxas reports)."""
     import re
     import tempfile
     from baryonforge_torch.ops import _build
@@ -2725,8 +2743,9 @@ def ptxas_report(bf):
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     threads = {"stencil_kernel": 256, "stencil_hot_kernel": 256,
                "legendre_kernel": 256, "fht_kernel": 512,
-               "disc_paint_anis_kernel": 256, "grid_deposit_kernel": 256,
-               "snapshot_gather_kernel": 128}
+               "disc_paint_anis_kernel": 256, "disc_paint_kernel": 256,
+               "grid_deposit_kernel": 256, "snapshot_gather_kernel": 128,
+               "tile_pairs_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
@@ -2734,7 +2753,7 @@ def ptxas_report(bf):
             ("fht_kernel", "0"): 4 * 1024 * 8,
             ("fht_kernel", "1"): 6 * 256 * 8}
     sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
-               "grid_deposit.cu", "snapshot.cu")
+               "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -2769,20 +2788,26 @@ def ptxas_report(bf):
             st = re.search(r"(\d+) bytes smem", line)
             sm = smem.get((key, flag or (types or "")[-1:]), 0) + (
                 int(st.group(1)) if st else 0)
-            warps = threads[key] // 32
+            n_threads = threads[key]
+            if key == "tile_pairs_kernel":
+                n_threads, dyn = tile_pairs_shape(
+                    int(dim), 4 if types == "f" else 8)
+                sm += dyn
+            warps = n_threads // 32
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(SM_REGS // (per_warp * warps), SM_WARPS // warps,
                          SM_BLOCKS, SM_SMEM // (sm + 1024) if sm
                          else SM_BLOCKS)
+            args = ["float" if c == "f" else "double" for c in types or ""]
             if key == "fht_kernel":
                 args = ["Bluestein" if flag == "1" else "power of two"]
+            elif key == "tile_pairs_kernel":
+                args += [("K4", "K10", "K12")[int(dim)]]
             else:
-                args = ["float" if c == "f" else "double"
-                        for c in types or ""]
                 args += [f"{dim}D"] if dim else []
             name = f"{key}<{', '.join(args)}>" if args else key
             log(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled, "
-                f"{sm} bytes of shared memory; {threads[key]} threads a "
+                f"{sm} bytes of shared memory; {n_threads} threads a "
                 f"block: {blocks} blocks, {blocks * warps} warps an SM")
             key = None
 

@@ -11,9 +11,10 @@ order); float32 paint (K10, K11, K12, K13) per pixel to the relative
 tolerance of ops.paint.float32_tolerance (1e-4 for the tile-local
 geometry of K10 and K12; K13's unit vectors with their own reach and both
 curves' slopes), pixels painted on one side only allowed at disc edges
-alone; float32 grid offsets (K15) and maps (K16) to 1e-5 of the largest
-value (float32 sums in another order); K14 to 1e-15 (the same
-operations); K8 (FFTLog) to 1e-11 of each row's largest value (its FFTs
+alone, and K11's float32 map of float64 curves per pixel to 1e-4 (float32
+sums in another order); float32 grid offsets (K15) and maps (K16) to
+1e-5 of the largest value (float32 sums in another order); K14 to 1e-15
+(the same operations); K8 (FFTLog) to 1e-11 of each row's largest value (its FFTs
 against torch.fft's: two correct summation orders differ by up to ~4e-12
 of it on wide grids), K9 (table rows) to 1e-12 with equal NaN masks;
 float32 deposits to the JAX package's edge-jitter bounds
@@ -44,6 +45,7 @@ from baryonforge_torch.ops import deposit, interp, regrid   # noqa: E402
 from baryonforge_torch.ops import stencil, tile_deposit     # noqa: E402
 from baryonforge_torch.ops import fftlog, table_rows        # noqa: E402
 from baryonforge_torch.ops import paint                     # noqa: E402
+from baryonforge_torch.ops import healpix as hpx            # noqa: E402
 from baryonforge_torch.ops import tiles as tt               # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -296,22 +298,100 @@ def _tiled(nside, eps, dt, dev):
     return r, shell, tiling, csr, pack, float(r0), 1.0 / float(dl)
 
 
-@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
-@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
-def test_tile_deposit_kernel(dev, dt, nside, eps):
-    _, _, tiling, csr, pack, r0, inv = _tiled(nside, eps, dt, dev)
-    assert csr[0].numel() > 0
-    _build.reset_launches()
-    ak = tile_deposit.tile_deposit(tiling, csr, pack, r0, inv)
-    assert _build.launches["tile_deposit"] == 1
-    ap = tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _tile_deposit_poisoned(tiling, csr, pack, r0, inv):
+    """K4 into an accumulator that held NaN: a block of NaN is freed just
+    before the wrapper's torch.empty of the same size takes it (asserted),
+    so a slot the kernel does not write shows."""
+    junk = torch.full((tiling.n_tiles, tiling.P, 2), float("nan"),
+                      dtype=pack["curves"].dtype,
+                      device=pack["curves"].device)
+    where = junk.data_ptr()
+    del junk
+    acc = tile_deposit.tile_deposit(tiling, csr, pack, r0, inv)
+    assert acc.data_ptr() == where
+    return acc
+
+
+def _hold_tile_deposit(tiling, csr, ak, ap):
+    """K4 against its plain version (float64 to 1e-10 of the largest
+    offset, float32 to the JAX edge-jitter bounds), with untouched tiles
+    and dead slots exact zeros."""
     scale = ap.abs().max().item()
     assert scale > 0
-    if dt == torch.float64:
+    if ak.dtype == torch.float64:
         torch.testing.assert_close(ak, ap, rtol=0, atol=1e-10 * scale)
     else:
         torch.testing.assert_close(ak, ap, rtol=0, atol=0.02 * scale)
         assert (ak - ap).abs().sum() < 3e-3 * ap.abs().sum()
+    untouched = torch.ones(tiling.n_tiles, dtype=torch.bool, device=ak.device)
+    untouched[csr[0].long()] = False
+    assert untouched.any() and (ak[untouched] == 0).all()
+    valid = tile_deposit.slot_geometry_plain(
+        tiling, torch.arange(tiling.n_tiles, device=ak.device),
+        ak.dtype)[1].reshape(tiling.n_tiles, tiling.P)
+    assert (~valid).any() and (ak[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+def test_tile_deposit_kernel(dev, dt, nside, eps):
+    """K4 against its plain version; every slot written (the accumulator
+    comes from torch.empty), two launches bitwise equal. The catalog's
+    halos at dec +-89.5 touch tiles with rows off the sphere."""
+    _, _, tiling, csr, pack, r0, inv = _tiled(nside, eps, dt, dev)
+    assert csr[0].numel() > 0
+    ok = tile_deposit.row_geometry_plain(tiling, csr[0].long())["ok"]
+    assert (~ok).any()
+    _build.reset_launches()
+    ak = _tile_deposit_poisoned(tiling, csr, pack, r0, inv)
+    assert _build.launches["tile_deposit"] == 1
+    ak2 = tile_deposit.tile_deposit(tiling, csr, pack, r0, inv)
+    assert torch.equal(_bits(ak), _bits(ak2))
+    ap = tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
+    _hold_tile_deposit(tiling, csr, ak, ap)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+def test_tile_deposit_kernel_chunks(dev, dt):
+    """Tiles whose lists hold 0, 1, 16, 17, 64 and 65 halos: the kernel
+    stages 16 halos a chunk at these curves (64 radii), so the lists take
+    0 to 5 chunks, 17 and 65 one halo into their last. Each list is a
+    touched tile's own halos repeated in turn; the 65 go to a polar tile
+    with rows off the sphere."""
+    _, _, tiling, csr, pack, r0, inv = _tiled(64, 60, dt, dev)
+    assert pack["curves"].shape[1] == 64
+    tiles, offsets, halos = (x.cpu() for x in csr)
+    counts = offsets[1:] - offsets[:-1]
+    # touched tiles whose own halos move some slot
+    moves = (tile_deposit.tile_deposit_plain(tiling, csr, pack, r0, inv)
+             != 0).any(2).any(1).cpu()[tiles.long()]
+    off_sphere = ~tile_deposit.row_geometry_plain(
+        tiling, tiles.long())["ok"].all(1)
+    polar = int(torch.nonzero(off_sphere & moves)[0, 0])
+    rest = [int(k) for k in torch.argsort(counts, descending=True)
+            if int(k) != polar and moves[k]][:5]
+    picks = sorted(zip([polar] + rest, (65, 0, 1, 16, 17, 64)),
+                   key=lambda kn: int(tiles[kn[0]]))
+    lists = []
+    for k, n in picks:
+        own = halos[offsets[k]:offsets[k + 1]]
+        lists.append(own.repeat(-(-n // own.numel()))[:n])
+    sizes = torch.tensor([0] + [x.numel() for x in lists])
+    csr2 = tuple(x.to(torch.int32).to(dev) for x in (
+        tiles[[k for k, _ in picks]], torch.cumsum(sizes, 0),
+        torch.cat(lists)))
+    _build.reset_launches()
+    ak = _tile_deposit_poisoned(tiling, csr2, pack, r0, inv)
+    assert _build.launches["tile_deposit"] == 1
+    ap = tile_deposit.tile_deposit_plain(tiling, csr2, pack, r0, inv)
+    _hold_tile_deposit(tiling, csr2, ak, ap)
+    moved = (ap != 0).any(2).any(1).cpu()[csr2[0].long().cpu()]
+    assert [m for m, (_, n) in zip(moved.tolist(), picks) if n != 1] == [
+        n > 1 for _, n in picks if n != 1]
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
@@ -580,24 +660,67 @@ def test_tile_paint_kernel(dev, kind, dt, nside, eps, shape):
                          torch.full_like(rtol, 1e-4), marginal)
 
 
+def _empty_disc(halos, nside, i=12):
+    """Give halo i a disc that holds no pixel centre: between two belt
+    rings, a twentieth of a pixel wide."""
+    rings = torch.tensor([2 * nside, 2 * nside + 1], dtype=torch.int32)
+    halos["theta"][i] = hpx.ring_theta(nside, rings).mean().item()
+    halos["phi"][i] = 0.0
+    halos["radius"][i] = 0.05 * np.pi / (2 * nside)
+
+
+def _wide_paint_discs(halos, nside, r0, dl, n_r):
+    """_wide_anis_discs (1.2-3 degrees, more than SPLIT_RINGS rings at
+    NSIDE 1024), with D set so that each disc's edge sits near the curves'
+    largest radius (every member paints)."""
+    _wide_anis_discs(halos, nside)
+    for i in (0, 3, 4):
+        rad = halos["radius"][i].item()
+        halos["D"][i] = (halos["a"][i].item() * np.exp(r0 + dl * (n_r - 2))
+                         / (2 * np.sin(rad / 2)))
+
+
 @pytest.mark.parametrize("kind", ["log", "raw"])
 @pytest.mark.parametrize("dt,acc_dt", [(torch.float32, torch.float64),
                                        (torch.float32, torch.float32),
-                                       (torch.float64, torch.float64)],
-                         ids=["f32_f64", "f32_f32", "f64_f64"])
+                                       (torch.float64, torch.float64),
+                                       (torch.float64, torch.float32)],
+                         ids=["f32_f64", "f32_f32", "f64_f64", "f64_f32"])
 @pytest.mark.parametrize("pix", [False, True], ids=["value", "pixel_size"])
-@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20)])
+@pytest.mark.parametrize("nside,eps", [(64, 60), (256, 20), (1024, 5)])
 def test_disc_paint_kernel(dev, kind, dt, acc_dt, pix, nside, eps):
+    """K11 against its plain version on the four (curve, map) dtype pairs,
+    with discs across phi = 0, under 4 members, through each pole and one
+    with no member; at NSIDE 1024 three discs of 1.2-3 degrees run the
+    whole-block route. A float64 map to 1e-10 of the largest value, a
+    float32 map of float64 curves per pixel to 1e-4 (its sums rounded in
+    another order), float32 curves to ops.paint.float32_tolerance."""
     _, hd, curves, r0, dl, log = _paint_prep(nside, eps, kind, dt, dev)
     halos = _halos(hd, dev)
+    _disc_cases(halos, nside)
+    _empty_disc(halos, nside)
+    if nside == 1024:
+        _wide_paint_discs(halos, nside, r0, dl, curves.shape[1])
+    walk = deposit.disc_walk_plain(nside, halos["theta"], halos["phi"],
+                                   halos["radius"], dt)
+    assert (~walk["block"]).any() and walk["block"].any() == (nside == 1024)
+    members = torch.bincount(walk["halo"][walk["member"]],
+                             minlength=curves.shape[0])
+    assert members[12] == 0 and (members[10:12] > 0).all()
     _build.reset_launches()
     ak = paint.disc_paint(nside, halos, curves, r0, dl, log, pix, acc_dt)
     assert _build.launches["disc_paint"] == 1 and ak.dtype == acc_dt
     ap = paint.disc_paint_plain(nside, halos, curves, r0, dl, log, pix,
                                 acc_dt)
-    if dt == torch.float64:
+    if dt == torch.float64 and acc_dt == torch.float64:
         torch.testing.assert_close(ak, ap, rtol=0,
                                    atol=1e-10 * ap.abs().max().item())
+    elif dt == torch.float64:
+        _, marginal = paint.float32_tolerance(nside, halos, curves, r0, dl,
+                                              log)
+        _paint_f32_close(ak, ap, torch.full_like(marginal, 1e-4,
+                                                 dtype=torch.float64),
+                         marginal)
     else:
         _paint_f32_close(ak, ap, *paint.float32_tolerance(nside, halos, curves,
                                                           r0, dl, log))

@@ -20,6 +20,16 @@ across phi = 0 and under 4 members, at NSIDE 64 and 256, in float32 and
 float64. K13 also takes a pixel's theta from its ring: the plain per-ring
 angles equal pix2ang's bit for bit at NSIDE 64 and 256 (the card test
 holds the kernel's at NSIDE 64, 256 and 1024).
+
+K11 (the disc paint) walks the same flat layout. Its plain version over
+that walk, ``paint.disc_paint_walk_plain``, must give the map of
+``disc_paint_plain`` (to 1e-12 of the largest pixel: the sums run in
+another order where discs overlap) and, in float64, the map of the JAX
+``PaintProfilesShell._paint_device`` body (HealpixRunner.py:1948-1989,
+written out with the JAX package's ``disc_candidates`` and
+``TabulatedProfile.curve_lookup``) to tests/test_torch_paint.py's rtol
+1e-9, at NSIDE 64 and 256, on the discs above plus one of more than
+``SPLIT_RINGS`` rings and one with no member.
 """
 
 import math
@@ -34,6 +44,8 @@ import jax.numpy as jnp                                     # noqa: E402
 
 from baryonforge_tpu.ops import fftlog as jf                # noqa: E402
 from baryonforge_tpu.ops import healpix as jhpx             # noqa: E402
+from baryonforge_tpu.utils.Tabulate import (                # noqa: E402
+    TabulatedProfile as JTabulated)
 import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch.ops import deposit                   # noqa: E402
 from baryonforge_torch.ops import fftlog as tf              # noqa: E402
@@ -163,3 +175,84 @@ def test_ring_angles_are_pix2ang_plain(nside, dt):
     # the belt's last pixel sits at 2 pi - pi / (4 N)
     assert math.isclose(float(pr.max()), 2 * math.pi - math.pi / (4 * nside),
                         rel_tol=1e-6)
+
+
+def _paint_discs(nside):
+    """_halos' discs, one of more than SPLIT_RINGS rings and one that
+    holds no pixel centre, with D, a and log curves made from a seed: D
+    puts each disc's edge near the curves' largest radius."""
+    theta, phi, radius = _halos(nside)
+    belt = hpx_ring_theta(nside, [2 * nside, 2 * nside + 1])
+    theta = np.append(theta, [1.2, belt.mean()])
+    phi = np.append(phi, [2.0, 0.0])
+    radius = np.append(radius, [13.0 / nside, 0.05 * np.pi / (2 * nside)])
+    rng = np.random.default_rng(nside)
+    n, n_r = theta.size, 40
+    ln_r0, dlnr = np.log(1e-3), np.log(1e4) / (n_r - 1)
+    a = rng.uniform(0.7, 0.9, n)
+    D = a * np.exp(ln_r0 + (n_r - 3) * dlnr) / (2 * np.sin(radius / 2))
+    lnr = ln_r0 + dlnr * np.arange(n_r)
+    curves = (rng.uniform(-1, 1, (n, 1)) - rng.uniform(1, 3, (n, 1)) * lnr
+              + 0.1 * rng.standard_normal((n, n_r)))
+    return (dict(theta=theta, phi=phi, radius=radius, D=D, a=a), curves,
+            float(ln_r0), float(dlnr))
+
+
+def hpx_ring_theta(nside, rings):
+    return np.asarray(jhpx.ring_theta(nside, jnp.asarray(rings, jnp.int32),
+                                      jnp.float64))
+
+
+def _jax_paint_body(nside, h, curves, ln_r0, dlnr, pixel_size):
+    """The JAX scatter paint's one_halo / body under x64, float64, with
+    log curves, every halo in one batch."""
+    npix = 12 * nside ** 2
+    pixarea = 4 * np.pi / npix
+    K_ring, K_phi = jhpx.disc_pad_sizes(nside, float(h["radius"].max()))
+
+    def one_halo(th, ph, rad, D, a, c):
+        pix, _, _, _, sinhd, mask = jhpx.disc_candidates(
+            nside, th, ph, rad, K_ring, K_phi, jnp.float64)
+        r_com = 2.0 * sinhd * D / a
+        paint = JTabulated.curve_lookup(c, ln_r0, dlnr, r_com) / a
+        paint = jnp.where(jnp.isfinite(paint), paint, 0.0)
+        if pixel_size:
+            paint = paint * (pixarea * D ** 2)
+        return jnp.where(mask, pix, npix), jnp.where(mask, paint, 0.0)
+
+    @jax.jit
+    def body(*cols):
+        pix, paint = jax.vmap(one_halo)(*cols)
+        acc = jnp.zeros(npix + 1).at[pix.reshape(-1)].add(paint.reshape(-1))
+        return acc[:npix]
+
+    return np.asarray(body(*(jnp.asarray(h[k]) for k in (
+        "theta", "phi", "radius", "D", "a")), jnp.asarray(curves)))
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("nside", [64, 256])
+def test_disc_paint_walk_matches_plain_and_jax(nside, dt):
+    h, curves, ln_r0, dlnr = _paint_discs(nside)
+    tdt = {"f64": torch.float64, "f32": torch.float32}[dt]
+    halos = {k: torch.as_tensor(v) for k, v in h.items()}
+    c = torch.as_tensor(curves, dtype=tdt)
+    w = deposit.disc_walk_plain(nside, halos["theta"], halos["phi"],
+                                halos["radius"], tdt)
+    members = torch.bincount(w["halo"][w["member"]],
+                             minlength=curves.shape[0])
+    assert w["block"][-2] and not w["block"].all()
+    assert members[-1] == 0 and (members[:-1] > 0).all()
+    for pix in (False, True):
+        got = paint.disc_paint_walk_plain(nside, halos, c, ln_r0, dlnr,
+                                          True, pix, torch.float64)
+        want = paint.disc_paint_plain(nside, halos, c, ln_r0, dlnr, True,
+                                      pix, torch.float64)
+        assert want.max() > 0 and (want > 0).sum() > 500
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-12 * want.max().item())
+        assert torch.equal(got != 0, want != 0)
+        if dt == "f64":
+            j = _jax_paint_body(nside, h, curves, ln_r0, dlnr, pix)
+            np.testing.assert_allclose(got.numpy(), j, rtol=1e-9,
+                                       atol=1e-12 * j.max())

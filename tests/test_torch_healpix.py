@@ -150,3 +150,36 @@ def test_disc_candidates(nside, dts):
     for row in range(mask.shape[0]):          # no pixel twice in a disc
         members = tout[0].numpy()[row][mask[row]]
         assert members.size == np.unique(members).size
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_fmod_near_is_fmod(dt):
+    """The exact remainder of kernels K4 and K16 (csrc/healpix.cuh:
+    fmod_near, floor_fmod_near), in its plain version: bitwise torch.fmod
+    and the floor remainder (torch.remainder, jnp.mod) at +-n, +-2n, their
+    neighbours, +-0, and random values within and past +-3n, for the
+    divisors K4 (2 pi) and K16 (a grid size) use."""
+    rng = np.random.default_rng(11)
+    ints = torch.int64 if dt == torch.float64 else torch.int32
+    for n in (2 * np.pi, 256.0, 33.0):
+        nn = torch.tensor(n, dtype=dt)
+        edges = torch.stack([nn, -nn, 2 * nn, -2 * nn, 3 * nn, -3 * nn])
+        up = torch.nextafter(edges, torch.full_like(edges, np.inf))
+        down = torch.nextafter(edges, torch.full_like(edges, -np.inf))
+        a = torch.cat([edges, up, down, torch.tensor([0.0, -0.0, 1e30,
+                                                      -1e30], dtype=dt),
+                       torch.as_tensor(rng.uniform(-3, 3, 20000) * n,
+                                       dtype=dt),
+                       torch.as_tensor(rng.uniform(-1e6, 1e6, 2000),
+                                       dtype=dt)])
+        want = torch.fmod(a, nn)
+        got = thp.fmod_near(a, n)
+        assert torch.equal(got.view(ints), want.view(ints))
+        floor = torch.where((want != 0) & (want < 0), want + nn, want)
+        got = thp.floor_fmod_near(a, n)
+        assert torch.equal(got.view(ints), floor.view(ints))
+        assert torch.equal(got.view(ints), torch.remainder(a, nn).view(ints))
+        assert (torch.signbit(thp.fmod_near(-nn[None], n)).all()
+                and torch.signbit(thp.fmod_near(torch.tensor([-0.0],
+                                                             dtype=dt), n)))

@@ -3,8 +3,10 @@
 Host arrays (the tiling's per-tile arrays, the halo pairs, count_valid_slots
 and the stencil's host tables) must be equal. The device geometry runs at
 NSIDE 32, 64 and 256 and on an 8 x 16 tiling: integers equal, float64 to
-rtol 1e-12, float32 to atol 2e-6; the re-layouts (plain versions of kernel
-K7) move values and must give equal arrays.
+rtol 1e-12, float32 to atol 2e-6, and the plain version of kernel K4's
+per-row layout (``ops.tile_deposit.slot_geometry_plain``) must equal
+``slot_local`` bit for bit; the re-layouts (plain versions of kernel K7)
+move values and must give equal arrays.
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import jax.numpy as jnp                                     # noqa: E402
 from baryonforge_tpu.ops import tiles as jt                 # noqa: E402
 from baryonforge_torch.ops import _build                    # noqa: E402
 from baryonforge_torch.ops import tiles as tt               # noqa: E402
+from baryonforge_torch.ops.tile_deposit import (            # noqa: E402
+    row_geometry_plain, slot_geometry_plain)
 
 CASES = [(32, 16, 32), (64, 16, 32), (256, 16, 32), (64, 8, 16)]
 IDS = ["nside32", "nside64", "nside256", "nside64-8x16"]
@@ -84,6 +88,14 @@ def test_slot_local_matches_jax(tilings, dt):
                                        err_msg=name)
     dp, valid = t.slot_local(*_tile_cols(t, tids), torch.as_tensor(csc), tdt)
     assert torch.equal(dp, tout[0]) and torch.equal(valid, tout[1])
+    # K4's layout: the ring values once a (tile, row), each slot's from
+    # them, the azimuth wrapped by the exact remainder: bitwise slot_local,
+    # polar tiles with rows off the sphere included
+    rows = slot_geometry_plain(t, torch.as_tensor(tids), tdt)
+    for name, a, b in zip(names, rows, tout):
+        assert torch.equal(a, b), name
+    ok = row_geometry_plain(t, torch.as_tensor(tids))["ok"]
+    assert not ok.all() and ok.any(dim=1).all()
 
 
 def test_slot_pixels_and_index_match_jax(tilings):
