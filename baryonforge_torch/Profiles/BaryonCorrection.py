@@ -10,7 +10,6 @@ runners use (``halo_curves``, kernel K1 on CUDA) and the checkpoint
 (``save_table`` / ``load_table``).
 """
 
-import copy
 import warnings
 from itertools import product
 
@@ -18,7 +17,7 @@ import numpy as np
 import torch
 
 from ..cosmo import massdef as _massdef
-from ..ops.interp import multilinear_interp, collapse_curves
+from ..ops.interp import multilinear_interp, curve_table, dtype_copy
 from ..ops import table_rows
 from ..utils.Tabulate import _set_parameter
 
@@ -221,12 +220,11 @@ class BaryonificationClass:
     def with_dtype(self, dtype, device=None):
         """Shallow copy with the lookup table cast to ``dtype`` (and moved to
         ``device`` when given): the runners read the table in their
-        deposit dtype, float32 by default."""
-        new = copy.copy(self)
+        deposit dtype, float32 by default. The copy is kept per (dtype,
+        device) until the table is rebuilt (``ops.interp.dtype_copy``), so
+        its K1 set-up serves every call."""
         dev = self._table.device if device is None else torch.device(device)
-        new._axes = tuple(x.to(device=dev, dtype=dtype) for x in self._axes)
-        new._table = self._table.to(device=dev, dtype=dtype)
-        return new
+        return dtype_copy(self, ("_table", "_axes"), dtype, dev)
 
     def _readout(self, r, M, a, **kwargs):
         dt, dev = self._table.dtype, self._table.device
@@ -280,12 +278,12 @@ class BaryonificationClass:
         here and the per-pixel readout becomes a log-uniform 1-D lerp
         (:meth:`curve_lookup`). Runs kernel K1 when the table is on CUDA.
 
-        Returns (curves (n_halos, n_r), ln_r0, dlnr); out-of-table rows are
-        zero. With ``Rdelta_sampling`` the radial coordinate is
-        ln(r/R_Delta).
+        Returns (curves (n_halos, n_r), ln_r0, dlnr), the last two as
+        floats; out-of-table rows are zero. With ``Rdelta_sampling`` the
+        radial coordinate is ln(r/R_Delta).
         """
-        return collapse_curves(self._table, self._axes, 2, M, a,
-                               self.p_keys, kwargs, fill=0.0)
+        return curve_table(self, self._table, self._axes,
+                           self.p_keys).collapse(M, a, kwargs, fill=0.0)
 
     @staticmethod
     def curve_lookup(curve, ln_r0, dlnr, r):

@@ -226,13 +226,17 @@ class DefaultRunner:
                 else np.ones_like(Rcom))
 
     def _halo_tensors(self, hd):
-        """The halo columns of ``disc_deposit`` as float64 tensors on the
-        runner's device, from :meth:`_host_halo_data`'s arrays."""
-        return {k: torch.as_tensor(v, dtype=torch.float64, device=self.device)
-                for k, v in (("theta", hd["theta"]), ("phi", hd["phi"]),
-                             ("radius", hd["radius"]), ("D", hd["D"]),
-                             ("a", hd["a"]), ("Rcom", hd["R"] / hd["a"]),
-                             ("rscale", self._rscale(hd)))}
+        """The halo columns of ``disc_deposit``, and M, as float64 tensors
+        on the runner's device, from :meth:`_host_halo_data`'s arrays: rows
+        of one (8, n) upload."""
+        cols = (("theta", hd["theta"]), ("phi", hd["phi"]),
+                ("radius", hd["radius"]), ("D", hd["D"]), ("a", hd["a"]),
+                ("Rcom", hd["R"] / hd["a"]), ("rscale", self._rscale(hd)),
+                ("M", hd["M"]))
+        rows = torch.as_tensor(np.stack([np.asarray(v, dtype=np.float64)
+                                         for _, v in cols]),
+                               device=self.device)
+        return {k: rows[i] for i, (k, _) in enumerate(cols)}
 
     def _use_curves(self):
         """True when the model supports the per-halo-curve readout."""
@@ -319,12 +323,14 @@ class BaryonifyShell(DefaultRunner):
     runs the scatter path (see the module docstring).
     """
 
-    def _halo_curves(self, hd):
+    def _halo_curves(self, halos):
         """Per-halo displacement curves on the runner's device in the
-        deposit dtype (kernel K1 on CUDA), with the radial grid scalars
-        (ln_r0, dlnr) as floats."""
+        deposit dtype (kernel K1 on CUDA, reading M and a where
+        :meth:`_halo_tensors` put them), with the radial grid scalars
+        (ln_r0, dlnr) as floats (the model's, taken from its host copy of
+        the radial axis: no device sync)."""
         model = self.model.with_dtype(self.dtype, device=self.device)
-        curves, ln_r0, dlnr = model.halo_curves(hd["M"], hd["a"],
+        curves, ln_r0, dlnr = model.halo_curves(halos["M"], halos["a"],
                                                 **self._p_key_kwargs())
         return curves, float(ln_r0), float(dlnr)
 
@@ -352,7 +358,7 @@ class BaryonifyShell(DefaultRunner):
         halos = self._halo_tensors(hd)
         orig_dev = orig64.to(self.regrid_dtype)
         clock.mark("host_prep")
-        curves, ln_r0, dlnr = self._halo_curves(hd)
+        curves, ln_r0, dlnr = self._halo_curves(halos)
         clock.mark("curves")
         if self.deposit == "scatter":
             pix_offsets = disc_deposit(NSIDE, halos, curves, ln_r0, dlnr,

@@ -175,32 +175,50 @@ __device__ __forceinline__ void pix2ang(int N, int p, T& theta, T& phi) {
   }
 }
 
+// A ring's colatitude and phi step as pix2ang and get_interp_weights form
+// them. K3 passes a type with the same two members that reads them from
+// a table it filled with these functions, so both give the same bits.
+template <typename T>
+struct RingAngles {
+  int N;
+  __device__ __forceinline__ T theta(int i) const {
+    return ring_theta<T>(N, i);
+  }
+  __device__ __forceinline__ T dphi(int, int nr) const {
+    return ring_dphi<T>(nr);
+  }
+};
+
 // the two pixels of ring `ring` bracketing phi, the phi weight, the ring's
 // colatitude
-template <typename T>
+template <typename T, typename Rings>
 __device__ __forceinline__ void ring_phi_neighbors(int N, int ring, T phi,
+                                                   const Rings& rings,
                                                    int& pa, int& pb, T& w,
                                                    T& theta_ring) {
   Ring<T> r = ring_info<T>(N, ring);
-  T dphi = ring_dphi<T>(r.nr);
+  T dphi = rings.dphi(ring, r.nr);
   int i1 = int(m_floor(phi / dphi - T(0.5) * r.shifted));
   w = (phi - (T(i1) + T(0.5) * r.shifted) * dphi) / dphi;
   pa = r.sp + floor_mod(i1, r.nr);
   pb = r.sp + floor_mod(i1 + 1, r.nr);
-  theta_ring = ring_theta<T>(N, ring);
+  theta_ring = rings.theta(ring);
 }
 
 // healpy get_interp_weights: 4 neighbours and bilinear weights of
 // (theta, phi), phi already wrapped into [0, 2 pi) by the caller
-template <typename T>
+template <typename T, typename Rings>
 __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
+                                               const Rings& rings,
                                                int pix[4], T wgt[4]) {
   int ir1 = ring_above_theta<T>(N, theta);
   int ir2 = ir1 + 1;
   int p0, p1, p2, p3;
   T w1, w2, theta1, theta2;
-  ring_phi_neighbors<T>(N, clampi(ir1, 1, 4 * N - 1), phi, p0, p1, w1, theta1);
-  ring_phi_neighbors<T>(N, clampi(ir2, 1, 4 * N - 1), phi, p2, p3, w2, theta2);
+  ring_phi_neighbors<T>(N, clampi(ir1, 1, 4 * N - 1), phi, rings, p0, p1, w1,
+                        theta1);
+  ring_phi_neighbors<T>(N, clampi(ir2, 1, 4 * N - 1), phi, rings, p2, p3, w2,
+                        theta2);
   T wgt0 = T(1) - w1, wgt1 = w1, wgt2 = T(1) - w2, wgt3 = w2;
   if (ir1 == 0) {                              // north of ring 1
     T wt = theta / theta2;
@@ -236,6 +254,12 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
     wgt[2] = wgt2 * wt;
     wgt[3] = wgt3 * wt;
   }
+}
+
+template <typename T>
+__device__ __forceinline__ void interp_weights(int N, T theta, T phi,
+                                               int pix[4], T wgt[4]) {
+  interp_weights<T>(N, theta, phi, RingAngles<T>{N}, pix, wgt);
 }
 
 // phi of pixel j of ring i (shifted as ring_info gives it), with
@@ -493,16 +517,16 @@ __device__ void flat_disc_walks(int N, int n, const double* theta,
   }
 }
 
-// 4 neighbours and weights of a source at pixel centre (theta_p, phi_p)
-// moved by the tangent offset (o0, o1) = (d theta, sin theta d phi): a pole
+// 4 neighbours and weights of a source at pixel centre (theta_p, phi_p),
+// sin_safe its sin(theta_p) (1 where that is not above 1e-12), moved by
+// the tangent offset (o0, o1) = (d theta, sin theta d phi): a pole
 // overshoot passes through the pole (theta reflected, phi turned by pi).
 // The caller handles an unmoved source (o0 == o1 == 0: itself, weight 1).
-template <typename T>
+template <typename T, typename Rings>
 __device__ __forceinline__ void displaced_weights(int N, T theta_p, T phi_p,
-                                                  T o0, T o1, int pix[4],
-                                                  T wgt[4]) {
-  const T sin_t = m_sin(theta_p);
-  const T sin_safe = sin_t > T(1e-12) ? sin_t : T(1);
+                                                  T sin_safe, T o0, T o1,
+                                                  const Rings& rings,
+                                                  int pix[4], T wgt[4]) {
   T theta = theta_p + o0;
   T phi = phi_p + o1 / sin_safe;
   const bool over = theta < T(0) || theta > T(kPi);
@@ -510,7 +534,16 @@ __device__ __forceinline__ void displaced_weights(int N, T theta_p, T phi_p,
   if (theta > T(kPi)) theta = T(kTwoPi) - theta;
   if (over) phi = phi + T(kPi);
   phi = floor_fmod(phi, T(kTwoPi));
-  interp_weights<T>(N, theta, phi, pix, wgt);
+  interp_weights<T>(N, theta, phi, rings, pix, wgt);
+}
+
+template <typename T>
+__device__ __forceinline__ void displaced_weights(int N, T theta_p, T phi_p,
+                                                  T o0, T o1, int pix[4],
+                                                  T wgt[4]) {
+  const T sin_t = m_sin(theta_p);
+  displaced_weights<T>(N, theta_p, phi_p, sin_t > T(1e-12) ? sin_t : T(1),
+                       o0, o1, RingAngles<T>{N}, pix, wgt);
 }
 
 }  // namespace bf

@@ -9,8 +9,9 @@ card has ``nvcc``.
 
 ``launches`` counts, per kernel entry point, the launches made by the
 wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
-``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4 ``tile_deposit``,
-K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
+``ops/regrid.py`` (K3, and the check kernel ``regrid_angles``),
+``ops/tile_deposit.py`` (K4 ``tile_deposit``, K10 ``tile_paint``, K12
+``tile_paint2``), ``ops/stencil.py`` (K5
 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
 ``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
 ``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
@@ -61,10 +62,8 @@ _LL = ctypes.c_longlong
 def _signatures():
     """ctypes argument types of every C entry point, by name."""
     sig = {
-        "bf_collapse_curves_f32": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _F,
-                                   _P, _P],
-        "bf_collapse_curves_f64": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _D,
-                                   _P, _P],
+        "bf_collapse_curves_f32": [_P, _P, _P, _I, _F, _P, _P],
+        "bf_collapse_curves_f64": [_P, _P, _P, _I, _D, _P, _P],
         "bf_disc_deposit_f32": [_I, _I] + [_P] * 8 + [_I, _F, _F, _F, _P, _P],
         "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
         "bf_tile_deposit_f32": [_I] * 5 + [_P] * 14 + [_I, _F, _F, _P, _P],
@@ -88,6 +87,7 @@ def _signatures():
         "bf_tile_pairs": [_I] * 7 + [_P, _P, _D, _P, _I, _P, _P, _P],
         "bf_snapshot_record_bytes": [_I],
         "bf_grid_deposit_tile": [_I, _I],
+        "bf_regrid_scratch_bytes": [_I, _I, _P],
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
@@ -97,7 +97,7 @@ def _signatures():
         flt = _F if sfx == "f32" else _D
         for rsfx in ("f32", "f64"):
             # offsets in the first dtype, maps in the second
-            sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I, _P, _P, _P, _P]
+            sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I] + [_P] * 5
             sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 14
             sig[f"bf_stencil_complement_{sfx}_{rsfx}"] = \
                 [_I] * 4 + [_P] * 4 + [_I] + [_P] * 8
@@ -112,6 +112,7 @@ def _signatures():
         sig[f"bf_anis_finish_{sfx}"] = [_LL] + [_P] * 3 + [_D] * 3 \
             + [_I, _P, _P]
         sig[f"bf_pixel_angles_{sfx}"] = [_I, _I, _P, _P, _P]
+        sig[f"bf_regrid_angles_{sfx}"] = [_I] + [_P] * 4
         sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \

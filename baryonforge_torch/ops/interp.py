@@ -4,9 +4,13 @@ multilinear interpolation, and the per-halo curve collapse.
 Port of ``baryonforge_tpu.ops.interp``. The 1-D interpolators take a
 batch: ``x`` and ``y`` are (..., N) and broadcast against each other, and
 queries are (..., Q). ``collapse_curves`` is the wrapper of kernel K1
-(``csrc/curves.cu``); ``collapse_curves_plain`` is its plain version.
+(``csrc/curves.cu``), ``CurveTable`` its set-up once a table (which the
+models keep: ``curve_table``, ``dtype_copy``); ``collapse_curves_plain``
+is its plain version, ``halo_corners_plain`` the plain version of its
+per-halo step.
 """
 
+import copy
 import ctypes
 import math
 
@@ -20,7 +24,8 @@ __all__ = ["searchsorted_right", "pchip_derivatives", "pchip_eval",
            "cubic_spline_coeffs", "cubic_spline_eval",
            "cubic_spline_derivative_eval",
            "interp", "interp1d_linear", "multilinear_interp",
-           "collapse_curves", "collapse_curves_plain", "MAX_P_AXES"]
+           "collapse_curves", "collapse_curves_plain", "halo_corners_plain",
+           "CurveTable", "curve_table", "dtype_copy", "MAX_P_AXES"]
 
 # parameter axes K1 takes besides z and M (kMaxAxes - 2 in csrc/curves.cu)
 MAX_P_AXES = 4
@@ -372,69 +377,260 @@ def collapse_curves_plain(table, axes, r_axis, M, a, p_keys, kwargs,
     return curves, ln_r[0], ln_r[1] - ln_r[0]
 
 
+def halo_corners_plain(table, axes, r_axis, M, a, p_keys, kwargs):
+    """Plain version of K1's per-halo step, formed once a halo. Returns
+    each corner's weight (n, 2^D), built axis by axis as w = w * (bit ? t
+    : 1 - t); the flat offset (n, 2^D) of its row in the contiguous (z,
+    M, r, p...) table at radius 0 (radius r adds r times ``stride_r``);
+    ``stride_r``; and the out-of-table flag (n,). Summing w times the rows
+    over the corners in order gives :func:`collapse_curves_plain`'s curves
+    bit for bit."""
+    dt, dev = table.dtype, table.device
+    M_use, a_use = _halo_columns(table, M, a)
+    n = M_use.numel()
+    vals = [torch.log(1.0 / a_use).expand(n), torch.log(M_use)]
+    for k in p_keys:
+        vals.append(torch.as_tensor(kwargs[k], dtype=dt,
+                                    device=dev).expand(n))
+    axis_ids = [0, 1] + list(range(r_axis + 1, table.dim()))
+    stride = table.contiguous().stride()
+    locs = [_locate(axes[ai], v.contiguous())
+            for ai, v in zip(axis_ids, vals)]
+    oob = torch.zeros(n, dtype=torch.bool, device=dev)
+    for _, _, o in locs:
+        oob = oob | o
+    w, off = [], []
+    for corner in range(2 ** len(locs)):
+        wc = torch.ones((n,), dtype=dt, device=dev)
+        oc = torch.zeros((n,), dtype=torch.int64, device=dev)
+        for d, (i, t, _) in enumerate(locs):
+            bit = (corner >> d) & 1
+            wc = wc * (t if bit else 1.0 - t)
+            oc = oc + (i + bit) * stride[axis_ids[d]]
+        w.append(wc)
+        off.append(oc)
+    return torch.stack(w, 1), torch.stack(off, 1), stride[r_axis], oob
+
+
+class _CurveAxes(ctypes.Structure):
+    """csrc/curves.cu: CurveAxes, a table's axes (built once a table)."""
+    _fields_ = [("grid", ctypes.c_void_p * (2 + MAX_P_AXES)),
+                ("size", ctypes.c_int * (2 + MAX_P_AXES)),
+                ("n", ctypes.c_int), ("nr", ctypes.c_int)]
+
+
+class _CurveHalos(ctypes.Structure):
+    """csrc/curves.cu: CurveHalos, a call's halo columns."""
+    _fields_ = [("col", ctypes.c_void_p * (2 + MAX_P_AXES)),
+                ("step", ctypes.c_int * (2 + MAX_P_AXES)),
+                ("f64", ctypes.c_int * (2 + MAX_P_AXES)),
+                ("val", ctypes.c_double * (2 + MAX_P_AXES))]
+
+
+class CurveTable:
+    """A (z, M, r, p...) table set up for the curve collapse once: checked,
+    K1's axis pointers and sizes in its ``CurveAxes``, and (ln_r0, dlnr)
+    taken as floats from a host copy of the radial axis, so that a call
+    (:meth:`collapse`) makes one launch and no device sync. Columns on the
+    card are read as they are (float64 or the table's type); host columns
+    go up as float64 through pinned memory in one asynchronous copy. The
+    kernel rounds float64 values to the table's type. The model classes
+    keep theirs (:func:`curve_table`). A table on the CPU runs the plain
+    version."""
+
+    def __init__(self, table, axes, r_axis, p_keys):
+        self.table, self.axes, self.p_keys = table, axes, list(p_keys)
+        self.r_axis = r_axis
+        ln_r = axes[r_axis].detach().cpu()
+        self.ln_r0 = float(ln_r[0])
+        self.dlnr = float(ln_r[1] - ln_r[0])
+        if table.device.type == "cpu":
+            return
+        if table.device.type != "cuda":
+            raise ValueError(
+                f"collapse_curves: unsupported device {table.device}")
+        if r_axis != 2 or table.dim() != 3 + len(p_keys):
+            raise ValueError("collapse_curves: the table must be (z, M, r, "
+                             "p...) with one trailing axis per p_key")
+        if len(p_keys) > MAX_P_AXES:
+            raise NotImplementedError(
+                f"collapse_curves on CUDA: {len(p_keys)} parameter axes; "
+                f"the kernel keeps each axis' bracket on a lane and takes at"
+                f" most {MAX_P_AXES}")
+        dt = table.dtype
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(f"collapse_curves: unsupported dtype {dt}")
+        if len(axes) != table.dim():
+            raise ValueError("collapse_curves: one axis grid per table axis")
+        for d, x in enumerate(axes):
+            if x.dtype != dt or x.device != table.device or x.dim() != 1:
+                raise ValueError(f"collapse_curves: axis {d} must be a 1-D "
+                                 f"{dt} tensor on {table.device}")
+            if x.numel() != table.shape[d]:
+                raise ValueError("collapse_curves: axes do not match the "
+                                 "table")
+            if x.numel() < 2:
+                raise ValueError("collapse_curves: every axis needs >= 2 "
+                                 "points")
+        if table.numel() >= 2 ** 31:
+            raise ValueError("collapse_curves: the table holds 2^31 values "
+                             "or more (int32 index math)")
+        self._table = table.contiguous()
+        self._grids = [axes[d].contiguous()
+                       for d in [0, 1] + list(range(3, table.dim()))]
+        self._axes_c = _CurveAxes()
+        for d, g in enumerate(self._grids):
+            self._axes_c.grid[d] = g.data_ptr()
+            self._axes_c.size[d] = g.numel()
+        self._axes_c.n = len(self._grids)
+        self._axes_c.nr = table.shape[r_axis]
+        self._halos_c = _CurveHalos()
+        self._device = table.device.index
+        lib = _build.library()
+        self._fn = (lib.bf_collapse_curves_f32 if dt == torch.float32
+                    else lib.bf_collapse_curves_f64)
+
+    def collapse(self, M, a, kwargs, fill=0.0):
+        """Per-halo curves (n, N_r) for masses ``M`` (scalar or (n,)) at
+        scale factors ``a`` and parameters ``kwargs[p]`` (each a scalar or
+        (n,); on the host or on the table's device), with (ln_r0, dlnr) as
+        floats. Host columns go up in one copy, a scalar by value, and a
+        column on the card is read in place."""
+        for k in self.p_keys:
+            if k not in kwargs:
+                raise ValueError(f"need {k} as input (table built with it)")
+        values = [a, M] + [kwargs[k] for k in self.p_keys]
+        n = _size(M)
+        for v in values:
+            if _size(v) not in (1, n):
+                raise ValueError(f"collapse_curves: {_size(v)} values of an "
+                                 f"axis for {n} halos")
+        if self.table.device.type == "cpu":
+            curves = collapse_curves_plain(self.table, self.axes, self.r_axis,
+                                           M, a, self.p_keys, kwargs, fill)[0]
+            return curves, self.ln_r0, self.dlnr
+        table = self._table
+        dt, dev = table.dtype, table.device
+        nr = self._axes_c.nr
+        if n * nr >= 2 ** 31:
+            raise ValueError("collapse_curves: n_halos x n_r must stay "
+                             "below 2^31 (int32 index math)")
+        hs = self._halos_c
+        host, keep = [], []
+        for d, v in enumerate(values):
+            if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+                if v.device != dev:
+                    raise ValueError(f"collapse_curves: halo values on "
+                                     f"{v.device}, table on {dev}")
+                if (v.dtype not in (dt, torch.float64) or v.dim() != 1
+                        or not v.is_contiguous()):
+                    v = v.detach().reshape(-1).to(dt).contiguous()
+                    keep.append(v)
+                hs.col[d] = v.data_ptr()
+                hs.step[d] = int(v.numel() > 1)
+                hs.f64[d] = int(v.dtype == torch.float64)
+                continue
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+            arr = np.asarray(v, dtype=np.float64).reshape(-1)
+            if arr.size == 1:
+                hs.col[d] = None
+                hs.val[d] = float(arr[0])
+            else:
+                host.append((d, arr))
+        if host:
+            keep.append(self._upload(host, n))
+        out = torch.empty((n, nr), dtype=dt, device=dev)
+        if n:
+            if torch.cuda.current_device() != self._device:
+                with torch.cuda.device(dev):
+                    err = self._launch(n, fill, out)
+            else:
+                err = self._launch(n, fill, out)
+            _build.check(err, "collapse_curves")
+            _build.launches["collapse_curves"] += 1
+        return out, self.ln_r0, self.dlnr
+
+    def _launch(self, n, fill, out):
+        return self._fn(self._table.data_ptr(), ctypes.addressof(self._axes_c),
+                        ctypes.addressof(self._halos_c), n, fill,
+                        out.data_ptr(),
+                        torch._C._cuda_getCurrentRawStream(self._device))
+
+    def _upload(self, host, n):
+        """The host columns ``host`` ((axis, float64 array) pairs) put in
+        pinned memory and copied up in one asynchronous copy (PyTorch's
+        pinned allocator keeps the host buffer until the copy is done);
+        their columns set in CurveHalos. Returns the device buffer."""
+        pinned = torch.empty((len(host), n), dtype=torch.float64,
+                             pin_memory=True)
+        staged = pinned.numpy()
+        for j, (_, arr) in enumerate(host):
+            staged[j] = arr
+        buf = pinned.to(self._table.device, non_blocking=True)
+        hs = self._halos_c
+        for j, (d, _) in enumerate(host):
+            hs.col[d] = buf.data_ptr() + 8 * j * n
+            hs.step[d] = 1
+            hs.f64[d] = 1
+        return buf
+
+
+def _size(v):
+    return v.numel() if isinstance(v, torch.Tensor) else int(np.size(v))
+
+
+def curve_table(holder, table, axes, p_keys):
+    """``holder``'s :class:`CurveTable` for ``table`` (radial axis at 2),
+    kept on it: built at the first call and again once the table, its axes
+    or ``p_keys`` change (a table rebuilt by ``setup_interpolator`` or
+    ``load_table`` is another object)."""
+    cache = holder.__dict__.setdefault("_curve_tables", {})
+    ct = cache.get(id(table))
+    if (ct is None or ct.table is not table or ct.axes is not axes
+            or ct.p_keys != list(p_keys)):
+        if len(cache) >= 4:
+            cache.clear()
+        ct = cache[id(table)] = CurveTable(table, axes, 2, p_keys)
+    return ct
+
+
+def dtype_copy(model, names, dtype, device):
+    """A shallow copy of ``model`` with its tensors ``names`` (attributes:
+    a tensor or a tuple of tensors) cast to ``dtype`` on ``device``. The
+    copy is kept on the model per (dtype, device), so what is set up on it
+    (its :func:`curve_table`) outlives a runner's call; it is made anew once
+    any of those attributes is another object (a table rebuilt by
+    ``setup_interpolator`` or ``load_table``), and its other attributes
+    follow the model's."""
+    copies = model.__dict__.setdefault("_dtype_copies", {})
+    src = tuple(getattr(model, k) for k in names)
+    hit = copies.get((dtype, device))
+    own = set(names) | {"_dtype_copies", "_curve_tables"}
+    if hit is not None and all(x is y for x, y in zip(hit[0], src)):
+        new = hit[1]
+        new.__dict__.update((k, v) for k, v in model.__dict__.items()
+                            if k not in own)
+        return new
+    new = copy.copy(model)
+    for k, v in zip(names, src):
+        setattr(new, k, tuple(x.to(device=device, dtype=dtype) for x in v)
+                if isinstance(v, tuple) else v.to(device=device, dtype=dtype))
+    new._dtype_copies = {}
+    new._curve_tables = {}
+    copies[(dtype, device)] = (src, new)
+    return new
+
+
 def collapse_curves(table, axes, r_axis, M, a, p_keys, kwargs, fill=0.0):
     """Per-halo curve collapse: kernel K1 for a table on CUDA, the plain
-    version for a table on the CPU. Same arguments and results as
-    :func:`collapse_curves_plain`.
+    version for a table on the CPU. Same arguments as
+    :func:`collapse_curves_plain`; returns (curves, ln_r0, dlnr) with the
+    last two as floats. Sets the table up anew (:class:`CurveTable`); the
+    model classes keep theirs.
 
     The kernel takes float32 or float64 (z, M, r, p1, ...) tables with the
     radial axis at index 2 and at most ``MAX_P_AXES`` parameter axes.
     """
-    if table.device.type == "cpu":
-        return collapse_curves_plain(table, axes, r_axis, M, a, p_keys,
-                                     kwargs, fill)
-    if table.device.type != "cuda":
-        raise ValueError(f"collapse_curves: unsupported device {table.device}")
-    if r_axis != 2 or table.dim() != 3 + len(p_keys):
-        raise ValueError("collapse_curves: the table must be (z, M, r, p...) "
-                         "with one trailing axis per p_key")
-    if len(p_keys) > MAX_P_AXES:
-        raise NotImplementedError(
-            f"collapse_curves on CUDA: {len(p_keys)} parameter axes; the "
-            f"kernel keeps each axis' bracket in registers and takes at most "
-            f"{MAX_P_AXES}")
-    dt = table.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"collapse_curves: unsupported dtype {dt}")
-    if len(axes) != table.dim():
-        raise ValueError("collapse_curves: one axis grid per table axis")
-    for d, x in enumerate(axes):
-        if x.dtype != dt or x.device != table.device or x.dim() != 1:
-            raise ValueError(f"collapse_curves: axis {d} must be a 1-D "
-                             f"{dt} tensor on {table.device}")
-        if x.numel() != table.shape[d]:
-            raise ValueError("collapse_curves: axes do not match the table")
-        if x.numel() < 2:
-            raise ValueError("collapse_curves: every axis needs >= 2 points")
-    for k in p_keys:
-        if k not in kwargs:
-            raise ValueError(f"need {k} as input (table built with it)")
-    dev = table.device
-    table = table.contiguous()
-    grids = [axes[d].contiguous() for d in [0, 1] + list(range(3,
-                                                                table.dim()))]
-    M_use, a_use = _halo_columns(table, M, a)
-    n = M_use.numel()
-    a_use = a_use.expand(n).contiguous()
-    M_use = M_use.contiguous()
-    p_vals = (torch.stack([torch.as_tensor(kwargs[k], dtype=dt, device=dev)
-                           .expand(n) for k in p_keys]).contiguous()
-              if p_keys else torch.zeros(1, dtype=dt, device=dev))
-    ln_r = axes[r_axis]
-    nr = table.shape[r_axis]
-    out = torch.empty((n, nr), dtype=dt, device=dev)
-    if n:
-        fn = (_build.library().bf_collapse_curves_f32 if dt == torch.float32
-              else _build.library().bf_collapse_curves_f64)
-        grid_ptrs = (ctypes.c_void_p * len(grids))(
-            *[g.data_ptr() for g in grids])
-        sizes = (ctypes.c_int * len(grids))(*[g.numel() for g in grids])
-        with torch.cuda.device(dev):
-            err = fn(_build.ptr(table),
-                     ctypes.cast(grid_ptrs, ctypes.c_void_p),
-                     ctypes.cast(sizes, ctypes.c_void_p), len(grids), nr,
-                     _build.ptr(M_use), _build.ptr(a_use), _build.ptr(p_vals),
-                     n, float(fill), _build.ptr(out), _build.stream_of(table))
-        _build.check(err, "collapse_curves")
-        _build.launches["collapse_curves"] += 1
-    return out, ln_r[0], ln_r[1] - ln_r[0]
+    return CurveTable(table, axes, r_axis, p_keys).collapse(M, a, kwargs,
+                                                            fill)

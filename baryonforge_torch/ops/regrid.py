@@ -6,8 +6,14 @@
 (baryonforge_tpu/Runners/HealpixRunner.py:1345-1458). The JAX runner's
 sparse form ``_phase_b_sparse`` and its dispatcher ``_regrid`` equal the
 dense form up to summation order, so they have no separate port.
+
+K3 takes each ring's colatitude, phi step and sin from a per-ring table
+that its first launch fills; ``ring_table_plain`` is the plain version of
+that table, and ``pixel_angles`` (a check kernel) gives every pixel's
+angles as K3 takes them, which equal pix2ang's bit for bit.
 """
 
+import ctypes
 import math
 
 import torch
@@ -15,7 +21,8 @@ import torch
 from . import _build
 from . import healpix as hpx
 
-__all__ = ["regrid", "regrid_plain", "displaced_weights"]
+__all__ = ["regrid", "regrid_plain", "displaced_weights", "ring_table_plain",
+           "pixel_angles"]
 
 # sources per step of the plain version (~30 temporaries of this length)
 _CHUNK = 1 << 22
@@ -41,6 +48,23 @@ def displaced_weights(nside, dtype, self_pix, po, theta_p, phi_p):
                        cpix)
     cw = torch.where(unmoved, first.to(dtype), cw)
     return cpix, cw
+
+
+def ring_table_plain(nside, dtype, device="cpu"):
+    """Plain version of K3's ring table: (theta, dphi, sin_safe) of rings
+    1 .. 4 nside - 1 at index i - 1, each in ``dtype``: ring_theta, the
+    phi step 2 pi / nr in float64 rounded once, and sin(theta), 1 where it
+    is not above 1e-12 (as :func:`displaced_weights` clamps it)."""
+    r = torch.arange(1, 4 * nside, dtype=torch.int32, device=device)
+    _, nr, _, _ = hpx.ring_info(nside, r, dtype)
+    theta = hpx.ring_theta(nside, r, dtype)
+    # a true division (a Python number over a tensor is a reciprocal times
+    # the number in torch), as the kernel's ring_dphi
+    dphi = (torch.full_like(nr, 2 * math.pi, dtype=torch.float64)
+            / nr.double()).to(dtype)
+    sin_t = torch.sin(theta)
+    sin_safe = torch.where(sin_t > 1e-12, sin_t, torch.ones_like(sin_t))
+    return theta, dphi, sin_safe
 
 
 def regrid_plain(nside, pix_offsets, orig):
@@ -91,14 +115,58 @@ def regrid(nside, pix_offsets, orig):
         raise ValueError(f"regrid: unsupported device {dev}")
     po = pix_offsets.contiguous()
     orig = orig.contiguous()
-    out = torch.zeros(npx, dtype=orig.dtype, device=dev)
-    name = "bf_regrid_{}_{}".format(
-        *("f32" if t == torch.float32 else "f64"
-          for t in (po.dtype, orig.dtype)))
-    fn = getattr(_build.library(), name)
+    # the kernel reads 4 pixels' offsets and values by 16-byte accesses
+    if po.data_ptr() % 16:
+        po = po.clone()
+    if orig.data_ptr() % 16:
+        orig = orig.clone()
+    out = torch.empty(npx, dtype=orig.dtype, device=dev)
+    lib = _build.library()
+    scratch = _scratch(lib, nside, orig.dtype, dev)
+    fn = getattr(lib, "bf_regrid_{}_{}".format(_sfx(po.dtype),
+                                               _sfx(orig.dtype)))
     with torch.cuda.device(dev):
-        err = fn(nside, _build.ptr(po), _build.ptr(orig), _build.ptr(out),
-                 _build.stream_of(out))
+        err = fn(nside, _build.ptr(po), _build.ptr(orig), _build.ptr(scratch),
+                 _build.ptr(out), _build.stream_of(out))
     _build.check(err, "regrid")
     _build.launches["regrid"] += 1
     return out
+
+
+def _sfx(dt):
+    return "f32" if dt == torch.float32 else "f64"
+
+
+def _scratch(lib, nside, dtype, dev):
+    """K3's scratch, uninitialised (its first launch fills it): the ring
+    table, then the tiles' counts and lists of moved pixels (4 bytes a
+    pixel)."""
+    n = ctypes.c_longlong()
+    lib.bf_regrid_scratch_bytes(nside, int(dtype == torch.float64),
+                                ctypes.addressof(n))
+    return torch.empty(n.value, dtype=torch.uint8, device=dev)
+
+
+def pixel_angles(nside, dtype, device):
+    """Every pixel's (theta, phi) in ``dtype`` as K3 takes them: its
+    ring's theta from the kernel's ring table and pix2ang's phi formula on
+    the ring and index (check kernel ``bf_regrid_angles``, on CUDA only).
+    The card tests hold them equal to pix2ang's bit for bit."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("pixel_angles: a check kernel, CUDA only")
+    if not 1 <= nside <= hpx.MAX_NSIDE:
+        raise ValueError(f"pixel_angles: NSIDE {nside} outside "
+                         f"[1, {hpx.MAX_NSIDE}]")
+    npx = hpx.npix(nside)
+    theta = torch.empty(npx, dtype=dtype, device=dev)
+    phi = torch.empty(npx, dtype=dtype, device=dev)
+    lib = _build.library()
+    scratch = _scratch(lib, nside, dtype, dev)
+    fn = getattr(lib, "bf_regrid_angles_" + _sfx(dtype))
+    with torch.cuda.device(dev):
+        err = fn(nside, _build.ptr(scratch), _build.ptr(theta),
+                 _build.ptr(phi), _build.stream_of(theta))
+    _build.check(err, "regrid_angles")
+    _build.launches["regrid_angles"] += 1
+    return theta, phi

@@ -10,7 +10,6 @@ card), and kept on the CPU in float64; :meth:`with_dtype` makes the copy a
 runner reads on its device. ``TabulatedCorrelation3D`` is not ported yet.
 """
 
-import copy
 from itertools import product
 
 import numpy as np
@@ -115,13 +114,12 @@ class _Tabulated:
     def with_dtype(self, dtype, device=None):
         """Shallow copy with the tables and axes cast to ``dtype`` (and
         moved to ``device`` when given): the runners read them in their
-        deposit dtype, float32 by default."""
-        new = copy.copy(self)
+        deposit dtype, float32 by default. The copy is kept per (dtype,
+        device) until the tables are rebuilt (``ops.interp.dtype_copy``),
+        so its K1 set-ups serve every call."""
+        from ..ops.interp import dtype_copy
         dev = self._tab2D.device if device is None else torch.device(device)
-        new._axes = tuple(x.to(device=dev, dtype=dtype) for x in self._axes)
-        new._tab3D = self._tab3D.to(device=dev, dtype=dtype)
-        new._tab2D = self._tab2D.to(device=dev, dtype=dtype)
-        return new
+        return dtype_copy(self, ("_axes", "_tab3D", "_tab2D"), dtype, dev)
 
     def _readout(self, table, r, M, a, log, **kwargs):
         from ..ops.interp import multilinear_interp
@@ -165,14 +163,15 @@ class _Tabulated:
         per-pixel readout is a log-uniform 1-D lookup (``curve_lookup``).
         Kernel K1 when the table is on CUDA.
 
-        Returns (curves (n, n_r), ln_r0, dlnr). ``projected`` curves hold
+        Returns (curves (n, n_r), ln_r0, dlnr), the last two as floats.
+        ``projected`` curves hold
         Sigma * a (the runner divides the factor out), as logs for
         TabulatedProfile, whose out-of-table rows are -inf, and raw for
         ParamTabulatedProfile, whose out-of-table rows are 0."""
-        from ..ops.interp import collapse_curves
+        from ..ops.interp import curve_table
         tab = self._tab2D if kind == "projected" else self._tab3D
-        return collapse_curves(tab, self._axes, 2, M, a, self.p_keys, kwargs,
-                               fill=-np.inf if self.curves_are_log else 0.0)
+        return curve_table(self, tab, self._axes, self.p_keys).collapse(
+            M, a, kwargs, fill=-np.inf if self.curves_are_log else 0.0)
 
 
 class TabulatedProfile(_Tabulated):

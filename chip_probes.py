@@ -1,18 +1,22 @@
 """Design probes of kernels K4 (tile deposit), K10 and K12 (tile paint and
-paint2, K4's template in its paint modes) and K11 (disc paint) on the
-card, at the bench inputs of chip_smoke.py.
+paint2, K4's template in its paint modes), K11 (disc paint), K3 (scatter
+regrid) and K1 (curve collapse) on the card, at the bench inputs of
+chip_smoke.py.
 
-    python3 chip_probes.py        # one card; builds included
+    python3 chip_probes.py [K4] [K3] [K1]   # one card; builds included
 
-Each variant is a kernel's source in baryonforge_torch/csrc/ with a few
-text replacements, compiled with the build's own nvcc flags into a library
-of its own (one nvcc per variant, all started together). The wrappers run
-unchanged with that library in place of the build's. Every variant that
-keeps the kernel's results is first held against the plain version, as
+With no argument it runs every section: K4 (tile_deposit.cu with K10,
+K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu). Each variant is
+a kernel's source in baryonforge_torch/csrc/ with a few text replacements,
+compiled with the build's own nvcc flags into a library of its own (one
+nvcc per variant, all started together). The wrappers run unchanged with
+that library in place of the build's. Every variant that keeps the
+kernel's results is first held against the plain version, as
 chip_smoke.py holds the kernel; then the variants of a kernel are timed by
 CUDA events (chip_smoke.time_ms: the mean of 20 wrapper calls after a
-warm-up) in turns, forward and back, twice, and each variant's four
-readings are printed. The variants:
+warm-up; K3 and K1 also chip_smoke.graph_ms, the device alone) in turns,
+forward and back, twice, and each variant's four readings are printed.
+The variants:
 
 tile_deposit.cu (K4 at the shell bench, K10 at the paint bench, K12 at
 the anisotropic paint's, the tSZ table as both curves):
@@ -45,6 +49,35 @@ the anisotropic paint's, the tSZ table as both curves):
 disc_paint.cu (K11 at the paint bench):
   l1           the kernel as it stands: the halo's curve read through L1
   staged       the curve staged a warp in shared memory (n_r <= 64)
+regrid.cu (K3 at the shell bench: K2's offsets, the float32 map):
+  kernel       the kernel as it stands: the init launch writes the unmoved
+               pixels' values, each tile's list of moved pixels and the
+               ring table; the move launch a thread a listed pixel, the
+               rings from the table
+  no_lists     the move launch over every pixel of a tile (a warp with no
+               moved pixel leaves; the others' unmoved lanes idle)
+  pix2ang      each moved pixel's geometry as before the table: pix2ang
+               and displaced_weights (ring_theta twice, asin/acos a pixel)
+  timing only:
+  no_move      no move launch (the init launch alone)
+  init_plain   no move launch, and the init launch writes no list
+  move_list    the move launch reads its list and finds the entries'
+               rings, then stores one value each
+  move_gathers the same, with each entry's offsets and value read
+  no_geometry  the 4 neighbours and weights a stand-in (p, p + 1 and the
+               next ring's), the atomics kept
+  no_atomics   the shares stored, not added (a plain store each)
+curves.cu (K1 at the shell bench, the S19 table in float32; the wrapper
+called on float32 halo columns on the card and on the device alone, then
+the runner's call (its float64 columns on the card), a call from host
+columns and the wrapper's host parts apart):
+  kernel       the kernel as it stands: a warp a halo, 8 a block, the
+               corners' weights and offsets in shared memory, 8 rows loaded
+               before they are summed
+  warps4, warps16  4 or 16 halos a block
+  timing only:
+  no_search    the axes' bisections a stand-in
+  no_corners   the corner rows' reads left out
 
 The last lines are one JSON object of the readings (ms) and the card's
 nvidia-smi name and power limit.
@@ -151,8 +184,91 @@ VARIANTS = {
             "        bf::warp_walk(walk, rings, first,\n")],
     },
 }
+_REGRID_MOVE = ("  regrid_move_kernel<P, T><<<tiles, kThreads, 0, s>>>(nside, po, "
+                "orig, moved,\n" + " " * 54 + "counts, rt, out);\n")
+_REGRID_SHARES = (
+    "    moved_shares<P, T>(N, p, o0, o1, src, k, rings, pix, v);\n"
+    "#pragma unroll\n"
+    "    for (int q = 0; q < 4; ++q) atomicAdd(out + pix[q], v[q]);\n")
+_REGRID_STORE = "    out[p] = src + T(o0) + T(o1) + T(k);\n"
+VARIANTS["regrid.cu"] = {
+    "kernel": [],
+    "no_lists": [(
+        "  const int* list = moved + blockIdx.x * kTile;\n"
+        "  int p = list[threadIdx.x];\n"
+        "  const int n = counts[blockIdx.x];\n"
+        "  for (int e0 = warp * 32; e0 < n; e0 += kThreads) {\n"
+        "    const bool live = e0 + lane < n;\n"
+        "    if (e0 != warp * 32 && live) p = list[e0 + lane];\n"
+        "    P o0 = P(0), o1 = P(0);\n"
+        "    T src = T(0);\n"
+        "    if (live) {\n"
+        "      load_pair(po, p, o0, o1);\n"
+        "      src = orig[p];\n"
+        "    }\n"
+        "    int k = warp_first_ring(N, p, lane);  // lane 0's entry is live\n",
+        "  const int npix = 12 * N * N;\n"
+        "  for (int e0 = warp * 32; e0 < kTile; e0 += kThreads) {\n"
+        "    const int p = blockIdx.x * kTile + e0 + lane;\n"
+        "    P o0 = P(0), o1 = P(0);\n"
+        "    T src = T(0);\n"
+        "    if (p < npix) load_pair(po, p, o0, o1);\n"
+        "    const bool live = !(o0 == P(0) && o1 == P(0));\n"
+        "    if (!__any_sync(bf::kFullMask, live)) continue;\n"
+        "    if (live) src = orig[p];\n"
+        "    int k = warp_first_ring(N, p - lane, lane);\n")],
+    "pix2ang": [(
+        "  const bf::Ring<T> rk = lane_ring<T>(N, p, k);\n"
+        "  const RingRow<T> row = rings[k];\n"
+        "  const T phi_p = bf::ring_pixel_phi<T>(N, k, p - rk.sp, rk.shifted);"
+        "\n"
+        "  T w[4];\n"
+        "  bf::displaced_weights<T>(N, row.theta, phi_p, row.sin_safe, T(o0), "
+        "T(o1),\n"
+        "                           TableRings<T>{rings}, pix, w);\n",
+        "  T theta_p, phi_p;\n"
+        "  bf::pix2ang<T>(N, p, theta_p, phi_p);\n"
+        "  T w[4];\n"
+        "  bf::displaced_weights<T>(N, theta_p, phi_p, T(o0), T(o1), pix, w);"
+        "\n")],
+    "no_move": [(_REGRID_MOVE, "")],
+    "init_plain": [(_REGRID_MOVE, ""),
+                   ("    if (m[j]) moved[at++] = p0 + j;\n", "    ;\n")],
+    "move_list": [(_REGRID_SHARES, _REGRID_STORE), (
+        "    if (live) {\n"
+        "      load_pair(po, p, o0, o1);\n"
+        "      src = orig[p];\n"
+        "    }\n", "")],
+    "move_gathers": [(_REGRID_SHARES, _REGRID_STORE)],
+    "no_geometry": [(
+        "  bf::displaced_weights<T>(N, row.theta, phi_p, row.sin_safe, T(o0), "
+        "T(o1),\n"
+        "                           TableRings<T>{rings}, pix, w);\n",
+        "#pragma unroll\n"
+        "  for (int q = 0; q < 4; ++q) {\n"
+        "    pix[q] = min(p + (q & 1) + (q >> 1) * 4 * N, 12 * N * N - 1);\n"
+        "    w[q] = T(0.25) + T(0) * (row.theta + phi_p);\n"
+        "  }\n")],
+    "no_atomics": [(
+        "    for (int q = 0; q < 4; ++q) atomicAdd(out + pix[q], v[q]);\n",
+        "    for (int q = 0; q < 4; ++q) out[pix[q]] = v[q];\n")],
+}
+VARIANTS["curves.cu"] = {
+    "kernel": [],
+    "warps4": [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
+    "warps16": [("constexpr int kWarps = 8;", "constexpr int kWarps = 16;")],
+    "no_search": [("    idx = bf::clampi(count_le(g, n, x) - 1, 0, n - 2);\n",
+                   "    idx = bf::clampi(int(x) & 1, 0, n - 2);\n")],
+    "no_corners": [(
+        "      for (int j = 0; j < kChunk; ++j) v[j] = at[off_s[warp][c0 + j]];"
+        "\n",
+        "      for (int j = 0; j < kChunk; ++j) v[j] = T(off_s[warp][c0 + j]);"
+        "\n")],
+}
 TIMING_ONLY = {"no_row_trig", "no_rows", "no_slot_geometry", "no_stage",
-               "no_zero", "no_pairs"}
+               "no_zero", "no_pairs", "no_move", "init_plain", "move_list",
+               "move_gathers",
+               "no_geometry", "no_atomics", "no_search", "no_corners"}
 # variants whose results must equal the kernel's bit for bit
 BITWISE = {"sin_cos", "int_div", "unroll2", "zero_div", "zero_vec",
            "vec_out"}
@@ -176,15 +292,17 @@ class _Library:
         return getattr(self._lib, name)
 
 
-def build_variants(work):
-    """Compile every variant into ``work``; returns {name: library path}."""
+def build_variants(work, sources):
+    """Compile every variant of ``sources`` into ``work``; returns {(source,
+    variant): library path}."""
     from baryonforge_torch.ops import _build
     flags = _build.NVCC_FLAGS
     jobs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
         text = (_build._CSRC / src).read_text()
-        for name, edits in variants.items():
-            d = os.path.join(work, name)
+        for name, edits in VARIANTS[src].items():
+            tag = f"{src[:-3]}_{name}"
+            d = os.path.join(work, tag)
             shutil.copytree(_build._CSRC, d)
             body = text
             for old, new in edits:
@@ -194,171 +312,307 @@ def build_variants(work):
                 body = body.replace(old, new)
             with open(os.path.join(d, src), "w") as f:
                 f.write(body)
-            out = os.path.join(work, f"lib_{name}.so")
-            jobs[name] = (out, subprocess.Popen(
+            out = os.path.join(work, f"lib_{tag}.so")
+            jobs[(src, name)] = (out, subprocess.Popen(
                 [_build._nvcc()] + flags + ["-Xptxas", "-v", "-o", out,
                                             os.path.join(d, src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     paths = {}
-    for name, (out, proc) in jobs.items():
+    for key, (out, proc) in jobs.items():
         text = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{text}")
-        paths[name] = out
+            raise RuntimeError(f"nvcc failed for {key}:\n{text}")
+        paths[key] = out
         # registers and spills of the float kernels the probes time
         entry = None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '\w*?\d+"
-                          r"(tile_pairs_kernelIfLi[01]E|disc_paint_kernelIfd)",
+                          r"(tile_pairs_kernelIfLi[01]E|disc_paint_kernelIfd"
+                          r"|regrid_\w+_kernelIffE|collapse_curves_kernelIfE)",
                           line)
             if "Compiling entry function" in line:
                 entry = m.group(1) if m else None
             elif entry and ("spill" in line or "Used" in line):
-                cs.log(f"  ptxas [{name}] {entry}: {line.strip()}")
+                cs.log(f"  ptxas [{key[1]}] {entry}: {line.strip()}")
     return paths
 
 
-def timed_in_turns(torch, fns, reps=20, rounds=2):
+def timed_in_turns(torch, fns, reps=20, rounds=2, timer=None):
     """{name: [ms, ...]}: every fn timed forward then back, ``rounds``
-    times."""
+    times, by ``timer`` (chip_smoke.time_ms by default)."""
+    timer = timer or (lambda fn: cs.time_ms(torch, fn, reps))
     out = {k: [] for k in fns}
     order = list(fns)
     for _ in range(rounds):
         for name in order + order[::-1]:
-            out[name].append(cs.time_ms(torch, fns[name], reps))
+            out[name].append(timer(fns[name]))
     return out
 
 
-def main():
+class Bench:
+    """The bench inputs every section shares (chip_smoke.py's), made once."""
+
+    def __init__(self, bf, torch):
+        self.dev = torch.device(cs.DEVICE)
+        self.cosmo = bf.cosmo.cosmology_from_dict(cs.COSMO)
+        self.cat, self.shell = cs.bench_inputs(bf, cs.NSIDE, cs.N_HALOS,
+                                               cs.SEED)
+        self.model = bf.Baryonification2D(
+            None, None, self.cosmo, epsilon_max=cs.EPS_MAX).load_table(
+                cs.TABLE)
+        self.runner = bf.BaryonifyShell(
+            self.cat, self.shell, epsilon_max=cs.EPS_MAX, model=self.model,
+            dtype=torch.float32, device=self.dev)
+        self.hd = self.runner._host_halo_data(self.cosmo)
+        self.tsz = cs.tsz_models(bf, bf.utils.TabulatedProfile(
+            None, self.cosmo, mass_def=bf.cosmo.MassDef200c).load_table(
+                cs.TSZ_TABLE))["log"]
+
+
+def probe_tile_deposit_paint(bf, torch, b, libs, gpu):
+    """K4, K10, K12 (tile_deposit.cu) and K11 (disc_paint.cu)."""
+    from baryonforge_torch.ops import _build, paint
+    from baryonforge_torch.ops import tile_deposit as td
+    dev, cat, shell, tsz = b.dev, b.cat, b.shell, b.tsz
+    tiling, csr, pack, r0, inv, _ = cs.tiled_inputs(torch, b.runner, b.hd)
+    runner_p = bf.PaintProfilesShell(cat, shell, epsilon_max=cs.PAINT_EPS,
+                                     model=tsz, dtype=torch.float32,
+                                     device=dev)
+    hd_p = runner_p._host_halo_data(b.cosmo)
+    curves, pr0, pdl = tsz.with_dtype(torch.float32, device=dev).halo_curves(
+        hd_p["M"], hd_p["a"])
+    pr0, pdl = float(pr0), float(pdl)
+    tiling_p, csr_p, pack_p = runner_p._tile_paint_inputs(
+        hd_p, curves, True, cs.NSIDE)
+    halos = {k: torch.as_tensor(hd_p[k], device=dev)
+             for k in paint.HALO_COLUMNS}
+    runner_a = bf.PaintProfilesAnisShell(
+        cat, cs.anis_shell(bf, shell), epsilon_max=cs.PAINT_EPS,
+        model=tsz, Tracer_model=tsz, Mtot_model=tsz,
+        background_val=cs.ANIS_BG, global_tracer_fraction=cs.ANIS_FRAC,
+        dtype=torch.float32, device=dev)
+    hd_a = runner_a._host_halo_data(b.cosmo)
+    c2, r2, d2 = tsz.with_dtype(torch.float64, device=dev).halo_curves(
+        hd_a["M"], hd_a["a"])
+    second = (c2, float(r2), float(d2), True)
+    tiling_a, csr_a, pack_a, grid_a = runner_a._tile_paint2_inputs(
+        hd_a, [second, second], cs.NSIDE)
+    halos_a = {k: torch.as_tensor(hd_a[k], device=dev)
+               for k in paint.HALO_COLUMNS}
+    _, marginal_a = paint.float32_tolerance(cs.NSIDE, halos_a, *second,
+                                            second=second)
+
+    def k4():
+        return td.tile_deposit(tiling, csr, pack, r0, inv)
+
+    def k10():
+        return td.tile_paint(tiling_p, csr_p, pack_p, pr0, 1.0 / pdl, True)
+
+    def k12():
+        return td.tile_paint2(tiling_a, csr_a, pack_a, *grid_a)
+
+    def k11():
+        return paint.disc_paint(cs.NSIDE, halos, curves, pr0, pdl, True,
+                                False, torch.float64)
+
+    ap4 = td.tile_deposit_plain(tiling, csr, pack, r0, inv)
+    ap10 = td.tile_paint_plain(tiling_p, csr_p, pack_p, pr0, 1.0 / pdl,
+                               True)
+    ap11 = paint.disc_paint_plain(cs.NSIDE, halos, curves, pr0, pdl,
+                                  True, False, torch.float64)
+    ap12 = td.tile_paint2_plain(tiling_a, csr_a, pack_a, *grid_a)
+    rtol, marginal = paint.float32_tolerance(cs.NSIDE, halos, curves,
+                                             pr0, pdl, True)
+    _build._lib = libs[("tile_deposit.cu", "kernel")]
+    base = (k4(), k10(), k12())
+    results = {}
+    for kernels, src in (((("K4", k4), ("K10", k10), ("K12", k12)),
+                          "tile_deposit.cu"),
+                         ((("K11", k11),), "disc_paint.cu")):
+        names = list(VARIANTS[src])
+        for name in names:
+            if name in TIMING_ONLY:
+                continue
+            _build._lib = libs[(src, name)]
+            if kernels[0][0] == "K4":
+                ak, a10, a12 = k4(), k10(), k12()
+                diff = (ak - ap4).abs()
+                scale = ap4.abs().max().item()
+                cs.check(f"K4 [{name}]", diff.max().item(), 0.02 * scale)
+                cs.check(f"K4 summed [{name}]", diff.sum().item(),
+                         3e-3 * ap4.abs().sum().item())
+                cs.paint_f32_check(f"K10 [{name}]",
+                                   tiling_p.flat_view_plain(a10),
+                                   tiling_p.flat_view_plain(ap10),
+                                   torch.full_like(rtol, 1e-4), marginal)
+                cs.paint_f32_check(f"K12 [{name}]",
+                                   tiling_a.flat_view_plain(a12),
+                                   tiling_a.flat_view_plain(ap12),
+                                   torch.full_like(rtol, 1e-4), marginal_a)
+                if name in BITWISE:
+                    same = all(torch.equal(x.view(torch.int32),
+                                           y.view(torch.int32))
+                               for x, y in zip((ak, a10, a12), base))
+                    cs.log(f"  K4, K10, K12 [{name}] bitwise the kernel's: "
+                           f"{same}")
+                    if not same:
+                        raise AssertionError(f"{name}: results differ from "
+                                             "the kernel's")
+            else:
+                cs.paint_f32_check(f"K11 [{name}]", k11(), ap11, rtol,
+                                   marginal)
+        for kname, fn in kernels:
+            fns = {}
+            for name in names:
+                def run(lib=libs[(src, name)], fn=fn):
+                    _build._lib = lib
+                    return fn()
+                fns[name] = run
+            results[kname] = report(gpu, kname, timed_in_turns(torch, fns))
+    return results
+
+
+def report(gpu, kname, got, label=""):
+    for name, ms in got.items():
+        cs.log(f"[{gpu}] {kname}{label} {name}: "
+               + ", ".join(f"{t:.4f}" for t in ms) + " ms")
+    return got
+
+
+def probe_regrid(bf, torch, b, libs, gpu):
+    """K3 (regrid.cu) on the scatter path's bench inputs: the offsets of
+    K2 at the bench, the float32 map."""
+    from baryonforge_torch.ops import _build, deposit, regrid
+    dev, nside = b.dev, cs.NSIDE
+    m = b.model.with_dtype(torch.float32, device=dev)
+    curves, r0, dl = m.halo_curves(b.hd["M"], b.hd["a"])
+    po = deposit.disc_deposit(nside, b.runner._halo_tensors(b.hd), curves,
+                              r0, dl, cs.EPS_MAX)
+    orig = torch.as_tensor(b.shell.map, device=dev).to(torch.float32)
+    plain = regrid.regrid_plain(nside, po, orig)
+    tol = 1e-6 * nside * orig.abs().max().item()
+    moved = ~(po == 0).all(1)
+    cs.log(f"  K3 at the bench: {int(moved.sum())} of {moved.numel()} "
+           f"pixels moved")
+    names = list(VARIANTS["regrid.cu"])
+    for name in names:
+        if name in TIMING_ONLY:
+            continue
+        _build._lib = libs[("regrid.cu", name)]
+        got = regrid.regrid(nside, po, orig)
+        cs.check(f"K3 [{name}]", (got - plain).abs().max().item(), tol)
+        dm = abs(got.double().sum().item() / orig.double().sum().item() - 1)
+        cs.check(f"K3 mass [{name}]", dm, 1e-5)
+    fns = {}
+    for name in names:
+        def run(lib=libs[("regrid.cu", name)]):
+            _build._lib = lib
+            return regrid.regrid(nside, po, orig)
+        fns[name] = run
+    return {"K3": report(gpu, "K3", timed_in_turns(torch, fns)),
+            "K3 alone": report(gpu, "K3", timed_in_turns(
+                torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+                " (device alone)")}
+
+
+def probe_curves(bf, torch, b, libs, gpu):
+    """K1 (curves.cu) at the bench (18,512 halos, the S19 table in
+    float32): the variants by wrapper call on the card's halo columns and
+    on the device alone, then the wrapper's host parts apart."""
+    import numpy as np
+    from baryonforge_torch.ops import _build, interp
+    dev = b.dev
+    m = b.model.with_dtype(torch.float32, device=dev)
+    M, a = b.hd["M"], b.hd["a"]
+    M_d = torch.as_tensor(M, dtype=torch.float32, device=dev)
+    a_d = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    plain = interp.collapse_curves_plain(m._table, m._axes, 2, M, a, [],
+                                         {})[0]
+    tol = 1e-6 * plain.abs().max().item()
+    names = list(VARIANTS["curves.cu"])
+    tables = {}
+    for name in names:
+        _build._lib = libs[("curves.cu", name)]
+        tables[name] = interp.CurveTable(m._table, m._axes, 2, [])
+        if name in TIMING_ONLY:
+            continue
+        got = tables[name].collapse(M_d, a_d, {})[0]
+        cs.check(f"K1 [{name}]", (got - plain).abs().max().item(), tol)
+    _build._lib = None
+    fns = {name: (lambda ct=ct: ct.collapse(M_d, a_d, {}))
+           for name, ct in tables.items()}
+    out = {"K1": report(gpu, "K1", timed_in_turns(torch, fns), " (columns "
+                        "on the card)"),
+           "K1 alone": report(gpu, "K1", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)")}
+    ct = tables["kernel"]
+    M64, a64 = np.asarray(M, np.float64), np.asarray(a, np.float64)
+    out_pre = torch.empty((len(M), m._table.shape[2]), device=dev)
+    # a set-up of its own for the launch alone, its columns the card's
+    ct_launch = interp.CurveTable(m._table, m._axes, 2, [])
+    ct_launch.collapse(M_d, a_d, {})
+    runner_s = bf.BaryonifyShell(b.cat, b.shell, epsilon_max=cs.EPS_MAX,
+                                 model=b.model, deposit="scatter",
+                                 regrid="scatter", device=dev)
+    halos_s = runner_s._halo_tensors(b.hd)
+    pinned = torch.empty((2, len(M)), dtype=torch.float64, pin_memory=True)
+
+    def to_pinned():
+        staged = pinned.numpy()
+        staged[0] = a64
+        staged[1] = M64
+
+    parts = {
+        "the scatter runner's _halo_curves":
+            lambda: runner_s._halo_curves(halos_s),
+        "the runner's float64 columns on the card":
+            lambda: m.halo_curves(halos_s["M"], halos_s["a"]),
+        "host columns": lambda: m.halo_curves(M, a),
+        "with_dtype (the kept copy)":
+            lambda: b.model.with_dtype(torch.float32, device=dev),
+        "float32 columns on the card": lambda: ct.collapse(M_d, a_d, {}),
+        "host columns staged and copied": lambda: ct._upload(
+            [(0, a64), (1, M64)], len(M)),
+        "columns into pinned memory": to_pinned,
+        "asynchronous copy from pinned memory":
+            lambda: pinned.to(dev, non_blocking=True),
+        "output allocation": lambda: torch.empty_like(out_pre),
+        "launch alone": lambda: ct_launch._launch(len(M), 0.0, out_pre),
+    }
+    out["K1 host"] = report(gpu, "K1", timed_in_turns(torch, parts, reps=50),
+                            " host part")
+    return out
+
+
+SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
+                   probe_tile_deposit_paint),
+            "K3": (("regrid.cu",), probe_regrid),
+            "K1": (("curves.cu",), probe_curves)}
+
+
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_probes: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     import baryonforge_torch as bf
-    from baryonforge_torch.ops import _build, paint
-    from baryonforge_torch.ops import tile_deposit as td
+    from baryonforge_torch.ops import _build
+    want = argv or list(SECTIONS)
+    if not set(want) <= set(SECTIONS):
+        print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
+        return 2
     gpu = cs.gpu_line()
     cs.log(gpu)
-    dev = torch.device(cs.DEVICE)
+    results = {}
     with tempfile.TemporaryDirectory() as work:
-        libs = {k: _Library(p) for k, p in build_variants(work).items()}
-
-        cosmo = bf.cosmo.cosmology_from_dict(cs.COSMO)
-        cat, shell = cs.bench_inputs(bf, cs.NSIDE, cs.N_HALOS, cs.SEED)
-        model = bf.Baryonification2D(None, None, cosmo,
-                                     epsilon_max=cs.EPS_MAX).load_table(
-                                         cs.TABLE)
-        runner = bf.BaryonifyShell(cat, shell, epsilon_max=cs.EPS_MAX,
-                                   model=model, dtype=torch.float32,
-                                   device=dev)
-        hd = runner._host_halo_data(cosmo)
-        tiling, csr, pack, r0, inv, _ = cs.tiled_inputs(torch, runner, hd)
-
-        tsz = cs.tsz_models(bf, bf.utils.TabulatedProfile(
-            None, cosmo, mass_def=bf.cosmo.MassDef200c).load_table(
-                cs.TSZ_TABLE))["log"]
-        runner_p = bf.PaintProfilesShell(cat, shell,
-                                         epsilon_max=cs.PAINT_EPS, model=tsz,
-                                         dtype=torch.float32, device=dev)
-        hd_p = runner_p._host_halo_data(cosmo)
-        curves, pr0, pdl = tsz.with_dtype(torch.float32,
-                                          device=dev).halo_curves(
-                                              hd_p["M"], hd_p["a"])
-        pr0, pdl = float(pr0), float(pdl)
-        tiling_p, csr_p, pack_p = runner_p._tile_paint_inputs(
-            hd_p, curves, True, cs.NSIDE)
-        halos = {k: torch.as_tensor(hd_p[k], device=dev)
-                 for k in paint.HALO_COLUMNS}
-        runner_a = bf.PaintProfilesAnisShell(
-            cat, cs.anis_shell(bf, shell), epsilon_max=cs.PAINT_EPS,
-            model=tsz, Tracer_model=tsz, Mtot_model=tsz,
-            background_val=cs.ANIS_BG, global_tracer_fraction=cs.ANIS_FRAC,
-            dtype=torch.float32, device=dev)
-        hd_a = runner_a._host_halo_data(cosmo)
-        c2, r2, d2 = tsz.with_dtype(torch.float64, device=dev).halo_curves(
-            hd_a["M"], hd_a["a"])
-        second = (c2, float(r2), float(d2), True)
-        tiling_a, csr_a, pack_a, grid_a = runner_a._tile_paint2_inputs(
-            hd_a, [second, second], cs.NSIDE)
-        halos_a = {k: torch.as_tensor(hd_a[k], device=dev)
-                   for k in paint.HALO_COLUMNS}
-        _, marginal_a = paint.float32_tolerance(cs.NSIDE, halos_a, *second,
-                                                second=second)
-
-        def k4():
-            return td.tile_deposit(tiling, csr, pack, r0, inv)
-
-        def k10():
-            return td.tile_paint(tiling_p, csr_p, pack_p, pr0, 1.0 / pdl,
-                                 True)
-
-        def k12():
-            return td.tile_paint2(tiling_a, csr_a, pack_a, *grid_a)
-
-        def k11():
-            return paint.disc_paint(cs.NSIDE, halos, curves, pr0, pdl, True,
-                                    False, torch.float64)
-
-        ap4 = td.tile_deposit_plain(tiling, csr, pack, r0, inv)
-        ap10 = td.tile_paint_plain(tiling_p, csr_p, pack_p, pr0, 1.0 / pdl,
-                                   True)
-        ap11 = paint.disc_paint_plain(cs.NSIDE, halos, curves, pr0, pdl,
-                                      True, False, torch.float64)
-        ap12 = td.tile_paint2_plain(tiling_a, csr_a, pack_a, *grid_a)
-        rtol, marginal = paint.float32_tolerance(cs.NSIDE, halos, curves,
-                                                 pr0, pdl, True)
-        _build._lib = libs["kernel"]
-        base = (k4(), k10(), k12())
-        results = {}
-        for kernels, names in (((("K4", k4), ("K10", k10), ("K12", k12)),
-                                list(VARIANTS["tile_deposit.cu"])),
-                               ((("K11", k11),),
-                                list(VARIANTS["disc_paint.cu"]))):
-            for name in names:
-                if name in TIMING_ONLY:
-                    continue
-                _build._lib = libs[name]
-                if kernels[0][0] == "K4":
-                    ak, a10, a12 = k4(), k10(), k12()
-                    diff = (ak - ap4).abs()
-                    scale = ap4.abs().max().item()
-                    cs.check(f"K4 [{name}]", diff.max().item(), 0.02 * scale)
-                    cs.check(f"K4 summed [{name}]", diff.sum().item(),
-                             3e-3 * ap4.abs().sum().item())
-                    cs.paint_f32_check(f"K10 [{name}]",
-                                       tiling_p.flat_view_plain(a10),
-                                       tiling_p.flat_view_plain(ap10),
-                                       torch.full_like(rtol, 1e-4), marginal)
-                    cs.paint_f32_check(f"K12 [{name}]",
-                                       tiling_a.flat_view_plain(a12),
-                                       tiling_a.flat_view_plain(ap12),
-                                       torch.full_like(rtol, 1e-4),
-                                       marginal_a)
-                    if name in BITWISE:
-                        same = all(torch.equal(x.view(torch.int32),
-                                               y.view(torch.int32))
-                                   for x, y in zip((ak, a10, a12), base))
-                        cs.log(f"  K4, K10, K12 [{name}] bitwise the "
-                               f"kernel's: {same}")
-                        if not same:
-                            raise AssertionError(f"{name}: results differ "
-                                                 "from the kernel's")
-                else:
-                    cs.paint_f32_check(f"K11 [{name}]", k11(), ap11, rtol,
-                                       marginal)
-            for kname, fn in kernels:
-                fns = {}
-                for name in names:
-                    def run(lib=libs[name], fn=fn):
-                        _build._lib = lib
-                        return fn()
-                    fns[name] = run
-                got = timed_in_turns(torch, fns)
-                results[kname] = got
-                for name, ms in got.items():
-                    cs.log(f"[{gpu}] {kname} {name}: "
-                           + ", ".join(f"{t:.4f}" for t in ms) + " ms")
+        sources = [src for k in want for src in SECTIONS[k][0]]
+        libs = {k: _Library(p)
+                for k, p in build_variants(work, sources).items()}
+        b = Bench(bf, torch)
+        for k in want:
+            results.update(SECTIONS[k][1](bf, torch, b, libs, gpu))
         _build._lib = None
     cs.log(gpu)
     print(json.dumps({"probes": results, "gpu": gpu}), flush=True)
@@ -366,4 +620,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,6 +22,12 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
          belt's tiles) and at the bench shapes, and K1 on a table with two
          parameter axes; K5's two entries also timed apart, beside K3 (the
          scatter path's regrid of the same map);
+     at the bench K1 timed as the runner calls it (the model's kept set-up,
+     the runner's float64 M and a on the card), on the device alone (a
+     CUDA graph of 20 calls) and from host columns, and K3 by wrapper call,
+     on the device alone and
+     beside one index_add_ of its 4 npix shares formed beforehand (a
+     partial library yardstick);
      K7 also on the shell's and the paint's tilings at NSIDE 64, 256 and
      1024 (C 1 and 2, float32 and float64, bitwise), and K2 also at NSIDE
      1024 on discs at both poles, across phi = 0, under 4 members and of
@@ -57,7 +63,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      BaryonifyShell(regrid_dtype=float32), each with the launch counts set
      to 0 just before and read just after: it checks that every kernel of
      each path was launched, that mass is conserved, that the maps are
-     finite, that the scatter path agrees with its plain-version pipeline
+     finite (the scatter path's curves and regrid phases printed apart),
+     that the scatter path agrees with its plain-version pipeline
      and the tiled engine with the scatter path (also with a float64
      regrid, to the JAX package's edge-jitter bounds), and prints each
      path's halos/s and per-phase milliseconds; then the default engine
@@ -159,9 +166,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      baryonification and the two anafast calls (lmax 3071) on the card,
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
- 17. prints the registers, spills and resident warps of K4's (with K10's
-     and K12's, the same template), K5's, K8's, K11's, K13's, K16's,
-     K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
+ 17. prints the registers, spills and resident warps of K1's, K3's, K4's
+     (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
+     K16's, K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
      line with each kernel's launches, error, times, bound and
      library-call time, and last
      the line {"ok": true, "device": ...}.
@@ -240,7 +247,11 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "grid_deposit": (0.933, "a thread a source, global atomics"),
               "tile_deposit": (0.509, "a thread a slot, f64 ring math a "
                                "slot"),
-              "disc_paint": (0.450, "the block-per-halo walk")}
+              "disc_paint": (0.450, "the block-per-halo walk"),
+              "regrid": (0.2645, "pix2ang and ring_theta a pixel, an atomic "
+                         "an unmoved pixel, a memset"),
+              "collapse_curves": (0.1309, "a thread a (halo, radius), the "
+                                  "table uploaded and a expanded a call")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -377,6 +388,7 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
     in float64 and float32. Returns {kernel: (max_abs_err, ms, plain_ms)}
     for the float32 (main-path) configuration when ``timing``."""
     from baryonforge_torch.ops import deposit, interp, regrid
+    from baryonforge_torch.ops import healpix as hpx
     dev = torch.device(DEVICE)
     nside = shell.NSIDE
     runner = bf.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX,
@@ -391,10 +403,14 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
         tag = f"{label} {str(dt).replace('torch.', '')}"
         m = model.with_dtype(dt, device=dev)
         args = (m._table, m._axes, 2, hd["M"], hd["a"], [], {})
-        ck, r0, dl = interp.collapse_curves(*args)
+        # the runner's call: the model's kept K1 set-up, M and a among the
+        # runner's float64 halo columns on the card
+        ck, r0, dl = m.halo_curves(halos["M"], halos["a"])
+        ch = m.halo_curves(hd["M"], hd["a"])[0]
         cp, _, _ = interp.collapse_curves_plain(*args)
         torch.cuda.synchronize()
-        err1 = (ck - cp).abs().max().item()
+        err1 = max((ck - cp).abs().max().item(),
+                   (ch - cp).abs().max().item())
         rel = 1e-6 if dt == torch.float32 else 1e-12
         check(f"K1 collapse_curves [{tag}]", err1,
               rel * cp.abs().max().item())
@@ -440,13 +456,24 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
             torch.cuda.synchronize()
             n, nr = cp.shape
             npix = 12 * nside * nside
-            # K1: per output value 4 corner weights and multiply-adds
-            out["collapse_curves"] = (err1, time_ms(
-                torch, lambda: interp.collapse_curves(*args), 50),
+            # K1: per output value 4 corner weights and multiply-adds; timed
+            # as the runner calls it (its float64 M and a on the card, one
+            # launch), on the device alone, and from host columns (one
+            # upload, one launch)
+            def runner_call():
+                return m.halo_curves(halos["M"], halos["a"])
+            out["collapse_curves"] = (err1, time_ms(torch, runner_call, 50),
                 time_ms(torch, lambda: interp.collapse_curves_plain(*args),
                         10)) + bound(
-                nbytes(m._table, m._axes, cp) + 2 * 4 * n, 16 * n * nr,
+                nbytes(m._table, m._axes, cp) + 2 * 8 * n, 16 * n * nr,
                 F32_FLOPS) + (None,)
+            k1_alone = graph_ms(torch, runner_call)
+            k1_host = time_ms(torch, lambda: m.halo_curves(hd["M"], hd["a"]),
+                              50)
+            log(f"  K1 at the bench: the runner's call "
+                f"{out['collapse_curves'][1]:.4f} ms, the device alone "
+                f"{k1_alone:.4f} ms (targets 0.05, 0.010); from host "
+                f"columns {k1_host:.4f} ms")
             # K2: the member pixels of these discs, ~40 operations each;
             # the (npix, 2) offsets written once
             mh = torch.bincount(deposit.disc_members_plain(
@@ -461,12 +488,34 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
                     nside, halos, cp, r0, dl, EPS_MAX), 3)) + bound(
                 nbytes(halos, cp, pk), 40 * pairs, F32_FLOPS) + (None,)
             # K3: per pixel its offset and value read, its value written,
-            # ~60 operations of neighbour geometry and weights
+            # ~60 operations of neighbour geometry and weights; the library
+            # yardstick (partial): one index_add_ of the 4 npix (pixel,
+            # weight x value) pairs, the weights formed beforehand, untimed
+            p_all = torch.arange(npix, dtype=torch.int32, device=dev)
+            th_p, ph_p = hpx.pix2ang(nside, p_all, torch.float32)
+            cpix, cw = regrid.displaced_weights(nside, torch.float32, p_all,
+                                                pk, th_p, ph_p)
+            idx = cpix.reshape(-1).long()
+            val = (cw * orig[:, None]).reshape(-1)
+            del th_p, ph_p, cpix, cw
+
+            def library():
+                return torch.zeros(npix, dtype=torch.float32,
+                                   device=dev).index_add_(0, idx, val)
+            check("K3 library yardstick", (library() - op).abs().max().item(),
+                  1e-6 * nside * orig.abs().max().item())
+            moved = int((pk != 0).any(1).sum())
             out["regrid"] = ((ok - op).abs().max().item(), time_ms(
-                torch, lambda: regrid.regrid(nside, pk, orig), 10),
+                torch, lambda: regrid.regrid(nside, pk, orig), 20),
                 time_ms(torch, lambda: regrid.regrid_plain(nside, pk, orig),
                         3)) + bound(nbytes(pk, orig, op), 60 * npix,
-                                    F32_FLOPS) + (None,)
+                                    F32_FLOPS) + (time_ms(torch, library, 10),)
+            del idx, val
+            k3_alone = graph_ms(torch, lambda: regrid.regrid(nside, pk, orig))
+            log(f"  K3 at the bench: {moved} of {npix} pixels moved; wrapper "
+                f"{out['regrid'][1]:.4f} ms, the device alone {k3_alone:.4f} "
+                f"ms (target 0.15); library (partial: one index_add_ of the "
+                f"4 npix shares formed beforehand) {out['regrid'][5]:.4f} ms")
     return out
 
 
@@ -853,8 +902,8 @@ def p_key_curves(torch, n, timing):
         check(f"K1 collapse_curves, 2 parameter axes [{n} halos, {dt}]", err,
               rel * cp.abs().max().item())
         if timing and dt == torch.float32:
-            res = (err, time_ms(torch, lambda: interp.collapse_curves(*args),
-                                20),
+            ct = interp.CurveTable(table, axes, 2, ["p0", "p1"])
+            res = (err, time_ms(torch, lambda: ct.collapse(M, a, p), 20),
                    time_ms(torch, lambda: interp.collapse_curves_plain(*args),
                            5))
     return res
@@ -2728,8 +2777,8 @@ def tile_pairs_shape(mode, dtype_bytes):
 
 
 def ptxas_report(bf):
-    """Registers and spills of K4's (and K10's, K12's), K5's, K8's, K11's,
-    K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v with the
+    """Registers and spills of K1's, K3's, K4's (and K10's, K12's), K5's,
+    K8's, K11's, K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v with the
     build's own flags, their sources at once) and the warps an SM holds at
     the bench's launch shapes (the stencil with its dynamic shared memory,
     K4's template with its rows and halo chunk (tile_pairs_shape), K8
@@ -2745,7 +2794,8 @@ def ptxas_report(bf):
                "legendre_kernel": 256, "fht_kernel": 512,
                "disc_paint_anis_kernel": 256, "disc_paint_kernel": 256,
                "grid_deposit_kernel": 256, "snapshot_gather_kernel": 128,
-               "tile_pairs_kernel": 256}
+               "tile_pairs_kernel": 256, "regrid_init_kernel": 256,
+               "regrid_move_kernel": 256, "collapse_curves_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
@@ -2753,7 +2803,8 @@ def ptxas_report(bf):
             ("fht_kernel", "0"): 4 * 1024 * 8,
             ("fht_kernel", "1"): 6 * 256 * 8}
     sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
-               "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu")
+               "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu",
+               "regrid.cu", "curves.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -2970,6 +3021,9 @@ def main():
     out_s, launches_s = drive(bf, torch, runner_s,
                               ("collapse_curves", "disc_deposit", "regrid"),
                               "scatter path", gpu)
+    log(f"[{gpu}] scatter path, last call: curves "
+        f"{runner_s.timings['curves']:.3f} ms (K1 and its upload), regrid "
+        f"{runner_s.timings['regrid']:.3f} ms (K3), CUDA events")
     moved = np.abs(out_s - shell.map)
     out_plain, plain_s = plain_pipeline(bf, torch, runner_s)
     # float32 deposit and regrid on both sides: per pixel, the JAX

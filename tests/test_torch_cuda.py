@@ -204,6 +204,94 @@ def test_regrid_kernel(dev, pdt, rdt, nside):
                - 1) < 1e-5
 
 
+def _regrid_offsets(nside, case, pdt, dev, seed=23):
+    """Offsets of ~0.7 pixel on about half of the pixels (``mixed``) or on
+    every pixel (``moved``), or the pixels of the first and last (up to)
+    3 rings pushed through the poles and the rest unmoved (``pole``), and
+    a map, from a seed."""
+    rng = np.random.default_rng(seed)
+    npix = 12 * nside * nside
+    orig = rng.exponential(1.0, npix)
+    if case == "pole":
+        theta = hpx.pix2ang(nside, torch.arange(npix, dtype=torch.int32))[0]
+        theta = theta.numpy()
+        po = np.zeros((npix, 2))
+        r = min(3, nside)
+        north = np.arange(npix) < 2 * r * (r + 1)
+        south = np.arange(npix) >= npix - 2 * r * (r + 1)
+        po[north, 0] = -theta[north] * rng.uniform(1.2, 2.5, north.sum())
+        po[south, 0] = (np.pi - theta[south]) * rng.uniform(1.2, 2.5,
+                                                           south.sum())
+        po[north | south, 1] = rng.normal(0, 1e-3, (north | south).sum())
+    else:
+        po = rng.normal(0, 0.7 / nside, (npix, 2))
+        if case == "mixed":
+            po[rng.uniform(size=npix) < 0.5] = 0
+    return torch.as_tensor(po, dtype=pdt, device=dev), orig
+
+
+@pytest.mark.parametrize("pdt", DTYPES, ids=["po32", "po64"])
+@pytest.mark.parametrize("rdt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside", [1, 2, 64, 256])
+@pytest.mark.parametrize("case", ["mixed", "moved", "pole"])
+def test_regrid_kernel_cases(dev, pdt, rdt, nside, case):
+    """K3 against its plain version on all four dtype pairs at NSIDE 1, 2,
+    64 and 256, with unmoved and moved pixels mixed, every pixel moved, and
+    pole overshoots (the tolerances of test_regrid_kernel); mass kept to
+    1e-5; with the pole overshoots (NSIDE 64 and 256), the unmoved pixels
+    of |z| < 1/2, which no moved source reaches, keep their values bit for
+    bit."""
+    po, orig64 = _regrid_offsets(nside, case, pdt, dev)
+    orig = torch.as_tensor(orig64, device=dev).to(rdt)
+    _build.reset_launches()
+    ok = regrid.regrid(nside, po, orig)
+    assert _build.launches["regrid"] == 1
+    op = regrid.regrid_plain(nside, po, orig)
+    if rdt == torch.float64:
+        atol = 1e-9 * (op - orig).abs().max().item()
+    else:
+        atol = 1e-6 * nside * orig.abs().max().item()
+    torch.testing.assert_close(ok, op, rtol=0, atol=atol)
+    assert abs(ok.double().sum().item() / orig64.sum() - 1) < 1e-5
+    if case == "pole" and nside >= 64:
+        theta = hpx.pix2ang(nside, torch.arange(
+            orig.numel(), dtype=torch.int32, device=dev))[0]
+        belt = torch.cos(theta).abs() < 0.5
+        assert belt.any() and (po[belt] == 0).all()
+        assert torch.equal(ok[belt], orig[belt])
+
+
+@pytest.mark.parametrize("pdt", DTYPES, ids=["po32", "po64"])
+@pytest.mark.parametrize("rdt", DTYPES, ids=DT_IDS)
+def test_regrid_kernel_unmoved_is_exact(dev, pdt, rdt):
+    """Every offset zero: K3 gives the map back bit for bit (-0.0, NaN and
+    infinities included), with no atomic."""
+    nside = 64
+    rng = np.random.default_rng(4)
+    orig = torch.as_tensor(rng.normal(size=12 * nside * nside),
+                           device=dev).to(rdt)
+    orig[:4] = torch.tensor([-0.0, float("nan"), float("inf"), -1e-30])
+    po = torch.zeros((orig.numel(), 2), dtype=pdt, device=dev)
+    po[5:9] = -0.0
+    ok = regrid.regrid(nside, po, orig)
+    bits = torch.int32 if rdt == torch.float32 else torch.int64
+    assert torch.equal(ok.view(bits), orig.view(bits))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside", [1, 2, 64, 1024])
+def test_regrid_ring_angles_are_pix2ang(dev, dt, nside):
+    """K3 takes each pixel's theta (and its sin) from its ring's row of
+    the kernel's ring table and its phi from pix2ang's formula on the ring
+    and index: on the card both equal pix2ang's, bit for bit, for every
+    pixel."""
+    _build.reset_launches()
+    tk, pk = regrid.pixel_angles(nside, dt, dev)
+    tp, pp = paint.pixel_angles(nside, dt, dev, per_ring=False)
+    assert _build.launches["regrid_angles"] == 1
+    assert torch.equal(tk, tp) and torch.equal(pk, pp)
+
+
 def test_shell_cuda_matches_cpu(dev):
     """The whole default path (the tiled engine; at NSIDE 64 every disc of
     this catalog is small, so phase A is K2 through K7's tile_view) on the
@@ -270,6 +358,72 @@ def test_collapse_curves_kernel_p_keys(dev, dt, n_p):
     torch.testing.assert_close(ck, cp, rtol=rel,
                                atol=rel * cp.abs().max().item())
     assert (cp == -3.0).any() and (cp != -3.0).any()
+
+
+@pytest.mark.parametrize("n_p", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("a_kind", ["per_halo", "scalar", "device"])
+def test_collapse_curves_kernel_cases(dev, dt, n_p, a_kind):
+    """K1 against its plain version for 0 to 4 parameter axes, with a per
+    halo (host), one scalar a, and a and M on the card; every axis has
+    halos below and above it, which get ``fill``; 0 and 1 halos."""
+    rng = np.random.default_rng(40 + n_p)
+    shape = (5, 7, 16) + (4, 3, 2, 3)[:n_p]
+    axes = tuple(torch.as_tensor(np.cumsum(rng.uniform(0.2, 1.0, k)),
+                                 dtype=dt, device=dev) for k in shape)
+    table = torch.as_tensor(rng.normal(size=shape), dtype=dt, device=dev)
+    n = 300
+    lo = [ax[0].item() for ax in axes]
+    hi = [ax[-1].item() for ax in axes]
+    M = np.exp(rng.uniform(lo[1], hi[1], n))
+    a = 1.0 / np.exp(rng.uniform(lo[0], hi[0], n))
+    p = {f"p{k}": rng.uniform(lo[3 + k], hi[3 + k], n) for k in range(n_p)}
+    # a halo below and one above each axis
+    M[:2] = np.exp([lo[1] - 0.1, hi[1] + 0.1])
+    if a_kind != "scalar":
+        a[2:4] = 1.0 / np.exp([lo[0] - 0.1, hi[0] + 0.1])
+    for k in range(n_p):
+        p[f"p{k}"][4 + 2 * k:6 + 2 * k] = [lo[3 + k] - 0.1, hi[3 + k] + 0.1]
+    if a_kind == "scalar":
+        a = float(a[10])
+    elif a_kind == "device":
+        a = torch.as_tensor(a, dtype=dt, device=dev)
+        M = torch.as_tensor(M, dtype=dt, device=dev)
+    keys = sorted(p)
+    rel = 1e-6 if dt == torch.float32 else 1e-12
+    full = None
+    for m in (slice(None), slice(0, 1), slice(0, 0)):
+        Mm = M[m]
+        am = a if a_kind == "scalar" else a[m]
+        pm = {k: v[m] for k, v in p.items()}
+        args = (table, axes, 2, Mm, am, keys, pm)
+        _build.reset_launches()
+        ck, r0, dl = interp.collapse_curves(*args, fill=-3.0)
+        assert _build.launches["collapse_curves"] == (1 if len(Mm) else 0)
+        cp, rp, dp = interp.collapse_curves_plain(*args, fill=-3.0)
+        assert ck.shape == cp.shape and (r0, dl) == (float(rp), float(dp))
+        if len(Mm):
+            torch.testing.assert_close(ck, cp, rtol=rel,
+                                       atol=rel * cp.abs().max().item())
+        full = cp if full is None else full
+    out_rows = (full == -3.0).all(1)
+    assert out_rows[:2].all() and (~out_rows).sum() > n // 2
+    if a_kind != "scalar":
+        assert out_rows[2:4].all()
+    for k in range(n_p):
+        assert out_rows[4 + 2 * k:6 + 2 * k].all()
+
+
+def test_collapse_curves_kernel_guard(dev):
+    """The n_h x n_r < 2^31 guard of K1's int32 index math raises before
+    anything is allocated or launched."""
+    table = torch.zeros((2, 2, 1 << 16), dtype=torch.float32, device=dev)
+    axes = tuple(torch.arange(k, dtype=torch.float32, device=dev) + 1.0
+                 for k in table.shape)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="2\\^31"):
+        interp.collapse_curves(table, axes, 2, np.ones(1 << 15), 0.5, [], {})
+    assert not _build.launches
 
 
 # ---- the tiled engine's kernels: K4, K5, K6, K7 ----------------------------
