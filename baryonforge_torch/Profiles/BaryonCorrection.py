@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..cosmo import massdef as _massdef
-from ..ops.interp import multilinear_interp, curve_table, dtype_copy
+from ..ops.interp import multilinear_interp, cast_copy, curve_table
 from ..ops import table_rows
 from ..utils.Tabulate import _set_parameter
 
@@ -220,11 +220,11 @@ class BaryonificationClass:
     def with_dtype(self, dtype, device=None):
         """Shallow copy with the lookup table cast to ``dtype`` (and moved to
         ``device`` when given): the runners read the table in their
-        deposit dtype, float32 by default. The copy is kept per (dtype,
-        device) until the table is rebuilt (``ops.interp.dtype_copy``), so
-        its K1 set-up serves every call."""
+        deposit dtype, float32 by default. The cast table is kept per
+        (dtype, device) until the table is rebuilt (``ops.interp.
+        cast_copy``), so it and its K1 set-up serve every call."""
         dev = self._table.device if device is None else torch.device(device)
-        return dtype_copy(self, ("_table", "_axes"), dtype, dev)
+        return cast_copy(self, ("_table", "_axes"), dtype, dev)
 
     def _readout(self, r, M, a, **kwargs):
         dt, dev = self._table.dtype, self._table.device
@@ -282,8 +282,7 @@ class BaryonificationClass:
         floats; out-of-table rows are zero. With ``Rdelta_sampling`` the
         radial coordinate is ln(r/R_Delta).
         """
-        return curve_table(self, self._table, self._axes,
-                           self.p_keys).collapse(M, a, kwargs, fill=0.0)
+        return curve_table(self, "_table").collapse(M, a, kwargs, fill=0.0)
 
     @staticmethod
     def curve_lookup(curve, ln_r0, dlnr, r):

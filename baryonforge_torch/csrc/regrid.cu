@@ -265,24 +265,6 @@ regrid_move_kernel(int N, const P* __restrict__ po,
   }
 }
 
-// Check kernel: every pixel's (theta, phi) as the move kernel takes them
-// (its warp's ring, the table's theta, ring_pixel_phi), to hold against
-// pix2ang bit for bit; the table from regrid_init_kernel
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-regrid_angles_kernel(int N, int npix, const RingRow<T>* __restrict__ rings,
-                     T* __restrict__ theta, T* __restrict__ phi) {
-  const int p0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
-  const int lane = threadIdx.x & 31;
-  if (p0 >= npix) return;
-  int k = warp_first_ring(N, p0, lane);
-  const int p = p0 + lane;
-  if (p >= npix) return;
-  const bf::Ring<T> rk = lane_ring<T>(N, p, k);
-  theta[p] = rings[k].theta;
-  phi[p] = bf::ring_pixel_phi<T>(N, k, p - rk.sp, rk.shifted);
-}
-
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 inline int tiles_for(int npix) { return (npix + kTile - 1) / kTile; }
@@ -317,9 +299,8 @@ int launch(int nside, const P* po, const T* orig, void* scratch, T* out,
 
 extern "C" {
 
-// *bytes: the scratch bf_regrid_*_<T> and bf_regrid_angles_<T> need (the
-// ring table, then the tiles' counts and lists of moved pixels), the map
-// in float64 when t64
+// *bytes: the scratch bf_regrid_*_<T> needs (the ring table, then the
+// tiles' counts and lists of moved pixels), the map in float64 when t64
 int bf_regrid_scratch_bytes(int nside, int t64, long long* bytes) {
   *bytes = t64 ? scratch_bytes<double>(nside) : scratch_bytes<float>(nside);
   return 0;
@@ -344,27 +325,5 @@ int bf_regrid_f64_f64(int nside, const double* po, const double* orig,
                       void* scratch, double* out, void* stream) {
   return launch<double, double>(nside, po, orig, scratch, out, stream);
 }
-
-// theta, phi: (npix,) in T, each pixel's as the move kernel takes them;
-// scratch as bf_regrid_*'s, its ring table filled here by the init
-// kernel's ring blocks
-#define BF_REGRID_ANGLES(T, SUF)                                              \
-  int bf_regrid_angles_##SUF(int nside, void* scratch, T* theta, T* phi,    \
-                             void* stream) {                                 \
-    const int npix = 12 * nside * nside;                                     \
-    auto* rt = static_cast<RingRow<T>*>(scratch);                            \
-    const cudaStream_t s = (cudaStream_t)stream;                             \
-    regrid_init_kernel<T, T><<<blocks_for(4 * nside), kThreads, 0, s>>>(     \
-        nside, npix, 0, nullptr, nullptr, nullptr, nullptr, nullptr, rt);    \
-    const cudaError_t e = cudaGetLastError();                                \
-    if (e != cudaSuccess) return int(e);                                     \
-    regrid_angles_kernel<T><<<blocks_for(npix), kThreads, 0, s>>>(           \
-        nside, npix, rt, theta, phi);                                        \
-    return int(cudaGetLastError());                                          \
-  }
-
-BF_REGRID_ANGLES(float, f32)
-BF_REGRID_ANGLES(double, f64)
-#undef BF_REGRID_ANGLES
 
 }  // extern "C"

@@ -9,9 +9,8 @@ card has ``nvcc``.
 
 ``launches`` counts, per kernel entry point, the launches made by the
 wrappers in ``ops/interp.py`` (K1), ``ops/deposit.py`` (K2),
-``ops/regrid.py`` (K3, and the check kernel ``regrid_angles``),
-``ops/tile_deposit.py`` (K4 ``tile_deposit``, K10 ``tile_paint``, K12
-``tile_paint2``), ``ops/stencil.py`` (K5
+``ops/regrid.py`` (K3), ``ops/tile_deposit.py`` (K4 ``tile_deposit``,
+K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
 ``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
 ``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
@@ -112,7 +111,6 @@ def _signatures():
         sig[f"bf_anis_finish_{sfx}"] = [_LL] + [_P] * 3 + [_D] * 3 \
             + [_I, _P, _P]
         sig[f"bf_pixel_angles_{sfx}"] = [_I, _I, _P, _P, _P]
-        sig[f"bf_regrid_angles_{sfx}"] = [_I] + [_P] * 4
         sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \

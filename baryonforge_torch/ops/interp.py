@@ -5,7 +5,7 @@ Port of ``baryonforge_tpu.ops.interp``. The 1-D interpolators take a
 batch: ``x`` and ``y`` are (..., N) and broadcast against each other, and
 queries are (..., Q). ``collapse_curves`` is the wrapper of kernel K1
 (``csrc/curves.cu``), ``CurveTable`` its set-up once a table (which the
-models keep: ``curve_table``, ``dtype_copy``); ``collapse_curves_plain``
+models keep: ``cast_copy``, ``curve_table``); ``collapse_curves_plain``
 is its plain version, ``halo_corners_plain`` the plain version of its
 per-halo step.
 """
@@ -25,7 +25,7 @@ __all__ = ["searchsorted_right", "pchip_derivatives", "pchip_eval",
            "cubic_spline_derivative_eval",
            "interp", "interp1d_linear", "multilinear_interp",
            "collapse_curves", "collapse_curves_plain", "halo_corners_plain",
-           "CurveTable", "curve_table", "dtype_copy", "MAX_P_AXES"]
+           "CurveTable", "cast_copy", "curve_table", "MAX_P_AXES"]
 
 # parameter axes K1 takes besides z and M (kMaxAxes - 2 in csrc/curves.cu)
 MAX_P_AXES = 4
@@ -430,18 +430,19 @@ class _CurveHalos(ctypes.Structure):
 class CurveTable:
     """A (z, M, r, p...) table set up for the curve collapse once: checked,
     K1's axis pointers and sizes in its ``CurveAxes``, and (ln_r0, dlnr)
-    taken as floats from a host copy of the radial axis, so that a call
-    (:meth:`collapse`) makes one launch and no device sync. Columns on the
+    taken as floats from a host copy of the radial axis (``ln_r``, when
+    given), so that a call (:meth:`collapse`) makes one launch and no
+    device sync. Columns on the
     card are read as they are (float64 or the table's type); host columns
     go up as float64 through pinned memory in one asynchronous copy. The
     kernel rounds float64 values to the table's type. The model classes
     keep theirs (:func:`curve_table`). A table on the CPU runs the plain
     version."""
 
-    def __init__(self, table, axes, r_axis, p_keys):
+    def __init__(self, table, axes, r_axis, p_keys, ln_r=None):
         self.table, self.axes, self.p_keys = table, axes, list(p_keys)
         self.r_axis = r_axis
-        ln_r = axes[r_axis].detach().cpu()
+        ln_r = (axes[r_axis] if ln_r is None else ln_r).detach().cpu()
         self.ln_r0 = float(ln_r[0])
         self.dlnr = float(ln_r[1] - ln_r[0])
         if table.device.type == "cpu":
@@ -580,46 +581,41 @@ def _size(v):
     return v.numel() if isinstance(v, torch.Tensor) else int(np.size(v))
 
 
-def curve_table(holder, table, axes, p_keys):
-    """``holder``'s :class:`CurveTable` for ``table`` (radial axis at 2),
-    kept on it: built at the first call and again once the table, its axes
-    or ``p_keys`` change (a table rebuilt by ``setup_interpolator`` or
-    ``load_table`` is another object)."""
-    cache = holder.__dict__.setdefault("_curve_tables", {})
-    ct = cache.get(id(table))
-    if (ct is None or ct.table is not table or ct.axes is not axes
-            or ct.p_keys != list(p_keys)):
-        if len(cache) >= 4:
-            cache.clear()
-        ct = cache[id(table)] = CurveTable(table, axes, 2, p_keys)
-    return ct
-
-
-def dtype_copy(model, names, dtype, device):
-    """A shallow copy of ``model`` with its tensors ``names`` (attributes:
-    a tensor or a tuple of tensors) cast to ``dtype`` on ``device``. The
-    copy is kept on the model per (dtype, device), so what is set up on it
-    (its :func:`curve_table`) outlives a runner's call; it is made anew once
-    any of those attributes is another object (a table rebuilt by
-    ``setup_interpolator`` or ``load_table``), and its other attributes
-    follow the model's."""
-    copies = model.__dict__.setdefault("_dtype_copies", {})
-    src = tuple(getattr(model, k) for k in names)
-    hit = copies.get((dtype, device))
-    own = set(names) | {"_dtype_copies", "_curve_tables"}
-    if hit is not None and all(x is y for x, y in zip(hit[0], src)):
-        new = hit[1]
-        new.__dict__.update((k, v) for k, v in model.__dict__.items()
-                            if k not in own)
-        return new
+def cast_copy(model, names, dtype, device):
+    """A shallow copy of ``model`` with its tensors ``names`` (attributes: a
+    tensor or a tuple of tensors, ``_axes`` among them) cast to ``dtype``
+    on ``device``. The casts are kept on the model, one set a (dtype,
+    device), with the K1 set-ups made on them (:func:`curve_table`), and
+    made anew once any of those attributes is another object (a table
+    rebuilt by ``setup_interpolator`` or ``load_table``)."""
+    casts = model.__dict__.setdefault("_casts", {})
+    src = {k: getattr(model, k) for k in names}
+    hit = casts.get((dtype, device))
+    if hit is None or any(v is not hit[0][k] for k, v in src.items()):
+        cast = {k: tuple(x.to(device=device, dtype=dtype) for x in v)
+                if isinstance(v, tuple) else v.to(device=device, dtype=dtype)
+                for k, v in src.items()}
+        hit = casts[(dtype, device)] = (src, cast, {})
     new = copy.copy(model)
-    for k, v in zip(names, src):
-        setattr(new, k, tuple(x.to(device=device, dtype=dtype) for x in v)
-                if isinstance(v, tuple) else v.to(device=device, dtype=dtype))
-    new._dtype_copies = {}
-    new._curve_tables = {}
-    copies[(dtype, device)] = (src, new)
+    new.__dict__.update(hit[1])
     return new
+
+
+def curve_table(model, name):
+    """The :class:`CurveTable` of ``model``'s table ``name`` (radial axis
+    at 2, axes ``model._axes``). On a copy made by :func:`cast_copy` it is
+    the one kept with the casts, built at its first call with (ln_r0,
+    dlnr) from the model's own radial axis; otherwise (the models' own
+    tables, float64 on the CPU, where the set-up is the plain version's)
+    it is set up anew."""
+    table, axes = getattr(model, name), model._axes
+    for src, cast, tables in model.__dict__.get("_casts", {}).values():
+        if cast.get(name) is table and cast.get("_axes") is axes:
+            if name not in tables:
+                tables[name] = CurveTable(table, axes, 2, model.p_keys,
+                                          ln_r=src["_axes"][2].to(table.dtype))
+            return tables[name]
+    return CurveTable(table, axes, 2, model.p_keys)
 
 
 def collapse_curves(table, axes, r_axis, M, a, p_keys, kwargs, fill=0.0):

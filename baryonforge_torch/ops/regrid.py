@@ -8,9 +8,8 @@ sparse form ``_phase_b_sparse`` and its dispatcher ``_regrid`` equal the
 dense form up to summation order, so they have no separate port.
 
 K3 takes each ring's colatitude, phi step and sin from a per-ring table
-that its first launch fills; ``ring_table_plain`` is the plain version of
-that table, and ``pixel_angles`` (a check kernel) gives every pixel's
-angles as K3 takes them, which equal pix2ang's bit for bit.
+that its first launch fills at the head of its scratch;
+``ring_table_plain`` is the plain version of that table.
 """
 
 import ctypes
@@ -21,8 +20,7 @@ import torch
 from . import _build
 from . import healpix as hpx
 
-__all__ = ["regrid", "regrid_plain", "displaced_weights", "ring_table_plain",
-           "pixel_angles"]
+__all__ = ["regrid", "regrid_plain", "displaced_weights", "ring_table_plain"]
 
 # sources per step of the plain version (~30 temporaries of this length)
 _CHUNK = 1 << 22
@@ -121,52 +119,33 @@ def regrid(nside, pix_offsets, orig):
     if orig.data_ptr() % 16:
         orig = orig.clone()
     out = torch.empty(npx, dtype=orig.dtype, device=dev)
-    lib = _build.library()
-    scratch = _scratch(lib, nside, orig.dtype, dev)
-    fn = getattr(lib, "bf_regrid_{}_{}".format(_sfx(po.dtype),
-                                               _sfx(orig.dtype)))
-    with torch.cuda.device(dev):
+    _launch(nside, po, orig, _scratch(nside, orig.dtype, dev), out)
+    return out
+
+
+def _launch(nside, po, orig, scratch, out):
+    """K3 on checked arguments (contiguous, 16-byte aligned, on one card)
+    with its scratch (:func:`_scratch`), whose head holds the ring table
+    after the call."""
+    fn = getattr(_build.library(), "bf_regrid_{}_{}".format(
+        _sfx(po.dtype), _sfx(orig.dtype)))
+    with torch.cuda.device(out.device):
         err = fn(nside, _build.ptr(po), _build.ptr(orig), _build.ptr(scratch),
                  _build.ptr(out), _build.stream_of(out))
     _build.check(err, "regrid")
     _build.launches["regrid"] += 1
-    return out
 
 
 def _sfx(dt):
     return "f32" if dt == torch.float32 else "f64"
 
 
-def _scratch(lib, nside, dtype, dev):
+def _scratch(nside, dtype, dev):
     """K3's scratch, uninitialised (its first launch fills it): the ring
-    table, then the tiles' counts and lists of moved pixels (4 bytes a
-    pixel)."""
+    table (4 nside rows of theta, phi step, sin and a pad, each in
+    ``dtype``; row i for ring i), then the tiles' counts and lists of
+    moved pixels (4 bytes a pixel)."""
     n = ctypes.c_longlong()
-    lib.bf_regrid_scratch_bytes(nside, int(dtype == torch.float64),
-                                ctypes.addressof(n))
+    _build.library().bf_regrid_scratch_bytes(
+        nside, int(dtype == torch.float64), ctypes.addressof(n))
     return torch.empty(n.value, dtype=torch.uint8, device=dev)
-
-
-def pixel_angles(nside, dtype, device):
-    """Every pixel's (theta, phi) in ``dtype`` as K3 takes them: its
-    ring's theta from the kernel's ring table and pix2ang's phi formula on
-    the ring and index (check kernel ``bf_regrid_angles``, on CUDA only).
-    The card tests hold them equal to pix2ang's bit for bit."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError("pixel_angles: a check kernel, CUDA only")
-    if not 1 <= nside <= hpx.MAX_NSIDE:
-        raise ValueError(f"pixel_angles: NSIDE {nside} outside "
-                         f"[1, {hpx.MAX_NSIDE}]")
-    npx = hpx.npix(nside)
-    theta = torch.empty(npx, dtype=dtype, device=dev)
-    phi = torch.empty(npx, dtype=dtype, device=dev)
-    lib = _build.library()
-    scratch = _scratch(lib, nside, dtype, dev)
-    fn = getattr(lib, "bf_regrid_angles_" + _sfx(dtype))
-    with torch.cuda.device(dev):
-        err = fn(nside, _build.ptr(scratch), _build.ptr(theta),
-                 _build.ptr(phi), _build.stream_of(theta))
-    _build.check(err, "regrid_angles")
-    _build.launches["regrid_angles"] += 1
-    return theta, phi

@@ -114,12 +114,12 @@ class _Tabulated:
     def with_dtype(self, dtype, device=None):
         """Shallow copy with the tables and axes cast to ``dtype`` (and
         moved to ``device`` when given): the runners read them in their
-        deposit dtype, float32 by default. The copy is kept per (dtype,
-        device) until the tables are rebuilt (``ops.interp.dtype_copy``),
-        so its K1 set-ups serve every call."""
-        from ..ops.interp import dtype_copy
+        deposit dtype, float32 by default. The casts are kept per (dtype,
+        device) until the tables are rebuilt (``ops.interp.cast_copy``), so
+        they and their K1 set-ups serve every call."""
+        from ..ops.interp import cast_copy
         dev = self._tab2D.device if device is None else torch.device(device)
-        return dtype_copy(self, ("_axes", "_tab3D", "_tab2D"), dtype, dev)
+        return cast_copy(self, ("_axes", "_tab3D", "_tab2D"), dtype, dev)
 
     def _readout(self, table, r, M, a, log, **kwargs):
         from ..ops.interp import multilinear_interp
@@ -169,8 +169,8 @@ class _Tabulated:
         TabulatedProfile, whose out-of-table rows are -inf, and raw for
         ParamTabulatedProfile, whose out-of-table rows are 0."""
         from ..ops.interp import curve_table
-        tab = self._tab2D if kind == "projected" else self._tab3D
-        return curve_table(self, tab, self._axes, self.p_keys).collapse(
+        name = "_tab2D" if kind == "projected" else "_tab3D"
+        return curve_table(self, name).collapse(
             M, a, kwargs, fill=-np.inf if self.curves_are_log else 0.0)
 
 

@@ -4,9 +4,15 @@ regrid) and K1 (curve collapse) on the card, at the bench inputs of
 chip_smoke.py.
 
     python3 chip_probes.py [K4] [K3] [K1]   # one card; builds included
+    python3 chip_probes.py --tree DIR calls
 
-With no argument it runs every section: K4 (tile_deposit.cu with K10,
-K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu). Each variant is
+With no argument it runs the variant sections: K4 (tile_deposit.cu with
+K10, K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu). The
+section ``calls`` builds no variant: it times K1 and K3 as the scatter
+shell runner calls them, with the ``baryonforge_torch`` package of the
+tree DIR (this checkout's by default; another one, such as a ``git
+archive`` of an earlier commit, for a like-for-like comparison of two
+trees in one chip call, each in a process of its own). Each variant is
 a kernel's source in baryonforge_torch/csrc/ with a few text replacements,
 compiled with the build's own nvcc flags into a library of its own (one
 nvcc per variant, all started together). The wrappers run unchanged with
@@ -54,10 +60,6 @@ regrid.cu (K3 at the shell bench: K2's offsets, the float32 map):
                pixels' values, each tile's list of moved pixels and the
                ring table; the move launch a thread a listed pixel, the
                rings from the table
-  no_lists     the move launch over every pixel of a tile (a warp with no
-               moved pixel leaves; the others' unmoved lanes idle)
-  pix2ang      each moved pixel's geometry as before the table: pix2ang
-               and displaced_weights (ring_theta twice, asin/acos a pixel)
   timing only:
   no_move      no move launch (the init launch alone)
   init_plain   no move launch, and the init launch writes no list
@@ -74,10 +76,18 @@ columns and the wrapper's host parts apart):
   kernel       the kernel as it stands: a warp a halo, 8 a block, the
                corners' weights and offsets in shared memory, 8 rows loaded
                before they are summed
-  warps4, warps16  4 or 16 halos a block
   timing only:
   no_search    the axes' bisections a stand-in
   no_corners   the corner rows' reads left out
+
+calls (the package of --tree; the shell runner on the scatter path at
+the bench, float32; CUDA events, the mean of 50 calls, in turns):
+  halo columns to curves   _halo_tensors then _halo_curves, as the tree's
+                           process() calls them (from its host halo data)
+  _halo_curves from host arrays   the runner's K1 call given the host halo
+                           data (the call both trees can make)
+  K3 regrid                the wrapper on K2's offsets at the bench
+  and the medians of 8 process() calls' host_prep and curves phases.
 
 The last lines are one JSON object of the readings (ms) and the card's
 nvidia-smi name and power limit.
@@ -193,44 +203,6 @@ _REGRID_SHARES = (
 _REGRID_STORE = "    out[p] = src + T(o0) + T(o1) + T(k);\n"
 VARIANTS["regrid.cu"] = {
     "kernel": [],
-    "no_lists": [(
-        "  const int* list = moved + blockIdx.x * kTile;\n"
-        "  int p = list[threadIdx.x];\n"
-        "  const int n = counts[blockIdx.x];\n"
-        "  for (int e0 = warp * 32; e0 < n; e0 += kThreads) {\n"
-        "    const bool live = e0 + lane < n;\n"
-        "    if (e0 != warp * 32 && live) p = list[e0 + lane];\n"
-        "    P o0 = P(0), o1 = P(0);\n"
-        "    T src = T(0);\n"
-        "    if (live) {\n"
-        "      load_pair(po, p, o0, o1);\n"
-        "      src = orig[p];\n"
-        "    }\n"
-        "    int k = warp_first_ring(N, p, lane);  // lane 0's entry is live\n",
-        "  const int npix = 12 * N * N;\n"
-        "  for (int e0 = warp * 32; e0 < kTile; e0 += kThreads) {\n"
-        "    const int p = blockIdx.x * kTile + e0 + lane;\n"
-        "    P o0 = P(0), o1 = P(0);\n"
-        "    T src = T(0);\n"
-        "    if (p < npix) load_pair(po, p, o0, o1);\n"
-        "    const bool live = !(o0 == P(0) && o1 == P(0));\n"
-        "    if (!__any_sync(bf::kFullMask, live)) continue;\n"
-        "    if (live) src = orig[p];\n"
-        "    int k = warp_first_ring(N, p - lane, lane);\n")],
-    "pix2ang": [(
-        "  const bf::Ring<T> rk = lane_ring<T>(N, p, k);\n"
-        "  const RingRow<T> row = rings[k];\n"
-        "  const T phi_p = bf::ring_pixel_phi<T>(N, k, p - rk.sp, rk.shifted);"
-        "\n"
-        "  T w[4];\n"
-        "  bf::displaced_weights<T>(N, row.theta, phi_p, row.sin_safe, T(o0), "
-        "T(o1),\n"
-        "                           TableRings<T>{rings}, pix, w);\n",
-        "  T theta_p, phi_p;\n"
-        "  bf::pix2ang<T>(N, p, theta_p, phi_p);\n"
-        "  T w[4];\n"
-        "  bf::displaced_weights<T>(N, theta_p, phi_p, T(o0), T(o1), pix, w);"
-        "\n")],
     "no_move": [(_REGRID_MOVE, "")],
     "init_plain": [(_REGRID_MOVE, ""),
                    ("    if (m[j]) moved[at++] = p0 + j;\n", "    ;\n")],
@@ -255,8 +227,6 @@ VARIANTS["regrid.cu"] = {
 }
 VARIANTS["curves.cu"] = {
     "kernel": [],
-    "warps4": [("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
-    "warps16": [("constexpr int kWarps = 8;", "constexpr int kWarps = 16;")],
     "no_search": [("    idx = bf::clampi(count_le(g, n, x) - 1, 0, n - 2);\n",
                    "    idx = bf::clampi(int(x) & 1, 0, n - 2);\n")],
     "no_corners": [(
@@ -569,7 +539,7 @@ def probe_curves(bf, torch, b, libs, gpu):
         "the runner's float64 columns on the card":
             lambda: m.halo_curves(halos_s["M"], halos_s["a"]),
         "host columns": lambda: m.halo_curves(M, a),
-        "with_dtype (the kept copy)":
+        "with_dtype (the kept casts)":
             lambda: b.model.with_dtype(torch.float32, device=dev),
         "float32 columns on the card": lambda: ct.collapse(M_d, a_d, {}),
         "host columns staged and copied": lambda: ct._upload(
@@ -585,10 +555,51 @@ def probe_curves(bf, torch, b, libs, gpu):
     return out
 
 
+def probe_calls(bf, torch, b, libs, gpu):
+    """K1 and K3 as the scatter shell runner calls them, with the package
+    that was imported (see the module docstring)."""
+    import inspect
+    import numpy as np
+    from baryonforge_torch.ops import deposit, regrid
+    dev, hd = b.dev, b.hd
+    r = bf.BaryonifyShell(b.cat, b.shell, epsilon_max=cs.EPS_MAX,
+                          model=b.model, deposit="scatter", regrid="scatter",
+                          device=dev)
+    # a tree whose runner hands K1 its columns on the card
+    on_card = "halos" in inspect.signature(r._halo_curves).parameters
+
+    def columns_to_curves():
+        halos = r._halo_tensors(hd)
+        return r._halo_curves(halos if on_card else hd)
+
+    halos = r._halo_tensors(hd)
+    curves, r0, dl = r._halo_curves(halos if on_card else hd)
+    po = deposit.disc_deposit(cs.NSIDE, halos, curves, float(r0), float(dl),
+                              cs.EPS_MAX)
+    orig = torch.as_tensor(b.shell.map, device=dev).to(torch.float32)
+    fns = {"halo columns to curves": columns_to_curves,
+           "_halo_curves from host arrays": lambda: r._halo_curves(hd),
+           "K3 regrid": lambda: regrid.regrid(cs.NSIDE, po, orig)}
+    out = {"calls": report(gpu, "calls", timed_in_turns(torch, fns,
+                                                        reps=50))}
+    phases = []
+    r.process()
+    for _ in range(8):
+        r.process()
+        phases.append(dict(r.timings))
+    med = {k: float(np.median([t[k] for t in phases]))
+           for k in ("host_prep", "curves", "regrid")}
+    cs.log(f"[{gpu}] calls process() phases, medians of 8: "
+           + ", ".join(f"{k} {v:.4f} ms" for k, v in med.items()))
+    out["calls phases"] = med
+    return out
+
+
 SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
                    probe_tile_deposit_paint),
             "K3": (("regrid.cu",), probe_regrid),
-            "K1": (("curves.cu",), probe_curves)}
+            "K1": (("curves.cu",), probe_curves),
+            "calls": ((), probe_calls)}
 
 
 def main(argv):
@@ -597,9 +608,13 @@ def main(argv):
         print("chip_probes: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--tree"]:
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        argv = argv[2:]
     import baryonforge_torch as bf
     from baryonforge_torch.ops import _build
-    want = argv or list(SECTIONS)
+    cs.log(f"baryonforge_torch from {os.path.dirname(bf.__file__)}")
+    want = argv or [k for k in SECTIONS if k != "calls"]
     if not set(want) <= set(SECTIONS):
         print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
         return 2

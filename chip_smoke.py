@@ -251,7 +251,8 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
               "regrid": (0.2645, "pix2ang and ring_theta a pixel, an atomic "
                          "an unmoved pixel, a memset"),
               "collapse_curves": (0.1309, "a thread a (halo, radius), the "
-                                  "table uploaded and a expanded a call")}
+                                  "set-up, M's upload and an expanded a a "
+                                  "call")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -457,23 +458,25 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
             n, nr = cp.shape
             npix = 12 * nside * nside
             # K1: per output value 4 corner weights and multiply-adds; timed
-            # as the runner calls it (its float64 M and a on the card, one
-            # launch), on the device alone, and from host columns (one
-            # upload, one launch)
+            # from host columns (one upload, one launch: the call that the
+            # paint, grid and snapshot runners make, and the one timed
+            # before the set-up was kept), as the shell runner calls it (its
+            # float64 M and a on the card, one launch) and on the device
+            # alone
             def runner_call():
                 return m.halo_curves(halos["M"], halos["a"])
-            out["collapse_curves"] = (err1, time_ms(torch, runner_call, 50),
+            out["collapse_curves"] = (err1, time_ms(
+                torch, lambda: m.halo_curves(hd["M"], hd["a"]), 50),
                 time_ms(torch, lambda: interp.collapse_curves_plain(*args),
                         10)) + bound(
                 nbytes(m._table, m._axes, cp) + 2 * 8 * n, 16 * n * nr,
                 F32_FLOPS) + (None,)
+            k1_runner = time_ms(torch, runner_call, 50)
             k1_alone = graph_ms(torch, runner_call)
-            k1_host = time_ms(torch, lambda: m.halo_curves(hd["M"], hd["a"]),
-                              50)
-            log(f"  K1 at the bench: the runner's call "
-                f"{out['collapse_curves'][1]:.4f} ms, the device alone "
-                f"{k1_alone:.4f} ms (targets 0.05, 0.010); from host "
-                f"columns {k1_host:.4f} ms")
+            log(f"  K1 at the bench: from host columns "
+                f"{out['collapse_curves'][1]:.4f} ms, the shell runner's "
+                f"call {k1_runner:.4f} ms, the device alone {k1_alone:.4f} "
+                f"ms (targets 0.05, 0.010)")
             # K2: the member pixels of these discs, ~40 operations each;
             # the (npix, 2) offsets written once
             mh = torch.bincount(deposit.disc_members_plain(
@@ -489,15 +492,20 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
                 nbytes(halos, cp, pk), 40 * pairs, F32_FLOPS) + (None,)
             # K3: per pixel its offset and value read, its value written,
             # ~60 operations of neighbour geometry and weights; the library
-            # yardstick (partial): one index_add_ of the 4 npix (pixel,
-            # weight x value) pairs, the weights formed beforehand, untimed
+            # yardstick (partial): one index_add_ of the (pixel, weight x
+            # value) shares, formed beforehand, untimed: a moved pixel's 4,
+            # an unmoved pixel's own (displaced_weights' 3 zero-weight
+            # shares of pixel 0 dropped, which would put ~3 npix atomics on
+            # one address)
             p_all = torch.arange(npix, dtype=torch.int32, device=dev)
             th_p, ph_p = hpx.pix2ang(nside, p_all, torch.float32)
             cpix, cw = regrid.displaced_weights(nside, torch.float32, p_all,
                                                 pk, th_p, ph_p)
-            idx = cpix.reshape(-1).long()
-            val = (cw * orig[:, None]).reshape(-1)
-            del th_p, ph_p, cpix, cw
+            keep = ((pk != 0).any(1)[:, None]
+                    | (torch.arange(4, device=dev) == 0)).reshape(-1)
+            idx = cpix.reshape(-1)[keep].long()
+            val = (cw * orig[:, None]).reshape(-1)[keep]
+            del th_p, ph_p, cpix, cw, keep
 
             def library():
                 return torch.zeros(npix, dtype=torch.float32,
@@ -515,7 +523,8 @@ def compare_kernels(bf, torch, model, cat, shell, label, timing):
             log(f"  K3 at the bench: {moved} of {npix} pixels moved; wrapper "
                 f"{out['regrid'][1]:.4f} ms, the device alone {k3_alone:.4f} "
                 f"ms (target 0.15); library (partial: one index_add_ of the "
-                f"4 npix shares formed beforehand) {out['regrid'][5]:.4f} ms")
+                f"{npix + 3 * moved} shares formed beforehand) "
+                f"{out['regrid'][5]:.4f} ms")
     return out
 
 
@@ -3022,7 +3031,7 @@ def main():
                               ("collapse_curves", "disc_deposit", "regrid"),
                               "scatter path", gpu)
     log(f"[{gpu}] scatter path, last call: curves "
-        f"{runner_s.timings['curves']:.3f} ms (K1 and its upload), regrid "
+        f"{runner_s.timings['curves']:.3f} ms (K1's call), regrid "
         f"{runner_s.timings['regrid']:.3f} ms (K3), CUDA events")
     moved = np.abs(out_s - shell.map)
     out_plain, plain_s = plain_pipeline(bf, torch, runner_s)

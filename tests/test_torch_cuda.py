@@ -281,15 +281,37 @@ def test_regrid_kernel_unmoved_is_exact(dev, pdt, rdt):
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("nside", [1, 2, 64, 1024])
 def test_regrid_ring_angles_are_pix2ang(dev, dt, nside):
-    """K3 takes each pixel's theta (and its sin) from its ring's row of
-    the kernel's ring table and its phi from pix2ang's formula on the ring
-    and index: on the card both equal pix2ang's, bit for bit, for every
-    pixel."""
+    """K3 takes each pixel's theta and sin from its ring's row of the ring
+    table that its init launch leaves at the head of its scratch, and its
+    phi from ring_pixel_phi (K13's, held to pix2ang's bit for bit by
+    test_ring_angles_are_pix2ang). After a regrid call, each row's theta
+    equals pix2ang's on the card for every pixel of the ring, bit for bit;
+    its phi step is 2 pi / nr rounded once from float64, bit for bit; its
+    sin is torch.sin's to an ulp, 1 where that is not above 1e-12."""
+    npx = 12 * nside * nside
+    rng = np.random.default_rng(nside)
+    po = torch.as_tensor(rng.normal(0, 0.5 / nside, (npx, 2)), dtype=dt,
+                         device=dev)
+    orig = torch.ones(npx, dtype=dt, device=dev)
+    scratch = regrid._scratch(nside, dt, dev)
+    out = torch.empty_like(orig)
     _build.reset_launches()
-    tk, pk = regrid.pixel_angles(nside, dt, dev)
-    tp, pp = paint.pixel_angles(nside, dt, dev, per_ring=False)
-    assert _build.launches["regrid_angles"] == 1
-    assert torch.equal(tk, tp) and torch.equal(pk, pp)
+    regrid._launch(nside, po, orig, scratch, out)
+    assert _build.launches["regrid"] == 1
+    rows = scratch[:4 * nside * 4 * orig.element_size()].view(dt)
+    rows = rows.view(4 * nside, 4)[1:]
+    _, nr, _, _ = hpx.ring_info(nside, torch.arange(1, 4 * nside,
+                                                    dtype=torch.int32))
+    ring = torch.repeat_interleave(torch.arange(4 * nside - 1),
+                                   nr.long()).to(dev)
+    tp, _ = paint.pixel_angles(nside, dt, dev, per_ring=False)
+    assert torch.equal(rows[ring, 0], tp)
+    _, dphi, _ = regrid.ring_table_plain(nside, dt)
+    assert torch.equal(rows[:, 1].cpu(), dphi)
+    s = torch.sin(rows[:, 0])
+    sin_safe = torch.where(s > 1e-12, s, torch.ones_like(s))
+    eps = torch.finfo(dt).eps
+    assert ((rows[:, 2] - sin_safe).abs() <= eps * sin_safe).all()
 
 
 def test_shell_cuda_matches_cpu(dev):

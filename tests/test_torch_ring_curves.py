@@ -8,8 +8,8 @@ pixel of the ring, and within a few ulps of the JAX pix2ang. K1 forms each
 halo's corner weights and row offsets once (``ops.interp.
 halo_corners_plain``): summed over the corners they give the plain
 collapse bit for bit and the JAX ``collapse_curves`` to its tolerances.
-The models keep K1's set-up and their cast tables between calls
-(``ops.interp.curve_table``, ``dtype_copy``), and must pick up a table
+The models keep their cast tables and K1's set-up on them between calls
+(``ops.interp.cast_copy``, ``curve_table``), and must pick up a table
 that ``load_table`` or ``setup_interpolator`` rebuilt.
 """
 
@@ -137,17 +137,20 @@ def test_curve_scalars_are_floats():
 
 
 def test_halo_curves_follow_a_reloaded_table(tmp_path):
-    """A model's cast copy and its K1 set-up are kept between calls (the
-    same objects), and a table rebuilt after the first call is picked up:
-    load_table of another file, then load_table and setup_interpolator
-    back; each time the copy's curves equal a fresh model's."""
+    """A model's cast table and its K1 set-up are kept between calls (the
+    same objects in every copy), and a table rebuilt after the first call
+    is picked up: load_table of another file, then load_table and
+    setup_interpolator back; each time the copy's curves equal a fresh
+    model's."""
     M, a = _halos(n=40, seed=5)
     m = torch_model()
     c1 = m.with_dtype(torch.float32).halo_curves(M, a)[0]
     copy1 = m.with_dtype(torch.float32)
-    assert copy1 is m.with_dtype(torch.float32)
-    ct = tinterp.curve_table(copy1, copy1._table, copy1._axes, [])
-    assert ct is tinterp.curve_table(copy1, copy1._table, copy1._axes, [])
+    again = m.with_dtype(torch.float32)
+    assert again._table is copy1._table and again._axes is copy1._axes
+    ct = tinterp.curve_table(copy1, "_table")
+    assert ct is tinterp.curve_table(again, "_table")
+    assert ct.table is copy1._table
     with np.load(TABLE, allow_pickle=True) as f:
         other = {k: f[k] for k in f.files}
     other["d"] = other["d"] * 2.0 + 0.25
@@ -158,7 +161,9 @@ def test_halo_curves_follow_a_reloaded_table(tmp_path):
     fresh = torch_model().load_table(path).with_dtype(torch.float32)
     assert torch.equal(c2, fresh.halo_curves(M, a)[0])
     assert not torch.equal(c2, c1)
-    assert m.with_dtype(torch.float32) is not copy1
+    assert m.with_dtype(torch.float32)._table is not copy1._table
+    assert tinterp.curve_table(m.with_dtype(torch.float32),
+                               "_table") is not ct
     m.load_table(TABLE)
     assert torch.equal(m.with_dtype(torch.float32).halo_curves(M, a)[0], c1)
     # the copy's other attributes follow the model's
@@ -166,9 +171,8 @@ def test_halo_curves_follow_a_reloaded_table(tmp_path):
     assert m.with_dtype(torch.float32).epsilon_max == 7
 
 
-def test_tabulated_curves_follow_a_rebuilt_table():
-    """A TabulatedProfile's kept copy picks up tables that
-    setup_interpolator rebuilt after the first call."""
+def _nfw_table():
+    """A small TabulatedProfile on the CPU (no table yet) and its grid."""
     cosmo = bf.cosmo.cosmology_from_dict(dict(
         Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96, w0=-1.0))
     nfw = bf.Profiles.DarkMatterOnly(
@@ -176,10 +180,16 @@ def test_tabulated_curves_follow_a_rebuilt_table():
         eta_delta=0.3, tau=-1.5, tau_delta=0, A=0.09 / 2, M1=2.5e11 / 0.7,
         epsilon_h=0.015, a=0.3, n=2, epsilon=4, p=0.3, q=0.707, gamma=2,
         delta=7, proj_cutoff=100)
-    tab = bf.utils.TabulatedProfile(nfw, cosmo, device="cpu")
     grid = dict(z_min=0.7, z_max=1.1, N_samples_z=2, M_min=1e13,
                 M_max=1e15, N_samples_Mass=3, R_min=1e-2, R_max=10,
                 N_samples_R=8, verbose=False)
+    return bf.utils.TabulatedProfile(nfw, cosmo, device="cpu"), grid
+
+
+def test_tabulated_curves_follow_a_rebuilt_table():
+    """A TabulatedProfile's kept copy picks up tables that
+    setup_interpolator rebuilt after the first call."""
+    tab, grid = _nfw_table()
     M, a = np.array([2e13, 3e14]), np.array([0.52, 0.55])
     tab.setup_interpolator(**grid)
     c1 = tab.with_dtype(torch.float64).halo_curves(M, a)[0]
@@ -192,6 +202,32 @@ def test_tabulated_curves_follow_a_rebuilt_table():
     assert torch.equal(c2, want) and not torch.equal(c1, c2)
 
 
+def test_tabulated_casts_are_kept():
+    """A TabulatedProfile's copies share one cast of its axes and tables a
+    (dtype, device) and one K1 set-up a table (the projected and the real
+    apart), whose curves are the plain collapse's and whose radial scalars
+    are the cast axis' own."""
+    tab, grid = _nfw_table()
+    tab.setup_interpolator(**grid)
+    M, a = np.array([2e13, 3e14, 9e14]), np.array([0.52, 0.55, 0.6])
+    c1, c2 = tab.with_dtype(torch.float32), tab.with_dtype(torch.float32)
+    assert c1._tab2D.dtype == torch.float32
+    assert (c1._axes is c2._axes and c1._tab2D is c2._tab2D
+            and c1._tab3D is c2._tab3D)
+    ct2 = tinterp.curve_table(c1, "_tab2D")
+    ct3 = tinterp.curve_table(c1, "_tab3D")
+    assert ct2 is tinterp.curve_table(c2, "_tab2D") and ct3 is not ct2
+    assert ct2.table is c1._tab2D and ct3.table is c1._tab3D
+    for kind, table in (("projected", c1._tab2D), ("real", c1._tab3D)):
+        got, r0, dl = c2.halo_curves(M, a, kind=kind)
+        want = tinterp.collapse_curves_plain(table, c1._axes, 2, M, a, [],
+                                             {}, fill=-np.inf)[0]
+        assert torch.equal(got, want)
+        ax = c1._axes[2]
+        assert r0 == float(ax[0]) and dl == float(ax[1] - ax[0])
+    assert tab.with_dtype(torch.float64)._tab2D is not c1._tab2D
+
+
 def test_regrid_wrapper_on_cpu():
     """On CPU tensors the K3 wrapper is its plain version (no launch)."""
     nside = 4
@@ -202,23 +238,3 @@ def test_regrid_wrapper_on_cpu():
     out = tregrid.regrid(nside, po, orig)
     assert not _build.launches
     assert torch.equal(out, tregrid.regrid_plain(nside, po, orig))
-    with pytest.raises(ValueError, match="CUDA only"):
-        tregrid.pixel_angles(nside, torch.float32, "cpu")
-
-
-def test_probe_variants_apply():
-    """Every design variant of chip_probes.py (K3, K1, K4 and K11) edits
-    text that its kernel source holds exactly once, so the probes build
-    against the sources as they stand."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
-    import chip_probes
-    csrc = os.path.join(os.path.dirname(tregrid.__file__), os.pardir, "csrc")
-    for src, variants in chip_probes.VARIANTS.items():
-        with open(os.path.join(csrc, src)) as f:
-            text = f.read()
-        assert "kernel" in variants or "l1" in variants
-        for name, edits in variants.items():
-            for old, _ in edits:
-                assert text.count(old) == 1, (src, name, old)
