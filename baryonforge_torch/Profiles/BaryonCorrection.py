@@ -60,10 +60,18 @@ class BaryonificationClass:
 
     def _enclosed_mass_curve(self, model, r, M, a, projected):
         """Enclosed mass (len M, len r) of ``model`` at radii ``r`` (host
-        values): the profile on a padded log grid of N_int points (numpy
-        float64, as the JAX package builds it), the clipped integrand, and
-        K9's first entry (cumulative Simpson, rho > 0 mask, log-log PCHIP);
-        NaN outside a row's valid range."""
+        values): :meth:`_profile_rows` and K9's enclosed-mass half
+        (cumulative Simpson, rho > 0 mask, log-log PCHIP); NaN outside a
+        row's valid range."""
+        return table_rows.enclosed_mass(
+            *self._profile_rows(model, r, M, a, projected))
+
+    def _profile_rows(self, model, r, M, a, projected):
+        """K9's inputs for ``model`` at radii ``r`` (host values): the
+        profile on a padded log grid of N_int points (numpy float64, as the
+        JAX package builds it), and (intgd, dens, lnr_int, lnr): the
+        clipped integrand and density (len M, N_int), the grid's and the
+        radii's logs, on the model's device."""
         r = np.asarray(r, dtype=float)
         r_min = min(float(r.min()), self.r_min_int)
         r_max = max(float(r.max()), self.r_max_int)
@@ -85,9 +93,8 @@ class BaryonificationClass:
         zero = torch.zeros_like(dens)
         dens = torch.where(dens < 0, zero, dens)
         intgd = torch.where(intgd < 0, zero, intgd)
-        return table_rows.enclosed_mass(
-            intgd.contiguous(), dens.contiguous(), torch.log(r_int),
-            torch.log(torch.as_tensor(r, device=dev)))
+        return (intgd.contiguous(), dens.contiguous(), torch.log(r_int),
+                torch.log(torch.as_tensor(r, device=dev)))
 
     def _check_device(self):
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -111,8 +118,8 @@ class BaryonificationClass:
         axis is r / R_Delta on [Rdelta_min, Rdelta_max]. Rows whose
         inversion fails (too few usable points) give d = 0 with a
         UserWarning when ``verbose``. Runs on ``self.device``: per
-        redshift, K9 twice for the enclosed masses (DMO, DMB), once for the
-        displacement rows, and the TwoHalo terms' FFTLog (K8).
+        redshift, one launch of K9 for the rows (both enclosed masses and
+        their inversion), and the TwoHalo terms' FFTLog (K8).
         """
         self._check_device()
         if self.DMO is None or self.DMB is None:
@@ -135,8 +142,6 @@ class BaryonificationClass:
 
         d_interp = np.zeros([z_range.size, M_range.size, r.size]
                             + [v.size for v in p_vals])
-        lnr = torch.log(torch.as_tensor(r, device=self.device))
-
         combos = list(product(*[range(v.size) for v in p_vals])) or [()]
         for c in combos:
             for ki, key in enumerate(p_keys):
@@ -144,12 +149,12 @@ class BaryonificationClass:
                 _set_parameter(self.DMB, key, p_vals[ki][c[ki]])
             for j in range(z_range.size):
                 a_j = float(a_range[j])
-                M_DMO = self._enclosed_mass_curve(
+                i_o, d_o, lnr_int, lnr = self._profile_rows(
                     self.DMO, r, M_range, a_j, projected=self._projected)
-                M_DMB = self._enclosed_mass_curve(
-                    self.DMB, r, M_range, a_j, projected=self._projected)
-                offset = table_rows.displacement_rows(lnr, M_DMO, M_DMB) \
-                    .cpu().numpy()
+                i_b, d_b = self._profile_rows(
+                    self.DMB, r, M_range, a_j, projected=self._projected)[:2]
+                offset = table_rows.displacement_table(
+                    i_o, d_o, i_b, d_b, lnr_int, lnr).cpu().numpy()
 
                 bad = ~np.isfinite(offset).any(axis=-1)
                 offset = np.where(np.isfinite(offset), offset, 0.0)

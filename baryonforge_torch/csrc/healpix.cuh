@@ -176,8 +176,9 @@ __device__ __forceinline__ void pix2ang(int N, int p, T& theta, T& phi) {
 }
 
 // A ring's colatitude and phi step as pix2ang and get_interp_weights form
-// them. K3 passes a type with the same two members that reads them from
-// a table it filled with these functions, so both give the same bits.
+// them. K3 and K6 pass TableRings, with the same two members, reading
+// them from a table filled with these functions, so both give the same
+// bits.
 template <typename T>
 struct RingAngles {
   int N;
@@ -188,6 +189,49 @@ struct RingAngles {
     return ring_dphi<T>(nr);
   }
 };
+
+// One ring of a per-ring table (K3, K6): theta, the phi step and
+// sin(theta) (1 where sin(theta) <= 1e-12), each in T, 16 (32) bytes.
+// ring_row is the target form, each value as pix2ang and interp_weights
+// form it (the same functions, so the same bits); source_ring_row is K6's
+// source form, whose theta is the float64 ring_theta rounded to T (the
+// JAX stencil's source colatitude) and whose sin is taken of that. The two
+// forms differ in float32 only.
+template <typename T>
+struct RingRow {
+  T theta, dphi, sin_safe, pad;
+};
+
+template <typename T>
+__device__ __forceinline__ RingRow<T> ring_row_of(int N, int i, T theta) {
+  RingRow<T> r;
+  r.theta = theta;
+  r.dphi = ring_dphi<T>(ring_info<T>(N, i).nr);
+  const T s = m_sin(r.theta);
+  r.sin_safe = s > T(1e-12) ? s : T(1);
+  r.pad = T(0);
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ RingRow<T> ring_row(int N, int i) {
+  return ring_row_of<T>(N, i, ring_theta<T>(N, i));
+}
+
+template <typename T>
+__device__ __forceinline__ RingRow<T> source_ring_row(int N, int i) {
+  return ring_row_of<T>(N, i, T(ring_theta<double>(N, i)));
+}
+
+// ring of pixel p (pix2ang's: the cap's float64 square root, the belt's
+// integer division)
+__device__ __forceinline__ int pixel_ring(int N, int p) {
+  const int ncap = 2 * N * (N - 1);
+  const int npx = 12 * N * N;
+  if (p < ncap) return cap_ring(p);
+  if (p >= npx - ncap) return 4 * N - cap_ring(npx - 1 - p);
+  return N + floor_div(p - ncap, 4 * N);
+}
 
 // the two pixels of ring `ring` bracketing phi, the phi weight, the ring's
 // colatitude
@@ -261,6 +305,15 @@ __device__ __forceinline__ void interp_weights(int N, T theta, T phi,
                                                int pix[4], T wgt[4]) {
   interp_weights<T>(N, theta, phi, RingAngles<T>{N}, pix, wgt);
 }
+
+// a table of ring_row's (indexed by ring) as interp_weights reads rings:
+// the same bits as RingAngles
+template <typename T>
+struct TableRings {
+  const RingRow<T>* __restrict__ rows;
+  __device__ __forceinline__ T theta(int i) const { return rows[i].theta; }
+  __device__ __forceinline__ T dphi(int i, int) const { return rows[i].dphi; }
+};
 
 // phi of pixel j of ring i (shifted as ring_info gives it), with
 // pix2ang's operations: the cap rings' pi / (2 i) (j + 0.5), the belt's

@@ -49,47 +49,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 4 * kThreads;  // pixels a tile, 4 a thread
 
-// one ring of the table: theta, the phi step and sin(theta) (1 where
-// sin(theta) <= 1e-12), each in T
-template <typename T>
-struct RingRow {
-  T theta, dphi, sin_safe, pad;
-};
-
-template <typename T>
-__device__ __forceinline__ RingRow<T> ring_row(int N, int i) {
-  RingRow<T> r;
-  r.theta = bf::ring_theta<T>(N, i);
-  r.dphi = bf::ring_dphi<T>(bf::ring_info<T>(N, i).nr);
-  const T s = bf::m_sin(r.theta);
-  r.sin_safe = s > T(1e-12) ? s : T(1);
-  r.pad = T(0);
-  return r;
-}
-
-// the ring table as bf::interp_weights reads rings (bf::RingAngles)
-template <typename T>
-struct TableRings {
-  const RingRow<T>* __restrict__ rows;
-  __device__ __forceinline__ T theta(int i) const { return rows[i].theta; }
-  __device__ __forceinline__ T dphi(int i, int) const { return rows[i].dphi; }
-};
-
-// ring of pixel p (pix2ang's: the cap's float64 square root, the belt's
-// integer division)
-__device__ __forceinline__ int pixel_ring(int N, int p) {
-  const int ncap = 2 * N * (N - 1);
-  const int npx = 12 * N * N;
-  if (p < ncap) return bf::cap_ring(p);
-  if (p >= npx - ncap) return 4 * N - bf::cap_ring(npx - 1 - p);
-  return N + bf::floor_div(p - ncap, 4 * N);
-}
+using bf::RingRow;
+using bf::TableRings;
 
 // The ring of a warp's first pixel p0 (< npix), found by lane 0 and
 // broadcast; every lane of the warp calls it
 __device__ __forceinline__ int warp_first_ring(int N, int p0, int lane) {
   int r0 = 0;
-  if (lane == 0) r0 = pixel_ring(N, p0);
+  if (lane == 0) r0 = bf::pixel_ring(N, p0);
   return __shfl_sync(bf::kFullMask, r0, 0);
 }
 
@@ -187,7 +154,7 @@ regrid_init_kernel(int N, int npix, int tiles, const P* __restrict__ po,
                    RingRow<T>* __restrict__ rings) {
   if (int(blockIdx.x) >= tiles) {
     const int i = (blockIdx.x - tiles) * kThreads + threadIdx.x;
-    if (i >= 1 && i < 4 * N) rings[i] = ring_row<T>(N, i);
+    if (i >= 1 && i < 4 * N) rings[i] = bf::ring_row<T>(N, i);
     return;
   }
   __shared__ int wsum[kThreads / 32];

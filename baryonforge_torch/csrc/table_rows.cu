@@ -1,4 +1,4 @@
-// K9: the rows of the displacement table, float64, two entry points.
+// K9: the rows of the displacement table, float64.
 //
 // Replaces baryonforge_tpu/Profiles/BaryonCorrection.py:
 //   _enclosed_mass_curve (the part after the profile evaluation): per mass
@@ -21,18 +21,29 @@
 // bisection (searchsorted side="right"), so a row whose kept points do not
 // increase still gives the JAX answer.
 //
-// Bound: neither: a table of B = 20 rows has ~10^4 points in all, so a
-// launch is latency-bound. Design: one block per row; the sequential scans
-// (cumulative sum, running maxima, compaction) run on one thread in shared
-// memory, and the block's threads share the PCHIP derivatives and the
-// evaluations.
+// Bound: latency. A table row is ~10^3 points, so a launch is a chain of
+// dependent steps, not bytes or operations. Design: bf_table_rows_f64 makes
+// one launch a redshift, a block a mass row; the DMO and DMB enclosed-mass
+// curves run at once on the block's two groups of kGroup threads, their
+// values at the output radii stay in shared memory (exponentiated and
+// logged again, as the plain chain compares those logs with its 1e-6 and
+// 1e-5 thresholds), and the whole block then inverts them. Every step but
+// one is parallel: the Simpson increments are formed a chunk a thread and
+// summed by a block prefix sum (warp shuffles), the compactions are
+// ballot/popc prefixes, the PCHIP slopes are formed where a query needs
+// them. The running-maximum selection is not associative (its carry is the
+// last kept value), so it stays a chain, one lane a curve over n_r values
+// in shared memory. bf_enclosed_mass_f64 (get_masses) and
+// bf_displacement_rows_f64 run the two halves alone on the same device
+// code.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kGroup = 256;                // threads of one curve
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double sign_of(double v) {
   return v > 0.0 ? 1.0 : (v < 0.0 ? -1.0 : v);  // keeps 0 and NaN
@@ -89,10 +100,14 @@ __device__ double pchip_slope(const double* x, const double* y, int n, int i) {
   return (w1 + w2) / denom;
 }
 
-__device__ double hermite(const double* x, const double* y, const double* d,
-                          int n, double xq) {
+// the PCHIP of the knots (x, y) (n of them) at xq, its two slopes formed
+// here: the same values as a table of all n slopes
+__device__ double hermite(const double* x, const double* y, int n,
+                          double xq) {
   int i = search_right(x, n, xq) - 1;
   i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+  const double d0 = pchip_slope(x, y, n, i);
+  const double d1 = pchip_slope(x, y, n, i + 1);
   const double h = x[i + 1] - x[i];
   const double t = (xq - x[i]) / h;
   const double s = 1.0 - t;
@@ -100,158 +115,331 @@ __device__ double hermite(const double* x, const double* y, const double* d,
   const double h10 = t * (s * s);
   const double h01 = (t * t) * (3.0 - 2.0 * t);
   const double h11 = (t * t) * (t - 1.0);
-  return h00 * y[i] + h10 * h * d[i] + h01 * y[i + 1] + h11 * h * d[i + 1];
+  return h00 * y[i] + h10 * h * d0 + h01 * y[i + 1] + h11 * h * d1;
 }
 
-// Masked PCHIP of one row, called by the whole block. x, y, valid: the row
-// (n points, any memory); xc, yc, d: shared scratch of n; nv: a shared int.
-// out[k] for the nq queries xq[k].
-__device__ void masked_pchip(const double* x, const double* y,
-                             const bool* valid, int n, const double* xq,
-                             int nq, int min_pts, double* xc, double* yc,
-                             double* d, int* nv, double* out) {
-  if (threadIdx.x == 0) {
-    int k = 0;
-    for (int j = 0; j < n; ++j) {
-      if (valid[j]) {
-        xc[k] = x[j];
-        yc[k] = y[j];
-        ++k;
-      }
-    }
-    const double span = nan_max(x[n - 1] - x[0], 1.0);
-    const int last = k > 0 ? k - 1 : 0;
-    const double x_last = k > 0 ? xc[last] : x[0];
-    const double y_last = k > 0 ? yc[last] : y[0];
-    for (int j = k; j < n; ++j) {
-      xc[j] = x_last + (double)(j - last) * span;
-      yc[j] = y_last;
-    }
-    *nv = k;
+// A group of G consecutive threads of the block (G a multiple of 32). Every
+// thread of the block calls the functions below together: they hold
+// __syncthreads barriers, and each group works on its own data.
+template <int G>
+struct Group {
+  int t;      // thread in the group
+  int lane;
+  int warp;   // warp in the group
+  __device__ Group()
+      : t(threadIdx.x % G), lane(threadIdx.x & 31), warp(t >> 5) {}
+};
+
+// The exclusive prefix sum of v over the group's threads; wsum: the
+// group's G / 32 slots of shared scratch
+template <int G>
+__device__ double group_prefix(const Group<G>& g, double v, double* wsum) {
+  double incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double y = __shfl_up_sync(kFull, incl, d);
+    if (g.lane >= d) incl = incl + y;
   }
+  double excl = __shfl_up_sync(kFull, incl, 1);
+  if (g.lane == 0) excl = 0.0;
+  if (g.lane == 31) wsum[g.warp] = incl;
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    d[i] = pchip_slope(xc, yc, n, i);
+  double before = 0.0;
+#pragma unroll
+  for (int w = 0; w < G / 32; ++w)
+    if (w < g.warp) before = before + wsum[w];
   __syncthreads();
-  const int k = *nv;
-  const int last = k > 0 ? k - 1 : 0;
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-    const double v = xq[q];
-    const bool ok = (k > min_pts) && (v >= xc[0]) && (v <= xc[last]);
-    out[q] = ok ? hermite(xc, yc, d, n, v) : nan("");
-  }
-  __syncthreads();
+  return before + excl;
 }
 
-// shared layout of enclosed_mass: M (n), y (n), xc (n), yc (n), d (n),
-// then n valid flags and the count
-__global__ void enclosed_mass_kernel(int n, int nq,
-                                     const double* __restrict__ intgd,
-                                     const double* __restrict__ dens,
-                                     const double* __restrict__ lnr_int,
-                                     const double* __restrict__ lnr_out,
-                                     int min_pts, double* __restrict__ out) {
-  extern __shared__ double sh[];
-  double* Me = sh;
-  double* y = sh + n;
-  double* xc = sh + 2 * n;
-  double* yc = sh + 3 * n;
-  double* d = sh + 4 * n;
-  bool* valid = reinterpret_cast<bool*>(sh + 5 * n);
-  __shared__ int nv;
-  const int row = blockIdx.x;
-  const double* f = intgd + (long long)row * n;
-  const double* rho = dens + (long long)row * n;
-  double* o = out + (long long)row * nq;
-
-  if (threadIdx.x == 0) {
-    // scipy's cumulative Simpson on non-overlapping triplets (dx = 1),
-    // plus the first sample
-    const double f0 = f[0];
-    double s = 0.0;
-    Me[0] = s + f0;
-    for (int i = 0; i < n - 1; ++i) {
-      const bool right = (i % 2 == 1) || (i == n - 2 && i % 2 == 0 && i > 0);
-      const int qi = right ? i - 1 : (i < n - 3 ? i : n - 3);
-      const double a0 = f[qi], a1 = f[qi + 1], a2 = f[qi + 2];
-      const double inc = right ? 1.0 / 12.0 * (-a0 + 8.0 * a1 + 5.0 * a2)
-                               : 1.0 / 12.0 * (5.0 * a0 + 8.0 * a1 - a2);
-      s = s + inc;
-      Me[i + 1] = s + f0;
+// The masked PCHIP's knots: the points j < n with ok(j), (x(j), y(j)), in
+// order to the front of (xc, yc) by ballot/popc prefixes, G points a round;
+// the tail padded with the x-ramp from the last valid point (y0 stands for
+// y(0) when no point is valid). wcnt: the group's 2 x G / 32 ints of shared
+// scratch (two rounds' warp counts, so one barrier a round). Returns the
+// number of valid points; xc and yc are complete on return.
+template <int G, typename Ok, typename X, typename Y>
+__device__ int compact_pad(const Group<G>& g, int n, Ok ok, X x, Y y,
+                           double y0, double* xc, double* yc, int* wcnt) {
+  int base = 0;
+  for (int r = 0; r * G < n; ++r) {
+    const int j = r * G + g.t;
+    const bool v = j < n && ok(j);
+    const unsigned b = __ballot_sync(kFull, v);
+    int* wc = wcnt + (r & 1) * (G / 32);
+    if (g.lane == 0) wc[g.warp] = __popc(b);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < G / 32; ++w) {
+      before += w < g.warp ? wc[w] : 0;
+      total += wc[w];
     }
+    if (v) {
+      const int k = base + before + __popc(b & ((1u << g.lane) - 1u));
+      xc[k] = x(j);
+      yc[k] = y(j);
+    }
+    base += total;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const double m = Me[i];
-    const bool v = (rho[i] > 0.0) && isfinite(m) && (m > 0.0);
-    valid[i] = v;
-    y[i] = log(v ? m : 1.0);
+  const int last = base > 0 ? base - 1 : 0;
+  const double span = nan_max(x(n - 1) - x(0), 1.0);
+  const double x_last = base > 0 ? xc[last] : x(0);
+  const double y_last = base > 0 ? yc[last] : y0;
+  for (int j = base + g.t; j < n; j += G) {
+    xc[j] = x_last + (double)(j - last) * span;
+    yc[j] = y_last;
   }
   __syncthreads();
-  masked_pchip(lnr_int, y, valid, n, lnr_out, nq, min_pts, xc, yc, d, &nv, o);
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) o[q] = exp(o[q]);
+  return base;
 }
 
-// shared layout of displacement_rows: ln_o, ln_b, xb, yo, lq, xc, yc, d
-// (n each), then the two masks and the count
-__global__ void displacement_rows_kernel(int n,
-                                         const double* __restrict__ ln_dmo,
-                                         const double* __restrict__ ln_dmb,
-                                         const double* __restrict__ lnr,
-                                         const double* __restrict__ r,
-                                         int min_pts, double* __restrict__ out) {
-  extern __shared__ double sh[];
-  double* lo = sh;
-  double* lb = sh + n;
-  double* xb = sh + 2 * n;   // ln M_DMB where finite, else 0
-  double* yo = sh + 3 * n;   // ln M_DMO where finite, else 0
-  double* lq = sh + 4 * n;   // ln M_DMO(ln r) on the kept DMO points
-  double* xc = sh + 5 * n;
-  double* yc = sh + 6 * n;
-  double* d = sh + 7 * n;
-  bool* mask_o = reinterpret_cast<bool*>(sh + 8 * n);
-  bool* mask_b = mask_o + n;
-  __shared__ int nv;
-  const int row = blockIdx.x;
-  double* o = out + (long long)row * n;
+// The masked PCHIP of the knots (xc, yc) (n, nv valid) at the nq queries
+// xq(q): put(q, value), NaN outside [xc[0], xc[nv - 1]] or when nv <=
+// min_pts
+template <int G, typename Q, typename Put>
+__device__ void masked_eval(const Group<G>& g, const double* xc,
+                            const double* yc, int n, int nv, int min_pts,
+                            int nq, Q xq, Put put) {
+  const int last = nv > 0 ? nv - 1 : 0;
+  for (int q = g.t; q < nq; q += G) {
+    const double v = xq(q);
+    const bool ok = (nv > min_pts) && (v >= xc[0]) && (v <= xc[last]);
+    put(q, ok ? hermite(xc, yc, n, v) : nan(""));
+  }
+}
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const double a = ln_dmo[(long long)row * n + i];
-    const double b = ln_dmb[(long long)row * n + i];
-    lo[i] = a;
-    lb[i] = b;
-    yo[i] = isfinite(a) ? a : 0.0;
-    xb[i] = isfinite(b) ? b : 0.0;
+// A block's dynamic shared memory: the inversion's n_r-arrays, the grid's
+// logs (n), each curve's n-arrays, then the flags. Every kernel below
+// takes the parts it uses (n_r = 0: no inversion; curves = 0: none).
+struct Layout {
+  // the inversion: ln M_DMO, ln M_DMB at the radii, the two knot sets, ln
+  // M_DMO(ln r), the radii's logs; the two masks
+  double *lo, *lb, *xo, *yo, *xb, *yb, *lq, *lr;
+  bool *mask_o, *mask_b;
+  double* xs;      // the grid's logs
+  // curve c's n-arrays from curves + 3 c n: the integrand (then the
+  // knots' x), log M (NaN where not valid), the knots' y; its rho > 0
+  // flags from pos + c n
+  double* curves;
+  bool* pos;
+};
+
+constexpr int kInversionDoubles = 8;
+
+size_t shared_bytes(int curves, int n, int n_r) {
+  return (size_t(kInversionDoubles) * n_r + n + size_t(3) * curves * n) *
+             sizeof(double) +
+         2 * size_t(n_r) + size_t(curves) * n;
+}
+
+__device__ __forceinline__ Layout layout(double* sh, int curves, int n,
+                                         int n_r) {
+  Layout s;
+  s.lo = sh;
+  s.lb = sh + n_r;
+  s.xo = sh + 2 * n_r;
+  s.yo = sh + 3 * n_r;
+  s.xb = sh + 4 * n_r;
+  s.yb = sh + 5 * n_r;
+  s.lq = sh + 6 * n_r;
+  s.lr = sh + 7 * n_r;
+  s.xs = sh + kInversionDoubles * n_r;
+  s.curves = s.xs + n;
+  s.mask_o = reinterpret_cast<bool*>(s.curves + 3 * curves * n);
+  s.mask_b = s.mask_o + n_r;
+  s.pos = s.mask_b + n_r;
+  return s;
+}
+
+// One enclosed-mass row of curve c on a group: intgd and rho the row (n),
+// the grid's logs in s.xs (complete); put(q, M(q)) at the nq output radii
+// xq(q), M the masked log-log PCHIP's exp (NaN outside the row's valid
+// range). The Simpson increments of a chunk of ceil((n - 1) / G)
+// intervals a thread, summed by the group's prefix; then M, the mask and
+// log M a point.
+template <int G, typename Q, typename Put>
+__device__ void enclosed_row(const Group<G>& g, int n, int nq, int c,
+                             const double* __restrict__ intgd,
+                             const double* __restrict__ rho, Layout s,
+                             double* wsum, int* wcnt, Q xq, Put put) {
+  double* f = s.curves + 3 * c * n;
+  double* y = f + n;
+  double* yc = f + 2 * n;
+  bool* pos = s.pos + c * n;
+  for (int j = g.t; j < n; j += G) {
+    f[j] = intgd[j];
+    pos[j] = rho[j] > 0.0;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    // keep a point where it exceeds the running maximum of the kept points
-    // by more than 1e-5; candidates must be finite and differ from the
-    // other curve (> 1e-6 in ln M) unless the other is not finite
-    double carry_b = -INFINITY, carry_o = -INFINITY;
+  // scipy's cumulative Simpson on non-overlapping triplets (dx = 1)
+  auto inc = [&](int i) {
+    const bool right = (i % 2 == 1) || (i == n - 2 && i % 2 == 0 && i > 0);
+    const int qi = right ? i - 1 : (i < n - 3 ? i : n - 3);
+    const double a0 = f[qi], a1 = f[qi + 1], a2 = f[qi + 2];
+    return right ? 1.0 / 12.0 * (-a0 + 8.0 * a1 + 5.0 * a2)
+                 : 1.0 / 12.0 * (5.0 * a0 + 8.0 * a1 - a2);
+  };
+  const int chunk = (n - 1 + G - 1) / G;
+  const int lo = g.t * chunk < n - 1 ? g.t * chunk : n - 1;
+  const int hi = lo + chunk < n - 1 ? lo + chunk : n - 1;
+  double part = 0.0;
+  for (int i = lo; i < hi; ++i) part = part + inc(i);
+  double s_i = group_prefix<G>(g, part, wsum);
+  const double f0 = f[0];
+  // M at the points this thread owns (i + 1 for its intervals; point 0 on
+  // the first thread), and y = log M where valid, NaN where not
+  auto mark = [&](int j, double m) {
+    const bool v = pos[j] && isfinite(m) && (m > 0.0);
+    y[j] = v ? log(m) : nan("");
+  };
+  if (g.t == 0) mark(0, 0.0 + f0);
+  for (int i = lo; i < hi; ++i) {
+    s_i = s_i + inc(i);
+    mark(i + 1, s_i + f0);
+  }
+  __syncthreads();
+  // the knots' x go where f was
+  const double* xs = s.xs;
+  const int nv = compact_pad<G>(
+      g, n, [&](int j) { return !isnan(y[j]); }, [&](int j) { return xs[j]; },
+      [&](int j) { return y[j]; }, 0.0, f, yc, wcnt);
+  masked_eval<G>(g, f, yc, n, nv, 2, nq, xq,
+                 [&](int q, double v) { put(q, exp(v)); });
+}
+
+// The displacement row from s.lo, s.lb and the radii's logs s.lr (n, in
+// shared memory, complete) on the whole block (G = blockDim.x): each
+// point's candidate value for the two selections, in parallel; the two
+// selections as one chain a curve (lanes 0 of warps 0 and 1); then both
+// masked PCHIPs; out (n, global) gets d = exp(ln r_b) - r, NaN where not
+// finite.
+template <int G>
+__device__ void invert_row(const Group<G>& g, int n, Layout s, int* wcnt,
+                           double* __restrict__ out) {
+  // a point is a candidate where it is finite and differs from the other
+  // curve (> 1e-6 in ln M) unless the other is not finite; the rest get
+  // -inf, which no carry can keep (the candidates go where the knots'
+  // x will)
+  for (int i = g.t; i < n; i += G) {
+    const double a = s.lo[i], b = s.lb[i];
+    const bool fin_o = isfinite(a), fin_b = isfinite(b);
+    const bool neq = fabs(b - a) > 1e-6;
+    s.xo[i] = fin_o && (neq || !fin_b) ? a : -INFINITY;
+    s.xb[i] = fin_b && (neq || !fin_o) ? b : -INFINITY;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+    // keep a candidate where it exceeds the running maximum of the kept
+    // points by more than 1e-5
+    const bool is_b = threadIdx.x == 0;
+    const double* sel = is_b ? s.xb : s.xo;
+    bool* mask = is_b ? s.mask_b : s.mask_o;
+    double carry = -INFINITY;
+#pragma unroll 8
     for (int i = 0; i < n; ++i) {
-      const bool fin_b = isfinite(lb[i]), fin_o = isfinite(lo[i]);
-      const bool neq = fabs(lb[i] - lo[i]) > 1e-6;
-      const bool ok_b = fin_b && (neq || !fin_o);
-      const bool ok_o = fin_o && (neq || !fin_b);
-      const double sb = ok_b ? lb[i] : -INFINITY;
-      const double so = ok_o ? lo[i] : -INFINITY;
-      const bool keep_b = sb > carry_b + 1e-5;
-      const bool keep_o = so > carry_o + 1e-5;
-      if (keep_b) carry_b = sb;
-      if (keep_o) carry_o = so;
-      mask_b[i] = keep_b && ok_b;
-      mask_o[i] = keep_o && ok_o;
+      const double v = sel[i];
+      const bool keep = v > carry + 1e-5;
+      carry = keep ? v : carry;
+      mask[i] = keep;
     }
-    mask_b[0] = true;
+    if (is_b) mask[0] = true;
   }
   __syncthreads();
-  masked_pchip(lnr, yo, mask_o, n, lnr, n, min_pts, xc, yc, d, &nv, lq);
-  masked_pchip(xb, lnr, mask_b, n, lq, n, min_pts, xc, yc, d, &nv, o);
+  const double* lo = s.lo;
+  const double* lb = s.lb;
+  const double* lr = s.lr;
+  const bool* mask_o = s.mask_o;
+  const bool* mask_b = s.mask_b;
+  auto yo = [&](int j) { return isfinite(lo[j]) ? lo[j] : 0.0; };
+  auto xb = [&](int j) { return isfinite(lb[j]) ? lb[j] : 0.0; };
+  auto r_at = [&](int j) { return lr[j]; };
+  const int nvo = compact_pad<G>(
+      g, n, [&](int j) { return mask_o[j]; }, r_at, yo, yo(0), s.xo, s.yo,
+      wcnt);
+  const int nvb = compact_pad<G>(
+      g, n, [&](int j) { return mask_b[j]; }, xb, r_at, lr[0], s.xb, s.yb,
+      wcnt);
+  double* lq = s.lq;
+  masked_eval<G>(g, s.xo, s.yo, n, nvo, 5, n, r_at,
+                 [&](int q, double x) { lq[q] = x; });
+  __syncthreads();
+  masked_eval<G>(g, s.xb, s.yb, n, nvb, 5, n, [&](int q) { return lq[q]; },
+                 [&](int q, double x) {
+                   const double d = exp(x) - exp(lr[q]);
+                   out[q] = isfinite(d) ? d : nan("");
+                 });
+}
+
+// one launch a redshift: block b the mass row b, threads [0, kGroup) the
+// DMO curve, [kGroup, 2 kGroup) the DMB curve, then all the inversion
+__global__ void __launch_bounds__(2 * kGroup)
+table_rows_kernel(int n, int n_r, const double* __restrict__ intgd_o,
+                  const double* __restrict__ dens_o,
+                  const double* __restrict__ intgd_b,
+                  const double* __restrict__ dens_b,
+                  const double* __restrict__ lnr_int,
+                  const double* __restrict__ lnr, double* __restrict__ out) {
+  extern __shared__ double sh[];
+  __shared__ double wsum[2][kGroup / 32];
+  __shared__ int wcnt[2][2 * (2 * kGroup) / 32];
+  const Layout s = layout(sh, 2, n, n_r);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) s.xs[j] = lnr_int[j];
+  for (int j = threadIdx.x; j < n_r; j += blockDim.x) s.lr[j] = lnr[j];
+  const int c = threadIdx.x / kGroup;
+  const long long row = (long long)blockIdx.x * n;
+  double* ln_m = c == 0 ? s.lo : s.lb;
+  const double* lr = s.lr;
+  const Group<kGroup> g;
+  enclosed_row<kGroup>(g, n, n_r, c, (c == 0 ? intgd_o : intgd_b) + row,
+                       (c == 0 ? dens_o : dens_b) + row, s, wsum[c], wcnt[c],
+                       [&](int q) { return lr[q]; },
+                       [&](int q, double m) { ln_m[q] = log(m); });
+  __syncthreads();
+  const Group<2 * kGroup> all;
+  invert_row<2 * kGroup>(all, n_r, s, &wcnt[0][0],
+                         out + (long long)blockIdx.x * n_r);
+}
+
+// get_masses' half alone: a block (one group) a mass row
+__global__ void __launch_bounds__(kGroup)
+enclosed_mass_kernel(int n, int nq, const double* __restrict__ intgd,
+                     const double* __restrict__ dens,
+                     const double* __restrict__ lnr_int,
+                     const double* __restrict__ lnr_out,
+                     double* __restrict__ out) {
+  extern __shared__ double sh[];
+  __shared__ double wsum[kGroup / 32];
+  __shared__ int wcnt[2 * kGroup / 32];
+  const Layout s = layout(sh, 1, n, 0);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) s.xs[j] = lnr_int[j];
+  const long long row = (long long)blockIdx.x * n;
+  double* o = out + (long long)blockIdx.x * nq;
+  const Group<kGroup> g;
+  enclosed_row<kGroup>(g, n, nq, 0, intgd + row, dens + row, s, wsum, wcnt,
+                       [&](int q) { return lnr_out[q]; },
+                       [&](int q, double m) { o[q] = m; });
+}
+
+// the inversion alone, from the enclosed masses (their logs taken here)
+__global__ void __launch_bounds__(2 * kGroup)
+displacement_rows_kernel(int n, const double* __restrict__ M_dmo,
+                         const double* __restrict__ M_dmb,
+                         const double* __restrict__ lnr,
+                         double* __restrict__ out) {
+  extern __shared__ double sh[];
+  __shared__ int wcnt[2 * (2 * kGroup) / 32];
+  const long long row = (long long)blockIdx.x * n;
+  const Layout s = layout(sh, 0, 0, n);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const double v = exp(o[i]) - r[i];
-    o[i] = isfinite(v) ? v : nan("");
+    s.lo[i] = log(M_dmo[row + i]);
+    s.lb[i] = log(M_dmb[row + i]);
+    s.lr[i] = lnr[i];
   }
+  __syncthreads();
+  const Group<2 * kGroup> all;
+  invert_row<2 * kGroup>(all, n, s, wcnt, out + row);
 }
 
 int set_shmem(const void* fn, size_t bytes) {
@@ -264,33 +452,48 @@ int set_shmem(const void* fn, size_t bytes) {
 
 extern "C" {
 
+// intgd_o, dens_o, intgd_b, dens_b: (B, n) clipped integrands and
+// densities of the DMO and DMB profiles on the grid lnr_int (n); lnr (n_r)
+// the table's radii; out: (B, n_r) displacement, NaN where the inversion
+// fails
+int bf_table_rows_f64(int B, int n, int n_r, const double* intgd_o,
+                      const double* dens_o, const double* intgd_b,
+                      const double* dens_b, const double* lnr_int,
+                      const double* lnr, double* out, void* stream) {
+  if (n < 3 || n_r < 3) return int(cudaErrorInvalidValue);
+  const size_t shmem = shared_bytes(2, n, n_r);
+  int e = set_shmem((const void*)table_rows_kernel, shmem);
+  if (e) return e;
+  table_rows_kernel<<<B, 2 * kGroup, shmem, (cudaStream_t)stream>>>(
+      n, n_r, intgd_o, dens_o, intgd_b, dens_b, lnr_int, lnr, out);
+  return int(cudaGetLastError());
+}
+
 // intgd, dens: (B, n) clipped integrand and density; lnr_int (n);
 // lnr_out (nq); out: (B, nq) enclosed mass at exp(lnr_out), NaN outside
 int bf_enclosed_mass_f64(int B, int n, int nq, const double* intgd,
                          const double* dens, const double* lnr_int,
-                         const double* lnr_out, int min_pts, double* out,
-                         void* stream) {
+                         const double* lnr_out, double* out, void* stream) {
   if (n < 3) return int(cudaErrorInvalidValue);
-  const size_t shmem = size_t(5) * n * sizeof(double) + n * sizeof(bool);
+  const size_t shmem = shared_bytes(1, n, 0);
   int e = set_shmem((const void*)enclosed_mass_kernel, shmem);
   if (e) return e;
-  enclosed_mass_kernel<<<B, kThreads, shmem, (cudaStream_t)stream>>>(
-      n, nq, intgd, dens, lnr_int, lnr_out, min_pts, out);
+  enclosed_mass_kernel<<<B, kGroup, shmem, (cudaStream_t)stream>>>(
+      n, nq, intgd, dens, lnr_int, lnr_out, out);
   return int(cudaGetLastError());
 }
 
-// ln_dmo, ln_dmb: (B, n) log enclosed masses; lnr, r: (n) the radii;
-// out: (B, n) displacement, NaN where the inversion fails
-int bf_displacement_rows_f64(int B, int n, const double* ln_dmo,
-                             const double* ln_dmb, const double* lnr,
-                             const double* r, int min_pts, double* out,
-                             void* stream) {
+// M_dmo, M_dmb: (B, n) enclosed masses at the radii exp(lnr) (n); out:
+// (B, n) displacement, NaN where the inversion fails
+int bf_displacement_rows_f64(int B, int n, const double* M_dmo,
+                             const double* M_dmb, const double* lnr,
+                             double* out, void* stream) {
   if (n < 3) return int(cudaErrorInvalidValue);
-  const size_t shmem = size_t(8) * n * sizeof(double) + 2 * n * sizeof(bool);
+  const size_t shmem = shared_bytes(0, 0, n);
   int e = set_shmem((const void*)displacement_rows_kernel, shmem);
   if (e) return e;
-  displacement_rows_kernel<<<B, kThreads, shmem, (cudaStream_t)stream>>>(
-      n, ln_dmo, ln_dmb, lnr, r, min_pts, out);
+  displacement_rows_kernel<<<B, 2 * kGroup, shmem, (cudaStream_t)stream>>>(
+      n, M_dmo, M_dmb, lnr, out);
   return int(cudaGetLastError());
 }
 

@@ -14,7 +14,8 @@ K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 ``stencil_hot`` and ``stencil``, K6 ``stencil_geo`` and
 ``stencil_complement``), ``ops/tiles.py`` (K7 ``flat_view`` and
 ``tile_view``), ``ops/fftlog.py`` (K8 ``fht``), ``ops/table_rows.py`` (K9
-``enclosed_mass`` and ``displacement_rows``), ``ops/paint.py`` (K11
+``table_rows``, and its halves ``enclosed_mass`` and
+``displacement_rows``), ``ops/paint.py`` (K11
 ``disc_paint``, K13 ``disc_paint_anis``, K14 ``anis_finish``, and the
 check kernel ``pixel_angles``),
 ``ops/grid.py`` (K15 ``grid_cutout`` and its lists' ``tile_pairs``),
@@ -75,8 +76,9 @@ def _signatures():
         + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
         "bf_fht_f64": [_I] * 5 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
         "bf_fht_long_blocks": [],
-        "bf_enclosed_mass_f64": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
-        "bf_displacement_rows_f64": [_I, _I, _P, _P, _P, _P, _I, _P, _P],
+        "bf_table_rows_f64": [_I, _I, _I] + [_P] * 8,
+        "bf_enclosed_mass_f64": [_I, _I, _I] + [_P] * 6,
+        "bf_displacement_rows_f64": [_I, _I] + [_P] * 5,
         "bf_ring_modes_f64": [_I] + [_P] * 5 + [_I] + [_P] * 5,
         "bf_ring_modes_long_blocks": [],
         "bf_shared_memory_optin": [_I],
@@ -92,14 +94,14 @@ def _signatures():
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
         sig[f"bf_tile_view_{sfx}"] = sig[f"bf_flat_view_{sfx}"]
         sig[f"bf_stencil_hot_{sfx}"] = [_I, _I] + [_P] * 6
-        sig[f"bf_stencil_geo_{sfx}"] = [_I] * 4 + [_P] * 10
+        sig[f"bf_stencil_geo_{sfx}"] = [_I] * 4 + [_P] * 9
         flt = _F if sfx == "f32" else _D
         for rsfx in ("f32", "f64"):
             # offsets in the first dtype, maps in the second
             sig[f"bf_regrid_{sfx}_{rsfx}"] = [_I] + [_P] * 5
             sig[f"bf_stencil_{sfx}_{rsfx}"] = [_I] * 6 + [_P] * 14
             sig[f"bf_stencil_complement_{sfx}_{rsfx}"] = \
-                [_I] * 4 + [_P] * 4 + [_I] + [_P] * 8
+                [_I] * 4 + [_P] * 3 + [_I] + [_P] * 8
             # curves in the first dtype, the painted map in the second
             sig[f"bf_disc_paint_{sfx}_{rsfx}"] = \
                 [_I, _I] + [_P] * 6 + [_I, flt, flt, _I, _I, _D, _P, _P]

@@ -138,6 +138,19 @@ def _cap_ring(p):
     return torch.where(2 * i * (i + 1) <= p, i + 1, i)
 
 
+def pixel_ring(nside, p):
+    """Ring (1 .. 4 nside - 1, int32) of int32 pixels ``p``, as pix2ang
+    finds it: the cap's float64 square root, the belt's floor division."""
+    N = nside
+    ncap = 2 * N * (N - 1)
+    npx = npix(nside)
+    belt = N + torch.div(p - ncap, 4 * N, rounding_mode="floor")
+    return torch.where(p < ncap, _cap_ring(p),
+                       torch.where(p >= npx - ncap,
+                                   4 * N - _cap_ring(npx - 1 - p),
+                                   belt)).to(torch.int32)
+
+
 def pix2ang(nside, p, dtype=torch.float64):
     """Ring-scheme pixel centre -> (theta, phi), float math in ``dtype``."""
     p = p.to(torch.int32)

@@ -21,7 +21,11 @@ and the plain version for CPU tensors):
                                  and their sum in the kernel's order
   stencil_geo / _plain           K6, entry stencil_geo: the once-per-NSIDE
                                  source list of D_geom (HealpixRunner.py:
-                                 1102-1179)
+                                 1102-1179) and the ring table
+  stencil_rings_plain            K6's ring table (target and source form)
+  source_angles_plain            a source's (theta, phi) from its pixel
+                                 and the ring table, as the JAX list has
+                                 them (_get_stencil_geo_ang)
   stencil_complement / _plain    K6, entry stencil_complement: the scatter
                                  of excluded sources into the flat map
                                  (HealpixRunner.py:1181-1303, with
@@ -40,12 +44,13 @@ import torch
 
 from . import _build
 from . import healpix as hpx
-from .regrid import displaced_weights
+from .regrid import displaced_weights, ring_table_plain
 from .tiles import _j0, valid_slot_counts
 
 __all__ = ["stencil_tables", "ring_table", "hot_tiles", "hot_tiles_plain",
            "stencil_regrid", "stencil_regrid_plain", "stencil_weights_plain",
-           "stencil_geo", "stencil_geo_plain", "stencil_complement",
+           "stencil_geo", "stencil_geo_plain", "stencil_rings_plain",
+           "source_angles_plain", "stencil_complement",
            "stencil_complement_plain"]
 
 _TWO_PI = 2.0 * math.pi
@@ -78,9 +83,9 @@ def stencil_tables(tiling, info, device):
     """``stencil_host_info``'s arrays on ``device``: the neighbour table
     ``nbr`` (n_tiles, 9) int32, per-tile thresholds ``th_theta`` /
     ``th_phi`` (float64), ``D_geom`` (bool), the geometric tiles
-    ``g_tids`` (int32) and, on the host, their valid-slot offsets
-    ``g_off`` ((n_g + 1,) int32), plus W and Wc; and the NSIDE's
-    :func:`ring_table` as ``ring``."""
+    ``g_tids`` (int32) and their valid-slot offsets ``g_off`` ((n_g +
+    1,) int32) on the host and as ``g_off_dev`` on ``device``, plus W and
+    Wc; and the NSIDE's :func:`ring_table` as ``ring``."""
     tb = tiling.tile_block
     g_tids = np.where(info["D_geom"])[0].astype(np.int32)
     counts = valid_slot_counts(tiling, g_tids)
@@ -92,6 +97,7 @@ def stencil_tables(tiling, info, device):
         th_phi=torch.as_tensor(info["th_phi"][tb], device=device),
         D_geom=torch.as_tensor(info["D_geom"], device=device),
         g_tids=torch.as_tensor(g_tids, device=device), g_off=g_off,
+        g_off_dev=torch.as_tensor(g_off, device=device),
         W=int(info["W"]), Wc=int(info["Wc"]),
         ring=ring_table(tiling.nside, device))
 
@@ -368,6 +374,39 @@ def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
 
 
 # ---- the complement's source list (K6, stencil_geo) ------------------------
+def stencil_rings_plain(nside, dtype, device="cpu"):
+    """Plain version of K6's ring table: (8 nside, 4) in ``dtype``. Row i
+    (ring i, 1 .. 4 nside - 1) is the target form, as interp_weights takes
+    a ring: theta, the phi step 2 pi / nr and the clamped sin, K3's
+    (:func:`ops.regrid.ring_table_plain`); row 4 nside + i the source form,
+    as the JAX list takes a source's ring: the float64 ring_theta rounded
+    to ``dtype``, the same phi step, and the sin of that theta (1 where it
+    is not above 1e-12). The fourth column and rows 0 and 4 nside are 0.
+    In float64 the two forms are the same."""
+    theta, dphi, sin_safe = ring_table_plain(nside, dtype, device)
+    r = torch.arange(1, 4 * nside, dtype=torch.int32, device=device)
+    th_s = hpx.ring_theta(nside, r, torch.float64).to(dtype)
+    s = torch.sin(th_s)
+    rows = torch.zeros((2, 4 * nside, 4), dtype=dtype, device=device)
+    rows[0, 1:, :3] = torch.stack([theta, dphi, sin_safe], 1)
+    rows[1, 1:, :3] = torch.stack(
+        [th_s, dphi, torch.where(s > 1e-12, s, torch.ones_like(s))], 1)
+    return rows.reshape(8 * nside, 4)
+
+
+def source_angles_plain(nside, pix, rows):
+    """The (theta, phi) of sources at int32 pixels ``pix`` in the table's
+    dtype, as K6 forms them: theta the source form of the pixel's ring in
+    ``rows`` (:func:`stencil_rings_plain`), phi (jw + shifted / 2) 2 pi /
+    nr in float64 (a true division) rounded once: the JAX list's
+    (``_get_stencil_geo_ang``) formulas."""
+    ring = hpx.pixel_ring(nside, pix)
+    sp, nr, _, sh = hpx.ring_info(nside, ring)
+    step = torch.full_like(sh, _TWO_PI) / nr.double()
+    phi = ((pix - sp).double() + 0.5 * sh) * step
+    return rows[4 * nside + ring.long(), 0], phi.to(rows.dtype)
+
+
 def stencil_geo_plain(tiling, tables, rdt):
     """Plain version of :func:`stencil_geo`."""
     g = tables["g_tids"]
@@ -377,26 +416,25 @@ def stencil_geo_plain(tiling, tables, rdt):
     parts = []
     for t0 in range(0, g.numel(), _TILE_CHUNK):
         gt = g[t0:t0 + _TILE_CHUNK].long()
-        pix, phi, valid, theta_r = tiling.slot_pixels(
-            arr["tile_i0"][gt], arr["tile_s"][gt], arr["tile_S"][gt])
+        pix, valid = tiling.slot_pix(arr["tile_i0"][gt], arr["tile_s"][gt],
+                                     arr["tile_S"][gt])
         sel = valid.reshape(-1)
         sf = (gt[:, None] * P + torch.arange(P, device=dev)).reshape(-1)
-        theta = theta_r[:, :, None].expand(valid.shape).reshape(-1)
-        parts.append((sf[sel].to(torch.int32), pix.reshape(-1)[sel],
-                      theta[sel].to(rdt), phi.reshape(-1)[sel].to(rdt)))
+        parts.append((sf[sel].to(torch.int32),
+                      pix.reshape(-1)[sel].to(torch.int32)))
+    rows = stencil_rings_plain(tiling.nside, rdt, dev)
     if not parts:
-        return (torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev),
-                torch.zeros(0, dtype=rdt, device=dev),
-                torch.zeros(0, dtype=rdt, device=dev))
-    return tuple(torch.cat(c) for c in zip(*parts))
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone(), rows
+    return tuple(torch.cat(c) for c in zip(*parts)) + (rows,)
 
 
 def stencil_geo(tiling, tables, rdt):
     """The compact list of the valid slots of the D_geom tiles, tiles
-    ascending and slots in order: (slot ids int32 as tile * RB*K + slot,
-    pixels int32, theta, phi in ``rdt``). A pure function of the tiling,
-    built once per NSIDE and regrid dtype."""
+    ascending and slots in order, and the ring table: (slot ids int32 as
+    tile * RB*K + slot, pixels int32, the table (8 nside, 4) in ``rdt``,
+    as :func:`stencil_rings_plain`). A pure function of the tiling, built
+    once per NSIDE and regrid dtype."""
     g = tables["g_tids"]
     dev = g.device
     if dev.type == "cpu":
@@ -407,23 +445,22 @@ def stencil_geo(tiling, tables, rdt):
     arr = tiling.device_arrays(dev)
     sf = torch.empty(n, dtype=torch.int32, device=dev)
     pix = torch.empty(n, dtype=torch.int32, device=dev)
-    theta = torch.empty(n, dtype=rdt, device=dev)
-    phi = torch.empty(n, dtype=rdt, device=dev)
-    g_off = torch.as_tensor(tables["g_off"], device=dev)
+    rows = torch.empty((8 * tiling.nside, 4), dtype=rdt, device=dev)
     fn = getattr(_build.library(), "bf_stencil_geo_" + _suffix(rdt))
     with torch.cuda.device(dev):
         err = fn(tiling.nside, tiling.RB, tiling.K, g.numel(),
-                 _build.ptr(g), _build.ptr(g_off), _build.ptr(arr["tile_i0"]),
-                 _build.ptr(arr["tile_s"]), _build.ptr(arr["tile_S"]),
-                 _build.ptr(sf), _build.ptr(pix), _build.ptr(theta),
-                 _build.ptr(phi), _build.stream_of(sf))
+                 _build.ptr(g), _build.ptr(tables["g_off_dev"]),
+                 _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
+                 _build.ptr(arr["tile_S"]), _build.ptr(sf), _build.ptr(pix),
+                 _build.ptr(rows), _build.stream_of(sf))
     _build.check(err, "stencil_geo")
     _build.launches["stencil_geo"] += 1
-    return sf, pix, theta, phi
+    return sf, pix, rows
 
 
 # ---- the complement (K6, stencil_complement) -------------------------------
-def _scatter(nside, out, po, og, self_pix, theta_p, phi_p):
+def _scatter(nside, out, po, og, self_pix, rows):
+    theta_p, phi_p = source_angles_plain(nside, self_pix, rows)
     cpix, cw = displaced_weights(nside, out.dtype, self_pix, po, theta_p,
                                  phi_p)
     out.index_add_(0, cpix.reshape(-1).long(),
@@ -432,65 +469,65 @@ def _scatter(nside, out, po, og, self_pix, theta_p, phi_p):
 
 def stencil_complement_plain(tiling, out, acc, orig_tiled, geo, hot_ids):
     """Plain version of :func:`stencil_complement`."""
-    rdt, dev = out.dtype, out.device
+    dev = out.device
     N, P = tiling.nside, tiling.P
-    sf, gpix, gth, gph = geo
+    sf, gpix, rows = geo
     po_flat = acc.reshape(-1, 2)
     og_flat = orig_tiled.reshape(-1)
     for start in range(0, sf.numel(), _SRC_CHUNK):
         idx = sf[start:start + _SRC_CHUNK].long()
-        sl = slice(start, start + _SRC_CHUNK)
-        _scatter(N, out, po_flat[idx], og_flat[idx], gpix[sl], gth[sl],
-                 gph[sl])
+        _scatter(N, out, po_flat[idx], og_flat[idx],
+                 gpix[start:start + _SRC_CHUNK], rows)
     if hot_ids.numel():
         arr = tiling.device_arrays(dev)
         for t0 in range(0, hot_ids.numel(), _TILE_CHUNK):
             ht = hot_ids[t0:t0 + _TILE_CHUNK].long()
-            pix, phi, valid, theta_r = tiling.slot_pixels(
+            pix, valid = tiling.slot_pix(
                 arr["tile_i0"][ht], arr["tile_s"][ht], arr["tile_S"][ht])
             sel = valid.reshape(-1)
             idx = (ht[:, None] * P
                    + torch.arange(P, device=dev)).reshape(-1)[sel]
-            theta = theta_r[:, :, None].expand(valid.shape).reshape(-1)
             _scatter(N, out, po_flat[idx], og_flat[idx],
-                     pix.reshape(-1)[sel], theta[sel].to(rdt),
-                     phi.reshape(-1)[sel].to(rdt))
+                     pix.reshape(-1)[sel].to(torch.int32), rows)
     return out
 
 
 def stencil_complement(tiling, out, acc, orig_tiled, geo, hot_ids):
     """Add the scatter complement of the stencil into the flat map ``out``
     (npix,) in place and return it: every valid slot of the geometric list
-    ``geo`` (:func:`stencil_geo`) and of the hot tiles ``hot_ids`` (int32,
-    on the same device) moves by its offset in ``acc`` (n_tiles, RB*K, 2)
-    and shares its ``orig_tiled`` value among the 4 interpolation
-    neighbours of its new position; an unmoved source adds its value to
-    its own pixel."""
+    ``geo`` (:func:`stencil_geo`, whose ring table is in the map's dtype)
+    and of the hot tiles ``hot_ids`` (int32, on the same device) moves by
+    its offset in ``acc`` (n_tiles, RB*K, 2) and shares its
+    ``orig_tiled`` value among the 4 interpolation neighbours of its new
+    position; an unmoved source adds its value to its own pixel."""
     _check_tiled(tiling, acc, (2,), "stencil_complement")
     _check_tiled(tiling, orig_tiled, (), "stencil_complement")
-    if out.shape != (tiling.npix,) or out.dtype != orig_tiled.dtype:
+    sf, gpix, rows = geo
+    if out.shape != (tiling.npix,) or out.dtype != orig_tiled.dtype \
+            or rows.dtype != out.dtype \
+            or rows.shape != (8 * tiling.nside, 4):
         raise ValueError("stencil_complement: out must be (npix,) in the "
-                         "map's dtype")
+                         "map's dtype, and geo's ring table in it too")
     dev = out.device
     if dev.type == "cpu":
         return stencil_complement_plain(tiling, out, acc, orig_tiled, geo,
                                         hot_ids)
     if dev.type != "cuda":
         raise ValueError(f"stencil_complement: unsupported device {dev}")
-    sf, gpix, gth, gph = geo
     arr = tiling.device_arrays(dev)
     acc = acc.contiguous()
     og = orig_tiled.contiguous()
-    hot = hot_ids.to(torch.int32).contiguous()
+    hot = (hot_ids if hot_ids.dtype == torch.int32
+           else hot_ids.to(torch.int32)).contiguous()
     fn = getattr(_build.library(),
                  "bf_stencil_complement_" + _suffix(acc.dtype, out.dtype))
     with torch.cuda.device(dev):
         err = fn(tiling.nside, tiling.RB, tiling.K, sf.numel(),
-                 _build.ptr(sf), _build.ptr(gpix), _build.ptr(gth),
-                 _build.ptr(gph), hot.numel(), _build.ptr(hot),
-                 _build.ptr(arr["tile_i0"]), _build.ptr(arr["tile_s"]),
-                 _build.ptr(arr["tile_S"]), _build.ptr(acc), _build.ptr(og),
-                 _build.ptr(out), _build.stream_of(out))
+                 _build.ptr(sf), _build.ptr(gpix), _build.ptr(rows),
+                 hot.numel(), _build.ptr(hot), _build.ptr(arr["tile_i0"]),
+                 _build.ptr(arr["tile_s"]), _build.ptr(arr["tile_S"]),
+                 _build.ptr(acc), _build.ptr(og), _build.ptr(out),
+                 _build.stream_of(out))
     _build.check(err, "stencil_complement")
     _build.launches["stencil_complement"] += 1
     return out

@@ -1,9 +1,12 @@
 """The rows of the displacement table: enclosed-mass curves and their
 inversion into displacements (kernel K9, ``csrc/table_rows.cu``).
 
-``enclosed_mass`` and ``displacement_rows`` launch K9's two entry points
-for CUDA tensors and run their plain versions, ``enclosed_mass_plain`` and
-``displacement_rows_plain``, for CPU tensors. They are the device halves of
+``displacement_table`` launches K9 once for a redshift's rows (both
+profiles' enclosed masses and the inversion, fused) for CUDA tensors and
+runs its plain version, ``displacement_table_plain``, for CPU tensors.
+``enclosed_mass`` and ``displacement_rows`` run the two halves alone (the
+same device code), with plain versions ``enclosed_mass_plain`` and
+``displacement_rows_plain``. They are the device halves of
 ``baryonforge_tpu.Profiles.BaryonCorrection``'s ``_enclosed_mass_curve``
 and ``_displacement_rows``; float64 throughout.
 """
@@ -14,7 +17,8 @@ from . import _build
 from .integrate import cumulative_simpson_uniform
 from .interp import masked_pchip_interp
 
-__all__ = ["enclosed_mass", "enclosed_mass_plain", "displacement_rows",
+__all__ = ["displacement_table", "displacement_table_plain",
+           "enclosed_mass", "enclosed_mass_plain", "displacement_rows",
            "displacement_rows_plain", "ENCLOSED_MIN_PTS",
            "DISPLACEMENT_MIN_PTS"]
 
@@ -78,6 +82,17 @@ def displacement_rows_plain(lnr, M_DMO, M_DMB):
     return torch.where(torch.isfinite(d), d, torch.full_like(d, torch.nan))
 
 
+def displacement_table_plain(intgd_o, dens_o, intgd_b, dens_b, lnr_int,
+                             lnr):
+    """Plain version of :func:`displacement_table`: the enclosed masses of
+    both profiles at exp(lnr) and their inversion, as
+    :func:`enclosed_mass_plain` (twice) then :func:`displacement_rows_plain`
+    compute them."""
+    return displacement_rows_plain(
+        lnr, enclosed_mass_plain(intgd_o, dens_o, lnr_int, lnr),
+        enclosed_mass_plain(intgd_b, dens_b, lnr_int, lnr))
+
+
 def _check(name, *ts):
     dev = ts[0].device
     for t in ts:
@@ -108,16 +123,17 @@ def enclosed_mass(intgd, dens, lnr_int, lnr_out):
         with torch.cuda.device(intgd.device):
             err = _build.library().bf_enclosed_mass_f64(
                 B, n, lnr_out.numel(), _build.ptr(intgd), _build.ptr(dens),
-                _build.ptr(lnr_int), _build.ptr(lnr_out), ENCLOSED_MIN_PTS,
-                _build.ptr(out), _build.stream_of(intgd))
+                _build.ptr(lnr_int), _build.ptr(lnr_out), _build.ptr(out),
+                _build.stream_of(intgd))
         _build.check(err, "enclosed_mass")
         _build.launches["enclosed_mass"] += 1
     return out
 
 
 def displacement_rows(lnr, M_DMO, M_DMB):
-    """Displacement rows: K9 for CUDA tensors, the plain version for CPU
-    ones (same arguments and result as :func:`displacement_rows_plain`)."""
+    """Displacement rows: K9's inversion alone for CUDA tensors, the plain
+    version for CPU ones (same arguments and result as
+    :func:`displacement_rows_plain`)."""
     _check("displacement_rows", lnr, M_DMO, M_DMB)
     if lnr.device.type == "cpu":
         return displacement_rows_plain(lnr, M_DMO, M_DMB)
@@ -130,18 +146,49 @@ def displacement_rows(lnr, M_DMO, M_DMB):
         raise ValueError("displacement_rows: lnr (n,); M_DMO, M_DMB (B, n)")
     if n < 3:
         raise ValueError("displacement_rows: needs n >= 3 radii")
-    lnr = lnr.contiguous()
-    r = torch.exp(lnr)
-    ln_dmo = torch.log(M_DMO).contiguous()
-    ln_dmb = torch.log(M_DMB).contiguous()
+    lnr, M_DMO, M_DMB = lnr.contiguous(), M_DMO.contiguous(), \
+        M_DMB.contiguous()
     B = M_DMO.shape[0]
     out = torch.empty((B, n), dtype=torch.float64, device=lnr.device)
     if B:
         with torch.cuda.device(lnr.device):
             err = _build.library().bf_displacement_rows_f64(
-                B, n, _build.ptr(ln_dmo), _build.ptr(ln_dmb), _build.ptr(lnr),
-                _build.ptr(r), DISPLACEMENT_MIN_PTS, _build.ptr(out),
-                _build.stream_of(lnr))
+                B, n, _build.ptr(M_DMO), _build.ptr(M_DMB), _build.ptr(lnr),
+                _build.ptr(out), _build.stream_of(lnr))
         _build.check(err, "displacement_rows")
         _build.launches["displacement_rows"] += 1
+    return out
+
+
+def displacement_table(intgd_o, dens_o, intgd_b, dens_b, lnr_int, lnr):
+    """A redshift's displacement rows (B, n_r) from the DMO and DMB
+    profiles' clipped integrands and densities (B, N) on the log grid
+    ``lnr_int`` (N,), at the radii exp(lnr) (n_r,): K9 in one launch for
+    CUDA tensors, the plain version for CPU ones (same arguments and
+    result as :func:`displacement_table_plain`). NaN where the inversion
+    fails."""
+    ts = (intgd_o, dens_o, intgd_b, dens_b, lnr_int, lnr)
+    _check("displacement_table", *ts)
+    dev = intgd_o.device
+    if dev.type == "cpu":
+        return displacement_table_plain(*ts)
+    if dev.type != "cuda":
+        raise ValueError(f"displacement_table: unsupported device {dev}")
+    B, n = intgd_o.shape
+    if any(t.shape != (B, n) for t in ts[1:4]) or lnr_int.shape != (n,) \
+            or lnr.dim() != 1:
+        raise ValueError("displacement_table: intgd_o, dens_o, intgd_b, "
+                         "dens_b (B, N); lnr_int (N,); lnr (n_r,)")
+    if n < 3 or lnr.numel() < 3:
+        raise ValueError("displacement_table: needs N >= 3 grid points "
+                         "and n_r >= 3 radii")
+    ts = tuple(t.contiguous() for t in ts)
+    out = torch.empty((B, lnr.numel()), dtype=torch.float64, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            err = _build.library().bf_table_rows_f64(
+                B, n, lnr.numel(), *(_build.ptr(t) for t in ts),
+                _build.ptr(out), _build.stream_of(out))
+        _build.check(err, "table_rows")
+        _build.launches["table_rows"] += 1
     return out

@@ -235,10 +235,248 @@ VARIANTS["curves.cu"] = {
         "      for (int j = 0; j < kChunk; ++j) v[j] = T(off_s[warp][c0 + j]);"
         "\n")],
 }
+_K6_GEO = ("    const int k = blockIdx.x * kThreads + threadIdx.x;\n"
+           "    if (k < n_geo) add_source<P, T>(N, sf[k], gpix[k], acc, orig, "
+           "rows, out);\n    return;\n")
+# K6 as two launches, as K3 is: the
+# complement kernel adds the unmoved geometric sources' values by plain
+# read-modify-writes and lists each block's moved ones (ballot/popc) in a
+# static buffer; a second launch takes the lists, a thread a moved source
+_K6_SPLIT = [
+    ("// The complement: a thread takes one entry",
+     "constexpr int kSplitBlocks = 8192;\n"
+     "__device__ int2 g_moved[kSplitBlocks * kThreads];\n"
+     "__device__ int g_counts[kSplitBlocks];\n\n"
+     "// The complement: a thread takes one entry"),
+    (_K6_GEO,
+     "    const int k = blockIdx.x * kThreads + threadIdx.x;\n"
+     "    int slot = 0, p = 0;\n"
+     "    bool m = false;\n"
+     "    if (k < n_geo) {\n"
+     "      slot = sf[k];\n"
+     "      p = gpix[k];\n"
+     "      P o0, o1;\n"
+     "      load_pair(acc, slot, o0, o1);\n"
+     "      if (o0 == P(0) && o1 == P(0)) out[p] += orig[slot];\n"
+     "      else m = true;\n"
+     "    }\n"
+     "    __shared__ int wsum[kThreads / 32];\n"
+     "    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+     "    const unsigned b = __ballot_sync(bf::kFullMask, m);\n"
+     "    if (lane == 0) wsum[warp] = __popc(b);\n"
+     "    __syncthreads();\n"
+     "    int at = __popc(b & ((1u << lane) - 1u)), total = 0;\n"
+     "    for (int w = 0; w < kThreads / 32; ++w) {\n"
+     "      at += w < warp ? wsum[w] : 0;\n"
+     "      total += wsum[w];\n"
+     "    }\n"
+     "    if (m) g_moved[(long long)blockIdx.x * kThreads + at] = "
+     "make_int2(slot, p);\n"
+     "    if (threadIdx.x == 0) g_counts[blockIdx.x] = total;\n"
+     "    return;\n"),
+    ("inline int geo_blocks_for(int n_geo) {",
+     "template <typename P, typename T>\n"
+     "__global__ void __launch_bounds__(kThreads)\n"
+     "split_move_kernel(int N, const P* __restrict__ acc,\n"
+     "                  const T* __restrict__ orig,\n"
+     "                  const RingRow<T>* __restrict__ rows,\n"
+     "                  T* __restrict__ out) {\n"
+     "  if (int(threadIdx.x) < g_counts[blockIdx.x]) {\n"
+     "    const int2 sp = g_moved[(long long)blockIdx.x * kThreads + "
+     "threadIdx.x];\n"
+     "    P o0, o1;\n"
+     "    load_pair(acc, sp.x, o0, o1);\n"
+     "    move_source<P, T>(N, sp.y, o0, o1, orig[sp.x], rows, out);\n"
+     "  }\n}\n\n"
+     "inline int geo_blocks_for(int n_geo) {"),
+    ("  if (blocks == 0) return 0;\n",
+     "  if (blocks == 0) return 0;\n"
+     "  if (geo_blocks > kSplitBlocks) return int(cudaErrorInvalidValue);\n"),
+    ("      tile_S, acc, orig, static_cast<const RingRow<T>*>(rows), out);\n"
+     "  return int(cudaGetLastError());\n",
+     "      tile_S, acc, orig, static_cast<const RingRow<T>*>(rows), out);\n"
+     "  const cudaError_t e = cudaGetLastError();\n"
+     "  if (e != cudaSuccess || geo_blocks == 0) return int(e);\n"
+     "  split_move_kernel<P, T><<<geo_blocks, kThreads, 0, "
+     "(cudaStream_t)stream>>>(\n"
+     "      nside, acc, orig, static_cast<const RingRow<T>*>(rows), out);\n"
+     "  return int(cudaGetLastError());\n")]
+# 4 geometric sources a thread (16-byte list reads), their offsets' and
+# values' loads issued together, then each handled in turn
+_K6_PER4 = [
+    (_K6_GEO,
+     "    const int k0 = 4 * (blockIdx.x * kThreads + threadIdx.x);\n"
+     "    const int mine = bf::clampi(n_geo - k0, 0, 4);\n"
+     "    int slot[4], pix[4];\n"
+     "    if (mine == 4) {\n"
+     "      const int4 a = *reinterpret_cast<const int4*>(sf + k0);\n"
+     "      const int4 b = *reinterpret_cast<const int4*>(gpix + k0);\n"
+     "      slot[0] = a.x, slot[1] = a.y, slot[2] = a.z, slot[3] = a.w;\n"
+     "      pix[0] = b.x, pix[1] = b.y, pix[2] = b.z, pix[3] = b.w;\n"
+     "    } else {\n"
+     "      for (int q = 0; q < 4; ++q)\n"
+     "        if (q < mine) slot[q] = sf[k0 + q], pix[q] = gpix[k0 + q];\n"
+     "    }\n"
+     "    P o0[4], o1[4];\n"
+     "    T v[4];\n"
+     "#pragma unroll\n"
+     "    for (int q = 0; q < 4; ++q)\n"
+     "      if (q < mine) {\n"
+     "        load_pair(acc, slot[q], o0[q], o1[q]);\n"
+     "        v[q] = orig[slot[q]];\n"
+     "      }\n"
+     "#pragma unroll\n"
+     "    for (int q = 0; q < 4; ++q)\n"
+     "      if (q < mine) {\n"
+     "        if (o0[q] == P(0) && o1[q] == P(0)) atomicAdd(out + pix[q], "
+     "v[q]);\n"
+     "        else move_source<P, T>(N, pix[q], o0[q], o1[q], v[q], rows, "
+     "out);\n"
+     "      }\n"
+     "    return;\n"),
+    ("  return (n_geo + kThreads - 1) / kThreads;\n",
+     "  return (n_geo + 4 * kThreads - 1) / (4 * kThreads);\n")]
+VARIANTS["table_rows.cu"] = {
+    "kernel": [],
+    "empty": [("  extern __shared__ double sh[];\n"
+               "  __shared__ double wsum[2][kGroup / 32];\n",
+               "  if (n > 0) return;\n"
+               "  extern __shared__ double sh[];\n"
+               "  __shared__ double wsum[2][kGroup / 32];\n")],
+    "no_inversion": [(
+        "  invert_row<2 * kGroup>(all, n_r, s, &wcnt[0][0],\n"
+        "                         out + (long long)blockIdx.x * n_r);\n",
+        "  if (int(threadIdx.x) < n_r)\n"
+        "    out[(long long)blockIdx.x * n_r + threadIdx.x] =\n"
+        "        s.lo[threadIdx.x] + s.lb[threadIdx.x] + all.t;\n")],
+    "no_chain": [(
+        "  if (threadIdx.x == 0 || threadIdx.x == 32) {\n"
+        "    // keep a candidate",
+        "  for (int i = threadIdx.x; i < n; i += G) {\n"
+        "    s.mask_b[i] = s.xb[i] > -INFINITY;\n"
+        "    s.mask_o[i] = s.xo[i] > -INFINITY;\n  }\n"
+        "  if (n < 0) {\n"
+        "    // keep a candidate")],
+    "no_scan": [("  double s_i = group_prefix<G>(g, part, wsum);\n",
+                 "  double s_i = part * 0.0;\n")],
+    "group128": [("constexpr int kGroup = 256;", "constexpr int kGroup = 128;")],
+}
+VARIANTS["stencil_finish.cu"] = {
+    "kernel": [],
+    "split": _K6_SPLIT,
+    "per4": _K6_PER4,
+    "float_ring": [(
+        "  const int i = bf::pixel_ring(N, p);\n",
+        "  int i;\n"
+        "  {\n"
+        "    const int ncap = 2 * N * (N - 1), npx = 12 * N * N;\n"
+        "    if (p < ncap || p >= npx - ncap) {\n"
+        "      const int q = p < ncap ? p : npx - 1 - p;\n"
+        "      int c = int((1.0f + sqrtf(1.0f + 2.0f * float(q))) * 0.5f);\n"
+        "      while (2 * c * (c - 1) > q) --c;\n"
+        "      while (2 * c * (c + 1) <= q) ++c;\n"
+        "      i = p < ncap ? c : 4 * N - c;\n"
+        "    } else {\n"
+        "      i = N + (p - ncap) / (4 * N);\n"
+        "    }\n"
+        "  }\n")],
+    "no_table": [("  const RingRow<T> row = rows[4 * N + i];\n",
+                  "  const RingRow<T> row = bf::source_ring_row<T>(N, i);\n"),
+                 ("                           TableRings<T>{rows}, pix, w);\n",
+                  "                           bf::RingAngles<T>{N}, pix, w);\n")],
+    "no_phi_div": [("                    (bf::kTwoPi / double(ri.nr)));\n",
+                    "                    (bf::kTwoPi * 0.001));\n")],
+    "no_geometry": [(
+        "  bf::displaced_weights<T>(N, row.theta, phi_p, row.sin_safe, T(o0), "
+        "T(o1),\n                           TableRings<T>{rows}, pix, w);\n",
+        "#pragma unroll\n"
+        "  for (int c = 0; c < 4; ++c) {\n"
+        "    pix[c] = min(p + (c & 1) + (c >> 1) * 4 * N, 12 * N * N - 1);\n"
+        "    w[c] = T(0.25) + T(0) * (row.theta + phi_p + T(o0) + T(o1));\n"
+        "  }\n")],
+    "no_moved": [("  else move_source<P, T>(N, p, o0, o1, v, rows, out);\n",
+                  "  else out[p] = v;\n")],
+}
+# the designs of K9 and K6 before their redesign (three launches a
+# redshift; a thread a source of a 24-byte list), whose sources only a
+# checkout of an earlier commit holds: sections K9p and K6p, run with
+# --tree on such a checkout; every variant is timing only
+PARENT_VARIANTS = {
+    "table_rows.cu": {
+        "kernel": [],
+        "empty": [
+            ("  const int row = blockIdx.x;\n"
+             "  const double* f = intgd + (long long)row * n;\n",
+             "  if (n > 0) return;\n"
+             "  const int row = blockIdx.x;\n"
+             "  const double* f = intgd + (long long)row * n;\n"),
+            ("  const int row = blockIdx.x;\n"
+             "  double* o = out + (long long)row * n;\n",
+             "  if (n > 0) return;\n"
+             "  const int row = blockIdx.x;\n"
+             "  double* o = out + (long long)row * n;\n")],
+        "no_simpson": [(
+            "  if (threadIdx.x == 0) {\n"
+            "    // scipy's cumulative Simpson",
+            "  for (int i = threadIdx.x; i < n; i += blockDim.x)\n"
+            "    Me[i] = (f[i] + 1.0) * double(i + 1);\n"
+            "  if (n < 0) {\n"
+            "    // scipy's cumulative Simpson")],
+        "no_compact": [(
+            "  if (threadIdx.x == 0) {\n    int k = 0;\n",
+            "  for (int j = threadIdx.x; j < n; j += blockDim.x) {\n"
+            "    xc[j] = x[j];\n    yc[j] = y[j];\n  }\n"
+            "  if (threadIdx.x == 0) *nv = n;\n"
+            "  if (n < 0) {\n    int k = 0;\n")],
+        "no_runmax": [(
+            "  if (threadIdx.x == 0) {\n"
+            "    // keep a point where it exceeds",
+            "  for (int i = threadIdx.x; i < n; i += blockDim.x) {\n"
+            "    mask_b[i] = isfinite(lb[i]);\n"
+            "    mask_o[i] = isfinite(lo[i]);\n  }\n"
+            "  if (n < 0) {\n"
+            "    // keep a point where it exceeds")],
+        "no_slopes": [("    d[i] = pchip_slope(xc, yc, n, i);\n",
+                       "    d[i] = yc[i];\n")],
+        "no_eval": [("    out[q] = ok ? hermite(xc, yc, d, n, v) : nan(\"\");\n",
+                     "    out[q] = ok ? v : nan(\"\");\n")],
+    },
+    "stencil_finish.cu": {
+        "kernel": [],
+        "unmoved_store": [("    atomicAdd(out + self, src);\n",
+                           "    out[self] += src;\n")],
+        "no_unmoved": [("    atomicAdd(out + self, src);\n",
+                        "    (void)self;\n")],
+        "no_hot": [("  const long long total = n_geo + (long long)n_hot * RB * K;"
+                    "\n", "  const long long total = n_geo;\n"),
+                   ("  if (k >= n_geo + (long long)n_hot * PS) return;\n",
+                    "  if (k >= n_geo) return;\n")],
+        "no_geo_angles": [("    theta_p = gth[k];\n    phi_p = gph[k];\n",
+                           "    theta_p = T(0.5) + T(1e-7) * T(self);\n"
+                           "    phi_p = T(1);\n")],
+        "no_geometry": [(
+            "  bf::displaced_weights<T>(N, theta_p, phi_p, T(o0), T(o1), pix, "
+            "w);\n",
+            "#pragma unroll\n"
+            "  for (int c = 0; c < 4; ++c) {\n"
+            "    pix[c] = min(self + (c & 1) + (c >> 1) * 4 * N, "
+            "12 * N * N - 1);\n"
+            "    w[c] = T(0.25) + T(0) * (theta_p + phi_p + T(o0) + T(o1));\n"
+            "  }\n")],
+        "no_atomics": [(
+            "  for (int c = 0; c < 4; ++c) atomicAdd(out + pix[c], w[c] * src);"
+            "\n",
+            "  for (int c = 0; c < 4; ++c) out[pix[c]] = w[c] * src;\n")],
+        "geo_no_rank": [("  for (int uu = 0; uu < u; ++uu) {\n",
+                         "  for (int uu = 0; uu < 0; ++uu) {\n")],
+    },
+}
 TIMING_ONLY = {"no_row_trig", "no_rows", "no_slot_geometry", "no_stage",
                "no_zero", "no_pairs", "no_move", "init_plain", "move_list",
                "move_gathers",
-               "no_geometry", "no_atomics", "no_search", "no_corners"}
+               "no_geometry", "no_atomics", "no_search", "no_corners",
+               "empty", "no_inversion", "no_chain", "no_scan", "no_phi_div",
+               "no_moved"}
 # variants whose results must equal the kernel's bit for bit
 BITWISE = {"sin_cos", "int_div", "unroll2", "zero_div", "zero_vec",
            "vec_out"}
@@ -263,14 +501,15 @@ class _Library:
 
 
 def build_variants(work, sources):
-    """Compile every variant of ``sources`` into ``work``; returns {(source,
-    variant): library path}."""
+    """Compile every variant of ``sources``, pairs (source, its variants
+    as in VARIANTS[source]), into ``work``; returns {(source, variant):
+    library path}."""
     from baryonforge_torch.ops import _build
     flags = _build.NVCC_FLAGS
     jobs = {}
-    for src in sources:
+    for src, variants in sources:
         text = (_build._CSRC / src).read_text()
-        for name, edits in VARIANTS[src].items():
+        for name, edits in variants.items():
             tag = f"{src[:-3]}_{name}"
             d = os.path.join(work, tag)
             shutil.copytree(_build._CSRC, d)
@@ -298,7 +537,9 @@ def build_variants(work, sources):
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '\w*?\d+"
                           r"(tile_pairs_kernelIfLi[01]E|disc_paint_kernelIfd"
-                          r"|regrid_\w+_kernelIffE|collapse_curves_kernelIfE)",
+                          r"|regrid_\w+_kernelIffE|collapse_curves_kernelIfE"
+                          r"|stencil_\w+_kernelIf+E|\w+_rows_kernel"
+                          r"|enclosed_mass_kernel)",
                           line)
             if "Compiling entry function" in line:
                 entry = m.group(1) if m else None
@@ -595,11 +836,264 @@ def probe_calls(bf, torch, b, libs, gpu):
     return out
 
 
+def k6_inputs(torch, b):
+    """K6's inputs at the shell bench as the tiled engine's regrid gets
+    them, float32 offsets and map: the tiling, its stencil tables, K4's
+    offsets, the tiled map, the stencil's output in ring order and the hot
+    tiles."""
+    from baryonforge_torch.ops import stencil as st
+    from baryonforge_torch.ops import tile_deposit as td
+    tiling, csr, pack, r0, inv, _ = cs.tiled_inputs(torch, b.runner, b.hd)
+    acc = td.tile_deposit(tiling, csr, pack, r0, inv)
+    tables = b.runner._stencil_tables(cs.NSIDE)
+    orig = torch.as_tensor(b.shell.map, device=b.dev).to(torch.float32)
+    og = tiling.tile_view(orig)
+    excl = st.hot_tiles(acc, tables)
+    base = tiling.flat_view(st.stencil_regrid(tiling, tables, acc, og, excl))
+    hot = torch.nonzero(excl & ~tables["D_geom"])[:, 0].to(torch.int32)
+    return tiling, tables, acc, og, base, hot
+
+
+def k6_sources(torch, tiling, tables, acc, hot):
+    """The complement's sources at these offsets: geometric ones, those of
+    them that move, the hot tiles' valid slots and those that move."""
+    from baryonforge_torch.ops.tiles import valid_slot_counts
+    import numpy as np
+    po = acc.reshape(-1, 2)
+    P = tiling.P
+    moved = ~(po == 0).all(1)
+    g = tables["g_tids"].long()
+    geo = (g[:, None] * P + torch.arange(P, device=g.device)).reshape(-1)
+    arr = tiling.device_arrays(acc.device)
+    valid = tiling.slot_pix(arr["tile_i0"][g], arr["tile_s"][g],
+                            arr["tile_S"][g])[1].reshape(-1)
+    geo = geo[valid]
+    h = hot.long()
+    hs = (h[:, None] * P + torch.arange(P, device=h.device)).reshape(-1)
+    hvalid = tiling.slot_pix(arr["tile_i0"][h], arr["tile_s"][h],
+                             arr["tile_S"][h])[1].reshape(-1)
+    hs = hs[hvalid]
+    counts = valid_slot_counts(tiling, hot.cpu().numpy())
+    assert int(np.sum(counts)) == hs.numel()
+    return dict(geo=geo.numel(), geo_moved=int(moved[geo].sum()),
+                hot_tiles=h.numel(), hot_slots=h.numel() * P,
+                hot_valid=hs.numel(), hot_moved=int(moved[hs].sum()))
+
+
+def probe_table_rows_parent(bf, torch, b, libs, gpu):
+    """K9 of the parent design (three launches a redshift: two
+    enclosed_mass, one displacement_rows) at the bench table's first
+    redshift: variants leaving parts out, by wrapper call and on the
+    device alone, the entries apart and the wrappers' torch operations."""
+    from baryonforge_torch.ops import _build, table_rows
+    ins, lnr_int, lnr = cs.k9_inputs(bf, torch)
+
+    def redshift():
+        ms = [table_rows.enclosed_mass(i, d, lnr_int, lnr) for i, d in ins]
+        return table_rows.displacement_rows(lnr, *ms)
+
+    names = list(PARENT_VARIANTS["table_rows.cu"])
+    fns = {}
+    for name in names:
+        def run(lib=libs[("table_rows.cu", name)]):
+            _build._lib = lib
+            return redshift()
+        fns[name] = run
+    out = {"K9p": report(gpu, "K9p", timed_in_turns(torch, fns)),
+           "K9p alone": report(gpu, "K9p", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)")}
+    _build._lib = libs[("table_rows.cu", "kernel")]
+    masses = [table_rows.enclosed_mass_plain(i, d, lnr_int, lnr)
+              for i, d in ins]
+    parts = {"enclosed_mass": lambda: table_rows.enclosed_mass(
+                 *ins[0], lnr_int, lnr),
+             "displacement_rows": lambda: table_rows.displacement_rows(
+                 lnr, *masses),
+             "its torch operations (exp, 2 log)": lambda: (
+                 torch.exp(lnr), torch.log(masses[0]).contiguous(),
+                 torch.log(masses[1]).contiguous())}
+    out["K9p parts"] = report(gpu, "K9p", timed_in_turns(torch, parts),
+                              " part")
+    out["K9p parts alone"] = report(gpu, "K9p", timed_in_turns(
+        torch, parts, timer=lambda fn: cs.graph_ms(torch, fn)),
+        " part (device alone)")
+    _build._lib = None
+    return out
+
+
+def probe_stencil_finish_parent(bf, torch, b, libs, gpu):
+    """K6 of the parent design (a thread a source, the geometric list
+    with each source's theta and phi, the hot tiles' every slot, an
+    atomic a share) at the shell bench: variants leaving parts out, by
+    wrapper call (in place on one map, as the engine calls it) and on the
+    device alone; the source list; the moved sources counted."""
+    from baryonforge_torch.ops import _build
+    from baryonforge_torch.ops import stencil as st
+    tiling, tables, acc, og, base, hot = k6_inputs(torch, b)
+    _build._lib = libs[("stencil_finish.cu", "kernel")]
+    geo = st.stencil_geo(tiling, tables, torch.float32)
+    src = k6_sources(torch, tiling, tables, acc, hot)
+    cs.log(f"  K6 at the bench: {src}")
+    out_map = base.clone()
+    names = list(PARENT_VARIANTS["stencil_finish.cu"])
+    fns, geo_fns = {}, {}
+    for name in names:
+        lib = libs[("stencil_finish.cu", name)]
+        if name.startswith("geo_"):
+            def run(lib=lib):
+                _build._lib = lib
+                return st.stencil_geo(tiling, tables, torch.float32)
+            geo_fns[name] = run
+            continue
+
+        def run(lib=lib):
+            _build._lib = lib
+            return st.stencil_complement(tiling, out_map, acc, og, geo, hot)
+        fns[name] = run
+
+    def geo_kernel(lib=libs[("stencil_finish.cu", "kernel")]):
+        _build._lib = lib
+        return st.stencil_geo(tiling, tables, torch.float32)
+    geo_fns["kernel"] = geo_kernel
+    fns["the map's clone (held by chip_smoke's earlier K6 timing)"] = \
+        lambda: base.clone()
+    out = {"K6p": report(gpu, "K6p", timed_in_turns(torch, fns)),
+           "K6p alone": report(gpu, "K6p", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)"),
+           "K6p geo": report(gpu, "K6p stencil_geo", timed_in_turns(
+               torch, geo_fns, reps=5)),
+           "K6p sources": src}
+    _build._lib = None
+    return out
+
+
+def probe_table_rows(bf, torch, b, libs, gpu):
+    """K9 (table_rows.cu) at the bench table's first redshift: the fused
+    launch's variants by wrapper call and on the device alone (the
+    variant "empty", a launch whose body returns at once, is the launch
+    floor), each variant that keeps the results held against the plain
+    version first."""
+    from baryonforge_torch.ops import _build, table_rows
+    ins, lnr_int, lnr = cs.k9_inputs(bf, torch)
+    args = (*ins[0], *ins[1], lnr_int, lnr)
+    plain = table_rows.displacement_table_plain(*args)
+    scale = plain.nan_to_num().abs().max().item()
+    names = list(VARIANTS["table_rows.cu"])
+    fns = {}
+    for name in names:
+        lib = libs[("table_rows.cu", name)]
+        if name not in TIMING_ONLY:
+            _build._lib = lib
+            got = table_rows.displacement_table(*args)
+            if not torch.equal(torch.isnan(got), torch.isnan(plain)):
+                raise AssertionError(f"K9 [{name}]: NaN masks differ")
+            cs.check(f"K9 [{name}]", (got - plain).abs().nan_to_num().max()
+                     .item(), 1e-12 * scale)
+
+        def run(lib=lib):
+            _build._lib = lib
+            return table_rows.displacement_table(*args)
+        fns[name] = run
+    out = {"K9": report(gpu, "K9", timed_in_turns(torch, fns)),
+           "K9 alone": report(gpu, "K9", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)")}
+    _build._lib = None
+    return out
+
+
+def probe_stencil_finish(bf, torch, b, libs, gpu):
+    """K6 (stencil_finish.cu) at the shell bench: the complement's
+    variants (two launches or one; the unmoved sources' add plain or
+    atomic) by wrapper call, in place on one map as the engine calls it,
+    and on the device alone, each variant that keeps the results held
+    against the plain version first; the source list by wrapper call."""
+    from baryonforge_torch.ops import _build
+    from baryonforge_torch.ops import stencil as st
+    tiling, tables, acc, og, base, hot = k6_inputs(torch, b)
+    geo = st.stencil_geo(tiling, tables, torch.float32)
+    plain = st.stencil_complement_plain(tiling, base.clone(), acc, og, geo,
+                                        hot)
+    tol = 1e-6 * cs.NSIDE * og.abs().max().item()
+    out_map = base.clone()
+    names = list(VARIANTS["stencil_finish.cu"])
+    fns = {}
+    for name in names:
+        lib = libs[("stencil_finish.cu", name)]
+        if name not in TIMING_ONLY:
+            _build._lib = lib
+            got = st.stencil_complement(tiling, base.clone(), acc, og, geo,
+                                        hot)
+            cs.check(f"K6 [{name}]", (got - plain).abs().max().item(), tol)
+
+        def run(lib=lib):
+            _build._lib = lib
+            return st.stencil_complement(tiling, out_map, acc, og, geo, hot)
+        fns[name] = run
+
+    def geo_call(lib=libs[("stencil_finish.cu", "kernel")]):
+        _build._lib = lib
+        return st.stencil_geo(tiling, tables, torch.float32)
+    out = {"K6": report(gpu, "K6", timed_in_turns(torch, fns)),
+           "K6 alone": report(gpu, "K6", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)"),
+           "K6 geo": report(gpu, "K6 stencil_geo", timed_in_turns(
+               torch, {"kernel": geo_call}, reps=20)),
+           "K6 geo alone": report(gpu, "K6 stencil_geo", timed_in_turns(
+               torch, {"kernel": geo_call},
+               timer=lambda fn: cs.graph_ms(torch, fn)), " (device alone)")}
+    _build._lib = None
+    return out
+
+
+def probe_rows(bf, torch, b, libs, gpu):
+    """K9 and K6 as the table build and the tiled engine call them, with
+    the package that was imported (see the module docstring): K9 one
+    redshift's rows, K6's complement (in place on one map) by wrapper call
+    and on the device alone, K6's source list by wrapper call."""
+    from baryonforge_torch.ops import stencil as st
+    from baryonforge_torch.ops import table_rows
+    ins, lnr_int, lnr = cs.k9_inputs(bf, torch)
+    if hasattr(table_rows, "displacement_table"):
+        def k9():
+            return table_rows.displacement_table(*ins[0], *ins[1], lnr_int,
+                                                 lnr)
+    else:
+        def k9():
+            ms = [table_rows.enclosed_mass(i, d, lnr_int, lnr)
+                  for i, d in ins]
+            return table_rows.displacement_rows(lnr, *ms)
+    tiling, tables, acc, og, base, hot = k6_inputs(torch, b)
+    geo = st.stencil_geo(tiling, tables, torch.float32)
+    out_map = base.clone()
+    fns = {"K9 a redshift": k9,
+           "K6 complement": lambda: st.stencil_complement(
+               tiling, out_map, acc, og, geo, hot)}
+    out = {"rows": report(gpu, "rows", timed_in_turns(torch, fns, reps=50)),
+           "rows alone": report(gpu, "rows", timed_in_turns(
+               torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+               " (device alone)"),
+           "rows geo": report(gpu, "rows", timed_in_turns(
+               torch, {"K6 stencil_geo": lambda: st.stencil_geo(
+                   tiling, tables, torch.float32)}, reps=5))}
+    return out
+
+
 SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
                    probe_tile_deposit_paint),
             "K3": (("regrid.cu",), probe_regrid),
             "K1": (("curves.cu",), probe_curves),
-            "calls": ((), probe_calls)}
+            "K9": (("table_rows.cu",), probe_table_rows),
+            "K6": (("stencil_finish.cu",), probe_stencil_finish),
+            "calls": ((), probe_calls),
+            "rows": ((), probe_rows),
+            "K9p": (("table_rows.cu",), probe_table_rows_parent,
+                    PARENT_VARIANTS),
+            "K6p": (("stencil_finish.cu",), probe_stencil_finish_parent,
+                    PARENT_VARIANTS)}
 
 
 def main(argv):
@@ -614,7 +1108,8 @@ def main(argv):
     import baryonforge_torch as bf
     from baryonforge_torch.ops import _build
     cs.log(f"baryonforge_torch from {os.path.dirname(bf.__file__)}")
-    want = argv or [k for k in SECTIONS if k != "calls"]
+    want = argv or [k for k in SECTIONS
+                    if k not in ("calls", "rows", "K9p", "K6p")]
     if not set(want) <= set(SECTIONS):
         print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
         return 2
@@ -622,7 +1117,9 @@ def main(argv):
     cs.log(gpu)
     results = {}
     with tempfile.TemporaryDirectory() as work:
-        sources = [src for k in want for src in SECTIONS[k][0]]
+        sources = [(src, (SECTIONS[k][2] if len(SECTIONS[k]) > 2
+                          else VARIANTS)[src])
+                   for k in want for src in SECTIONS[k][0]]
         libs = {k: _Library(p)
                 for k, p in build_variants(work, sources).items()}
         b = Bench(bf, torch)

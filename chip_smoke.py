@@ -27,7 +27,11 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      CUDA graph of 20 calls) and from host columns, and K3 by wrapper call,
      on the device alone and
      beside one index_add_ of its 4 npix shares formed beforehand (a
-     partial library yardstick);
+     partial library yardstick), and K6's complement in place on one map
+     by wrapper call and on the device alone, beside one index_add_ of its
+     shares formed beforehand (4 a moved source, one an unmoved source),
+     its bound from its own bytes (offsets and values read once, each
+     touched pixel updated);
      K7 also on the shell's and the paint's tilings at NSIDE 64, 256 and
      1024 (C 1 and 2, float32 and float64, bitwise), and K2 also at NSIDE
      1024 on discs at both poles, across phi = 0, under 4 members and of
@@ -44,7 +48,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      16,384, past the 12,288 points of its former limit), each timed
      beside torch.fft.fft twice with the coefficients formed beforehand (a
      partial yardstick), both also on the device alone (a CUDA graph), and
-     K9 on the bench table's first redshift (20 masses, 64 radii);
+     K9 on the bench table's first redshift (20 masses, 64 radii): its
+     fused launch (both enclosed-mass curves and the inversion) by
+     wrapper call and on the device alone, and its two halves apart;
   6. builds the Schneider19 displacement table on the card from the bench's
      profile parameters (bench.py:42-55: 8 z x 20 M x 64 r) through
      Baryonification2D(DarkMatterOnly, DarkMatterBaryon).setup_interpolator,
@@ -252,7 +258,12 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
                          "an unmoved pixel, a memset"),
               "collapse_curves": (0.1309, "a thread a (halo, radius), the "
                                   "set-up, M's upload and an expanded a a "
-                                  "call")}
+                                  "call"),
+              "table_rows": (0.1916, "three launches a redshift, the scans "
+                             "on one thread"),
+              "stencil_finish": (0.0320, "a thread a source, 24 bytes of "
+                                 "list a source, an atomic an unmoved one; "
+                                 "in place")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -776,10 +787,9 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
         torch.cuda.synchronize()
         n_int = sum(int((a != b).sum().item()) for a, b in zip(gk[:2], gp[:2]))
         check(f"K6 stencil_geo ids [{tag}] (entries that differ)", n_int, 0)
-        err_ang = max((a - b).abs().max().item() if a.numel() else 0.0
-                      for a, b in zip(gk[2:], gp[2:]))
+        err_ang = (gk[2] - gp[2]).abs().max().item()
         # the device's asin / sin against torch's: a few ulps
-        check(f"K6 stencil_geo angles [{tag}]", err_ang,
+        check(f"K6 stencil_geo ring table [{tag}]", err_ang,
               16 * torch.finfo(dt).eps)
         base = tiling.flat_view_plain(sp)
         fk = st.stencil_complement(tiling, base.clone(), ap, og_p, gp, hot)
@@ -835,17 +845,42 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
                                             ex)[1]["live"]
             out["stencil_entries"] = (hot_ms, st_ms,
                                       float(live.double().mean()))
-            # K6: per source (the geometric list and the hot tiles' slots)
-            # its offset, value and geometry read and four neighbours
-            # updated, ~80 operations
-            n_src = gp[0].numel() + hot.numel() * tiling.P
-            out["stencil_finish"] = (err6, time_ms(
-                torch, lambda: st.stencil_complement(
-                    tiling, base.clone(), ap, og_p, gp, hot), 20),
-                time_ms(torch, lambda: st.stencil_complement_plain(
-                    tiling, base.clone(), ap, og_p, gp, hot), 3)) + bound(
-                n_src * (8 + 4 + 12 + 4 * 8), 80.0 * n_src,
-                F32_FLOPS) + (None,)
+            # K6, in place on one map as the engine calls it (an earlier
+            # timing here cloned the 50 MB map each call, ~0.037 ms). Bound:
+            # the sources' offsets and values read once, each touched pixel
+            # read and written once; ~80 operations a moved source. The
+            # library yardstick: one index_add_ of the shares, formed
+            # beforehand, untimed, as the kernel's work is (4 a moved
+            # source, its own pixel's for an unmoved one)
+            idx, vals, n_src, n_moved = k6_shares(torch, tiling, ap, og_p,
+                                                  gp, hot)
+            n_touched = int(idx.unique().numel())
+            k6_bytes = (n_src * (2 * ap.element_size() + og_p.element_size())
+                        + 2 * n_touched * og_p.element_size())
+            buf, lib_buf = base.clone(), base.clone()
+
+            def k6_kernel():
+                return st.stencil_complement(tiling, buf, ap, og_p, gp, hot)
+
+            def k6_library():
+                return lib_buf.index_add_(0, idx, vals)
+            out["stencil_finish"] = (err6, time_ms(torch, k6_kernel, 50),
+                                     time_ms(torch, lambda: (
+                                         st.stencil_complement_plain(
+                                             tiling, base.clone(), ap, og_p,
+                                             gp, hot)), 3)) + bound(
+                k6_bytes, 80.0 * n_moved, F32_FLOPS) + (
+                time_ms(torch, k6_library, 50),)
+            log(f"[{gpu_line()}] K6 stencil_complement: {n_src} sources, "
+                f"{n_moved} moved, {n_touched} pixels touched; kernel "
+                f"{out['stencil_finish'][1]:.4f} ms a wrapper call, the "
+                f"device alone {graph_ms(torch, k6_kernel):.4f} ms; bound "
+                f"{out['stencil_finish'][3]:.4f} ms "
+                f"({out['stencil_finish'][4]}; {k6_bytes} bytes; the "
+                f"earlier bound 0.0112 counted 56 bytes a source); library "
+                f"(index_add_ of {idx.numel()} shares, partial) "
+                f"{out['stencil_finish'][5]:.4f} ms, the device alone "
+                f"{graph_ms(torch, k6_library):.4f} ms")
             # K7: tile_view then flat_view, each reading and writing its
             # map once; the library yardstick is the same two gathers as
             # torch.index_select with precomputed indices (dead slots read
@@ -873,9 +908,9 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
                       time_ms(torch, lambda: st.stencil_geo_plain(
                           tiling, tables, dt), 3))
             # K6 stencil_geo: the geometric tiles' ids, offsets and tile
-            # records read once, each listed slot's id, pixel, theta and phi
-            # written once; ~30 operations a listed slot (ring geometry,
-            # pixel index, theta and phi)
+            # records read once, each listed slot's id and pixel and the
+            # ring table written once; ~30 operations a listed slot (ring
+            # geometry, pixel index)
             n_g = tables["g_tids"].numel()
             geo_bound = bound(n_g * (4 + 4 + 3 * 4) + nbytes(gk),
                               30.0 * gk[0].numel(), F32_FLOPS)
@@ -883,6 +918,36 @@ def compare_tiled_kernels(bf, torch, model, cat, shell, label, timing):
                 f"ms, plain {geo_ms[1]:.3f} ms, bound {geo_bound[0]:.4f} ms "
                 f"({geo_bound[1]}), {gk[0].numel()} slots of {n_g} tiles")
     return out
+
+
+def k6_shares(torch, tiling, acc, og, geo, hot):
+    """K6's work at these offsets, from the plain version's pieces: (the
+    flat indices and values of its shares, 4 a moved source and one, to
+    its own pixel, an unmoved source; the number of sources; the number
+    moved). The sources are the geometric list's and the hot tiles' valid
+    slots."""
+    from baryonforge_torch.ops import regrid
+    from baryonforge_torch.ops import stencil as st
+    dev = og.device
+    sf, gpix, rows = geo
+    h = hot.long()
+    arr = tiling.device_arrays(dev)
+    hpix, valid = tiling.slot_pix(arr["tile_i0"][h], arr["tile_s"][h],
+                                  arr["tile_S"][h])
+    hslot = (h[:, None] * tiling.P
+             + torch.arange(tiling.P, device=dev)).reshape(-1)
+    slot = torch.cat([sf.long(), hslot[valid.reshape(-1)]])
+    pix = torch.cat([gpix, hpix.reshape(-1)[valid.reshape(-1)].to(
+        torch.int32)])
+    po = acc.reshape(-1, 2)[slot]
+    val = og.reshape(-1)[slot]
+    moved = ~(po == 0).all(1)
+    th, ph = st.source_angles_plain(tiling.nside, pix[moved], rows)
+    cpix, cw = regrid.displaced_weights(tiling.nside, og.dtype, pix[moved],
+                                        po[moved], th, ph)
+    idx = torch.cat([pix[~moved].long(), cpix.reshape(-1).long()])
+    vals = torch.cat([val[~moved], (cw * val[moved, None]).reshape(-1)])
+    return idx, vals, slot.numel(), int(moved.sum())
 
 
 def p_key_curves(torch, n, timing):
@@ -916,6 +981,33 @@ def p_key_curves(torch, n, timing):
                    time_ms(torch, lambda: interp.collapse_curves_plain(*args),
                            5))
     return res
+
+
+def k9_inputs(bf, torch):
+    """K9's inputs at the bench table's first redshift, as
+    setup_interpolator forms them: ((intgd, dens) of the DMO profile, the
+    same of the DMB profile), each (20, 500) clipped at 0, and lnr_int
+    (500,), lnr (64,), float64 on the card."""
+    dev = torch.device(DEVICE)
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    a0 = 1.0 / (1.0 + BENCH_GRID["z_min"])
+    m = s19_model(bf, dev)
+    r = np.geomspace(BENCH_GRID["R_min"], BENCH_GRID["R_max"],
+                     BENCH_GRID["N_samples_R"])
+    M = torch.as_tensor(np.geomspace(BENCH_GRID["M_min"], BENCH_GRID["M_max"],
+                                     BENCH_GRID["N_samples_Mass"]),
+                        device=dev)
+    r_int = np.geomspace(min(r.min(), m.r_min_int) / 1.2,
+                         max(r.max(), m.r_max_int) * 1.2, m.N_int)
+    lnr_int = torch.log(torch.as_tensor(r_int, device=dev))
+    lnr = torch.log(torch.as_tensor(r, device=dev))
+    dlnr = float(np.log(r_int[1] / r_int[0]))
+    ins = []
+    for prof in (m.DMO, m.DMB):
+        dens = prof.projected(cosmo, r_int, M, a0) * a0
+        intgd = 2 * np.pi * torch.exp(lnr_int) ** 2 * dens * dlnr
+        ins.append((intgd.clamp(min=0), dens.clamp(min=0)))
+    return tuple(ins), lnr_int, lnr
 
 
 def compare_table_kernels(bf, torch, gpu):
@@ -1013,22 +1105,7 @@ def compare_table_kernels(bf, torch, gpu):
                  q, 10)
 
     # K9 on the bench table's first redshift
-    m = s19_model(bf, dev)
-    r = np.geomspace(BENCH_GRID["R_min"], BENCH_GRID["R_max"],
-                     BENCH_GRID["N_samples_R"])
-    M = torch.as_tensor(np.geomspace(BENCH_GRID["M_min"], BENCH_GRID["M_max"],
-                                     BENCH_GRID["N_samples_Mass"]),
-                        device=dev)
-    r_int = np.geomspace(min(r.min(), m.r_min_int) / 1.2,
-                         max(r.max(), m.r_max_int) * 1.2, m.N_int)
-    lnr_int = torch.log(torch.as_tensor(r_int, device=dev))
-    lnr = torch.log(torch.as_tensor(r, device=dev))
-    dlnr = float(np.log(r_int[1] / r_int[0]))
-    ins = []
-    for prof in (m.DMO, m.DMB):
-        dens = prof.projected(cosmo, r_int, M, a0) * a0
-        intgd = 2 * np.pi * torch.exp(lnr_int) ** 2 * dens * dlnr
-        ins.append((intgd.clamp(min=0), dens.clamp(min=0)))
+    ins, lnr_int, lnr = k9_inputs(bf, torch)
     masses = []
     err = 0.0
     for (i, d), name in zip(ins, ("DMO", "DMB")):
@@ -1053,24 +1130,40 @@ def compare_table_kernels(bf, torch, gpu):
     log(f"  K9 rows with NaN displacements: "
         f"{int(torch.isnan(dp).any(1).sum())} of {dp.shape[0]}")
 
-    def k9(enc, disp):
-        def run():
-            ms = [enc(i, d, lnr_int, lnr) for i, d in ins]
-            return disp(lnr, *ms)
-        return run
+    # the fused launch a redshift, as setup_interpolator calls it
+    rows_args = (*ins[0], *ins[1], lnr_int, lnr)
+    fk = table_rows.displacement_table(*rows_args)
+    fp = table_rows.displacement_table_plain(*rows_args)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isnan(fk), torch.isnan(fp)):
+        raise AssertionError("K9 displacement_table: masks differ")
+    ef = (fk - fp).abs().nan_to_num().max().item()
+    check("K9 displacement_table [2 x 20 x 500 -> 20 x 64]", ef,
+          1e-12 * fp.nan_to_num().abs().max().item())
+
+    def k9():
+        return table_rows.displacement_table(*rows_args)
     B, n_int, n_r = ins[0][0].shape[0], ins[0][0].shape[1], lnr.numel()
-    # per row: Simpson, mask, compaction and PCHIP slopes ~30 operations a
-    # grid point, ~40 per evaluation; the inversion two masked PCHIPs of n_r
-    k9_bytes = 2 * (nbytes(*ins[0]) + nbytes(lnr_int, lnr)
-                    + B * n_r * 8) + nbytes(lnr, *masses, dp)
+    # the inputs read once, the rows written once; per row and curve:
+    # Simpson, mask, compaction ~30 operations a grid point, ~40 an
+    # evaluation; the inversion two masked PCHIPs of n_r
+    k9_bytes = nbytes(*ins, lnr_int, lnr, fp)
     k9_ops = 2 * B * (30.0 * n_int + 40.0 * n_r) + B * 120.0 * n_r
-    out["table_rows"] = (max(err, e), time_ms(torch, k9(
-        table_rows.enclosed_mass, table_rows.displacement_rows), 50),
-        time_ms(torch, k9(table_rows.enclosed_mass_plain,
-                          table_rows.displacement_rows_plain), 5)
-    ) + bound(k9_bytes, k9_ops, F64_FLOPS) + (None,)
-    log(f"[{gpu}] K9 one redshift: kernel {out['table_rows'][1]:.4f} ms, "
-        f"plain {out['table_rows'][2]:.4f} ms")
+    out["table_rows"] = (max(err, e, ef), time_ms(torch, k9, 50),
+                         time_ms(torch, lambda: (
+                             table_rows.displacement_table_plain(
+                                 *rows_args)), 5)
+                         ) + bound(k9_bytes, k9_ops, F64_FLOPS) + (None,)
+    enc_ms = time_ms(torch, lambda: table_rows.enclosed_mass(
+        *ins[0], lnr_int, lnr), 50)
+    disp_ms = time_ms(torch, lambda: table_rows.displacement_rows(
+        lnr, *masses), 50)
+    log(f"[{gpu}] K9 one redshift (one launch): kernel "
+        f"{out['table_rows'][1]:.4f} ms a wrapper call, the device alone "
+        f"{graph_ms(torch, k9):.4f} ms, plain {out['table_rows'][2]:.4f} ms,"
+        f" bound {out['table_rows'][3]:.6f} ms ({out['table_rows'][4]}); "
+        f"its halves apart: enclosed_mass {enc_ms:.4f} ms, "
+        f"displacement_rows {disp_ms:.4f} ms")
     return out
 
 
@@ -1187,13 +1280,12 @@ def table_phases(bf, torch, model, gpu):
               lambda: model.DMB.projected(model.cosmo, r_int, Mt, a0))
     finally:
         s19.cubic_spline_coeffs = host_solve
-    Mo = clock("DMO enclosed mass (profile + K9)",
-               lambda: model._enclosed_mass_curve(model.DMO, r, M, a0, True))
-    Mb = clock("DMB enclosed mass (profile + K9)",
-               lambda: model._enclosed_mass_curve(model.DMB, r, M, a0, True))
-    lnr = torch.log(torch.as_tensor(r, device=DEVICE))
-    clock("displacement rows (K9)",
-          lambda: table_rows.displacement_rows(lnr, Mo, Mb))
+    ro = clock("DMO profile rows",
+               lambda: model._profile_rows(model.DMO, r, M, a0, True))
+    rb = clock("DMB profile rows",
+               lambda: model._profile_rows(model.DMB, r, M, a0, True))
+    clock("table rows (K9, one launch)",
+          lambda: table_rows.displacement_table(*ro[:2], *rb))
     log(f"[{gpu}] one redshift of the bench table, host clock (ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ph.items()))
     return ph
@@ -1241,8 +1333,8 @@ def build_bench_table(bf, torch, gpu):
     for (B, N, who), n in shapes.items():
         log(f"  K8 in the bench table build: {n} launches at {B} x {N}, "
             f"from {who}")
-    want = {"fht": 2 * n_z, "enclosed_mass": 2 * n_z,
-            "displacement_rows": n_z}
+    want = {"fht": 2 * n_z, "table_rows": n_z, "enclosed_mass": 0,
+            "displacement_rows": 0}
     for k, v in want.items():
         if launches.get(k, 0) != v:
             raise AssertionError(f"table build: {k} launched "
@@ -2787,7 +2879,8 @@ def tile_pairs_shape(mode, dtype_bytes):
 
 def ptxas_report(bf):
     """Registers and spills of K1's, K3's, K4's (and K10's, K12's), K5's,
-    K8's, K11's, K13's, K16's, K17's and K19's kernels (nvcc -Xptxas -v with the
+    K6's, K8's, K9's, K11's, K13's, K16's, K17's and K19's kernels (nvcc
+    -Xptxas -v with the
     build's own flags, their sources at once) and the warps an SM holds at
     the bench's launch shapes (the stencil with its dynamic shared memory,
     K4's template with its rows and halo chunk (tile_pairs_shape), K8
@@ -2804,16 +2897,24 @@ def ptxas_report(bf):
                "disc_paint_anis_kernel": 256, "disc_paint_kernel": 256,
                "grid_deposit_kernel": 256, "snapshot_gather_kernel": 128,
                "tile_pairs_kernel": 256, "regrid_init_kernel": 256,
-               "regrid_move_kernel": 256, "collapse_curves_kernel": 256}
+               "regrid_move_kernel": 256, "collapse_curves_kernel": 256,
+               "table_rows_kernel": 512, "stencil_complement_kernel": 256,
+               "stencil_geo_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 1),
             ("fht_kernel", "0"): 4 * 1024 * 8,
-            ("fht_kernel", "1"): 6 * 256 * 8}
+            ("fht_kernel", "1"): 6 * 256 * 8,
+            # K9 at the bench (500 grid points, 64 radii): the inversion's
+            # 8 doubles and 2 flags a radius, the grid's logs, each curve's
+            # 3 doubles and a flag a grid point
+            ("table_rows_kernel", ""): (8 * 64 + 500 + 2 * 3 * 500) * 8
+            + 2 * 64 + 2 * 500}
     sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
                "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu",
-               "regrid.cu", "curves.cu")
+               "regrid.cu", "curves.cu", "table_rows.cu",
+               "stencil_finish.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -2895,7 +2996,7 @@ KERNELS = [
      "baryonforge_tpu/ops/tiles.py:425", "tiled"),
     ("fht", ("fht",), "baryonforge_torch/csrc/fftlog.cu",
      "baryonforge_tpu/ops/fftlog.py:194", "table"),
-    ("table_rows", ("enclosed_mass", "displacement_rows"),
+    ("table_rows", ("table_rows",),
      "baryonforge_torch/csrc/table_rows.cu",
      "baryonforge_tpu/Profiles/BaryonCorrection.py:62", "table"),
     ("tile_paint", ("tile_paint",), "baryonforge_torch/csrc/tile_deposit.cu",

@@ -630,6 +630,7 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=16 * torch.finfo(rdt).eps)
     base = tiling.flat_view(op)
+    assert gk[2].shape == (8 * nside, 4) and gk[2].dtype == rdt
     fk = stencil.stencil_complement(tiling, base.clone(), acc, og_t, gk, hot)
     fp = stencil.stencil_complement_plain(tiling, base.clone(), acc, og_t,
                                           gp, hot)
@@ -648,6 +649,83 @@ def test_stencil_kernels(dev, pdt, rdt, nside, eps):
     shifted = buf[1:].view(acc.shape)
     shifted.copy_(acc)
     assert torch.equal(stencil.hot_tiles(shifted, tables), ep)
+
+
+@pytest.mark.parametrize("pdt", DTYPES, ids=["po32", "po64"])
+@pytest.mark.parametrize("rdt", DTYPES, ids=DT_IDS)
+def test_stencil_complement_unmoved_is_exact(dev, pdt, rdt):
+    """Every offset zero: K6's complement adds each source's value to its
+    own pixel by a plain add, no atomic, so the map it returns is the
+    input map plus the sources' values bit for bit (-0.0, NaN and
+    infinities included), for the geometric list and for tiles listed as
+    hot (NSIDE 256, the belt's first tiles outside D_geom)."""
+    nside = 256
+    tiling = tt.SkyTiling(nside)
+    tables = stencil.stencil_tables(tiling, tt.stencil_host_info(tiling),
+                                    dev)
+    rng = np.random.default_rng(6)
+    geo = stencil.stencil_geo(tiling, tables, rdt)
+    og = torch.as_tensor(rng.normal(size=(tiling.n_tiles, tiling.P)),
+                         device=dev).to(rdt)
+    og.view(-1)[geo[0][:4].long()] = torch.tensor(
+        [-0.0, float("nan"), float("inf"), 1e-30], dtype=rdt, device=dev)
+    base = torch.as_tensor(rng.normal(size=tiling.npix), device=dev).to(rdt)
+    acc = torch.zeros((tiling.n_tiles, tiling.P, 2), dtype=pdt, device=dev)
+    acc[:, 5:9] = -0.0
+    hot = torch.nonzero(~tables["D_geom"])[:6, 0].to(torch.int32)
+    _build.reset_launches()
+    got = stencil.stencil_complement(tiling, base.clone(), acc, og, geo, hot)
+    assert _build.launches["stencil_complement"] == 1
+    # each source's value added to its own pixel, one add each
+    arr = tiling.device_arrays(dev)
+    h = hot.long()
+    hpix, valid = tiling.slot_pix(arr["tile_i0"][h], arr["tile_s"][h],
+                                  arr["tile_S"][h])
+    hslot = (h[:, None] * tiling.P
+             + torch.arange(tiling.P, device=dev)).reshape(-1)
+    slot = torch.cat([geo[0].long(), hslot[valid.reshape(-1)]])
+    pix = torch.cat([geo[1].long(),
+                     hpix.reshape(-1)[valid.reshape(-1)].long()])
+    assert pix.unique().numel() == pix.numel()
+    want = base.clone()
+    want[pix] = base[pix] + og.view(-1)[slot]
+    bits = torch.int32 if rdt == torch.float32 else torch.int64
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert not torch.equal(got.view(bits), base.view(bits))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("nside", [64, 256, 1024])
+def test_stencil_ring_table_is_pix2ang(dev, dt, nside):
+    """K6's ring table (filled by stencil_geo's blocks past the tiles, by
+    healpix.cuh's ring_row and source_ring_row, shared with K3): the
+    target form's theta equals pix2ang's on the card for every pixel of
+    the ring, the source form's the float64 pix2ang's rounded to the
+    dtype, bit for bit; both phi steps 2 pi / nr rounded once from
+    float64, bit for bit; each sin torch.sin's of its theta to an ulp, 1
+    where that is not above 1e-12; the forms the same in float64."""
+    tiling = tt.SkyTiling(nside)
+    tables = stencil.stencil_tables(tiling, tt.stencil_host_info(tiling),
+                                    dev)
+    rows = stencil.stencil_geo(tiling, tables, dt)[2].view(2, 4 * nside, 4)
+    _, nr, _, _ = hpx.ring_info(nside, torch.arange(1, 4 * nside,
+                                                    dtype=torch.int32))
+    ring = torch.repeat_interleave(torch.arange(1, 4 * nside),
+                                   nr.long()).to(dev)
+    tp, _ = paint.pixel_angles(nside, dt, dev, per_ring=False)
+    t64, _ = paint.pixel_angles(nside, torch.float64, dev, per_ring=False)
+    assert torch.equal(rows[0, ring, 0], tp)
+    assert torch.equal(rows[1, ring, 0], t64.to(dt))
+    _, dphi, _ = regrid.ring_table_plain(nside, dt)
+    for f in (0, 1):
+        assert torch.equal(rows[f, 1:, 1].cpu(), dphi)
+        s = torch.sin(rows[f, 1:, 0])
+        sin_safe = torch.where(s > 1e-12, s, torch.ones_like(s))
+        eps = torch.finfo(dt).eps
+        assert ((rows[f, 1:, 2] - sin_safe).abs() <= eps * sin_safe).all()
+    assert not rows[:, 0].any() and not rows[..., 3].any()
+    if dt == torch.float64:
+        assert torch.equal(rows[0], rows[1])
 
 
 # ---- the table build: K8 FFTLog, K9 table rows -----------------------------
@@ -711,9 +789,40 @@ def _bench_model(dev):
         bf.cosmo.cosmology_from_dict(COSMO), epsilon_max=20, device=dev)
 
 
+def rows_inputs(B, n, n_r, seed=5):
+    """K9's inputs from a seed, float64 numpy: NFW-like densities of B
+    halos on a log grid of n points (1e-4 to 1e3), the DMB ones the DMO
+    ones times a smooth factor in (0.6, 1.4), the integrands 2 pi r^2 rho
+    dlnr, the grid's logs and n_r output radii's (1e-3 to 60). Row 1 has
+    no density past the fourth output radius (at most 5 usable points: a
+    broken row), row 2 an infinite integrand half way (the DMO mass not
+    finite from there), row 3 a NaN DMB integrand (an all-NaN row)."""
+    rng = np.random.default_rng(seed)
+    lnr_int = np.linspace(np.log(1e-4), np.log(1e3), n)
+    lnr = np.linspace(np.log(1e-3), np.log(60.0), n_r)
+    r = np.exp(lnr_int)
+    x = r / 10 ** rng.uniform(-1.5, -0.5, (B, 1))
+    dens_o = 10 ** rng.uniform(12, 15, (B, 1)) / (x * (1 + x) ** 2)
+    dens_b = dens_o * (1 + rng.uniform(0.1, 0.4, (B, 1)) * np.tanh(
+        np.log(x) - rng.uniform(-1, 1, (B, 1))))
+    dl = lnr_int[1] - lnr_int[0]
+    intgd_o = 2 * np.pi * r ** 2 * dens_o * dl
+    intgd_b = 2 * np.pi * r ** 2 * dens_b * dl
+    if B > 1:
+        cut = np.searchsorted(lnr_int, lnr[3]) + 1
+        dens_b[1, cut:] = 0.0
+        intgd_b[1, cut:] = 0.0
+    if B > 2:
+        intgd_o[2, n // 2] = np.inf
+    if B > 3:
+        intgd_b[3] = np.nan
+    return intgd_o, dens_o, intgd_b, dens_b, lnr_int, lnr
+
+
 def test_table_rows_kernel(dev):
     """K9 on the bench table's first redshift (20 masses, 64 radii, 500
-    integration points), against its plain versions on the same inputs."""
+    integration points), against its plain versions on the same inputs:
+    its halves apart, then the fused launch."""
     m = _bench_model(dev)
     r = np.geomspace(1e-3, 60, 64)
     M = np.geomspace(5e12, 2e15, 20)
@@ -723,7 +832,7 @@ def test_table_rows_kernel(dev):
     lnr_int = torch.log(torch.as_tensor(r_int, device=dev))
     lnr = torch.log(torch.as_tensor(r, device=dev))
     dl = float(np.log(r_int[1] / r_int[0]))
-    masses = []
+    masses, ins = [], []
     _build.reset_launches()
     for prof in (m.DMO, m.DMB):
         dens = prof.projected(m.cosmo, r_int, torch.as_tensor(M, device=dev),
@@ -736,13 +845,61 @@ def test_table_rows_kernel(dev):
         torch.testing.assert_close(ek, ep, rtol=1e-12, atol=0,
                                    equal_nan=True)
         masses.append(ep)
+        ins.append((intgd, dens))
     dk = table_rows.displacement_rows(lnr, *masses)
     dp = table_rows.displacement_rows_plain(lnr, *masses)
     assert _build.launches["enclosed_mass"] == 2
     assert _build.launches["displacement_rows"] == 1
+    _hold_rows(dk, dp)
+    fk = table_rows.displacement_table(*ins[0], *ins[1], lnr_int, lnr)
+    assert _build.launches["table_rows"] == 1
+    _hold_rows(fk, table_rows.displacement_table_plain(*ins[0], *ins[1],
+                                                       lnr_int, lnr))
+
+
+def _hold_rows(dk, dp):
+    """K9's displacement rows against the plain version's: the same NaN
+    mask, values to 1e-12 of the largest |d|."""
     assert torch.equal(torch.isnan(dk), torch.isnan(dp))
     torch.testing.assert_close(dk, dp, rtol=0, equal_nan=True,
                                atol=1e-12 * dp.nan_to_num().abs().max().item())
+
+
+@pytest.mark.parametrize("B,n,n_r", [(1, 97, 6), (4, 33, 7), (20, 500, 64),
+                                     (6, 129, 256), (9, 500, 100),
+                                     (640, 500, 64)])
+def test_table_rows_kernel_cases(dev, B, n, n_r):
+    """K9's fused launch and its enclosed-mass half against their plain
+    versions on rows made from a seed (rows_inputs: a broken row, a mass
+    that stops being finite, an all-NaN row): grids of n points not a
+    multiple of 32, 6 to 256 radii, 1 to 640 rows (the p-key combinations
+    of a parameter table make B large). The masses to 1e-12 relative with
+    equal NaN masks; the displacements with the plain version's NaN mask,
+    and to 1e-12 of the largest |d| against the plain inversion of the
+    kernel's own masses. Against the plain masses' inversion they are not
+    held to that: where M_DMB flattens, the inversion moves d by up to
+    1.8e-10 for a 1e-15 relative change of the masses (the plain version
+    on the CPU, these rows), the size of the change that summing the
+    Simpson increments in another order makes."""
+    ts = [torch.as_tensor(x, device=dev) for x in rows_inputs(B, n, n_r)]
+    io, do, ib, db, lnr_int, lnr = ts
+    _build.reset_launches()
+    masses = []
+    for i, d in ((io, do), (ib, db)):
+        ek = table_rows.enclosed_mass(i, d, lnr_int, lnr)
+        ep = table_rows.enclosed_mass_plain(i, d, lnr_int, lnr)
+        assert torch.equal(torch.isnan(ek), torch.isnan(ep))
+        torch.testing.assert_close(ek, ep, rtol=1e-12, atol=0,
+                                   equal_nan=True)
+        masses.append(ek)
+    fk = table_rows.displacement_table(*ts)
+    assert _build.launches["table_rows"] == 1
+    dp = table_rows.displacement_table_plain(*ts)
+    assert torch.equal(torch.isnan(fk), torch.isnan(dp))
+    _hold_rows(fk, table_rows.displacement_rows_plain(lnr, *masses))
+    if B > 3:
+        assert torch.isnan(fk[1]).all() and torch.isnan(fk[3]).all()
+    assert torch.isfinite(fk[0]).any()
 
 
 def test_table_build_cuda_matches_cpu(dev):
@@ -754,8 +911,9 @@ def test_table_build_cuda_matches_cpu(dev):
     _build.reset_launches()
     g = _bench_model(dev).setup_interpolator(**kw)
     assert _build.launches["fht"] == 2 * 2
-    assert _build.launches["enclosed_mass"] == 2 * 2
-    assert _build.launches["displacement_rows"] == 2
+    assert _build.launches["table_rows"] == 2
+    assert _build.launches["enclosed_mass"] == 0
+    assert _build.launches["displacement_rows"] == 0
     c = _bench_model("cpu").setup_interpolator(**kw)
     scale = np.abs(c.raw_input_d).max()
     np.testing.assert_allclose(g.raw_input_d, c.raw_input_d, rtol=0,

@@ -50,8 +50,8 @@ def stencil_inputs(nside, seed=41):
     return po, rng.exponential(1.0, npix)
 
 
-@pytest.fixture(scope="module", params=[64, 256], ids=["nside64",
-                                                       "nside256"])
+@pytest.fixture(scope="module", params=[16, 64, 256],
+                ids=["nside16", "nside64", "nside256"])
 def case(request):
     nside = request.param
     npix = 12 * nside ** 2
@@ -118,10 +118,15 @@ def test_stencil_matches_scatter_regrid(case):
     np.testing.assert_allclose(final, scatter, rtol=0, atol=1e-9 * scale)
 
 
-def test_stencil_geo_matches_jax(case):
-    """The complement's geometric source list: slot ids and pixels equal,
-    angles to rtol 1e-12 (float64) and equal after the float32 cast."""
-    nside, tiling, _, _, _, _ = case
+@pytest.mark.parametrize("nside", [8, 16, 64, 256])
+def test_stencil_geo_matches_jax(nside):
+    """The complement's geometric source list (slot ids and pixels) equals
+    the JAX list; each source's angles, from its pixel and the ring table
+    (``source_angles_plain``, as K6 forms them), equal the JAX list's bit
+    for bit: phi in both dtypes, theta in float32. In float64 theta is
+    torch's ring_theta against XLA's, a few ulps apart (asin, acos), and
+    is held to 4 ulps."""
+    tiling = tt.SkyTiling(nside)
     cat, shell = make_inputs(nside, 10)
     jr = JRunners.BaryonifyShell(cat, shell, epsilon_max=20,
                                  model=jax_model(), verbose=False)
@@ -130,12 +135,40 @@ def test_stencil_geo_matches_jax(case):
     sf_j = np.asarray(jr._get_stencil_geo(nside))
     for jdt, tdt in ((jnp.float64, torch.float64),
                      (jnp.float32, torch.float32)):
-        sf, pix, th, ph = ts.stencil_geo(tiling, tables, tdt)
+        sf, pix, rows = ts.stencil_geo(tiling, tables, tdt)
         jpix, jth, jph = (np.asarray(x) for x in
                           jr._get_stencil_geo_ang(nside, jdt))
         np.testing.assert_array_equal(sf.numpy(), sf_j)
         np.testing.assert_array_equal(pix.numpy(), jpix)
-        assert th.dtype == tdt
-        np.testing.assert_allclose(th.numpy(), jth, rtol=1e-12)
-        np.testing.assert_allclose(ph.numpy(), jph, rtol=1e-12)
+        th, ph = ts.source_angles_plain(nside, pix, rows)
+        assert th.dtype == ph.dtype == rows.dtype == tdt
+        np.testing.assert_array_equal(ph.numpy(), jph)
+        if tdt == torch.float32:
+            np.testing.assert_array_equal(th.numpy(), jth)
+        else:
+            np.testing.assert_allclose(th.numpy(), jth, rtol=4 * 2.0 ** -52,
+                                       atol=0)
     assert sf.numel() == int(tables["g_off"][-1])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nside", [8, 16])
+def test_stencil_ring_table_forms(nside, dt):
+    """K6's ring table (``stencil_rings_plain``): the target form is K3's
+    table (pix2ang's theta, bit for bit, for every pixel of the ring), the
+    source form the float64 ring_theta rounded to the dtype; both phi
+    steps 2 pi / nr rounded once; the forms coincide in float64."""
+    rows = ts.stencil_rings_plain(nside, dt).reshape(2, 4 * nside, 4)
+    assert rows.dtype == dt
+    assert torch.equal(rows[:, 0], torch.zeros_like(rows[:, 0]))
+    assert torch.equal(rows[..., 3], torch.zeros_like(rows[..., 3]))
+    pix = torch.arange(thp.npix(nside), dtype=torch.int32)
+    ring = thp.pixel_ring(nside, pix).long()
+    tp, _ = thp.pix2ang(nside, pix, dt)
+    assert torch.equal(rows[0, ring, 0], tp)
+    t64, _ = thp.pix2ang(nside, pix, torch.float64)
+    assert torch.equal(rows[1, ring, 0], t64.to(dt))
+    assert torch.equal(rows[0, :, 1], rows[1, :, 1])
+    if dt == torch.float64:
+        assert torch.equal(rows[0], rows[1])

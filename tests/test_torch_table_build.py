@@ -28,11 +28,16 @@ from baryonforge_tpu import Runners as JRunners             # noqa: E402
 from baryonforge_tpu import cosmo as jc                     # noqa: E402
 from baryonforge_tpu.cosmo.core import cosmology_from_dict  # noqa: E402
 from baryonforge_tpu.Profiles import BaryonCorrection as JBC  # noqa: E402
+from baryonforge_tpu.ops.integrate import \
+    cumulative_simpson_uniform as jcumsimpson               # noqa: E402
+from baryonforge_tpu.ops.interp import \
+    masked_pchip_interp as jmasked_pchip                    # noqa: E402
 import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch import Profiles as TP                # noqa: E402
 from baryonforge_torch.ops import _build, table_rows       # noqa: E402
 from baryonforge_torch.utils import convert                 # noqa: E402
 
+from test_torch_cuda import rows_inputs                     # noqa: E402
 from test_torch_curves import BPAR, COSMO_DICT, TABLE       # noqa: E402
 from test_torch_integrate_interp import close               # noqa: E402
 from test_torch_shell import _inputs, _torch_inputs         # noqa: E402
@@ -130,6 +135,48 @@ def test_displacement_rows_matches_jax():
     assert np.isnan(t.numpy()[5]).all() and np.isnan(t.numpy()[6]).all()
 
 
+def jax_enclosed_tail(intgd, dens, lnr_int, lnr_out):
+    """The JAX _enclosed_mass_curve after its profile evaluation
+    (baryonforge_tpu/Profiles/BaryonCorrection.py:88-100) on given rows."""
+    intgd, dens = jnp.asarray(intgd), jnp.asarray(dens)
+    M_enc = jcumsimpson(intgd, dx=1.0, axis=-1) + intgd[:, :1]
+    valid = (dens > 0) & jnp.isfinite(M_enc) & (M_enc > 0)
+
+    def row(mrow, vrow):
+        return jnp.exp(jmasked_pchip(
+            jnp.asarray(lnr_int), jnp.log(jnp.where(vrow, mrow, 1.0)), vrow,
+            jnp.asarray(lnr_out), min_pts=2))
+    return np.asarray(jax.jit(jax.vmap(row))(M_enc, valid))
+
+
+def test_displacement_table_matches_jax():
+    """K9's fused rows (``displacement_table``, its plain version on the
+    CPU) against the JAX enclosed-mass tail (twice) and
+    ``_displacement_rows`` on the same rows: 6 masses, 200 grid points
+    (not a multiple of 32), 24 radii, with a broken row (at most 5 usable
+    points), a DMO mass that stops being finite and an all-NaN row; NaN
+    masks identical."""
+    io, do, ib, db, lnr_int, lnr = rows_inputs(6, 200, 24)
+    t_in = [torch.as_tensor(x) for x in (io, do, ib, db, lnr_int, lnr)]
+    Mo = jax_enclosed_tail(io, do, lnr_int, lnr)
+    Mb = jax_enclosed_tail(ib, db, lnr_int, lnr)
+    for t, j in ((table_rows.enclosed_mass(*t_in[:2], *t_in[4:]), Mo),
+                 (table_rows.enclosed_mass(*t_in[2:]), Mb)):
+        close(t, j, 1e-12)
+    j = np.asarray(jax.jit(JBC._displacement_rows)(
+        jnp.asarray(lnr), jnp.asarray(Mo), jnp.asarray(Mb)))
+    _build.reset_launches()
+    t = table_rows.displacement_table(*t_in)
+    assert not _build.launches
+    flips = np.where((np.isnan(t.numpy()) != np.isnan(j)).any(1))[0]
+    assert not flips.size, f"rows whose masks flipped: {flips}"
+    close(t, j, 1e-10)
+    d = t.numpy()
+    assert (np.isfinite(d[[0, 4, 5]]).sum(1) > d.shape[1] // 2).all()
+    assert np.isnan(d[1]).all() and np.isnan(d[3]).all()
+    assert np.isnan(d[2]).any() and not np.isnan(d[2]).all()
+
+
 @pytest.mark.parametrize("variant", ["plain", "p_keys", "rdelta"])
 def test_setup_interpolator_matches_jax(variant):
     kw = dict(SMALL)
@@ -214,13 +261,13 @@ def test_broken_rows_warn_and_zero(monkeypatch):
     """A row whose inversion fails everywhere is zeroed with a UserWarning
     naming its mass, as in the JAX package."""
     _, tm = models()
-    real = table_rows.displacement_rows
+    real = table_rows.displacement_table
 
-    def broken(lnr, M_DMO, M_DMB):
-        d = real(lnr, M_DMO, M_DMB)
+    def broken(*rows):
+        d = real(*rows)
         d[1] = float("nan")
         return d
-    monkeypatch.setattr(table_rows, "displacement_rows", broken)
+    monkeypatch.setattr(table_rows, "displacement_table", broken)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         tm.setup_interpolator(**dict(SMALL, verbose=True))
