@@ -27,10 +27,11 @@ import torch
 from ..cosmo import massdef as _massdef
 from ..cosmo import concentration as _conc
 from ..ops import fftlog as _fftlog
+from ..ops.grids import jnp_linspace
 from ..ops.integrate import trapz
 
 __all__ = ["Profile", "hyper_params", "generate_operator_method",
-           "resolve_device"]
+           "resolve_device", "eval_rows"]
 
 hyper_params = ["mass_def", "c_M_relation", "use_fftlog_projection",
                 "padding_lo_proj", "padding_hi_proj", "n_per_decade_proj",
@@ -96,6 +97,50 @@ def _atleast_1d_pair(r, M, device):
             torch.atleast_1d(_f64(M, device)))
 
 
+def _rows(r_use):
+    """r against the halos: a shared r (L,) as (1, L); radii of a halo's
+    own, (M, L) against M (M,), as they are."""
+    return r_use if r_use.dim() == 2 else r_use[None, :]
+
+
+def _halo_radius(prof, cosmo, M_use, a):
+    """R_Delta in comoving Mpc, on M's device."""
+    return (prof.mass_def.get_radius(cosmo, M_use, a) / a).to(M_use.device)
+
+
+def _per_halo_loggrid(r_min, R, steps):
+    """geomspace(r_min, R_i, steps) a halo, shape (M, steps), in the JAX
+    package's arithmetic (exp of a jnp.linspace in ln r)."""
+    t = torch.as_tensor(jnp_linspace(0.0, 1.0, steps), device=R.device)
+    return torch.exp(math.log(r_min)
+                     + (torch.log(R)[:, None] - math.log(r_min)) * t[None, :])
+
+
+def _host_halo_radius(prof, cosmo, M_use, a):
+    """``_halo_radius`` computed on the host and copied to M's device: a
+    halo's radius then has the same bits on the card as on the CPU, and so
+    has a per-halo grid built from it (``_host_per_halo_loggrid``), so that
+    the grid's last point falls on the same side of R for the truncations
+    r <= R and r < R on both (ROADMAP Queue 3)."""
+    return _halo_radius(prof, cosmo, M_use.cpu(), a).to(M_use.device)
+
+
+def _host_per_halo_loggrid(r_min, R, steps):
+    """``_per_halo_loggrid`` computed on the host and copied to R's
+    device (see ``_host_halo_radius``)."""
+    return _per_halo_loggrid(r_min, R.cpu(), steps).to(R.device)
+
+
+def eval_rows(prof, cosmo, r_rows, M_use, a):
+    """``prof._real`` at each halo's own radii, r_rows (M, L) against M_use
+    (M,): the JAX package's vmap over (row, mass). One call where the
+    profile is elementwise in r (``per_halo_r``), else one call a halo."""
+    if prof.per_halo_r:
+        return prof._real(cosmo, r_rows, M_use, a)
+    return torch.cat([prof._real(cosmo, rr, M_use[i:i + 1], a)
+                      for i, rr in enumerate(r_rows)])
+
+
 def _mirror_dims(prof, r, M):
     """Squeeze the output axes of scalar inputs (reference convention)."""
     if _ndim(r) == 0:
@@ -118,6 +163,9 @@ class Profile:
 
     model_param_names = []
     hyper_param_names = hyper_params
+    # whether ``_real`` also takes radii of each halo's own, r (M, L)
+    # against M (M,): true of the profiles that are elementwise in r
+    per_halo_r = False
 
     def __init__(self, mass_def=_massdef.MassDef200c, c_M_relation=None,
                  use_fftlog_projection=False, padding_lo_proj=0.1,
@@ -399,6 +447,11 @@ class _CombinedProfile(Profile):
         B = (self._B._real(cosmo, r, M, a, **kw)
              if isinstance(self._B, Profile) else self._B)
         return self._op(B, A) if self._reflect else self._op(A, B)
+
+    @property
+    def per_halo_r(self):
+        return all(x.per_halo_r for x in (self._A, self._B)
+                   if isinstance(x, Profile))
 
     def _fourier_available(self):
         def has_f(x):

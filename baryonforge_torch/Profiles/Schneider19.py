@@ -10,10 +10,11 @@ import math
 
 import torch
 
-from .Base import Profile, hyper_params, sigmoid_cutoff
+from .Base import (Profile, hyper_params, sigmoid_cutoff, _halo_radius,
+                   _per_halo_loggrid)
 from ..cosmo import core as _core
 from ..cosmo import power as _power
-from ..ops.grids import jnp_geomspace, jnp_linspace
+from ..ops.grids import jnp_geomspace
 from ..ops.integrate import cumulative_simpson_uniform, trapz
 from ..ops.interp import (pchip_derivatives, pchip_eval, cubic_spline_coeffs,
                           cubic_spline_eval, cubic_spline_derivative_eval)
@@ -118,19 +119,6 @@ class SchneiderProfiles(Profile):
 
     def get_f_gas(self, M_use, a, cosmo):
         return self._get_gas_frac(M_use, a, cosmo)
-
-
-def _per_halo_loggrid(r_min, R, steps):
-    """geomspace(r_min, R_i, steps) per halo, shape (M, steps), in the JAX
-    package's arithmetic (exp of a jnp.linspace in ln r)."""
-    t = _grid(jnp_linspace(0.0, 1.0, steps), R)
-    return torch.exp(math.log(r_min)
-                     + (torch.log(R)[:, None] - math.log(r_min)) * t[None, :])
-
-
-def _halo_radius(prof, cosmo, M_use, a):
-    """R_Delta in comoving Mpc, on M's device."""
-    return (prof.mass_def.get_radius(cosmo, M_use, a) / a).to(M_use.device)
 
 
 class DarkMatter(SchneiderProfiles):

@@ -5,8 +5,7 @@ Hydrostatic-equilibrium pressure by inward cumulative integration of
 dP/dr = -G M(<r) rho_gas / r^2 (flip, integrate, flip), the tSZ Compton-y
 prefactors, temperature, non-thermal fractions and gas number density.
 ``model_params`` is the union of the Schneider19, Arico20 and Mead20
-parameter lists; the port keeps its own copy of the two families it has
-not ported yet.
+parameter lists.
 """
 
 import math
@@ -16,6 +15,8 @@ import torch
 from .Base import Profile, hyper_params, sigmoid_cutoff
 from .Schneider19 import Gas, DarkMatterBaryon, TwoHalo, _halo_radius
 from .Schneider19 import model_params as S19_mp
+from .Arico20 import model_params as A20_mp
+from .Mead20 import model_params as M20_mp
 from ..cosmo import massdef as _massdef
 from ..cosmo import power as _power
 from ..cosmo import concentration as _conc
@@ -28,20 +29,6 @@ from ..utils.Tabulate import _set_parameter
 __all__ = ['Pressure', 'NonThermalFrac', 'NonThermalFracGreen20',
            'Temperature', 'ThermalSZ', 'ElectronPressure',
            'GasNumberDensity', 'XrayLuminosity']
-
-# the parameter lists of baryonforge_tpu/Profiles/Arico20.py:43-53 and
-# Mead20.py:37-41
-A20_mp = ['cdelta', 'a', 'n', 'q', 'p', 'cutoff', 'proj_cutoff',
-          'theta_out', 'theta_inn', 'M_inn', 'M_c', 'mu', 'beta',
-          'M_r', 'beta_r', 'eta', 'theta_rg', 'sigma_rg', 'epsilon_hydro',
-          'M1_0', 'alpha_g', 'epsilon_h',
-          'M1_fsat', 'eps_fsat', 'alpha_fsat', 'delta_fsat', 'gamma_fsat',
-          'A_nt', 'alpha_nt', 'mean_molecular_weight']
-M20_mp = ['cdelta', 'eps1', 'nu_eps1', 'eps2', 'cutoff', 'proj_cutoff',
-          'p', 'q', 'M_0', 'beta', 'Gamma', 'nu_Gamma', 'eta_b',
-          'A_star', 'nu_A_star', 'M_star', 'nu_M_star', 'sigma_star',
-          'epsilon_h', 'eta', 'T_w', 'nu_T_w',
-          'mean_molecular_weight', 'alpha']
 
 model_params = list({*S19_mp, *A20_mp, *M20_mp})
 Pressure_at_infinity = 1e-200

@@ -19,16 +19,20 @@ Ported so far (ROADMAP.md lists the rest):
               K16 grid deposit (scatter), K17 snapshot displacement
               (snapshot), K18 ring modes and K19 Legendre transform (sht)
   native/     the snapshot runner's periodic cell list (host C++, g++)
-  Profiles/   the profile framework and algebra, the Schneider19 family,
-              the thermodynamic (tSZ) profiles, Baryonification2D/3D:
-              table build, readout and checkpoint
+  Profiles/   the profile framework and algebra, the Schneider19,
+              Arico20, Mead20 (with its T_AGN calibrations) and Schneider25
+              families, the Battaglia12 pressure and density, the utility
+              profiles (truncation, test doubles, per-halo Fourier
+              limits, unit wrappers), the thermodynamic (tSZ) profiles,
+              Baryonification2D/3D: table build, readout and checkpoint
   Runners/    BaryonifyShell: the tiled engine (default) and the scatter
               path; PaintProfilesShell and PaintProfilesAnisShell: the
               tiled paint (default) and the disc paint; the grid runners
               BaryonifyGrid, PaintProfilesGrid and PaintProfilesAnisGrid;
               the particle snapshot runner BaryonifySnapshot
   utils/      constants, io containers, tabulated profiles, pixel windows,
-              spherical-harmonic analysis (sht), JAX-object conversion
+              spherical-harmonic analysis (sht), JAX-object conversion, the
+              root finder and FFTLog merge rules (misc)
 """
 
 from . import cosmo

@@ -169,45 +169,55 @@ def masked_pchip_interp(x, y, valid, xq, min_pts=5):
 # ---------------------------------------------------------------------------
 def spline_system(x, y):
     """The not-a-knot spline's tridiagonal system for the first derivatives
-    at the knots of (x, y); x (N,), y (..., N). Returns (lower, main,
-    upper, rhs) on y's device: the three diagonals (N,) with lower[0] =
-    upper[-1] = 0, and rhs (..., N), in the JAX package's order of
-    operations."""
+    at the knots of (x, y); x (..., N) (one knot vector, or one a row), y
+    (..., N). Returns (lower, main, upper, rhs) on y's device: the three
+    diagonals (..., N) of x's shape with lower[..., 0] = upper[..., -1] =
+    0, and rhs (..., N), in the JAX package's order of operations."""
     x = x.to(device=y.device, dtype=torch.float64)
-    h = x[1:] - x[:-1]
-    zero = h.new_zeros(1)
-    main = torch.cat([h[1:2], 2.0 * (h[:-1] + h[1:]), h[-2:-1]])
-    lower = torch.cat([zero, h[:-1], (h[-1] + h[-2])[None]])
-    upper = torch.cat([(h[0] + h[1])[None], h[1:], zero])
+    h = x[..., 1:] - x[..., :-1]
+    zero = h.new_zeros(h.shape[:-1] + (1,))
+    main = torch.cat([h[..., 1:2], 2.0 * (h[..., :-1] + h[..., 1:]),
+                      h[..., -2:-1]], dim=-1)
+    lower = torch.cat([zero, h[..., :-1], h[..., -1:] + h[..., -2:-1]],
+                      dim=-1)
+    upper = torch.cat([h[..., :1] + h[..., 1:2], h[..., 1:], zero], dim=-1)
+    h0, h1, hn, hm = h[..., 0], h[..., 1], h[..., -1], h[..., -2]
     slope = (y[..., 1:] - y[..., :-1]) / h
-    rhs_int = 3.0 * (slope[..., 1:] * h[:-1] + slope[..., :-1] * h[1:])
-    rhs0 = ((h[0] + 2.0 * (h[0] + h[1])) * h[1] * slope[..., 0]
-            + h[0] ** 2 * slope[..., 1]) / (h[0] + h[1])
-    rhsn = (h[-1] ** 2 * slope[..., -2]
-            + (2.0 * (h[-1] + h[-2]) + h[-1]) * h[-2] * slope[..., -1]) \
-        / (h[-1] + h[-2])
+    rhs_int = 3.0 * (slope[..., 1:] * h[..., :-1]
+                     + slope[..., :-1] * h[..., 1:])
+    rhs0 = ((h0 + 2.0 * (h0 + h1)) * h1 * slope[..., 0]
+            + h0 ** 2 * slope[..., 1]) / (h0 + h1)
+    rhsn = (hn ** 2 * slope[..., -2]
+            + (2.0 * (hn + hm) + hn) * hm * slope[..., -1]) / (hn + hm)
     rhs = torch.cat([rhs0[..., None], rhs_int, rhsn[..., None]], dim=-1)
     return lower, main, upper, rhs
 
 
 def cubic_spline_coeffs(x, y):
     """First derivatives at the knots of the not-a-knot cubic spline
-    through (x, y); x (N,), y (..., N); a 1-D y gives (1, N). The system
-    is built on y's device and solved by the Thomas algorithm, one knot
-    after the other in float64 on the host, in the JAX package's order of
-    operations. For a CUDA y this host sweep, copies included, was timed
-    against the same sweep as launches on the card (~20x slower) and one
-    dense ``torch.linalg.solve`` there (as fast alone, slower inside the
-    profile that calls it): ``chip_smoke.py``'s ``spline_solves``,
-    PERF.md."""
+    through (x, y); x (N,), or (..., N) with knots of their own a row (the
+    JAX package's vmap over rows), y (..., N); a 1-D y gives (1, N). The
+    system is built on y's device and solved by the Thomas algorithm, one
+    knot after the other in float64 on the host, in the JAX package's order
+    of operations (rows with knots of their own are swept side by side).
+    For a CUDA y this host sweep, copies included, was timed against the
+    same sweep as launches on the card (~20x slower) and one dense
+    ``torch.linalg.solve`` there (as fast alone, slower inside the profile
+    that calls it): ``chip_smoke.py``'s ``spline_solves``, PERF.md."""
     lower, main, upper, rhs = spline_system(x, y)
-    a, b, c = (t.cpu().numpy() for t in (lower, main, upper))
-    n = b.size
+    n = main.shape[-1]
     shape = (rhs.shape[:-1] or (1,)) + (n,)
     r = rhs.detach().reshape(-1, n).cpu().numpy().T           # (N, B)
-    cps = np.empty(n)
+    if main.dim() == 1:                 # shared knots: scalar diagonals
+        a, b, c = (t.cpu().numpy() for t in (lower, main, upper))
+        cp_prev = 0.0
+    else:                               # (N, B) beside r's rows
+        a, b, c = (t.detach().expand(rhs.shape).reshape(-1, n).cpu()
+                   .numpy().T for t in (lower, main, upper))
+        cp_prev = np.zeros(r.shape[1])
+    cps = np.empty(b.shape)
     dps = np.empty_like(r)
-    cp_prev, dp_prev = 0.0, np.zeros(r.shape[1])
+    dp_prev = np.zeros(r.shape[1])
     for i in range(n):
         denom = b[i] - a[i] * cp_prev
         cp_prev = c[i] / denom
@@ -223,21 +233,22 @@ def cubic_spline_coeffs(x, y):
 
 
 def _spline_segment(x, xq):
-    i = torch.clamp(searchsorted_right(x, xq) - 1, 0, x.shape[0] - 2)
-    h = x[i + 1] - x[i]
-    return i, h, (xq - x[i]) / h
+    i = torch.clamp(searchsorted_right(x, xq) - 1, 0, x.shape[-1] - 2)
+    x0 = _take(x, i)
+    h = _take(x, i + 1) - x0
+    return i, h, (xq - x0) / h
 
 
 def cubic_spline_eval(x, y, d, xq):
-    """Evaluate the Hermite-form spline; x (N,), y and d (..., N), xq
-    (Q,)."""
+    """Evaluate the Hermite-form spline; x (N,) or (..., N) a row each, y
+    and d (..., N), xq (Q,) or (..., Q)."""
     i, h, t = _spline_segment(x, xq)
     h00 = (1 + 2 * t) * (1 - t) ** 2
     h10 = t * (1 - t) ** 2
     h01 = t ** 2 * (3 - 2 * t)
     h11 = t ** 2 * (t - 1)
-    return (h00 * y[..., i] + h10 * h * d[..., i] + h01 * y[..., i + 1]
-            + h11 * h * d[..., i + 1])
+    return (h00 * _take(y, i) + h10 * h * _take(d, i)
+            + h01 * _take(y, i + 1) + h11 * h * _take(d, i + 1))
 
 
 def cubic_spline_derivative_eval(x, y, d, xq):
@@ -247,8 +258,8 @@ def cubic_spline_derivative_eval(x, y, d, xq):
     dh10 = (3 * t - 1) * (t - 1)
     dh01 = -6 * t * (t - 1) / h
     dh11 = t * (3 * t - 2)
-    return (dh00 * y[..., i] + dh10 * d[..., i] + dh01 * y[..., i + 1]
-            + dh11 * d[..., i + 1])
+    return (dh00 * _take(y, i) + dh10 * _take(d, i)
+            + dh01 * _take(y, i + 1) + dh11 * _take(d, i + 1))
 
 
 # ---------------------------------------------------------------------------

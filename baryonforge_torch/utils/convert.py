@@ -4,11 +4,12 @@ The JAX package keeps its state in numpy arrays, plain numbers and small
 Python objects, so they convert by reading attributes:
 
   * ``cosmology_from_jax(cosmo)``: the port's Cosmology;
-  * ``profile_from_jax(prof)``: the port's counterpart of a Schneider19
-    or thermodynamic profile, with its nested sub-profiles and combined
-    (algebra) profiles, model and hyper parameters, FFTLog precision, mass
-    definition and concentration relation; also of a ConvolvedProfile and
-    its pixel window;
+  * ``profile_from_jax(prof)``: the port's counterpart of a profile of
+    any family (Schneider19, Arico20, Mead20, Schneider25, Battaglia, the
+    utility profiles of ``misc`` and the thermodynamic ones), with its
+    nested sub-profiles and combined (algebra) profiles, model and hyper
+    parameters, FFTLog precision, mass definition and concentration
+    relation; also of a ConvolvedProfile and its pixel window;
   * ``baryonification_from_jax(model)``: the port's displacement model,
     with its table when it has one and its DMO/DMB profiles when it has
     them;
@@ -24,9 +25,14 @@ import numpy as np
 from ..cosmo import concentration as _conc
 from ..cosmo.core import Cosmology
 from ..cosmo.massdef import MassDef
+from ..Profiles import Arico20 as _a20
 from ..Profiles import Base as _base
+from ..Profiles import Battaglia as _b12
+from ..Profiles import Mead20 as _m20
 from ..Profiles import Schneider19 as _s19
+from ..Profiles import Schneider25 as _s25
 from ..Profiles import Thermodynamic as _thermo
+from ..Profiles import misc as _misc
 from ..Profiles.BaryonCorrection import Baryonification2D, Baryonification3D
 from . import Pixel as _pixel
 from . import Tabulate as _tabulate
@@ -35,7 +41,9 @@ __all__ = ["cosmology_from_jax", "profile_from_jax", "pixel_from_jax",
            "baryonification_from_jax", "tabulated_from_jax"]
 
 # the port's module for each JAX profile module it has a counterpart of
-_PROFILE_MODULES = {"Schneider19": _s19, "Thermodynamic": _thermo}
+_PROFILE_MODULES = {"Schneider19": _s19, "Thermodynamic": _thermo,
+                    "Arico20": _a20, "Mead20": _m20, "Schneider25": _s25,
+                    "Battaglia": _b12, "misc": _misc}
 
 
 def cosmology_from_jax(cosmo):
@@ -113,8 +121,8 @@ def pixel_from_jax(pix):
 
 
 def profile_from_jax(prof, memo=None):
-    """The port's counterpart of a JAX-package Schneider19 or
-    thermodynamic profile (or a combined profile built from them): same
+    """The port's counterpart of a JAX-package profile of any family (or a
+    combined profile built from them): same
     class, every attribute carried across, sub-profiles converted
     recursively. A ConvolvedProfile converts with its profile and pixel
     window. A user ``xi_mm`` hook is not carried (it would be a JAX

@@ -1501,6 +1501,129 @@ def test_grid_runners_cuda_match_cpu(dev):
             np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-9 * ref)
 
 
+# ---- the remaining profile families: Arico20, Mead20, Schneider25, B12 ----
+# the Arico20 fiducial set (examples/05_profile_gallery.py:34-41) and
+# tests/defaults.py:21-29's Schneider25 parameters
+A20 = dict(cdelta=4, alpha_g=2, epsilon_h=0.015, M1_0=2.2e11 / 0.7,
+           alpha_fsat=1, M1_fsat=1, delta_fsat=1, gamma_fsat=1,
+           eps_fsat=1, M_c=1.2e14 / 0.7, eta=0.6, mu=0.31, beta=0.6,
+           epsilon_hydro=np.sqrt(5), M_inn=3.3e13 / 0.7, M_r=1e16,
+           beta_r=2, theta_inn=0.1, theta_out=3, theta_rg=0.3,
+           sigma_rg=0.1, a=0.3, n=2, p=0.3, q=0.707,
+           A_nt=0.495, alpha_nt=0.1, mean_molecular_weight=0.59)
+S25 = dict(epsilon0=4, epsilon1=0.5, alpha_excl=0.4, p=0.3, q=0.707,
+           M_c=1e15, mu=0.8, q0=0.075, q1=0.25, q2=0.7, nu_q0=0, nu_q1=1,
+           nu_q2=0, nstep=3 / 2, theta_c=0.3, nu_theta_c=1 / 2, c_iga=0.1,
+           nu_c_iga=3 / 2, r_min_iga=1e-3, alpha=1, gamma=3 / 2, delta=7,
+           tau=-1.376, tau_delta=0, Mstar=3e11, Nstar=0.03, eta=0.1,
+           eta_delta=0.22, epsilon_cga=0.03, alpha_nt=0.1, nu_nt=0.5,
+           gamma_nt=0.8, mean_molecular_weight=0.6125)
+FAMILY_GRID = dict(z_min=0.1, z_max=1.1, N_samples_z=2, M_min=5e12,
+                   M_max=3e15, N_samples_Mass=4, R_min=1e-3, R_max=50,
+                   N_samples_R=16, verbose=False)
+
+
+def _family_table(family, dev):
+    """The family's small table, built on ``dev``: Arico20
+    Baryonification3D, Mead20 (T_AGN 10^7.8, with the two-halo terms) and
+    Schneider25 Baryonification2D, and a TabulatedProfile of the
+    Battaglia12 200_AGN electron pressure."""
+    P = bf.Profiles
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    if family == "Battaglia12":
+        return bf.utils.TabulatedProfile(
+            P.Battaglia.ElectronPressure("200_AGN", proj_cutoff=100), cosmo,
+            device=dev).setup_interpolator(**FAMILY_GRID)
+    if family == "Arico20":
+        cls, o, b = (bf.Baryonification3D, P.Arico20.DarkMatterOnly(**A20),
+                     P.Arico20.DarkMatterBaryon(**A20))
+    elif family == "Mead20":
+        m20 = dict(P.Mead20.Tagn2pars(7.8), proj_cutoff=100)
+        cls, o, b = (bf.Baryonification2D,
+                     P.Mead20.DarkMatterOnlywithLSS(**m20),
+                     P.Mead20.DarkMatterBaryonwithLSS(**m20))
+    else:
+        s25 = dict(S25, proj_cutoff=100)
+        cls, o, b = (bf.Baryonification2D,
+                     P.Schneider25.DarkMatterOnly(**s25),
+                     P.Schneider25.DarkMatterBaryon(**s25))
+    return cls(o, b, cosmo, epsilon_max=20, device=dev).setup_interpolator(
+        **FAMILY_GRID)
+
+
+@pytest.mark.parametrize("family", ["Arico20", "Mead20", "Schneider25",
+                                    "Battaglia12"])
+def test_family_table_cuda_matches_cpu(dev, family):
+    """Each family's small table built on the card (profiles in torch, K8
+    for the two-halo terms, K9 for the rows) against the CPU build, to
+    1e-9 of the largest |d| (of the logs for the tabulated profile)."""
+    _build.reset_launches()
+    g = _family_table(family, dev)
+    if family != "Battaglia12":
+        assert _build.launches["table_rows"] == 2, _build.launches
+    if family in ("Mead20", "Schneider25"):
+        assert _build.launches["fht"] >= 2, _build.launches
+    c = _family_table(family, "cpu")
+    if family == "Battaglia12":
+        for k in ("raw_input_2D", "raw_input_3D"):
+            np.testing.assert_allclose(getattr(g, k), getattr(c, k),
+                                       rtol=0, atol=1e-9)
+        return
+    scale = np.abs(c.raw_input_d).max()
+    assert scale > 0
+    np.testing.assert_allclose(g.raw_input_d, c.raw_input_d, rtol=0,
+                               atol=1e-9 * scale)
+
+
+def test_safe_pchip_minimize_cuda_matches_cpu(dev):
+    """The row-batched root finder on the card against the CPU on seeded
+    cubics (crossings anywhere, the window clipped at both ends), falling
+    rows and the no-crossing fallbacks (+inf; x at the smallest |y|), to
+    1e-12."""
+    from baryonforge_torch.utils.misc import safe_Pchip_minimize
+    rng = np.random.default_rng(11)
+    x = np.linspace(-1.0, 3.0, 300)
+    roots = np.concatenate([rng.uniform(-1.0, 3.0, 40), [-0.99, 2.99]])
+    ys = [s * ((x - x0) ** 3 + rng.uniform(0.01, 1) * (x - x0))
+          for x0, s in zip(roots, rng.choice([-1.0, 1.0], roots.size))]
+    ys = np.array(ys + [(x - 1.0) ** 2 + 0.3, -np.exp(x),
+                        np.zeros_like(x)])
+    for xs in (x, np.tile(x, (len(ys), 1))):
+        c = safe_Pchip_minimize(torch.as_tensor(ys), torch.as_tensor(xs))
+        g = safe_Pchip_minimize(torch.as_tensor(ys, device=dev),
+                                torch.as_tensor(xs, device=dev))
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        assert np.isinf(c[-3]) and c[-2] == x[0] and c[-1] == x[0]
+
+
+def test_a20_grid_cuda_matches_cpu(dev):
+    """BaryonifyGrid 3D (32^3 cells of a 32 Mpc box, 30 halos at z 0.2)
+    from the Arico20 small table (built on the CPU) on the card against
+    the plain versions on the CPU, float64, to 1e-9 of the largest move;
+    mass to 1e-10."""
+    tab = _family_table("Arico20", "cpu")
+    rng = np.random.default_rng(6)
+    n, L = 30, 32.0
+    cat = bf.utils.HaloNDCatalog(
+        x=rng.uniform(0, L, n), y=rng.uniform(0, L, n),
+        z=rng.uniform(0, L, n), M=10 ** rng.uniform(13.5, 14.8, n),
+        redshift=0.2, cosmo=COSMO)
+    gm = bf.utils.GriddedMap(map=rng.exponential(1.0, (32,) * 3),
+                             bins=(np.arange(32) + 0.5), cosmo=COSMO,
+                             redshift=0.2)
+    kw = dict(epsilon_max=20, model=tab, dtype=torch.float64)
+    _build.reset_launches()
+    out_g = bf.BaryonifyGrid(cat, gm, device=dev, **kw).process()
+    assert _build.launches["grid_deposit"] >= 1, _build.launches
+    out_c = bf.BaryonifyGrid(cat, gm, device="cpu", **kw).process()
+    ref = np.abs(out_c - gm.map).max()
+    assert ref > 0
+    np.testing.assert_allclose(out_g, out_c, rtol=0, atol=1e-9 * ref)
+    np.testing.assert_allclose(out_g.sum(), gm.map.sum(), rtol=1e-10)
+
+
 def _snapshot_case(ndim, dt, dev, L=64.0, n=4000, nh=30, seed=5, n_r=None):
     """Particles, halos and their pairs in a small box whose largest query
     radius exceeds L / 3, with the S19 table's curves at z 0.9 (resampled
