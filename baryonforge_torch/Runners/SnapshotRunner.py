@@ -18,9 +18,15 @@ SnapshotRunner.py:162-275):
               (ops/snapshot.snapshot_displace)
 
 then the host adds the offsets to the positions in float64 and wraps them
-into [0, L]. The JAX runner pads count buckets of halos to static shapes and
-scans them in batches (``n_size_buckets``, ``halo_batch``); here the pairs
-are exact lists and one launch covers them all.
+into [0, L]. The JAX runner pads count buckets of halos to static shapes
+and scans them in batches (``n_size_buckets``, ``halo_batch``); here the
+pairs are exact lists and one launch covers them all.
+
+With a ``mesh`` (``parallel.halo_mesh``) the halos split into contiguous
+shards: each shard's rows of the pairs, with their own particle-major
+layout (cached with the pairs), go through K17 into their own offsets on
+the shard's device and CUDA stream, summed in shard order on the runner's
+device (``parallel.mesh.sharded_sum``).
 """
 
 import hashlib
@@ -33,6 +39,7 @@ from ..cosmo import massdef as _massdef
 from ..native import cell_query
 from ..ops.snapshot import particle_layout, snapshot_displace
 from ..ops.tiles import pairs_csr
+from ..parallel.mesh import check_mesh, sharded_sum, to_device
 from .HealpixRunner import _PhaseClock
 
 __all__ = ["DefaultRunnerSnapshot", "BaryonifySnapshot"]
@@ -47,19 +54,17 @@ class DefaultRunnerSnapshot:
     raises when CUDA is absent; the CPU runs the plain versions and must be
     asked for explicitly. ``KDTree_kwargs`` go to the 2D cKDTree.
 
-    Not ported, and refused: a device ``mesh`` (ROADMAP Queue 1 item 16) and
-    models without ``halo_curves`` (item 7). ``halo_batch`` and
-    ``n_size_buckets`` shape the JAX runner's padded static batches and do
-    nothing here; nor does ``verbose``.
+    ``mesh`` (a list of devices of the runner's device type,
+    ``parallel.halo_mesh``) shards the halos (see the module docstring).
+    Refused: models without ``halo_curves`` (ROADMAP Queue 1 item 7).
+    ``halo_batch`` and ``n_size_buckets`` shape the JAX runner's padded
+    static batches and do nothing here; nor does ``verbose``.
     """
 
     def __init__(self, HaloNDCatalog, ParticleSnapshot, epsilon_max, model,
                  mass_def=_massdef.MassDef200c, verbose=True,
                  halo_batch=256, dtype=torch.float32, n_size_buckets=4,
                  KDTree_kwargs=None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device runs are ROADMAP Queue 1 item 16")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be torch.float32 or torch.float64, "
                             f"not {dtype!r}")
@@ -70,6 +75,8 @@ class DefaultRunnerSnapshot:
                                "for the plain versions")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.mesh = mesh
+        check_mesh(mesh, self.device)
         self.HaloNDCatalog = HaloNDCatalog
         self.ParticleSnapshot = ParticleSnapshot
         self.cosmo = HaloNDCatalog.cosmology
@@ -88,7 +95,8 @@ class DefaultRunnerSnapshot:
         self._kdtree_kwargs = KDTree_kwargs or {}
         self._tree = None
         self._coords_dev = None
-        self._pairs = None          # (key, device CSR, K17's layout)
+        # (key, device CSR, K17's layout, {n_shards: the shards' rows})
+        self._pairs = None
         # milliseconds of each phase of the last process() call (see
         # _PhaseClock): host_prep, neighbours, curves, displace, download
         self.timings = {}
@@ -130,7 +138,7 @@ class DefaultRunnerSnapshot:
                hashlib.blake2b(np.ascontiguousarray(R_q).tobytes(),
                                digest_size=16).hexdigest())
         if self._pairs is not None and self._pairs[0] == key:
-            return self._pairs[1:]
+            return self._pairs[1:3]
         L = self.ParticleSnapshot.L
         if self.ParticleSnapshot.is2D:
             lists = self.tree.query_ball_point(np.mod(hpos, L), R_q)
@@ -150,8 +158,35 @@ class DefaultRunnerSnapshot:
             self._coords_dev = torch.as_tensor(self._coords,
                                                device=self.device)
         layout = particle_layout(self._coords_dev, L, *csr[1:])
-        self._pairs = (key, csr, layout)
+        self._pairs = (key, csr, layout, {})
         return csr, layout
+
+    def _shard_pairs(self, n_halos, n_shards):
+        """Each shard's rows of the cached pairs (the halos np.array_split
+        into ``n_shards``): (halos, offsets from 0, parts) and their
+        particle-major layout on the runner's device, or None for a shard
+        without pairs; made once per pair set and shard count. One shard
+        is the cached pairs and layout themselves."""
+        csr, shards = self._pairs[1], self._pairs[3]
+        if n_shards == 1:
+            return [(csr, self._pairs[2])]
+        if n_shards not in shards:
+            halos, offsets, parts = csr
+            h = halos.cpu().numpy()
+            off = offsets.cpu().numpy()
+            out = []
+            for idx in np.array_split(np.arange(n_halos), n_shards):
+                r0, r1 = (np.searchsorted(h, [idx[0], idx[-1] + 1])
+                          if idx.size else (0, 0))
+                if r1 == r0:
+                    out.append(None)
+                    continue
+                o = offsets[r0:r1 + 1] - offsets[r0]
+                p = parts[int(off[r0]):int(off[r1])]
+                out.append(((halos[r0:r1], o, p), particle_layout(
+                    self._coords_dev, self.ParticleSnapshot.L, o, p)))
+            shards[n_shards] = out
+        return shards[n_shards]
 
 
 class BaryonifySnapshot(DefaultRunnerSnapshot):
@@ -166,7 +201,9 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         clock = _PhaseClock(self.device)
         snap = self.ParticleSnapshot
         L = snap.L
-        acc = snapshot_displace(*self._displace_inputs(clock))
+        args = self._displace_inputs(clock)
+        acc = self._sharded_displace(args,
+                                     check_mesh(self.mesh, self.device))
         clock.mark("displace")
         off = acc.cpu().numpy()
         clock.mark("download")
@@ -182,6 +219,28 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
         for d_i, c in enumerate(["x", "y"] if snap.is2D else ["x", "y", "z"]):
             new_cat[c] = pos[:, d_i]
         return new_cat
+
+    def _sharded_displace(self, args, mesh):
+        """K17 on each shard's rows (:meth:`_shard_pairs`), into its own
+        offsets on its device, summed in shard order; without a mesh
+        (``mesh`` None), on every pair at once."""
+        (coords, hpos, _, _, _, curves, ln_r0, dlnr, rscale, edge, L,
+         _) = args
+        shards = self._shard_pairs(hpos.shape[0],
+                                   1 if mesh is None else len(mesh))
+
+        def work(i, idx, dev):
+            if shards[i] is None:
+                return (None,)
+            (halos, offsets, parts), layout = to_device(shards[i], dev)
+            return (snapshot_displace(
+                *to_device((coords, hpos, halos, offsets, parts, curves),
+                           dev), ln_r0, dlnr,
+                *to_device((rscale, edge), dev), L, layout),)
+        acc = sharded_sum(mesh, self.device, hpos.shape[0], work)[0]
+        return (torch.zeros((coords.shape[1], coords.shape[0]),
+                            dtype=curves.dtype, device=self.device)
+                if acc is None else acc)
 
     def _displace_inputs(self, clock):
         """The host prep, the neighbour pairs with their particle-major

@@ -5,7 +5,7 @@ slice by slice to PyTorch, with the TPU's hand-shaped device programs
 rewritten as CUDA kernels for Hopper (sm_90a) under ``csrc/``, each with a
 plain PyTorch version beside it. It imports torch and numpy, never jax.
 
-Ported so far (ROADMAP.md lists the rest):
+Ported (ROADMAP.md lists what remains: runner behaviour, not modules):
   cosmo/      background, distances, growth, linear power, sigma(M),
               xi(r), mass definitions, concentrations (float64)
   ops/        HEALPix geometry and the sky tiling; integration and
@@ -29,10 +29,20 @@ Ported so far (ROADMAP.md lists the rest):
               path; PaintProfilesShell and PaintProfilesAnisShell: the
               tiled paint (default) and the disc paint; the grid runners
               BaryonifyGrid, PaintProfilesGrid and PaintProfilesAnisGrid;
-              the particle snapshot runner BaryonifySnapshot
-  utils/      constants, io containers, tabulated profiles, pixel windows,
-              spherical-harmonic analysis (sht), JAX-object conversion, the
-              root finder and FFTLog merge rules (misc)
+              the particle snapshot runner BaryonifySnapshot; each takes a
+              halo ``mesh`` (shards summed in order)
+  utils/      constants, io containers and FITS shells (fitsio), tabulated
+              profiles and TabulatedCorrelation3D, pixel windows, profile
+              memoization (Cache), spherical-harmonic analysis (sht), the
+              halo model (halomodel), JAX-object conversion (convert), the
+              root finder, FFTLog merge rules and timing helpers (misc,
+              debug), the S19 validation pipelines (validation: ``python
+              -m baryonforge_torch.utils.validation --out FILE`` writes the
+              port's rows in PARITY.json's layout)
+  parallel/   halo_mesh, SimpleParallel (runners from threads, a CUDA
+              stream each) and SplitJoinParallel (a runner with a mesh)
+
+Every module of the JAX package has its counterpart here.
 """
 
 from . import cosmo
@@ -40,6 +50,7 @@ from . import ops
 from . import utils
 from . import Profiles
 from . import Runners
+from . import parallel
 from .utils.io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
                        GriddedMap, ParticleSnapshot)
 from .Profiles import *       # noqa: F401,F403

@@ -3,7 +3,7 @@ distances, growth, linear power, mass definitions, concentrations."""
 
 from .core import (Cosmology, Eofa, hubble_Ha, rho_crit, rho_x,
                    comoving_radial_distance, angular_diameter_distance,
-                   growth_factor, cosmology_from_dict)
+                   growth_factor, cosmology_from_dict, build_cosmodict)
 from .power import (linear_power, sigmaR, sigmaM, correlation_3d,
                     lagrangian_radius, pk_grid, dlnP_dlnk,
                     transfer_eh98, transfer_eh98_nowiggle, transfer_bbks)

@@ -16,7 +16,7 @@ from ..utils import constants as const
 
 __all__ = ["Cosmology", "Eofa", "hubble_Ha", "rho_crit", "rho_x",
            "comoving_radial_distance", "angular_diameter_distance",
-           "growth_factor", "cosmology_from_dict"]
+           "growth_factor", "cosmology_from_dict", "build_cosmodict"]
 
 
 @dataclass(frozen=True)
@@ -64,6 +64,13 @@ def cosmology_from_dict(d):
                      h=float(d["h"]), sigma8=float(d["sigma8"]),
                      n_s=float(d["n_s"]), w0=float(d.get("w0", -1.0)),
                      wa=float(d.get("wa", 0.0)))
+
+
+def build_cosmodict(cosmo):
+    """Cosmology -> plain dict (reference utils/misc.py:187-237 analog);
+    ``cosmology_from_dict`` of it gives the cosmology back."""
+    return dict(Omega_m=cosmo.Omega_m, Omega_b=cosmo.Omega_b, h=cosmo.h,
+                sigma8=cosmo.sigma8, n_s=cosmo.n_s, w0=cosmo.w0, wa=cosmo.wa)
 
 
 def _f64(a):

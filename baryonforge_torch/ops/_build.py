@@ -22,8 +22,9 @@ check kernel ``pixel_angles``),
 ``ops/scatter.py`` (K16
 ``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``) and
 ``ops/sht.py`` (K18 ``ring_modes``, K19 ``legendre_alm``); each wrapper
-adds one right where it launches its kernel, so a run can show that its
-main path went through the kernels.
+adds one right where it launches its kernel (``count``, under a lock: the
+runners of ``parallel.SimpleParallel`` launch from several threads), so a
+run can show that its main path went through the kernels.
 """
 
 import collections
@@ -33,11 +34,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["build", "library", "launches", "reset_launches", "check",
+__all__ = ["build", "library", "launches", "count", "reset_launches",
+           "check",
            "stream_of", "ptr", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -123,10 +126,19 @@ def _signatures():
 _SIGNATURES = _signatures()
 
 _lib = None
+_lock = threading.Lock()
+_build_lock = threading.Lock()
+
+
+def count(name):
+    """Add one launch of entry point ``name`` to ``launches``."""
+    with _lock:
+        launches[name] += 1
 
 
 def reset_launches():
-    launches.clear()
+    with _lock:
+        launches.clear()
 
 
 def _nvcc():
@@ -191,13 +203,16 @@ def build():
 def library():
     """The loaded kernel library (built at first use)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _build_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

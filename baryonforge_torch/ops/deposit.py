@@ -304,5 +304,5 @@ def disc_deposit(nside, halos, curves, ln_r0, dlnr, eps_max):
                  _build.ptr(curves), n_r, float(ln_r0), float(dlnr),
                  float(eps_max), _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, "disc_deposit")
-    _build.launches["disc_deposit"] += 1
+    _build.count("disc_deposit")
     return acc

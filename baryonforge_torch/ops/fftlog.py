@@ -216,7 +216,7 @@ def _fht_kernel(x, a, mu, q, ln_kcrc, smem_bytes=None):
             None if scratch is None else _build.ptr(scratch),
             _build.ptr(k), _build.ptr(out), _build.stream_of(rows))
     _build.check(err, "fht")
-    _build.launches["fht"] += 1
+    _build.count("fht")
     return k, out
 
 

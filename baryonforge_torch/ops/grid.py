@@ -195,7 +195,7 @@ def _tile_pairs_kernel(npix, Ns, res, halos, h0, m, K):
             int(halos.get("rmat") is None), _build.ptr(key),
             _build.ptr(own), _build.stream_of(key))
     _build.check(err, "tile_pairs")
-    _build.launches["tile_pairs"] += 1
+    _build.count("tile_pairs")
     return key, own
 
 
@@ -363,5 +363,5 @@ def _grid_cutout_kernel(mode, npix, Ns, res, halos, curve, acc, curve2, a,
                  int(c2[3]), a, ptr(mtot), ptr(orig), ptr(acc),
                  _build.stream_of(acc))
     _build.check(err, "grid_cutout")
-    _build.launches["grid_cutout"] += 1
+    _build.count("grid_cutout")
     return acc

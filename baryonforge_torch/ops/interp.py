@@ -13,11 +13,16 @@ per-halo step.
 import copy
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
 
 from . import _build
+
+# guards the casts kept on the models and their CurveTables (cast_copy,
+# curve_table): runner threads may share a model
+_cast_lock = threading.RLock()
 
 __all__ = ["searchsorted_right", "pchip_derivatives", "pchip_eval",
            "pchip_interp", "masked_pchip_interp", "spline_system",
@@ -497,6 +502,7 @@ class CurveTable:
         self._axes_c.n = len(self._grids)
         self._axes_c.nr = table.shape[r_axis]
         self._halos_c = _CurveHalos()
+        self._lock = threading.Lock()
         self._device = table.device.index
         lib = _build.library()
         self._fn = (lib.bf_collapse_curves_f32 if dt == torch.float32
@@ -521,12 +527,19 @@ class CurveTable:
             curves = collapse_curves_plain(self.table, self.axes, self.r_axis,
                                            M, a, self.p_keys, kwargs, fill)[0]
             return curves, self.ln_r0, self.dlnr
+        if n * self._axes_c.nr >= 2 ** 31:
+            raise ValueError("collapse_curves: n_halos x n_r must stay "
+                             "below 2^31 (int32 index math)")
+        with self._lock:
+            return self._collapse(values, n, fill)
+
+    def _collapse(self, values, n, fill):
+        """:meth:`collapse` on the card, under the table's lock: the call
+        fills the table's one ``CurveHalos`` and launches on it, and runner
+        threads (``parallel.SimpleParallel``) may share a model."""
         table = self._table
         dt, dev = table.dtype, table.device
         nr = self._axes_c.nr
-        if n * nr >= 2 ** 31:
-            raise ValueError("collapse_curves: n_halos x n_r must stay "
-                             "below 2^31 (int32 index math)")
         hs = self._halos_c
         host, keep = [], []
         for d, v in enumerate(values):
@@ -560,7 +573,7 @@ class CurveTable:
             else:
                 err = self._launch(n, fill, out)
             _build.check(err, "collapse_curves")
-            _build.launches["collapse_curves"] += 1
+            _build.count("collapse_curves")
         return out, self.ln_r0, self.dlnr
 
     def _launch(self, n, fill, out):
@@ -599,14 +612,19 @@ def cast_copy(model, names, dtype, device):
     device), with the K1 set-ups made on them (:func:`curve_table`), and
     made anew once any of those attributes is another object (a table
     rebuilt by ``setup_interpolator`` or ``load_table``)."""
-    casts = model.__dict__.setdefault("_casts", {})
-    src = {k: getattr(model, k) for k in names}
-    hit = casts.get((dtype, device))
-    if hit is None or any(v is not hit[0][k] for k, v in src.items()):
-        cast = {k: tuple(x.to(device=device, dtype=dtype) for x in v)
-                if isinstance(v, tuple) else v.to(device=device, dtype=dtype)
-                for k, v in src.items()}
-        hit = casts[(dtype, device)] = (src, cast, {})
+    with _cast_lock:
+        casts = model.__dict__.setdefault("_casts", {})
+        src = {k: getattr(model, k) for k in names}
+        hit = casts.get((dtype, device))
+        if hit is None or any(v is not hit[0][k] for k, v in src.items()):
+            cast = {k: tuple(x.to(device=device, dtype=dtype) for x in v)
+                    if isinstance(v, tuple)
+                    else v.to(device=device, dtype=dtype)
+                    for k, v in src.items()}
+            if device.type == "cuda":
+                # complete before another thread's stream can read them
+                torch.cuda.current_stream(device).synchronize()
+            hit = casts[(dtype, device)] = (src, cast, {})
     new = copy.copy(model)
     new.__dict__.update(hit[1])
     return new
@@ -620,12 +638,15 @@ def curve_table(model, name):
     tables, float64 on the CPU, where the set-up is the plain version's)
     it is set up anew."""
     table, axes = getattr(model, name), model._axes
-    for src, cast, tables in model.__dict__.get("_casts", {}).values():
-        if cast.get(name) is table and cast.get("_axes") is axes:
-            if name not in tables:
-                tables[name] = CurveTable(table, axes, 2, model.p_keys,
-                                          ln_r=src["_axes"][2].to(table.dtype))
-            return tables[name]
+    with _cast_lock:
+        for src, cast, tables in list(model.__dict__.get("_casts",
+                                                         {}).values()):
+            if cast.get(name) is table and cast.get("_axes") is axes:
+                if name not in tables:
+                    tables[name] = CurveTable(
+                        table, axes, 2, model.p_keys,
+                        ln_r=src["_axes"][2].to(table.dtype))
+                return tables[name]
     return CurveTable(table, axes, 2, model.p_keys)
 
 

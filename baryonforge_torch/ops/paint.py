@@ -256,7 +256,7 @@ def disc_paint(nside, halos, curves, ln_r0, dlnr, log_curves,
                  int(bool(pixel_size)), hpx.nside2pixarea(nside),
                  _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, "disc_paint")
-    _build.launches["disc_paint"] += 1
+    _build.count("disc_paint")
     return acc
 
 
@@ -375,7 +375,7 @@ def disc_paint_anis(nside, halos, painting, canvas, mtot, orig,
                  hpx.nside2pixarea(nside), _build.ptr(acc),
                  _build.stream_of(acc))
     _build.check(err, "disc_paint_anis")
-    _build.launches["disc_paint_anis"] += 1
+    _build.count("disc_paint_anis")
     return acc
 
 
@@ -422,7 +422,7 @@ def pixel_angles(nside, dtype, device, per_ring=True):
         err = fn(nside, int(bool(per_ring)), _build.ptr(theta),
                  _build.ptr(phi), _build.stream_of(theta))
     _build.check(err, "pixel_angles")
-    _build.launches["pixel_angles"] += 1
+    _build.count("pixel_angles")
     return theta, phi
 
 
@@ -484,5 +484,5 @@ def anis_finish(halo_sum, mtot, orig, add, bgw, scale=1.0, tiled=False):
                  float(add), float(bgw), float(scale), int(bool(tiled)),
                  _build.ptr(out), _build.stream_of(out))
     _build.check(err, "anis_finish")
-    _build.launches["anis_finish"] += 1
+    _build.count("anis_finish")
     return out

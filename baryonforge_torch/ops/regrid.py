@@ -133,7 +133,7 @@ def _launch(nside, po, orig, scratch, out):
         err = fn(nside, _build.ptr(po), _build.ptr(orig), _build.ptr(scratch),
                  _build.ptr(out), _build.stream_of(out))
     _build.check(err, "regrid")
-    _build.launches["regrid"] += 1
+    _build.count("regrid")
 
 
 def _sfx(dt):

@@ -215,5 +215,5 @@ def grid_deposit(offsets, orig, npix, ndim):
                  _build.ptr(orig.contiguous()), _build.ptr(out),
                  _build.stream_of(out))
     _build.check(err, "grid_deposit")
-    _build.launches["grid_deposit"] += 1
+    _build.count("grid_deposit")
     return out

@@ -211,7 +211,7 @@ def _ring_modes_kernel(hmap, nside, lmax, smem_bytes=None):
             _build.ptr(scratch) if slots else None, _build.ptr(Fr),
             _build.ptr(Fi), _build.stream_of(Fr))
     _build.check(err, "ring_modes")
-    _build.launches["ring_modes"] += 1
+    _build.count("ring_modes")
     return Fr, Fi
 
 
@@ -357,5 +357,5 @@ def legendre_alm(z, Fr, Fi, lmax):
             _build.ptr(chains), _build.ptr(logfac), _build.ptr(alm_r),
             _build.ptr(alm_i), _build.stream_of(alm_r))
     _build.check(err, "legendre_alm")
-    _build.launches["legendre_alm"] += 1
+    _build.count("legendre_alm")
     return alm_r, alm_i

@@ -243,5 +243,5 @@ def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
                  *[_build.ptr(x) for x in args], n_r, float(ln_r0),
                  float(dlnr), _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, "snapshot_displace")
-    _build.launches["snapshot_displace"] += 1
+    _build.count("snapshot_displace")
     return acc

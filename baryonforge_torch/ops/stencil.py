@@ -144,7 +144,7 @@ def hot_tiles(acc, tables):
                  _build.ptr(tables["D_geom"]), _build.ptr(excl),
                  _build.stream_of(acc))
     _build.check(err, "stencil_hot")
-    _build.launches["stencil_hot"] += 1
+    _build.count("stencil_hot")
     return excl
 
 
@@ -369,7 +369,7 @@ def stencil_regrid(tiling, tables, po_tiled, orig_tiled, excl):
                  _build.ptr(excl.contiguous()), _build.ptr(out),
                  _build.stream_of(out))
     _build.check(err, "stencil")
-    _build.launches["stencil"] += 1
+    _build.count("stencil")
     return out
 
 
@@ -454,7 +454,7 @@ def stencil_geo(tiling, tables, rdt):
                  _build.ptr(arr["tile_S"]), _build.ptr(sf), _build.ptr(pix),
                  _build.ptr(rows), _build.stream_of(sf))
     _build.check(err, "stencil_geo")
-    _build.launches["stencil_geo"] += 1
+    _build.count("stencil_geo")
     return sf, pix, rows
 
 
@@ -529,5 +529,5 @@ def stencil_complement(tiling, out, acc, orig_tiled, geo, hot_ids):
                  _build.ptr(acc), _build.ptr(og), _build.ptr(out),
                  _build.stream_of(out))
     _build.check(err, "stencil_complement")
-    _build.launches["stencil_complement"] += 1
+    _build.count("stencil_complement")
     return out

@@ -126,7 +126,7 @@ def enclosed_mass(intgd, dens, lnr_int, lnr_out):
                 _build.ptr(lnr_int), _build.ptr(lnr_out), _build.ptr(out),
                 _build.stream_of(intgd))
         _build.check(err, "enclosed_mass")
-        _build.launches["enclosed_mass"] += 1
+        _build.count("enclosed_mass")
     return out
 
 
@@ -156,7 +156,7 @@ def displacement_rows(lnr, M_DMO, M_DMB):
                 B, n, _build.ptr(M_DMO), _build.ptr(M_DMB), _build.ptr(lnr),
                 _build.ptr(out), _build.stream_of(lnr))
         _build.check(err, "displacement_rows")
-        _build.launches["displacement_rows"] += 1
+        _build.count("displacement_rows")
     return out
 
 
@@ -190,5 +190,5 @@ def displacement_table(intgd_o, dens_o, intgd_b, dens_b, lnr_int, lnr):
                 B, n, lnr.numel(), *(_build.ptr(t) for t in ts),
                 _build.ptr(out), _build.stream_of(out))
         _build.check(err, "table_rows")
-        _build.launches["table_rows"] += 1
+        _build.count("table_rows")
     return out

@@ -409,4 +409,4 @@ def _launch(name, tiling, csr, pack, keys, ln_r0, inv_dlnr, extra, acc,
                  pack["curves"].shape[1], float(ln_r0), float(inv_dlnr),
                  *extra, _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, name)
-    _build.launches[name] += 1
+    _build.count(name)

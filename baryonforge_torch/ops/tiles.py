@@ -414,7 +414,7 @@ class SkyTiling:
                      _build.ptr(arr["tile_S"]), C, _build.ptr(src),
                      _build.ptr(out), _build.stream_of(src))
         _build.check(err, name)
-        _build.launches[name] += 1
+        _build.count(name)
 
 
 def _ring_theta_np(N, i):

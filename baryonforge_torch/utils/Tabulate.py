@@ -7,7 +7,9 @@ interpolation, or as per-halo radial curves for the runners
 (``halo_curves``: kernel K1 on CUDA). The table is built on the device
 given to the constructor ("cuda" by default; it raises there without a
 card), and kept on the CPU in float64; :meth:`with_dtype` makes the copy a
-runner reads on its device. ``TabulatedCorrelation3D`` is not ported yet.
+runner reads on its device. ``TabulatedCorrelation3D`` tabulates the
+linear matter correlation on a (z, ln r) grid for the two-halo ``xi_mm``
+hook, one ``correlation_3d`` call (kernel K8 on CUDA) a redshift.
 """
 
 from itertools import product
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["_set_parameter", "_get_parameter", "TabulatedProfile",
-           "ParamTabulatedProfile"]
+           "ParamTabulatedProfile", "TabulatedCorrelation3D"]
 
 
 def _walk_profiles(obj, seen=None):
@@ -281,3 +283,76 @@ class ParamTabulatedProfile(_Tabulated):
         range)."""
         from ..Profiles.BaryonCorrection import BaryonificationClass
         return BaryonificationClass.curve_lookup(curve, ln_r0, dlnr, r)
+
+
+class TabulatedCorrelation3D:
+    """(z, ln r) table of the linear matter correlation, for the TwoHalo
+    ``xi_mm`` hook (reference Tabulate.py:733-785; JAX
+    ``utils/Tabulate.py:324-346``).
+
+    The table is built on ``device`` ("cuda" by default; it raises there
+    without a card): one ``cosmo.correlation_3d`` call a redshift, each an
+    FFTLog transform (kernel K8 on CUDA), kept in float64 on that device.
+    A call ``xi(r, a)`` reads it by multilinear interpolation in (z, ln r),
+    0 outside the table, and returns a float64 tensor on the device of
+    ``r`` (a tensor's, else the table's): the port's ``TwoHalo`` calls it
+    on its radii's device. The table is copied to another device once, at
+    its first call there."""
+
+    def __init__(self, cosmo, R_range=(1e-3, 3e2), N_samples_R=500,
+                 z_range=(0.0, 6.0), N_samples_z=40, device="cuda"):
+        from ..cosmo import correlation_3d
+        dev = self._device(device)
+        r = np.geomspace(R_range[0], R_range[1], N_samples_R)
+        z = np.linspace(z_range[0], z_range[1], N_samples_z)
+        r_t = torch.as_tensor(r, device=dev)
+        tab = torch.stack([correlation_3d(cosmo, r_t, a=1.0 / (1 + zj))
+                           for zj in z])
+        self._set(torch.as_tensor(z, device=dev),
+                  torch.as_tensor(np.log(r), device=dev), tab)
+
+    @staticmethod
+    def _device(device):
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TabulatedCorrelation3D: device='cuda' but "
+                               "CUDA is not available; pass device='cpu'")
+        return dev
+
+    @classmethod
+    def from_arrays(cls, z, lnr, tab, device="cuda"):
+        """The table from its arrays (z (Nz,), ln r (Nr,), xi (Nz, Nr)),
+        as float64 on ``device``: ``utils.convert`` carries a JAX table
+        across this way (to the CPU)."""
+        dev = cls._device(device)
+        new = object.__new__(cls)
+        new._set(*(torch.as_tensor(np.array(x, dtype=np.float64),
+                                   device=dev) for x in (z, lnr, tab)))
+        return new
+
+    def _set(self, z, lnr, tab):
+        self._z, self._lnr, self._tab = z, lnr, tab
+        self._copies = {z.device: (z, lnr, tab)}
+
+    def _on(self, device):
+        """(z, ln r, table) on ``device``, copied there at first use."""
+        if device not in self._copies:
+            # another thread may copy it too: the first copy stored is kept
+            self._copies.setdefault(device, tuple(
+                x.to(device) for x in (self._z, self._lnr, self._tab)))
+        return self._copies[device]
+
+    def __call__(self, r, a):
+        from ..ops.interp import multilinear_interp
+        if isinstance(r, torch.Tensor):
+            r = r.to(torch.float64)
+        else:
+            r = torch.as_tensor(np.asarray(r, dtype=np.float64),
+                                device=self._tab.device)
+        z_ax, lnr_ax, tab = self._on(r.device)
+        a = torch.as_tensor(a, dtype=torch.float64).to(r.device)
+        z = 1.0 / a - 1.0
+        pts = torch.stack([torch.broadcast_to(z, r.shape).reshape(-1),
+                           torch.log(r).reshape(-1)], dim=1)
+        out = multilinear_interp((z_ax, lnr_ax), tab, pts, fill_value=0.0)
+        return out.reshape(r.shape)

@@ -84,6 +84,11 @@ def _is_jax_profile(v):
         and not isinstance(v, _base.Profile)
 
 
+def _is_jax_correlation_table(v):
+    return type(v).__name__ == "TabulatedCorrelation3D" and \
+        not isinstance(v, _tabulate.TabulatedCorrelation3D)
+
+
 def _value(v, memo):
     """One attribute value of a JAX-package object, in the port's terms;
     ``memo`` maps the ids of profiles converted so far to their
@@ -100,6 +105,10 @@ def _value(v, memo):
     if hasattr(v, "_concentration") or hasattr(v, "base") and \
             hasattr(v, "n_grid"):
         return _concentration(v)
+    if _is_jax_correlation_table(v):
+        return _tabulate.TabulatedCorrelation3D.from_arrays(
+            np.asarray(v._z), np.asarray(v._lnr), np.asarray(v._tab),
+            device="cpu")
     if isinstance(v, dict):
         return {k: _value(x, memo) for k, x in v.items()}
     if type(v).__module__.split(".")[0] in ("jax", "jaxlib"):
@@ -125,8 +134,10 @@ def profile_from_jax(prof, memo=None):
     combined profile built from them): same
     class, every attribute carried across, sub-profiles converted
     recursively. A ConvolvedProfile converts with its profile and pixel
-    window. A user ``xi_mm`` hook is not carried (it would be a JAX
-    callable): such a profile raises."""
+    window. An ``xi_mm`` hook that is a JAX ``TabulatedCorrelation3D``
+    is carried by its table arrays (the port's table, on the CPU: a call
+    copies it to its radii's device); any other hook would be a JAX
+    callable, and such a profile raises."""
     memo = {} if memo is None else memo
     if id(prof) in memo:
         return memo[id(prof)]
@@ -143,9 +154,11 @@ def profile_from_jax(prof, memo=None):
         if module is None:
             raise NotImplementedError(f"profile class {name} is not ported")
         cls = _port_class(prof, module, "profile class")
-    if getattr(prof, "xi_mm", None) is not None:
-        raise NotImplementedError("profile_from_jax: an xi_mm hook cannot "
-                                  "be carried across")
+    hook = getattr(prof, "xi_mm", None)
+    if hook is not None and not _is_jax_correlation_table(hook):
+        raise NotImplementedError("profile_from_jax: an xi_mm hook other "
+                                  "than a TabulatedCorrelation3D cannot be "
+                                  "carried across")
     new = object.__new__(cls)
     memo[id(prof)] = new
     for k, v in vars(prof).items():

@@ -110,12 +110,12 @@ class LightconeShell:
     def __init__(self, map=None, cosmo=None, redshift=None, path=None):
         if map is None and path is not None:
             if str(path).lower().endswith((".fits", ".fit", ".fits.gz")):
-                raise NotImplementedError(
-                    "FITS shells are not ported yet (ROADMAP Queue 1 item "
-                    "14, utils/fitsio); load the map and pass map=")
-            map = np.load(path)
+                from .fitsio import read_healpix_fits
+                map = read_healpix_fits(path)
+            else:
+                map = np.load(path)
         if map is None:
-            raise ValueError("provide map array (or path to .npy)")
+            raise ValueError("provide map array (or path to .npy / .fits)")
         self.map = np.asarray(map, dtype=np.float64)
         nside = int(np.sqrt(self.map.size / 12))
         if 12 * nside * nside != self.map.size:

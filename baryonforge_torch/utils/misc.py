@@ -1,6 +1,9 @@
-"""Support helpers (the part of ``baryonforge_tpu.utils.misc`` the profiles
-need): the robust near-zero root finder and the FFTLog precision merge of
-profile algebra."""
+"""Support helpers (port of ``baryonforge_tpu.utils.misc``): the robust
+near-zero root finder, the FFTLog precision merge of profile algebra, the
+pickling helper (``destory_Pk``: the port's Cosmology is a frozen
+dataclass of numbers, always pickleable, so it is a no-op kept for API
+parity), the cosmology-to-dict conversion and the ``log_time`` timing
+decorator."""
 
 import math
 import warnings
@@ -9,7 +12,8 @@ import torch
 
 from ..ops.interp import pchip_derivatives, pchip_eval
 
-__all__ = ["safe_Pchip_minimize", "combine_fftpars"]
+__all__ = ["safe_Pchip_minimize", "destory_Pk", "destroy_Pk",
+           "build_cosmodict", "combine_fftpars", "log_time"]
 
 
 def safe_Pchip_minimize(y, x, n_window=5):
@@ -52,6 +56,23 @@ def safe_Pchip_minimize(y, x, n_window=5):
     return torch.where(has_root, root, fallback)
 
 
+def destory_Pk(cosmo):
+    """API-parity no-op: the port's Cosmology is a frozen dataclass of
+    numbers, always pickleable (the reference strips SwigPyObject P(k)
+    caches, utils/misc.py:157-184)."""
+    return cosmo
+
+
+destroy_Pk = destory_Pk
+
+
+def build_cosmodict(cosmo):
+    """Cosmology -> the reference-style cosmo dict
+    (``cosmo.core.build_cosmodict``)."""
+    from ..cosmo.core import build_cosmodict as _b
+    return _b(cosmo)
+
+
 # merge rules per FFT-precision parameter (reference utils/misc.py:261-336)
 _FFT_PRECISION_LOGIC = {
     "plaw_fourier": min,
@@ -76,3 +97,33 @@ def combine_fftpars(pars_a, pars_b):
             warnings.warn(f"FFT parameter {k} is None in one operand; "
                           "keeping the defined value")
     return out
+
+
+def log_time(fn=None, logger=print):
+    """Decorator injecting a ``log_line_time(tag)`` checkpoint callback that
+    prints the wall time since the call began (reference utils/debug.py:
+    6-74 analog). Host clock: a checkpoint after queued CUDA work measures
+    its launch, not its run, unless the caller synchronizes first."""
+    import functools
+    import time
+
+    def deco(f):
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            marks = []
+
+            def log_line_time(tag):
+                marks.append((tag, time.perf_counter() - t0))
+                logger(f"[log_time] {f.__name__}:{tag} "
+                       f"+{marks[-1][1]:.3f}s")
+
+            kwargs.setdefault("log_line_time", log_line_time)
+            try:
+                return f(*args, **kwargs)
+            except TypeError:
+                kwargs.pop("log_line_time", None)
+                return f(*args, **kwargs)
+        return wrapper
+
+    return deco(fn) if fn is not None else deco

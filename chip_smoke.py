@@ -191,7 +191,25 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      baryonification and the two anafast calls (lmax 3071) on the card,
      with the launch counts set to 0 just before and read just after; prints
      the four band ratios and the phases;
- 18. prints the registers, spills and resident warps of K1's, K3's, K4's
+ 18. runs the last modules at full width: the S19 validation pipelines of
+     baryonforge_torch/utils/validation.py, each with the launch counts set
+     to 0 just before and read just after, every row printed beside
+     PARITY.json's (the JAX package's) and held to the JAX tests' bounds:
+     limber_shell_run at NSIDE 256 and 512 (93,369 halos expected;
+     tests/test_deltacl.py), deltapk_s19_residuals on the 256^3 s19_box
+     (tests/test_deltapk_golden.py:57-59) and tiled_vs_scatter_residual(
+     64, 300) under 0.02; TabulatedCorrelation3D at its defaults (40 x
+     500) built on the card against the CPU's (1e-9 of max |xi|) and as
+     the xi_mm hook of the bench table (against the card's direct build,
+     within HOOK_BOUND of max |d|: the table's interpolation error);
+     halomodel_power card vs CPU (1e-9); every runner kind with
+     halo_mesh(4, "cuda") against none at the bench configuration (the
+     shell's two engines, the tiled tSZ paint, the float64 anisotropic
+     paint both ways, BaryonifyGrid on the 256^3 map, the snapshot bench),
+     SplitJoinParallel on the scatter tSZ paint, SimpleParallel of four
+     bench shells against the same in sequence (both timed), and a FITS
+     shell through LightconeShell(path=...);
+ 19. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
      K16's, K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
      line with each kernel's launches, error, times, bound and
@@ -2807,7 +2825,7 @@ def snapshot_bench(bf, torch, gpu):
         f"ms), plain {plain_ms:.3f} ms, index_add_ {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     return launches, {"snapshot_displace": (err, ms, plain_ms, b_ms, b_by,
-                                            library_ms)}
+                                            library_ms)}, (model, cat, snap)
 
 
 def rfft_per_ring(torch, hmap, nside):
@@ -3165,6 +3183,420 @@ def ptxas_report(bf):
             key = None
 
 
+# -- the last modules: validation, the correlation hook, the halo
+# model, meshes and the parallel front-ends, FITS shells ------------------
+PARITY = os.path.join(HERE, "PARITY.json")
+MESH_SHARDS = 4         # halo_mesh(4, device="cuda"): four shards of one card
+PAR_SHELLS = 4          # SimpleParallel's shells
+MESH_CALLS = 3          # timed calls of each runner with and without a mesh
+# the hook's table is an interpolation (40 z x 500 ln r, linear in z over
+# steps of 0.15 of D^2(z), 0 outside 1e-3-300 Mpc): a build with it differs
+# from the direct correlation_3d build by ~1e-3 of max |d| (a CPU build of
+# the small grid: 9.7e-4)
+HOOK_BOUND = 2e-3
+
+
+def timed(torch, fn):
+    """(result, host-clock seconds of ``fn()`` with the card synchronized
+    before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def require(launches, kernels, label):
+    missing = [k for k in kernels if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}: {launches}")
+
+
+def parity_row(gpu, label, got, ref):
+    log(f"[{gpu}] {label}: torch ratio {got['ratio']:.4f} (resid "
+        f"{got['resid']:+.4f}), PARITY.json's JAX row {ref['ratio']:.4f} "
+        f"(resid {ref['resid']:+.4f}), torch - JAX "
+        f"{got['ratio'] - ref['ratio']:+.4f}; Fig. 2 {got['fig2']:.4f}")
+
+
+def validation_paths(bf, torch, gpu):
+    """The S19 validation pipelines of utils/validation.py at full width on
+    the card, each with the launch counts set to 0 just before and read
+    just after, every row printed beside PARITY.json's (the JAX package's,
+    written on a CPU by tools/parity.py) and held to the JAX tests' bounds:
+    limber_shell_run at NSIDE 256 and 512 (tests/test_deltacl.py:80-127:
+    |resid| < 0.07, |lo_band - 1| < 0.03, the NSIDE 512 k = 1.4 row under
+    0.0381), deltapk_s19_residuals on the 256^3 s19_box
+    (tests/test_deltapk_golden.py:46-59: |resid| < 0.07, the Mc4e14 ratio
+    at k = 3 below the Mc1e14 one by more than 0.02), and
+    tiled_vs_scatter_residual(64, 300) under 0.02
+    (tests/test_tiled_deposit.py:53-63). Returns the launches by path."""
+    from baryonforge_torch.ops import _build
+    from baryonforge_torch.utils import validation as V
+    with open(PARITY) as f:
+        ref = json.load(f)
+    launches = {}
+    for key, nside in (("deltacl_limber", 256),
+                       ("deltacl_limber_nside512", 512)):
+        ph = {}
+        _build.reset_launches()
+        res, sec = timed(torch, lambda: V.limber_shell_run(
+            nside=nside, device=DEVICE, timings=ph))
+        lk = dict(_build.launches)
+        launches[f"limber{nside}"] = lk
+        require(lk, ("collapse_curves", "tile_paint", "flat_view", "fht",
+                     "table_rows", "tile_deposit", "stencil_hot", "stencil",
+                     "stencil_complement", "ring_modes", "legendre_alm"),
+                f"limber_shell_run(nside={nside})")
+        j = ref[key]
+        log(f"[{gpu}] limber_shell_run(nside={nside}): {sec * 1e3:.1f} ms "
+            f"wall; phases (ms, host clock, synchronized): " + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in ph.items())
+            + f"; n_halos {res['meta']['n_halos']} (PARITY.json "
+            f"{j['meta']['n_halos']}), chi_bar {res['meta']['chi_bar']}, "
+            f"lmax {res['meta']['lmax']}; launches {lk}")
+        log(f"[{gpu}] limber NSIDE {nside} lo_band (ell 2-20): torch "
+            f"{res['lo_band']:.4f}, JAX {j['lo_band']:.4f}")
+        if not abs(res["lo_band"] - 1) < 0.03:
+            raise AssertionError(f"limber NSIDE {nside}: lo_band {res}")
+        for got, want in zip(res["rows"], j["rows"]):
+            parity_row(gpu, f"limber NSIDE {nside} k={got['k_h']} "
+                       f"(ell {got['ell']})", got, want)
+            if not abs(got["resid"]) < 0.07:
+                raise AssertionError(f"limber NSIDE {nside}: {got}")
+        if nside == 512:
+            r14 = next(r for r in res["rows"] if r["k_h"] == 1.4)
+            if not abs(r14["resid"]) < 0.0381:
+                raise AssertionError(f"limber NSIDE 512 k=1.4: {r14}")
+
+    ph = {}
+    _build.reset_launches()
+    box, t_box = timed(torch, lambda: V.s19_box(device=DEVICE))
+    rows, t_pk = timed(torch, lambda: V.deltapk_s19_residuals(
+        box=box, device=DEVICE, timings=ph))
+    lk = dict(_build.launches)
+    launches["deltapk"] = lk
+    require(lk, ("collapse_curves", "grid_cutout", "tile_pairs",
+                 "grid_deposit", "fht", "table_rows"),
+            "deltapk_s19_residuals")
+    log(f"[{gpu}] s19_box (256^3, {len(box[0].cat)} halos): "
+        f"{t_box * 1e3:.1f} ms; deltapk_s19_residuals: {t_pk * 1e3:.1f} ms "
+        "(per M_c, ms: " + "; ".join(
+            f"{k} " + ", ".join(f"{v * 1e3:.1f}" for v in vs)
+            for k, vs in ph.items()) + f"); launches {lk}")
+    got = {}
+    for row, want in zip(rows, ref["deltapk_s19"]["rows"]):
+        parity_row(gpu, f"deltaPk {row['curve']} k={row['k_h']}", row, want)
+        got[(row["curve"], row["k_h"])] = row["ratio"]
+        if not abs(row["resid"]) < 0.07:
+            raise AssertionError(f"deltaPk: {row}")
+    if not got[("Mc4e14", 3.0)] < got[("Mc1e14", 3.0)] - 0.02:
+        raise AssertionError(f"deltaPk: no deepening with M_c: {got}")
+
+    _build.reset_launches()
+    res, sec = timed(torch, lambda: V.tiled_vs_scatter_residual(
+        64, 300, device=DEVICE))
+    lk = dict(_build.launches)
+    launches["tiled_vs_scatter"] = lk
+    require(lk, ("collapse_curves", "tile_deposit", "flat_view", "regrid",
+                 "disc_deposit"), "tiled_vs_scatter_residual")
+    j = ref["tiled_vs_scatter"]["max_rel_residual"]
+    log(f"[{gpu}] tiled_vs_scatter_residual(64, 300): torch "
+        f"{res['max_rel_residual']:.3e}, PARITY.json (JAX) {j:.3e}, "
+        f"{sec * 1e3:.1f} ms")
+    if not res["max_rel_residual"] < 0.02:
+        raise AssertionError(f"tiled vs scatter: {res}")
+    return launches
+
+
+def correlation_hook(bf, torch, gpu, card_model):
+    """TabulatedCorrelation3D at its defaults (40 z x 500 r) built on the
+    card (K8 once a redshift) and on the CPU, held to 1e-9 of max |xi|
+    (table and readout); then the S19 bench table built on the card with it
+    as the xi_mm hook, against the card's build without it within
+    HOOK_BOUND of max |d|. Returns the launches."""
+    from baryonforge_torch.ops import _build
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    _build.reset_launches()
+    tc, t_card = timed(torch, lambda: bf.utils.TabulatedCorrelation3D(
+        cosmo, device=DEVICE))
+    lk = dict(_build.launches)
+    if lk.get("fht", 0) != 40:
+        raise AssertionError(f"TabulatedCorrelation3D: {lk}")
+    t0 = time.perf_counter()
+    tc_cpu = bf.utils.TabulatedCorrelation3D(cosmo, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    scale = float(tc_cpu._tab.abs().max())
+    check("TabulatedCorrelation3D, card vs CPU table, / max |xi|",
+          float((tc._tab.cpu() - tc_cpu._tab).abs().max()) / scale, 1e-9)
+    r = np.geomspace(5e-4, 500, 3001)
+    for a in (1.0, 0.55, 1 / 1.9):
+        got = tc(torch.as_tensor(r, device=DEVICE), a)
+        if got.device.type != "cuda":
+            raise AssertionError("TabulatedCorrelation3D: readout off the "
+                                 "card")
+        check(f"TabulatedCorrelation3D readout a={a:.3f}, card vs CPU, / "
+              "max |xi|", float((got.cpu() - tc_cpu(torch.as_tensor(r), a))
+                                .abs().max()) / scale, 1e-9)
+    log(f"[{gpu}] TabulatedCorrelation3D (40 x 500): card {t_card * 1e3:.1f}"
+        f" ms ({lk['fht']} K8 launches), CPU {t_cpu * 1e3:.1f} ms")
+    hooked = bf.Baryonification2D(
+        bf.Profiles.DarkMatterOnly(**BPAR, proj_cutoff=100, xi_mm=tc),
+        bf.Profiles.DarkMatterBaryon(**BPAR, proj_cutoff=100, xi_mm=tc),
+        cosmo, epsilon_max=EPS_MAX, device=DEVICE)
+    _build.reset_launches()
+    _, t_b = timed(torch, lambda: hooked.setup_interpolator(**BENCH_GRID))
+    lh = dict(_build.launches)
+    d0 = np.asarray(card_model.raw_input_d)
+    d1 = np.asarray(hooked.raw_input_d)
+    if not np.isfinite(d1).all():
+        raise AssertionError("hooked table: not finite")
+    err = float(np.abs(d1 - d0).max()) / float(np.abs(d0).max())
+    log(f"[{gpu}] S19 bench table with the xi_mm hook: {t_b * 1e3:.1f} ms, "
+        f"launches {lh} (no K8 for xi: the hook)")
+    check("S19 bench table, hook vs correlation_3d, / max |d|", err,
+          HOOK_BOUND)
+    return sum_launches(lk, lh)
+
+
+def halomodel_check(bf, torch, gpu):
+    """halomodel_power (Sheth-Tormen, the S19 DarkMatter profile,
+    Mdelta_to_Mtot, nM 64, 16 k) on the card against the CPU, 1e-9
+    relative. Returns the launches."""
+    from baryonforge_torch.ops import _build
+    from baryonforge_torch.utils import halomodel as hm
+    cosmo = bf.cosmo.cosmology_from_dict(COSMO)
+    k = np.geomspace(1e-3, 10, 16)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        dm = bf.Profiles.DarkMatter(**BPAR)
+        hmc = hm.FlexibleHMCalculator(
+            mass_function=hm.MassFuncShethTormen(device=dev),
+            halo_bias=hm.HaloBiasShethTormen(device=dev),
+            halo_m_to_mtot=bf.Profiles.misc.Mdelta_to_Mtot(dm),
+            log10M_min=10, log10M_max=16, nM=64, device=dev)
+        _build.reset_launches()
+        out[dev] = timed(torch, lambda: hm.halomodel_power(cosmo, k, 1.0, dm,
+                                                           hmc))
+        out[dev] += (dict(_build.launches),)
+    card, t_card, lk = out[DEVICE]
+    cpu, t_cpu, _ = out["cpu"]
+    require(lk, ("fht",), "halomodel_power")
+    check("halomodel_power, card vs CPU, relative",
+          float(((card.cpu() - cpu) / cpu).abs().max()), 1e-9)
+    log(f"[{gpu}] halomodel_power (nM 64, 16 k): card {t_card * 1e3:.1f} ms "
+        f"(launches {lk}), CPU {t_cpu * 1e3:.1f} ms")
+    return lk
+
+
+def time_calls(torch, runner, calls=MESH_CALLS):
+    """One warm and ``calls`` timed ``process()`` calls: (last output,
+    median ms, the phases of the last call)."""
+    runner.process()
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.process()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(walls)), runner.timings
+
+
+def mesh_pair(bf, torch, gpu, make, label, compare, required):
+    """``make(mesh)`` without and with halo_mesh(MESH_SHARDS, "cuda"), both
+    timed, the launch counts set to 0 just before the sharded calls and
+    read just after; ``compare(single, sharded)`` checks. Returns the
+    sharded run's launches."""
+    from baryonforge_torch.ops import _build
+    mesh = bf.parallel.halo_mesh(MESH_SHARDS, device=DEVICE)
+    single, ms1, ph1 = time_calls(torch, make(None))
+    _build.reset_launches()
+    sharded, ms4, ph4 = time_calls(torch, make(mesh))
+    lk = dict(_build.launches)
+    require(lk, required, label)
+    compare(single, sharded)
+    fmt = (lambda p: ", ".join(f"{k} {v:.2f}" for k, v in p.items()))
+    log(f"[{gpu}] {label}: no mesh {ms1:.1f} ms ({fmt(ph1)}), "
+        f"{MESH_SHARDS} shards of one card {ms4:.1f} ms ({fmt(ph4)}), "
+        f"median of {MESH_CALLS}; launches {lk}")
+    return lk
+
+
+def near(name, got, want, atol, rtol=0.0):
+    err = float(np.max(np.abs(got - want) - rtol * np.abs(want)))
+    check(name, max(err, 0.0), atol)
+
+
+def mesh_paths(bf, torch, gpu, model, tsz_card, cat, shell, grid_b3,
+               snap_inputs):
+    """The runners' mesh= and the parallel front-ends at the bench
+    configuration: BaryonifyShell (tiled and scatter, the runner's default
+    dtypes) with halo_mesh(4, "cuda") against no mesh, within 1e-4 of the
+    largest move (tests/test_multichip.py:66-69; the card's atomics make
+    even two unsharded scatter runs differ in the float32 offsets' last
+    bits, so the CPU tests hold the scatter shell's 1e-12); the scatter
+    tSZ paint through SplitJoinParallel at rtol 1e-12 / atol 1e-15
+    (:128-129), the tiled one sharded at 1e-5 of its largest value (float32
+    sums); the anisotropic paint (tiled and scatter, float64) at 1e-10
+    (:92-94); BaryonifyGrid on the 3D ΔP(k) map within 1e-5 of its largest
+    move; the snapshot bench to 2e-5 in position (tests/test_snapshot.py:
+    84-88); SimpleParallel of PAR_SHELLS bench shells against the same in
+    sequence at 1e-12 (:108-111), both timed. Returns the launches."""
+    from baryonforge_torch.ops import _build
+    launches = []
+    for kw, label, req in (
+            (dict(), "tiled", ("collapse_curves", "tile_deposit",
+                               "stencil", "stencil_complement")),
+            (dict(deposit="scatter", regrid="scatter"), "scatter",
+             ("collapse_curves", "disc_deposit", "regrid"))):
+        def make(mesh, kw=kw):
+            return bf.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX,
+                                     model=model, mesh=mesh, device=DEVICE,
+                                     **kw)
+
+        def compare(a, b, label=label):
+            scale = float(np.abs(a - shell.map).max())
+            near(f"BaryonifyShell {label}, {MESH_SHARDS} shards vs none, "
+                 f"/ max move", b / scale, a / scale, 1e-4)
+            if not np.isclose(b.sum(), shell.map.sum(), rtol=1e-8):
+                raise AssertionError(f"sharded {label} shell lost mass")
+        launches.append(mesh_pair(bf, torch, gpu, make,
+                                  f"BaryonifyShell {label}", compare, req))
+
+    paint = bf.PaintProfilesShell(cat, shell, epsilon_max=PAINT_EPS,
+                                  model=tsz_card, deposit="scatter",
+                                  device=DEVICE)
+    single = paint.process()
+    _build.reset_launches()
+    split, t_split = timed(torch, bf.parallel.SplitJoinParallel(
+        paint, mesh=bf.parallel.halo_mesh(MESH_SHARDS, DEVICE)).process)
+    lk = dict(_build.launches)
+    require(lk, ("collapse_curves", "disc_paint"), "SplitJoinParallel paint")
+    near("SplitJoinParallel scatter tSZ paint vs the runner", split, single,
+         1e-15, rtol=1e-12)
+    log(f"[{gpu}] SplitJoinParallel scatter tSZ paint: {t_split * 1e3:.1f} "
+        f"ms; launches {lk}")
+    launches.append(lk)
+
+    def make_paint(mesh):
+        return bf.PaintProfilesShell(cat, shell, epsilon_max=PAINT_EPS,
+                                     model=tsz_card, mesh=mesh, device=DEVICE)
+
+    def compare_paint(a, b):
+        near("tiled tSZ paint, 4 shards vs none, / max", b / a.max(),
+             a / a.max(), 1e-5)
+    launches.append(mesh_pair(bf, torch, gpu, make_paint, "tiled tSZ paint",
+                              compare_paint,
+                              ("collapse_curves", "tile_paint", "flat_view")))
+
+    sh = anis_shell(bf, shell)
+    for deposit, req in (("auto", ("tile_paint", "tile_paint2",
+                                   "anis_finish")),
+                         ("scatter", ("disc_paint", "disc_paint_anis",
+                                      "anis_finish"))):
+        def make_anis(mesh, deposit=deposit):
+            return bf.PaintProfilesAnisShell(
+                cat, sh, epsilon_max=PAINT_EPS, model=tsz_card,
+                Tracer_model=tsz_card, Mtot_model=tsz_card,
+                background_val=ANIS_BG, global_tracer_fraction=ANIS_FRAC,
+                dtype=torch.float64, deposit=deposit, mesh=mesh,
+                device=DEVICE)
+
+        def compare_anis(a, b, deposit=deposit):
+            near(f"Anis shell {deposit}, float64, 4 shards vs none, / max",
+                 b / np.abs(a).max(), a / np.abs(a).max(), 1e-10, 1e-10)
+        launches.append(mesh_pair(bf, torch, gpu, make_anis,
+                                  f"Anis shell {deposit}, float64",
+                                  compare_anis, req))
+
+    gcat, gm, b3 = grid_b3
+
+    def make_grid(mesh):
+        return bf.BaryonifyGrid(gcat, gm, epsilon_max=GRID_BARYON_EPS,
+                                model=b3, mesh=mesh, device=DEVICE)
+
+    def compare_grid(a, b):
+        scale = float(np.abs(a - gm.map).max())
+        near("BaryonifyGrid 256^3, 4 shards vs none, / max move", b / scale,
+             a / scale, 1e-5)
+    launches.append(mesh_pair(bf, torch, gpu, make_grid, "BaryonifyGrid 3D",
+                              compare_grid, ("collapse_curves",
+                                             "grid_cutout", "grid_deposit")))
+
+    smodel, scat, snap = snap_inputs
+
+    def make_snap(mesh):
+        return bf.BaryonifySnapshot(scat, snap, epsilon_max=20, model=smodel,
+                                    mesh=mesh, device=DEVICE)
+
+    def compare_snap(a, b):
+        for c in "xyz":
+            dx = np.asarray(b[c]) - np.asarray(a[c])
+            dx = np.where(dx > snap.L / 2, dx - snap.L, dx)
+            dx = np.where(dx < -snap.L / 2, dx + snap.L, dx)
+            near(f"BaryonifySnapshot {c}, 4 shards vs none", dx, 0 * dx,
+                 2e-5)
+    launches.append(mesh_pair(bf, torch, gpu, make_snap, "snapshot bench",
+                              compare_snap, ("collapse_curves",
+                                             "snapshot_displace")))
+
+    rng = np.random.default_rng(SEED + 16)
+    shells = [bf.utils.LightconeShell(map=rng.exponential(1.0, shell.map.size),
+                                      cosmo=COSMO) for _ in range(PAR_SHELLS)]
+
+    def runners():
+        return [bf.BaryonifyShell(cat, s, epsilon_max=EPS_MAX, model=model,
+                                  device=DEVICE) for s in shells]
+    for r in runners():
+        r.process()                         # the per-NSIDE state warm
+    seq_r, par_r = runners(), runners()
+    seq, t_seq = timed(torch, lambda: [r.process() for r in seq_r])
+    _build.reset_launches()
+    par, t_par = timed(torch, bf.parallel.SimpleParallel(par_r).process)
+    lk = dict(_build.launches)
+    require(lk, ("collapse_curves", "tile_deposit", "stencil",
+                 "stencil_complement"), "SimpleParallel")
+    for i, (a, b) in enumerate(zip(par, seq)):
+        near(f"SimpleParallel shell {i} vs the sequential run", a, b, 1e-12,
+             rtol=1e-12)
+    log(f"[{gpu}] {PAR_SHELLS} bench shells (tiled engine, first calls of "
+        f"new runners): in sequence {t_seq * 1e3:.1f} ms, SimpleParallel "
+        f"({PAR_SHELLS} threads, a stream each) {t_par * 1e3:.1f} ms; "
+        f"launches {lk}")
+    launches.append(lk)
+    return sum_launches(*launches)
+
+
+def fits_shell(bf, torch, gpu, model, cat, shell):
+    """The bench shell written as FITS (>f8 and >f4) and read back through
+    LightconeShell(path=...): >f8 bitwise, >f4 to 2e-7; the >f8 shell
+    baryonified (tiled engine) equal to the run from the array (1e-12).
+    Returns the launches."""
+    import tempfile
+    from baryonforge_torch.ops import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        p8, p4 = (os.path.join(tmp, f"shell_{d}.fits") for d in ("f8", "f4"))
+        bf.utils.write_healpix_fits(p8, shell.map, dtype=">f8")
+        bf.utils.write_healpix_fits(p4, shell.map, dtype=">f4")
+        s8 = bf.utils.LightconeShell(path=p8, cosmo=COSMO)
+        s4 = bf.utils.LightconeShell(path=p4, cosmo=COSMO)
+    if not np.array_equal(s8.map, shell.map) or s8.NSIDE != NSIDE:
+        raise AssertionError("FITS >f8 shell does not read back bitwise")
+    near("FITS >f4 shell, relative", s4.map / shell.map, 1.0, 2e-7)
+    ref = bf.BaryonifyShell(cat, shell, epsilon_max=EPS_MAX, model=model,
+                            device=DEVICE).process()
+    _build.reset_launches()
+    out, sec = timed(torch, bf.BaryonifyShell(
+        cat, s8, epsilon_max=EPS_MAX, model=model, device=DEVICE).process)
+    lk = dict(_build.launches)
+    require(lk, ("collapse_curves", "tile_deposit"), "FITS shell")
+    near("FITS shell baryonified vs the array's", out, ref, 1e-12, 1e-12)
+    log(f"[{gpu}] FITS shell (NSIDE {NSIDE}) baryonified: {sec * 1e3:.1f} "
+        f"ms; launches {lk}")
+    return lk
+
+
+
 KERNELS = [
     # name, entry points, source, TPU kernel replaced, its main path (the
     # kernels line names every path that launched it, the main one first)
@@ -3439,7 +3871,8 @@ def main():
     launches_family = family_paths(bf, torch, gpu, cat, shell, gm3)
 
     log("snapshot path: the snapshot bench's table built on the card")
-    launches_snap, snap_measured = snapshot_bench(bf, torch, gpu)
+    launches_snap, snap_measured, snap_inputs = snapshot_bench(bf, torch,
+                                                               gpu)
     measured.update(snap_measured)
 
     log("spherical-harmonic kernels against their plain versions (float64)")
@@ -3451,13 +3884,31 @@ def main():
     log("ΔCl path: its tables built on the card")
     launches_cl = delta_cl(bf, torch, gpu)
 
+    log("the S19 validation pipelines at full width (utils/validation.py),"
+        " each row beside PARITY.json's")
+    launches_val = validation_paths(bf, torch, gpu)
+    log("TabulatedCorrelation3D on the card, and as the xi_mm hook of the "
+        "bench table")
+    launches_hook = correlation_hook(bf, torch, gpu, card_model)
+    log("halomodel_power on the card against the CPU")
+    launches_hm = halomodel_check(bf, torch, gpu)
+    log(f"meshes (halo_mesh({MESH_SHARDS}, 'cuda')) and the parallel "
+        "front-ends at the bench configuration")
+    launches_mesh = mesh_paths(
+        bf, torch, gpu, model, tsz_card, cat, shell,
+        (grid_inputs(bf, 3, GRID3D_N)[0], gm3, tabs["b3"]), snap_inputs)
+    log("a FITS shell through LightconeShell(path=...)")
+    launches_fits = fits_shell(bf, torch, gpu, model, cat, shell)
+
     launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
                       for k in set(launches_pt) | set(launches_ps)}
     launches = {"scatter": launches_s, "tiled": launches_t,
                 "table": launches_table, "paint": launches_paint,
                 "anis": launches_anis, "grid": launches_grid,
                 "snapshot": launches_snap, "delta_cl": launches_cl,
-                **launches_family}
+                **launches_family, **launches_val,
+                "correlation_hook": launches_hook, "halomodel": launches_hm,
+                "mesh": launches_mesh, "fits": launches_fits}
     kernels = []
     for name, entries, src, rep, path in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]

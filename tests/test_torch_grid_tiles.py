@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 from baryonforge_torch.ops import grid as tgrid              # noqa: E402
 from baryonforge_torch.Runners.Map2DRunner import _shear_matrix  # noqa: E402

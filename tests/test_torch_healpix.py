@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 import jax                                                  # noqa: E402
 import jax.numpy as jnp                                     # noqa: E402

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch.ops import deposit                   # noqa: E402

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 import jax.numpy as jnp                                     # noqa: E402
 

@@ -25,6 +25,7 @@ import pytest
 from scipy.spatial import cKDTree
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 import jax                                                  # noqa: E402
 import jax.numpy as jnp                                     # noqa: E402
@@ -324,7 +325,7 @@ def test_snapshot_refusals(models):
     _, tm = models[3]
     pos, hpos, M = _box(3, 64.0, 100, 3, (13.5, 14.0), 9)
     cat, snap = _objects(bf.utils, 3, 64.0, pos, hpos, M)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="mesh"):
         bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=tm,
                              mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread             # noqa: F401,E402
 
 from baryonforge_tpu.utils import sht as jsht               # noqa: E402
 from baryonforge_torch.ops import healpix as thp           # noqa: E402
