@@ -18,7 +18,14 @@ SnapshotRunner.py:162-275):
               (ops/snapshot.snapshot_displace)
 
 then the host adds the offsets to the positions in float64 and wraps them
-into [0, L]. The JAX runner pads count buckets of halos to static shapes
+into [0, L]. A model without ``halo_curves`` takes the direct readout, as
+the JAX body does: K23's radii pass (ops/snapshot.snapshot_radii) writes
+each pair's distance into its halo's row (rows grouped by their pair
+counts, ops/direct.row_layout), the model's ``displacement`` is read on
+them under ``torch.func.vmap`` (ops/direct.readout, its tables in float64)
+and K23's gather (ops/snapshot.snapshot_direct) sums the values per
+particle; it runs the whole catalog on the runner's device, with or
+without a mesh. The JAX runner pads count buckets of halos to static shapes
 and scans them in batches (``n_size_buckets``, ``halo_batch``); here the
 pairs are exact lists and one launch covers them all.
 
@@ -37,7 +44,10 @@ import torch
 from ..cosmo import core as _core
 from ..cosmo import massdef as _massdef
 from ..native import cell_query
-from ..ops.snapshot import particle_layout, snapshot_displace
+from ..ops.direct import readout, readout_model, require, row_layout
+from ..ops.snapshot import (particle_layout, particle_major_pairs,
+                            snapshot_direct, snapshot_displace,
+                            snapshot_radii)
 from ..ops.tiles import pairs_csr
 from ..parallel.mesh import check_mesh, sharded_sum, to_device
 from .HealpixRunner import _PhaseClock
@@ -56,9 +66,9 @@ class DefaultRunnerSnapshot:
 
     ``mesh`` (a list of devices of the runner's device type,
     ``parallel.halo_mesh``) shards the halos (see the module docstring).
-    Refused: models without ``halo_curves`` (ROADMAP Queue 1 item 7).
     ``halo_batch`` and ``n_size_buckets`` shape the JAX runner's padded
-    static batches and do nothing here; nor does ``verbose``.
+    static batches and do nothing here. ``verbose`` prints the direct
+    readout's row groups.
     """
 
     def __init__(self, HaloNDCatalog, ParticleSnapshot, epsilon_max, model,
@@ -98,7 +108,9 @@ class DefaultRunnerSnapshot:
         # (key, device CSR, K17's layout, {n_shards: the shards' rows})
         self._pairs = None
         # milliseconds of each phase of the last process() call (see
-        # _PhaseClock): host_prep, neighbours, curves, displace, download
+        # _PhaseClock): host_prep, neighbours, curves, displace, download;
+        # radii, readout and apply instead of curves and displace for the
+        # direct readout
         self.timings = {}
 
     @property
@@ -194,17 +206,21 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
     SnapshotRunner.py:162-275). ``process()`` returns the new particle
     catalog (a numpy structured array, positions wrapped back into the box).
 
-    The model must provide per-halo displacement curves (``halo_curves``),
-    as a Baryonification2D/3D table does."""
+    The model provides per-halo displacement curves (``halo_curves``), as a
+    Baryonification2D/3D table does, or only ``displacement(r, M, a,
+    **p_keys)``, read directly on every pair (see the module docstring)."""
 
     def process(self):
         clock = _PhaseClock(self.device)
         snap = self.ParticleSnapshot
         L = snap.L
-        args = self._displace_inputs(clock)
-        acc = self._sharded_displace(args,
-                                     check_mesh(self.mesh, self.device))
-        clock.mark("displace")
+        if hasattr(self.model, "halo_curves"):
+            args = self._displace_inputs(clock)
+            acc = self._sharded_displace(args,
+                                         check_mesh(self.mesh, self.device))
+            clock.mark("displace")
+        else:
+            acc = self._direct_displace(clock)
         off = acc.cpu().numpy()
         clock.mark("download")
         self.timings = clock.milliseconds()
@@ -242,40 +258,78 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
                             dtype=curves.dtype, device=self.device)
                 if acc is None else acc)
 
-    def _displace_inputs(self, clock):
-        """The host prep, the neighbour pairs with their particle-major
-        layout and the curves (K1, in the runner's dtype), marked
-        host_prep, neighbours and curves on ``clock``: the arguments of
-        ops.snapshot.snapshot_displace."""
-        model = self.model
-        if not hasattr(model, "halo_curves"):
-            raise NotImplementedError(
-                "models without halo_curves (per-pair table readout) are "
-                "ROADMAP Queue 1 item 7")
+    def _host_prep(self):
+        """(a, M, R, R_q, halo positions, the model's p_keys columns) on
+        the host, float64; raises for a snapshot of 2^31 - 1 particles or
+        more."""
         cosmo = _core.cosmology_from_dict(self.cosmo)
         snap = self.ParticleSnapshot
-        L = snap.L
         hcols = ["x", "y"] if snap.is2D else ["x", "y", "z"]
-        n_part = len(snap.cat)
-        dev, dt = self.device, self.dtype
-        npdt = np.float32 if dt == torch.float32 else np.float64
-
         cat = self.HaloNDCatalog.cat
         a = 1.0 / (1.0 + self.HaloNDCatalog.redshift)
         M = np.asarray(cat["M"], dtype=float)
         R = self.mass_def.get_radius(cosmo, M, a).numpy()
-        R_q = np.clip(self.epsilon_max * R / a, 0, L / 2)
+        R_q = np.clip(self.epsilon_max * R / a, 0, snap.L / 2)
         hpos = np.stack([np.asarray(cat[c], dtype=float) for c in hcols],
                         axis=1)
         pkw = {k: np.asarray(cat[k], dtype=float)
-               for k in getattr(model, "p_keys", [])}
+               for k in getattr(self.model, "p_keys", [])}
+        n_part = len(snap.cat)
+        if n_part >= np.iinfo(np.int32).max:
+            raise ValueError(
+                f"n_part={n_part} exceeds int32 neighbour indexing")
+        return a, M, R, R_q, hpos, pkw
+
+    def _direct_displace(self, clock):
+        """The direct readout (reference SnapshotRunner.py:175-227 with
+        ``model.displacement``): the host prep and the pairs as the curve
+        path makes them, K23's radii pass, the model read on the rows of
+        each pair's distance (its tables in float64, the values rounded to
+        the runner's dtype), K23's gather. Marks host_prep, neighbours,
+        radii, readout and apply; returns the (ndim, n_part) offsets."""
+        require(self.model, "displacement", runner=type(self).__name__)
+        dev, dt = self.device, self.dtype
+        L = self.ParticleSnapshot.L
+        a, M, _, R_q, hpos, pkw = self._host_prep()
+        hpos_dev = torch.as_tensor(hpos, device=dev)
+        clock.mark("host_prep")
+        (halos, offsets, parts), layout = self._neighbour_pairs(hpos, R_q)
+        clock.mark("neighbours")
+        rows = row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
+        if self.verbose:
+            print(f"[baryonforge_torch] {type(self).__name__}: "
+                  f"{rows.describe()}")
+        r, pslot = snapshot_radii(self._coords_dev, hpos_dev, halos, offsets,
+                                  parts, rows, L)
+        clock.mark("radii")
+        model = readout_model(self.model, torch.float64, dev)
+        hix = halos.long()
+        cols = {k: torch.as_tensor(v, device=dev)[hix]
+                for k, v in dict(M=M, **pkw).items()}
+        vals = readout(lambda r, M, **kw: model.displacement(r, M, a, **kw),
+                       r, rows, cols, dt)
+        clock.mark("readout")
+        eslot = pslot[particle_major_pairs(parts, layout[0])]
+        acc = snapshot_direct(self._coords_dev, hpos_dev, halos, layout,
+                              eslot, vals, L)
+        clock.mark("apply")
+        return acc
+
+    def _displace_inputs(self, clock):
+        """The host prep, the neighbour pairs with their particle-major
+        layout and the curves (K1, in the runner's dtype), marked
+        host_prep, neighbours and curves on ``clock``: the arguments of
+        ops.snapshot.snapshot_displace (the model has ``halo_curves``)."""
+        model = self.model
+        snap = self.ParticleSnapshot
+        L = snap.L
+        dev, dt = self.device, self.dtype
+        npdt = np.float32 if dt == torch.float32 else np.float64
+        a, M, R, R_q, hpos, pkw = self._host_prep()
         Rcom = R / a
         rscale = (1.0 / Rcom if getattr(model, "Rdelta_sampling", False)
                   else np.ones_like(Rcom))
         eps_edge = self.epsilon_max * Rcom
-        if n_part >= np.iinfo(np.int32).max:
-            raise ValueError(
-                f"n_part={n_part} exceeds int32 neighbour indexing")
         hpos_dev = torch.as_tensor(hpos, device=dev)
         rscale_dev = torch.as_tensor(rscale.astype(npdt), device=dev)
         edge_dev = torch.as_tensor(eps_edge.astype(npdt), device=dev)

@@ -40,6 +40,28 @@
 // and writes each touched cell once: tiles are disjoint, so no atomics,
 // and the sums come out the same on every call. A cell's box offset comes
 // from 32-bit integers: (x - (cen - Ns/2)) mod N, one conditional add.
+//
+// K22: the same bodies for models without halo_curves (the direct branch
+// of the three JAX bodies: model.displacement, Map2DRunner.py:410;
+// model.projected / model.real, :584, :609; model.projected and
+// tracer.projected, :757-759). ops/grid.py cuts a size bucket's halos into
+// chunks of a cell budget; for a chunk, bf_grid_radii writes each cutout
+// cell's r (float64, the geometry above, ellipticity included), halo-major
+// with the cells row-major in the box (the last axis fastest), the model
+// is read on those rows by torch.func.vmap (ops/direct.py), and
+// bf_grid_direct adds its values through the tile kernel above, each
+// (halo, cell) reading its value from the rows instead of a curve:
+//   displace: d = the value (in T) over res in float64, zeroed if not
+//     finite; per axis d T(rel_d / r), zeroed if not finite, rounded to T
+//     and added into the offsets, at every cell of the box (the direct
+//     body has no r < rmax cut: the wrapper passes rmax = inf);
+//   paint: the value (float64) added where finite and r < rmax;
+//   anis: painting and canvas (float64, non-finite zeroed), mfrac as
+//     above, painting mfrac added where finite and r < rmax.
+// Bound: the radii pass by its writes (8 bytes a cell), the apply by its
+// reads of the rows (8 bytes, 16 for anis, a (halo, cell) pair) beside the
+// tile kernel's ~20 float64 operations a pair. The tiles' lists are the
+// chunk's own, so the rows and the halos' columns stay in L2.
 
 #include "healpix.cuh"
 #include "lookup.cuh"
@@ -66,9 +88,21 @@ struct Cutout {
   double a;              // 2D (projected curves): paint values over a
   const double* mtot;    // anis: the total-mass canvas, background included
   const double* orig;    // anis: the input map
+  const void* vals;      // direct: (n, Ns^d) values, T (displace) or double
+  const double* vals2;   // direct anis: the canvas' values
+  long long cells;       // direct: Ns^d, a row's length
 };
 
-template <typename T, int kMode, int kDim>
+// the offset od_d of every axis of cell `local` of a box of Ns^d cells
+// (row-major, the last axis fastest)
+template <int kDim>
+__device__ __forceinline__ long long box_local(const int* od, int Ns) {
+  long long l = 0;
+  for (int d = 0; d < kDim; ++d) l = l * Ns + od[d];
+  return l;
+}
+
+template <typename T, int kMode, int kDim, bool kDirect>
 __global__ void __launch_bounds__(kDim == 3 ? 512 : 256)
 grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
                    const int* __restrict__ tile_halo, void* acc_raw) {
@@ -126,7 +160,7 @@ grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
         s_doff[i * kDim + d] = p.doff[h * kDim + d];
       }
       s_rmax[i] = p.rmax[h];
-      if (kMode == kDisplace) s_rscale[i] = p.rscale[h];
+      if (kMode == kDisplace && !kDirect) s_rscale[i] = p.rscale[h];
       if (kDim == 2 && ell)
         for (int k = 0; k < 4; ++k) s_rmat[i * 4 + k] = p.rmat[4 * h + k];
     }
@@ -135,11 +169,13 @@ grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
     for (int i = 0; i < nb; ++i) {
       // box offsets o_d = od - Ns/2, od = (x - lo) mod N < Ns
       double g[kDim];
+      int ods[kDim];
       bool in_box = true;
       for (int d = 0; d < kDim; ++d) {
         int od = x[d] - s_lo[i * kDim + d];
         if (od < 0) od += N;
         in_box = in_box && od < Ns;
+        ods[d] = od;
         g[d] = double(od - w) * p.res + s_doff[i * kDim + d];
       }
       if (!in_box) continue;
@@ -161,11 +197,20 @@ grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
       const double r = sqrt(r2);
       if (!(r < rmax)) continue;
       const int h = s_h[i];
-      const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
+      // direct: this (halo, cell)'s place in the rows
+      const long long slot =
+          kDirect ? (long long)h * p.cells + box_local<kDim>(ods, Ns) : 0;
       if constexpr (kMode == kDisplace) {
-        const double r_safe = r > 1e-30 ? r : 1e-30;
-        const double dv = bf::lookup64(curve1, p.c1, r_safe * s_rscale[i]);
-        double dd = double(T(dv)) / p.res;  // pixel units
+        double dd;
+        if constexpr (kDirect) {
+          dd = double(static_cast<const T*>(p.vals)[slot]) / p.res;
+        } else {
+          const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
+          const double r_safe = r > 1e-30 ? r : 1e-30;
+          const double dv =
+              bf::lookup64(curve1, p.c1, r_safe * s_rscale[i]);
+          dd = double(T(dv)) / p.res;  // pixel units
+        }
         if (!isfinite(dd)) dd = 0.0;
         for (int d = 0; d < kDim; ++d) {
           double comp = dd * double(T(g[d] / r));
@@ -175,13 +220,23 @@ grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
         touched = true;
       } else {
         double v;
-        if constexpr (kMode == kPaint) {
+        if constexpr (kMode == kPaint && kDirect) {
+          v = static_cast<const double*>(p.vals)[slot];
+        } else if constexpr (kMode == kPaint) {
+          const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
           v = bf::lookup64(curve1, p.c1, r);
           if (kDim == 2) v = v / p.a;
         } else {
-          const T* curve2 = p.c2.c + (long long)h * p.c2.n_r;
-          double painting = bf::lookup64(curve1, p.c1, r) / p.a;
-          double canvas = bf::lookup64(curve2, p.c2, r) / p.a;
+          double painting, canvas;
+          if constexpr (kDirect) {
+            painting = static_cast<const double*>(p.vals)[slot];
+            canvas = p.vals2[slot];
+          } else {
+            const T* curve1 = p.c1.c + (long long)h * p.c1.n_r;
+            const T* curve2 = p.c2.c + (long long)h * p.c2.n_r;
+            painting = bf::lookup64(curve1, p.c1, r) / p.a;
+            canvas = bf::lookup64(curve2, p.c2, r) / p.a;
+          }
           if (!isfinite(painting)) painting = 0.0;
           if (!isfinite(canvas)) canvas = 0.0;
           v = painting * ((mt > 0.0 ? canvas / mt : 0.0) * og);
@@ -253,16 +308,16 @@ __global__ void tile_pairs_kernel(int ndim, int N, int Ns, int TS, int K,
   owner[idx] = h;
 }
 
-template <typename T, int kMode, int kDim>
+template <typename T, int kMode, int kDim, bool kDirect>
 int launch_tiles(int n_tiles, const Cutout<T>& p, const int* tile_start,
                  const int* tile_halo, void* acc, cudaStream_t s) {
-  grid_cutout_kernel<T, kMode, kDim>
+  grid_cutout_kernel<T, kMode, kDim, kDirect>
       <<<n_tiles, kDim == 3 ? 512 : 256, 0, s>>>(p, tile_start, tile_halo,
                                                  acc);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kDirect>
 int launch(int tile, Cutout<T> p, int mode, const int* tile_start,
            const int* tile_halo, void* acc, void* stream) {
   const int nd = p.ndim;
@@ -272,19 +327,53 @@ int launch(int tile, Cutout<T> p, int mode, const int* tile_start,
   const int n_tiles = nd == 3 ? nt * nt * nt : nt * nt;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kDisplace)
-    return nd == 3 ? launch_tiles<T, kDisplace, 3>(n_tiles, p, tile_start,
-                                                   tile_halo, acc, s)
-                   : launch_tiles<T, kDisplace, 2>(n_tiles, p, tile_start,
-                                                   tile_halo, acc, s);
+    return nd == 3 ? launch_tiles<T, kDisplace, 3, kDirect>(
+                         n_tiles, p, tile_start, tile_halo, acc, s)
+                   : launch_tiles<T, kDisplace, 2, kDirect>(
+                         n_tiles, p, tile_start, tile_halo, acc, s);
   if (mode == kPaint)
-    return nd == 3 ? launch_tiles<T, kPaint, 3>(n_tiles, p, tile_start,
-                                                tile_halo, acc, s)
-                   : launch_tiles<T, kPaint, 2>(n_tiles, p, tile_start,
-                                                tile_halo, acc, s);
+    return nd == 3 ? launch_tiles<T, kPaint, 3, kDirect>(
+                         n_tiles, p, tile_start, tile_halo, acc, s)
+                   : launch_tiles<T, kPaint, 2, kDirect>(
+                         n_tiles, p, tile_start, tile_halo, acc, s);
   if (mode == kAnis && nd == 2)
-    return launch_tiles<T, kAnis, 2>(n_tiles, p, tile_start, tile_halo, acc,
-                                     s);
+    return launch_tiles<T, kAnis, 2, kDirect>(n_tiles, p, tile_start,
+                                              tile_halo, acc, s);
   return int(cudaErrorInvalidValue);
+}
+
+// K22's radii pass: a thread a (halo, cell) of m halos' boxes of Ns^d
+// cells, r (float64) as the tile kernel measures it
+__global__ void grid_radii_kernel(int ndim, int N, int Ns, long long m,
+                                  const int* __restrict__ cen,
+                                  const double* __restrict__ doff,
+                                  double res, const double* __restrict__ rmat,
+                                  double* __restrict__ r) {
+  const long long cells =
+      ndim == 3 ? (long long)Ns * Ns * Ns : (long long)Ns * Ns;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= m * cells) return;
+  const long long h = idx / cells;
+  long long c = idx % cells;
+  const int w = Ns / 2;
+  double g[3];
+  for (int d = ndim - 1; d >= 0; --d) {
+    const int od = int(c % Ns);
+    c /= Ns;
+    g[d] = double(od - w) * res + doff[h * ndim + d];
+  }
+  double r2;
+  if (ndim == 3) {
+    r2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+  } else if (rmat != nullptr) {
+    const double* R = rmat + 4 * h;
+    const double xe = g[0] * R[0] + g[1] * R[2];
+    const double ye = g[0] * R[1] + g[1] * R[3];
+    r2 = xe * xe + ye * ye;
+  } else {
+    r2 = g[0] * g[0] + g[1] * g[1];
+  }
+  r[idx] = sqrt(r2);
 }
 
 }  // namespace
@@ -320,13 +409,58 @@ extern "C" {
                 bf::Curve<T>{curves2, n_r2, ln_r0_2, dlnr_2, log2 != 0},      \
                 a,                                                            \
                 mtot,                                                         \
-                orig};                                                        \
-    return launch<T>(tile, p, mode, tile_start, tile_halo, acc, stream);      \
+                orig,                                                         \
+                nullptr,                                                      \
+                nullptr};                                                     \
+    return launch<T, false>(tile, p, mode, tile_start, tile_halo, acc,       \
+                            stream);                                          \
   }
 
 BF_GRID_CUTOUT(float, f32)
 BF_GRID_CUTOUT(double, f64)
 #undef BF_GRID_CUTOUT
+
+// K22's apply: the tile kernel reading each (halo, cell)'s value from the
+// rows vals (n, Ns^d) (T for displace, float64 otherwise; vals2 the anis
+// canvas'), the halos' columns and lists those of one chunk
+#define BF_GRID_DIRECT(T, SUF)                                                \
+  int bf_grid_direct_##SUF(                                                   \
+      int ndim, int N, int Ns, int tile, int mode, const int* tile_start,     \
+      const int* tile_halo, const int* cen, const double* doff, double res,   \
+      const double* rmax, const double* rmat, const void* vals,               \
+      const double* vals2, const double* mtot, const double* orig,            \
+      void* acc, void* stream) {                                              \
+    long long nflat = 1, cells = 1;                                           \
+    for (int d = 0; d < ndim; ++d) {                                          \
+      nflat *= N;                                                             \
+      cells *= Ns;                                                            \
+    }                                                                         \
+    Cutout<T> p{ndim, N, Ns, nflat, res, cen, doff, rmax, nullptr, rmat,      \
+                bf::Curve<T>{nullptr, 2, 0.0, 1.0, false},                    \
+                bf::Curve<T>{nullptr, 2, 0.0, 1.0, false},                    \
+                1.0, mtot, orig, vals, vals2};                                \
+    p.cells = cells;                                                          \
+    return launch<T, true>(tile, p, mode, tile_start, tile_halo, acc,        \
+                           stream);                                           \
+  }
+
+BF_GRID_DIRECT(float, f32)
+BF_GRID_DIRECT(double, f64)
+#undef BF_GRID_DIRECT
+
+// K22's radii pass: r (m, Ns^d) float64 for m halos' columns
+int bf_grid_radii(int ndim, int N, int Ns, int m, const int* cen,
+                  const double* doff, double res, const double* rmat,
+                  double* r, void* stream) {
+  const long long total =
+      (long long)m * (ndim == 3 ? (long long)Ns * Ns * Ns : (long long)Ns * Ns);
+  if (total == 0) return 0;
+  if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);
+  grid_radii_kernel<<<unsigned((total + 255) / 256), 256, 0,
+                      (cudaStream_t)stream>>>(ndim, N, Ns, m, cen, doff, res,
+                                              rmat, r);
+  return int(cudaGetLastError());
+}
 
 int bf_tile_pairs(int ndim, int N, int Ns, int tile, int K, int h0, int m,
                   const int* cen, const double* doff, double res,

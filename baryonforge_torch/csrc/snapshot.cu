@@ -36,6 +36,18 @@
 // order of a sequential index_add_ over the halo-major pairs, the same in
 // every launch. Compiled with --fmad=false, as the plain version computes
 // each product and sum as its own rounded operation.
+//
+// K23: the same body for models without halo_curves (the direct branch,
+// off = model.displacement(d, M_h, a), SnapshotRunner.py:196). The model
+// is read between two launches (ops/snapshot.py, ops/direct.py): the radii
+// pass, a thread a pair, writes each pair's float64 minimum-image distance
+// d (as above, unclamped: the model gets d itself) into the pair's slot of
+// its halo's padded row; the gather, K17's particle-major walk with no
+// atomics, reads each pair's value from its slot instead of a curve: off =
+// the value in T, zeroed where not finite, times T(dx_c / d_safe), summed
+// per particle in the halo-major order. Bound: bytes, as K17, plus the
+// radii pass's 8 bytes a pair written and the gather's 8 (slot, value) read
+// a pair.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -116,6 +128,73 @@ snapshot_gather_kernel(int n_part, double L, const double* __restrict__ coords,
   for (int c = 0; c < NDIM; ++c) acc[(long long)c * n_part + p] = sum[c];
 }
 
+// K23's gather: a thread a particle, its rows in order; the value of row
+// k's pair at vals[eslot[k]]
+template <typename T, int NDIM>
+__global__ void __launch_bounds__(kThreads)
+snapshot_direct_kernel(int n_part, double L, const double* __restrict__ coords,
+                       const int* __restrict__ order,
+                       const int* __restrict__ poff,
+                       const int* __restrict__ prow,
+                       const long long* __restrict__ eslot,
+                       const int* __restrict__ halos,
+                       const double* __restrict__ hpos,
+                       const T* __restrict__ vals, T* __restrict__ acc) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_part) return;
+  const int p = order[s];
+  double pp[NDIM];
+  for (int c = 0; c < NDIM; ++c) pp[c] = coords[(long long)p * NDIM + c];
+  T sum[NDIM];
+  for (int c = 0; c < NDIM; ++c) sum[c] = T(0);
+  const double half = L / 2;
+  const int k1 = poff[s + 1];
+  for (int k = poff[s]; k < k1; ++k) {
+    const long long h = halos[prow[k]];
+    double dx[NDIM];
+    double d2 = 0.0;
+    for (int c = 0; c < NDIM; ++c) {
+      double v = pp[c] - hpos[h * NDIM + c];
+      if (v > half) v -= L;
+      if (v < -half) v += L;
+      dx[c] = v;
+      d2 = d2 + v * v;
+    }
+    const double d = sqrt(d2);
+    const double d_safe = d > 0.0 ? d : 1.0;
+    T off = vals[eslot[k]];
+    if (!isfinite(off)) off = T(0);
+    for (int c = 0; c < NDIM; ++c) sum[c] = sum[c] + off * T(dx[c] / d_safe);
+  }
+  for (int c = 0; c < NDIM; ++c) acc[(long long)c * n_part + p] = sum[c];
+}
+
+// K23's radii pass: a thread a pair i of the halo-major list, its row
+// pair_row[i], its particle parts[i]; d (float64) into r[pslot[i]]
+template <int NDIM>
+__global__ void snapshot_radii_kernel(long long n_pairs, double L,
+                                      const double* __restrict__ coords,
+                                      const double* __restrict__ hpos,
+                                      const int* __restrict__ halos,
+                                      const int* __restrict__ pair_row,
+                                      const int* __restrict__ parts,
+                                      const long long* __restrict__ pslot,
+                                      double* __restrict__ r) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pairs) return;
+  const long long h = halos[pair_row[i]];
+  const long long p = parts[i];
+  const double half = L / 2;
+  double d2 = 0.0;
+  for (int c = 0; c < NDIM; ++c) {
+    double v = coords[p * NDIM + c] - hpos[h * NDIM + c];
+    if (v > half) v -= L;
+    if (v < -half) v += L;
+    d2 = d2 + v * v;
+  }
+  r[pslot[i]] = sqrt(d2);
+}
+
 template <typename T>
 int launch(int ndim, int n_part, double L, const double* coords,
            const int* order, const int* poff, const int* prow,
@@ -158,6 +237,51 @@ extern "C" {
 BF_SNAPSHOT(float, f32)
 BF_SNAPSHOT(double, f64)
 #undef BF_SNAPSHOT
+
+// K23's gather: eslot (P,) each particle-major entry's slot in vals (the
+// padded rows, in T); hpos (n_halos, ndim) float64
+#define BF_SNAPSHOT_DIRECT(T, SUF)                                           \
+  int bf_snapshot_direct_##SUF(                                              \
+      int ndim, int n_part, double L, const double* coords, const int* order, \
+      const int* poff, const int* prow, const long long* eslot,              \
+      const int* halos, const double* hpos, const T* vals, T* acc,           \
+      void* stream) {                                                        \
+    if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);           \
+    if (n_part == 0) return 0;                                               \
+    const int blocks = (n_part + kThreads - 1) / kThreads;                   \
+    cudaStream_t s = (cudaStream_t)stream;                                   \
+    if (ndim == 3)                                                           \
+      snapshot_direct_kernel<T, 3><<<blocks, kThreads, 0, s>>>(              \
+          n_part, L, coords, order, poff, prow, eslot, halos, hpos, vals,    \
+          acc);                                                              \
+    else                                                                     \
+      snapshot_direct_kernel<T, 2><<<blocks, kThreads, 0, s>>>(              \
+          n_part, L, coords, order, poff, prow, eslot, halos, hpos, vals,    \
+          acc);                                                              \
+    return int(cudaGetLastError());                                          \
+  }
+
+BF_SNAPSHOT_DIRECT(float, f32)
+BF_SNAPSHOT_DIRECT(double, f64)
+#undef BF_SNAPSHOT_DIRECT
+
+// K23's radii pass over n_pairs pairs (see snapshot_radii_kernel)
+int bf_snapshot_radii(int ndim, long long n_pairs, double L,
+                      const double* coords, const double* hpos,
+                      const int* halos, const int* pair_row, const int* parts,
+                      const long long* pslot, double* r, void* stream) {
+  if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);
+  if (n_pairs == 0) return 0;
+  const unsigned blocks = unsigned((n_pairs + 255) / 256);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndim == 3)
+    snapshot_radii_kernel<3><<<blocks, 256, 0, s>>>(
+        n_pairs, L, coords, hpos, halos, pair_row, parts, pslot, r);
+  else
+    snapshot_radii_kernel<2><<<blocks, 256, 0, s>>>(
+        n_pairs, L, coords, hpos, halos, pair_row, parts, pslot, r);
+  return int(cudaGetLastError());
+}
 
 int bf_snapshot_record_bytes(int f64) {
   return f64 ? int(sizeof(Record<double>)) : int(sizeof(Record<float>));

@@ -20,8 +20,12 @@ K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 check kernel ``pixel_angles``),
 ``ops/grid.py`` (K15 ``grid_cutout`` and its lists' ``tile_pairs``),
 ``ops/scatter.py`` (K16
-``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``) and
-``ops/sht.py`` (K18 ``ring_modes``, K19 ``legendre_alm``); each wrapper
+``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``),
+``ops/sht.py`` (K18 ``ring_modes``, K19 ``legendre_alm``) and, for the
+direct readout of models without ``halo_curves``, ``ops/deposit.py`` (K20
+``disc_radii``), ``ops/paint.py`` (K21 ``disc_apply``), ``ops/grid.py``
+(K22 ``grid_radii`` and ``grid_direct``) and ``ops/snapshot.py`` (K23
+``snapshot_radii`` and ``snapshot_direct``); each wrapper
 adds one right where it launches its kernel (``count``, under a lock: the
 runners of ``parallel.SimpleParallel`` launch from several threads), so a
 run can show that its main path went through the kernels.
@@ -92,6 +96,9 @@ def _signatures():
         "bf_snapshot_record_bytes": [_I],
         "bf_grid_deposit_tile": [_I, _I],
         "bf_regrid_scratch_bytes": [_I, _I, _P],
+        "bf_disc_apply_anis": [_LL] + [_P] * 7 + [_I, _D, _P, _P],
+        "bf_grid_radii": [_I] * 4 + [_P] * 2 + [_D] + [_P] * 3,
+        "bf_snapshot_radii": [_I, _LL, _D] + [_P] * 8,
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
@@ -120,6 +127,14 @@ def _signatures():
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \
             + [_I, _D, _D, _P, _P]
+        sig[f"bf_disc_radii_{sfx}"] = [_I] * 3 + [_P] * 5 + [_I] + [_P] * 7
+        sig[f"bf_disc_apply_displace_{sfx}"] = [_LL] + [_P] * 7
+        for rsfx in ("f32", "f64"):
+            # values in the first dtype, the painted map in the second
+            sig[f"bf_disc_apply_paint_{sfx}_{rsfx}"] = \
+                [_LL] + [_P] * 4 + [_I, _D] + [_P] * 2
+        sig[f"bf_grid_direct_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 8
+        sig[f"bf_snapshot_direct_{sfx}"] = [_I, _I, _D] + [_P] * 10
     return sig
 
 

@@ -12,6 +12,15 @@ the kernel's own layout of a disc (its rings, their phi spans and the flat
 (ring, dp) index the threads walk), and ``disc_members_plain`` the member
 set of the padded windows that ``disc_deposit_plain`` uses; the tests hold
 one against the other.
+
+``disc_radii`` is the wrapper of kernel K20 (``csrc/disc_direct.cu``), the
+direct readout's first half for models without ``halo_curves`` (the JAX
+bodies' direct branches, HealpixRunner.py:866-914, 1949-1972, 2379-2408):
+each disc's members laid out in rows of ``ops.direct.row_layout``, with
+their r and, for the displacement, their tangent geometry.
+``disc_radii_plain`` is its plain version, on ``disc_walk_plain``'s members
+and ``disc_deposit_plain``'s fallback. ``ops.paint.disc_apply`` (K21) is the
+second half.
 """
 
 import math
@@ -23,10 +32,10 @@ from . import _build
 from . import healpix as hpx
 from ..Profiles.BaryonCorrection import BaryonificationClass
 
-_TWO_PI = 2.0 * math.pi
 
 __all__ = ["disc_deposit", "disc_deposit_plain", "disc_walk_plain",
-           "disc_members_plain", "SPLIT_RINGS"]
+           "disc_members_plain", "disc_radii", "disc_radii_plain",
+           "DIRECT_MODES", "SPLIT_RINGS"]
 
 _HALO_COLUMNS = ("theta", "phi", "radius", "D", "a", "Rcom", "rscale")
 
@@ -131,7 +140,9 @@ def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
     (n,) bool, the discs of more than SPLIT_RINGS rings that the whole
     block walks; and over the flat candidates, in walk order, ``halo``,
     ``q`` (flat index), ``pix``, ``sinhd`` (sin(d/2) to the disc centre, in
-    ``dtype``) and ``member`` (the haversine test)."""
+    ``dtype``), ``member`` (the haversine test), ``theta_r`` (the ring's
+    colatitude) and ``dphi_pix`` (phi minus the centre's), both in
+    ``dtype``."""
     N = nside
     dev = theta.device
     th64, ph64, rad64 = theta.double(), phi.double(), radius.double()
@@ -144,7 +155,7 @@ def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
                         1, 4 * N - 1)
     sp, nr, _, shifted = hpx.ring_info(N, rings, dtype)
     theta_r = hpx.ring_theta(N, rings, dtype)
-    dphi = (_TWO_PI / nr.double()).to(dtype)
+    dphi = hpx.ring_dphi(nr, dtype)
     jc = torch.round(phi0[:, None] / dphi - 0.5 * shifted).to(torch.int32)
     lo = -torch.div(nr - 1, 2, rounding_mode="floor")
     hi = torch.div(nr, 2, rounding_mode="floor")
@@ -184,7 +195,8 @@ def disc_walk_plain(nside, theta, phi, radius, dtype=torch.float64):
     member = sinhd <= torch.sin(0.5 * rad)[halo]
     return dict(n_rings=n_rings, span=span, block=n_rings > SPLIT_RINGS,
                 halo=halo, q=first.reshape(-1)[src] + off,
-                pix=(at(sp) + jw).long(), sinhd=sinhd, member=member)
+                pix=(at(sp) + jw).long(), sinhd=sinhd, member=member,
+                theta_r=th_r, dphi_pix=dphi_pix)
 
 
 def disc_deposit_plain(nside, halos, curves, ln_r0, dlnr, eps_max,
@@ -306,3 +318,172 @@ def disc_deposit(nside, halos, curves, ln_r0, dlnr, eps_max):
     _build.check(err, "disc_deposit")
     _build.count("disc_deposit")
     return acc
+
+
+DIRECT_MODES = ("displace", "paint", "anis")
+_DIRECT_COLUMNS = ("theta", "phi", "radius", "D", "a")
+
+
+def _fallback_geometry(nside, th, ph, dt):
+    """The 4 interpolation neighbours of each centre (th, ph float64 (m,))
+    with their geometry as ``disc_deposit_plain`` forms it: (pix, cos_t,
+    sin_t, dphi_pix, sinhd), each (m, 4)."""
+    pix4, _ = hpx.get_interp_weights(nside, th, ph, dt)
+    t4, p4 = hpx.pix2ang(nside, pix4, dt)
+    st0 = torch.sin(th).to(dt)[:, None]
+    dphi4 = (p4.double() - ph[:, None]).to(dt)
+    sdp4 = torch.sin(0.5 * dphi4)
+    sdt4 = torch.sin(0.5 * (t4.double() - th[:, None]))
+    hav4 = sdt4 * sdt4 + (torch.sin(t4) * st0 * (sdp4 * sdp4)).double()
+    return (pix4, torch.cos(t4), torch.sin(t4), dphi4,
+            torch.sqrt(torch.clamp(hav4, 0.0, 1.0)).to(dt))
+
+
+def _row_counts(mode, members):
+    """Each halo's row length: its members, or 4 for a displacement disc
+    of fewer (the fallback's 4 neighbours)."""
+    if mode == "displace":
+        return np.where(members < 4, 4, members)
+    return members
+
+
+def _rows_empty(n_slots, mode, dt, dev):
+    rdt = torch.float64 if mode == "anis" else dt
+    return dict(pix=torch.full((n_slots,), -1, dtype=torch.int32, device=dev),
+                hid=torch.zeros(n_slots, dtype=torch.int32, device=dev),
+                r=torch.zeros(n_slots, dtype=rdt, device=dev),
+                geo=(torch.zeros((n_slots, 3), dtype=dt, device=dev)
+                     if mode == "displace" else None))
+
+
+def disc_radii_plain(nside, halos, mode, dtype):
+    """Plain version of K20. Arguments and result as :func:`disc_radii`."""
+    from . import direct
+    dt = dtype
+    dev = halos["theta"].device
+    n = halos["theta"].shape[0]
+    th, ph, rad = halos["theta"], halos["phi"], halos["radius"]
+    w = disc_walk_plain(nside, th, ph, rad, dt)
+    m = w["member"]
+    h = w["halo"][m]
+    members = torch.bincount(h, minlength=n).cpu().numpy()
+    layout = direct.row_layout(_row_counts(mode, members))
+    rows = _rows_empty(layout.n_slots, mode, dt, dev)
+    D, a = halos["D"], halos["a"]
+    # each member's rank in its disc (the walk is halo-major)
+    start = torch.cumsum(torch.bincount(h, minlength=n), 0) \
+        - torch.bincount(h, minlength=n)
+    rank = torch.arange(h.numel(), device=dev) - start[h]
+    pix, sinhd = w["pix"][m], w["sinhd"][m]
+    th_r, dphi = w["theta_r"][m], w["dphi_pix"][m]
+    cos_t, sin_t = torch.cos(th_r), torch.sin(th_r)
+    if mode == "displace":
+        keep = torch.as_tensor(members >= 4, device=dev)[h]
+        h, rank, pix, sinhd = h[keep], rank[keep], pix[keep], sinhd[keep]
+        cos_t, sin_t, dphi = cos_t[keep], sin_t[keep], dphi[keep]
+        few = np.nonzero(members < 4)[0]
+        if few.size:
+            fi = torch.as_tensor(few, device=dev)
+            p4, c4, s4, d4, sh4 = _fallback_geometry(nside, th[fi], ph[fi],
+                                                     dt)
+            h = torch.cat([h, fi.repeat_interleave(4)])
+            rank = torch.cat([rank, torch.arange(4, device=dev)
+                              .repeat(few.size)])
+            pix = torch.cat([pix, p4.reshape(-1).long()])
+            cos_t = torch.cat([cos_t, c4.reshape(-1)])
+            sin_t = torch.cat([sin_t, s4.reshape(-1)])
+            dphi = torch.cat([dphi, d4.reshape(-1)])
+            sinhd = torch.cat([sinhd, sh4.reshape(-1)])
+    slot = torch.as_tensor(layout.base, device=dev)[h] + rank
+    rows["pix"][slot] = pix.int()
+    rows["hid"][slot] = h.int()
+    if mode == "anis":
+        tp, pp = hpx.pix2ang(nside, pix.int(), dt)
+        st = torch.sin(tp)
+        vec = torch.stack([st * torch.cos(pp), st * torch.sin(pp),
+                           torch.cos(tp)], dim=-1)
+        sth = torch.sin(th)
+        vec_h = torch.stack([sth * torch.cos(ph), sth * torch.sin(ph),
+                             torch.cos(th)], dim=-1).to(dt)
+        diff = (vec - vec_h[h]).double() * D[h][:, None]
+        rows["r"][slot] = torch.sqrt((diff ** 2).sum(-1)) / a[h]
+        return rows, layout
+    chord = 2.0 * sinhd
+    D_t, a_t = D.to(dt)[h], a.to(dt)[h]
+    rows["r"][slot] = chord * D_t / a_t
+    if mode == "displace":
+        st0, ct0 = torch.sin(th).to(dt)[h], torch.cos(th).to(dt)[h]
+        rows["geo"][slot] = torch.stack(
+            [ct0 * sin_t - st0 * cos_t * torch.cos(dphi),
+             st0 * torch.sin(dphi),
+             D_t * torch.where(chord > 0, chord, torch.ones_like(chord))], 1)
+    return rows, layout
+
+
+def disc_radii(nside, halos, mode, dtype):
+    """Lay every halo's disc members out in rows for the direct readout.
+
+    nside  : HEALPix NSIDE (<= 8192)
+    halos  : dict of float64 (n,) tensors ``theta``, ``phi``, ``radius``,
+             ``D``, ``a`` (as :func:`disc_deposit`'s)
+    mode   : "displace" (BaryonifyShell: r = 2 sin(d/2) D / a in ``dtype``,
+             the tangent geometry, and a disc of fewer than 4 members
+             replaced by the 4 interpolation neighbours of its centre),
+             "paint" (r as displace, no fallback) or "anis" (r = |pix2vec
+             - vec_h| D / a in float64, the vectors in ``dtype``)
+    dtype  : float32 or float64, the geometry's
+
+    Returns (rows, layout): ``layout`` the ``ops.direct.RowLayout`` of the
+    halos (grouped by their row lengths), ``rows`` a dict over its slots:
+    ``pix`` int32 (-1 in pad slots), ``hid`` int32 the halo, ``r`` (in
+    ``dtype``, float64 for anis) and ``geo`` (displace: (n_slots, 3) in
+    ``dtype``, the tangent factors ct0 sin_t - st0 cos_t cos dphi and st0
+    sin dphi and D chord_safe; else None). A row holds its disc's members
+    in the walk's order. Kernel K20 (two launches and one copy of the
+    counts to the host) for tensors on CUDA, the plain version for tensors
+    on the CPU.
+    """
+    from . import direct
+    if mode not in DIRECT_MODES:
+        raise ValueError(f"disc_radii: mode {mode!r} not in {DIRECT_MODES}")
+    if not 1 <= nside <= hpx.MAX_NSIDE:
+        raise ValueError(f"disc_radii: NSIDE {nside} outside "
+                         f"[1, {hpx.MAX_NSIDE}] (int32 pixel math)")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"disc_radii: unsupported dtype {dtype}")
+    dev = halos["theta"].device
+    n = halos["theta"].shape[0]
+    for k in _DIRECT_COLUMNS:
+        x = halos[k]
+        if x.dtype != torch.float64 or x.shape != (n,) or x.device != dev:
+            raise ValueError(f"disc_radii: halos[{k!r}] must be a float64 "
+                             f"({n},) tensor on {dev}")
+    if dev.type == "cpu":
+        return disc_radii_plain(nside, halos, mode, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"disc_radii: unsupported device {dev}")
+    cols = [halos[k].contiguous() for k in _DIRECT_COLUMNS]
+    fn = getattr(_build.library(), "bf_disc_radii_{}".format(
+        "f32" if dtype == torch.float32 else "f64"))
+    mode_id = DIRECT_MODES.index(mode)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(mode_id, nside, n, *[_build.ptr(c) for c in cols], 0,
+                 _build.ptr(count), None, None, None, None, None,
+                 _build.stream_of(count))
+    _build.check(err, "disc_radii")
+    _build.count("disc_radii")
+    members = count.cpu().numpy().astype(np.int64)
+    layout = direct.row_layout(_row_counts(mode, members))
+    rows = _rows_empty(layout.n_slots, mode, dtype, dev)
+    base = torch.as_tensor(layout.base, device=dev)
+    geo = rows["geo"]
+    with torch.cuda.device(dev):
+        err = fn(mode_id, nside, n, *[_build.ptr(c) for c in cols], 1,
+                 _build.ptr(count), _build.ptr(base), _build.ptr(rows["pix"]),
+                 _build.ptr(rows["hid"]), _build.ptr(rows["r"]),
+                 None if geo is None else _build.ptr(geo),
+                 _build.stream_of(count))
+    _build.check(err, "disc_radii")
+    _build.count("disc_radii")
+    return rows, layout

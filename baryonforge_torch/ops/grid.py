@@ -28,6 +28,17 @@ values are in the curves' dtype T and read in float64. The modes:
               values zeroed; mfrac = canvas / mtot[cell] (0 where mtot <=
               0) times orig[cell]; painting mfrac added where finite and
               r < rmax.
+
+For models without ``halo_curves`` the bodies read the model itself on
+every cell of the cutout (Map2DRunner.py:410, 584, 609, 757-759): kernel
+K22 (``csrc/grid_cutout.cu``) has two entries for it. ``grid_radii``
+writes each cutout cell's r, halo by halo, the cells row-major in the box,
+the rows that ``ops.direct.readout`` reads the model on; ``grid_direct``
+adds the model's values through K15's tiles and lists: displace at every
+cell of the box (the direct body has no r < rmax cut; the caller passes
+rmax = inf, which also keeps every tile in the lists), paint and anis
+where the value is finite and r < rmax. ``grid_radii_plain`` and
+``grid_direct_plain`` are their plain versions.
 """
 
 import torch
@@ -35,7 +46,8 @@ import torch
 from . import _build
 
 __all__ = ["grid_cutout", "grid_cutout_plain", "cutout_tiles",
-           "tile_pairs_plain", "TILE", "MODES"]
+           "tile_pairs_plain", "grid_radii", "grid_radii_plain",
+           "grid_direct", "grid_direct_plain", "TILE", "MODES"]
 
 MODES = ("displace", "paint", "anis")
 
@@ -364,4 +376,131 @@ def _grid_cutout_kernel(mode, npix, Ns, res, halos, curve, acc, curve2, a,
                  _build.stream_of(acc))
     _build.check(err, "grid_cutout")
     _build.count("grid_cutout")
+    return acc
+
+
+def grid_radii_plain(npix, Ns, res, halos):
+    """Plain version of K22's radii pass. Arguments as :func:`grid_radii`."""
+    return _geometry(npix, Ns, res, halos["cen"], halos["doff"],
+                     halos.get("rmat"))[2].reshape(-1)
+
+
+def grid_radii(npix, Ns, res, halos):
+    """Each cutout cell's r for the direct readout.
+
+    npix, Ns, res : as :func:`grid_cutout`
+    halos  : ``cen`` (m, ndim) int32, ``doff`` (m, ndim) float64 and
+             ``rmat`` ((m, 2, 2) float64 or None)
+
+    Returns the (m Ns^d,) float64 radii, halo by halo, the cells of a box
+    row-major (the last axis fastest), r = |rel| or |rel Rmat| as K15
+    measures them. Kernel K22 (``bf_grid_radii``) for tensors on CUDA, the
+    plain version for tensors on the CPU.
+    """
+    cen, doff = halos["cen"], halos["doff"]
+    m, ndim = cen.shape
+    dev = cen.device
+    if cen.dtype != torch.int32 or doff.dtype != torch.float64 \
+            or tuple(doff.shape) != (m, ndim) or ndim not in (2, 3):
+        raise ValueError("grid_radii: cen must be int32 (m, 2 or 3) and doff "
+                         "float64 of its shape")
+    rmat = halos.get("rmat")
+    if dev.type == "cpu":
+        return grid_radii_plain(npix, Ns, float(res), halos)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_radii: unsupported device {dev}")
+    r = torch.empty(m * Ns ** ndim, dtype=torch.float64, device=dev)
+    cen, doff = cen.contiguous(), doff.contiguous()
+    rm = None if rmat is None else rmat.reshape(m, 4).contiguous()
+    with torch.cuda.device(dev):
+        err = _build.library().bf_grid_radii(
+            ndim, npix, Ns, m, _build.ptr(cen), _build.ptr(doff), float(res),
+            None if rm is None else _build.ptr(rm), _build.ptr(r),
+            _build.stream_of(r))
+    _build.check(err, "grid_radii")
+    _build.count("grid_radii")
+    return r
+
+
+def grid_direct_plain(mode, npix, Ns, res, halos, vals, acc, vals2=None,
+                      mtot=None, orig=None):
+    """Plain version of K22's apply. Arguments as :func:`grid_direct`."""
+    m, ndim = halos["cen"].shape
+    flat, g, r = _geometry(npix, Ns, res, halos["cen"], halos["doff"],
+                           halos.get("rmat"))
+    v = vals.reshape(m, -1)
+    if mode == "displace":
+        dt = acc.dtype
+        d = _finite(v.double() / res)
+        for k in range(ndim):
+            comp = _finite(d * (g[k] / r).to(dt).double())
+            acc[k].index_add_(0, flat.reshape(-1), comp.to(dt).reshape(-1))
+        return acc
+    if mode == "anis":
+        mt = mtot[flat]
+        canvas = _finite(vals2.reshape(m, -1))
+        v = _finite(v) * (torch.where(mt > 0, canvas / mt,
+                                      torch.zeros_like(mt)) * orig[flat])
+    keep = torch.isfinite(v) & (r < halos["rmax"][:, None])
+    acc.index_add_(0, flat[keep], v[keep])
+    return acc
+
+
+def grid_direct(mode, npix, Ns, res, halos, vals, acc, vals2=None, mtot=None,
+                orig=None):
+    """Add the model's values on :func:`grid_radii`'s rows into ``acc``.
+
+    mode   : "displace", "paint" or "anis"
+    halos  : as :func:`grid_cutout`'s, without ``rscale``; ``rmax`` inf for
+             displace
+    vals   : (m Ns^d,) the model's values on the rows: in the offsets'
+             dtype T (displace) or float64
+    acc    : (ndim, N^d) in T (displace) or (N^d,) float64, added into
+    vals2, mtot, orig : anis: the canvas' values (float64), the (N^d,)
+             float64 Mtot (background included) and input map
+
+    Returns ``acc``. Kernel K22 (the cutout lists of K15, then
+    ``bf_grid_direct``) for tensors on CUDA, the plain version for tensors
+    on the CPU.
+    """
+    if mode not in MODES:
+        raise ValueError(f"grid_direct: mode {mode!r} not in {MODES}")
+    m, ndim = halos["cen"].shape
+    dev = acc.device
+    n = m * Ns ** ndim
+    want = acc.dtype if mode == "displace" else torch.float64
+    for name, x in (("vals", vals),) + ((("vals2", vals2),)
+                                         if mode == "anis" else ()):
+        if x is None or x.dtype != want or x.shape != (n,) \
+                or x.device != dev:
+            raise ValueError(f"grid_direct: {name} must be a ({n},) {want} "
+                             f"tensor on {dev}")
+    if mode != "displace" and acc.dtype != torch.float64:
+        raise ValueError("grid_direct: paint and anis maps are float64")
+    if dev.type == "cpu":
+        return grid_direct_plain(mode, npix, Ns, float(res), halos, vals, acc,
+                                 vals2, mtot, orig)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_direct: unsupported device {dev}")
+    if m == 0:
+        return acc
+    tile_start, tile_halo = cutout_tiles(npix, Ns, res, halos)
+    rmat = halos.get("rmat")
+    cols = [halos["cen"].contiguous(), halos["doff"].contiguous(),
+            halos["rmax"].contiguous(),
+            None if rmat is None else rmat.reshape(m, 4).contiguous()]
+
+    def ptr(t):
+        return None if t is None else _build.ptr(t)
+
+    fn = getattr(_build.library(), "bf_grid_direct_{}".format(
+        "f32" if acc.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(dev):
+        err = fn(ndim, npix, Ns, TILE[ndim], MODES.index(mode),
+                 ptr(tile_start), ptr(tile_halo), ptr(cols[0]), ptr(cols[1]),
+                 float(res), ptr(cols[2]), ptr(cols[3]), ptr(vals),
+                 ptr(vals2), ptr(mtot), ptr(orig), ptr(acc),
+                 _build.stream_of(acc))
+    _build.check(err, "grid_direct")
+    _build.count("grid_direct")
     return acc

@@ -96,6 +96,15 @@ def ring_info(nside, i, dtype=torch.float64):
     return sp, nr, z, shifted
 
 
+def ring_dphi(nr, dtype=torch.float64):
+    """The phi step 2 pi / nr of rings of ``nr`` pixels: one float64
+    division, rounded once to ``dtype``, as the kernels' ring_dphi and the
+    JAX package's ``2 pi / nr`` form it (a Python number over a tensor is a
+    reciprocal times the number in torch, two roundings)."""
+    nr = nr.double()
+    return (torch.full_like(nr, _TWO_PI) / nr).to(dtype)
+
+
 def _rt6N(nside, dtype, device):
     return torch.sqrt(torch.tensor(6.0, dtype=dtype, device=device)) * nside
 
@@ -226,7 +235,7 @@ def ang2pix(nside, theta, phi):
 def _ring_phi_neighbors(nside, ring, phi, dtype):
     """Two pixels bracketing ``phi`` in ``ring`` and the phi weight."""
     sp, nr, _, shifted = ring_info(nside, ring, dtype)
-    dphi = (_TWO_PI / nr.double()).to(dtype)
+    dphi = ring_dphi(nr, dtype)
     tmp = phi / dphi - 0.5 * shifted
     i1 = _int32(torch.floor(tmp))
     w = (phi - (i1 + 0.5 * shifted) * dphi) / dphi
@@ -353,7 +362,7 @@ def disc_candidates(nside, theta0, phi0, radius, K_ring, K_phi,
 
     sp, nr, _, shifted = ring_info(N, rings_c, dtype)
     theta_r = ring_theta(N, rings_c, dtype)
-    dphi = (_TWO_PI / nr.double()).to(dtype)
+    dphi = ring_dphi(nr, dtype)
     jc = _int32(torch.round(phi0 / dphi - 0.5 * shifted))
     dp = (torch.arange(K_phi, dtype=torch.int32, device=dev)
           - (K_phi - 1) // 2)[None, None, :]

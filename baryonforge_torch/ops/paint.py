@@ -27,6 +27,12 @@ same members) and takes a pixel's theta from its ring;
 ``pixel_angles`` (a check kernel) and ``pixel_angles_plain`` give every
 pixel's angles that way or by pix2ang, which agree bit for bit.
 
+``disc_apply`` is the wrapper of kernel K21 (``csrc/disc_direct.cu``),
+the direct readout's second half for models without ``halo_curves``: the
+model's values on ``ops.deposit.disc_radii``'s rows turned into the JAX
+bodies' sums (HealpixRunner.py:914-934 displace, 1972-1980 paint,
+2409-2419 anis); ``disc_apply_plain`` is its plain version.
+
 ``anis_finish`` is the wrapper of kernel K14 (``csrc/anis_finish.cu``);
 ``anis_finish_plain`` is its plain version: the JAX runners' last pass,
 which weights the halo sum by orig / Mtot and adds the uniform-background
@@ -46,6 +52,7 @@ __all__ = ["disc_paint", "disc_paint_plain", "disc_paint_walk_plain",
            "disc_paint_anis",
            "disc_paint_anis_plain", "anis_finish", "anis_finish_plain",
            "pixel_angles", "pixel_angles_plain", "float32_tolerance",
+           "disc_apply", "disc_apply_plain",
            "HALO_COLUMNS", "SINHD_REACH", "VEC_SINHD_REACH"]
 
 HALO_COLUMNS = ("theta", "phi", "radius", "D", "a")
@@ -486,3 +493,122 @@ def anis_finish(halo_sum, mtot, orig, add, bgw, scale=1.0, tiled=False):
     _build.check(err, "anis_finish")
     _build.count("anis_finish")
     return out
+
+
+def disc_apply_plain(mode, nside, rows, vals, halos, vals2=None, mtot=None,
+                     orig=None, pixel_size=False, acc_dtype=torch.float64):
+    """Plain version of K21. Arguments as :func:`disc_apply`."""
+    dev = vals.device
+    npix = hpx.npix(nside)
+    live = rows["pix"] >= 0
+    pix = rows["pix"][live].long()
+    h = rows["hid"][live].long()
+    v = vals[live]
+    zero = torch.zeros_like
+    if mode == "displace":
+        geo = rows["geo"][live]
+        dt = geo.dtype
+        acc = torch.zeros((npix, 2), dtype=dt, device=dev)
+        d = (v * halos["a"][h]).to(dt)
+        d = torch.where(torch.isfinite(d), d, zero(d))
+        amp = d / geo[:, 2]
+        delta = torch.stack([amp * geo[:, 0], amp * geo[:, 1]], 1)
+        delta = torch.where(torch.isfinite(delta), delta, zero(delta))
+        return acc.index_add_(0, pix, delta)
+    D = halos["D"][h]
+    if mode == "paint":
+        acc = torch.zeros(npix, dtype=acc_dtype, device=dev)
+        v = torch.where(torch.isfinite(v), v, zero(v))
+        if pixel_size:
+            v = v * (hpx.nside2pixarea(nside) * (D * D)).to(v.dtype)
+        return acc.index_add_(0, pix, v.to(acc_dtype))
+    acc = torch.zeros(npix, dtype=torch.float64, device=dev)
+    c = vals2[live]
+    painting = torch.where(torch.isfinite(v), v, zero(v))
+    canvas = torch.where(torch.isfinite(c), c, zero(c))
+    mt = mtot[pix]
+    mfrac = torch.where(mt > 0, canvas / mt, zero(mt)) * orig[pix]
+    if pixel_size:
+        painting = painting * (hpx.nside2pixarea(nside) * (D * D))
+    return acc.index_add_(0, pix, painting * mfrac)
+
+
+def disc_apply(mode, nside, rows, vals, halos, vals2=None, mtot=None,
+               orig=None, pixel_size=False, acc_dtype=torch.float64):
+    """Turn the model's values on ``disc_radii``'s rows into the map.
+
+    mode   : "displace", "paint" or "anis" (``ops.deposit.DIRECT_MODES``)
+    rows   : ``ops.deposit.disc_radii``'s rows (pad slots have pixel -1)
+    vals   : (n_slots,) the model's values: float64 for displace (the
+             displacement, times a here and rounded to the geometry's
+             dtype) and anis (the painting), in the geometry's dtype for
+             paint
+    halos  : dict of float64 (n,) tensors ``a`` (displace) or ``D``
+    vals2  : anis: (n_slots,) float64 the tracer's canvas
+    mtot, orig : anis: (npix,) float64 Mtot (background included) and the
+             input map
+    pixel_size : paint and anis: times pixarea D^2
+    acc_dtype  : paint: the map's dtype
+
+    Returns the (npix, 2) tangent offsets in the geometry's dtype
+    (displace), the (npix,) map in ``acc_dtype`` (paint) or in float64
+    (anis). Kernel K21 for tensors on CUDA, the plain version for tensors
+    on the CPU.
+    """
+    from .deposit import DIRECT_MODES
+    if mode not in DIRECT_MODES:
+        raise ValueError(f"disc_apply: mode {mode!r} not in {DIRECT_MODES}")
+    dev = vals.device
+    n = rows["pix"].numel()
+    npix = hpx.npix(nside)
+    want = {"displace": torch.float64, "anis": torch.float64,
+            "paint": rows["r"].dtype}[mode]
+    if vals.dtype != want or vals.shape != (n,):
+        raise ValueError(f"disc_apply: vals must be ({n},) {want}")
+    if mode == "anis":
+        for name, x, shape in (("vals2", vals2, (n,)), ("mtot", mtot, (npix,)),
+                               ("orig", orig, (npix,))):
+            if x is None or x.dtype != torch.float64 or x.shape != shape \
+                    or x.device != dev:
+                raise ValueError(f"disc_apply: {name} must be a float64 "
+                                 f"{shape} tensor on {dev}")
+    if acc_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"disc_apply: unsupported acc_dtype {acc_dtype}")
+    if dev.type == "cpu":
+        return disc_apply_plain(mode, nside, rows, vals, halos, vals2, mtot,
+                                orig, bool(pixel_size), acc_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"disc_apply: unsupported device {dev}")
+    lib = _build.library()
+    sfx = {torch.float32: "f32", torch.float64: "f64"}
+    pix, hid = rows["pix"], rows["hid"]
+    if mode == "displace":
+        geo = rows["geo"]
+        acc = torch.zeros((npix, 2), dtype=geo.dtype, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, f"bf_disc_apply_displace_{sfx[geo.dtype]}")(
+                n, _build.ptr(pix), _build.ptr(hid), _build.ptr(geo),
+                _build.ptr(vals), _build.ptr(halos["a"].contiguous()),
+                _build.ptr(acc), _build.stream_of(acc))
+    elif mode == "paint":
+        acc = torch.zeros(npix, dtype=acc_dtype, device=dev)
+        with torch.cuda.device(dev):
+            err = getattr(lib, "bf_disc_apply_paint_{}_{}".format(
+                sfx[vals.dtype], sfx[acc_dtype]))(
+                n, _build.ptr(pix), _build.ptr(hid), _build.ptr(vals),
+                _build.ptr(halos["D"].contiguous()), int(bool(pixel_size)),
+                hpx.nside2pixarea(nside), _build.ptr(acc),
+                _build.stream_of(acc))
+    else:
+        acc = torch.zeros(npix, dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.bf_disc_apply_anis(
+                n, _build.ptr(pix), _build.ptr(hid), _build.ptr(vals),
+                _build.ptr(vals2.contiguous()),
+                _build.ptr(halos["D"].contiguous()),
+                _build.ptr(mtot.contiguous()), _build.ptr(orig.contiguous()),
+                int(bool(pixel_size)), hpx.nside2pixarea(nside),
+                _build.ptr(acc), _build.stream_of(acc))
+    _build.check(err, "disc_apply")
+    _build.count("disc_apply")
+    return acc

@@ -56,10 +56,7 @@ def ring_table_plain(nside, dtype, device="cpu"):
     r = torch.arange(1, 4 * nside, dtype=torch.int32, device=device)
     _, nr, _, _ = hpx.ring_info(nside, r, dtype)
     theta = hpx.ring_theta(nside, r, dtype)
-    # a true division (a Python number over a tensor is a reciprocal times
-    # the number in torch), as the kernel's ring_dphi
-    dphi = (torch.full_like(nr, 2 * math.pi, dtype=torch.float64)
-            / nr.double()).to(dtype)
+    dphi = hpx.ring_dphi(nr, dtype)
     sin_t = torch.sin(theta)
     sin_safe = torch.where(sin_t > 1e-12, sin_t, torch.ones_like(sin_t))
     return theta, dphi, sin_safe

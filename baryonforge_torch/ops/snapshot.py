@@ -21,6 +21,16 @@ r = T(d, or 1e-30 at d = 0) * rscale in T; the halo's curve read at r by
 the log-uniform lerp of ``BaryonificationClass.curve_lookup`` in T; zero
 unless T(d) < eps_edge, zero where not finite; the offset times T(dx / d)
 added into the (ndim, n_part) accumulator in T.
+
+For models without ``halo_curves`` the JAX body reads ``model.displacement
+(d, M_h, a)`` on each pair (SnapshotRunner.py:196). Kernel K23 has two
+entries for it: ``snapshot_radii`` writes each pair's float64 distance d
+into its slot of its row (``ops.direct.row_layout`` over the CSR rows),
+the rows ``ops.direct.readout`` reads the model on; ``snapshot_direct`` is
+K17's gather reading each pair's value from its slot (``eslot``, the
+slots in the particle-major order, ``particle_major_pairs``): the value in
+T, zeroed where not finite, times T(dx / d_safe). ``snapshot_radii_plain``
+and ``snapshot_direct_plain`` are their plain versions.
 """
 
 import torch
@@ -29,7 +39,9 @@ from . import _build
 
 __all__ = ["snapshot_displace", "snapshot_displace_plain",
            "snapshot_gather_plain", "particle_order", "particle_major_plain",
-           "particle_layout"]
+           "particle_layout", "particle_major_pairs", "snapshot_radii",
+           "snapshot_radii_plain", "snapshot_direct",
+           "snapshot_direct_plain"]
 
 
 def _lookup(curve_rows, ln_r0, dlnr, r):
@@ -244,4 +256,146 @@ def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
                  float(dlnr), _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, "snapshot_displace")
     _build.count("snapshot_displace")
+    return acc
+
+
+def particle_major_pairs(parts, order):
+    """The halo-major pair index of every entry of the particle-major
+    layout (int64 (P,)): the same stable sort of the pairs by their
+    particle's place in ``order`` as :func:`particle_major_plain` makes, so
+    entry j's row is prow[j] and its pair this[j]."""
+    dev = parts.device
+    rank = torch.empty(order.numel(), dtype=torch.int64, device=dev)
+    rank[order.long()] = torch.arange(order.numel(), device=dev)
+    return torch.sort(rank[parts.long()], stable=True).indices
+
+
+def _pair_slots(halos, offsets, layout):
+    """Each pair's row (int64 (P,)) and its slot in the rows of
+    ``layout`` (an ``ops.direct.RowLayout`` over the CSR rows)."""
+    dev = offsets.device
+    counts = (offsets[1:] - offsets[:-1]).long()
+    row = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                  counts)
+    base = torch.as_tensor(layout.base, device=dev)
+    pair = torch.arange(row.numel(), device=dev)
+    return row, base[row] + pair - offsets.long()[row]
+
+
+def _min_image(coords, hpos, p, h, L):
+    dx = coords[p] - hpos[h]
+    dx = torch.where(dx > L / 2, dx - L, dx)
+    return torch.where(dx < -L / 2, dx + L, dx)
+
+
+def _distance(dx):
+    d2 = dx[:, 0] * dx[:, 0]
+    for c in range(1, dx.shape[1]):
+        d2 = d2 + dx[:, c] * dx[:, c]
+    return torch.sqrt(d2)
+
+
+def snapshot_radii_plain(coords, hpos, halos, offsets, parts, layout, L):
+    """Plain version of K23's radii pass. Arguments and result as
+    :func:`snapshot_radii`."""
+    row, pslot = _pair_slots(halos, offsets, layout)
+    r = torch.zeros(layout.n_slots, dtype=torch.float64, device=coords.device)
+    dx = _min_image(coords, hpos, parts.long(), halos.long()[row], L)
+    r[pslot] = _distance(dx)
+    return r, pslot
+
+
+def snapshot_radii(coords, hpos, halos, offsets, parts, layout, L):
+    """Each pair's minimum-image distance in its row, for the direct
+    readout.
+
+    coords, hpos, halos, offsets, parts, L : as :func:`snapshot_displace`
+    layout : the ``ops.direct.RowLayout`` of the CSR rows (their pair
+             counts)
+
+    Returns (r, pslot): the (n_slots,) float64 distances, pair k of row i
+    at slot ``layout.base[i] + k`` (pads 0), and each pair's slot (P,)
+    int64. Kernel K23 (``bf_snapshot_radii``) for tensors on CUDA, the
+    plain version for tensors on the CPU.
+    """
+    dev = coords.device
+    if dev.type == "cpu":
+        return snapshot_radii_plain(coords, hpos, halos, offsets, parts,
+                                    layout, float(L))
+    if dev.type != "cuda":
+        raise ValueError(f"snapshot_radii: unsupported device {dev}")
+    row, pslot = _pair_slots(halos, offsets, layout)
+    r = torch.zeros(layout.n_slots, dtype=torch.float64, device=dev)
+    args = [x.contiguous() for x in (coords, hpos, halos, row.int(), parts,
+                                     pslot)]
+    with torch.cuda.device(dev):
+        err = _build.library().bf_snapshot_radii(
+            coords.shape[1], parts.numel(), float(L),
+            *[_build.ptr(x) for x in args], _build.ptr(r),
+            _build.stream_of(r))
+    _build.check(err, "snapshot_radii")
+    _build.count("snapshot_radii")
+    return r, pslot
+
+
+def snapshot_direct_plain(coords, hpos, halos, layout, eslot, vals, L):
+    """Plain version of K23's gather: each particle's entries summed from 0
+    in the particle-major order. Arguments as :func:`snapshot_direct`."""
+    dt, dev = vals.dtype, vals.device
+    n_part, ndim = coords.shape
+    order, poff, prow = (x.long() for x in layout)
+    acc = torch.zeros((ndim, n_part), dtype=dt, device=dev)
+    counts = poff[1:] - poff[:-1]
+    if prow.numel() == 0:
+        return acc
+    p = torch.repeat_interleave(order, counts)
+    dx = _min_image(coords, hpos, p, halos.long()[prow], float(L))
+    d = _distance(dx)
+    d_safe = torch.where(d > 0, d, torch.ones_like(d))
+    off = vals[eslot]
+    off = torch.where(torch.isfinite(off), off, torch.zeros_like(off))
+    vec = off[:, None] * (dx / d_safe[:, None]).to(dt)
+    start = poff[:-1]
+    for j in range(int(counts.max())):
+        live = torch.nonzero(counts > j)[:, 0]
+        pj = order[live]
+        acc[:, pj] = acc[:, pj] + vec[start[live] + j].T
+    return acc
+
+
+def snapshot_direct(coords, hpos, halos, layout, eslot, vals, L):
+    """Sum the model's per-pair displacements per particle.
+
+    coords, hpos, halos, L : as :func:`snapshot_displace`
+    layout : the pairs particle-major (order, poff, prow) int32
+    eslot  : (P,) int64, each particle-major entry's slot in ``vals``
+    vals   : (n_slots,) the model's displacement at each pair's distance,
+             in T (float32 or float64)
+
+    Returns the (ndim, n_part) offsets in T. Kernel K23 (``bf_snapshot_
+    direct``) for tensors on CUDA, the plain version for tensors on the
+    CPU.
+    """
+    dt, dev = vals.dtype, vals.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"snapshot_direct: unsupported dtype {dt}")
+    n_part, ndim = coords.shape
+    if eslot.dtype != torch.int64 or eslot.shape != layout[2].shape:
+        raise ValueError("snapshot_direct: eslot must be int64 of prow's "
+                         "shape")
+    if dev.type == "cpu":
+        return snapshot_direct_plain(coords, hpos, halos, layout, eslot, vals,
+                                     L)
+    if dev.type != "cuda":
+        raise ValueError(f"snapshot_direct: unsupported device {dev}")
+    acc = torch.empty((ndim, n_part), dtype=dt, device=dev)
+    args = [x.contiguous() for x in (coords, *layout, eslot, halos, hpos,
+                                     vals)]
+    fn = getattr(_build.library(), "bf_snapshot_direct_{}".format(
+        "f32" if dt == torch.float32 else "f64"))
+    with torch.cuda.device(dev):
+        err = fn(ndim, n_part, float(L), *[_build.ptr(x) for x in args],
+                 _build.ptr(acc), _build.stream_of(acc))
+    _build.check(err, "snapshot_direct")
+    _build.count("snapshot_direct")
     return acc

@@ -37,8 +37,6 @@ the ring functions. Offsets are (n_tiles, RB*K, 2) in the deposit dtype;
 maps and the stencil's output are in the regrid dtype.
 """
 
-import math
-
 import numpy as np
 import torch
 
@@ -53,7 +51,6 @@ __all__ = ["stencil_tables", "ring_table", "hot_tiles", "hot_tiles_plain",
            "source_angles_plain", "stencil_complement",
            "stencil_complement_plain"]
 
-_TWO_PI = 2.0 * math.pi
 # tiles / sources per step of the plain versions
 _TILE_CHUNK = 1024
 _SRC_CHUNK = 1 << 21
@@ -69,7 +66,7 @@ def ring_table(nside, device):
     r = torch.arange(1, 4 * nside, dtype=torch.int32, device=device)
     _, nr, _, sh = hpx.ring_info(nside, r, torch.float64)
     theta = hpx.ring_theta(nside, r, torch.float64)
-    dphi = _TWO_PI / nr.double()
+    dphi = hpx.ring_dphi(nr)
     colscale = {}
     for dt in (torch.float32, torch.float64):
         sin_r = torch.sin(theta.to(dt))
@@ -167,7 +164,7 @@ def _row_geometry(tiling, i0, s, S, M, rdt):
     j0c = _j0(s, nr, sh_i, S)
     segC = _j0(s + 1, nr, sh_i, S) - j0c
     segL = (j0c - _j0(sm, nr, sh_i, S)) % nr
-    dphi = _TWO_PI / nr.double()
+    dphi = hpx.ring_dphi(nr)
     phi0 = (j0c.double() + 0.5 * sh) * dphi
     return r_ok, theta, dphi, phi0, segC, segL
 
@@ -402,7 +399,7 @@ def source_angles_plain(nside, pix, rows):
     (``_get_stencil_geo_ang``) formulas."""
     ring = hpx.pixel_ring(nside, pix)
     sp, nr, _, sh = hpx.ring_info(nside, ring)
-    step = torch.full_like(sh, _TWO_PI) / nr.double()
+    step = hpx.ring_dphi(nr)
     phi = ((pix - sp).double() + 0.5 * sh) * step
     return rows[4 * nside + ring.long(), 0], phi.to(rows.dtype)
 

@@ -127,7 +127,7 @@ def row_geometry_plain(tiling, tids):
     theta_r = hpx.ring_theta(tiling.nside, i_c, torch.float64)
     sth, cth = torch.sin(theta_r), torch.cos(theta_r)
     return dict(ok=ring_ok, len=j1 - j0, jb=j0.double() + 0.5 * sh,
-                dphi=_TWO_PI / nr.double(), sth=sth, cth=cth,
+                dphi=hpx.ring_dphi(nr), sth=sth, cth=cth,
                 dsin=sth - csc[:, 0:1], dcos=cth - csc[:, 1:2])
 
 

@@ -240,7 +240,7 @@ class SkyTiling:
         sth32 = sth_r.to(dtype)[:, :, None]
         cth32 = cth_r.to(dtype)[:, :, None]
 
-        dphi = _TWO_PI / nr.double()
+        dphi = hpx.ring_dphi(nr)
         d = ((j.double() + 0.5 * sh[:, :, None]) * dphi[:, :, None]
              - ph_c64[:, :, None])
         d = torch.remainder(d + math.pi, _TWO_PI) - math.pi
@@ -281,7 +281,7 @@ class SkyTiling:
         jw = torch.where(j < nr3, j, j - nr3)
         pix = sp[:, :, None] + jw
         theta_r = hpx.ring_theta(self.nside, i_c, torch.float64)
-        dphi = _TWO_PI / nr.double()
+        dphi = hpx.ring_dphi(nr)
         phi = (jw.double() + 0.5 * sh[:, :, None]) * dphi[:, :, None]
         return pix, phi, valid, theta_r
 

@@ -209,7 +209,25 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      SplitJoinParallel on the scatter tSZ paint, SimpleParallel of four
      bench shells against the same in sequence (both timed), and a FITS
      shell through LightconeShell(path=...);
- 19. prints the registers, spills and resident warps of K1's, K3's, K4's
+ 19. runs the direct readout (models without halo_curves) of every runner
+     at full width, each given its model behind HideCurves (only its
+     displacement / projected / real, as tests/test_runners_extra.py:
+     201-208 wraps one): the bench shell (K20, K21, K3), the tSZ paint at
+     epsilon_max 5 (K20, K21), the anisotropic scatter shell (K20, K21,
+     K14), the 3D ΔP(k) BaryonifyGrid and DMO paint at 256^3 and the 2D
+     anisotropic grid at 2048^2 (K22, then K16 or K14) and the snapshot
+     bench (K23): each direct map held in float64 on the card against its
+     curve path to 1e-9 of the largest value (of the largest move for a
+     baryonification; the shell's members within 1e-12 of the eps_max
+     edge counted), each path driven in float32 (one warm call, two timed,
+     the launch counts set to 0 just before and read just after) with its
+     phases (host prep, radii, readout, apply, regrid or finish,
+     download); then K20-K23 against their plain versions at the bench
+     shapes, timed beside them: K22 on the 3D baryonify's first chunk of
+     its largest size bucket, as the runner cuts it, with the readout's
+     own values; K20's float64 r held to what the gap between the
+     device's and torch's ring colatitudes explains;
+ 20. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
      K16's, K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
      line with each kernel's launches, error, times, bound and
@@ -3597,6 +3615,484 @@ def fits_shell(bf, torch, gpu, model, cat, shell):
 
 
 
+# the direct readout (models without halo_curves): each runner with the
+# bench's model behind HideCurves, DIRECT_CALLS timed calls after one warm
+DIRECT_CALLS = 2
+DIRECT_EDGE = 1e-12     # relative reach of an eps_max edge that two R roundings may flip
+
+
+class HideCurves:
+    """A model's readout surface alone, as tests/test_runners_extra.py:
+    201-208 wraps one: a runner given it takes the direct readout (K20-K23)
+    instead of the curves (K1)."""
+
+    def __init__(self, m):
+        self._m = m
+
+    def displacement(self, *a, **k):
+        return self._m.displacement(*a, **k)
+
+    def projected(self, *a, **k):
+        return self._m.projected(*a, **k)
+
+    def real(self, *a, **k):
+        return self._m.real(*a, **k)
+
+
+def on_card(model, torch, dt):
+    """``model`` with its tables in ``dt`` on the card, behind HideCurves."""
+    return HideCurves(model.with_dtype(dt, device=DEVICE))
+
+
+def direct_vs_curve(torch, label, make, scale_of):
+    """One float64 call of the curve path and one of the direct path
+    (``make(direct)`` builds the runner), held to 1e-9 of ``scale_of``
+    (the curve map's largest value or move); returns the direct map."""
+    curve = make(False).process()
+    direct = make(True).process()
+    scale = float(scale_of(curve))
+    if not scale > 0:
+        raise AssertionError(f"{label}: the curve path did nothing")
+    check(f"{label}: direct vs curve path, float64, card",
+          float(np.abs(direct - curve).max()), 1e-9 * scale)
+    return direct
+
+
+def edge_members(bf, torch, runner, mode, eps, Rcom):
+    """The (halo, pixel) rows of ``runner``'s direct readout whose r lies
+    within DIRECT_EDGE (relative) of eps Rcom: the members that the curve
+    path's host R and the model's card R may cut differently."""
+    from baryonforge_torch.ops.deposit import disc_radii
+    hd = runner._host_halo_data(bf.cosmo.cosmology_from_dict(COSMO))
+    rows, _ = disc_radii(runner.LightconeShell.NSIDE,
+                         runner._direct_halos(hd), mode, torch.float64)
+    live = rows["pix"] >= 0
+    edge = eps * torch.as_tensor(Rcom(hd), device=DEVICE)[
+        rows["hid"][live].long()]
+    return int(((rows["r"][live] / edge - 1).abs() < DIRECT_EDGE).sum())
+
+
+def k20_r_cause(torch, halos, rows, lay, ref):
+    """Where K20's float64 r parts from its plain version's, at the bench:
+    each member's plain r is formed again from its ring's colatitude, once
+    as torch forms it (ops/healpix.ring_theta, the plain walk's: the plain
+    r bit for bit) and once as the device forms it (csrc/healpix.cuh:
+    ring_theta, read from the ring table that K3's first launch fills, the
+    function K20's walk calls). Returns (max |kernel r - plain r|, max
+    |kernel r - plain r on the device's colatitudes|, max |plain r - plain
+    r formed again|, rings whose two colatitudes differ, their largest gap
+    in radians and in ulps, the largest |d r / d theta_r| bound D / a over
+    the members of those rings). Discs of fewer than 4 members (the
+    fallback's rows, which K20 forms in float64 from pix2ang) are left
+    out."""
+    from baryonforge_torch.ops import healpix as hpx, regrid
+    f64 = torch.float64
+    n = hpx.npix(NSIDE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    po = torch.randn((n, 2), generator=gen, device=DEVICE,
+                     dtype=f64) * (0.5 / NSIDE)
+    orig = torch.ones(n, dtype=f64, device=DEVICE)
+    scratch = regrid._scratch(NSIDE, f64, DEVICE)
+    regrid._launch(NSIDE, po, orig, scratch, torch.empty_like(orig))
+    torch.cuda.synchronize()
+    th_dev = scratch[:4 * NSIDE * 4 * 8].view(f64).view(4 * NSIDE, 4)[:, 0]
+    ring_ids = torch.arange(1, 4 * NSIDE, dtype=torch.int32, device=DEVICE)
+    th_torch = torch.zeros_like(th_dev)
+    th_torch[1:] = hpx.ring_theta(NSIDE, ring_ids, f64)
+    gap = (th_dev[1:] - th_torch[1:]).abs()
+    ulp = torch.nextafter(th_torch[1:], torch.full_like(gap, 4.0)) \
+        - th_torch[1:]
+    differ = gap > 0
+    counts = torch.as_tensor(lay.counts, device=DEVICE)
+    live = rows["pix"] >= 0
+    live &= (counts >= 4)[rows["hid"].long()]
+    pix, h = rows["pix"][live], rows["hid"][live].long()
+    ring = hpx.pixel_ring(NSIDE, pix)
+    sp, nr, _, shifted = hpx.ring_info(NSIDE, ring, f64)
+    dphi = hpx.ring_dphi(nr)
+    th0, ph0 = halos["theta"][h], halos["phi"][h]
+    dphi_pix = ((pix - sp) + 0.5 * shifted) * dphi - ph0
+    sdp = torch.sin(0.5 * dphi_pix)
+    D_a = halos["D"][h], halos["a"][h]
+
+    def r_on(theta):
+        t = theta[ring.long()]
+        sdt = torch.sin(0.5 * (t - th0))
+        hav = sdt * sdt + torch.sin(t) * torch.sin(th0) * (sdp * sdp)
+        return 2.0 * torch.sqrt(torch.clamp(hav, 0.0, 1.0)) * D_a[0] / D_a[1]
+    r_k, r_p = rows["r"][live], ref["r"][live]
+    again = float((r_on(th_torch) - r_p).abs().max())
+    err = float((r_k - r_p).abs().max())
+    err_dev = float((r_k - r_on(th_dev)).abs().max())
+    on_gap = differ[(ring - 1).long()]
+    slope = float((D_a[0] / D_a[1])[on_gap].max()) if on_gap.any() else 0.0
+    return (err, err_dev, again, int(differ.sum()), float(gap.max()),
+            float((gap / ulp).max()), slope)
+
+
+def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
+                       snap_part):
+    """K20-K23 against their plain versions on the card at the bench
+    shapes, timed beside them; returns their kernel rows."""
+    from baryonforge_torch.ops import deposit, direct, grid, paint, snapshot
+    from baryonforge_torch.ops import healpix as hpx
+    measured = {}
+    f32, f64 = torch.float32, torch.float64
+    # K20 at the bench shell, displacement mode, float32 (and float64 for
+    # the error: the rows' integers equal, r as k20_r_cause explains it)
+    rows, lay = deposit.disc_radii(NSIDE, halos, "displace", f64)
+    ref, lref = deposit.disc_radii_plain(NSIDE, halos, "displace", f64)
+    if not (np.array_equal(lay.counts, lref.counts)
+            and torch.equal(rows["pix"], ref["pix"])):
+        raise AssertionError("K20: rows differ from the plain version's")
+    # r: its residual against the plain version's is held to what the two
+    # ring colatitudes' gap explains (k20_r_cause)
+    err, err_dev, again, n_gap, gap, gap_ulp, slope = k20_r_cause(
+        torch, halos, rows, lay, ref)
+    log(f"  K20 float64 r: {n_gap} of {4 * NSIDE - 1} ring colatitudes "
+        f"differ between the device's ring_theta and torch's, by at most "
+        f"{gap:.3e} rad ({gap_ulp:.2f} ulp); plain r formed again differs "
+        f"from the plain version's by {again:.3e}")
+    if again != 0:
+        raise AssertionError("K20: the plain r formed again is not the "
+                             "plain version's")
+    r_ulp = 2.2e-16 * float(ref["r"].abs().max())
+    check(f"K20 disc_radii [bench, displace, float64, {lay.n_radii} members"
+          "] r against the plain r on the device's ring colatitudes, "
+          "bitwise", err_dev, 0.0)
+    check(f"K20 disc_radii [bench, displace, float64, {lay.n_radii} members"
+          "] r (the colatitude gap times D / a, plus 4 ulp)", err,
+          gap * slope + 4 * r_ulp)
+    rows, lay = deposit.disc_radii(NSIDE, halos, "displace", f32)
+    ref, lref = deposit.disc_radii_plain(NSIDE, halos, "displace", f32)
+    flips = int(np.abs(lay.counts - lref.counts).sum())
+    check("K20 disc_radii [bench, displace, float32] members flipped on a "
+          "disc's edge (the device's sinf)", flips, 1e-3 * lref.n_radii)
+    ms = time_ms(torch, lambda: deposit.disc_radii(NSIDE, halos, "displace",
+                                                   f32), 10)
+    plain_ms = time_ms(torch, lambda: deposit.disc_radii_plain(
+        NSIDE, halos, "displace", f32), 2)
+    n_slots = lay.n_slots
+    # bytes: 5 float64 halo columns read, 24 bytes a slot written (pixel,
+    # halo, r, 3 geometry values in float32) and the counts twice;
+    # operations: ~30 float32 a candidate (members / 0.78, the disc's share
+    # of its walk's square-ish rings) and 3 float64 transcendentals a ring
+    nb = nbytes(halos) + 24 * n_slots + 8 * len(lay.counts)
+    b = bound(nb, 30 * lay.n_radii / 0.78, F32_FLOPS)
+    log(f"[{gpu}] K20 disc_radii at the bench ({lay.n_radii} members in "
+        f"{len(lay.groups)} groups, {n_slots} slots, "
+        f"{100 * lay.padded_share:.1f}% padding): kernel {ms:.4f} ms (two "
+        f"launches and the counts' copy to the host), plain {plain_ms:.3f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]})")
+    measured["disc_radii"] = (err, ms, plain_ms, b[0], b[1], None)
+    # K21 on those rows and the readout's values, float32 offsets
+    vals = mode_rows(rows, lay)
+    got = paint.disc_apply("displace", NSIDE, rows, vals, halos)
+    want = paint.disc_apply_plain("displace", NSIDE, rows, vals, halos)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check("K21 disc_apply [bench, displace, float32]", err, 1e-5 * scale)
+    ms = time_ms(torch, lambda: paint.disc_apply("displace", NSIDE, rows,
+                                                 vals, halos), 10)
+    plain_ms = time_ms(torch, lambda: paint.disc_apply_plain(
+        "displace", NSIDE, rows, vals, halos), 3)
+    live = rows["pix"] >= 0
+    pl = rows["pix"][live].long()
+    delta = torch.randn((int(live.sum()), 2), device=DEVICE, dtype=f32)
+    # a partial yardstick: the tangent offsets formed beforehand, summed by
+    # one index_add_ (the amplitude and geometry of each slot left out)
+    library_ms = time_ms(torch, lambda: torch.zeros(
+        (hpx.npix(NSIDE), 2), device=DEVICE, dtype=f32).index_add_(
+            0, pl, delta), 10)
+    # bytes: a member slot's pixel, halo, geometry and float64 value read
+    # (28), a pad slot's pixel (4), a read, the offsets written once
+    n_live = int(live.sum())
+    nb = 28 * n_live + 4 * (n_slots - n_live) + 8 * halos["a"].numel() \
+        + got.numel() * got.element_size()
+    b = bound(nb, 10 * lay.n_radii, F32_FLOPS)
+    log(f"[{gpu}] K21 disc_apply at the bench ({n_slots} slots): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.4f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]})")
+    measured["disc_apply"] = (err, ms, plain_ms, b[0], b[1], library_ms)
+    # K22 on the first chunk of the 3D baryonify's largest bucket
+    npix, Ns, res, part, gvals = grid_part
+    r = grid.grid_radii(npix, Ns, res, part)
+    if not torch.equal(r, grid.grid_radii_plain(npix, Ns, res, part)):
+        raise AssertionError("K22 grid_radii: not its plain version's")
+    acc0 = torch.zeros((3, npix ** 3), dtype=gvals.dtype, device=DEVICE)
+    got = grid.grid_direct("displace", npix, Ns, res, part, gvals,
+                           acc0.clone())
+    want = grid.grid_direct_plain("displace", npix, Ns, res, part, gvals,
+                                  acc0.clone())
+    err = float((got - want).abs().max())
+    check(f"K22 grid_direct [3D {npix}^3, {part['cen'].shape[0]} halos x "
+          f"{Ns}^3 cells, displace, float32]", err,
+          1e-5 * float(want.abs().max()))
+
+    ms_r = time_ms(torch, lambda: grid.grid_radii(npix, Ns, res, part), 5)
+    ms_a = time_ms(torch, lambda: grid.grid_direct(
+        "displace", npix, Ns, res, part, gvals, acc0), 5)
+    plain_ms = time_ms(torch, lambda: grid.grid_direct_plain(
+        "displace", npix, Ns, res, part, gvals,
+        torch.zeros_like(acc0)), 1) + time_ms(
+        torch, lambda: grid.grid_radii_plain(npix, Ns, res, part), 2)
+    cells = gvals.numel()
+    # bytes: r written (8 a cell), the values read (4 a cell), the halo
+    # columns and K15's lists read, and the offsets of the tiles that the
+    # lists name read and written once; operations: ~20 float64 a (halo,
+    # cell) pair
+    start, tile_halo = grid.cutout_tiles(npix, Ns, res, part)
+    touched = int((start[1:] > start[:-1]).sum())
+    tile = grid.TILE[3] ** 3
+    nb = 12 * cells + nbytes(part, start, tile_halo) \
+        + 2 * touched * tile * 3 * acc0.element_size()
+    b = bound(nb, 20 * cells, F64_FLOPS)
+    log(f"[{gpu}] K22 at the 3D baryonify ({part['cen'].shape[0]} halos x "
+        f"{Ns}^3 = {cells} cutout cells, {touched} of {start.numel() - 1} "
+        f"tiles touched): radii {ms_r:.4f} ms, apply {ms_a:.4f} ms (with "
+        f"its lists), plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    measured["grid_direct"] = (err, ms_r + ms_a, plain_ms, b[0], b[1], None)
+    # K23 at the snapshot bench
+    coords, hpos, halos_s, offsets, parts, layout, L, sdt = snap_part
+    slay = direct.row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
+    svals = torch.randn(slay.n_slots, device=DEVICE, dtype=sdt)
+    rr, pslot = snapshot.snapshot_radii(coords, hpos, halos_s, offsets,
+                                        parts, slay, L)
+    rr0, _ = snapshot.snapshot_radii_plain(coords, hpos, halos_s, offsets,
+                                           parts, slay, L)
+    if not torch.equal(rr, rr0):
+        raise AssertionError("K23 snapshot_radii: not its plain version's")
+    eslot = pslot[snapshot.particle_major_pairs(parts, layout[0])]
+    got = snapshot.snapshot_direct(coords, hpos, halos_s, layout, eslot,
+                                   svals, L)
+    want = snapshot.snapshot_direct_plain(coords, hpos, halos_s, layout,
+                                          eslot, svals, L)
+    if not torch.equal(got, want):
+        raise AssertionError("K23 snapshot_direct: not its plain version's")
+    err = 0.0
+    log(f"  K23 at the snapshot bench ({parts.numel()} pairs, "
+        f"{slay.n_slots} slots, {100 * slay.padded_share:.1f}% padding): "
+        "radii and gather bitwise their plain versions")
+    ms_r = time_ms(torch, lambda: snapshot.snapshot_radii(
+        coords, hpos, halos_s, offsets, parts, slay, L), 10)
+    ms_g = time_ms(torch, lambda: snapshot.snapshot_direct(
+        coords, hpos, halos_s, layout, eslot, svals, L), 10)
+    plain_ms = time_ms(torch, lambda: snapshot.snapshot_radii_plain(
+        coords, hpos, halos_s, offsets, parts, slay, L), 2) + time_ms(
+        torch, lambda: snapshot.snapshot_direct_plain(
+            coords, hpos, halos_s, layout, eslot, svals, L), 2)
+    pl = parts.long()
+    vec = torch.randn((3, pl.numel()), device=DEVICE, dtype=svals.dtype)
+    library_ms = time_ms(torch, lambda: torch.zeros_like(got).index_add_(
+        1, pl, vec), 10)
+    n_pairs = parts.numel()
+    # bytes: positions and the layout read once, per pair its row, particle
+    # and slot (radii) and entry's slot and value (gather), r written, the
+    # offsets written; operations: ~14 float64 a pair, twice
+    nb = nbytes(coords, hpos, halos_s, layout, offsets) + n_pairs * (
+        4 + 4 + 8 + 8 + 8 + svals.element_size()) \
+        + got.numel() * got.element_size()
+    b = bound(nb, 28 * n_pairs, F64_FLOPS)
+    log(f"[{gpu}] K23 at the snapshot bench: radii {ms_r:.4f} ms, gather "
+        f"{ms_g:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    measured["snapshot_direct"] = (err, ms_r + ms_g, plain_ms, b[0], b[1],
+                                   library_ms)
+    return measured
+
+
+def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
+    """The direct readout of every runner at full width, each given its
+    model behind HideCurves: the bench shell (scatter: K20, K21, K3), the
+    tSZ paint at epsilon_max 5 (K20, K21), the anisotropic scatter shell
+    of tools/anis_bench.py:76-93 (K20, K21, K14; Mtot through its curves),
+    the 3D ΔP(k) BaryonifyGrid and its DMO paint at 256^3 and the 2D
+    anisotropic grid at 2048^2 (K22, then K16 or K14), and the snapshot
+    bench (K23). Each is held in float64 against its curve path to 1e-9 of
+    the largest value (of the largest move for a baryonification), and
+    driven in the runner's default dtype (one warm call, DIRECT_CALLS
+    timed, the launch counts set to 0 just before and read just after);
+    then K20-K23 against their plain versions. Returns (launches, kernel
+    rows)."""
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    runs = []
+    calls = dict(warm=1, calls=DIRECT_CALLS)
+
+    def kw_shell(direct, dt=f64):
+        m = on_card(model, torch, dt) if direct else model
+        return dict(epsilon_max=EPS_MAX, model=m, deposit="scatter",
+                    regrid="scatter", dtype=dt, regrid_dtype=dt,
+                    device=DEVICE)
+    log(f"direct readout: the bench shell (NSIDE {NSIDE}, {N_HALOS} halos),"
+        " the S19 table behind HideCurves")
+    r64 = bf.BaryonifyShell(cat, shell, **kw_shell(True))
+    n_edge = edge_members(bf, torch, r64, "displace", EPS_MAX,
+                          lambda hd: hd["R"] / hd["a"])
+    log(f"  members within {DIRECT_EDGE:g} of eps_max Rcom: {n_edge}")
+    direct_vs_curve(torch, "BaryonifyShell", lambda d: bf.BaryonifyShell(
+        cat, shell, **kw_shell(d)), lambda m: np.abs(m - shell.map).max())
+    _, lk = drive_path(bf, torch, bf.BaryonifyShell(cat, shell, **kw_shell(
+        True, f32)), ("disc_radii", "disc_apply", "regrid"),
+        "direct BaryonifyShell (float32)", gpu, N_HALOS,
+        check_map=moved(shell.map), **calls)
+    runs.append(lk)
+
+    def kw_paint(direct, dt=f64):
+        m = on_card(tsz, torch, dt) if direct else tsz
+        return dict(epsilon_max=PAINT_EPS, model=m, deposit="scatter",
+                    dtype=dt, device=DEVICE)
+    direct_vs_curve(torch, "PaintProfilesShell (tSZ)",
+                    lambda d: bf.PaintProfilesShell(cat, shell,
+                                                    **kw_paint(d)),
+                    lambda m: np.abs(m).max())
+    _, lk = drive_path(bf, torch, bf.PaintProfilesShell(
+        cat, shell, **kw_paint(True, f32)), ("disc_radii", "disc_apply"),
+        "direct PaintProfilesShell (tSZ, float32)", gpu, N_HALOS,
+        check_map=painted(shell.map.shape), **calls)
+    runs.append(lk)
+
+    sh = anis_shell(bf, shell)
+
+    def kw_anis(direct, dt=f64):
+        m = on_card(tsz, torch, f64) if direct else tsz
+        return dict(epsilon_max=PAINT_EPS, model=m, Tracer_model=m,
+                    Mtot_model=tsz, background_val=ANIS_BG,
+                    global_tracer_fraction=ANIS_FRAC, deposit="scatter",
+                    dtype=dt, device=DEVICE)
+    direct_vs_curve(torch, "PaintProfilesAnisShell",
+                    lambda d: bf.PaintProfilesAnisShell(cat, sh,
+                                                        **kw_anis(d)),
+                    lambda m: np.abs(m).max())
+    _, lk = drive_path(bf, torch, bf.PaintProfilesAnisShell(
+        cat, sh, **kw_anis(True, f32)), ("disc_radii", "disc_apply",
+                                         "anis_finish"),
+        "direct PaintProfilesAnisShell (float32)", gpu, N_HALOS,
+        check_map=painted(sh.map.shape), **calls)
+    runs.append(lk)
+
+    log(f"direct readout: the ΔP(k) grids (3D {GRID3D_N}^3, 2D "
+        f"{GRID2D_N}^2, {GRID_HALOS} halos)")
+    cat3, gm0 = grid_inputs(bf, 3, GRID3D_N)
+    dmo3 = tabs["dmo3"]
+
+    def grid_run(cls, c, gm, m, direct, dt=f64, **kw):
+        return cls(c, gm, model=on_card(m, torch, f64) if direct else m,
+                   dtype=dt, device=DEVICE, **kw)
+    dmo = direct_vs_curve(torch, "PaintProfilesGrid 3D", lambda d: grid_run(
+        bf.PaintProfilesGrid, cat3, gm0, dmo3, d,
+        epsilon_max=GRID_PAINT_EPS), lambda m: np.abs(m).max())
+    gm3 = grid_map(bf, dmo + dmo.mean() * 0.1)
+    direct_vs_curve(torch, "BaryonifyGrid 3D", lambda d: grid_run(
+        bf.BaryonifyGrid, cat3, gm3, tabs["b3"], d,
+        epsilon_max=GRID_BARYON_EPS), lambda m: np.abs(m - gm3.map).max())
+    rb = grid_run(bf.BaryonifyGrid, cat3, gm3, tabs["b3"], True, f32,
+                  epsilon_max=GRID_BARYON_EPS)
+    _, lk = drive_path(bf, torch, rb, ("grid_radii", "grid_direct",
+                                       "grid_deposit"),
+                       "direct BaryonifyGrid 3D (float32)", gpu, GRID_HALOS,
+                       check_map=moved(gm3.map), **calls)
+    runs.append(lk)
+    _, lk = drive_path(bf, torch, grid_run(
+        bf.PaintProfilesGrid, cat3, gm0, dmo3, True, f32,
+        epsilon_max=GRID_PAINT_EPS), ("grid_radii", "grid_direct"),
+        "direct PaintProfilesGrid 3D (float32)", gpu, GRID_HALOS,
+        check_map=painted(gm0.map.shape), **calls)
+    runs.append(lk)
+    cat2, gm2 = grid_inputs(bf, 2, GRID2D_N)
+    dmo2 = tabs["dmo2"]
+    paint2 = bf.PaintProfilesGrid(cat2, gm2, epsilon_max=GRID_PAINT_EPS,
+                                  model=dmo2, device=DEVICE).process()
+    gm2 = grid_map(bf, paint2 + paint2.mean() * 0.1)
+
+    def anis_grid(d, dt=f64):
+        m = on_card(dmo2, torch, f64) if d else dmo2
+        return bf.PaintProfilesAnisGrid(
+            cat2, gm2, epsilon_max=GRID_ANIS_EPS, model=m, Tracer_model=m,
+            Mtot_model=dmo2, background_val=ANIS_BG,
+            global_tracer_fraction=ANIS_FRAC, dtype=dt, device=DEVICE)
+    direct_vs_curve(torch, "PaintProfilesAnisGrid 2D", anis_grid,
+                    lambda m: np.abs(m).max())
+    _, lk = drive_path(bf, torch, anis_grid(True, f32),
+                       ("grid_radii", "grid_direct", "anis_finish"),
+                       "direct PaintProfilesAnisGrid 2D (float32)", gpu,
+                       GRID_HALOS, check_map=painted(gm2.map.shape), **calls)
+    runs.append(lk)
+
+    snap_model, scat, snap = snap_inputs
+    log(f"direct readout: the snapshot bench ({SNAP_PARTS} particles, "
+        f"{SNAP_HALOS} halos)")
+
+    def snap_run(d, dt=f64):
+        m = on_card(snap_model, torch, f64) if d else snap_model
+        return bf.BaryonifySnapshot(scat, snap, epsilon_max=20, model=m,
+                                    dtype=dt, device=DEVICE, verbose=False)
+    curve = moves(snap_run(False).process(), snap)
+    rs = snap_run(True)
+    got = moves(rs.process(), snap)
+    check("BaryonifySnapshot: direct vs curve path, float64, card",
+          float(np.abs(got - curve).max()), 1e-9 * float(np.abs(curve).max()))
+    rs32 = snap_run(True, f32)
+    from baryonforge_torch.ops import _build
+    _build.reset_launches()
+    walls = []
+    for _ in range(1 + DIRECT_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rs32.process()
+        walls.append(time.perf_counter() - t0)
+    lk = dict(_build.launches)
+    require(lk, ("snapshot_radii", "snapshot_direct"), "direct snapshot")
+    if not all(np.isfinite(out[c]).all() for c in "xyz"):
+        raise AssertionError("direct snapshot: output not finite")
+    log(f"[{gpu}] direct BaryonifySnapshot (float32): calls "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms (the first "
+        "builds the pairs); last phases (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rs32.timings.items()))
+    runs.append(lk)
+    launches = sum_launches(*runs)
+    require(launches, ("disc_radii", "disc_apply", "grid_radii",
+                       "grid_direct", "snapshot_radii", "snapshot_direct"),
+            "the direct readout's paths")
+
+    # K20-K23 at the bench shapes, on the runners' own inputs
+    from baryonforge_torch.ops import direct as _direct, grid
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    rd = bf.BaryonifyShell(cat, shell, **kw_shell(True, f32))
+    halos = rd._direct_halos(rd._host_halo_data(
+        bf.cosmo.cosmology_from_dict(COSMO)))
+    m32 = model.with_dtype(f32, device=DEVICE)
+
+    def mode_rows(rows, lay):
+        return _direct.readout(lambda r, M, a: m32.displacement(r, M, a),
+                               rows["r"], lay, {"M": halos["M"],
+                                                "a": halos["a"]}, f64)
+    # K22 on the 3D baryonify's first chunk of its largest size bucket, as
+    # Map2DRunner._direct_bucket cuts it, with the readout's own values
+    from baryonforge_torch.Runners.Map2DRunner import GRID_CELL_BUDGET
+    inp = rb._cutout_inputs(_PhaseClock(torch.device(DEVICE)))
+    idx, Ns = rb._buckets(inp["Nsize"])[-1]
+    ix = torch.as_tensor(idx[:max(1, GRID_CELL_BUDGET // Ns ** 3)],
+                         device=DEVICE)
+    part = {k: None if v is None else v[ix] for k, v in inp["halos"].items()}
+    d = inp["direct"]
+    gvals = _direct.readout(
+        d["fns"][0], grid.grid_radii(GRID3D_N, Ns, gm3.res, part),
+        _direct.uniform_layout(ix.numel(), Ns ** 3),
+        {k: v[ix] for k, v in d["cols"].items()}, d["out_dtype"])
+    _, _, _, R_q, hpos, _ = rs32._host_prep()
+    (halos_s, offsets, parts), layout = rs32._neighbour_pairs(hpos, R_q)
+    snap_part = (rs32._coords_dev, torch.as_tensor(hpos, device=DEVICE),
+                 halos_s, offsets, parts, layout, snap.L, f32)
+    measured = direct_kernel_rows(bf, torch, gpu, halos, mode_rows,
+                                  (GRID3D_N, Ns, gm3.res, part, gvals),
+                                  snap_part)
+    log(f"[{gpu}] direct readout phase: {time.perf_counter() - t_phase:.1f}"
+        " s")
+    return launches, measured
+
+
 KERNELS = [
     # name, entry points, source, TPU kernel replaced, its main path (the
     # kernels line names every path that launched it, the main one first)
@@ -3649,7 +4145,51 @@ KERNELS = [
      "baryonforge_tpu/utils/sht.py:49", "delta_cl"),
     ("legendre_alm", ("legendre_alm",), "baryonforge_torch/csrc/sht.cu",
      "baryonforge_tpu/utils/sht.py:92", "delta_cl"),
+    ("disc_radii", ("disc_radii",), "baryonforge_torch/csrc/disc_direct.cu",
+     "baryonforge_tpu/Runners/HealpixRunner.py:866", "direct"),
+    ("disc_apply", ("disc_apply",), "baryonforge_torch/csrc/disc_direct.cu",
+     "baryonforge_tpu/Runners/HealpixRunner.py:914", "direct"),
+    ("grid_direct", ("grid_radii", "grid_direct"),
+     "baryonforge_torch/csrc/grid_cutout.cu",
+     "baryonforge_tpu/Runners/Map2DRunner.py:410", "direct"),
+    ("snapshot_direct", ("snapshot_radii", "snapshot_direct"),
+     "baryonforge_torch/csrc/snapshot.cu",
+     "baryonforge_tpu/Runners/SnapshotRunner.py:196", "direct"),
 ]
+
+
+def kernel_rows(measured, launches, gpu):
+    """The ``kernels`` line's rows: each kernel's launches on every path
+    that ran it (its main path first, which must have launched it), its
+    error and times from ``measured``; each logged."""
+    rows = []
+    for name, entries, src, rep, path in KERNELS:
+        err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]
+
+        def count(p):
+            return sum(launches[p].get(e, 0) for e in entries)
+        if count(path) < 1:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 "path")
+        paths = [path] + [p for p in launches if p != path and count(p)]
+        n = sum(count(p) for p in paths)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": n, "path": paths,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        was = "" if name not in EARLIER_MS else (
+            f" (earlier: {EARLIER_MS[name][0]:.3f} ms, "
+            f"{EARLIER_MS[name][1]}, from PERF.md, not measured in this "
+            "run)")
+        log(f"[{gpu}] {name}: kernel {ms:.4f} ms{was}, plain {plain_ms:.3f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), library {lib}, "
+            f"{n} launches on the paths " + ", ".join(
+                f"{p} {count(p)}" for p in paths))
+    if not all(math.isfinite(k["ms"]) for k in rows):
+        raise AssertionError("kernel timing failed")
+    return rows
 
 
 def main():
@@ -3686,7 +4226,6 @@ def main():
     model = bf.Baryonification2D(
         None, None, bf.cosmo.cosmology_from_dict(COSMO),
         epsilon_max=EPS_MAX).load_table(TABLE)
-
     log("kernels against their plain versions, polar catalog (NSIDE 64)")
     cat_p, shell_p = polar_inputs(bf, 64, 400, SEED)
     compare_kernels(bf, torch, model, cat_p, shell_p, "NSIDE 64 poles",
@@ -3875,6 +4414,12 @@ def main():
                                                                gpu)
     measured.update(snap_measured)
 
+    log("the direct readout (models without halo_curves) of every runner "
+        "at full width")
+    launches_direct, direct_measured = direct_paths(
+        bf, torch, gpu, model, tsz_card, cat, shell, tabs, snap_inputs)
+    measured.update(direct_measured)
+
     log("spherical-harmonic kernels against their plain versions (float64)")
     compare_sht_kernels(bf, torch, gpu, 64, 191, False)
     ring_modes_cases(torch)
@@ -3908,35 +4453,9 @@ def main():
                 "snapshot": launches_snap, "delta_cl": launches_cl,
                 **launches_family, **launches_val,
                 "correlation_hook": launches_hook, "halomodel": launches_hm,
-                "mesh": launches_mesh, "fits": launches_fits}
-    kernels = []
-    for name, entries, src, rep, path in KERNELS:
-        err, ms, plain_ms, bound_ms, bound_by, library_ms = measured[name]
-
-        def count(p):
-            return sum(launches[p].get(e, 0) for e in entries)
-        if count(path) < 1:
-            raise AssertionError(f"{name} was not launched on the {path} "
-                                 "path")
-        # the row's main path first, then every other path that ran it
-        paths = [path] + [p for p in launches if p != path and count(p)]
-        n = sum(count(p) for p in paths)
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": n, "path": paths,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms})
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        was = "" if name not in EARLIER_MS else (
-            f" (earlier: {EARLIER_MS[name][0]:.3f} ms, "
-            f"{EARLIER_MS[name][1]}, from PERF.md, not measured in this "
-            "run)")
-        log(f"[{gpu}] {name}: kernel {ms:.4f} ms{was}, plain {plain_ms:.3f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by}), library {lib}, "
-            f"{n} launches on the paths " + ", ".join(
-                f"{p} {count(p)}" for p in paths))
-    if not all(math.isfinite(k["ms"]) for k in kernels):
-        raise AssertionError("kernel timing failed")
+                "mesh": launches_mesh, "fits": launches_fits,
+                "direct": launches_direct}
+    kernels = kernel_rows(measured, launches, gpu)
     hot_ms, st_ms, live = measured["stencil_entries"]
     log(f"[{gpu}] K5 entries apart at the bench: stencil_hot {hot_ms:.4f} "
         f"ms, stencil {st_ms:.4f} ms ({live:.3f} of the tap rows run); "

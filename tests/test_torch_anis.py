@@ -264,11 +264,22 @@ def test_anis_finish_plain_matches_jax(tiled, dt):
                                atol=0)
 
 
+class _HideCurves:
+    """Only the projected() surface of a profile: the direct readout."""
+
+    def __init__(self, prof):
+        self._prof = prof
+
+    def projected(self, *args, **kwargs):
+        return self._prof.projected(*args, **kwargs)
+
+
 def test_paint_device_and_refusals(models):
     """PaintProfilesShell._paint_device keeps the map on the runner's
-    device (process() is its download); the Anis runner raises without
-    halo_curves, without the shell's redshift, and on the default device
-    without CUDA."""
+    device (process() is its download); the Anis runner reads a tracer
+    without halo_curves directly, to the curve path's map, and raises for
+    one with neither halo_curves nor projected, without the shell's
+    redshift, and on the default device without CUDA."""
     _, tm = models["log"]
     cols, m = catalog(8)
     _, (cat, shell) = _shells(cols, m)
@@ -278,10 +289,21 @@ def test_paint_device_and_refusals(models):
     assert isinstance(dev_map, torch.Tensor)
     np.testing.assert_array_equal(dev_map.numpy().astype(np.float64),
                                   r.process())
-    with pytest.raises(NotImplementedError, match="halo_curves"):
+    with pytest.raises(TypeError, match="projected"):
         bf.PaintProfilesAnisShell(cat, shell, model=tm, Tracer_model=object(),
                                   Mtot_model=tm, device="cpu",
                                   **KW).process()
+    # a tracer without halo_curves takes the direct readout (model and
+    # tracer read per pixel), the curve path's map in float64
+    kw = dict(model=tm, Mtot_model=tm, device="cpu", deposit="scatter",
+              dtype=torch.float64, **KW)
+    curve = bf.PaintProfilesAnisShell(cat, shell, Tracer_model=tm,
+                                      **kw).process()
+    direct = bf.PaintProfilesAnisShell(cat, shell,
+                                       Tracer_model=_HideCurves(tm),
+                                       **kw).process()
+    np.testing.assert_allclose(direct, curve, rtol=1e-9,
+                               atol=1e-12 * np.abs(curve).max())
     shell.redshift = None
     with pytest.raises(ValueError, match="redshift"):
         bf.PaintProfilesAnisShell(cat, shell, model=tm, Tracer_model=tm,

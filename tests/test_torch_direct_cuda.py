@@ -1,0 +1,397 @@
+"""The direct readout's kernels (K20-K23) against their plain versions, and
+the runners' direct paths on the card against the CPU.
+
+Marked ``cuda``: each test skips without a CUDA device. This file imports
+no jax; run it on the card as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_direct_cuda.py
+
+Tolerances: the rows' integers (layout, pixels, halos) equal in float64,
+and in float32 but for members on a disc's edge, which the device's sinf
+may keep where torch drops them (counted, at most 1e-3 of the members); r
+and the geometry per member to the gap between the device's and torch's
+pixel angles (math libraries that round a transcendental a few ulps
+apart) times D / a, 1 and D, beside 4 ulps of their scale; K21's and
+K22's sums to 1e-10 of the largest value in
+float64 and 1e-5 in float32 (atomic sums in another order); K22's and K23's
+radii bitwise (the same operations); K23's gather bitwise (the same sums
+in the same order); the runners' direct maps on the card to 1e-9 of the
+largest value of the CPU's, float64.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import baryonforge_torch as bf                              # noqa: E402
+from baryonforge_torch.ops import _build                    # noqa: E402
+from baryonforge_torch.ops import deposit, direct, grid     # noqa: E402
+from baryonforge_torch.ops import paint, snapshot           # noqa: E402
+from baryonforge_torch.ops import healpix as hpx            # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+HERE = os.path.dirname(__file__)
+TABLE = os.path.join(HERE, os.pardir, "tools", "_northstar_table.npz")
+TSZ_TABLE = os.path.join(HERE, "data", "tsz_bench_table.npz")
+COSMO = dict(Omega_m=0.30, Omega_b=0.045, h=0.7, sigma8=0.8, n_s=0.96,
+             w0=-1.0)
+DTYPES = [torch.float32, torch.float64]
+DT_IDS = ["f32", "f64"]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+class _Hide:
+    """Only the readout surface of a model: the runners read it directly."""
+
+    def __init__(self, m):
+        self._m = m
+
+    def displacement(self, *a, **k):
+        return self._m.displacement(*a, **k)
+
+    def projected(self, *a, **k):
+        return self._m.projected(*a, **k)
+
+    def real(self, *a, **k):
+        return self._m.real(*a, **k)
+
+
+def _cosmo():
+    return bf.cosmo.cosmology_from_dict(COSMO)
+
+
+def _s19():
+    return bf.Baryonification2D(None, None, _cosmo(),
+                                epsilon_max=20).load_table(TABLE)
+
+
+def _tsz():
+    """The bench's tSZ table; its proj_cutoff (100, as it was built with)
+    sets the Anis background's depth."""
+    tab = bf.utils.TabulatedProfile(
+        None, _cosmo(), mass_def=bf.cosmo.MassDef200c).load_table(TSZ_TABLE)
+    tab.proj_cutoff = 100
+    return tab
+
+
+def _shell_inputs(nside, n, seed=7):
+    """Bench-like halos, two at the poles, some near the caps, a third at
+    the table's lowest masses (discs under 4 pixels at NSIDE 64)."""
+    rng = np.random.default_rng(seed)
+    ra = rng.uniform(0, 360, n)
+    dec = np.degrees(np.arcsin(rng.uniform(-1, 1, n)))
+    dec[2:10] = rng.uniform(77, 84, 8) * rng.choice([-1, 1], 8)
+    dec[0], dec[1] = 89.5, -89.5
+    M = 10 ** rng.uniform(13.0, 14.8, n)
+    M[2::3] = 10 ** rng.uniform(12.71, 12.8, M[2::3].size)
+    z = rng.uniform(0.75, 1.05, n)
+    cat = bf.utils.HaloLightConeCatalog(ra=ra, dec=dec, M=M, z=z,
+                                        cosmo=COSMO)
+    shell = bf.utils.LightconeShell(
+        map=rng.exponential(1.0, 12 * nside * nside), cosmo=COSMO,
+        redshift=0.9)
+    return cat, shell
+
+
+def _halos(nside, n, eps, dev):
+    cat, shell = _shell_inputs(nside, n)
+    r = bf.PaintProfilesShell(cat, shell, epsilon_max=eps, model=_tsz(),
+                              device=dev)
+    hd = r._host_halo_data(_cosmo())
+    return {k: torch.as_tensor(hd[k], dtype=torch.float64, device=dev)
+            for k in ("theta", "phi", "radius", "D", "a", "M")}
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("mode", deposit.DIRECT_MODES)
+@pytest.mark.parametrize("nside,n,eps", [(64, 300, 20), (256, 400, 20),
+                                         (1024, 64, 60)])
+def test_disc_radii_kernel(dev, dt, mode, nside, n, eps):
+    """K20's rows against the plain version's on the same card tensors."""
+    halos = _halos(nside, n, eps, dev)
+    _build.reset_launches()
+    rows, lay = deposit.disc_radii(nside, halos, mode, dt)
+    torch.cuda.synchronize()
+    assert _build.launches["disc_radii"] == 2
+    ref, lref = deposit.disc_radii_plain(nside, halos, mode, dt)
+    if dt == torch.float64:
+        np.testing.assert_array_equal(lay.counts, lref.counts)
+        assert torch.equal(rows["pix"], ref["pix"])
+        assert torch.equal(rows["hid"], ref["hid"])
+        # each member's pixel angles, the device's (K20 takes theta from
+        # its ring, pix2ang's bit for bit on the card, and for anis and the
+        # fallback phi from pix2ang's formula) against torch's (the plain
+        # version's), differ by a few ulps where the two math libraries
+        # round apart: r moves by at most that gap times D / a, the
+        # tangent factors by the gap, D chord_safe by the gap times D,
+        # each beside 4 ulps of the values' own scale
+        live = ref["pix"] >= 0
+        pix, h = ref["pix"][live], ref["hid"][live].long()
+        t_dev, p_dev = paint.pixel_angles(nside, dt, dev, per_ring=False)
+        t_pl, p_pl = hpx.pix2ang(nside, pix, dt)
+        gap = (t_dev[pix.long()] - t_pl).abs() \
+            + (p_dev[pix.long()] - p_pl).abs()
+        eps = torch.finfo(dt).eps
+        D, D_a = halos["D"][h], (halos["D"] / halos["a"])[h]
+        r, r0 = rows["r"][live], ref["r"][live]
+        assert ((r - r0).abs() <= (gap + 4 * eps) * D_a
+                + 4 * eps * r0.abs()).all()
+        if mode == "displace":
+            err = (rows["geo"][live] - ref["geo"][live]).abs()
+            assert (err[:, :2] <= (gap + 4 * eps)[:, None]).all()
+            assert (err[:, 2] <= (gap + 4 * eps) * D).all()
+        return
+    # float32: a member on a disc's edge may flip; the sets otherwise equal
+    off = np.abs(lay.counts - lref.counts).sum()
+    assert off <= 1e-3 * lref.counts.sum() + 2, off
+    same = lay.counts == lref.counts
+    assert same.mean() > 0.99
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("mode", deposit.DIRECT_MODES)
+@pytest.mark.parametrize("pix", [False, True], ids=["value", "pixel_size"])
+def test_disc_apply_kernel(dev, dt, mode, pix):
+    """K21 on the plain version's rows with random values (some not
+    finite) against its plain version."""
+    nside = 256
+    halos = _halos(nside, 400, 20, dev)
+    rows, lay = deposit.disc_radii_plain(nside, halos, mode, dt)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = lay.n_slots
+    vdt = dt if mode == "paint" else torch.float64
+    vals = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    vals[::97] = float("nan")
+    vals = vals.to(vdt)
+    kw = {}
+    if mode == "anis":
+        npix = hpx.npix(nside)
+        kw = dict(vals2=torch.rand(n, generator=g, device=dev,
+                                   dtype=torch.float64),
+                  mtot=torch.rand(npix, generator=g, device=dev,
+                                  dtype=torch.float64) + 0.1,
+                  orig=torch.rand(npix, generator=g, device=dev,
+                                  dtype=torch.float64))
+    _build.reset_launches()
+    got = paint.disc_apply(mode, nside, rows, vals, halos, pixel_size=pix,
+                           acc_dtype=dt, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["disc_apply"] == 1
+    want = paint.disc_apply_plain(mode, nside, rows, vals, halos,
+                                  pixel_size=pix, acc_dtype=dt, **kw)
+    scale = want.abs().max().item()
+    tol = 1e-10 if got.dtype == torch.float64 else 1e-5
+    assert scale > 0
+    assert (got - want).abs().max().item() <= tol * scale
+
+
+def _grid_halos(ndim, npix, Ns, m, dev, ell=False, seed=2):
+    rng = np.random.default_rng(seed)
+    res = 100.0 / npix
+    h = {"cen": torch.as_tensor(rng.integers(0, npix, (m, ndim)),
+                                dtype=torch.int32, device=dev),
+         "doff": torch.as_tensor(rng.uniform(-0.5, 0.5, (m, ndim)) * res,
+                                 device=dev),
+         "rmax": torch.as_tensor(rng.uniform(0.3, 0.6, m) * Ns * res,
+                                 device=dev),
+         "rmat": None}
+    if ell:
+        h["rmat"] = torch.as_tensor(rng.normal(size=(m, 2, 2)), device=dev)
+    return h, res
+
+
+@pytest.mark.parametrize("ndim,npix,Ns,ell", [(2, 64, 20, False),
+                                              (2, 50, 13, True),
+                                              (3, 26, 9, False)])
+def test_grid_radii_kernel(dev, ndim, npix, Ns, ell):
+    """K22's radii pass bitwise its plain version."""
+    h, res = _grid_halos(ndim, npix, Ns, 40, dev, ell)
+    got = grid.grid_radii(npix, Ns, res, h)
+    want = grid.grid_radii_plain(npix, Ns, res, h)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("mode", grid.MODES)
+@pytest.mark.parametrize("ndim,npix,Ns", [(2, 64, 20), (3, 26, 9)])
+def test_grid_direct_kernel(dev, dt, mode, ndim, npix, Ns):
+    """K22's apply against its plain version on random values (some not
+    finite), into a non-zero accumulator."""
+    if mode == "anis" and ndim == 3:
+        pytest.skip("the anisotropic paint is 2D only")
+    h, res = _grid_halos(ndim, npix, Ns, 40, dev)
+    if mode == "displace":
+        h["rmax"] = torch.full_like(h["rmax"], float("inf"))
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 40 * Ns ** ndim
+    vdt = dt if mode == "displace" else torch.float64
+    vals = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    vals[::101] = float("inf")
+    vals = vals.to(vdt)
+    nflat = npix ** ndim
+    kw = {}
+    if mode == "anis":
+        kw = dict(vals2=torch.rand(n, generator=g, device=dev,
+                                   dtype=torch.float64),
+                  mtot=torch.rand(nflat, generator=g, device=dev,
+                                  dtype=torch.float64),
+                  orig=torch.rand(nflat, generator=g, device=dev,
+                                  dtype=torch.float64))
+    shape = (ndim, nflat) if mode == "displace" else (nflat,)
+    acc0 = torch.rand(shape, generator=g, device=dev,
+                      dtype=torch.float64).to(vdt)
+    _build.reset_launches()
+    got = grid.grid_direct(mode, npix, Ns, res, h, vals, acc0.clone(), **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["grid_direct"] == 1
+    want = grid.grid_direct_plain(mode, npix, Ns, res, h, vals, acc0.clone(),
+                                  **kw)
+    tol = 1e-10 if vdt == torch.float64 else 1e-5
+    scale = (want - acc0).abs().max().item()
+    assert scale > 0
+    assert (got - want).abs().max().item() <= tol * scale
+    again = grid.grid_direct(mode, npix, Ns, res, h, vals, acc0.clone(), **kw)
+    assert torch.equal(got, again)
+
+
+def _pairs(ndim, L, n_part, n_halos, R, dev, seed=4):
+    rng = np.random.default_rng(seed)
+    coords = torch.as_tensor(rng.uniform(0, L, (n_part, ndim)), device=dev)
+    hpos = torch.as_tensor(rng.uniform(0, L, (n_halos, ndim)), device=dev)
+    dx = coords[None, :, :] - hpos[:, None, :]
+    dx = torch.where(dx > L / 2, dx - L, dx)
+    dx = torch.where(dx < -L / 2, dx + L, dx)
+    near = (dx * dx).sum(-1) < R * R
+    h, p = torch.nonzero(near, as_tuple=True)
+    counts = torch.bincount(h, minlength=n_halos)
+    keep = counts > 0
+    halos = torch.nonzero(keep)[:, 0].int()
+    offsets = torch.zeros(int(keep.sum()) + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts[keep], 0)
+    parts = p.int()
+    layout = snapshot.particle_layout(coords, L, offsets, parts)
+    return coords, hpos, halos, offsets, parts, layout
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_snapshot_direct_kernels(dev, dt, ndim):
+    """K23's radii pass and gather bitwise their plain versions."""
+    L = 50.0
+    coords, hpos, halos, offsets, parts, layout = _pairs(ndim, L, 3000, 60,
+                                                         9.0, dev)
+    lay = direct.row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
+    _build.reset_launches()
+    r, pslot = snapshot.snapshot_radii(coords, hpos, halos, offsets, parts,
+                                       lay, L)
+    r0, pslot0 = snapshot.snapshot_radii_plain(coords, hpos, halos, offsets,
+                                               parts, lay, L)
+    assert torch.equal(pslot, pslot0) and torch.equal(r, r0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    vals = torch.randn(lay.n_slots, generator=g, device=dev,
+                       dtype=torch.float64).to(dt)
+    vals[::53] = float("nan")
+    eslot = pslot[snapshot.particle_major_pairs(parts, layout[0])]
+    got = snapshot.snapshot_direct(coords, hpos, halos, layout, eslot, vals,
+                                   L)
+    torch.cuda.synchronize()
+    assert _build.launches["snapshot_radii"] == 1
+    assert _build.launches["snapshot_direct"] == 1
+    want = snapshot.snapshot_direct_plain(coords, hpos, halos, layout, eslot,
+                                          vals, L)
+    assert torch.equal(got, want)
+
+
+def _close(got, want, scale=None):
+    scale = np.abs(want).max() if scale is None else scale
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * scale)
+
+
+def test_direct_shells_cuda_match_cpu(dev):
+    """BaryonifyShell, PaintProfilesShell and PaintProfilesAnisShell with
+    models that expose only their readout, on the card (K20, K21, K3, K14)
+    against the CPU, float64."""
+    cat, shell = _shell_inputs(64, 300)
+    s19, tsz = _s19(), _tsz()
+    kw = dict(epsilon_max=20, dtype=torch.float64,
+              regrid_dtype=torch.float64)
+    _build.reset_launches()
+    out = bf.BaryonifyShell(cat, shell, model=_Hide(s19.with_dtype(
+        torch.float64, device=dev)), device=dev, **kw).process()
+    assert _build.launches["disc_radii"] == 2
+    assert _build.launches["disc_apply"] == 1
+    assert _build.launches["regrid"] == 1
+    ref = bf.BaryonifyShell(cat, shell, model=_Hide(s19), device="cpu",
+                            **kw).process()
+    _close(out, ref, np.abs(ref - shell.map).max())
+    models = {dev: _Hide(tsz.with_dtype(torch.float64, device=dev)),
+              "cpu": _Hide(tsz)}
+
+    def run(cls, d):
+        extra = {} if cls is bf.PaintProfilesShell else dict(
+            Tracer_model=models[d], Mtot_model=tsz, background_val=1.0,
+            global_tracer_fraction=0.1)
+        return cls(cat, shell, model=models[d], device=d, **extra,
+                   **kw).process()
+    for cls in (bf.PaintProfilesShell, bf.PaintProfilesAnisShell):
+        _build.reset_launches()
+        out = run(cls, dev)
+        assert _build.launches["disc_apply"] == 1
+        _close(out, run(cls, "cpu"))
+
+
+def test_direct_grids_and_snapshot_cuda_match_cpu(dev):
+    """The grid runners (K22) and BaryonifySnapshot (K23) with models that
+    expose only their readout, on the card against the CPU, float64."""
+    rng = np.random.default_rng(8)
+    N, L, n = 40, 80.0, 25
+    bins = (np.arange(N) + 0.5) * (L / N)
+    cat = bf.utils.HaloNDCatalog(x=rng.uniform(0, L, n),
+                                 y=rng.uniform(0, L, n),
+                                 M=10 ** rng.uniform(13.5, 14.8, n),
+                                 redshift=0.9, cosmo=COSMO)
+    gm = bf.utils.GriddedMap(map=rng.exponential(1.0, (N, N)), bins=bins,
+                             cosmo=COSMO, redshift=0.9)
+    s19, tsz = _s19(), _tsz()
+    for cls, m in ((bf.BaryonifyGrid, s19), (bf.PaintProfilesGrid, tsz)):
+        kw = dict(epsilon_max=5, model=_Hide(m), dtype=torch.float64)
+        _build.reset_launches()
+        out = cls(cat, gm, device=dev, **dict(kw, model=_Hide(m.with_dtype(
+            torch.float64, device=dev)))).process()
+        assert _build.launches["grid_radii"] >= 1
+        assert _build.launches["grid_direct"] >= 1
+        ref = cls(cat, gm, device="cpu", **kw).process()
+        _close(out, ref, np.abs(ref - (gm.map if cls is bf.BaryonifyGrid
+                                       else 0)).max())
+    pos = rng.uniform(0, L, (4000, 3))
+    snap = bf.utils.ParticleSnapshot(x=pos[:, 0], y=pos[:, 1], z=pos[:, 2],
+                                     M=np.ones(len(pos)), L=L, redshift=0.9,
+                                     cosmo=COSMO)
+    hcat = bf.utils.HaloNDCatalog(x=rng.uniform(0, L, n),
+                                  y=rng.uniform(0, L, n),
+                                  z=rng.uniform(0, L, n),
+                                  M=10 ** rng.uniform(13.5, 14.5, n),
+                                  redshift=0.9, cosmo=COSMO)
+    s3 = bf.Baryonification3D(None, None, _cosmo(),
+                              epsilon_max=20).load_table(TABLE)
+    kw = dict(epsilon_max=20, model=_Hide(s3), dtype=torch.float64,
+              verbose=False)
+    _build.reset_launches()
+    out = bf.BaryonifySnapshot(hcat, snap, device=dev, **dict(
+        kw, model=_Hide(s3.with_dtype(torch.float64, device=dev)))).process()
+    assert _build.launches["snapshot_radii"] == 1
+    assert _build.launches["snapshot_direct"] == 1
+    ref = bf.BaryonifySnapshot(hcat, snap, device="cpu", **kw).process()
+    for c in "xyz":
+        np.testing.assert_allclose(out[c], ref[c], rtol=0, atol=1e-9)

@@ -300,15 +300,34 @@ def test_baryonify_grid_mass_and_refusals(models, monkeypatch):
                          device="cpu").process()
 
 
+class _HideCurves:
+    """Only the projected() surface of a profile: the direct readout."""
+
+    def __init__(self, prof):
+        self._prof = prof
+
+    def projected(self, *args, **kwargs):
+        return self._prof.projected(*args, **kwargs)
+
+
 def test_grid_runners_refuse(models):
-    """No halo_curves, no CUDA by default, missing ellipticity columns, 3D
-    ellipticity and a 3D anisotropic paint all raise."""
+    """A model with neither halo_curves nor projected, no CUDA by default,
+    missing ellipticity columns, 3D ellipticity and a 3D anisotropic paint
+    all raise; a model without halo_curves paints the curve path's map
+    (float64) through the direct readout."""
     _, (tcat, tgm) = grid_inputs(2, 16, 16.0, 4, 0.2, seed=1)
     _, (tcat3, tgm3) = grid_inputs(3, 8, 8.0, 4, 0.2, seed=1, ell=True)
     tab = models["dm"][1]
-    with pytest.raises(NotImplementedError, match="halo_curves"):
+    with pytest.raises(TypeError, match="projected"):
         bf.PaintProfilesGrid(tcat, tgm, epsilon_max=5, model=object(),
                              device="cpu").process()
+    kw = dict(epsilon_max=5, dtype=torch.float64, device="cpu")
+    curve = bf.PaintProfilesGrid(tcat, tgm, model=tab, **kw).process()
+    direct = bf.PaintProfilesGrid(tcat, tgm, model=_HideCurves(tab),
+                                  **kw).process()
+    assert np.abs(curve).max() > 0
+    np.testing.assert_allclose(direct, curve, rtol=1e-9,
+                               atol=1e-12 * np.abs(curve).max())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bf.BaryonifyGrid(tcat, tgm, epsilon_max=5, model=tab)

@@ -325,11 +325,31 @@ def test_disc_paint_plain_matches_jax(models, kind, pix):
     _paint_bound(acc32.numpy(), acc)
 
 
-def test_paint_needs_curves_and_cuda():
-    """A model without halo_curves raises, as BaryonifyShell does; the
-    runner runs on CUDA by default and raises without it."""
+class _HideCurves:
+    """Only the projected() surface of a profile: the direct readout."""
+
+    def __init__(self, prof):
+        self._prof = prof
+
+    def projected(self, *args, **kwargs):
+        return self._prof.projected(*args, **kwargs)
+
+
+def test_paint_needs_curves_and_cuda(models):
+    """A model without halo_curves is read directly (ops.direct) and
+    paints the curve path's map (float64, 1e-9 per pixel); one with neither
+    halo_curves nor projected raises, naming projected; the runner runs on
+    CUDA by default and raises without it."""
+    cat, shell = _torch_inputs(catalog())
+    tm = models["log"][1]
+    kw = dict(epsilon_max=EPS, dtype=torch.float64, deposit="scatter",
+              device="cpu")
+    curve = bf.PaintProfilesShell(cat, shell, model=tm, **kw).process()
+    direct = bf.PaintProfilesShell(cat, shell, model=_HideCurves(tm),
+                                   **kw).process()
+    _f64_close(direct, curve)
     cat, shell = _torch_inputs(catalog(8))
-    with pytest.raises(NotImplementedError, match="halo_curves"):
+    with pytest.raises(TypeError, match="projected"):
         bf.PaintProfilesShell(cat, shell, epsilon_max=5, model=object(),
                               device="cpu").process()
     if not torch.cuda.is_available():

@@ -312,7 +312,7 @@ def test_snapshot_catalog_in_place_mutation_rekeys(models):
 
 
 class _HideCurves:
-    """A model without halo_curves (the per-pair readout of ROADMAP item 7)."""
+    """A model without halo_curves: the direct per-pair readout."""
 
     def __init__(self, model):
         self._m = model
@@ -328,9 +328,17 @@ def test_snapshot_refusals(models):
     with pytest.raises(TypeError, match="mesh"):
         bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=tm,
                              mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bf.BaryonifySnapshot(cat, snap, epsilon_max=20,
-                             model=_HideCurves(tm), device="cpu").process()
+    # no halo_curves: the direct readout, the curve path's moves in float64
+    kw = dict(epsilon_max=20, dtype=torch.float64, device="cpu")
+    curve = bf.BaryonifySnapshot(cat, snap, model=tm, **kw).process()
+    direct = bf.BaryonifySnapshot(cat, snap, model=_HideCurves(tm),
+                                  verbose=False, **kw).process()
+    for c in "xyz":
+        np.testing.assert_allclose(direct[c], curve[c], rtol=1e-12,
+                                   atol=1e-12)
+    with pytest.raises(TypeError, match="displacement"):
+        bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=object(),
+                             device="cpu").process()
     with pytest.raises(TypeError):
         bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=tm,
                              dtype=torch.float16, device="cpu")
