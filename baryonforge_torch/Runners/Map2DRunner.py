@@ -28,13 +28,14 @@ then, by runner:
 A model without ``halo_curves``, or whose ``halo_curves`` raises (as the
 JAX runners catch it: NotImplementedError for BaryonifyGrid, also
 AttributeError and KeyError for the paint runners), takes the direct
-readout, as the JAX bodies do: for each size bucket, in chunks of
-``GRID_CELL_BUDGET`` cutout cells, K22's radii pass (ops/grid.grid_radii)
-writes every cutout cell's r, the model (``displacement``, ``projected``
-in 2D or ``real`` in 3D; the Anis grid's model and tracer ``projected``) is
-read on them under ``torch.func.vmap`` (ops/direct.readout) with its
-tables in float64, and K22's apply (ops/grid.grid_direct) adds the values
-through K15's tiles.
+readout, as the JAX bodies do: for each size bucket, in groups of whole
+readout chunks of up to ``GRID_VALUE_BUDGET`` cutout cells, K22's radii
+pass (ops/grid.grid_radii) writes every cutout cell's r, the model
+(``displacement``, ``projected`` in 2D or ``real`` in 3D; the Anis grid's
+model and tracer ``projected``) is read on them under ``torch.func.vmap``
+(ops/direct.readout) with its tables in float64, a chunk of
+``GRID_CELL_BUDGET`` cells at a time, and K22's apply (ops/grid.
+grid_direct) adds the group's values through K15's tiles in one launch.
 
 With a ``mesh`` (``parallel.halo_mesh``) the catalog splits into
 contiguous shards: each shard's cutouts (K15, every bucket's halos of the
@@ -67,11 +68,27 @@ from ..parallel.mesh import check_mesh, sharded_sum, to_device
 from .HealpixRunner import _PhaseClock
 
 __all__ = ["DefaultRunnerGrid", "BaryonifyGrid", "PaintProfilesGrid",
-           "PaintProfilesAnisGrid", "GRID_CELL_BUDGET"]
+           "PaintProfilesAnisGrid", "GRID_CELL_BUDGET", "GRID_VALUE_BUDGET",
+           "direct_groups"]
 
-# cutout cells a chunk of the direct readout holds at most (its radii and
-# values, and the model's temporaries under vmap, scale with it)
+# cutout cells a chunk of the direct readout holds at most (the model's
+# temporaries under vmap scale with it)
 GRID_CELL_BUDGET = 1 << 23
+# cutout cells one K22 apply takes at most, in whole readout chunks: their
+# radii (8 bytes a cell) and values (4 or 8, twice for the Anis grid) are
+# held at once, at most 2^28 cells x 24 bytes = 6.4 GB, 8% of an H100's
+# 80 GB
+GRID_VALUE_BUDGET = 1 << 28
+
+
+def direct_groups(n, cells):
+    """The direct readout's cut of a size bucket of ``n`` halos whose
+    cutouts hold ``cells`` cells each: (halos a readout chunk, the apply
+    groups as slices of the bucket), a group being whole chunks of
+    GRID_CELL_BUDGET cells, up to GRID_VALUE_BUDGET cells."""
+    step = max(1, GRID_CELL_BUDGET // cells)
+    per = step * max(1, GRID_VALUE_BUDGET // (step * cells))
+    return step, [slice(g0, min(n, g0 + per)) for g0 in range(0, n, per)]
 
 
 def _shear_matrix(A, q):
@@ -311,36 +328,52 @@ class DefaultRunnerGrid:
 
     def _direct_bucket(self, inp, ix, Ns, sub, acc, kw, clock):
         """The direct readout of one size bucket's halos ``ix`` (``sub``
-        their columns on ``acc``'s device) into ``acc``: chunks of
-        GRID_CELL_BUDGET cells, each K22's radii, the readouts, K22's
-        apply; marks radii, readout and apply on ``clock`` (None: none)."""
-        gm = self.GriddedMap
-        ndim = 2 if gm.is2D else 3
-        cells = Ns ** ndim
-        d = inp["direct"]
-        dev = acc.device
-        step = max(1, GRID_CELL_BUDGET // cells)
-        n = ix.shape[0]
-        for c0 in range(0, n, step):
-            sl = slice(c0, min(n, c0 + step))
-            part = {k: None if v is None else v[sl] for k, v in sub.items()}
-            r = grid_radii(gm.Npix, Ns, gm.res, part)
-            if clock is not None:
-                clock.mark("radii")
-            m = part["cen"].shape[0]
-            if self.verbose:
-                print(f"[baryonforge_torch] {type(self).__name__}: direct "
-                      f"readout of {m} halos x {cells} cells (cutout {Ns})")
-            cols = {k: v[ix[sl]].to(dev) for k, v in d["cols"].items()}
-            vals = [readout(fn, r, uniform_layout(m, cells), cols,
-                            d["out_dtype"]) for fn in d["fns"]]
-            if clock is not None:
-                clock.mark("readout")
-            grid_direct(inp["mode"], gm.Npix, Ns, gm.res, part, vals[0], acc,
+        their columns on ``acc``'s device) into ``acc``: K22's apply on
+        each of :meth:`_direct_groups`; marks radii, readout and apply on
+        ``clock`` (None: none)."""
+        for grp, vals in self._direct_groups(inp, ix, Ns, sub, acc.device,
+                                             clock):
+            grid_direct(inp["mode"], self.GriddedMap.Npix, Ns,
+                        self.GriddedMap.res, grp, vals[0], acc,
                         vals[1] if len(vals) > 1 else None, kw.get("mtot"),
                         kw.get("orig"))
             if clock is not None:
                 clock.mark("apply")
+
+    def _direct_groups(self, inp, ix, Ns, sub, dev, clock=None):
+        """The apply groups (:func:`direct_groups`) of one size bucket's
+        halos ``ix`` (``sub`` their columns on ``dev``). Yields each
+        group's (halo columns, readout values, one tensor a readout
+        function), after K22's radii on the group and the readouts chunk
+        by chunk into its buffers; marks radii and readout on ``clock``
+        (None: none)."""
+        gm = self.GriddedMap
+        cells = Ns ** (2 if gm.is2D else 3)
+        d = inp["direct"]
+        step, groups = direct_groups(ix.shape[0], cells)
+        for gs in groups:
+            grp = {k: None if v is None else v[gs] for k, v in sub.items()}
+            r = grid_radii(gm.Npix, Ns, gm.res, grp)
+            if clock is not None:
+                clock.mark("radii")
+            m = grp["cen"].shape[0]
+            vals = [torch.empty(m * cells, dtype=d["out_dtype"], device=dev)
+                    for _ in d["fns"]]
+            for c0 in range(0, m, step):
+                mc = min(m, c0 + step) - c0
+                if self.verbose:
+                    print(f"[baryonforge_torch] {type(self).__name__}: "
+                          f"direct readout of {mc} halos x {cells} cells "
+                          f"(cutout {Ns})")
+                cs = slice(c0 * cells, (c0 + mc) * cells)
+                hix = ix[gs.start + c0:gs.start + c0 + mc]
+                cols = {k: v[hix].to(dev) for k, v in d["cols"].items()}
+                for fn, out in zip(d["fns"], vals):
+                    readout(fn, r[cs], uniform_layout(mc, cells), cols,
+                            d["out_dtype"], out=out[cs])
+            if clock is not None:
+                clock.mark("readout")
+            yield grp, vals
 
     def _accumulator(self, inp, dev=None):
         """The zeroed K15 accumulator of ``inp`` on ``dev`` (the runner's

@@ -25,7 +25,11 @@ counts, ops/direct.row_layout), the model's ``displacement`` is read on
 them under ``torch.func.vmap`` (ops/direct.readout, its tables in float64)
 and K23's gather (ops/snapshot.snapshot_direct) sums the values per
 particle; it runs the whole catalog on the runner's device, with or
-without a mesh. The JAX runner pads count buckets of halos to static shapes
+without a mesh. K23's layout (the rows, each row's slots and pieces, each
+particle-major entry's (slot, halo) record, the positions in K17's
+particle order: ops/snapshot.direct_layout) is cached with the pairs, so
+a call reads nothing back to the host between the pair cache and its
+result. The JAX runner pads count buckets of halos to static shapes
 and scans them in batches (``n_size_buckets``, ``halo_batch``); here the
 pairs are exact lists and one launch covers them all.
 
@@ -44,10 +48,9 @@ import torch
 from ..cosmo import core as _core
 from ..cosmo import massdef as _massdef
 from ..native import cell_query
-from ..ops.direct import readout, readout_model, require, row_layout
-from ..ops.snapshot import (particle_layout, particle_major_pairs,
-                            snapshot_direct, snapshot_displace,
-                            snapshot_radii)
+from ..ops.direct import readout, readout_model, require
+from ..ops.snapshot import (direct_layout, particle_layout, snapshot_direct,
+                            snapshot_displace, snapshot_radii)
 from ..ops.tiles import pairs_csr
 from ..parallel.mesh import check_mesh, sharded_sum, to_device
 from .HealpixRunner import _PhaseClock
@@ -105,7 +108,8 @@ class DefaultRunnerSnapshot:
         self._kdtree_kwargs = KDTree_kwargs or {}
         self._tree = None
         self._coords_dev = None
-        # (key, device CSR, K17's layout, {n_shards: the shards' rows})
+        # (key, device CSR, K17's layout, {n_shards: the shards' rows,
+        # "direct": K23's layout})
         self._pairs = None
         # milliseconds of each phase of the last process() call (see
         # _PhaseClock): host_prep, neighbours, curves, displace, download;
@@ -172,6 +176,16 @@ class DefaultRunnerSnapshot:
         layout = particle_layout(self._coords_dev, L, *csr[1:])
         self._pairs = (key, csr, layout, {})
         return csr, layout
+
+    def _direct_layout(self):
+        """K23's layout of the cached pairs (ops.snapshot.direct_layout),
+        built at the first direct call on a pair set and kept with it."""
+        cache = self._pairs[3]
+        if "direct" not in cache:
+            (halos, offsets, parts), layout = self._pairs[1:3]
+            cache["direct"] = direct_layout(self._coords_dev, halos,
+                                            offsets, parts, layout[0])
+        return cache["direct"]
 
     def _shard_pairs(self, n_halos, n_shards):
         """Each shard's rows of the cached pairs (the halos np.array_split
@@ -283,35 +297,33 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
     def _direct_displace(self, clock):
         """The direct readout (reference SnapshotRunner.py:175-227 with
         ``model.displacement``): the host prep and the pairs as the curve
-        path makes them, K23's radii pass, the model read on the rows of
-        each pair's distance (its tables in float64, the values rounded to
-        the runner's dtype), K23's gather. Marks host_prep, neighbours,
-        radii, readout and apply; returns the (ndim, n_part) offsets."""
+        path makes them with K23's layout (cached with them), K23's radii
+        pass, the model read on the rows of each pair's distance (its
+        tables in float64, the values rounded to the runner's dtype), K23's
+        gather. Marks host_prep, neighbours, radii, readout and apply;
+        returns the (ndim, n_part) offsets."""
         require(self.model, "displacement", runner=type(self).__name__)
         dev, dt = self.device, self.dtype
         L = self.ParticleSnapshot.L
         a, M, _, R_q, hpos, pkw = self._host_prep()
         hpos_dev = torch.as_tensor(hpos, device=dev)
         clock.mark("host_prep")
-        (halos, offsets, parts), layout = self._neighbour_pairs(hpos, R_q)
+        (halos, offsets, _), layout = self._neighbour_pairs(hpos, R_q)
+        dlay = self._direct_layout()
         clock.mark("neighbours")
-        rows = row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
         if self.verbose:
             print(f"[baryonforge_torch] {type(self).__name__}: "
-                  f"{rows.describe()}")
-        r, pslot = snapshot_radii(self._coords_dev, hpos_dev, halos, offsets,
-                                  parts, rows, L)
+                  f"{dlay.rows.describe()}")
+        r = snapshot_radii(hpos_dev, halos, offsets, dlay, L)
         clock.mark("radii")
         model = readout_model(self.model, torch.float64, dev)
         hix = halos.long()
         cols = {k: torch.as_tensor(v, device=dev)[hix]
                 for k, v in dict(M=M, **pkw).items()}
         vals = readout(lambda r, M, **kw: model.displacement(r, M, a, **kw),
-                       r, rows, cols, dt)
+                       r, dlay.rows, cols, dt)
         clock.mark("readout")
-        eslot = pslot[particle_major_pairs(parts, layout[0])]
-        acc = snapshot_direct(self._coords_dev, hpos_dev, halos, layout,
-                              eslot, vals, L)
+        acc = snapshot_direct(hpos_dev, layout[:2], dlay, vals, L)
         clock.mark("apply")
         return acc
 

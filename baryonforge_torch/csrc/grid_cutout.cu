@@ -44,13 +44,18 @@
 // K22: the same bodies for models without halo_curves (the direct branch
 // of the three JAX bodies: model.displacement, Map2DRunner.py:410;
 // model.projected / model.real, :584, :609; model.projected and
-// tracer.projected, :757-759). ops/grid.py cuts a size bucket's halos into
-// chunks of a cell budget; for a chunk, bf_grid_radii writes each cutout
-// cell's r (float64, the geometry above, ellipticity included), halo-major
-// with the cells row-major in the box (the last axis fastest), the model
-// is read on those rows by torch.func.vmap (ops/direct.py), and
-// bf_grid_direct adds its values through the tile kernel above, each
-// (halo, cell) reading its value from the rows instead of a curve:
+// tracer.projected, :757-759). Map2DRunner reads the model on chunks of a
+// size bucket's halos (a cell budget, which the readout's temporaries
+// set) and groups consecutive chunks up to a value budget; for a group:
+//   bf_grid_radii writes each cutout cell's r (float64, the geometry
+//     above, ellipticity included), halo-major with the cells row-major in
+//     the box (the last axis fastest): a block a (halo, plane of the box)
+//     in 3D, (halo, 8 rows) in 2D, a thread a cell of a row, 32-bit
+//     indices from the launch, each row written coalesced;
+//   the model is read on the rows chunk by chunk (ops/direct.py);
+//   bf_grid_direct adds the group's values through the tile body above in
+//     one launch, each (halo, cell) reading its value from the rows instead
+//     of a curve:
 //   displace: d = the value (in T) over res in float64, zeroed if not
 //     finite; per axis d T(rel_d / r), zeroed if not finite, rounded to T
 //     and added into the offsets, at every cell of the box (the direct
@@ -58,10 +63,17 @@
 //   paint: the value (float64) added where finite and r < rmax;
 //   anis: painting and canvas (float64, non-finite zeroed), mfrac as
 //     above, painting mfrac added where finite and r < rmax.
-// Bound: the radii pass by its writes (8 bytes a cell), the apply by its
-// reads of the rows (8 bytes, 16 for anis, a (halo, cell) pair) beside the
-// tile kernel's ~20 float64 operations a pair. The tiles' lists are the
-// chunk's own, so the rows and the halos' columns stay in L2.
+// The group's tile lists are made once (as K15's); the wrapper compacts
+// the tiles they touch into a list whose length stays on the device, and
+// a persistent grid (the SMs times the blocks resident on each) walks it,
+// a block taking the next tile from a counter as it finishes one, so no
+// block is launched for an untouched tile and nothing is read back.
+// A tile adds its listed halos in ascending order holding each running sum
+// in the map's type, so one apply over chunks 1..k equals k applies in
+// sequence bit for bit.
+// Bound: the radii pass by its writes (8 bytes a cell); the apply by its
+// reads of the rows (4 or 8 bytes, 16 for anis, a (halo, cell) pair) and
+// the map read and written once, beside ~20 float64 operations a pair.
 
 #include "healpix.cuh"
 #include "lookup.cuh"
@@ -102,14 +114,14 @@ __device__ __forceinline__ long long box_local(const int* od, int Ns) {
   return l;
 }
 
+// tile t's cells, its halos tile_halo[first .. last) (first < last): the
+// body of one block (every thread of the block calls it)
 template <typename T, int kMode, int kDim, bool kDirect>
-__global__ void __launch_bounds__(kDim == 3 ? 512 : 256)
-grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
-                   const int* __restrict__ tile_halo, void* acc_raw) {
+__device__ __forceinline__ void cutout_tile(const Cutout<T>& p, int t,
+                                            int first, int last,
+                                            const int* __restrict__ tile_halo,
+                                            void* acc_raw) {
   constexpr int TS = kDim == 3 ? kTile3 : kTile2;
-  const int t = blockIdx.x;
-  const int first = tile_start[t], last = tile_start[t + 1];
-  if (first == last) return;
   const int N = p.N, Ns = p.Ns, w = Ns / 2;
   const int nt = (N + TS - 1) / TS;
   // this thread's cell: the tile's origin plus threadIdx, the last axis
@@ -257,6 +269,43 @@ grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
   }
 }
 
+// K15: a block a tile of the grid, its lists tile_start / tile_halo
+template <typename T, int kMode, int kDim>
+__global__ void __launch_bounds__(kDim == 3 ? 512 : 256)
+grid_cutout_kernel(Cutout<T> p, const int* __restrict__ tile_start,
+                   const int* __restrict__ tile_halo, void* acc_raw) {
+  const int t = blockIdx.x;
+  const int first = tile_start[t], last = tile_start[t + 1];
+  if (first == last) return;
+  cutout_tile<T, kMode, kDim, false>(p, t, first, last, tile_halo, acc_raw);
+}
+
+// K22's apply: a persistent grid over the work[0] tiles of `tiles` (the
+// touched ones, compacted), a block a tile at a time, each block taking
+// the next tile from the counter work[1] (0 at the launch) as it finishes
+// one, so that tiles of many halos do not pile up on one block. In 3D the
+// registers are capped so that 3 blocks of 512 threads fit an SM (a few
+// spill; 2-10% faster than 2 blocks on an apply group, chip_probes.py K22)
+template <typename T, int kMode, int kDim>
+__global__ void __launch_bounds__(kDim == 3 ? 512 : 256, kDim == 3 ? 3 : 1)
+grid_direct_kernel(Cutout<T> p, const int* __restrict__ tile_start,
+                   const int* __restrict__ tile_halo,
+                   const int* __restrict__ tiles, int* __restrict__ work,
+                   void* acc_raw) {
+  __shared__ int s_next;
+  const int n = work[0];
+  for (;;) {
+    __syncthreads();  // every thread has read the last s_next
+    if (threadIdx.x == 0) s_next = atomicAdd(work + 1, 1);
+    __syncthreads();
+    const int i = s_next;
+    if (i >= n) return;
+    const int t = tiles[i];
+    cutout_tile<T, kMode, kDim, true>(p, t, tile_start[t], tile_start[t + 1],
+                                      tile_halo, acc_raw);
+  }
+}
+
 // the (tile, halo) pairs of halos h0 .. h0 + m - 1, each one's K^d
 // candidate tiles from the tile of its box's first cell (halo-major, the
 // last axis fastest): key = the row-major tile id, or n_tiles where the
@@ -308,72 +357,126 @@ __global__ void tile_pairs_kernel(int ndim, int N, int Ns, int TS, int K,
   owner[idx] = h;
 }
 
-template <typename T, int kMode, int kDim, bool kDirect>
+// K15: a block a tile of the grid
+template <typename T, int kMode, int kDim>
 int launch_tiles(int n_tiles, const Cutout<T>& p, const int* tile_start,
                  const int* tile_halo, void* acc, cudaStream_t s) {
-  grid_cutout_kernel<T, kMode, kDim, kDirect>
+  grid_cutout_kernel<T, kMode, kDim>
       <<<n_tiles, kDim == 3 ? 512 : 256, 0, s>>>(p, tile_start, tile_halo,
                                                  acc);
   return int(cudaGetLastError());
 }
 
-template <typename T, bool kDirect>
-int launch(int tile, Cutout<T> p, int mode, const int* tile_start,
-           const int* tile_halo, void* acc, void* stream) {
+// K22's apply on at most n_tiles touched tiles: the SMs times the blocks
+// each holds at once, no more blocks than tiles
+template <typename T, int kMode, int kDim>
+int launch_direct(int n_tiles, const Cutout<T>& p, const int* tile_start,
+                  const int* tile_halo, const int* tiles, int* work,
+                  void* acc, cudaStream_t s) {
+  constexpr int threads = kDim == 3 ? 512 : 256;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, grid_direct_kernel<T, kMode, kDim>, threads, 0);
+  if (err != cudaSuccess) return int(err);
+  const int blocks = max(1, min(n_tiles, sms * max(per_sm, 1)));
+  grid_direct_kernel<T, kMode, kDim><<<blocks, threads, 0, s>>>(
+      p, tile_start, tile_halo, tiles, work, acc);
+  return int(cudaGetLastError());
+}
+
+template <int kMode, int kDim>
+struct Shape {
+  static constexpr int mode = kMode, dim = kDim;
+};
+
+// go(Shape<mode, dimension>{}, n_tiles) for the modes and dimensions the
+// bodies have, tiles of `tile` cells a side
+template <typename T, typename Go>
+int by_shape(int tile, const Cutout<T>& p, int mode, Go go) {
   const int nd = p.ndim;
   if ((nd != 2 && nd != 3) || tile != (nd == 3 ? kTile3 : kTile2))
     return int(cudaErrorInvalidValue);
   const int nt = (p.N + tile - 1) / tile;
-  const int n_tiles = nd == 3 ? nt * nt * nt : nt * nt;
-  cudaStream_t s = (cudaStream_t)stream;
+  const int n = nd == 3 ? nt * nt * nt : nt * nt;
   if (mode == kDisplace)
-    return nd == 3 ? launch_tiles<T, kDisplace, 3, kDirect>(
-                         n_tiles, p, tile_start, tile_halo, acc, s)
-                   : launch_tiles<T, kDisplace, 2, kDirect>(
-                         n_tiles, p, tile_start, tile_halo, acc, s);
+    return nd == 3 ? go(Shape<kDisplace, 3>{}, n)
+                   : go(Shape<kDisplace, 2>{}, n);
   if (mode == kPaint)
-    return nd == 3 ? launch_tiles<T, kPaint, 3, kDirect>(
-                         n_tiles, p, tile_start, tile_halo, acc, s)
-                   : launch_tiles<T, kPaint, 2, kDirect>(
-                         n_tiles, p, tile_start, tile_halo, acc, s);
-  if (mode == kAnis && nd == 2)
-    return launch_tiles<T, kAnis, 2, kDirect>(n_tiles, p, tile_start,
-                                              tile_halo, acc, s);
+    return nd == 3 ? go(Shape<kPaint, 3>{}, n) : go(Shape<kPaint, 2>{}, n);
+  if (mode == kAnis && nd == 2) return go(Shape<kAnis, 2>{}, n);
   return int(cudaErrorInvalidValue);
 }
 
-// K22's radii pass: a thread a (halo, cell) of m halos' boxes of Ns^d
-// cells, r (float64) as the tile kernel measures it
-__global__ void grid_radii_kernel(int ndim, int N, int Ns, long long m,
-                                  const int* __restrict__ cen,
-                                  const double* __restrict__ doff,
-                                  double res, const double* __restrict__ rmat,
-                                  double* __restrict__ r) {
-  const long long cells =
-      ndim == 3 ? (long long)Ns * Ns * Ns : (long long)Ns * Ns;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= m * cells) return;
-  const long long h = idx / cells;
-  long long c = idx % cells;
+template <typename T>
+int launch(int tile, const Cutout<T>& p, int mode, const int* tile_start,
+           const int* tile_halo, void* acc, void* stream) {
+  return by_shape(tile, p, mode, [&](auto shape, int n_tiles) {
+    using S = decltype(shape);
+    return launch_tiles<T, S::mode, S::dim>(n_tiles, p, tile_start, tile_halo,
+                                            acc, (cudaStream_t)stream);
+  });
+}
+
+template <typename T>
+int launch_direct_mode(int tile, const Cutout<T>& p, int mode,
+                       const int* tile_start, const int* tile_halo,
+                       const int* tiles, int* work, void* acc, void* stream) {
+  return by_shape(tile, p, mode, [&](auto shape, int n_tiles) {
+    using S = decltype(shape);
+    return launch_direct<T, S::mode, S::dim>(n_tiles, p, tile_start,
+                                             tile_halo, tiles, work, acc,
+                                             (cudaStream_t)stream);
+  });
+}
+
+// K22's radii pass: a block (32, 8) a halo blockIdx.x and, in 3D, a plane
+// ox = blockIdx.y of its box (the rows oy by threadIdx.y, 8 apart), in 2D
+// the rows ox = 8 blockIdx.y + threadIdx.y; a thread a cell of a row (the
+// last axis, 32 apart); r (float64) as the tile kernel measures it into
+// r[h Ns^d + the cell's row-major place in the box]
+template <int kDim>
+__global__ void __launch_bounds__(256)
+grid_radii_kernel(int Ns, const double* __restrict__ doff, double res,
+                  const double* __restrict__ rmat, double* __restrict__ r) {
+  const int h = blockIdx.x;
   const int w = Ns / 2;
-  double g[3];
-  for (int d = ndim - 1; d >= 0; --d) {
-    const int od = int(c % Ns);
-    c /= Ns;
-    g[d] = double(od - w) * res + doff[h * ndim + d];
-  }
-  double r2;
-  if (ndim == 3) {
-    r2 = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
-  } else if (rmat != nullptr) {
-    const double* R = rmat + 4 * h;
-    const double xe = g[0] * R[0] + g[1] * R[2];
-    const double ye = g[0] * R[1] + g[1] * R[3];
-    r2 = xe * xe + ye * ye;
+  const int cells = kDim == 3 ? Ns * Ns * Ns : Ns * Ns;
+  double* out = r + (long long)h * cells;
+  const double* dh = doff + (long long)h * kDim;
+  if constexpr (kDim == 3) {
+    const int ox = blockIdx.y;
+    const double gx = double(ox - w) * res + dh[0];
+    for (int oy = threadIdx.y; oy < Ns; oy += blockDim.y) {
+      const double gy = double(oy - w) * res + dh[1];
+      double* row = out + (ox * Ns + oy) * Ns;
+      for (int oz = threadIdx.x; oz < Ns; oz += 32) {
+        const double gz = double(oz - w) * res + dh[2];
+        row[oz] = sqrt(gx * gx + gy * gy + gz * gz);
+      }
+    }
   } else {
-    r2 = g[0] * g[0] + g[1] * g[1];
+    const int ox = blockIdx.y * blockDim.y + threadIdx.y;
+    if (ox >= Ns) return;
+    const double gx = double(ox - w) * res + dh[0];
+    double* row = out + ox * Ns;
+    const double* R = rmat != nullptr ? rmat + 4LL * h : nullptr;
+    for (int oy = threadIdx.x; oy < Ns; oy += 32) {
+      const double gy = double(oy - w) * res + dh[1];
+      double r2;
+      if (R != nullptr) {
+        const double xe = gx * R[0] + gy * R[2];
+        const double ye = gx * R[1] + gy * R[3];
+        r2 = xe * xe + ye * ye;
+      } else {
+        r2 = gx * gx + gy * gy;
+      }
+      row[oy] = sqrt(r2);
+    }
   }
-  r[idx] = sqrt(r2);
 }
 
 }  // namespace
@@ -412,24 +515,25 @@ extern "C" {
                 orig,                                                         \
                 nullptr,                                                      \
                 nullptr};                                                     \
-    return launch<T, false>(tile, p, mode, tile_start, tile_halo, acc,       \
-                            stream);                                          \
+    return launch<T>(tile, p, mode, tile_start, tile_halo, acc, stream);      \
   }
 
 BF_GRID_CUTOUT(float, f32)
 BF_GRID_CUTOUT(double, f64)
 #undef BF_GRID_CUTOUT
 
-// K22's apply: the tile kernel reading each (halo, cell)'s value from the
+// K22's apply: the tile body reading each (halo, cell)'s value from the
 // rows vals (n, Ns^d) (T for displace, float64 otherwise; vals2 the anis
-// canvas'), the halos' columns and lists those of one chunk
+// canvas'), the halos' columns and lists those of one apply; tiles the
+// touched tiles, work (2,) on the device: their number, then 0 (the
+// apply's tile counter, advanced by the launch)
 #define BF_GRID_DIRECT(T, SUF)                                                \
   int bf_grid_direct_##SUF(                                                   \
       int ndim, int N, int Ns, int tile, int mode, const int* tile_start,     \
-      const int* tile_halo, const int* cen, const double* doff, double res,   \
-      const double* rmax, const double* rmat, const void* vals,               \
-      const double* vals2, const double* mtot, const double* orig,            \
-      void* acc, void* stream) {                                              \
+      const int* tile_halo, const int* tiles, int* work,                      \
+      const int* cen, const double* doff, double res, const double* rmax,     \
+      const double* rmat, const void* vals, const double* vals2,              \
+      const double* mtot, const double* orig, void* acc, void* stream) {      \
     long long nflat = 1, cells = 1;                                           \
     for (int d = 0; d < ndim; ++d) {                                          \
       nflat *= N;                                                             \
@@ -440,25 +544,31 @@ BF_GRID_CUTOUT(double, f64)
                 bf::Curve<T>{nullptr, 2, 0.0, 1.0, false},                    \
                 1.0, mtot, orig, vals, vals2};                                \
     p.cells = cells;                                                          \
-    return launch<T, true>(tile, p, mode, tile_start, tile_halo, acc,        \
-                           stream);                                           \
+    return launch_direct_mode<T>(tile, p, mode, tile_start, tile_halo, tiles, \
+                                 work, acc, stream);                          \
   }
 
 BF_GRID_DIRECT(float, f32)
 BF_GRID_DIRECT(double, f64)
 #undef BF_GRID_DIRECT
 
-// K22's radii pass: r (m, Ns^d) float64 for m halos' columns
-int bf_grid_radii(int ndim, int N, int Ns, int m, const int* cen,
-                  const double* doff, double res, const double* rmat,
-                  double* r, void* stream) {
-  const long long total =
-      (long long)m * (ndim == 3 ? (long long)Ns * Ns * Ns : (long long)Ns * Ns);
-  if (total == 0) return 0;
-  if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);
-  grid_radii_kernel<<<unsigned((total + 255) / 256), 256, 0,
-                      (cudaStream_t)stream>>>(ndim, N, Ns, m, cen, doff, res,
-                                              rmat, r);
+// K22's radii pass: r (m, Ns^d) float64 for m halos' offsets doff (m,
+// ndim) and shear matrices rmat ((m, 4) or null; 2D); Ns^d under 2^31, Ns
+// under 2^16
+int bf_grid_radii(int ndim, int Ns, int m, const double* doff, double res,
+                  const double* rmat, double* r, void* stream) {
+  if (m == 0 || Ns == 0) return 0;
+  if ((ndim != 2 && ndim != 3) || Ns > 65535 ||
+      (long long)Ns * Ns * (ndim == 3 ? Ns : 1) > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 threads(32, 8);
+  if (ndim == 3)
+    grid_radii_kernel<3><<<dim3(unsigned(m), unsigned(Ns)), threads, 0, s>>>(
+        Ns, doff, res, nullptr, r);
+  else
+    grid_radii_kernel<2><<<dim3(unsigned(m), unsigned((Ns + 7) / 8)), threads,
+                           0, s>>>(Ns, doff, res, rmat, r);
   return int(cudaGetLastError());
 }
 

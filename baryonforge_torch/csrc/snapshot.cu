@@ -39,15 +39,32 @@
 //
 // K23: the same body for models without halo_curves (the direct branch,
 // off = model.displacement(d, M_h, a), SnapshotRunner.py:196). The model
-// is read between two launches (ops/snapshot.py, ops/direct.py): the radii
-// pass, a thread a pair, writes each pair's float64 minimum-image distance
-// d (as above, unclamped: the model gets d itself) into the pair's slot of
-// its halo's padded row; the gather, K17's particle-major walk with no
-// atomics, reads each pair's value from its slot instead of a curve: off =
-// the value in T, zeroed where not finite, times T(dx_c / d_safe), summed
-// per particle in the halo-major order. Bound: bytes, as K17, plus the
-// radii pass's 8 bytes a pair written and the gather's 8 (slot, value) read
-// a pair.
+// is read between two launches (ops/snapshot.py, ops/direct.py); both read
+// a layout built once per pair set (ops/snapshot.direct_layout): each
+// halo-major row's first slot and width in the readout's padded rows, the
+// rows cut into pieces of at most `piece` pairs, and one 8-byte record
+// (slot, halo) per particle-major entry.
+//   radii: a warp a piece. The row's halo position is read once into
+//     registers, the lanes read the piece's particles coalesced (their
+//     places in K17's Morton order, where the layout keeps a copy of the
+//     positions, so that a row's particles, found cell by cell, read
+//     nearby positions) and write each pair's float64 minimum-image
+//     distance d (as above, unclamped: the model gets d itself) coalesced
+//     into the row; the row's first piece also writes its pads 0. No
+//     per-pair index is formed.
+//   gather: a warp 32 consecutive particles of the particle-major layout,
+//     whose entries are consecutive. The lanes take the entries 32 at a
+//     time, coalesced: each reads its record, finds its particle among the
+//     warp's 32 (a binary search of their offsets in shared memory; its
+//     position from the Morton-ordered copy, the warp's 32 side by side),
+//     reads the value and forms the term off * T(dx_c / d_safe), off the value
+//     in T zeroed where not finite, into shared memory; then each
+//     particle's own lane adds its entries' terms one by one. So every
+//     particle's sum runs in the halo-major order, term for term as the
+//     plain version forms it, the same in every launch; no atomics.
+// Bound: bytes. Positions and halo positions read once, per pair its
+// particle (radii) and its value (gather) read, r written once, the
+// offsets written once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,71 +145,111 @@ snapshot_gather_kernel(int n_part, double L, const double* __restrict__ coords,
   for (int c = 0; c < NDIM; ++c) acc[(long long)c * n_part + p] = sum[c];
 }
 
-// K23's gather: a thread a particle, its rows in order; the value of row
-// k's pair at vals[eslot[k]]
+constexpr int kGatherWarps = 4;    // gather: warps a block
+
+// K23's gather: a warp 32 consecutive particles s0 .. s0 + 31 of the
+// particle-major layout (order, poff), their positions coords[s] (in that
+// order), its entries' records rec (slot, halo) and values vals[slot]
 template <typename T, int NDIM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kGatherWarps)
 snapshot_direct_kernel(int n_part, double L, const double* __restrict__ coords,
                        const int* __restrict__ order,
                        const int* __restrict__ poff,
-                       const int* __restrict__ prow,
-                       const long long* __restrict__ eslot,
-                       const int* __restrict__ halos,
+                       const int2* __restrict__ rec,
                        const double* __restrict__ hpos,
                        const T* __restrict__ vals, T* __restrict__ acc) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_part) return;
-  const int p = order[s];
-  double pp[NDIM];
-  for (int c = 0; c < NDIM; ++c) pp[c] = coords[(long long)p * NDIM + c];
+  __shared__ int s_off[kGatherWarps][33];
+  __shared__ T s_term[kGatherWarps][NDIM][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int s0 = (blockIdx.x * kGatherWarps + w) * 32;
+  if (s0 >= n_part) return;  // the whole warp
+  int* off = s_off[w];
+  off[lane] = poff[min(s0 + lane, n_part)];
+  if (lane == 0) off[32] = poff[min(s0 + 32, n_part)];
+  __syncwarp();
+  const int e0 = off[0], e1 = off[32];
+  const int my0 = off[lane], my1 = off[lane + 1];
+  const double half = L / 2;
   T sum[NDIM];
   for (int c = 0; c < NDIM; ++c) sum[c] = T(0);
-  const double half = L / 2;
-  const int k1 = poff[s + 1];
-  for (int k = poff[s]; k < k1; ++k) {
-    const long long h = halos[prow[k]];
-    double dx[NDIM];
-    double d2 = 0.0;
-    for (int c = 0; c < NDIM; ++c) {
-      double v = pp[c] - hpos[h * NDIM + c];
-      if (v > half) v -= L;
-      if (v < -half) v += L;
-      dx[c] = v;
-      d2 = d2 + v * v;
+  for (int c0 = e0; c0 < e1; c0 += 32) {
+    const int k = c0 + lane;
+    if (k < e1) {
+      // the entry's particle: the last of the warp's whose first entry <= k
+      int i = 0;
+      for (int step = 16; step > 0; step >>= 1)
+        if (off[i + step] <= k) i += step;
+      const long long p = s0 + i;
+      const int2 e = rec[k];
+      double dx[NDIM];
+      double d2 = 0.0;
+      for (int c = 0; c < NDIM; ++c) {
+        double v = coords[p * NDIM + c] - hpos[(long long)e.y * NDIM + c];
+        if (v > half) v -= L;
+        if (v < -half) v += L;
+        dx[c] = v;
+        d2 = d2 + v * v;
+      }
+      const double d = sqrt(d2);
+      const double d_safe = d > 0.0 ? d : 1.0;
+      T val = vals[e.x];
+      if (!isfinite(val)) val = T(0);
+      for (int c = 0; c < NDIM; ++c)
+        s_term[w][c][lane] = val * T(dx[c] / d_safe);
     }
-    const double d = sqrt(d2);
-    const double d_safe = d > 0.0 ? d : 1.0;
-    T off = vals[eslot[k]];
-    if (!isfinite(off)) off = T(0);
-    for (int c = 0; c < NDIM; ++c) sum[c] = sum[c] + off * T(dx[c] / d_safe);
+    __syncwarp();
+    const int a = max(my0, c0), b = min(my1, c0 + 32);
+    for (int kk = a; kk < b; ++kk)
+      for (int c = 0; c < NDIM; ++c) sum[c] = sum[c] + s_term[w][c][kk - c0];
+    __syncwarp();
   }
-  for (int c = 0; c < NDIM; ++c) acc[(long long)c * n_part + p] = sum[c];
+  if (s0 + lane < n_part) {
+    const long long p = order[s0 + lane];
+    for (int c = 0; c < NDIM; ++c) acc[c * (long long)n_part + p] = sum[c];
+  }
 }
 
-// K23's radii pass: a thread a pair i of the halo-major list, its row
-// pair_row[i], its particle parts[i]; d (float64) into r[pslot[i]]
+// K23's radii pass: a warp a piece (row, first pair j0) of the halo-major
+// CSR (offsets, parts), parts the particles' places in coords, the row's
+// first slot and width slots[row]; d (float64) of pair j into r[slot + j],
+// the pads of the row 0
 template <int NDIM>
-__global__ void snapshot_radii_kernel(long long n_pairs, double L,
-                                      const double* __restrict__ coords,
-                                      const double* __restrict__ hpos,
-                                      const int* __restrict__ halos,
-                                      const int* __restrict__ pair_row,
-                                      const int* __restrict__ parts,
-                                      const long long* __restrict__ pslot,
-                                      double* __restrict__ r) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pairs) return;
-  const long long h = halos[pair_row[i]];
-  const long long p = parts[i];
+__global__ void __launch_bounds__(256)
+snapshot_radii_kernel(int n_pieces, int piece_len, double L,
+                      const double* __restrict__ coords,
+                      const double* __restrict__ hpos,
+                      const int* __restrict__ halos,
+                      const int* __restrict__ offsets,
+                      const int* __restrict__ parts,
+                      const int2* __restrict__ slots,
+                      const int2* __restrict__ pieces,
+                      double* __restrict__ r) {
+  const int piece = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (piece >= n_pieces) return;
+  const int2 pc = pieces[piece];
+  const int row = pc.x;
+  const int o0 = offsets[row], count = offsets[row + 1] - o0;
+  const int2 sl = slots[row];
+  const long long h = halos[row];
+  double hp[NDIM];
+  for (int c = 0; c < NDIM; ++c) hp[c] = hpos[h * NDIM + c];
+  double* out = r + sl.x;
   const double half = L / 2;
-  double d2 = 0.0;
-  for (int c = 0; c < NDIM; ++c) {
-    double v = coords[p * NDIM + c] - hpos[h * NDIM + c];
-    if (v > half) v -= L;
-    if (v < -half) v += L;
-    d2 = d2 + v * v;
+  const int j1 = min(count, pc.y + piece_len);
+  for (int j = pc.y + lane; j < j1; j += 32) {
+    const long long p = parts[o0 + j];
+    double d2 = 0.0;
+    for (int c = 0; c < NDIM; ++c) {
+      double v = coords[p * NDIM + c] - hp[c];
+      if (v > half) v -= L;
+      if (v < -half) v += L;
+      d2 = d2 + v * v;
+    }
+    out[j] = sqrt(d2);
   }
-  r[pslot[i]] = sqrt(d2);
+  if (pc.y == 0)
+    for (int j = count + lane; j < sl.y; j += 32) out[j] = 0.0;
 }
 
 template <typename T>
@@ -238,26 +295,27 @@ BF_SNAPSHOT(float, f32)
 BF_SNAPSHOT(double, f64)
 #undef BF_SNAPSHOT
 
-// K23's gather: eslot (P,) each particle-major entry's slot in vals (the
-// padded rows, in T); hpos (n_halos, ndim) float64
+// K23's gather: coords (n_part, ndim) float64 the positions in `order`;
+// rec (P, 2) int32 each particle-major entry's (slot in vals, halo); hpos
+// (n_halos, ndim) float64; vals (n_slots,) in T
 #define BF_SNAPSHOT_DIRECT(T, SUF)                                           \
-  int bf_snapshot_direct_##SUF(                                              \
-      int ndim, int n_part, double L, const double* coords, const int* order, \
-      const int* poff, const int* prow, const long long* eslot,              \
-      const int* halos, const double* hpos, const T* vals, T* acc,           \
-      void* stream) {                                                        \
+  int bf_snapshot_direct_##SUF(int ndim, int n_part, double L,               \
+                               const double* coords, const int* order,       \
+                               const int* poff, const int* rec,              \
+                               const double* hpos, const T* vals, T* acc,    \
+                               void* stream) {                               \
     if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);           \
     if (n_part == 0) return 0;                                               \
-    const int blocks = (n_part + kThreads - 1) / kThreads;                   \
+    const int per = 32 * kGatherWarps;                                       \
+    const int blocks = (n_part + per - 1) / per;                             \
+    const int2* e = reinterpret_cast<const int2*>(rec);                      \
     cudaStream_t s = (cudaStream_t)stream;                                   \
     if (ndim == 3)                                                           \
-      snapshot_direct_kernel<T, 3><<<blocks, kThreads, 0, s>>>(              \
-          n_part, L, coords, order, poff, prow, eslot, halos, hpos, vals,    \
-          acc);                                                              \
+      snapshot_direct_kernel<T, 3><<<blocks, per, 0, s>>>(                   \
+          n_part, L, coords, order, poff, e, hpos, vals, acc);               \
     else                                                                     \
-      snapshot_direct_kernel<T, 2><<<blocks, kThreads, 0, s>>>(              \
-          n_part, L, coords, order, poff, prow, eslot, halos, hpos, vals,    \
-          acc);                                                              \
+      snapshot_direct_kernel<T, 2><<<blocks, per, 0, s>>>(                   \
+          n_part, L, coords, order, poff, e, hpos, vals, acc);               \
     return int(cudaGetLastError());                                          \
   }
 
@@ -265,21 +323,25 @@ BF_SNAPSHOT_DIRECT(float, f32)
 BF_SNAPSHOT_DIRECT(double, f64)
 #undef BF_SNAPSHOT_DIRECT
 
-// K23's radii pass over n_pairs pairs (see snapshot_radii_kernel)
-int bf_snapshot_radii(int ndim, long long n_pairs, double L,
-                      const double* coords, const double* hpos,
-                      const int* halos, const int* pair_row, const int* parts,
-                      const long long* pslot, double* r, void* stream) {
+// K23's radii pass over n_pieces pieces of at most `piece` pairs (see
+// snapshot_radii_kernel): slots (R, 2) and pieces (n_pieces, 2) int32
+int bf_snapshot_radii(int ndim, int n_pieces, int piece, double L,
+                      const double* coords,
+                      const double* hpos, const int* halos,
+                      const int* offsets, const int* parts, const int* slots,
+                      const int* pieces, double* r, void* stream) {
   if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);
-  if (n_pairs == 0) return 0;
-  const unsigned blocks = unsigned((n_pairs + 255) / 256);
+  if (n_pieces == 0) return 0;
+  const unsigned blocks = unsigned((n_pieces + 7) / 8);
+  const int2* sl = reinterpret_cast<const int2*>(slots);
+  const int2* pc = reinterpret_cast<const int2*>(pieces);
   cudaStream_t s = (cudaStream_t)stream;
   if (ndim == 3)
     snapshot_radii_kernel<3><<<blocks, 256, 0, s>>>(
-        n_pairs, L, coords, hpos, halos, pair_row, parts, pslot, r);
+        n_pieces, piece, L, coords, hpos, halos, offsets, parts, sl, pc, r);
   else
     snapshot_radii_kernel<2><<<blocks, 256, 0, s>>>(
-        n_pairs, L, coords, hpos, halos, pair_row, parts, pslot, r);
+        n_pieces, piece, L, coords, hpos, halos, offsets, parts, sl, pc, r);
   return int(cudaGetLastError());
 }
 

@@ -97,8 +97,8 @@ def _signatures():
         "bf_grid_deposit_tile": [_I, _I],
         "bf_regrid_scratch_bytes": [_I, _I, _P],
         "bf_disc_apply_anis": [_LL] + [_P] * 7 + [_I, _D, _P, _P],
-        "bf_grid_radii": [_I] * 4 + [_P] * 2 + [_D] + [_P] * 3,
-        "bf_snapshot_radii": [_I, _LL, _D] + [_P] * 8,
+        "bf_grid_radii": [_I] * 3 + [_P, _D] + [_P] * 3,
+        "bf_snapshot_radii": [_I, _I, _I, _D] + [_P] * 9,
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
@@ -133,8 +133,8 @@ def _signatures():
             # values in the first dtype, the painted map in the second
             sig[f"bf_disc_apply_paint_{sfx}_{rsfx}"] = \
                 [_LL] + [_P] * 4 + [_I, _D] + [_P] * 2
-        sig[f"bf_grid_direct_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 8
-        sig[f"bf_snapshot_direct_{sfx}"] = [_I, _I, _D] + [_P] * 10
+        sig[f"bf_grid_direct_{sfx}"] = [_I] * 5 + [_P] * 6 + [_D] + [_P] * 8
+        sig[f"bf_snapshot_direct_{sfx}"] = [_I, _I, _D] + [_P] * 8
     return sig
 
 

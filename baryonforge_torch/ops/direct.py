@@ -148,7 +148,7 @@ def readout_model(model, dtype, device):
     return model
 
 
-def readout(fn, r, layout, cols, out_dtype):
+def readout(fn, r, layout, cols, out_dtype, out=None):
     """Read a model on every row of ``layout``.
 
     fn        : fn(r_row, **scalars) -> the values at the row's radii; the
@@ -157,6 +157,8 @@ def readout(fn, r, layout, cols, out_dtype):
     layout    : the :class:`RowLayout`
     cols      : dict name -> (n,) tensor of per-halo scalars
     out_dtype : dtype of the values returned
+    out       : an (n_slots,) tensor of ``out_dtype`` on ``r``'s device to
+                write them into (every slot is written), or None
 
     Returns the (n_slots,) values on ``r``'s device, 0 in pad slots, non-
     finite values kept (each body zeroes them where the JAX body does).
@@ -164,7 +166,8 @@ def readout(fn, r, layout, cols, out_dtype):
     a readout that cannot run so raises :class:`ReadoutContractError`.
     """
     dev = r.device
-    vals = torch.zeros(layout.n_slots, dtype=out_dtype, device=dev)
+    vals = torch.zeros(layout.n_slots, dtype=out_dtype, device=dev) \
+        if out is None else out
     names = list(cols)
 
     def row(rr, *scalars):
@@ -184,12 +187,12 @@ def readout(fn, r, layout, cols, out_dtype):
         rows = torch.where(valid, rows, rows[:, :1])
         args = [cols[k][hi.to(cols[k].device)] for k in names]
         try:
-            out = call(rows, *args)
+            got = call(rows, *args)
         except (RuntimeError, TypeError, NotImplementedError) as e:
             raise ReadoutContractError(
                 f"{CONTRACT}; the readout failed: {type(e).__name__}: {e}") \
                 from e
-        out = out.to(device=dev, dtype=out_dtype)
-        vals[s0:s0 + G * K] = torch.where(valid, out,
-                                          torch.zeros_like(out)).reshape(-1)
+        got = got.to(device=dev, dtype=out_dtype)
+        vals[s0:s0 + G * K] = torch.where(valid, got,
+                                          torch.zeros_like(got)).reshape(-1)
     return vals

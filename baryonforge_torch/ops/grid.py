@@ -34,10 +34,14 @@ every cell of the cutout (Map2DRunner.py:410, 584, 609, 757-759): kernel
 K22 (``csrc/grid_cutout.cu``) has two entries for it. ``grid_radii``
 writes each cutout cell's r, halo by halo, the cells row-major in the box,
 the rows that ``ops.direct.readout`` reads the model on; ``grid_direct``
-adds the model's values through K15's tiles and lists: displace at every
-cell of the box (the direct body has no r < rmax cut; the caller passes
-rmax = inf, which also keeps every tile in the lists), paint and anis
-where the value is finite and r < rmax. ``grid_radii_plain`` and
+adds the model's values through K15's tile body and lists, in one launch
+for all the halos given (the runner gives it several readout chunks at
+once): displace at every cell of the box (the direct body has no r < rmax
+cut; the caller passes rmax = inf, which also keeps every tile in the
+lists), paint and anis where the value is finite and r < rmax. The tiles
+the lists touch are compacted on the device (``touched_tiles``) and handed
+out to a persistent grid by a counter, so no block is launched for an
+untouched tile and no count is read back. ``grid_radii_plain`` and
 ``grid_direct_plain`` are their plain versions.
 """
 
@@ -46,8 +50,9 @@ import torch
 from . import _build
 
 __all__ = ["grid_cutout", "grid_cutout_plain", "cutout_tiles",
-           "tile_pairs_plain", "grid_radii", "grid_radii_plain",
-           "grid_direct", "grid_direct_plain", "TILE", "MODES"]
+           "tile_pairs_plain", "touched_tiles", "grid_radii",
+           "grid_radii_plain", "grid_direct", "grid_direct_plain", "TILE",
+           "MODES"]
 
 MODES = ("displace", "paint", "anis")
 
@@ -250,6 +255,25 @@ def cutout_tiles(npix, Ns, res, halos):
     return start.int(), torch.cat(owners)[order]
 
 
+def touched_tiles(tile_start):
+    """The tiles whose lists (``cutout_tiles``' CSR) are not empty, in
+    ascending order, compacted on the lists' device with nothing read
+    back: (tiles (n_tiles,) int32, its first n entries the touched tiles,
+    work (2,) int32 on the device: n, then 0, the counter from which K22's
+    apply hands the tiles out)."""
+    hit = tile_start[1:] > tile_start[:-1]
+    n_tiles = hit.numel()
+    dev = tile_start.device
+    pos = torch.cumsum(hit, 0, dtype=torch.int32)
+    slot = torch.where(hit, pos - 1, n_tiles).long()
+    tiles = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+    tiles.scatter_(0, slot, torch.arange(n_tiles, dtype=torch.int32,
+                                         device=dev))
+    work = torch.zeros(2, dtype=torch.int32, device=dev)
+    work[:1] = pos[-1:]
+    return tiles[:n_tiles], work
+
+
 def _check(mode, npix, Ns, halos, curve, acc, curve2, mtot, orig):
     if mode not in MODES:
         raise ValueError(f"grid_cutout: mode {mode!r} not in {MODES}")
@@ -394,8 +418,9 @@ def grid_radii(npix, Ns, res, halos):
 
     Returns the (m Ns^d,) float64 radii, halo by halo, the cells of a box
     row-major (the last axis fastest), r = |rel| or |rel Rmat| as K15
-    measures them. Kernel K22 (``bf_grid_radii``) for tensors on CUDA, the
-    plain version for tensors on the CPU.
+    measures them. Kernel K22 (``bf_grid_radii``: a block a halo's plane,
+    a thread a cell of a row) for tensors on CUDA, the plain version for
+    tensors on the CPU.
     """
     cen, doff = halos["cen"], halos["doff"]
     m, ndim = cen.shape
@@ -409,12 +434,14 @@ def grid_radii(npix, Ns, res, halos):
         return grid_radii_plain(npix, Ns, float(res), halos)
     if dev.type != "cuda":
         raise ValueError(f"grid_radii: unsupported device {dev}")
+    if Ns > 65535 or Ns ** ndim >= 2 ** 31:
+        raise ValueError(f"grid_radii: cutout of {Ns}^{ndim} cells too large")
     r = torch.empty(m * Ns ** ndim, dtype=torch.float64, device=dev)
-    cen, doff = cen.contiguous(), doff.contiguous()
+    doff = doff.contiguous()
     rm = None if rmat is None else rmat.reshape(m, 4).contiguous()
     with torch.cuda.device(dev):
         err = _build.library().bf_grid_radii(
-            ndim, npix, Ns, m, _build.ptr(cen), _build.ptr(doff), float(res),
+            ndim, Ns, m, _build.ptr(doff), float(res),
             None if rm is None else _build.ptr(rm), _build.ptr(r),
             _build.stream_of(r))
     _build.check(err, "grid_radii")
@@ -459,9 +486,11 @@ def grid_direct(mode, npix, Ns, res, halos, vals, acc, vals2=None, mtot=None,
     vals2, mtot, orig : anis: the canvas' values (float64), the (N^d,)
              float64 Mtot (background included) and input map
 
-    Returns ``acc``. Kernel K22 (the cutout lists of K15, then
-    ``bf_grid_direct``) for tensors on CUDA, the plain version for tensors
-    on the CPU.
+    Returns ``acc``. Kernel K22 (the cutout lists of K15, the touched
+    tiles compacted, then ``bf_grid_direct``, a persistent grid over them)
+    for tensors on CUDA, the plain version for tensors on the CPU. One call
+    over halos 1..m equals calls over consecutive runs of them in turn,
+    bit for bit: a tile adds its halos in ascending order.
     """
     if mode not in MODES:
         raise ValueError(f"grid_direct: mode {mode!r} not in {MODES}")
@@ -485,6 +514,7 @@ def grid_direct(mode, npix, Ns, res, halos, vals, acc, vals2=None, mtot=None,
     if m == 0:
         return acc
     tile_start, tile_halo = cutout_tiles(npix, Ns, res, halos)
+    tiles, work = touched_tiles(tile_start)
     rmat = halos.get("rmat")
     cols = [halos["cen"].contiguous(), halos["doff"].contiguous(),
             halos["rmax"].contiguous(),
@@ -497,10 +527,10 @@ def grid_direct(mode, npix, Ns, res, halos, vals, acc, vals2=None, mtot=None,
         "f32" if acc.dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         err = fn(ndim, npix, Ns, TILE[ndim], MODES.index(mode),
-                 ptr(tile_start), ptr(tile_halo), ptr(cols[0]), ptr(cols[1]),
-                 float(res), ptr(cols[2]), ptr(cols[3]), ptr(vals),
-                 ptr(vals2), ptr(mtot), ptr(orig), ptr(acc),
-                 _build.stream_of(acc))
+                 ptr(tile_start), ptr(tile_halo), ptr(tiles), ptr(work),
+                 ptr(cols[0]), ptr(cols[1]), float(res), ptr(cols[2]),
+                 ptr(cols[3]), ptr(vals), ptr(vals2), ptr(mtot), ptr(orig),
+                 ptr(acc), _build.stream_of(acc))
     _build.check(err, "grid_direct")
     _build.count("grid_direct")
     return acc

@@ -24,24 +24,35 @@ added into the (ndim, n_part) accumulator in T.
 
 For models without ``halo_curves`` the JAX body reads ``model.displacement
 (d, M_h, a)`` on each pair (SnapshotRunner.py:196). Kernel K23 has two
-entries for it: ``snapshot_radii`` writes each pair's float64 distance d
-into its slot of its row (``ops.direct.row_layout`` over the CSR rows),
-the rows ``ops.direct.readout`` reads the model on; ``snapshot_direct`` is
-K17's gather reading each pair's value from its slot (``eslot``, the
-slots in the particle-major order, ``particle_major_pairs``): the value in
-T, zeroed where not finite, times T(dx / d_safe). ``snapshot_radii_plain``
-and ``snapshot_direct_plain`` are their plain versions.
+entries for it, both reading a :class:`DirectLayout` built once per pair
+set (:func:`direct_layout`: the rows of ``ops.direct.row_layout`` over the
+CSR rows, each row's first slot and width, the rows cut into pieces, one
+(slot, halo) record per particle-major entry, and the positions in K17's
+particle order with each pair's place in it). ``snapshot_radii``
+writes each pair's float64 distance d into its slot of its row, the rows
+``ops.direct.readout`` reads the model on; ``snapshot_direct`` is K17's
+gather reading each entry's value from its slot: the value in T, zeroed
+where not finite, times T(dx / d_safe). ``snapshot_radii_plain`` and
+``snapshot_direct_plain`` are their plain versions.
 """
 
+import collections
+
+import numpy as np
 import torch
 
 from . import _build
+from .direct import row_layout, row_width
 
 __all__ = ["snapshot_displace", "snapshot_displace_plain",
            "snapshot_gather_plain", "particle_order", "particle_major_plain",
-           "particle_layout", "particle_major_pairs", "snapshot_radii",
+           "particle_layout", "particle_major_pairs", "DirectLayout",
+           "direct_layout", "RADII_PIECE", "snapshot_radii",
            "snapshot_radii_plain", "snapshot_direct",
            "snapshot_direct_plain"]
+
+# pairs of a row a warp of K23's radii pass takes at most
+RADII_PIECE = 256
 
 
 def _lookup(curve_rows, ln_r0, dlnr, r):
@@ -270,16 +281,50 @@ def particle_major_pairs(parts, order):
     return torch.sort(rank[parts.long()], stable=True).indices
 
 
-def _pair_slots(halos, offsets, layout):
-    """Each pair's row (int64 (P,)) and its slot in the rows of
-    ``layout`` (an ``ops.direct.RowLayout`` over the CSR rows)."""
+DirectLayout = collections.namedtuple(
+    "DirectLayout", ["rows", "slots", "pieces", "rec", "coords", "parts"])
+DirectLayout.__doc__ = """K23's layout of one pair set, built once by
+:func:`direct_layout`: ``rows`` the ``ops.direct.RowLayout`` of the
+halo-major CSR rows (their pair counts), ``slots`` (R, 2) int32 each row's
+first slot and width, ``pieces`` (n, 2) int32 the rows cut into runs of
+at most RADII_PIECE pairs (row, first pair), ``rec`` (P, 2) int32 each
+particle-major entry's (slot, halo), ``coords`` (n_part, ndim) float64 the
+positions in K17's particle order and ``parts`` (P,) int32 each
+halo-major pair's particle's place in that order (the kernels read the
+positions there, neighbours side by side)."""
+
+
+def direct_layout(coords, halos, offsets, parts, order):
+    """K23's :class:`DirectLayout` of the halo-major pairs (halos, offsets,
+    parts) of particles at ``coords``, the particle-major entries in
+    ``order`` (K17's layout): one copy of the row counts to the host, then
+    torch on the pairs' device. Raises when the slots reach 2^31 (the
+    records are int32)."""
     dev = offsets.device
-    counts = (offsets[1:] - offsets[:-1]).long()
-    row = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
-                                  counts)
-    base = torch.as_tensor(layout.base, device=dev)
-    pair = torch.arange(row.numel(), device=dev)
-    return row, base[row] + pair - offsets.long()[row]
+    counts = (offsets[1:] - offsets[:-1]).cpu().numpy().astype(np.int64)
+    rows = row_layout(counts)
+    if rows.n_slots >= np.iinfo(np.int32).max:
+        raise ValueError(f"{rows.n_slots} readout slots exceed int32 records")
+    slots = torch.as_tensor(np.stack([rows.base, row_width(counts)], 1)
+                            .astype(np.int32), device=dev)
+    n_pc = -(-counts // RADII_PIECE)
+    first = np.repeat(np.cumsum(n_pc) - n_pc, n_pc)
+    row_of = np.repeat(np.arange(counts.size, dtype=np.int64), n_pc)
+    pieces = torch.as_tensor(np.stack(
+        [row_of, (np.arange(row_of.size) - first) * RADII_PIECE], 1)
+        .astype(np.int32), device=dev)
+    row = torch.repeat_interleave(torch.arange(counts.size, device=dev),
+                                  torch.as_tensor(counts, device=dev))
+    slot = slots[:, 0].long()[row] + torch.arange(row.numel(), device=dev) \
+        - offsets.long()[row]
+    pm = particle_major_pairs(parts, order)
+    rec = torch.stack((slot[pm], halos.long()[row[pm]]), 1).int()
+    rank = torch.empty(order.numel(), dtype=torch.int32, device=dev)
+    rank[order.long()] = torch.arange(order.numel(), dtype=torch.int32,
+                                      device=dev)
+    return DirectLayout(rows, slots, pieces, rec,
+                        coords[order.long()].contiguous(),
+                        rank[parts.long()])
 
 
 def _min_image(coords, hpos, p, h, L):
@@ -295,64 +340,70 @@ def _distance(dx):
     return torch.sqrt(d2)
 
 
-def snapshot_radii_plain(coords, hpos, halos, offsets, parts, layout, L):
+def snapshot_radii_plain(hpos, halos, offsets, dlay, L):
     """Plain version of K23's radii pass. Arguments and result as
     :func:`snapshot_radii`."""
-    row, pslot = _pair_slots(halos, offsets, layout)
-    r = torch.zeros(layout.n_slots, dtype=torch.float64, device=coords.device)
-    dx = _min_image(coords, hpos, parts.long(), halos.long()[row], L)
-    r[pslot] = _distance(dx)
-    return r, pslot
+    dev = offsets.device
+    counts = (offsets[1:] - offsets[:-1]).long()
+    row = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                  counts)
+    slot = dlay.slots[:, 0].long()[row] + torch.arange(row.numel(),
+                                                       device=dev) \
+        - offsets.long()[row]
+    r = torch.zeros(dlay.rows.n_slots, dtype=torch.float64, device=dev)
+    dx = _min_image(dlay.coords, hpos, dlay.parts.long(), halos.long()[row],
+                    L)
+    r[slot] = _distance(dx)
+    return r
 
 
-def snapshot_radii(coords, hpos, halos, offsets, parts, layout, L):
+def snapshot_radii(hpos, halos, offsets, dlay, L):
     """Each pair's minimum-image distance in its row, for the direct
     readout.
 
-    coords, hpos, halos, offsets, parts, L : as :func:`snapshot_displace`
-    layout : the ``ops.direct.RowLayout`` of the CSR rows (their pair
-             counts)
+    hpos, halos, offsets, L : as :func:`snapshot_displace`
+    dlay   : the pairs' :class:`DirectLayout`: the positions ``coords`` in
+             K17's order and each pair's place ``parts`` in it
 
-    Returns (r, pslot): the (n_slots,) float64 distances, pair k of row i
-    at slot ``layout.base[i] + k`` (pads 0), and each pair's slot (P,)
-    int64. Kernel K23 (``bf_snapshot_radii``) for tensors on CUDA, the
-    plain version for tensors on the CPU.
+    Returns the (n_slots,) float64 distances, pair k of row i at slot
+    ``dlay.slots[i, 0] + k``, the pads 0. Kernel K23 (``bf_snapshot_
+    radii``: a warp a piece of a row) for tensors on CUDA, the plain
+    version for tensors on the CPU.
     """
-    dev = coords.device
+    dev = dlay.coords.device
     if dev.type == "cpu":
-        return snapshot_radii_plain(coords, hpos, halos, offsets, parts,
-                                    layout, float(L))
+        return snapshot_radii_plain(hpos, halos, offsets, dlay, float(L))
     if dev.type != "cuda":
         raise ValueError(f"snapshot_radii: unsupported device {dev}")
-    row, pslot = _pair_slots(halos, offsets, layout)
-    r = torch.zeros(layout.n_slots, dtype=torch.float64, device=dev)
-    args = [x.contiguous() for x in (coords, hpos, halos, row.int(), parts,
-                                     pslot)]
+    r = torch.empty(dlay.rows.n_slots, dtype=torch.float64, device=dev)
+    args = [x.contiguous() for x in (dlay.coords, hpos, halos, offsets,
+                                     dlay.parts, dlay.slots, dlay.pieces)]
     with torch.cuda.device(dev):
         err = _build.library().bf_snapshot_radii(
-            coords.shape[1], parts.numel(), float(L),
-            *[_build.ptr(x) for x in args], _build.ptr(r),
+            dlay.coords.shape[1], dlay.pieces.shape[0], RADII_PIECE,
+            float(L), *[_build.ptr(x) for x in args], _build.ptr(r),
             _build.stream_of(r))
     _build.check(err, "snapshot_radii")
     _build.count("snapshot_radii")
-    return r, pslot
+    return r
 
 
-def snapshot_direct_plain(coords, hpos, halos, layout, eslot, vals, L):
+def snapshot_direct_plain(hpos, layout, dlay, vals, L):
     """Plain version of K23's gather: each particle's entries summed from 0
     in the particle-major order. Arguments as :func:`snapshot_direct`."""
     dt, dev = vals.dtype, vals.device
-    n_part, ndim = coords.shape
-    order, poff, prow = (x.long() for x in layout)
+    n_part, ndim = dlay.coords.shape
+    order, poff = layout[0].long(), layout[1].long()
+    rec = dlay.rec.long()
     acc = torch.zeros((ndim, n_part), dtype=dt, device=dev)
     counts = poff[1:] - poff[:-1]
-    if prow.numel() == 0:
+    if rec.shape[0] == 0:
         return acc
-    p = torch.repeat_interleave(order, counts)
-    dx = _min_image(coords, hpos, p, halos.long()[prow], float(L))
+    s = torch.repeat_interleave(torch.arange(n_part, device=dev), counts)
+    dx = _min_image(dlay.coords, hpos, s, rec[:, 1], float(L))
     d = _distance(dx)
     d_safe = torch.where(d > 0, d, torch.ones_like(d))
-    off = vals[eslot]
+    off = vals[rec[:, 0]]
     off = torch.where(torch.isfinite(off), off, torch.zeros_like(off))
     vec = off[:, None] * (dx / d_safe[:, None]).to(dt)
     start = poff[:-1]
@@ -363,34 +414,38 @@ def snapshot_direct_plain(coords, hpos, halos, layout, eslot, vals, L):
     return acc
 
 
-def snapshot_direct(coords, hpos, halos, layout, eslot, vals, L):
+def snapshot_direct(hpos, layout, dlay, vals, L):
     """Sum the model's per-pair displacements per particle.
 
-    coords, hpos, halos, L : as :func:`snapshot_displace`
-    layout : the pairs particle-major (order, poff, prow) int32
-    eslot  : (P,) int64, each particle-major entry's slot in ``vals``
+    hpos, L : as :func:`snapshot_displace`
+    layout : (order, poff) int32, the first two of K17's particle-major
+             layout
+    dlay   : the pairs' :class:`DirectLayout`: ``rec`` each particle-major
+             entry's (slot in ``vals``, halo), ``coords`` the positions in
+             ``order``
     vals   : (n_slots,) the model's displacement at each pair's distance,
              in T (float32 or float64)
 
     Returns the (ndim, n_part) offsets in T. Kernel K23 (``bf_snapshot_
-    direct``) for tensors on CUDA, the plain version for tensors on the
-    CPU.
+    direct``: a warp 32 particles, their entries 32 at a time) for tensors
+    on CUDA, the plain version for tensors on the CPU.
     """
     dt, dev = vals.dtype, vals.device
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"snapshot_direct: unsupported dtype {dt}")
-    n_part, ndim = coords.shape
-    if eslot.dtype != torch.int64 or eslot.shape != layout[2].shape:
-        raise ValueError("snapshot_direct: eslot must be int64 of prow's "
-                         "shape")
+    n_part, ndim = dlay.coords.shape
+    rec = dlay.rec
+    if rec.dtype != torch.int32 or tuple(rec.shape) != (dlay.parts.numel(),
+                                                        2):
+        raise ValueError("snapshot_direct: rec must be int32 (P, 2), P the "
+                         "pairs")
     if dev.type == "cpu":
-        return snapshot_direct_plain(coords, hpos, halos, layout, eslot, vals,
-                                     L)
+        return snapshot_direct_plain(hpos, layout, dlay, vals, L)
     if dev.type != "cuda":
         raise ValueError(f"snapshot_direct: unsupported device {dev}")
     acc = torch.empty((ndim, n_part), dtype=dt, device=dev)
-    args = [x.contiguous() for x in (coords, *layout, eslot, halos, hpos,
-                                     vals)]
+    args = [x.contiguous() for x in (dlay.coords, layout[0], layout[1], rec,
+                                     hpos, vals)]
     fn = getattr(_build.library(), "bf_snapshot_direct_{}".format(
         "f32" if dt == torch.float32 else "f64"))
     with torch.cuda.device(dev):

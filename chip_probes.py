@@ -1,13 +1,16 @@
 """Design probes of kernels K4 (tile deposit), K10 and K12 (tile paint and
 paint2, K4's template in its paint modes), K11 (disc paint), K3 (scatter
-regrid) and K1 (curve collapse) on the card, at the bench inputs of
-chip_smoke.py.
+regrid), K1 (curve collapse), K9, K6, K22 and K23 (the grid and snapshot
+direct readout) on the card, at the bench inputs of chip_smoke.py.
 
-    python3 chip_probes.py [K4] [K3] [K1]   # one card; builds included
+    python3 chip_probes.py [K4] [K3] [K1] [K22] [K23]  # builds included
     python3 chip_probes.py --tree DIR calls
+    python3 chip_probes.py --tree DIR direct
 
 With no argument it runs the variant sections: K4 (tile_deposit.cu with
-K10, K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu). The
+K10, K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu), K9
+(table_rows.cu), K6 (stencil_finish.cu), K22 (grid_cutout.cu) and K23
+(snapshot.cu). The
 section ``calls`` builds no variant: it times K1 and K3 as the scatter
 shell runner calls them, with the ``baryonforge_torch`` package of the
 tree DIR (this checkout's by default; another one, such as a ``git
@@ -80,6 +83,32 @@ columns and the wrapper's host parts apart):
   no_search    the axes' bisections a stand-in
   no_corners   the corner rows' reads left out
 
+grid_cutout.cu (K22's apply at the 3D ΔP(k) baryonify's largest size
+bucket, float32 offsets, random values: its first readout chunk and its
+first apply group; then K22's radii on the group):
+  kernel       the tile body as it stands, a persistent grid over the
+               touched tiles, a block taking the next from a counter, 3
+               blocks of 512 threads an SM in 3D
+  stride       held equal to the kernel's results bit for bit: block b
+               takes the touched tiles b, b + its grid's size, ...
+  fast_div     held equal to the kernel's results bit for bit: T(g / r)
+               for float T from g times one reciprocal of r, the division
+               taken where that lies within 8 ulps of a float rounding
+               midpoint
+  occ2, occ4   held equal to the kernel's results bit for bit: the
+               apply's registers uncapped (2 blocks of 512 threads an SM
+               in 3D, the grouped apply's first design), or capped so
+               that 4 fit (8 of 256 in 2D)
+  timing only: no_div (the divisions by r and res made products),
+  no_vals (a stand-in for each value), no_sqrt (r2 for r)
+snapshot.cu (K23 at the snapshot bench, float32, random values):
+  kernel       the radii pass (a warp a piece) and the gather (a warp 32
+               particles) as they stand
+  radii_unroll held equal to the plain version: the radii loop unrolled 4
+               times
+  timing only: radii_no_coords, gather_no_coords (a stand-in for each
+  position read), gather_no_vals (a stand-in for each value)
+
 calls (the package of --tree; the shell runner on the scatter path at
 the bench, float32; CUDA events, the mean of 50 calls, in turns):
   halo columns to curves   _halo_tensors then _halo_curves, as the tree's
@@ -88,6 +117,20 @@ the bench, float32; CUDA events, the mean of 50 calls, in turns):
                            data (the call both trees can make)
   K3 regrid                the wrapper on K2's offsets at the bench
   and the medians of 8 process() calls' host_prep and curves phases.
+
+direct (the package of --tree; K22 and K23 as the direct readout's
+runners call them, float32, models behind a readout-only wrapper):
+  the 3D BaryonifyGrid and PaintProfilesGrid at 256^3, the 2D
+  PaintProfilesAnisGrid at 2048^2 and the snapshot bench, one warm and 3
+  timed calls each: the medians of every phase, of radii + apply (K22's
+  or K23's share of a call) and of the call, and K22's and K23's
+  launches a call; then by wrapper call (CUDA events, the mean of 10, in
+  turns) K22's radii and apply on the 3D baryonify's first chunk of its
+  largest bucket (random values), K22's radii + apply on that bucket's
+  first apply group of 2^28 cells at most as the tree's runner takes it
+  (one radii pass and one apply, or each chunk's in turn), and K23's
+  radii and gather at the snapshot bench, each tree through its own
+  entry points.
 
 The last lines are one JSON object of the readings (ms) and the card's
 nvidia-smi name and power limit.
@@ -101,6 +144,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import chip_smoke as cs
 
@@ -471,15 +515,96 @@ PARENT_VARIANTS = {
                          "  for (int uu = 0; uu < 0; ++uu) {\n")],
     },
 }
+VARIANTS["grid_cutout.cu"] = {
+    "kernel": [],
+    # bitwise the kernel's: T(g / r) for float T from g times 1 / r
+    # (within 2 ulps of g / r), the division taken where that lies within
+    # 8 ulps of a float rounding midpoint
+    "fast_div": [(
+        "        for (int d = 0; d < kDim; ++d) {\n"
+        "          double comp = dd * double(T(g[d] / r));\n",
+        "        const double rinv = 1.0 / r;\n"
+        "        for (int d = 0; d < kDim; ++d) {\n"
+        "          double q = g[d] * rinv;\n"
+        "          if constexpr (sizeof(T) == 4) {\n"
+        "            const long long lo =\n"
+        "                __double_as_longlong(q) & ((1LL << 29) - 1);\n"
+        "            const double aq = fabs(q);\n"
+        "            if (!(aq >= 1e-30 && aq <= 1e30) ||\n"
+        "                (lo > (1LL << 28) - 8 && lo < (1LL << 28) + 8))\n"
+        "              q = g[d] / r;\n"
+        "          } else {\n"
+        "            q = g[d] / r;\n"
+        "          }\n"
+        "          double comp = dd * double(T(q));\n")],
+    # timing only
+    "no_div": [
+        ("          dd = double(static_cast<const T*>(p.vals)[slot]) / "
+         "p.res;\n",
+         "          dd = double(static_cast<const T*>(p.vals)[slot]) * "
+         "p.res;\n"),
+        ("          double comp = dd * double(T(g[d] / r));\n",
+         "          double comp = dd * double(T(g[d] * r));\n")],
+    "no_vals": [(
+        "          dd = double(static_cast<const T*>(p.vals)[slot]) / "
+        "p.res;\n",
+        "          dd = double(slot & 7) / p.res;\n")],
+    "no_sqrt": [("      const double r = sqrt(r2);\n",
+                 "      const double r = r2;\n")],
+    # bitwise: each block of the apply takes the tiles blockIdx.x,
+    # blockIdx.x + gridDim.x, ... instead of the next from the counter
+    "stride": [(
+        "  __shared__ int s_next;\n"
+        "  const int n = work[0];\n"
+        "  for (;;) {\n"
+        "    __syncthreads();  // every thread has read the last s_next\n"
+        "    if (threadIdx.x == 0) s_next = atomicAdd(work + 1, 1);\n"
+        "    __syncthreads();\n"
+        "    const int i = s_next;\n"
+        "    if (i >= n) return;\n",
+        "  const int n = work[0];\n"
+        "  for (int i = blockIdx.x; i < n; i += gridDim.x) {\n")],
+    # bitwise: the apply's registers uncapped (2 blocks of 512 threads an
+    # SM in 3D), or capped so that 4 fit (8 of 256 in 2D)
+    "occ2": [("__launch_bounds__(kDim == 3 ? 512 : 256, kDim == 3 ? 3 : 1)\n"
+              "grid_direct_kernel(",
+              "__launch_bounds__(kDim == 3 ? 512 : 256)\n"
+              "grid_direct_kernel(")],
+    "occ4": [("__launch_bounds__(kDim == 3 ? 512 : 256, kDim == 3 ? 3 : 1)\n"
+              "grid_direct_kernel(",
+              "__launch_bounds__(kDim == 3 ? 512 : 256,\n"
+              "                                  kDim == 3 ? 4 : 8)\n"
+              "grid_direct_kernel(")],
+}
+VARIANTS["snapshot.cu"] = {
+    "kernel": [],
+    # bitwise: the radii loop unrolled 4 times (the loads of 4 iterations
+    # issued together)
+    "radii_unroll": [("  for (int j = pc.y + lane; j < j1; j += 32) {\n",
+                      "#pragma unroll 4\n"
+                      "  for (int j = pc.y + lane; j < j1; j += 32) {\n")],
+    # timing only
+    "radii_no_coords": [(
+        "      double v = coords[p * NDIM + c] - hp[c];\n",
+        "      double v = double(p & 1023) - hp[c];\n")],
+    "gather_no_vals": [("      T val = vals[e.x];\n",
+                        "      T val = T(e.x & 7);\n")],
+    "gather_no_coords": [(
+        "        double v = coords[p * NDIM + c] - hpos[(long long)e.y * "
+        "NDIM + c];\n",
+        "        double v = double(p & 1023) - hpos[(long long)e.y * "
+        "NDIM + c];\n")],
+}
 TIMING_ONLY = {"no_row_trig", "no_rows", "no_slot_geometry", "no_stage",
                "no_zero", "no_pairs", "no_move", "init_plain", "move_list",
                "move_gathers",
                "no_geometry", "no_atomics", "no_search", "no_corners",
                "empty", "no_inversion", "no_chain", "no_scan", "no_phi_div",
-               "no_moved"}
+               "no_moved", "no_div", "no_vals", "no_sqrt", "radii_no_coords",
+               "gather_no_vals", "gather_no_coords"}
 # variants whose results must equal the kernel's bit for bit
 BITWISE = {"sin_cos", "int_div", "unroll2", "zero_div", "zero_vec",
-           "vec_out"}
+           "vec_out", "fast_div", "radii_unroll", "occ2", "occ4", "stride"}
 
 
 class _Library:
@@ -539,7 +664,8 @@ def build_variants(work, sources):
                           r"(tile_pairs_kernelIfLi[01]E|disc_paint_kernelIfd"
                           r"|regrid_\w+_kernelIffE|collapse_curves_kernelIfE"
                           r"|stencil_\w+_kernelIf+E|\w+_rows_kernel"
-                          r"|enclosed_mass_kernel)",
+                          r"|enclosed_mass_kernel|grid_direct_kernelIfLi0ELi3E"
+                          r"|snapshot_\w+_kernel\w*Li3E)",
                           line)
             if "Compiling entry function" in line:
                 entry = m.group(1) if m else None
@@ -1049,6 +1175,326 @@ def probe_stencil_finish(bf, torch, b, libs, gpu):
     return out
 
 
+class _Hide:
+    """A model's readout surface alone: the runners read it directly."""
+
+    def __init__(self, m):
+        self._m = m
+
+    def displacement(self, *a, **k):
+        return self._m.displacement(*a, **k)
+
+    def projected(self, *a, **k):
+        return self._m.projected(*a, **k)
+
+    def real(self, *a, **k):
+        return self._m.real(*a, **k)
+
+
+DIRECT_CALLS = 3
+
+
+def _direct_calls(torch, runner, label, gpu):
+    """One warm and DIRECT_CALLS timed process() calls: the medians of
+    each phase (CUDA events), of radii + apply and of the call, and the
+    K22 / K23 launches a call."""
+    from baryonforge_torch.ops import _build
+    runner.process()
+    _build.reset_launches()
+    walls, phases = [], []
+    for _ in range(DIRECT_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.process()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        phases.append(dict(runner.timings))
+    import numpy as np
+    out = {k: float(np.median([p[k] for p in phases])) for k in phases[0]}
+    out["radii + apply"] = float(np.median([p["radii"] + p["apply"]
+                                            for p in phases]))
+    out["call"] = float(np.median(walls))
+    out["launches a call"] = {k: v / DIRECT_CALLS
+                              for k, v in _build.launches.items()
+                              if k in ("grid_radii", "grid_direct",
+                                       "tile_pairs", "snapshot_radii",
+                                       "snapshot_direct")}
+    cs.log(f"[{gpu}] direct {label}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items() if k != "launches a call")
+        + f" ms; launches a call {out['launches a call']}")
+    return out
+
+
+def probe_direct(bf, torch, b, libs, gpu):
+    """K22 and K23 as the direct readout's runners call them, with the
+    package that was imported (see the module docstring): the 3D
+    BaryonifyGrid and PaintProfilesGrid at 256^3 and the 2D
+    PaintProfilesAnisGrid at 2048^2 (chip_smoke.py's ΔP(k) catalog, 7,088
+    halos, float32) and the snapshot bench (float32), each call's phases;
+    then K22 on the 3D baryonify's first chunk and first apply group of
+    its largest bucket and K23 at the snapshot bench by wrapper call, in
+    turns."""
+    import numpy as np
+    from baryonforge_torch.ops import direct, grid, snapshot
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.Runners import Map2DRunner
+    from baryonforge_torch.Runners.Map2DRunner import GRID_CELL_BUDGET
+    f32, f64 = torch.float32, torch.float64
+    dev = b.dev
+    cosmo = bf.cosmo.cosmology_from_dict(cs.COSMO)
+    P = bf.Profiles
+    dmo3 = bf.utils.TabulatedProfile(P.DarkMatter(**cs.BPAR), cosmo) \
+        .setup_interpolator(**cs.DMO_GRID)
+    dmo2 = bf.utils.TabulatedProfile(P.DarkMatter(**cs.BPAR, proj_cutoff=100),
+                                     cosmo).setup_interpolator(**cs.DMO_GRID)
+    b3 = bf.Baryonification3D(
+        P.DarkMatterOnly(**cs.BPAR), P.DarkMatterBaryon(**cs.BPAR), cosmo,
+        epsilon_max=cs.GRID_BARYON_EPS).setup_interpolator(**cs.B_GRID)
+
+    def hide(m):
+        return _Hide(m.with_dtype(f64, device=dev))
+    cat3, _ = cs.grid_inputs(bf, 3, cs.GRID3D_N)
+    rng = np.random.default_rng(1)
+    gm3 = cs.grid_map(bf, rng.exponential(1.0, (cs.GRID3D_N,) * 3))
+    cat2, _ = cs.grid_inputs(bf, 2, cs.GRID2D_N)
+    gm2 = cs.grid_map(bf, rng.exponential(1.0, (cs.GRID2D_N,) * 2))
+    out = {}
+    rb = bf.BaryonifyGrid(cat3, gm3, epsilon_max=cs.GRID_BARYON_EPS,
+                          model=hide(b3), dtype=f32, device=dev)
+    out["direct BaryonifyGrid 3D"] = _direct_calls(torch, rb, "BaryonifyGrid "
+                                                   "3D", gpu)
+    out["direct PaintProfilesGrid 3D"] = _direct_calls(
+        torch, bf.PaintProfilesGrid(
+            cat3, gm3, epsilon_max=cs.GRID_PAINT_EPS, model=hide(dmo3),
+            dtype=f32, device=dev), "PaintProfilesGrid 3D", gpu)
+    out["direct PaintProfilesAnisGrid 2D"] = _direct_calls(
+        torch, bf.PaintProfilesAnisGrid(
+            cat2, gm2, epsilon_max=cs.GRID_ANIS_EPS, model=hide(dmo2),
+            Tracer_model=hide(dmo2), Mtot_model=dmo2,
+            background_val=cs.ANIS_BG, global_tracer_fraction=cs.ANIS_FRAC,
+            dtype=f32, device=dev), "PaintProfilesAnisGrid 2D", gpu)
+    smodel = cs.snapshot_model(bf, cs.DEVICE)
+    scat, snap = cs.snapshot_inputs(bf, 3, cs.SNAP_L, cs.SNAP_PARTS,
+                                    cs.SNAP_HALOS, cs.SNAP_SEED)
+    rs = bf.BaryonifySnapshot(scat, snap, epsilon_max=20, model=hide(smodel),
+                              dtype=f32, device=dev, verbose=False)
+    out["direct BaryonifySnapshot"] = _direct_calls(torch, rs,
+                                                    "BaryonifySnapshot", gpu)
+
+    # K22 on the runner's chunk: the largest bucket's first
+    # GRID_CELL_BUDGET cells; and on the first apply group of the
+    # grouping runner (whole chunks up to 2^28 cells): the tree's runner
+    # takes it in one radii pass and one apply, or chunk by chunk (a tree
+    # without Map2DRunner.direct_groups)
+    inp = rb._cutout_inputs(_PhaseClock(dev))
+    idx, Ns = rb._buckets(inp["Nsize"])[-1]
+    cells = Ns ** 3
+    step = max(1, GRID_CELL_BUDGET // cells)
+    per = step * max(1, (1 << 28) // (step * cells))
+    ix = torch.as_tensor(idx[:per], device=dev)
+    group = {k: None if v is None else v[ix]
+             for k, v in inp["halos"].items()}
+    part = {k: None if v is None else v[:step] for k, v in group.items()}
+    npix, res = cs.GRID3D_N, gm3.res
+    gen = torch.Generator(device=dev).manual_seed(2)
+    group_vals = torch.randn(ix.numel() * cells, generator=gen, device=dev,
+                             dtype=f32)
+    gvals = group_vals[:step * cells]
+    acc = torch.zeros((3, npix ** 3), dtype=f32, device=dev)
+    grouped = hasattr(Map2DRunner, "direct_groups")
+
+    def group_k22():
+        if grouped:
+            grid.grid_radii(npix, Ns, res, group)
+            return grid.grid_direct("displace", npix, Ns, res, group,
+                                    group_vals, acc)
+        for a in range(0, ix.numel(), step):
+            c = {k: None if v is None else v[a:a + step]
+                 for k, v in group.items()}
+            grid.grid_radii(npix, Ns, res, c)
+            grid.grid_direct("displace", npix, Ns, res, c,
+                             group_vals[a * cells:(a + step) * cells], acc)
+        return acc
+    # K23 at the snapshot bench
+    _, _, _, R_q, hpos, _ = rs._host_prep()
+    (halos, offsets, parts), layout = rs._neighbour_pairs(hpos, R_q)
+    hpos = torch.as_tensor(hpos, device=dev)
+    coords, L = rs._coords_dev, snap.L
+    if hasattr(snapshot, "direct_layout"):
+        dlay = rs._direct_layout()
+        n_slots = dlay.rows.n_slots
+
+        def radii():
+            return snapshot.snapshot_radii(hpos, halos, offsets, dlay, L)
+        svals = torch.randn(n_slots, generator=gen, device=dev, dtype=f32)
+
+        def gather():
+            return snapshot.snapshot_direct(hpos, layout[:2], dlay, svals,
+                                            L)
+    else:
+        slay = direct.row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
+        pslot = snapshot.snapshot_radii(coords, hpos, halos, offsets, parts,
+                                        slay, L)[1]
+        eslot = pslot[snapshot.particle_major_pairs(parts, layout[0])]
+        svals = torch.randn(slay.n_slots, generator=gen, device=dev,
+                            dtype=f32)
+
+        def radii():
+            return snapshot.snapshot_radii(coords, hpos, halos, offsets,
+                                           parts, slay, L)
+
+        def gather():
+            return snapshot.snapshot_direct(coords, hpos, halos, layout,
+                                            eslot, svals, L)
+    fns = {"K22 radii (one chunk)": lambda: grid.grid_radii(npix, Ns, res,
+                                                            part),
+           "K22 apply (one chunk, its lists)": lambda: grid.grid_direct(
+               "displace", npix, Ns, res, part, gvals, acc),
+           "K22 radii + apply (one group, as the tree's runner cuts "
+           "it)": group_k22,
+           "K23 radii": radii, "K23 gather": gather}
+    cs.log(f"  K22's chunk: {step} halos x {Ns}^3 cells, its group "
+           f"{ix.numel()} halos; K23: {parts.numel()} pairs")
+    out["direct wrappers"] = report(gpu, "direct", timed_in_turns(
+        torch, fns, reps=10))
+    return out
+
+
+def _direct_bench(bf, torch, dev):
+    """K22's and K23's inputs at the direct readout's bench shapes: the 3D
+    baryonify's largest size bucket (its first readout chunk, its first
+    apply group, random float32 values), and the snapshot bench's pairs
+    with K23's layout (random float32 values)."""
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.Runners.Map2DRunner import direct_groups
+    f32, f64 = torch.float32, torch.float64
+    cosmo = bf.cosmo.cosmology_from_dict(cs.COSMO)
+    P = bf.Profiles
+    b3 = bf.Baryonification3D(
+        P.DarkMatterOnly(**cs.BPAR), P.DarkMatterBaryon(**cs.BPAR), cosmo,
+        epsilon_max=cs.GRID_BARYON_EPS).setup_interpolator(**cs.B_GRID)
+    cat3, gm3 = cs.grid_inputs(bf, 3, cs.GRID3D_N)
+    rb = bf.BaryonifyGrid(cat3, gm3, epsilon_max=cs.GRID_BARYON_EPS,
+                          model=_Hide(b3.with_dtype(f64, device=dev)),
+                          dtype=f32, device=dev)
+    inp = rb._cutout_inputs(_PhaseClock(dev))
+    idx, Ns = rb._buckets(inp["Nsize"])[-1]
+    step, groups = direct_groups(idx.size, Ns ** 3)
+    per = groups[0].stop
+    gen = torch.Generator(device=dev).manual_seed(2)
+    parts = {}
+    for name, n in (("chunk", step), ("group", per)):
+        ix = torch.as_tensor(idx[:n], device=dev)
+        parts[name] = ({k: None if v is None else v[ix]
+                        for k, v in inp["halos"].items()},
+                       torch.randn(ix.numel() * Ns ** 3, generator=gen,
+                                   device=dev, dtype=f32))
+    smodel = cs.snapshot_model(bf, cs.DEVICE)
+    scat, snap = cs.snapshot_inputs(bf, 3, cs.SNAP_L, cs.SNAP_PARTS,
+                                    cs.SNAP_HALOS, cs.SNAP_SEED)
+    rs = bf.BaryonifySnapshot(scat, snap, epsilon_max=20,
+                              model=_Hide(smodel), dtype=f32, device=dev,
+                              verbose=False)
+    _, _, _, R_q, hpos, _ = rs._host_prep()
+    (halos, offsets, _), layout = rs._neighbour_pairs(hpos, R_q)
+    dlay = rs._direct_layout()
+    svals = torch.randn(dlay.rows.n_slots, generator=gen, device=dev,
+                        dtype=f32)
+    snap_args = (torch.as_tensor(hpos, device=dev), halos, offsets,
+                 layout[:2], dlay, svals, snap.L)
+    return (cs.GRID3D_N, Ns, gm3.res, parts), snap_args
+
+
+def probe_grid_direct(bf, torch, b, libs, gpu):
+    """K22 (grid_cutout.cu) at the 3D baryonify's largest bucket: the
+    apply's variants on its first readout chunk and its first apply group
+    by wrapper call, each variant that keeps the results held against the
+    kernel's bit for bit first (and the kernel against the plain version
+    on the chunk); the radii on the group."""
+    from baryonforge_torch.ops import _build, grid
+    (npix, Ns, res, parts), _ = _direct_bench(bf, torch, b.dev)
+    acc0 = torch.zeros((3, npix ** 3), dtype=torch.float32, device=b.dev)
+    names = list(VARIANTS["grid_cutout.cu"])
+    out = {}
+    for name in ("chunk", "group"):
+        part, vals = parts[name]
+        _build._lib = libs[("grid_cutout.cu", "kernel")]
+        ref = grid.grid_direct("displace", npix, Ns, res, part, vals,
+                               acc0.clone())
+        if name == "chunk":
+            plain = grid.grid_direct_plain("displace", npix, Ns, res, part,
+                                           vals, acc0.clone())
+            cs.check("K22 [kernel] against the plain version",
+                     (ref - plain).abs().max().item(),
+                     1e-5 * plain.abs().max().item())
+        fns = {}
+        for v in names:
+            lib = libs[("grid_cutout.cu", v)]
+            if v not in TIMING_ONLY:
+                _build._lib = lib
+                got = grid.grid_direct("displace", npix, Ns, res, part, vals,
+                                       acc0.clone())
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K22 [{v}]: not the kernel's "
+                                         "results bit for bit")
+
+            def run(lib=lib, part=part, vals=vals):
+                _build._lib = lib
+                return grid.grid_direct("displace", npix, Ns, res, part,
+                                        vals, acc0)
+            fns[v] = run
+        cs.log(f"  K22 {name}: {part['cen'].shape[0]} halos x {Ns}^3 cells")
+        out[f"K22 apply ({name})"] = report(
+            gpu, "K22", timed_in_turns(torch, fns, reps=5 if name == "chunk"
+                                       else 2), f" apply ({name})")
+    _build._lib = libs[("grid_cutout.cu", "kernel")]
+    part, _ = parts["group"]
+    out["K22 radii (group)"] = report(gpu, "K22", timed_in_turns(
+        torch, {"kernel": lambda: grid.grid_radii(npix, Ns, res, part)},
+        reps=5), " radii (group)")
+    _build._lib = None
+    return out
+
+
+def probe_snapshot_direct(bf, torch, b, libs, gpu):
+    """K23 (snapshot.cu) at the snapshot bench: the radii's and the
+    gather's variants by wrapper call, each variant that keeps the results
+    held against the plain version bit for bit first."""
+    from baryonforge_torch.ops import _build, snapshot
+    _, (hpos, halos, offsets, layout, dlay, vals, L) = _direct_bench(
+        bf, torch, b.dev)
+    r0 = snapshot.snapshot_radii_plain(hpos, halos, offsets, dlay, L)
+    g0 = snapshot.snapshot_direct_plain(hpos, layout, dlay, vals, L)
+    radii, gather = {}, {}
+    for v in VARIANTS["snapshot.cu"]:
+        lib = libs[("snapshot.cu", v)]
+        if v not in TIMING_ONLY:
+            _build._lib = lib
+            if not (torch.equal(snapshot.snapshot_radii(
+                    hpos, halos, offsets, dlay, L), r0)
+                    and torch.equal(snapshot.snapshot_direct(
+                        hpos, layout, dlay, vals, L), g0)):
+                raise AssertionError(f"K23 [{v}]: not the plain version's")
+
+        def run_r(lib=lib):
+            _build._lib = lib
+            return snapshot.snapshot_radii(hpos, halos, offsets, dlay, L)
+
+        def run_g(lib=lib):
+            _build._lib = lib
+            return snapshot.snapshot_direct(hpos, layout, dlay, vals,
+                                            L)
+        if not v.startswith("gather"):
+            radii[v] = run_r
+        if not v.startswith("radii"):
+            gather[v] = run_g
+    out = {"K23 radii": report(gpu, "K23", timed_in_turns(torch, radii),
+                               " radii"),
+           "K23 gather": report(gpu, "K23", timed_in_turns(torch, gather),
+                                " gather")}
+    _build._lib = None
+    return out
+
+
 def probe_rows(bf, torch, b, libs, gpu):
     """K9 and K6 as the table build and the tiled engine call them, with
     the package that was imported (see the module docstring): K9 one
@@ -1090,6 +1536,9 @@ SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
             "K6": (("stencil_finish.cu",), probe_stencil_finish),
             "calls": ((), probe_calls),
             "rows": ((), probe_rows),
+            "direct": ((), probe_direct),
+            "K22": (("grid_cutout.cu",), probe_grid_direct),
+            "K23": (("snapshot.cu",), probe_snapshot_direct),
             "K9p": (("table_rows.cu",), probe_table_rows_parent,
                     PARENT_VARIANTS),
             "K6p": (("stencil_finish.cu",), probe_stencil_finish_parent,
@@ -1109,7 +1558,7 @@ def main(argv):
     from baryonforge_torch.ops import _build
     cs.log(f"baryonforge_torch from {os.path.dirname(bf.__file__)}")
     want = argv or [k for k in SECTIONS
-                    if k not in ("calls", "rows", "K9p", "K6p")]
+                    if k not in ("calls", "rows", "direct", "K9p", "K6p")]
     if not set(want) <= set(SECTIONS):
         print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
         return 2

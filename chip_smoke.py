@@ -342,7 +342,14 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
                              "on one thread"),
               "stencil_finish": (0.0320, "a thread a source, 24 bytes of "
                                  "list a source, an atomic an unmoved one; "
-                                 "in place")}
+                                 "in place"),
+              "grid_direct": (12.89, "a 64-bit-index thread a cell, a "
+                              "block for every tile, the group's 33 readout "
+                              "chunks applied in turn, each with its lists "
+                              "(chip_probes.py direct)"),
+              "snapshot_direct": (1.0982, "a thread a pair with per-pair "
+                                  "row and slot tensors, a thread a "
+                                  "particle gathering slots")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -2205,12 +2212,17 @@ def deposit_corners(torch, po, orig, npix, ndim):
     return torch.cat(idx), torch.cat(vals)
 
 
+# each drive_path label's timed calls' phases (runner.timings)
+PHASES = {}
+
+
 def drive_path(bf, torch, runner, required, label, gpu, n_halos, warm,
                calls, check_map):
     """``warm`` untimed and ``calls`` timed calls of ``runner.process()``,
     with the launch counts set to 0 just before and read just after.
     Checks that the kernels in ``required`` were launched on every call and
-    ``check_map(out)``. Returns (map, launches)."""
+    ``check_map(out)``; keeps the calls' phases in PHASES[label]. Returns
+    (map, launches)."""
     from baryonforge_torch.ops import _build
     _build.reset_launches()
     for _ in range(warm):
@@ -2223,6 +2235,7 @@ def drive_path(bf, torch, runner, required, label, gpu, n_halos, warm,
         walls.append(time.perf_counter() - t0)
         phases.append(runner.timings)
     launches = dict(_build.launches)
+    PHASES[label] = phases
     for k in required:
         if launches.get(k, 0) < warm + calls:
             raise AssertionError(f"{label} did not launch {k}: {launches}")
@@ -3107,8 +3120,8 @@ def tile_pairs_shape(mode, dtype_bytes):
 
 def ptxas_report(bf):
     """Registers and spills of K1's, K3's, K4's (and K10's, K12's), K5's,
-    K6's, K8's, K9's, K11's, K13's, K16's, K17's and K19's kernels (nvcc
-    -Xptxas -v with the
+    K6's, K8's, K9's, K11's, K13's, K16's, K17's, K19's, K22's and K23's
+    kernels (nvcc -Xptxas -v with the
     build's own flags, their sources at once) and the warps an SM holds at
     the bench's launch shapes (the stencil with its dynamic shared memory,
     K4's template with its rows and halo chunk (tile_pairs_shape), K8
@@ -3127,7 +3140,9 @@ def ptxas_report(bf):
                "tile_pairs_kernel": 256, "regrid_init_kernel": 256,
                "regrid_move_kernel": 256, "collapse_curves_kernel": 256,
                "table_rows_kernel": 512, "stencil_complement_kernel": 256,
-               "stencil_geo_kernel": 256}
+               "stencil_geo_kernel": 256, "grid_direct_kernel": 512,
+               "grid_radii_kernel": 256, "snapshot_direct_kernel": 128,
+               "snapshot_radii_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
@@ -3142,7 +3157,7 @@ def ptxas_report(bf):
     sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
                "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu",
                "regrid.cu", "curves.cu", "table_rows.cu",
-               "stencil_finish.cu")
+               "stencil_finish.cu", "grid_cutout.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -3161,11 +3176,17 @@ def ptxas_report(bf):
                 # the kernel's name, then its template arguments: types
                 # (f, d), a dimension (Li3E) or a flag (Lb1E)
                 m = re.search(r"'\w*?\d+(" + names + r")"
-                              r"(?:I([fd]*)(?:Li(\d)E)?(?:Lb([01])E)?E)?",
+                              r"(?:I([fd]*)((?:Li\d+E)*)(?:Lb([01])E)?E)?",
                               line)
                 key = m.group(1) if m else None
-                types, dim, flag = (m.groups()[1:] if m
-                                    else (None, None, None))
+                types, ints, flag = (m.groups()[1:] if m
+                                     else (None, None, None))
+                # the int arguments: (dimension) or (mode, dimension)
+                ints = re.findall(r"Li(\d+)E", ints or "")
+                dim = ints[-1] if ints else None
+                mode = ints[0] if len(ints) == 2 else None
+                if key == "tile_pairs_kernel" and dim is None:
+                    key = None      # K15's pair kernel (grid_cutout.cu)
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
@@ -3178,6 +3199,8 @@ def ptxas_report(bf):
             sm = smem.get((key, flag or (types or "")[-1:]), 0) + (
                 int(st.group(1)) if st else 0)
             n_threads = threads[key]
+            if key == "grid_direct_kernel" and dim == "2":
+                n_threads = 256
             if key == "tile_pairs_kernel":
                 n_threads, dyn = tile_pairs_shape(
                     int(dim), 4 if types == "f" else 8)
@@ -3193,6 +3216,8 @@ def ptxas_report(bf):
             elif key == "tile_pairs_kernel":
                 args += [("K4", "K10", "K12")[int(dim)]]
             else:
+                args += [("displace", "paint", "anis")[int(mode)]] \
+                    if mode else []
                 args += [f"{dim}D"] if dim else []
             name = f"{key}<{', '.join(args)}>" if args else key
             log(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled, "
@@ -3734,7 +3759,7 @@ def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
                        snap_part):
     """K20-K23 against their plain versions on the card at the bench
     shapes, timed beside them; returns their kernel rows."""
-    from baryonforge_torch.ops import deposit, direct, grid, paint, snapshot
+    from baryonforge_torch.ops import deposit, paint, snapshot
     from baryonforge_torch.ops import healpix as hpx
     measured = {}
     f32, f64 = torch.float32, torch.float64
@@ -3814,92 +3839,208 @@ def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.4f} "
         f"ms, bound {b[0]:.4f} ms ({b[1]})")
     measured["disc_apply"] = (err, ms, plain_ms, b[0], b[1], library_ms)
-    # K22 on the first chunk of the 3D baryonify's largest bucket
-    npix, Ns, res, part, gvals = grid_part
+    measured["grid_direct"] = k22_group(torch, gpu, grid_part)
+    # K23 at the snapshot bench
+    coords, hpos, halos_s, offsets, parts, layout, dlay, L, sdt = snap_part
+    # the records: each entry's slot and halo, as the parent formed them
+    # on every call (the row's base plus the pair's place, in
+    # particle_major_pairs' order; halos[prow])
+    counts = (offsets[1:] - offsets[:-1]).long()
+    row = torch.repeat_interleave(torch.arange(counts.numel(),
+                                               device=DEVICE), counts)
+    pslot = torch.as_tensor(dlay.rows.base, device=DEVICE)[row] \
+        + torch.arange(row.numel(), device=DEVICE) - offsets.long()[row]
+    pm = snapshot.particle_major_pairs(parts, layout[0])
+    if not (torch.equal(dlay.rec[:, 0].long(), pslot[pm]) and torch.equal(
+            dlay.rec[:, 1], halos_s[layout[2].long()])):
+        raise AssertionError("K23 records: not the parent's slots and halos")
+    # the layout's positions: each pair's particle's, in K17's order
+    if not torch.equal(dlay.coords[dlay.parts.long()], coords[parts.long()]):
+        raise AssertionError("K23 layout: not the pairs' positions")
+    order_poff = layout[:2]
+    svals = torch.randn(dlay.rows.n_slots, device=DEVICE, dtype=sdt)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rr = snapshot.snapshot_radii(hpos, halos_s, offsets, dlay, L)
+        got = snapshot.snapshot_direct(hpos, order_poff, dlay, svals, L)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rr0 = snapshot.snapshot_radii_plain(hpos, halos_s, offsets, dlay, L)
+    if not torch.equal(rr, rr0):
+        raise AssertionError("K23 snapshot_radii: not its plain version's")
+    want = snapshot.snapshot_direct_plain(hpos, order_poff, dlay, svals, L)
+    if not torch.equal(got, want):
+        raise AssertionError("K23 snapshot_direct: not its plain version's")
+    err = 0.0
+    log(f"  K23 at the snapshot bench ({parts.numel()} pairs, "
+        f"{dlay.rows.n_slots} slots, {100 * dlay.rows.padded_share:.1f}% "
+        f"padding, {dlay.pieces.shape[0]} radii pieces): records the "
+        "parent's, radii and gather bitwise their plain versions, neither "
+        "synchronizing with the host")
+    ms_r = time_ms(torch, lambda: snapshot.snapshot_radii(
+        hpos, halos_s, offsets, dlay, L), 10)
+    ms_g = time_ms(torch, lambda: snapshot.snapshot_direct(
+        hpos, order_poff, dlay, svals, L), 10)
+    plain_ms = time_ms(torch, lambda: snapshot.snapshot_radii_plain(
+        hpos, halos_s, offsets, dlay, L), 2) + time_ms(
+        torch, lambda: snapshot.snapshot_direct_plain(
+            hpos, order_poff, dlay, svals, L), 2)
+    pl = parts.long()
+    vec = torch.randn((3, pl.numel()), device=DEVICE, dtype=svals.dtype)
+    library_ms = time_ms(torch, lambda: torch.zeros_like(got).index_add_(
+        1, pl, vec), 10)
+    n_pairs = parts.numel()
+    out_b = got.numel() * got.element_size()
+    # bytes, the function's own work: positions and halo positions read
+    # once, per pair its particle (radii) and its value (gather) read, r
+    # written once, the offsets written once; operations: ~14 float64 a
+    # pair, twice. The parent's count (beside) also took the layout, the
+    # halos and offsets, and per pair its row, its slot twice and its value
+    nb = nbytes(coords, hpos) + n_pairs * (4 + svals.element_size()) \
+        + 8 * dlay.rows.n_slots + out_b
+    nb_old = nbytes(coords, hpos, halos_s, layout, offsets) + n_pairs * (
+        4 + 4 + 8 + 8 + 8 + svals.element_size()) + out_b
+    b = bound(nb, 28 * n_pairs, F64_FLOPS)
+    b_old = bound(nb_old, 28 * n_pairs, F64_FLOPS)
+    log(f"[{gpu}] K23 at the snapshot bench: radii {ms_r:.4f} ms, gather "
+        f"{ms_g:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {nb} bytes; "
+        f"the parent's count {b_old[0]:.4f} ms, {nb_old} bytes)")
+    measured["snapshot_direct"] = (err, ms_r + ms_g, plain_ms, b[0], b[1],
+                                   library_ms)
+    return measured
+
+
+def k22_group(torch, gpu, grid_part):
+    """K22 on ``grid_part``, (npix, Ns, res, halos, values, halos a readout
+    chunk): the 3D baryonify's first apply group of its largest size
+    bucket as the runner cuts it and reads the model on it. The radii
+    bitwise their plain version's, the apply against its plain version and
+    bitwise the applies of the group's readout chunks in turn; both timed
+    on the group, and on its first chunk for the log. Returns its
+    kernel-row figures (err, ms, plain_ms, bound_ms, bound_by, None)."""
+    from baryonforge_torch.ops import grid
+    npix, Ns, res, part, gvals, chunk = grid_part
+    m, cells = part["cen"].shape[0], Ns ** 3
     r = grid.grid_radii(npix, Ns, res, part)
     if not torch.equal(r, grid.grid_radii_plain(npix, Ns, res, part)):
         raise AssertionError("K22 grid_radii: not its plain version's")
+    del r
     acc0 = torch.zeros((3, npix ** 3), dtype=gvals.dtype, device=DEVICE)
     got = grid.grid_direct("displace", npix, Ns, res, part, gvals,
                            acc0.clone())
     want = grid.grid_direct_plain("displace", npix, Ns, res, part, gvals,
                                   acc0.clone())
     err = float((got - want).abs().max())
-    check(f"K22 grid_direct [3D {npix}^3, {part['cen'].shape[0]} halos x "
-          f"{Ns}^3 cells, displace, float32]", err,
-          1e-5 * float(want.abs().max()))
+    check(f"K22 grid_direct [3D {npix}^3, {m} halos x {Ns}^3 cells, "
+          "displace, float32] (the plain version's index_add_ sums in "
+          "another order)", err, 1e-5 * float(want.abs().max()))
+    del want
 
+    def rows_of(a, b):
+        return ({k: None if v is None else v[a:b] for k, v in part.items()},
+                gvals[a * cells:b * cells])
+    # one apply over the group equals the applies of its readout chunks in
+    # turn, bit for bit (each tile adds its halos in ascending order)
+    acc = acc0.clone()
+    for a in range(0, m, chunk):
+        grid.grid_direct("displace", npix, Ns, res, *rows_of(a, a + chunk),
+                         acc)
+    if not torch.equal(acc, got):
+        raise AssertionError("K22 grid_direct: one apply differs from its "
+                             "chunks' applies in turn")
+    log(f"  K22 grid_direct: one apply bitwise the {-(-m // chunk)} applies "
+        "of its readout chunks in turn")
+    del acc, got
     ms_r = time_ms(torch, lambda: grid.grid_radii(npix, Ns, res, part), 5)
     ms_a = time_ms(torch, lambda: grid.grid_direct(
         "displace", npix, Ns, res, part, gvals, acc0), 5)
     plain_ms = time_ms(torch, lambda: grid.grid_direct_plain(
         "displace", npix, Ns, res, part, gvals,
         torch.zeros_like(acc0)), 1) + time_ms(
-        torch, lambda: grid.grid_radii_plain(npix, Ns, res, part), 2)
-    cells = gvals.numel()
-    # bytes: r written (8 a cell), the values read (4 a cell), the halo
-    # columns and K15's lists read, and the offsets of the tiles that the
-    # lists name read and written once; operations: ~20 float64 a (halo,
-    # cell) pair
-    start, tile_halo = grid.cutout_tiles(npix, Ns, res, part)
-    touched = int((start[1:] > start[:-1]).sum())
-    tile = grid.TILE[3] ** 3
-    nb = 12 * cells + nbytes(part, start, tile_halo) \
-        + 2 * touched * tile * 3 * acc0.element_size()
-    b = bound(nb, 20 * cells, F64_FLOPS)
-    log(f"[{gpu}] K22 at the 3D baryonify ({part['cen'].shape[0]} halos x "
-        f"{Ns}^3 = {cells} cutout cells, {touched} of {start.numel() - 1} "
-        f"tiles touched): radii {ms_r:.4f} ms, apply {ms_a:.4f} ms (with "
-        f"its lists), plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-        f"({b[1]})")
-    measured["grid_direct"] = (err, ms_r + ms_a, plain_ms, b[0], b[1], None)
-    # K23 at the snapshot bench
-    coords, hpos, halos_s, offsets, parts, layout, L, sdt = snap_part
-    slay = direct.row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
-    svals = torch.randn(slay.n_slots, device=DEVICE, dtype=sdt)
-    rr, pslot = snapshot.snapshot_radii(coords, hpos, halos_s, offsets,
-                                        parts, slay, L)
-    rr0, _ = snapshot.snapshot_radii_plain(coords, hpos, halos_s, offsets,
-                                           parts, slay, L)
-    if not torch.equal(rr, rr0):
-        raise AssertionError("K23 snapshot_radii: not its plain version's")
-    eslot = pslot[snapshot.particle_major_pairs(parts, layout[0])]
-    got = snapshot.snapshot_direct(coords, hpos, halos_s, layout, eslot,
-                                   svals, L)
-    want = snapshot.snapshot_direct_plain(coords, hpos, halos_s, layout,
-                                          eslot, svals, L)
-    if not torch.equal(got, want):
-        raise AssertionError("K23 snapshot_direct: not its plain version's")
-    err = 0.0
-    log(f"  K23 at the snapshot bench ({parts.numel()} pairs, "
-        f"{slay.n_slots} slots, {100 * slay.padded_share:.1f}% padding): "
-        "radii and gather bitwise their plain versions")
-    ms_r = time_ms(torch, lambda: snapshot.snapshot_radii(
-        coords, hpos, halos_s, offsets, parts, slay, L), 10)
-    ms_g = time_ms(torch, lambda: snapshot.snapshot_direct(
-        coords, hpos, halos_s, layout, eslot, svals, L), 10)
-    plain_ms = time_ms(torch, lambda: snapshot.snapshot_radii_plain(
-        coords, hpos, halos_s, offsets, parts, slay, L), 2) + time_ms(
-        torch, lambda: snapshot.snapshot_direct_plain(
-            coords, hpos, halos_s, layout, eslot, svals, L), 2)
-    pl = parts.long()
-    vec = torch.randn((3, pl.numel()), device=DEVICE, dtype=svals.dtype)
-    library_ms = time_ms(torch, lambda: torch.zeros_like(got).index_add_(
-        1, pl, vec), 10)
-    n_pairs = parts.numel()
-    # bytes: positions and the layout read once, per pair its row, particle
-    # and slot (radii) and entry's slot and value (gather), r written, the
-    # offsets written; operations: ~14 float64 a pair, twice
-    nb = nbytes(coords, hpos, halos_s, layout, offsets) + n_pairs * (
-        4 + 4 + 8 + 8 + 8 + svals.element_size()) \
-        + got.numel() * got.element_size()
-    b = bound(nb, 28 * n_pairs, F64_FLOPS)
-    log(f"[{gpu}] K23 at the snapshot bench: radii {ms_r:.4f} ms, gather "
-        f"{ms_g:.4f} ms, plain {plain_ms:.3f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-    measured["snapshot_direct"] = (err, ms_r + ms_g, plain_ms, b[0], b[1],
-                                   library_ms)
-    return measured
+        torch, lambda: grid.grid_radii_plain(npix, Ns, res, part), 1)
+    # bytes: r written (8 a cell), the values read (4 a cell), and
+    # k22_apply_bytes (the map's touched tiles read and written once);
+    # operations: ~20 float64 a cell
+    nb_a, touched = k22_apply_bytes(torch, npix, Ns, res, part,
+                                    2 * 3 * acc0.element_size())
+    b = bound(12 * m * cells + nb_a, 20 * m * cells, F64_FLOPS)
+    log(f"[{gpu}] K22 at the 3D baryonify's first apply group ({m} halos x "
+        f"{Ns}^3 = {m * cells} cutout cells, {touched} of "
+        f"{npix ** 3 // grid.TILE[3] ** 3} tiles touched): radii {ms_r:.4f} ms, apply {ms_a:.4f} ms (with "
+        f"its lists), plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    row = (err, ms_r + ms_a, plain_ms, b[0], b[1], None)
+    # the group's first readout chunk alone, for the per-chunk figure
+    cpart, cvals = rows_of(0, chunk)
+    mc = cpart["cen"].shape[0]
+    ms_r = time_ms(torch, lambda: grid.grid_radii(npix, Ns, res, cpart), 5)
+    ms_a = time_ms(torch, lambda: grid.grid_direct(
+        "displace", npix, Ns, res, cpart, cvals, acc0), 5)
+    nb_a, touched = k22_apply_bytes(torch, npix, Ns, res, cpart,
+                                    2 * 3 * acc0.element_size())
+    b = bound(12 * mc * cells + nb_a, 20 * mc * cells, F64_FLOPS)
+    log(f"[{gpu}] K22 at the group's first readout chunk ({mc} halos, "
+        f"{touched} tiles touched): radii {ms_r:.4f} ms, apply {ms_a:.4f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]})")
+    return row
+
+
+def k22_apply_bytes(torch, npix, Ns, res, grp, cell_bytes):
+    """The bytes one K22 apply over the halos ``grp`` (cutouts of Ns^d
+    cells) moves besides the radii and values: the halo columns and K15's
+    lists read, and ``cell_bytes`` a cell of every tile that the lists
+    touch (the map read and written once, the Anis grid's Mtot and input
+    map read). Returns (bytes, touched tiles)."""
+    from baryonforge_torch.ops import grid
+    ndim = grp["cen"].shape[1]
+    start, tile_halo = grid.cutout_tiles(npix, Ns, res, grp)
+    touched = int(grid.touched_tiles(start)[1][0])
+    return (nbytes(grp, start, tile_halo)
+            + touched * grid.TILE[ndim] ** ndim * cell_bytes, touched)
+
+
+def k22_per_call(torch, gpu, grid_runs):
+    """K22 as a runner call spends it: for each (label, runner, value bytes
+    a cell, K22 applies a call as the runs launched it) of ``grid_runs``
+    (its calls' phases in PHASES), the median of the radii + apply phases
+    (CUDA events) beside the call's K22 bound: r written (8 bytes a cutout
+    cell), the values read once, each apply's k22_apply_bytes, ~20
+    float64 operations a cell. The applies are the runner's groups
+    (Map2DRunner.direct_groups); fails if the runs launched another
+    number. Returns {label: (ms, bound_ms, bound_by)}."""
+    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.Runners.Map2DRunner import direct_groups
+    out = {}
+    for label, runner, vbytes, applies in grid_runs:
+        phases = PHASES[label]
+        ms = float(np.median([p["radii"] + p["apply"] for p in phases]))
+        gm = runner.GriddedMap
+        inp = runner._cutout_inputs(_PhaseClock(torch.device(DEVICE)))
+        ndim = 2 if gm.is2D else 3
+        cell_b = {"displace": 2 * ndim * (4 if runner.dtype == torch.float32
+                                          else 8),
+                  "paint": 2 * 8, "anis": 2 * 8 + 2 * 8}[inp["mode"]]
+        cells = groups = touched = nb = 0
+        for idx, Ns in runner._buckets(inp["Nsize"]):
+            ix = torch.as_tensor(idx, device=DEVICE)
+            for gs in direct_groups(idx.size, Ns ** ndim)[1]:
+                grp = {k: None if v is None else v[ix[gs]]
+                       for k, v in inp["halos"].items()}
+                b_g, t_g = k22_apply_bytes(torch, gm.Npix, Ns, gm.res, grp,
+                                           cell_b)
+                nb, touched, groups = nb + b_g, touched + t_g, groups + 1
+            cells += idx.size * Ns ** ndim
+        if groups != applies:
+            raise AssertionError(f"{label}: {applies} K22 applies a call, "
+                                 f"the runner's groups {groups}")
+        b = bound(nb + cells * (8 + vbytes), 20 * cells, F64_FLOPS)
+        log(f"[{gpu}] K22 a call of {label}: radii + apply {ms:.3f} ms "
+            f"(median of {len(phases)} calls; {cells} cutout cells, "
+            f"{groups} applies, {touched} tiles touched in all), bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        out[label] = (ms, b[0], b[1])
+    return out
 
 
 def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
@@ -3994,11 +4135,11 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
                        "direct BaryonifyGrid 3D (float32)", gpu, GRID_HALOS,
                        check_map=moved(gm3.map), **calls)
     runs.append(lk)
-    _, lk = drive_path(bf, torch, grid_run(
-        bf.PaintProfilesGrid, cat3, gm0, dmo3, True, f32,
-        epsilon_max=GRID_PAINT_EPS), ("grid_radii", "grid_direct"),
-        "direct PaintProfilesGrid 3D (float32)", gpu, GRID_HALOS,
-        check_map=painted(gm0.map.shape), **calls)
+    rp = grid_run(bf.PaintProfilesGrid, cat3, gm0, dmo3, True, f32,
+                  epsilon_max=GRID_PAINT_EPS)
+    _, lk = drive_path(bf, torch, rp, ("grid_radii", "grid_direct"),
+                       "direct PaintProfilesGrid 3D (float32)", gpu,
+                       GRID_HALOS, check_map=painted(gm0.map.shape), **calls)
     runs.append(lk)
     cat2, gm2 = grid_inputs(bf, 2, GRID2D_N)
     dmo2 = tabs["dmo2"]
@@ -4014,11 +4155,21 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
             global_tracer_fraction=ANIS_FRAC, dtype=dt, device=DEVICE)
     direct_vs_curve(torch, "PaintProfilesAnisGrid 2D", anis_grid,
                     lambda m: np.abs(m).max())
-    _, lk = drive_path(bf, torch, anis_grid(True, f32),
+    ra = anis_grid(True, f32)
+    _, lk = drive_path(bf, torch, ra,
                        ("grid_radii", "grid_direct", "anis_finish"),
                        "direct PaintProfilesAnisGrid 2D (float32)", gpu,
                        GRID_HALOS, check_map=painted(gm2.map.shape), **calls)
     runs.append(lk)
+    # (label, runner, value bytes a cell, K22 applies a call): K22 a call
+    # (k22_per_call)
+    n_calls = calls["warm"] + calls["calls"]
+    grid_runs = [(label, run, vb, runs[k]["grid_direct"] / n_calls)
+                 for k, label, run, vb in (
+                     (-3, "direct BaryonifyGrid 3D (float32)", rb, 4),
+                     (-2, "direct PaintProfilesGrid 3D (float32)", rp, 8),
+                     (-1, "direct PaintProfilesAnisGrid 2D (float32)", ra,
+                      16))]
 
     snap_model, scat, snap = snap_inputs
     log(f"direct readout: the snapshot bench ({SNAP_PARTS} particles, "
@@ -4048,8 +4199,11 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
         raise AssertionError("direct snapshot: output not finite")
     log(f"[{gpu}] direct BaryonifySnapshot (float32): calls "
         + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms (the first "
-        "builds the pairs); last phases (ms, CUDA events): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in rs32.timings.items()))
+        "builds the pairs and K23's layout); last phases (ms, CUDA "
+        "events): " + ", ".join(f"{k} {v:.3f}"
+                                for k, v in rs32.timings.items())
+        + f"; K23 a call (radii + apply) "
+        f"{rs32.timings['radii'] + rs32.timings['apply']:.3f} ms")
     runs.append(lk)
     launches = sum_launches(*runs)
     require(launches, ("disc_radii", "disc_apply", "grid_radii",
@@ -4068,26 +4222,28 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
         return _direct.readout(lambda r, M, a: m32.displacement(r, M, a),
                                rows["r"], lay, {"M": halos["M"],
                                                 "a": halos["a"]}, f64)
-    # K22 on the 3D baryonify's first chunk of its largest size bucket, as
-    # Map2DRunner._direct_bucket cuts it, with the readout's own values
-    from baryonforge_torch.Runners.Map2DRunner import GRID_CELL_BUDGET
+    # K22 on the 3D baryonify's first apply group of its largest size
+    # bucket: its halos, the readout's values on them and the halos a
+    # readout chunk, as Map2DRunner._direct_groups makes them
+    from baryonforge_torch.Runners.Map2DRunner import direct_groups
     inp = rb._cutout_inputs(_PhaseClock(torch.device(DEVICE)))
     idx, Ns = rb._buckets(inp["Nsize"])[-1]
-    ix = torch.as_tensor(idx[:max(1, GRID_CELL_BUDGET // Ns ** 3)],
-                         device=DEVICE)
-    part = {k: None if v is None else v[ix] for k, v in inp["halos"].items()}
-    d = inp["direct"]
-    gvals = _direct.readout(
-        d["fns"][0], grid.grid_radii(GRID3D_N, Ns, gm3.res, part),
-        _direct.uniform_layout(ix.numel(), Ns ** 3),
-        {k: v[ix] for k, v in d["cols"].items()}, d["out_dtype"])
+    ix = torch.as_tensor(idx, device=DEVICE)
+    part, (gvals,) = next(rb._direct_groups(
+        inp, ix, Ns, {k: None if v is None else v[ix]
+                      for k, v in inp["halos"].items()},
+        torch.device(DEVICE)))
+    chunk = direct_groups(idx.size, Ns ** 3)[0]
     _, _, _, R_q, hpos, _ = rs32._host_prep()
     (halos_s, offsets, parts), layout = rs32._neighbour_pairs(hpos, R_q)
     snap_part = (rs32._coords_dev, torch.as_tensor(hpos, device=DEVICE),
-                 halos_s, offsets, parts, layout, snap.L, f32)
+                 halos_s, offsets, parts, layout, rs32._direct_layout(),
+                 snap.L, f32)
     measured = direct_kernel_rows(bf, torch, gpu, halos, mode_rows,
-                                  (GRID3D_N, Ns, gm3.res, part, gvals),
+                                  (GRID3D_N, Ns, gm3.res, part, gvals,
+                                   chunk),
                                   snap_part)
+    k22_per_call(torch, gpu, grid_runs)
     log(f"[{gpu}] direct readout phase: {time.perf_counter() - t_phase:.1f}"
         " s")
     return launches, measured

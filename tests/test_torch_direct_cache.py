@@ -6,7 +6,8 @@ curve path and the direct readout; and their ``verbose`` reports.
 The port recomputes its per-catalog data on every call (host prep, curves
 or the direct readout's rows); it keeps only per-NSIDE state, the Anis
 shell's Mtot runner (keyed on the Mtot model's identity) and the
-snapshot's pairs (keyed on the catalog's content and the radii). So an
+snapshot's pairs with their layouts, K23's included (keyed on the
+catalog's content and the radii). So an
 in-place change of the catalog or the map, a model swapped on a live
 runner and a table rebuilt in place must each give what a new runner
 gives (float64, to 1e-12 of the largest value).
@@ -141,9 +142,12 @@ def test_anis_shell_keeps_its_mtot_runner_by_identity():
     assert runner._mtot[1] is not first
 
 
-def test_snapshot_pairs_follow_the_catalog():
-    """BaryonifySnapshot's direct readout keeps its pairs while the
-    catalog's content holds, and rebuilds them after an in-place change."""
+def test_snapshot_pairs_follow_the_catalog(monkeypatch):
+    """BaryonifySnapshot's direct readout keeps its pairs and K23's layout
+    (row slots, pieces, entry records) while the catalog's content holds,
+    so a second call builds neither, and rebuilds both after an in-place
+    change."""
+    from baryonforge_torch.Runners import SnapshotRunner
     rng = np.random.default_rng(5)
     L = 128.0
     pos = rng.uniform(0, L, (2000, 3))
@@ -156,21 +160,36 @@ def test_snapshot_pairs_follow_the_catalog():
                                  redshift=0.9, cosmo=COSMO_DICT)
     kw = dict(epsilon_max=20, model=HideCurves(torch_model()),
               dtype=torch.float64, verbose=False, device="cpu")
+    built = []
+    layout_of = SnapshotRunner.direct_layout
+
+    def counted(*args):
+        built.append(1)
+        return layout_of(*args)
+    monkeypatch.setattr(SnapshotRunner, "direct_layout", counted)
     runner = bf.BaryonifySnapshot(cat, snap, **kw)
     out1 = runner.process()
     pairs = runner._pairs
+    dlay = pairs[3]["direct"]
+    assert len(built) == 1
     again = runner.process()
-    assert runner._pairs is pairs
+    assert runner._pairs is pairs and pairs[3]["direct"] is dlay
+    assert len(built) == 1
     for c in "xyz":
         np.testing.assert_array_equal(again[c], out1[c])
     cat.cat["x"] = np.mod(cat.cat["x"] + 13.0, L)
     out2 = runner.process()
-    assert runner._pairs is not pairs
+    assert runner._pairs is not pairs and len(built) == 2
+    assert runner._pairs[3]["direct"] is not dlay
     ref = bf.BaryonifySnapshot(bf.utils.HaloNDCatalog(
         x=cat.cat["x"], y=hp[:, 1], z=hp[:, 2], M=cat.cat["M"],
         redshift=0.9, cosmo=COSMO_DICT), snap, **kw).process()
     for c in "xyz":
         np.testing.assert_allclose(out2[c], ref[c], rtol=0, atol=1e-12)
+    n_built = len(built)
+    runner.invalidate()
+    runner.process()
+    assert len(built) == n_built + 1
 
 
 def test_verbose_reports(capsys):

@@ -13,10 +13,13 @@ and the geometry per member to the gap between the device's and torch's
 pixel angles (math libraries that round a transcendental a few ulps
 apart) times D / a, 1 and D, beside 4 ulps of their scale; K21's and
 K22's sums to 1e-10 of the largest value in
-float64 and 1e-5 in float32 (atomic sums in another order); K22's and K23's
-radii bitwise (the same operations); K23's gather bitwise (the same sums
-in the same order); the runners' direct maps on the card to 1e-9 of the
-largest value of the CPU's, float64.
+float64 and 1e-5 in float32 (the plain versions' atomic sums run in
+another order); K22's and K23's radii bitwise (the same operations); K23's
+gather bitwise (the same sums in the same order); one K22 apply over
+consecutive runs of halos bitwise the applies of the runs in turn (each
+tile adds its halos in ascending order, its running sums in the map's
+type); the runners' direct maps on the card to 1e-9 of the largest value
+of the CPU's, float64.
 """
 
 import os
@@ -31,6 +34,7 @@ from baryonforge_torch.ops import _build                    # noqa: E402
 from baryonforge_torch.ops import deposit, direct, grid     # noqa: E402
 from baryonforge_torch.ops import paint, snapshot           # noqa: E402
 from baryonforge_torch.ops import healpix as hpx            # noqa: E402
+from baryonforge_torch.Runners import Map2DRunner           # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -262,6 +266,39 @@ def test_grid_direct_kernel(dev, dt, mode, ndim, npix, Ns):
     assert (got - want).abs().max().item() <= tol * scale
     again = grid.grid_direct(mode, npix, Ns, res, h, vals, acc0.clone(), **kw)
     assert torch.equal(got, again)
+    # the same halos in three runs, applied in turn: bit for bit one apply
+    cells = Ns ** ndim
+    acc = acc0.clone()
+    for a, b in ((0, 7), (7, 23), (23, 40)):
+        part = {k: None if v is None else v[a:b] for k, v in h.items()}
+        extra = dict(kw, vals2=kw["vals2"][a * cells:b * cells]) \
+            if mode == "anis" else kw
+        grid.grid_direct(mode, npix, Ns, res, part,
+                         vals[a * cells:b * cells], acc, **extra)
+    assert torch.equal(acc, got)
+
+
+@pytest.mark.parametrize("ndim,npix,Ns,m", [(2, 64, 20, 40), (3, 26, 9, 40),
+                                            (3, 64, 6, 3), (2, 50, 13, 0)])
+def test_touched_tiles_kernel_lists(dev, ndim, npix, Ns, m):
+    """The compacted touched tiles of K22's apply are exactly the tiles
+    with a nonempty list, read with nothing synchronized."""
+    h, res = _grid_halos(ndim, npix, Ns, max(m, 1), dev)
+    h = {k: None if v is None else v[:m] for k, v in h.items()}
+    if m == 0:
+        n_tiles = (-(-npix // grid.TILE[ndim])) ** ndim
+        start = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+    else:
+        start, _ = grid.cutout_tiles(npix, Ns, res, h)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tiles, work = grid.touched_tiles(start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = torch.nonzero(start[1:] > start[:-1])[:, 0].int()
+    assert work.tolist() == [want.numel(), 0]
+    assert torch.equal(tiles[:want.numel()], want)
 
 
 def _pairs(ndim, L, n_part, n_halos, R, dev, seed=4):
@@ -286,30 +323,46 @@ def _pairs(ndim, L, n_part, n_halos, R, dev, seed=4):
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_snapshot_direct_kernels(dev, dt, ndim):
-    """K23's radii pass and gather bitwise their plain versions."""
+    """K23's radii pass and gather bitwise their plain versions, and
+    neither wrapper synchronizes with the host."""
     L = 50.0
     coords, hpos, halos, offsets, parts, layout = _pairs(ndim, L, 3000, 60,
                                                          9.0, dev)
-    lay = direct.row_layout((offsets[1:] - offsets[:-1]).cpu().numpy())
-    _build.reset_launches()
-    r, pslot = snapshot.snapshot_radii(coords, hpos, halos, offsets, parts,
-                                       lay, L)
-    r0, pslot0 = snapshot.snapshot_radii_plain(coords, hpos, halos, offsets,
-                                               parts, lay, L)
-    assert torch.equal(pslot, pslot0) and torch.equal(r, r0)
+    dlay = snapshot.direct_layout(coords, halos, offsets, parts, layout[0])
     g = torch.Generator(device=dev).manual_seed(7)
-    vals = torch.randn(lay.n_slots, generator=g, device=dev,
+    vals = torch.randn(dlay.rows.n_slots, generator=g, device=dev,
                        dtype=torch.float64).to(dt)
     vals[::53] = float("nan")
-    eslot = pslot[snapshot.particle_major_pairs(parts, layout[0])]
-    got = snapshot.snapshot_direct(coords, hpos, halos, layout, eslot, vals,
-                                   L)
+    _build.library()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = snapshot.snapshot_radii(hpos, halos, offsets, dlay, L)
+        got = snapshot.snapshot_direct(hpos, layout[:2], dlay, vals, L)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert _build.launches["snapshot_radii"] == 1
     assert _build.launches["snapshot_direct"] == 1
-    want = snapshot.snapshot_direct_plain(coords, hpos, halos, layout, eslot,
-                                          vals, L)
+    r0 = snapshot.snapshot_radii_plain(hpos, halos, offsets, dlay, L)
+    assert torch.equal(r, r0)
+    want = snapshot.snapshot_direct_plain(hpos, layout[:2], dlay, vals, L)
     assert torch.equal(got, want)
+
+
+def test_snapshot_radii_kernel_long_rows(dev):
+    """K23's radii on rows longer than a piece (RADII_PIECE pairs), with
+    rows of 1 to 3 pairs beside them: bitwise the plain version, pads 0."""
+    L = 40.0
+    coords, hpos, halos, offsets, parts, layout = _pairs(
+        3, L, 20000, 40, 14.0, dev, seed=9)
+    counts = (offsets[1:] - offsets[:-1]).cpu().numpy()
+    assert counts.max() > 2 * snapshot.RADII_PIECE
+    dlay = snapshot.direct_layout(coords, halos, offsets, parts, layout[0])
+    r = snapshot.snapshot_radii(hpos, halos, offsets, dlay, L)
+    assert torch.equal(r, snapshot.snapshot_radii_plain(hpos, halos, offsets,
+                                                        dlay, L))
 
 
 def _close(got, want, scale=None):
@@ -349,6 +402,68 @@ def test_direct_shells_cuda_match_cpu(dev):
         out = run(cls, dev)
         assert _build.launches["disc_apply"] == 1
         _close(out, run(cls, "cpu"))
+
+
+@pytest.mark.parametrize("which,ndim,ell", [("baryonify", 3, False),
+                                              ("paint", 3, False),
+                                              ("anis", 2, False),
+                                              ("baryonify", 2, True)])
+def test_direct_grid_chunk_groups_cuda(dev, monkeypatch, which, ndim, ell):
+    """The grid runners' direct readout with a readout chunk a halo: one
+    apply a size bucket (a group from the bucket's first chunk across all
+    of them) equals an apply a chunk bit for bit (BaryonifyGrid's offsets,
+    the paints' maps), with fewer applies than chunks, and the map
+    matches the CPU to 1e-9 of its largest value (float64)."""
+    rng = np.random.default_rng(11)
+    N, L, n = (40, 80.0, 25) if ndim == 2 else (24, 60.0, 14)
+    bins = (np.arange(N) + 0.5) * (L / N)
+    cols = dict(x=rng.uniform(0, L, n), y=rng.uniform(0, L, n))
+    if ndim == 3:
+        cols["z"] = rng.uniform(0, L, n)
+    if ell:
+        cols.update(q_ell=rng.uniform(0.5, 1.0, n),
+                    A_ell=rng.normal(size=(n, 2)))
+    cat = bf.utils.HaloNDCatalog(M=10 ** rng.uniform(13.5, 14.8, n),
+                                 redshift=0.9, cosmo=COSMO, **cols)
+    gm = bf.utils.GriddedMap(map=rng.exponential(1.0, (N,) * ndim),
+                             bins=bins, cosmo=COSMO, redshift=0.9)
+    s19 = (bf.Baryonification2D if ndim == 2 else bf.Baryonification3D)(
+        None, None, _cosmo(), epsilon_max=20).load_table(TABLE)
+    tsz = _tsz()
+    monkeypatch.setattr(Map2DRunner, "GRID_CELL_BUDGET", 1)
+
+    def run(d, value_budget):
+        monkeypatch.setattr(Map2DRunner, "GRID_VALUE_BUDGET", value_budget)
+        m = s19 if which == "baryonify" else tsz
+        rd = m.with_dtype(torch.float64, device=d) if d != "cpu" else m
+        kw = dict(epsilon_max=5, model=_Hide(rd), dtype=torch.float64,
+                  device=d, n_size_buckets=2, use_ellipticity=ell)
+        if which == "anis":
+            kw.update(Tracer_model=_Hide(rd), Mtot_model=tsz,
+                      background_val=1.0, global_tracer_fraction=0.1)
+        cls = {"baryonify": bf.BaryonifyGrid, "paint": bf.PaintProfilesGrid,
+               "anis": bf.PaintProfilesAnisGrid}[which]
+        r = cls(cat, gm, **kw)
+        _build.reset_launches()
+        if which == "baryonify":
+            # K22's offsets: K16's deposit after them sums with atomics,
+            # in an order that varies from run to run
+            sums = r._all_cutouts(r._cutout_inputs(Map2DRunner._PhaseClock(
+                r.device))).cpu().numpy()
+            launches = dict(_build.launches)
+            return r.process(), sums, launches
+        out = r.process()
+        return out, out, dict(_build.launches)
+
+    _, one, l1 = run(dev, 1)
+    out, grouped, lg = run(dev, 1 << 40)
+    np.testing.assert_array_equal(grouped, one)
+    assert l1["grid_direct"] == n                 # an apply a chunk
+    assert lg["grid_direct"] == 2                 # an apply a bucket
+    assert lg["grid_radii"] == lg["grid_direct"]
+    ref, _, _ = run("cpu", 1 << 40)
+    base = gm.map if which == "baryonify" else 0
+    _close(out, ref, np.abs(ref - base).max())
 
 
 def test_direct_grids_and_snapshot_cuda_match_cpu(dev):
