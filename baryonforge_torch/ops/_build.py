@@ -98,6 +98,7 @@ def _signatures():
         "bf_regrid_scratch_bytes": [_I, _I, _P],
         "bf_disc_apply_anis": [_LL] + [_P] * 7 + [_I, _D, _P, _P],
         "bf_grid_radii": [_I] * 3 + [_P, _D] + [_P] * 3,
+        "bf_disc_layout": [_I] + [_P] * 5,
         "bf_snapshot_radii": [_I, _I, _I, _D] + [_P] * 9,
     }
     for sfx in ("f32", "f64"):
@@ -127,7 +128,7 @@ def _signatures():
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \
             + [_I, _D, _D, _P, _P]
-        sig[f"bf_disc_radii_{sfx}"] = [_I] * 3 + [_P] * 5 + [_I] + [_P] * 7
+        sig[f"bf_disc_radii_{sfx}"] = [_I] * 3 + [_P] * 5 + [_I] + [_P] * 8
         sig[f"bf_disc_apply_displace_{sfx}"] = [_LL] + [_P] * 7
         for rsfx in ("f32", "f64"):
             # values in the first dtype, the painted map in the second

@@ -357,7 +357,8 @@ def _rows_empty(n_slots, mode, dt, dev):
 
 
 def disc_radii_plain(nside, halos, mode, dtype):
-    """Plain version of K20. Arguments and result as :func:`disc_radii`."""
+    """Plain version of K20. Arguments and result as :func:`disc_radii`;
+    the layout is ``ops.direct.row_layout``'s, on the host."""
     from . import direct
     dt = dtype
     dev = halos["theta"].device
@@ -367,7 +368,7 @@ def disc_radii_plain(nside, halos, mode, dtype):
     m = w["member"]
     h = w["halo"][m]
     members = torch.bincount(h, minlength=n).cpu().numpy()
-    layout = direct.row_layout(_row_counts(mode, members))
+    layout = direct.row_layout(_row_counts(mode, members), direct.ROW_BUDGET)
     rows = _rows_empty(layout.n_slots, mode, dt, dev)
     D, a = halos["D"], halos["a"]
     # each member's rank in its disc (the walk is halo-major)
@@ -420,6 +421,62 @@ def disc_radii_plain(nside, halos, mode, dtype):
     return rows, layout
 
 
+def _k20_count(fn, mode_id, nside, cols):
+    """K20's count pass: (members (n,) int32, counts (n,) int64 each row's
+    radii)."""
+    n, dev = cols[0].numel(), cols[0].device
+    members = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(mode_id, nside, n, *[_build.ptr(c) for c in cols], 0,
+                 _build.ptr(members), _build.ptr(counts), None, None, None,
+                 None, None, _build.stream_of(counts))
+    _build.check(err, "disc_radii")
+    _build.count("disc_radii")
+    return members, counts
+
+
+def _k20_layout(counts):
+    """K20's layout pass (one block): (base (n,) int64, order (n,) int64 the
+    halos in (class, index) order, class_counts (CLASSES,) int32)."""
+    from .direct import CLASSES
+    n, dev = counts.numel(), counts.device
+    base = torch.empty(n, dtype=torch.int64, device=dev)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    class_counts = torch.empty(CLASSES, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().bf_disc_layout(
+            n, _build.ptr(counts), _build.ptr(base), _build.ptr(order),
+            _build.ptr(class_counts), _build.stream_of(counts))
+    _build.check(err, "disc_radii")
+    _build.count("disc_radii")
+    return base, order, class_counts
+
+
+def _k20_rows(n_slots, mode, dt, dev):
+    """K20's rows, unfilled: the write pass writes every slot."""
+    rdt = torch.float64 if mode == "anis" else dt
+    return dict(pix=torch.empty(n_slots, dtype=torch.int32, device=dev),
+                hid=torch.empty(n_slots, dtype=torch.int32, device=dev),
+                r=torch.empty(n_slots, dtype=rdt, device=dev),
+                geo=(torch.empty((n_slots, 3), dtype=dt, device=dev)
+                     if mode == "displace" else None))
+
+
+def _k20_write(fn, mode_id, nside, cols, members, base, rows):
+    """K20's write pass: every disc's members and pads into ``rows``."""
+    geo = rows["geo"]
+    with torch.cuda.device(base.device):
+        err = fn(mode_id, nside, cols[0].numel(),
+                 *[_build.ptr(c) for c in cols], 1, _build.ptr(members),
+                 None, _build.ptr(base), _build.ptr(rows["pix"]),
+                 _build.ptr(rows["hid"]), _build.ptr(rows["r"]),
+                 None if geo is None else _build.ptr(geo),
+                 _build.stream_of(base))
+    _build.check(err, "disc_radii")
+    _build.count("disc_radii")
+
+
 def disc_radii(nside, halos, mode, dtype):
     """Lay every halo's disc members out in rows for the direct readout.
 
@@ -434,14 +491,18 @@ def disc_radii(nside, halos, mode, dtype):
     dtype  : float32 or float64, the geometry's
 
     Returns (rows, layout): ``layout`` the ``ops.direct.RowLayout`` of the
-    halos (grouped by their row lengths), ``rows`` a dict over its slots:
-    ``pix`` int32 (-1 in pad slots), ``hid`` int32 the halo, ``r`` (in
-    ``dtype``, float64 for anis) and ``geo`` (displace: (n_slots, 3) in
-    ``dtype``, the tangent factors ct0 sin_t - st0 cos_t cos dphi and st0
-    sin dphi and D chord_safe; else None). A row holds its disc's members
-    in the walk's order. Kernel K20 (two launches and one copy of the
-    counts to the host) for tensors on CUDA, the plain version for tensors
-    on the CPU.
+    halos (grouped by their row lengths, as ``ops.direct.row_layout``
+    groups them, under ``ops.direct.ROW_BUDGET`` as it is at the call),
+    ``rows`` a dict over its slots: ``pix`` int32 (-1 in pad
+    slots), ``hid`` int32 the halo (0 in pad slots), ``r`` (in ``dtype``,
+    float64 for anis; 0 in pad slots) and ``geo`` (displace: (n_slots, 3)
+    in ``dtype``, the tangent factors ct0 sin_t - st0 cos_t cos dphi and
+    st0 sin dphi and D chord_safe, 0 in pad slots; else None). A row holds
+    its disc's members in the walk's order. Kernel K20 for tensors on CUDA
+    (three launches: the count pass, the layout pass, which forms the
+    layout on the card, its counts, bases and halo ids held there, and the
+    write pass; one copy of the CLASSES class counts to the host, which
+    cuts the groups), the plain version for tensors on the CPU.
     """
     from . import direct
     if mode not in DIRECT_MODES:
@@ -466,24 +527,12 @@ def disc_radii(nside, halos, mode, dtype):
     fn = getattr(_build.library(), "bf_disc_radii_{}".format(
         "f32" if dtype == torch.float32 else "f64"))
     mode_id = DIRECT_MODES.index(mode)
-    count = torch.zeros(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(mode_id, nside, n, *[_build.ptr(c) for c in cols], 0,
-                 _build.ptr(count), None, None, None, None, None,
-                 _build.stream_of(count))
-    _build.check(err, "disc_radii")
-    _build.count("disc_radii")
-    members = count.cpu().numpy().astype(np.int64)
-    layout = direct.row_layout(_row_counts(mode, members))
-    rows = _rows_empty(layout.n_slots, mode, dtype, dev)
-    base = torch.as_tensor(layout.base, device=dev)
-    geo = rows["geo"]
-    with torch.cuda.device(dev):
-        err = fn(mode_id, nside, n, *[_build.ptr(c) for c in cols], 1,
-                 _build.ptr(count), _build.ptr(base), _build.ptr(rows["pix"]),
-                 _build.ptr(rows["hid"]), _build.ptr(rows["r"]),
-                 None if geo is None else _build.ptr(geo),
-                 _build.stream_of(count))
-    _build.check(err, "disc_radii")
-    _build.count("disc_radii")
-    return rows, layout
+    members, counts = _k20_count(fn, mode_id, nside, cols)
+    base, order, class_counts = _k20_layout(counts)
+    class_counts = class_counts.tolist()    # the one copy to the host
+    n_slots = direct.class_slots(class_counts)
+    rows = _k20_rows(n_slots, mode, dtype, dev)
+    _k20_write(fn, mode_id, nside, cols, members, base, rows)
+    # the groups' ids are cut from order while the write pass runs
+    groups = direct.class_groups(class_counts, order, direct.ROW_BUDGET)
+    return rows, direct.RowLayout(counts, base, groups, n_slots)

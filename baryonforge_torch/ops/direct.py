@@ -33,8 +33,9 @@ never fall back to a loop over the halos.
 import numpy as np
 import torch
 
-__all__ = ["ROW_BUDGET", "ReadoutContractError", "RowLayout", "row_width",
-           "row_layout", "uniform_layout", "readout", "readout_model",
+__all__ = ["ROW_BUDGET", "CLASSES", "ReadoutContractError", "RowLayout",
+           "row_width", "class_width", "row_layout", "class_slots",
+           "class_groups", "uniform_layout", "readout", "readout_model",
            "require"]
 
 # padded slots a group, and so a model call, holds at most
@@ -64,11 +65,23 @@ def row_width(counts):
     return np.where(c <= p, p, np.where((p >= 2) & (c <= mid), mid, 2 * p))
 
 
+# the widths of row_width by class: class 0 width 1, class 2j - 1 width
+# 2^j, class 2j width 3 2^(j - 1) (j >= 1); ascending, and 64 of them hold
+# every int32 count (K20 forms its layout by class on the card)
+CLASSES = 64
+
+
+def class_width(k):
+    """The row width of class ``k``."""
+    return 1 if k == 0 else (1 << (k + 1) // 2 if k % 2 else 3 << (k // 2 - 1))
+
+
 class RowLayout:
-    """Each halo's row: ``counts`` (n,) its radii, ``base`` (n,) int64 its
-    first slot (-1 for a halo of no radii), ``groups`` [(halo ids (G,)
-    int64, width K, first slot)], the rows of a group consecutive, ``G K``
-    slots, and ``n_slots`` in all."""
+    """Each halo's row: ``counts`` (n,) int64 its radii, ``base`` (n,)
+    int64 its first slot (-1 for a halo of no radii), ``groups`` [(halo ids
+    (G,) int64, width K, first slot)], the rows of a group consecutive,
+    ``G K`` slots, and ``n_slots`` in all. The arrays are numpy arrays
+    (:func:`row_layout`) or tensors (K20's layout, formed on the card)."""
 
     def __init__(self, counts, base, groups, n_slots):
         self.counts = counts
@@ -93,10 +106,18 @@ class RowLayout:
                  f"({100 * self.padded_share:.1f}% padding)"]
         for gi, (h, K, s0) in enumerate(self.groups):
             n = int(self.counts[h].sum())
-            lines.append(f"  group {gi + 1}/{len(self.groups)}: {h.size} "
+            lines.append(f"  group {gi + 1}/{len(self.groups)}: {len(h)} "
                          f"halos x width {K}, {n} radii "
-                         f"({100 * (1 - n / (h.size * K)):.1f}% padding)")
+                         f"({100 * (1 - n / (len(h) * K)):.1f}% padding)")
         return "\n".join(lines)
+
+    def numpy(self):
+        """The layout with its arrays on the host, as numpy arrays."""
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return RowLayout(host(self.counts), host(self.base),
+                         [(host(h), K, s0) for h, K, s0 in self.groups],
+                         self.n_slots)
 
 
 def row_layout(counts, budget=ROW_BUDGET):
@@ -118,6 +139,31 @@ def row_layout(counts, budget=ROW_BUDGET):
             groups.append((h, K, slot))
             slot += K * h.size
     return RowLayout(counts, base, groups, slot)
+
+
+def class_slots(class_counts):
+    """The slots of the rows of ``class_counts`` halos a width class."""
+    return sum(class_width(k) * G for k, G in enumerate(class_counts) if G)
+
+
+def class_groups(class_counts, order, budget=ROW_BUDGET):
+    """The groups of :func:`row_layout` from the halos a width class
+    (``class_counts``, CLASSES host ints) and the halos in (class, index)
+    order (``order``, a tensor or array): each class's halos cut every
+    ``budget // K`` of them."""
+    groups = []
+    slot = at = 0
+    for k, G in enumerate(class_counts):
+        if not G:
+            continue
+        K = class_width(k)
+        per = max(1, budget // K)
+        for start in range(0, G, per):
+            m = min(per, G - start)
+            groups.append((order[at + start:at + start + m], K, slot))
+            slot += K * m
+        at += G
+    return groups
 
 
 def uniform_layout(m, K):
@@ -179,8 +225,9 @@ def readout(fn, r, layout, cols, out_dtype, out=None):
 
     call = torch.func.vmap(row)
     for h, K, s0 in layout.groups:
-        G = h.size
+        G = len(h)
         rows = r[s0:s0 + G * K].view(G, K)
+        # a layout formed on the card holds its ids and counts there
         hi = torch.as_tensor(h, device=dev)
         valid = (torch.arange(K, device=dev)[None, :]
                  < torch.as_tensor(layout.counts[h], device=dev)[:, None])

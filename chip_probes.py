@@ -1,16 +1,18 @@
 """Design probes of kernels K4 (tile deposit), K10 and K12 (tile paint and
 paint2, K4's template in its paint modes), K11 (disc paint), K3 (scatter
-regrid), K1 (curve collapse), K9, K6, K22 and K23 (the grid and snapshot
-direct readout) on the card, at the bench inputs of chip_smoke.py.
+regrid), K1 (curve collapse), K9, K6, K20-K23 (the shell, grid and
+snapshot direct readout) on the card, at the bench inputs of
+chip_smoke.py.
 
-    python3 chip_probes.py [K4] [K3] [K1] [K22] [K23]  # builds included
+    python3 chip_probes.py [K4] [K3] [K1] [K22] [K23] [K21]  # builds included
     python3 chip_probes.py --tree DIR calls
     python3 chip_probes.py --tree DIR direct
+    python3 chip_probes.py --tree DIR K20
 
 With no argument it runs the variant sections: K4 (tile_deposit.cu with
 K10, K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu), K9
-(table_rows.cu), K6 (stencil_finish.cu), K22 (grid_cutout.cu) and K23
-(snapshot.cu). The
+(table_rows.cu), K6 (stencil_finish.cu), K22 (grid_cutout.cu), K23
+(snapshot.cu) and K21 (disc_direct.cu). The
 section ``calls`` builds no variant: it times K1 and K3 as the scatter
 shell runner calls them, with the ``baryonforge_torch`` package of the
 tree DIR (this checkout's by default; another one, such as a ``git
@@ -109,6 +111,35 @@ snapshot.cu (K23 at the snapshot bench, float32, random values):
   timing only: radii_no_coords, gather_no_coords (a stand-in for each
   position read), gather_no_vals (a stand-in for each value)
 
+disc_direct.cu (K21 at the bench shell, displacement, float32, on K20's
+rows and random values; each variant that keeps the results held to the
+plain version first; also the wrapper's memset of the accumulator alone,
+and every entry on the device alone, a CUDA graph of 20):
+  kernel       a thread a slot, the two tangent components by one float2
+               atomic (sm_90)
+  slots4       4 consecutive slots a thread
+  scalar       two scalar atomics, as before the redesign
+  timing only: no_atomics (plain stores), no_geo (a stand-in for the
+  geometry reads), no_halo (a stand-in for the halo's a)
+  and K20's layout pass alone (a CUDA graph of 20) on the bench's row
+  counts, each variant held equal to the kernel's layout bit for bit:
+  kernel (one block of 32 warps, 4 halos a lane a chunk, the class peers
+  by __match_any_sync), ballot (the peers by 7 ballots), lane16 (16
+  halos a lane)
+  K21p (PARENT_VARIANTS, with --tree on a checkout of the commit before
+  the redesign): kernel (two scalar atomics), vec2 (one float2 atomic),
+  no_atomics, no_geo, no_halo.
+
+K20 (the package of --tree; K20 at the bench shell, displacement,
+float32, split into its parts: each by call, the mean of 20 in turns, and
+those on the device only alone, a CUDA graph of 20): with the layout
+formed on the card, the count launch, the layout launch, the class
+counts' copy, the rows' allocation (torch.empty), the write launch, the
+host's groups (cut while the write pass runs) and the three launches
+together; with the host layout of the commit before, the count launch,
+the counts' copy and the host row_layout, the slot fills, the upload of
+base, the write launch and the device's three steps together.
+
 calls (the package of --tree; the shell runner on the scatter path at
 the bench, float32; CUDA events, the mean of 50 calls, in turns):
   halo columns to curves   _halo_tensors then _halo_curves, as the tree's
@@ -118,19 +149,24 @@ the bench, float32; CUDA events, the mean of 50 calls, in turns):
   K3 regrid                the wrapper on K2's offsets at the bench
   and the medians of 8 process() calls' host_prep and curves phases.
 
-direct (the package of --tree; K22 and K23 as the direct readout's
+direct (the package of --tree; K20-K23 as the direct readout's
 runners call them, float32, models behind a readout-only wrapper):
-  the 3D BaryonifyGrid and PaintProfilesGrid at 256^3, the 2D
-  PaintProfilesAnisGrid at 2048^2 and the snapshot bench, one warm and 3
-  timed calls each: the medians of every phase, of radii + apply (K22's
-  or K23's share of a call) and of the call, and K22's and K23's
-  launches a call; then by wrapper call (CUDA events, the mean of 10, in
-  turns) K22's radii and apply on the 3D baryonify's first chunk of its
-  largest bucket (random values), K22's radii + apply on that bucket's
-  first apply group of 2^28 cells at most as the tree's runner takes it
-  (one radii pass and one apply, or each chunk's in turn), and K23's
-  radii and gather at the snapshot bench, each tree through its own
-  entry points.
+  the bench shell on the scatter path (the S19 table), the tSZ paint at
+  epsilon_max 5 and the anisotropic scatter shell, the 3D BaryonifyGrid
+  and PaintProfilesGrid at 256^3, the 2D PaintProfilesAnisGrid at 2048^2
+  and the snapshot bench, one warm and 3 timed calls each: the medians of
+  every phase, of radii + apply (K20 and K21's, K22's or K23's share of a
+  call) and of the call, and K20-K23's launches a call; then by wrapper
+  call (CUDA events, the mean of 10, in turns) K20 and K21 at the bench
+  shell (displacement, float32; K21 on random values) beside K21's
+  index_add_ yardstick, K22's radii and apply on the 3D baryonify's first
+  chunk of its largest bucket (random values), K22's radii + apply on
+  that bucket's first apply group of 2^28 cells at most as the tree's
+  runner takes it (one radii pass and one apply, or each chunk's in
+  turn), and K23's radii and gather at the snapshot bench, each tree
+  through its own entry points; last, digests of K20's rows and layout
+  at the bench in every mode (two trees that agree wrote them bit for
+  bit).
 
 The last lines are one JSON object of the readings (ms) and the card's
 nvidia-smi name and power limit.
@@ -595,13 +631,82 @@ VARIANTS["snapshot.cu"] = {
         "        double v = double(p & 1023) - hpos[(long long)e.y * "
         "NDIM + c];\n")],
 }
+_K21_GEO = ("  const T amp = d / geo[3 * s + 2];\n"
+            "  T t_th = amp * geo[3 * s];\n"
+            "  T t_ph = amp * geo[3 * s + 1];\n",
+            "  const T amp = d / T(1 + (s & 3));\n"
+            "  T t_th = amp * T(0.5);\n"
+            "  T t_ph = amp * T(0.25);\n")
+_K21_HALO = ("  T d = T(vals[s] * a[hid[s]]);\n",
+             "  T d = T(vals[s] * 0.5);\n")
+_K21_VEC2 = ("  atomicAdd(reinterpret_cast<float2*>(acc) + p, "
+             "make_float2(t_th, t_ph));\n")
+VARIANTS["disc_direct.cu"] = {
+    "kernel": [],
+    # 4 consecutive slots a thread (a warp's atomics then spread over 4
+    # times the pixels)
+    "slots4": [("  if (s < n) apply_displace_slot(s, pix, hid, geo, vals, a, "
+                "acc);\n",
+                "  for (long long t = 4 * s; t < 4 * s + 4 && t < n; ++t)\n"
+                "    apply_displace_slot(t, pix, hid, geo, vals, a, acc);\n"),
+               ("    apply_displace_kernel<T><<<apply_blocks(n), "
+                "kApplyThreads, 0,",
+                "    apply_displace_kernel<T><<<apply_blocks((n + 3) / 4), "
+                "kApplyThreads, 0,")],
+    # two scalar atomics, as before the redesign
+    "scalar": [(_K21_VEC2, "  atomicAdd(acc + 2 * (long long)p, t_th);\n"
+                           "  atomicAdd(acc + 2 * (long long)p + 1, t_ph);"
+                           "\n")],
+    # timing only
+    "no_atomics": [(_K21_VEC2, "  acc[2 * (long long)p] = t_th;\n"
+                               "  acc[2 * (long long)p + 1] = t_ph;\n")],
+    "no_geo": [_K21_GEO],
+    "no_halo": [_K21_HALO],
+    # K20's layout pass, each held equal to the kernel's layout bit for
+    # bit: the class peers by a ballot a bit of the class (7 ballots)
+    # instead of __match_any_sync; 16 halos a lane a chunk instead of 4
+    "ballot": [("  return __match_any_sync(kFull, k);\n",
+                "  const unsigned key = unsigned(k + 1);\n"
+                "  unsigned peers = kFull;\n"
+                "#pragma unroll\n"
+                "  for (int b = 0; b < 7; ++b) {\n"
+                "    const unsigned m = __ballot_sync(kFull, (key >> b) & 1u);"
+                "\n"
+                "    peers &= (key >> b) & 1u ? m : ~m;\n"
+                "  }\n"
+                "  return peers;\n")],
+    "lane16": [_const("kPerLane", 4, 16)],
+}
+# the variants of K20's layout pass (the others are K21's)
+LAYOUT_VARIANTS = {"ballot", "lane16"}
+# K21 before its redesign (a thread a slot, two scalar atomics, the
+# accumulator zeroed by the wrapper), whose source only a checkout of an
+# earlier commit holds: section K21p, run with --tree on such a checkout
+_K21P_ATOMICS = ("  atomicAdd(acc + 2 * (long long)p, t_th);\n"
+                 "  atomicAdd(acc + 2 * (long long)p + 1, t_ph);\n")
+PARENT_VARIANTS["disc_direct.cu"] = {
+    "kernel": [],
+    # one 8-byte float2 atomic (sm_90) in place of two scalar ones
+    "vec2": [(_K21P_ATOMICS,
+              "  if constexpr (sizeof(T) == 4) {\n"
+              "    atomicAdd(reinterpret_cast<float2*>(acc) + p,\n"
+              "              make_float2(t_th, t_ph));\n"
+              "  } else {\n" + _K21P_ATOMICS + "  }\n")],
+    # timing only
+    "no_atomics": [(_K21P_ATOMICS,
+                    "  acc[2 * (long long)p] = t_th;\n"
+                    "  acc[2 * (long long)p + 1] = t_ph;\n")],
+    "no_geo": [_K21_GEO],
+    "no_halo": [_K21_HALO],
+}
 TIMING_ONLY = {"no_row_trig", "no_rows", "no_slot_geometry", "no_stage",
                "no_zero", "no_pairs", "no_move", "init_plain", "move_list",
                "move_gathers",
                "no_geometry", "no_atomics", "no_search", "no_corners",
                "empty", "no_inversion", "no_chain", "no_scan", "no_phi_div",
                "no_moved", "no_div", "no_vals", "no_sqrt", "radii_no_coords",
-               "gather_no_vals", "gather_no_coords"}
+               "gather_no_vals", "gather_no_coords", "no_atomics", "no_geo",
+               "no_halo"}
 # variants whose results must equal the kernel's bit for bit
 BITWISE = {"sin_cos", "int_div", "unroll2", "zero_div", "zero_vec",
            "vec_out", "fast_div", "radii_unroll", "occ2", "occ4", "stride"}
@@ -665,7 +770,9 @@ def build_variants(work, sources):
                           r"|regrid_\w+_kernelIffE|collapse_curves_kernelIfE"
                           r"|stencil_\w+_kernelIf+E|\w+_rows_kernel"
                           r"|enclosed_mass_kernel|grid_direct_kernelIfLi0ELi3E"
-                          r"|snapshot_\w+_kernel\w*Li3E)",
+                          r"|snapshot_\w+_kernel\w*Li3E"
+                          r"|disc_\w+_kernelIfE|apply_displace_kernelIfE"
+                          r"|disc_layout_kernel)",
                           line)
             if "Compiling entry function" in line:
                 entry = m.group(1) if m else None
@@ -1197,7 +1304,7 @@ DIRECT_CALLS = 3
 def _direct_calls(torch, runner, label, gpu):
     """One warm and DIRECT_CALLS timed process() calls: the medians of
     each phase (CUDA events), of radii + apply and of the call, and the
-    K22 / K23 launches a call."""
+    K20-K23 launches a call."""
     from baryonforge_torch.ops import _build
     runner.process()
     _build.reset_launches()
@@ -1217,24 +1324,99 @@ def _direct_calls(torch, runner, label, gpu):
                               for k, v in _build.launches.items()
                               if k in ("grid_radii", "grid_direct",
                                        "tile_pairs", "snapshot_radii",
-                                       "snapshot_direct")}
+                                       "snapshot_direct", "disc_radii",
+                                       "disc_apply")}
     cs.log(f"[{gpu}] direct {label}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in out.items() if k != "launches a call")
         + f" ms; launches a call {out['launches a call']}")
     return out
 
 
-def probe_direct(bf, torch, b, libs, gpu):
-    """K22 and K23 as the direct readout's runners call them, with the
-    package that was imported (see the module docstring): the 3D
-    BaryonifyGrid and PaintProfilesGrid at 256^3 and the 2D
-    PaintProfilesAnisGrid at 2048^2 (chip_smoke.py's ΔP(k) catalog, 7,088
-    halos, float32) and the snapshot bench (float32), each call's phases;
-    then K22 on the 3D baryonify's first chunk and first apply group of
-    its largest bucket and K23 at the snapshot bench by wrapper call, in
-    turns."""
+def _direct_shells(bf, torch, b):
+    """The direct shell runners of chip_smoke.py's step 19, float32, each
+    model behind a readout-only wrapper: the bench shell on the scatter
+    path (the S19 table; K20, K21, K3), the tSZ paint at epsilon_max 5
+    (K20, K21) and the anisotropic scatter shell (K20, K21, K14)."""
+    f32, f64, dev = torch.float32, torch.float64, b.dev
+    # the table's proj_cutoff (it was built with 100) sets the Anis
+    # background's depth
+    b.tsz.proj_cutoff = 100
+    m = _Hide(b.tsz.with_dtype(f64, device=dev))
+    return {
+        "BaryonifyShell": bf.BaryonifyShell(
+            b.cat, b.shell, epsilon_max=cs.EPS_MAX,
+            model=_Hide(b.model.with_dtype(f32, device=dev)),
+            deposit="scatter", regrid="scatter", dtype=f32,
+            regrid_dtype=f32, device=dev),
+        "PaintProfilesShell (tSZ)": bf.PaintProfilesShell(
+            b.cat, b.shell, epsilon_max=cs.PAINT_EPS,
+            model=_Hide(b.tsz.with_dtype(f32, device=dev)),
+            deposit="scatter", dtype=f32, device=dev),
+        "PaintProfilesAnisShell": bf.PaintProfilesAnisShell(
+            b.cat, cs.anis_shell(bf, b.shell), epsilon_max=cs.PAINT_EPS,
+            model=m, Tracer_model=m, Mtot_model=b.tsz,
+            background_val=cs.ANIS_BG, global_tracer_fraction=cs.ANIS_FRAC,
+            deposit="scatter", dtype=f32, device=dev)}
+
+
+def _bench_rows(torch, b):
+    """K20's inputs at the bench shell (the halo columns of the direct
+    BaryonifyShell) and K21's: K20's float32 displacement rows and
+    random float64 values on them."""
+    from baryonforge_torch.ops import deposit
+    halos = b.runner._direct_halos(b.hd)
+    rows, lay = deposit.disc_radii(cs.NSIDE, halos, "displace",
+                                   torch.float32)
+    gen = torch.Generator(device=b.dev).manual_seed(5)
+    vals = torch.rand(lay.n_slots, generator=gen, device=b.dev,
+                      dtype=torch.float64)
+    return halos, rows, lay, vals
+
+
+def _k20_digests(torch, b):
+    """SHA-256 digests of K20's rows (pixel, halo, r, geometry) and layout
+    (counts, bases, groups) at the bench halos in every mode (float32, and
+    the displacement in float64 too), through the tree's own entry point:
+    two trees whose digests agree wrote the same rows and layout bit for
+    bit."""
+    import hashlib
     import numpy as np
-    from baryonforge_torch.ops import direct, grid, snapshot
+    from baryonforge_torch.ops import deposit
+    halos = b.runner._direct_halos(b.hd)
+    out = {}
+    for mode, dt in (("displace", torch.float32), ("displace", torch.float64),
+                     ("paint", torch.float32), ("anis", torch.float32)):
+        rows, lay = deposit.disc_radii(cs.NSIDE, halos, mode, dt)
+        h = hashlib.sha256()
+        for k in ("pix", "hid", "r", "geo"):
+            if rows[k] is not None:
+                h.update(rows[k].cpu().numpy().tobytes())
+        host = lay.numpy() if hasattr(lay, "numpy") else lay
+        h.update(np.asarray(host.counts, dtype=np.int64).tobytes())
+        h.update(np.asarray(host.base, dtype=np.int64).tobytes())
+        for g, K, s0 in host.groups:
+            h.update(np.asarray(g, dtype=np.int64).tobytes())
+            h.update(np.array([K, s0, host.n_slots], dtype=np.int64)
+                     .tobytes())
+        out[f"{mode} {str(dt)[6:]}"] = h.hexdigest()[:16]
+    cs.log(f"  K20 digests (rows and layout): {out}")
+    return out
+
+
+def probe_direct(bf, torch, b, libs, gpu):
+    """The direct readout's runners and K20-K23 as they call them, with the
+    package that was imported (see the module docstring): the three direct
+    shells (the bench shell on the scatter path, the tSZ paint at
+    epsilon_max 5, the anisotropic scatter shell), the 3D BaryonifyGrid
+    and PaintProfilesGrid at 256^3 and the 2D PaintProfilesAnisGrid at
+    2048^2 (chip_smoke.py's ΔP(k) catalog, 7,088 halos) and the snapshot
+    bench, float32, each call's phases; then by wrapper call, in turns,
+    K20 and K21 at the bench shell (with K21's index_add_ yardstick), K22
+    on the 3D baryonify's first chunk and first apply group of its largest
+    bucket and K23 at the snapshot bench."""
+    import numpy as np
+    from baryonforge_torch.ops import deposit, direct, grid, paint, snapshot
+    from baryonforge_torch.ops import healpix as hpx
     from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
     from baryonforge_torch.Runners import Map2DRunner
     from baryonforge_torch.Runners.Map2DRunner import GRID_CELL_BUDGET
@@ -1258,6 +1440,8 @@ def probe_direct(bf, torch, b, libs, gpu):
     cat2, _ = cs.grid_inputs(bf, 2, cs.GRID2D_N)
     gm2 = cs.grid_map(bf, rng.exponential(1.0, (cs.GRID2D_N,) * 2))
     out = {}
+    for label, runner in _direct_shells(bf, torch, b).items():
+        out[f"direct {label}"] = _direct_calls(torch, runner, label, gpu)
     rb = bf.BaryonifyGrid(cat3, gm3, epsilon_max=cs.GRID_BARYON_EPS,
                           model=hide(b3), dtype=f32, device=dev)
     out["direct BaryonifyGrid 3D"] = _direct_calls(torch, rb, "BaryonifyGrid "
@@ -1345,17 +1529,33 @@ def probe_direct(bf, torch, b, libs, gpu):
         def gather():
             return snapshot.snapshot_direct(coords, hpos, halos, layout,
                                             eslot, svals, L)
-    fns = {"K22 radii (one chunk)": lambda: grid.grid_radii(npix, Ns, res,
+    # K20 and K21 at the bench shell, displacement, float32; K21's
+    # yardstick: the tangent offsets formed beforehand, one index_add_
+    dhalos, rows, lay, dvals = _bench_rows(torch, b)
+    live = rows["pix"] >= 0
+    pl = rows["pix"][live].long()
+    delta = torch.randn((pl.numel(), 2), generator=gen, device=dev,
+                        dtype=f32)
+    fns = {"K20 disc_radii": lambda: deposit.disc_radii(
+               cs.NSIDE, dhalos, "displace", f32),
+           "K21 disc_apply": lambda: paint.disc_apply(
+               "displace", cs.NSIDE, rows, dvals, dhalos),
+           "K21 index_add_ yardstick": lambda: torch.zeros(
+               (hpx.npix(cs.NSIDE), 2), device=dev, dtype=f32).index_add_(
+                   0, pl, delta),
+           "K22 radii (one chunk)": lambda: grid.grid_radii(npix, Ns, res,
                                                             part),
            "K22 apply (one chunk, its lists)": lambda: grid.grid_direct(
                "displace", npix, Ns, res, part, gvals, acc),
            "K22 radii + apply (one group, as the tree's runner cuts "
            "it)": group_k22,
            "K23 radii": radii, "K23 gather": gather}
-    cs.log(f"  K22's chunk: {step} halos x {Ns}^3 cells, its group "
-           f"{ix.numel()} halos; K23: {parts.numel()} pairs")
+    cs.log(f"  K20/K21: {lay.n_slots} slots, {pl.numel()} members; K22's "
+           f"chunk: {step} halos x {Ns}^3 cells, its group {ix.numel()} "
+           f"halos; K23: {parts.numel()} pairs")
     out["direct wrappers"] = report(gpu, "direct", timed_in_turns(
         torch, fns, reps=10))
+    out["K20 digests"] = _k20_digests(torch, b)
     return out
 
 
@@ -1402,6 +1602,176 @@ def _direct_bench(bf, torch, dev):
     snap_args = (torch.as_tensor(hpos, device=dev), halos, offsets,
                  layout[:2], dlay, svals, snap.L)
     return (cs.GRID3D_N, Ns, gm3.res, parts), snap_args
+
+
+def probe_disc_radii(bf, torch, b, libs, gpu):
+    """K20 at the bench shell (displacement, float32) split into its parts,
+    with the package that was imported: each part by call (CUDA events,
+    the mean of 20, in turns) and, where it runs on the device only, alone
+    (a CUDA graph of 20), beside the whole wrapper. The parts of the
+    layout formed on the card (a tree with ``ops.deposit._k20_layout``):
+    the count launch, the layout launch, the class counts' copy, the rows'
+    allocation, the write launch, the host's groups (cut while the write
+    pass runs). Those of the
+    two-walk design with a host layout (an earlier tree): the count
+    launch, the counts' copy and the host row_layout, the slot fills, the
+    upload of base, the write launch."""
+    import numpy as np
+    from baryonforge_torch.ops import _build, deposit, direct
+    f32, dev, N = torch.float32, b.dev, cs.NSIDE
+    halos = b.runner._direct_halos(b.hd)
+    n = halos["theta"].numel()
+    cols = [halos[k].contiguous() for k in deposit._DIRECT_COLUMNS]
+    fn = _build.library().bf_disc_radii_f32
+    wrapper = {"wrapper": lambda: deposit.disc_radii(N, halos, "displace",
+                                                     f32)}
+    if hasattr(deposit, "_k20_layout"):
+        def count_launch():
+            return deposit._k20_count(fn, 0, N, cols)
+        members, counts = count_launch()
+
+        def layout_launch():
+            return deposit._k20_layout(counts)
+        base, order, class_counts = layout_launch()
+
+        def copy():
+            return direct.class_slots(class_counts.tolist())
+        n_slots = copy()
+
+        def groups():
+            return direct.class_groups(hist, order)
+        hist = class_counts.tolist()
+
+        def alloc():
+            return deposit._k20_rows(n_slots, "displace", f32, dev)
+        rows = alloc()
+
+        def write_launch():
+            deposit._k20_write(fn, 0, N, cols, members, base, rows)
+
+        def device():
+            count_launch()
+            layout_launch()
+            write_launch()
+        by_call = dict(wrapper, **{
+            "count launch": count_launch, "layout launch": layout_launch,
+            "class counts' copy": copy, "row allocation": alloc,
+            "write launch": write_launch, "groups (host)": groups})
+        alone = {"count launch": count_launch,
+                 "layout launch": layout_launch,
+                 "write launch": write_launch,
+                 "count, layout, write": device}
+        cs.log(f"  K20 at the bench: {n} halos, {int(counts.sum())} row "
+               f"radii, {n_slots} slots in {len(groups())} groups")
+    else:
+        ptrs = [_build.ptr(c) for c in cols]
+        count = torch.zeros(n, dtype=torch.int32, device=dev)
+
+        def count_launch():
+            _build.check(fn(0, N, n, *ptrs, 0, _build.ptr(count), None,
+                            None, None, None, None, _build.stream_of(count)),
+                         "K20")
+
+        def copy_layout():
+            members = count.cpu().numpy().astype(np.int64)
+            return direct.row_layout(deposit._row_counts("displace",
+                                                         members))
+        count_launch()
+        lay = copy_layout()
+
+        def fills():
+            return deposit._rows_empty(lay.n_slots, "displace", f32, dev)
+
+        def upload():
+            return torch.as_tensor(lay.base, device=dev)
+        rows, base = fills(), upload()
+
+        def write_launch():
+            _build.check(fn(0, N, n, *ptrs, 1, _build.ptr(count),
+                            _build.ptr(base), _build.ptr(rows["pix"]),
+                            _build.ptr(rows["hid"]), _build.ptr(rows["r"]),
+                            _build.ptr(rows["geo"]),
+                            _build.stream_of(count)), "K20")
+
+        def device():
+            count_launch()
+            fills()
+            write_launch()
+        by_call = dict(wrapper, **{
+            "count launch": count_launch,
+            "counts' copy + host row_layout": copy_layout,
+            "slot fills": fills, "base upload": upload,
+            "write launch": write_launch})
+        alone = {"count launch": count_launch, "slot fills": fills,
+                 "write launch": write_launch,
+                 "count, fills, write": device}
+        cs.log(f"  K20 at the bench: {n} halos, {lay.n_radii} row radii, "
+               f"{lay.n_slots} slots in {len(lay.groups)} groups")
+    return {"K20 parts": report(gpu, "K20", timed_in_turns(torch, by_call),
+                                " by call"),
+            "K20 parts alone": report(gpu, "K20", timed_in_turns(
+                torch, alone, timer=lambda f: cs.graph_ms(torch, f)),
+                " (device alone)")}
+
+
+def probe_disc_apply(bf, torch, b, libs, gpu):
+    """K21 (disc_direct.cu) at the bench shell, displacement, float32, on
+    K20's rows and random values: the variants by wrapper call, each that
+    keeps the results first held to the plain version (1e-5 of the
+    offsets' largest, as chip_smoke.py holds the kernel), and the
+    accumulator's memset (the wrapper's torch.zeros) alone; then K20's
+    layout pass and its variants (LAYOUT_VARIANTS, each held to the
+    kernel's layout bit for bit first) on the bench's row counts."""
+    from baryonforge_torch.ops import _build, deposit, paint
+    from baryonforge_torch.ops import healpix as hpx
+    halos, rows, lay, vals = _bench_rows(torch, b)
+    want = paint.disc_apply_plain("displace", cs.NSIDE, rows, vals, halos)
+    scale = float(want.abs().max())
+    fns = {}
+    for (src, v), lib in libs.items():
+        if src != "disc_direct.cu" or v in LAYOUT_VARIANTS:
+            continue
+        if v not in TIMING_ONLY:
+            _build._lib = lib
+            got = paint.disc_apply("displace", cs.NSIDE, rows, vals, halos)
+            cs.check(f"K21 [{v}] against the plain version",
+                     float((got - want).abs().max()), 1e-5 * scale)
+
+        def run(lib=lib):
+            _build._lib = lib
+            return paint.disc_apply("displace", cs.NSIDE, rows, vals, halos)
+        fns[v] = run
+    fns["memset alone"] = lambda: torch.zeros(
+        (hpx.npix(cs.NSIDE), 2), dtype=torch.float32, device=b.dev)
+    out = {"K21": report(gpu, "K21", timed_in_turns(torch, fns)),
+           "K21 alone": report(gpu, "K21", timed_in_turns(
+               torch, fns, timer=lambda f: cs.graph_ms(torch, f)),
+               " (device alone)")}
+    layouts = {}
+    if hasattr(deposit, "_k20_layout"):
+        counts = lay.counts
+        _build._lib = libs[("disc_direct.cu", "kernel")]
+        ref = deposit._k20_layout(counts)
+        for v in ["kernel"] + sorted(LAYOUT_VARIANTS):
+            lib = libs.get(("disc_direct.cu", v))
+            if lib is None:
+                continue
+            _build._lib = lib
+            got = deposit._k20_layout(counts)
+            n_ord = int(ref[2].sum())
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+                    and torch.equal(got[1][:n_ord], ref[1][:n_ord])):
+                raise AssertionError(f"K20 layout [{v}]: not the kernel's")
+
+            def run(lib=lib):
+                _build._lib = lib
+                return deposit._k20_layout(counts)
+            layouts[v] = run
+        out["K20 layout alone"] = report(gpu, "K20 layout", timed_in_turns(
+            torch, layouts, timer=lambda f: cs.graph_ms(torch, f)),
+            " (device alone)")
+    _build._lib = None
+    return out
 
 
 def probe_grid_direct(bf, torch, b, libs, gpu):
@@ -1539,6 +1909,9 @@ SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
             "direct": ((), probe_direct),
             "K22": (("grid_cutout.cu",), probe_grid_direct),
             "K23": (("snapshot.cu",), probe_snapshot_direct),
+            "K20": ((), probe_disc_radii),
+            "K21": (("disc_direct.cu",), probe_disc_apply),
+            "K21p": (("disc_direct.cu",), probe_disc_apply, PARENT_VARIANTS),
             "K9p": (("table_rows.cu",), probe_table_rows_parent,
                     PARENT_VARIANTS),
             "K6p": (("stencil_finish.cu",), probe_stencil_finish_parent,
@@ -1558,7 +1931,8 @@ def main(argv):
     from baryonforge_torch.ops import _build
     cs.log(f"baryonforge_torch from {os.path.dirname(bf.__file__)}")
     want = argv or [k for k in SECTIONS
-                    if k not in ("calls", "rows", "direct", "K9p", "K6p")]
+                    if k not in ("calls", "rows", "direct", "K9p", "K6p",
+                                 "K20", "K21p")]
     if not set(want) <= set(SECTIONS):
         print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
         return 2
@@ -1566,9 +1940,9 @@ def main(argv):
     cs.log(gpu)
     results = {}
     with tempfile.TemporaryDirectory() as work:
-        sources = [(src, (SECTIONS[k][2] if len(SECTIONS[k]) > 2
-                          else VARIANTS)[src])
-                   for k in want for src in SECTIONS[k][0]]
+        sources = {src: (SECTIONS[k][2] if len(SECTIONS[k]) > 2
+                         else VARIANTS)[src]
+                   for k in want for src in SECTIONS[k][0]}.items()
         libs = {k: _Library(p)
                 for k, p in build_variants(work, sources).items()}
         b = Bench(bf, torch)

@@ -226,7 +226,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      shapes, timed beside them: K22 on the 3D baryonify's first chunk of
      its largest size bucket, as the runner cuts it, with the readout's
      own values; K20's float64 r held to what the gap between the
-     device's and torch's ring colatitudes explains;
+     device's and torch's ring colatitudes explains, its layout (formed
+     on the card) to row_layout's bit for bit and its pad slots to the
+     fills they replace;
  20. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
      K16's, K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
@@ -349,7 +351,13 @@ EARLIER_MS = {"grid_cutout": (37.545, "the atomic cutouts"),
                               "(chip_probes.py direct)"),
               "snapshot_direct": (1.0982, "a thread a pair with per-pair "
                                   "row and slot tensors, a thread a "
-                                  "particle gathering slots")}
+                                  "particle gathering slots"),
+              "disc_radii": (2.62, "two walks around a copy of the counts "
+                             "to the host, its numpy row_layout, the slot "
+                             "fills and an upload of base (chip_probes.py "
+                             "direct)"),
+              "disc_apply": (0.151, "two scalar atomics a slot "
+                             "(chip_probes.py direct)")}
 # H100 SXM data sheet: HBM bytes/s, FLOP/s outside the tensor cores; and
 # float64 instructions a second (an fma is one): 132 SMs x 64 a clock at
 # the 1.98 GHz boost clock
@@ -3755,11 +3763,35 @@ def k20_r_cause(torch, halos, rows, lay, ref):
             float((gap / ulp).max()), slope)
 
 
+def k20_layout_check(lay, want, rows):
+    """K20's layout, formed on the card, equal to the host layout ``want``
+    (row_layout's) bit for bit, and every pad slot of its rows written as
+    the fills it replaces left it (pixel -1, halo, r and geometry 0)."""
+    got = lay.numpy()
+    same = (np.array_equal(got.counts, want.counts)
+            and np.array_equal(got.base, want.base)
+            and got.n_slots == want.n_slots
+            and len(got.groups) == len(want.groups)
+            and all(K == K0 and s0 == s00 and np.array_equal(h, h0)
+                    for (h, K, s0), (h0, K0, s00) in zip(got.groups,
+                                                         want.groups)))
+    if not same:
+        raise AssertionError("K20: its layout is not row_layout's")
+    live = rows["pix"] >= 0
+    pads = [rows[k][~live] for k in ("hid", "r", "geo")
+            if rows[k] is not None]
+    if int(live.sum()) != int(got.counts.sum()) \
+            or any(bool((p != 0).any()) for p in pads):
+        raise AssertionError("K20: a pad slot not written as a pad")
+    log(f"  K20 layout: row_layout's bit for bit ({len(got.groups)} groups, "
+        f"{got.n_slots} slots); {int((~live).sum())} pad slots written")
+
+
 def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
                        snap_part):
     """K20-K23 against their plain versions on the card at the bench
     shapes, timed beside them; returns their kernel rows."""
-    from baryonforge_torch.ops import deposit, paint, snapshot
+    from baryonforge_torch.ops import deposit, direct, paint, snapshot
     from baryonforge_torch.ops import healpix as hpx
     measured = {}
     f32, f64 = torch.float32, torch.float64
@@ -3767,9 +3799,10 @@ def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
     # the error: the rows' integers equal, r as k20_r_cause explains it)
     rows, lay = deposit.disc_radii(NSIDE, halos, "displace", f64)
     ref, lref = deposit.disc_radii_plain(NSIDE, halos, "displace", f64)
-    if not (np.array_equal(lay.counts, lref.counts)
+    if not (np.array_equal(lay.numpy().counts, lref.counts)
             and torch.equal(rows["pix"], ref["pix"])):
         raise AssertionError("K20: rows differ from the plain version's")
+    k20_layout_check(lay, lref, rows)
     # r: its residual against the plain version's is held to what the two
     # ring colatitudes' gap explains (k20_r_cause)
     err, err_dev, again, n_gap, gap, gap_ulp, slope = k20_r_cause(
@@ -3790,7 +3823,8 @@ def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
           gap * slope + 4 * r_ulp)
     rows, lay = deposit.disc_radii(NSIDE, halos, "displace", f32)
     ref, lref = deposit.disc_radii_plain(NSIDE, halos, "displace", f32)
-    flips = int(np.abs(lay.counts - lref.counts).sum())
+    k20_layout_check(lay, direct.row_layout(lay.numpy().counts), rows)
+    flips = int(np.abs(lay.numpy().counts - lref.counts).sum())
     check("K20 disc_radii [bench, displace, float32] members flipped on a "
           "disc's edge (the device's sinf)", flips, 1e-3 * lref.n_radii)
     ms = time_ms(torch, lambda: deposit.disc_radii(NSIDE, halos, "displace",
@@ -3799,15 +3833,17 @@ def direct_kernel_rows(bf, torch, gpu, halos, mode_rows, grid_part,
         NSIDE, halos, "displace", f32), 2)
     n_slots = lay.n_slots
     # bytes: 5 float64 halo columns read, 24 bytes a slot written (pixel,
-    # halo, r, 3 geometry values in float32) and the counts twice;
+    # halo, r, 3 geometry values in float32) and the layout's three int64
+    # arrays a halo (counts, bases, the ids in class order) written once;
     # operations: ~30 float32 a candidate (members / 0.78, the disc's share
     # of its walk's square-ish rings) and 3 float64 transcendentals a ring
-    nb = nbytes(halos) + 24 * n_slots + 8 * len(lay.counts)
+    nb = nbytes(halos) + 24 * n_slots + 24 * len(lay.counts)
     b = bound(nb, 30 * lay.n_radii / 0.78, F32_FLOPS)
     log(f"[{gpu}] K20 disc_radii at the bench ({lay.n_radii} members in "
         f"{len(lay.groups)} groups, {n_slots} slots, "
-        f"{100 * lay.padded_share:.1f}% padding): kernel {ms:.4f} ms (two "
-        f"launches and the counts' copy to the host), plain {plain_ms:.3f} "
+        f"{100 * lay.padded_share:.1f}% padding): kernel {ms:.4f} ms (three "
+        f"launches, the layout formed on the card, one copy of its "
+        f"{direct.CLASSES} class counts to the host), plain {plain_ms:.3f} "
         f"ms, bound {b[0]:.4f} ms ({b[1]})")
     measured["disc_radii"] = (err, ms, plain_ms, b[0], b[1], None)
     # K21 on those rows and the readout's values, float32 offsets

@@ -6,7 +6,9 @@ no jax; run it on the card as
 
     python -m pytest --noconftest -m cuda tests/test_torch_direct_cuda.py
 
-Tolerances: the rows' integers (layout, pixels, halos) equal in float64,
+Tolerances: K20's layout, formed on the card, equal to row_layout's of
+its counts, and its pad slots equal to the fills they replace; the rows'
+integers (layout, pixels, halos) equal in float64,
 and in float32 but for members on a disc's edge, which the device's sinf
 may keep where torch drops them (counted, at most 1e-3 of the members); r
 and the geometry per member to the gap between the device's and torch's
@@ -116,20 +118,56 @@ def _halos(nside, n, eps, dev):
             for k in ("theta", "phi", "radius", "D", "a", "M")}
 
 
+def _same_layout(got, want):
+    """Two host RowLayouts equal: bases, slots, groups (ids, width, first
+    slot)."""
+    np.testing.assert_array_equal(got.base, want.base)
+    assert got.n_slots == want.n_slots
+    assert [(K, s0) for _, K, s0 in got.groups] \
+        == [(K, s0) for _, K, s0 in want.groups]
+    for (h, _, _), (h0, _, _) in zip(got.groups, want.groups):
+        np.testing.assert_array_equal(h, h0)
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("mode", deposit.DIRECT_MODES)
 @pytest.mark.parametrize("nside,n,eps", [(64, 300, 20), (256, 400, 20),
                                          (1024, 64, 60)])
-def test_disc_radii_kernel(dev, dt, mode, nside, n, eps):
-    """K20's rows against the plain version's on the same card tensors."""
+def test_disc_radii_kernel(dev, monkeypatch, dt, mode, nside, n, eps):
+    """K20's rows against the plain version's on the same card tensors;
+    its layout, formed on the card, against row_layout's of its counts
+    bit for bit, also under a budget that cuts its classes into several
+    groups (the rows then the same); every pad slot written (pixel -1,
+    halo, r and geometry 0) into rows the caching allocator hands out
+    dirty."""
     halos = _halos(nside, n, eps, dev)
+    dirty = torch.full((1 << 24,), -7, dtype=torch.int32, device=dev)
+    del dirty
     _build.reset_launches()
     rows, lay = deposit.disc_radii(nside, halos, mode, dt)
     torch.cuda.synchronize()
-    assert _build.launches["disc_radii"] == 2
+    assert _build.launches["disc_radii"] == 3
+    host = lay.numpy()
+    _same_layout(host, direct.row_layout(host.counts))
+    monkeypatch.setattr(direct, "ROW_BUDGET", 16)
+    cut, lcut = deposit.disc_radii(nside, halos, mode, dt)
+    monkeypatch.undo()
+    want = direct.row_layout(host.counts, 16)
+    assert len(want.groups) > len(lay.groups)
+    _same_layout(lcut.numpy(), want)
+    for k in ("pix", "hid", "r"):
+        assert torch.equal(rows[k], cut[k])
+    live = rows["pix"] >= 0
+    assert int(live.sum()) == int(host.counts.sum())
+    assert (rows["hid"][~live] == 0).all() and (rows["r"][~live] == 0).all()
+    if mode == "displace":
+        assert (rows["geo"][~live] == 0).all()
+        assert torch.equal(rows["geo"], cut["geo"])
+    else:
+        assert rows["geo"] is None
     ref, lref = deposit.disc_radii_plain(nside, halos, mode, dt)
     if dt == torch.float64:
-        np.testing.assert_array_equal(lay.counts, lref.counts)
+        np.testing.assert_array_equal(host.counts, lref.counts)
         assert torch.equal(rows["pix"], ref["pix"])
         assert torch.equal(rows["hid"], ref["hid"])
         # each member's pixel angles, the device's (K20 takes theta from
@@ -156,9 +194,9 @@ def test_disc_radii_kernel(dev, dt, mode, nside, n, eps):
             assert (err[:, 2] <= (gap + 4 * eps) * D).all()
         return
     # float32: a member on a disc's edge may flip; the sets otherwise equal
-    off = np.abs(lay.counts - lref.counts).sum()
+    off = np.abs(host.counts - lref.counts).sum()
     assert off <= 1e-3 * lref.counts.sum() + 2, off
-    same = lay.counts == lref.counts
+    same = host.counts == lref.counts
     assert same.mean() > 0.99
 
 
@@ -382,7 +420,7 @@ def test_direct_shells_cuda_match_cpu(dev):
     _build.reset_launches()
     out = bf.BaryonifyShell(cat, shell, model=_Hide(s19.with_dtype(
         torch.float64, device=dev)), device=dev, **kw).process()
-    assert _build.launches["disc_radii"] == 2
+    assert _build.launches["disc_radii"] == 3
     assert _build.launches["disc_apply"] == 1
     assert _build.launches["regrid"] == 1
     ref = bf.BaryonifyShell(cat, shell, model=_Hide(s19), device="cpu",
