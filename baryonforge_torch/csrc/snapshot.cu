@@ -36,6 +36,11 @@
 // order of a sequential index_add_ over the halo-major pairs, the same in
 // every launch. Compiled with --fmad=false, as the plain version computes
 // each product and sum as its own rounded operation.
+// Chunks: a snapshot's halos may come in chunks, in ascending halo order
+// (the runner's PAIR_BUDGET). With `accumulate` each particle's sum starts
+// from its running value in acc instead of 0 (a particle without rows in
+// the chunk is left as it is), so the chunks' terms are added in the one
+// chunk's order and the result is the same bit for bit.
 //
 // K23: the same body for models without halo_curves (the direct branch,
 // off = model.displacement(d, M_h, a), SnapshotRunner.py:196). The model
@@ -106,17 +111,19 @@ snapshot_gather_kernel(int n_part, double L, const double* __restrict__ coords,
                        const int* __restrict__ halos,
                        const Record<T>* __restrict__ rec,
                        const T* __restrict__ curves, int n_r, T ln_r0, T dlnr,
-                       T* __restrict__ acc) {
+                       int accumulate, T* __restrict__ acc) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n_part) return;
+  const int k0 = poff[s], k1 = poff[s + 1];
+  if (accumulate && k0 == k1) return;  // its running sum stands
   const int p = order[s];
   double pp[NDIM];
   for (int c = 0; c < NDIM; ++c) pp[c] = coords[(long long)p * NDIM + c];
   T sum[NDIM];
-  for (int c = 0; c < NDIM; ++c) sum[c] = T(0);
+  for (int c = 0; c < NDIM; ++c)
+    sum[c] = accumulate ? acc[(long long)c * n_part + p] : T(0);
   const double half = L / 2;
-  const int k1 = poff[s + 1];
-  for (int k = poff[s]; k < k1; ++k) {
+  for (int k = k0; k < k1; ++k) {
     const int r = prow[k];
     const Record<T> h = rec[r];
     const T* curve = curves + (long long)halos[r] * n_r;
@@ -157,7 +164,8 @@ snapshot_direct_kernel(int n_part, double L, const double* __restrict__ coords,
                        const int* __restrict__ poff,
                        const int2* __restrict__ rec,
                        const double* __restrict__ hpos,
-                       const T* __restrict__ vals, T* __restrict__ acc) {
+                       const T* __restrict__ vals, int accumulate,
+                       T* __restrict__ acc) {
   __shared__ int s_off[kGatherWarps][33];
   __shared__ T s_term[kGatherWarps][NDIM][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -170,8 +178,11 @@ snapshot_direct_kernel(int n_part, double L, const double* __restrict__ coords,
   const int e0 = off[0], e1 = off[32];
   const int my0 = off[lane], my1 = off[lane + 1];
   const double half = L / 2;
+  const bool mine = s0 + lane < n_part;
+  const long long own = mine ? order[s0 + lane] : 0;  // the lane's particle
   T sum[NDIM];
-  for (int c = 0; c < NDIM; ++c) sum[c] = T(0);
+  for (int c = 0; c < NDIM; ++c)
+    sum[c] = accumulate && mine ? acc[c * (long long)n_part + own] : T(0);
   for (int c0 = e0; c0 < e1; c0 += 32) {
     const int k = c0 + lane;
     if (k < e1) {
@@ -203,10 +214,8 @@ snapshot_direct_kernel(int n_part, double L, const double* __restrict__ coords,
       for (int c = 0; c < NDIM; ++c) sum[c] = sum[c] + s_term[w][c][kk - c0];
     __syncwarp();
   }
-  if (s0 + lane < n_part) {
-    const long long p = order[s0 + lane];
-    for (int c = 0; c < NDIM; ++c) acc[c * (long long)n_part + p] = sum[c];
-  }
+  if (mine && !(accumulate && my0 == my1))
+    for (int c = 0; c < NDIM; ++c) acc[c * (long long)n_part + own] = sum[c];
 }
 
 // K23's radii pass: a warp a piece (row, first pair j0) of the halo-major
@@ -256,7 +265,7 @@ template <typename T>
 int launch(int ndim, int n_part, double L, const double* coords,
            const int* order, const int* poff, const int* prow,
            const int* halos, const void* rec, const T* curves, int n_r,
-           double ln_r0, double dlnr, T* acc, void* stream) {
+           double ln_r0, double dlnr, int accumulate, T* acc, void* stream) {
   if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);
   if (n_part == 0) return 0;
   const int blocks = (n_part + kThreads - 1) / kThreads;
@@ -265,11 +274,11 @@ int launch(int ndim, int n_part, double L, const double* coords,
   if (ndim == 3)
     snapshot_gather_kernel<T, 3><<<blocks, kThreads, 0, s>>>(
         n_part, L, coords, order, poff, prow, halos, r, curves, n_r,
-        T(ln_r0), T(dlnr), acc);
+        T(ln_r0), T(dlnr), accumulate, acc);
   else
     snapshot_gather_kernel<T, 2><<<blocks, kThreads, 0, s>>>(
         n_part, L, coords, order, poff, prow, halos, r, curves, n_r,
-        T(ln_r0), T(dlnr), acc);
+        T(ln_r0), T(dlnr), accumulate, acc);
   return int(cudaGetLastError());
 }
 
@@ -280,15 +289,17 @@ extern "C" {
 // coords (n_part, ndim) float64; order (n_part,), poff (n_part + 1,), prow
 // (P,) the particle-major layout; halos (R,) each halo-major row's halo;
 // rec (R,) the rows' records; curves (n_halos, n_r) in T; acc (ndim,
-// n_part) in T, every entry written
+// n_part) in T, every entry written (accumulate 0: each sum from 0) or
+// each particle's sum continued from its entry (accumulate 1: a chunk of
+// the halos after the earlier ones)
 #define BF_SNAPSHOT(T, SUF)                                                  \
   int bf_snapshot_displace_##SUF(                                            \
       int ndim, int n_part, double L, const double* coords, const int* order, \
       const int* poff, const int* prow, const int* halos, const void* rec,   \
-      const T* curves, int n_r, double ln_r0, double dlnr, T* acc,           \
-      void* stream) {                                                        \
+      const T* curves, int n_r, double ln_r0, double dlnr, int accumulate,   \
+      T* acc, void* stream) {                                                \
     return launch<T>(ndim, n_part, L, coords, order, poff, prow, halos, rec, \
-                     curves, n_r, ln_r0, dlnr, acc, stream);                 \
+                     curves, n_r, ln_r0, dlnr, accumulate, acc, stream);     \
   }
 
 BF_SNAPSHOT(float, f32)
@@ -297,13 +308,14 @@ BF_SNAPSHOT(double, f64)
 
 // K23's gather: coords (n_part, ndim) float64 the positions in `order`;
 // rec (P, 2) int32 each particle-major entry's (slot in vals, halo); hpos
-// (n_halos, ndim) float64; vals (n_slots,) in T
+// (n_halos, ndim) float64; vals (n_slots,) in T; accumulate as for
+// bf_snapshot_displace
 #define BF_SNAPSHOT_DIRECT(T, SUF)                                           \
   int bf_snapshot_direct_##SUF(int ndim, int n_part, double L,               \
                                const double* coords, const int* order,       \
                                const int* poff, const int* rec,              \
-                               const double* hpos, const T* vals, T* acc,    \
-                               void* stream) {                               \
+                               const double* hpos, const T* vals,            \
+                               int accumulate, T* acc, void* stream) {       \
     if (ndim != 2 && ndim != 3) return int(cudaErrorInvalidValue);           \
     if (n_part == 0) return 0;                                               \
     const int per = 32 * kGatherWarps;                                       \
@@ -312,10 +324,10 @@ BF_SNAPSHOT(double, f64)
     cudaStream_t s = (cudaStream_t)stream;                                   \
     if (ndim == 3)                                                           \
       snapshot_direct_kernel<T, 3><<<blocks, per, 0, s>>>(                   \
-          n_part, L, coords, order, poff, e, hpos, vals, acc);               \
+          n_part, L, coords, order, poff, e, hpos, vals, accumulate, acc);   \
     else                                                                     \
       snapshot_direct_kernel<T, 2><<<blocks, per, 0, s>>>(                   \
-          n_part, L, coords, order, poff, e, hpos, vals, acc);               \
+          n_part, L, coords, order, poff, e, hpos, vals, accumulate, acc);   \
     return int(cudaGetLastError());                                          \
   }
 

@@ -25,7 +25,8 @@ check kernel ``pixel_angles``),
 direct readout of models without ``halo_curves``, ``ops/deposit.py`` (K20
 ``disc_radii``), ``ops/paint.py`` (K21 ``disc_apply``), ``ops/grid.py``
 (K22 ``grid_radii`` and ``grid_direct``) and ``ops/snapshot.py`` (K23
-``snapshot_radii`` and ``snapshot_direct``); each wrapper
+``snapshot_radii`` and ``snapshot_direct``; K24, the snapshot's cell list,
+``cell_build``, ``cell_count`` and ``cell_write``); each wrapper
 adds one right where it launches its kernel (``count``, under a lock: the
 runners of ``parallel.SimpleParallel`` launch from several threads), so a
 run can show that its main path went through the kernels.
@@ -100,6 +101,11 @@ def _signatures():
         "bf_grid_radii": [_I] * 3 + [_P, _D] + [_P] * 3,
         "bf_disc_layout": [_I] + [_P] * 5,
         "bf_snapshot_radii": [_I, _I, _I, _D] + [_P] * 9,
+        "bf_cell_bin": [_I, _LL, _D, _D, _I] + [_P] * 5,
+        "bf_cell_place": [_I, _LL, _D] + [_P] * 7,
+        "bf_cell_count": [_I, _LL, _LL, _I, _I, _D, _I] + [_P] * 8,
+        "bf_cell_write": [_I, _LL, _LL, _I, _I, _D, _I] + [_P] * 8
+        + [_LL, _P, _P],
     }
     for sfx in ("f32", "f64"):
         sig[f"bf_flat_view_{sfx}"] = [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3
@@ -127,7 +133,7 @@ def _signatures():
         sig[f"bf_grid_cutout_{sfx}"] = [_I] * 5 + [_P] * 4 + [_D] + [_P] * 3 \
             + curve + curve + [_D] + [_P] * 4
         sig[f"bf_snapshot_displace_{sfx}"] = [_I, _I, _D] + [_P] * 7 \
-            + [_I, _D, _D, _P, _P]
+            + [_I, _D, _D, _I, _P, _P]
         sig[f"bf_disc_radii_{sfx}"] = [_I] * 3 + [_P] * 5 + [_I] + [_P] * 8
         sig[f"bf_disc_apply_displace_{sfx}"] = [_LL] + [_P] * 7
         for rsfx in ("f32", "f64"):
@@ -135,7 +141,8 @@ def _signatures():
             sig[f"bf_disc_apply_paint_{sfx}_{rsfx}"] = \
                 [_LL] + [_P] * 4 + [_I, _D] + [_P] * 2
         sig[f"bf_grid_direct_{sfx}"] = [_I] * 5 + [_P] * 6 + [_D] + [_P] * 8
-        sig[f"bf_snapshot_direct_{sfx}"] = [_I, _I, _D] + [_P] * 8
+        sig[f"bf_snapshot_direct_{sfx}"] = [_I, _I, _D] + [_P] * 6 \
+            + [_I, _P, _P]
     return sig
 
 

@@ -25,10 +25,11 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["MAX_NSIDE", "npix", "nside2pixarea", "ring_info",
-           "ring_above_theta", "ring_theta", "pix2ang", "ang2pix",
-           "get_interp_weights", "disc_pad_sizes", "disc_candidates",
-           "fmod_near", "floor_fmod_near"]
+__all__ = ["MAX_NSIDE", "npix", "nside2pixarea", "ring_info", "ring_above",
+           "ring_above_theta", "ring_theta", "pix2ang", "pix2vec",
+           "ang2pix", "ang2vec", "vec2ang", "lonlat2thetaphi",
+           "get_interp_weights", "interp_values", "disc_pad_sizes",
+           "disc_candidates", "disc_pixels", "fmod_near", "floor_fmod_near"]
 
 MAX_NSIDE = 8192
 _TWO_PI = 2.0 * math.pi
@@ -107,6 +108,19 @@ def ring_dphi(nr, dtype=torch.float64):
 
 def _rt6N(nside, dtype, device):
     return torch.sqrt(torch.tensor(6.0, dtype=dtype, device=device)) * nside
+
+
+def ring_above(nside, z):
+    """Index of the ring strictly north of ``z`` = cos(colatitude) (0 if
+    none), healpix_base's ring_above (ops/healpix.py:71-82): int32 in [0,
+    4 nside - 1]."""
+    N = nside
+    az = torch.abs(z)
+    polar = az > 2.0 / 3.0
+    irn = _int32(torch.floor(N * torch.sqrt(3.0 * (1.0 - az))))
+    ring_pol = torch.where(z > 0, irn, 4 * N - irn - 1)
+    ring_eq = _int32(torch.floor(N * (2.0 - 1.5 * z)))
+    return torch.where(polar, ring_pol, ring_eq)
 
 
 def ring_above_theta(nside, theta):
@@ -195,6 +209,34 @@ def pix2ang(nside, p, dtype=torch.float64):
     theta = torch.where(north, th_n, torch.where(south, th_s, th_e))
     phi = torch.where(north, phi_n, torch.where(south, phi_s, phi_e))
     return theta, phi
+
+
+def pix2vec(nside, p, dtype=torch.float64):
+    """Pixel-centre unit vectors (..., 3) in ``dtype``."""
+    return ang2vec(*pix2ang(nside, p, dtype))
+
+
+def ang2vec(theta, phi):
+    """Unit vectors (..., 3) of colatitudes ``theta`` and longitudes
+    ``phi``."""
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi),
+                        torch.cos(theta)], dim=-1)
+
+
+def vec2ang(vec):
+    """Vectors (..., 3), of any length, to (theta, phi in [0, 2 pi))."""
+    norm = torch.sqrt(torch.sum(vec * vec, dim=-1))
+    theta = torch.arccos(torch.clamp(vec[..., 2] / norm, -1.0, 1.0))
+    phi = torch.atan2(vec[..., 1], vec[..., 0])
+    return theta, torch.where(phi < 0, phi + _TWO_PI, phi)
+
+
+def lonlat2thetaphi(ra_deg, dec_deg):
+    """(theta, phi) in radians of right ascensions and declinations in
+    degrees."""
+    return (torch.deg2rad(90.0 - torch.as_tensor(dec_deg)),
+            torch.deg2rad(torch.as_tensor(ra_deg)))
 
 
 def ang2pix(nside, theta, phi):
@@ -307,6 +349,13 @@ def get_interp_weights(nside, theta, phi, dtype=torch.float64):
     return pix, wgt
 
 
+def interp_values(nside, hmap, theta, phi):
+    """Bilinear interpolation of a ring-ordered map ``hmap`` at (theta,
+    phi), float64 weights (:func:`get_interp_weights`)."""
+    pix, wgt = get_interp_weights(nside, theta, phi)
+    return torch.sum(hmap[pix.long()] * wgt, dim=-1)
+
+
 def disc_pad_sizes(nside, radius_max, sin_min=0.0):
     """Host-side (numpy): padded (K_ring, K_phi) window sizes covering every
     disc of angular radius <= radius_max whose colatitude band keeps
@@ -383,3 +432,13 @@ def disc_candidates(nside, theta0, phi0, radius, K_ring, K_phi,
     n = jj.shape[0]
     return tuple(x.reshape(n, -1) for x in
                  (pix, cos_t, sin_t, dphi_pix, sinhd, mask))
+
+
+def disc_pixels(nside, theta0, phi0, radius, K_ring, K_phi,
+                dtype=torch.float64):
+    """The pixels whose centres lie within ``radius`` of (theta0, phi0),
+    a batch of discs padded to K_ring * K_phi candidates
+    (ops/healpix.py:434-446): (pix, mask), each (n, K_ring * K_phi), the
+    members marked in ``mask`` (:func:`disc_candidates`)."""
+    out = disc_candidates(nside, theta0, phi0, radius, K_ring, K_phi, dtype)
+    return out[0], out[5]

@@ -34,6 +34,21 @@ writes each pair's float64 distance d into its slot of its row, the rows
 gather reading each entry's value from its slot: the value in T, zeroed
 where not finite, times T(dx / d_safe). ``snapshot_radii_plain`` and
 ``snapshot_direct_plain`` are their plain versions.
+
+The pairs may come in chunks of the halos, in ascending halo order (the
+runner cuts a snapshot's halos by its ``PAIR_BUDGET``, :func:`pair_chunks`):
+``snapshot_displace`` and ``snapshot_direct`` given ``acc`` continue each
+particle's sum from it, so a run in chunks equals the one-chunk run bit for
+bit.
+
+Kernel K24 (``csrc/cell_list.cu``) finds the pairs on the card: a periodic
+cell list built once per particle set and cell size (:func:`cell_build`),
+a count pass over all the halos (:func:`cell_count`: each halo's pairs, as
+int64 offsets on the host) and a write pass a chunk of halos
+(:func:`cell_write`: the chunk's particles, grouped per halo). It finds the
+sets of the port's host cell list (``native.cell_query``), with its cells
+(:func:`cell_grid`) and its arithmetic; ``cell_query_plain`` is its plain
+version, a brute-force minimum-image test.
 """
 
 import collections
@@ -45,11 +60,13 @@ from . import _build
 from .direct import row_layout, row_width
 
 __all__ = ["snapshot_displace", "snapshot_displace_plain",
-           "snapshot_gather_plain", "particle_order", "particle_major_plain",
-           "particle_layout", "particle_major_pairs", "DirectLayout",
-           "direct_layout", "RADII_PIECE", "snapshot_radii",
+           "snapshot_gather_plain", "particle_order", "particle_rank",
+           "particle_major_plain", "particle_layout", "particle_major_pairs",
+           "DirectLayout", "direct_layout", "RADII_PIECE", "snapshot_radii",
            "snapshot_radii_plain", "snapshot_direct",
-           "snapshot_direct_plain"]
+           "snapshot_direct_plain", "pair_chunks", "cell_grid", "CellList",
+           "cell_build", "CellQuery", "cell_count", "cell_write",
+           "wrap_plain", "cell_query_plain"]
 
 # pairs of a row a warp of K23's radii pass takes at most
 RADII_PIECE = 256
@@ -93,14 +110,26 @@ def _pair_vectors(coords, hpos, h, p, curves, ln_r0, dlnr, rscale, eps_edge,
     return off[:, None] * (dx / d_safe[:, None]).to(dt)
 
 
+def _start(acc, ndim, n_part, dt, dev):
+    """The sums' start: ``acc`` itself (a chunk after earlier ones), or
+    zeros."""
+    if acc is None:
+        return torch.zeros((ndim, n_part), dtype=dt, device=dev)
+    if tuple(acc.shape) != (ndim, n_part) or acc.dtype != dt \
+            or acc.device != dev:
+        raise ValueError(f"acc must be ({ndim}, {n_part}) {dt} on {dev}")
+    return acc
+
+
 def snapshot_displace_plain(coords, hpos, halos, offsets, parts, curves,
-                            ln_r0, dlnr, rscale, eps_edge, L, layout=None):
+                            ln_r0, dlnr, rscale, eps_edge, L, layout=None,
+                            acc=None):
     """The halo-major reference: every pair at once, summed per particle by
     ``index_add_`` over the halo-major list. Arguments as
     :func:`snapshot_displace` (``layout`` is not read)."""
     dt, dev = curves.dtype, curves.device
     n_part, ndim = coords.shape
-    acc = torch.zeros((ndim, n_part), dtype=dt, device=dev)
+    acc = _start(acc, ndim, n_part, dt, dev)
     counts = (offsets[1:] - offsets[:-1]).long()
     h = torch.repeat_interleave(halos.long(), counts)
     p = parts.long()
@@ -114,15 +143,16 @@ def snapshot_displace_plain(coords, hpos, halos, offsets, parts, curves,
 
 
 def snapshot_gather_plain(coords, hpos, halos, offsets, parts, curves,
-                          ln_r0, dlnr, rscale, eps_edge, L, layout):
+                          ln_r0, dlnr, rscale, eps_edge, L, layout,
+                          acc=None):
     """Plain version of K17: the pairs in the particle-major ``layout``,
-    each particle's displacements summed from 0 in its rows' order (the
-    j-th row of every particle added in step j). Arguments as
-    :func:`snapshot_displace`."""
+    each particle's displacements summed from 0 (or from ``acc``) in its
+    rows' order (the j-th row of every particle added in step j).
+    Arguments as :func:`snapshot_displace`."""
     dt, dev = curves.dtype, curves.device
     n_part, ndim = coords.shape
     order, poff, prow = (x.long() for x in layout)
-    acc = torch.zeros((ndim, n_part), dtype=dt, device=dev)
+    acc = _start(acc, ndim, n_part, dt, dev)
     counts = poff[1:] - poff[:-1]
     if prow.numel() == 0:
         return acc
@@ -153,22 +183,35 @@ def particle_order(coords, L):
     return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
-def particle_major_plain(offsets, parts, order):
+def particle_rank(order):
+    """Each particle's place in ``order`` (int32 (n_part,)), the inverse
+    permutation."""
+    n = order.numel()
+    rank = torch.empty(n, dtype=torch.int32, device=order.device)
+    rank[order.long()] = torch.arange(n, dtype=torch.int32,
+                                      device=order.device)
+    return rank
+
+
+def particle_major_plain(offsets, parts, order, rank=None):
     """The particle-major copy of the halo-major pairs (offsets, parts),
-    the particles taken in ``order`` (a permutation of them): (poff
-    (n_part + 1,), prow (P,)) int32, the halo-major rows of particle
-    ``order[s]`` being ``prow[poff[s]:poff[s + 1]]`` in ascending order (a
-    stable sort of the pairs by their particle's place in ``order``). A
-    layout step in torch on the pairs' device, not a kernel of its own."""
+    the particles taken in ``order`` (a permutation of them; ``rank`` its
+    inverse, :func:`particle_rank`, formed here when None): (poff (n_part +
+    1,), prow (P,)) int32, the halo-major rows of particle ``order[s]``
+    being ``prow[poff[s]:poff[s + 1]]`` in ascending order (a stable sort of
+    the pairs by their particle's place in ``order``). A layout step in
+    torch on the pairs' device, not a kernel of its own: 4-byte rows and
+    keys, and the sort's 8-byte indices."""
     dev = parts.device
     n_part = order.numel()
-    rank = torch.empty(n_part, dtype=torch.int64, device=dev)
-    rank[order.long()] = torch.arange(n_part, device=dev)
+    if rank is None:
+        rank = particle_rank(order)
     counts = (offsets[1:] - offsets[:-1]).long()
-    rows = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
-                                   counts)
-    key = rank[parts.long()]
-    prow = rows[torch.sort(key, stable=True).indices].to(torch.int32)
+    rows = torch.repeat_interleave(
+        torch.arange(counts.numel(), dtype=torch.int32, device=dev), counts)
+    key = torch.index_select(rank, 0, parts)
+    prow = rows[torch.sort(key, stable=True).indices]
+    del rows
     poff = torch.zeros(n_part + 1, dtype=torch.int32, device=dev)
     poff[1:] = torch.cumsum(torch.bincount(key, minlength=n_part), 0)
     return poff, prow
@@ -201,7 +244,7 @@ def _records(hpos, halos, rscale, eps_edge):
 
 
 def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
-                      dlnr, rscale, eps_edge, L, layout=None):
+                      dlnr, rscale, eps_edge, L, layout=None, acc=None):
     """Sum every pair's displacement per particle.
 
     coords   : (n_part, ndim) float64 particle positions (ndim 2 or 3)
@@ -216,9 +259,12 @@ def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
     layout   : the pairs particle-major, (order, poff, prow) int32 as
                :func:`particle_layout` builds them; built here when None
                (the runner builds it once per pair set)
+    acc      : None, or the (ndim, n_part) offsets in T of the halos before
+               these (a chunk of them): each particle's sum continues from
+               its entry, written in place
 
-    Returns the (ndim, n_part) offsets in T. Kernel K17 for tensors on CUDA,
-    its plain version for tensors on the CPU.
+    Returns the (ndim, n_part) offsets in T (``acc`` when given). Kernel
+    K17 for tensors on CUDA, its plain version for tensors on the CPU.
     """
     dt, dev = curves.dtype, curves.device
     if dt not in (torch.float32, torch.float64):
@@ -255,8 +301,10 @@ def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
     if dev.type == "cpu":
         return snapshot_gather_plain(coords, hpos, halos, offsets, parts,
                                      curves, ln_r0, dlnr, rscale, eps_edge,
-                                     L, layout)
-    acc = torch.empty((ndim, n_part), dtype=dt, device=dev)
+                                     L, layout, acc)
+    more = acc is not None
+    acc = _start(acc, ndim, n_part, dt, dev) if more else torch.empty(
+        (ndim, n_part), dtype=dt, device=dev)
     rec = _records(hpos, halos, rscale, eps_edge)
     sfx = "f32" if dt == torch.float32 else "f64"
     fn = getattr(_build.library(), f"bf_snapshot_displace_{sfx}")
@@ -264,21 +312,22 @@ def snapshot_displace(coords, hpos, halos, offsets, parts, curves, ln_r0,
     with torch.cuda.device(dev):
         err = fn(ndim, n_part, float(L),
                  *[_build.ptr(x) for x in args], n_r, float(ln_r0),
-                 float(dlnr), _build.ptr(acc), _build.stream_of(acc))
+                 float(dlnr), int(more), _build.ptr(acc),
+                 _build.stream_of(acc))
     _build.check(err, "snapshot_displace")
     _build.count("snapshot_displace")
     return acc
 
 
-def particle_major_pairs(parts, order):
+def particle_major_pairs(parts, order, rank=None):
     """The halo-major pair index of every entry of the particle-major
     layout (int64 (P,)): the same stable sort of the pairs by their
-    particle's place in ``order`` as :func:`particle_major_plain` makes, so
-    entry j's row is prow[j] and its pair this[j]."""
-    dev = parts.device
-    rank = torch.empty(order.numel(), dtype=torch.int64, device=dev)
-    rank[order.long()] = torch.arange(order.numel(), device=dev)
-    return torch.sort(rank[parts.long()], stable=True).indices
+    particle's place in ``order`` (``rank`` its inverse, formed here when
+    None) as :func:`particle_major_plain` makes, so entry j's row is
+    prow[j] and its pair this[j]."""
+    if rank is None:
+        rank = particle_rank(order)
+    return torch.sort(torch.index_select(rank, 0, parts), stable=True).indices
 
 
 DirectLayout = collections.namedtuple(
@@ -294,17 +343,22 @@ halo-major pair's particle's place in that order (the kernels read the
 positions there, neighbours side by side)."""
 
 
-def direct_layout(coords, halos, offsets, parts, order):
+def direct_layout(coords, halos, offsets, parts, order, rank=None,
+                  ordered=None):
     """K23's :class:`DirectLayout` of the halo-major pairs (halos, offsets,
     parts) of particles at ``coords``, the particle-major entries in
-    ``order`` (K17's layout): one copy of the row counts to the host, then
-    torch on the pairs' device. Raises when the slots reach 2^31 (the
-    records are int32)."""
+    ``order`` (K17's layout; ``rank`` its inverse and ``ordered`` the
+    positions in it, formed here when None; a runner forms them once for
+    all its chunks): one copy of the row counts to the host, then torch on
+    the pairs' device. The records are int32: the runner's chunks keep
+    them under 2^31, save a chunk of one halo of more than 2^30 pairs,
+    which raises."""
     dev = offsets.device
     counts = (offsets[1:] - offsets[:-1]).cpu().numpy().astype(np.int64)
     rows = row_layout(counts)
     if rows.n_slots >= np.iinfo(np.int32).max:
-        raise ValueError(f"{rows.n_slots} readout slots exceed int32 records")
+        raise ValueError(f"{rows.n_slots} readout slots in one chunk exceed "
+                         "int32 records")
     slots = torch.as_tensor(np.stack([rows.base, row_width(counts)], 1)
                             .astype(np.int32), device=dev)
     n_pc = -(-counts // RADII_PIECE)
@@ -317,14 +371,15 @@ def direct_layout(coords, halos, offsets, parts, order):
                                   torch.as_tensor(counts, device=dev))
     slot = slots[:, 0].long()[row] + torch.arange(row.numel(), device=dev) \
         - offsets.long()[row]
-    pm = particle_major_pairs(parts, order)
+    if rank is None:
+        rank = particle_rank(order)
+    pm = particle_major_pairs(parts, order, rank)
     rec = torch.stack((slot[pm], halos.long()[row[pm]]), 1).int()
-    rank = torch.empty(order.numel(), dtype=torch.int32, device=dev)
-    rank[order.long()] = torch.arange(order.numel(), dtype=torch.int32,
-                                      device=dev)
-    return DirectLayout(rows, slots, pieces, rec,
-                        coords[order.long()].contiguous(),
-                        rank[parts.long()])
+    del slot, row, pm
+    if ordered is None:
+        ordered = coords[order.long()].contiguous()
+    return DirectLayout(rows, slots, pieces, rec, ordered,
+                        torch.index_select(rank, 0, parts))
 
 
 def _min_image(coords, hpos, p, h, L):
@@ -388,14 +443,15 @@ def snapshot_radii(hpos, halos, offsets, dlay, L):
     return r
 
 
-def snapshot_direct_plain(hpos, layout, dlay, vals, L):
+def snapshot_direct_plain(hpos, layout, dlay, vals, L, acc=None):
     """Plain version of K23's gather: each particle's entries summed from 0
-    in the particle-major order. Arguments as :func:`snapshot_direct`."""
+    (or from ``acc``) in the particle-major order. Arguments as
+    :func:`snapshot_direct`."""
     dt, dev = vals.dtype, vals.device
     n_part, ndim = dlay.coords.shape
     order, poff = layout[0].long(), layout[1].long()
     rec = dlay.rec.long()
-    acc = torch.zeros((ndim, n_part), dtype=dt, device=dev)
+    acc = _start(acc, ndim, n_part, dt, dev)
     counts = poff[1:] - poff[:-1]
     if rec.shape[0] == 0:
         return acc
@@ -414,7 +470,7 @@ def snapshot_direct_plain(hpos, layout, dlay, vals, L):
     return acc
 
 
-def snapshot_direct(hpos, layout, dlay, vals, L):
+def snapshot_direct(hpos, layout, dlay, vals, L, acc=None):
     """Sum the model's per-pair displacements per particle.
 
     hpos, L : as :func:`snapshot_displace`
@@ -425,10 +481,12 @@ def snapshot_direct(hpos, layout, dlay, vals, L):
              ``order``
     vals   : (n_slots,) the model's displacement at each pair's distance,
              in T (float32 or float64)
+    acc    : None, or the offsets of the halos before these, continued in
+             place (as :func:`snapshot_displace`)
 
-    Returns the (ndim, n_part) offsets in T. Kernel K23 (``bf_snapshot_
-    direct``: a warp 32 particles, their entries 32 at a time) for tensors
-    on CUDA, the plain version for tensors on the CPU.
+    Returns the (ndim, n_part) offsets in T (``acc`` when given). Kernel
+    K23 (``bf_snapshot_direct``: a warp 32 particles, their entries 32 at a
+    time) for tensors on CUDA, the plain version for tensors on the CPU.
     """
     dt, dev = vals.dtype, vals.device
     if dt not in (torch.float32, torch.float64):
@@ -440,17 +498,234 @@ def snapshot_direct(hpos, layout, dlay, vals, L):
         raise ValueError("snapshot_direct: rec must be int32 (P, 2), P the "
                          "pairs")
     if dev.type == "cpu":
-        return snapshot_direct_plain(hpos, layout, dlay, vals, L)
+        return snapshot_direct_plain(hpos, layout, dlay, vals, L, acc)
     if dev.type != "cuda":
         raise ValueError(f"snapshot_direct: unsupported device {dev}")
-    acc = torch.empty((ndim, n_part), dtype=dt, device=dev)
+    more = acc is not None
+    acc = _start(acc, ndim, n_part, dt, dev) if more else torch.empty(
+        (ndim, n_part), dtype=dt, device=dev)
     args = [x.contiguous() for x in (dlay.coords, layout[0], layout[1], rec,
                                      hpos, vals)]
     fn = getattr(_build.library(), "bf_snapshot_direct_{}".format(
         "f32" if dt == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         err = fn(ndim, n_part, float(L), *[_build.ptr(x) for x in args],
-                 _build.ptr(acc), _build.stream_of(acc))
+                 int(more), _build.ptr(acc), _build.stream_of(acc))
     _build.check(err, "snapshot_direct")
     _build.count("snapshot_direct")
     return acc
+
+
+def pair_chunks(counts, budget):
+    """Cut the halos, in index order, into runs whose pairs stay within
+    ``budget``; a halo of more pairs than that is a run of its own.
+    ``counts`` (n,) int the pairs a halo (int64 totals). Returns the runs'
+    bounds [(h0, h1), ...], covering 0 .. n once, in order."""
+    counts = np.asarray(counts, dtype=np.int64)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    out = []
+    h = 0
+    while h < counts.size:
+        h1 = max(h + 1, int(np.searchsorted(cum, cum[h] + budget,
+                                            side="right")) - 1)
+        out.append((h, h1))
+        h = h1
+    return out
+
+
+def cell_grid(n_part, ndim, L, radii):
+    """The cells of the port's host cell list (native/cell_list.cpp:42-73,
+    native/__init__.py:92-95): about the median positive query radius a
+    side, at most 256 an axis and about 8 a particle. Returns (ncell,
+    cell)."""
+    radii = np.asarray(radii, dtype=np.float64)
+    pos_r = radii[radii > 0]
+    size = float(np.median(pos_r)) if pos_r.size else float(L)
+    root = np.cbrt if ndim == 3 else np.sqrt
+    cap = min(256, int(root(8.0 * max(n_part, 1))) + 1)
+    ncell = min(max(1, int(np.floor(L / size))), cap)
+    return ncell, L / ncell
+
+
+CellList = collections.namedtuple(
+    "CellList", ["ndim", "L", "ncell", "cell", "start", "pos", "orig"])
+CellList.__doc__ = """K24's cell list of one particle set on the card
+(:func:`cell_build`): ``ncell`` cells an axis of side ``cell``, ``start``
+(ncell^ndim + 1,) int64 each cell's first place, ``pos`` (n, ndim) float64
+the positions wrapped into the box (np.mod) and ``orig`` (n,) int32 their
+indices, cell by cell."""
+
+CellQuery = collections.namedtuple(
+    "CellQuery", ["centers", "radii", "win", "item_start", "item_off",
+                  "items", "offsets"])
+CellQuery.__doc__ = """K24's count pass over the halos (:func:`cell_count`):
+on the card ``centers`` (n_h, ndim) float64 (wrapped), ``radii`` (n_h,),
+``win`` (n_h, 4) int32 (the centre's cell an axis, the reach),
+``item_start`` (n_h + 1,) int64 each halo's first item (a column of its
+window), ``item_off`` (T + 1,) int64 each item's first pair; on the host
+``items`` the halos' first items and ``offsets`` (n_h + 1,) int64 their
+first pairs."""
+
+
+def _cuda_only(x, name):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: K24 runs on CUDA tensors (the CPU runner "
+                         "searches on the host, native.cell_query)")
+
+
+def cell_build(coords, L, ncell):
+    """K24's build: the periodic cell list of the particles at ``coords``
+    ((n, ndim) float64 on the card, any values: wrapped into [0, L] as
+    np.mod wraps them, bit for bit) with ``ncell`` cells an axis
+    (:func:`cell_grid`). Two launches (a thread a particle: its cell and
+    its place in it; then its position and index at that place) around a
+    torch scan of the cells' counts. Returns the :class:`CellList`."""
+    _cuda_only(coords, "cell_build")
+    n, ndim = coords.shape
+    if ndim not in (2, 3) or coords.dtype != torch.float64:
+        raise ValueError("cell_build: coords must be (n, 2 or 3) float64")
+    if not 1 <= ncell <= 256:
+        raise ValueError(f"cell_build: {ncell} cells an axis")
+    dev = coords.device
+    coords = coords.contiguous()
+    cell = L / ncell
+    lib = _build.library()
+    cid = torch.empty(n, dtype=torch.int32, device=dev)
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.zeros(ncell ** ndim, dtype=torch.int32, device=dev)
+    stream = _build.stream_of(coords)
+    with torch.cuda.device(dev):
+        err = lib.bf_cell_bin(ndim, n, float(L), float(cell), ncell,
+                              _build.ptr(coords), _build.ptr(cid),
+                              _build.ptr(rank), _build.ptr(count), stream)
+    _build.check(err, "cell_build")
+    _build.count("cell_build")
+    start = torch.zeros(count.numel() + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(count, 0, out=start[1:])
+    del count
+    pos = torch.empty_like(coords)
+    orig = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.bf_cell_place(ndim, n, float(L), _build.ptr(coords),
+                                _build.ptr(cid), _build.ptr(rank),
+                                _build.ptr(start), _build.ptr(pos),
+                                _build.ptr(orig), stream)
+    _build.check(err, "cell_build")
+    _build.count("cell_build")
+    return CellList(ndim, float(L), int(ncell), cell, start, pos, orig)
+
+
+def cell_count(cells, centers, radii):
+    """K24's count pass: the pairs of every halo.
+
+    cells   : the particles' :class:`CellList`
+    centers : (n_h, ndim) halo positions, radii (n_h,) their query radii,
+              host float64 (the centres wrapped here with np.mod, as the
+              host list wraps them)
+
+    Each halo's window (its centre's cell and reach = (long long)(r / cell)
+    + 1 an axis, as the host list walks) is cut into items, a column of
+    cells each, on the host; a warp an item counts its hits; the counts are
+    scanned on the card. Returns the :class:`CellQuery`, whose host
+    ``offsets`` (int64) give each halo's pairs."""
+    L, ncell, cell, ndim = cells.L, cells.ncell, cells.cell, cells.ndim
+    dev = cells.pos.device
+    c = np.ascontiguousarray(np.mod(centers, L), dtype=np.float64)
+    r = np.ascontiguousarray(radii, dtype=np.float64)
+    n_h = r.size
+    if c.shape != (n_h, ndim):
+        raise ValueError(f"cell_count: centers must be ({n_h}, {ndim})")
+    reach = np.minimum((r / cell).astype(np.int64) + 1, ncell)
+    side = np.where(2 * reach + 1 >= ncell, ncell, 2 * reach + 1)
+    items = np.zeros(n_h + 1, dtype=np.int64)
+    np.cumsum(side ** (ndim - 1), out=items[1:])
+    win = np.zeros((n_h, 4), dtype=np.int32)
+    win[:, :ndim] = (np.fmod(c, L) / cell).astype(np.int64)
+    win[:, 3] = reach
+    dc, dr, dwin, dstart = (torch.as_tensor(x, device=dev)
+                            for x in (c, r, win, items))
+    T = int(items[-1])
+    hits = torch.empty(T, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().bf_cell_count(
+            ndim, 0, T, 0, n_h, float(L), ncell, _build.ptr(cells.start),
+            _build.ptr(cells.pos), _build.ptr(dc), _build.ptr(dr),
+            _build.ptr(dwin), _build.ptr(dstart), _build.ptr(hits),
+            _build.stream_of(hits))
+    _build.check(err, "cell_count")
+    _build.count("cell_count")
+    item_off = torch.zeros(T + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(hits, 0, out=item_off[1:])
+    offsets = item_off[dstart].cpu().numpy()
+    return CellQuery(dc, dr, dwin, dstart, item_off, items, offsets)
+
+
+def cell_write(cells, query, h0, h1):
+    """K24's write pass: the particles (int32, their indices in the
+    positions the list was built from) of halos [h0, h1), grouped per halo
+    (the halo-major rows of :func:`ops.tiles.pairs_csr`, offsets
+    ``query.offsets[h0:h1 + 1] - query.offsets[h0]``), in cell order within
+    a row. A warp an item of the halos' windows."""
+    base = int(query.offsets[h0])
+    n = int(query.offsets[h1]) - base
+    dev = cells.pos.device
+    parts = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().bf_cell_write(
+            cells.ndim, int(query.items[h0]), int(query.items[h1]), h0, h1,
+            cells.L, cells.ncell, _build.ptr(cells.start),
+            _build.ptr(cells.pos), _build.ptr(cells.orig),
+            _build.ptr(query.centers), _build.ptr(query.radii),
+            _build.ptr(query.win), _build.ptr(query.item_start),
+            _build.ptr(query.item_off), base, _build.ptr(parts),
+            _build.stream_of(parts))
+    _build.check(err, "cell_write")
+    _build.count("cell_write")
+    return parts
+
+
+def wrap_plain(x, L):
+    """np.mod(x, L) (L > 0) in torch, bit for bit: fmod (exact), plus L
+    where negative, +0 where 0."""
+    m = torch.fmod(x, L)
+    m = torch.where(m < 0, m + L, m)
+    return torch.where(m == 0, torch.zeros_like(m), m)
+
+
+def cell_query_plain(coords, L, centers, radii, block=1 << 24):
+    """Plain version of K24: every (halo, particle) pair within the halo's
+    radius, by a brute-force minimum-image test of every particle, the
+    host list's arithmetic (positions and centres wrapped as np.mod, one
+    wrap an axis, squares summed x, y, z from 0, d^2 <= r^2), about
+    ``block`` (halo, particle) tests at a time.
+
+    coords (n, ndim), centers (n_h, ndim), radii (n_h,) float64 tensors on
+    one device. Returns (counts (n_h,) int64, offsets (n_h + 1,) int64,
+    parts (P,) int32), each halo's particles in index order."""
+    dev = coords.device
+    pos = wrap_plain(coords, L)
+    c = wrap_plain(centers, L)
+    r2 = radii * radii
+    n, ndim = pos.shape
+    n_h = c.shape[0]
+    pb = max(1, min(n, block))
+    hb = max(1, block // max(n, 1))
+    counts = torch.zeros(n_h, dtype=torch.int64, device=dev)
+    parts = []
+    for h0 in range(0, n_h, hb):
+        h1 = min(n_h, h0 + hb)
+        for p0 in range(0, n, pb):
+            dx = pos[None, p0:p0 + pb] - c[h0:h1, None]
+            dx = torch.where(dx > L / 2, dx - L, dx)
+            dx = torch.where(dx < -L / 2, dx + L, dx)
+            d2 = dx[..., 0] * dx[..., 0]
+            for k in range(1, ndim):
+                d2 = d2 + dx[..., k] * dx[..., k]
+            del dx
+            hit = d2 <= r2[h0:h1, None]
+            counts[h0:h1] += hit.sum(1)
+            parts.append((torch.nonzero(hit)[:, 1] + p0).to(torch.int32))
+    offsets = torch.zeros(n_h + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return counts, offsets, (torch.cat(parts) if parts else
+                             torch.zeros(0, dtype=torch.int32, device=dev))

@@ -164,16 +164,32 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      small boxes whose largest query radius exceeds L / 3 (2D and 3D;
      float64 to 1e-10 of the largest offset, float32 to
      tests/test_snapshot.py:67; two launches bitwise equal) and
-     BaryonifySnapshot card vs CPU (float64);
+     BaryonifySnapshot card vs CPU (float64); on those boxes the pairs
+     of K24, the cell list on the card, against its plain version (a
+     brute-force test on the card) and the host's search (native.
+     cell_query in 3D, cKDTree in 2D), set for set;
      then drives BaryonifySnapshot at the bench (10^6 particles, 20,000
      halos, L 512, seed 11, z 0.2, float32) with the launch counts set to 0
-     just before and read just after: the first call (with the cell list)
-     and three steady calls timed, halos/s, particles/s and phases printed,
-     the output finite, a 256-halo subcatalog against the brute-force sum
-     on the card, K17's particle-major layout (pairs a particle: mean, 99th
-     percentile, max; its build time), K17 on the runner's own inputs (two
-     launches bitwise equal) timed against its plain version, the 0.30 ms
-     target and an index_add_ of the same pair vectors;
+     just before and read just after: the first call (with K24's build,
+     count and write) and three steady calls timed, halos/s, particles/s
+     and phases printed, K1, K17 and K24 launched, no host search, the
+     pairs one kept chunk, the output finite, a 256-halo subcatalog
+     against the brute-force sum on the card; K24 on the bench's input
+     (one search by wrapper and each launch on the device alone, beside
+     its plain version and the host cell list on the same input, the sets
+     of both); the bench with PAIR_BUDGET lowered to a quarter of its
+     pairs, bitwise the one-chunk run on the curve and direct paths in
+     float32 and float64; K17's particle-major layout (pairs a particle:
+     mean, 99th percentile, max; its build time), K17 on the runner's own
+     inputs (two launches bitwise equal) timed against its plain version,
+     the 0.30 ms target and an index_add_ of the same pair vectors;
+     then the large snapshot, the bench's generator at 512^3 particles and
+     40,000 halos, past 2^31 - 1 pairs: the first call and two steady
+     calls with their phases, the pairs and chunks, K24 and K17 in every
+     chunk, the peak device memory; 4,096 particles against a brute-force
+     float64 sum over all the halos and 256 halos' counts against a
+     brute-force count, on the card; two more calls with the chunks
+     kept, the other choice of the cache;
  16. holds K18 ring modes and K19 Legendre transform against their plain
      versions on the card in float64 (K18 within ops.sht.
      ring_modes_tolerance, the plain version's angle rounding; K19 within 4
@@ -231,8 +247,8 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      fills they replace;
  20. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
-     K16's, K17's and K19's kernels (nvcc -Xptxas -v on their sources), one JSON
-     line with each kernel's launches, error, times, bound and
+     K16's, K17's, K19's and K24's kernels (nvcc -Xptxas -v on their
+     sources), one JSON line with each kernel's launches, error, times, bound and
      library-call time, and last
      the line {"ok": true, "device": ...}.
 
@@ -2625,6 +2641,13 @@ SNAP_GRID = dict(z_min=0.1, z_max=0.3, N_samples_z=2, M_min=5e12, M_max=2e15,
                  N_samples_Mass=12, R_min=1e-3, R_max=50, N_samples_R=48,
                  verbose=False)
 SNAP_CALLS = 3          # steady process() calls, after the first
+# the large snapshot: tools/snapshot_bench.py:57-65's generator at 512^3
+# particles and 40,000 halos (L 512, seed 11, z 0.2, float32, the bench
+# table), over 2^31 - 1 (halo, particle) pairs; BIG_CALLS steady calls
+# after the first, checked on BIG_CHECK_PARTS particles and
+# BIG_CHECK_HALOS halos against brute force on the card
+BIG_PARTS, BIG_HALOS, BIG_CALLS = 512 ** 3, 40_000, 2
+BIG_CHECK_PARTS, BIG_CHECK_HALOS = 4096, 256
 # the ΔCl recipe (examples/15_delta_cl.py) at NSIDE 1024, lmax 3 NSIDE - 1
 CL_NSIDE, CL_HALOS, CL_SEED = 1024, 150, 1
 CL_GRID = dict(z_min=0.05, z_max=0.3, N_samples_z=3, M_min=5e13, M_max=3e15,
@@ -2712,6 +2735,7 @@ def compare_snapshot_kernels(bf, torch, model):
                 else:
                     snapshot_f32_check(label, got.double().cpu().numpy(),
                                        ref.double().cpu().numpy())
+        k24_check(bf, torch, r, f"{ndim}D, L 96")
         kw["dtype"] = torch.float64
         g = moves(bf.BaryonifySnapshot(cat, snap, device=DEVICE,
                                        **kw).process(), snap)
@@ -2719,6 +2743,337 @@ def compare_snapshot_kernels(bf, torch, model):
                                        **kw).process(), snap)
         check(f"BaryonifySnapshot {ndim}D, float64, card vs CPU",
               float(np.abs(g - c).max()), 1e-10 * float(np.abs(c).max()))
+
+
+_HOST_SEARCHES = [0]
+
+
+def count_host_searches():
+    """Count the snapshot runner's calls of its host searches
+    (native.cell_query, the cKDTree), which a card runner must not make."""
+    from baryonforge_torch.Runners import SnapshotRunner as SR
+    query, tree = SR.cell_query, SR.DefaultRunnerSnapshot.tree
+
+    def counted_query(*a, **k):
+        _HOST_SEARCHES[0] += 1
+        return query(*a, **k)
+
+    def counted_tree(self):
+        _HOST_SEARCHES[0] += 1
+        return tree.fget(self)
+    SR.cell_query = counted_query
+    SR.DefaultRunnerSnapshot.tree = property(counted_tree)
+
+
+def same_sets(torch, counts, a, b, n_part):
+    """Whether the pair lists ``a`` and ``b`` (grouped per halo, ``counts``
+    a halo) hold the same particles per halo: each list's (halo, particle)
+    keys sorted on the card and compared."""
+    dev = torch.device(DEVICE)
+    row = torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                  torch.as_tensor(counts, device=dev))
+
+    def keys(x):
+        return torch.sort(row * n_part + torch.as_tensor(x, device=dev)
+                          .long()).values
+    return bool(torch.equal(keys(a), keys(b)))
+
+
+def k24_check(bf, torch, runner, label):
+    """K24's pairs in a card runner (its counts and its one chunk's rows)
+    against its plain version on the card, halo for halo; in 3D its counts
+    and sets against native.cell_query's, in 2D against cKDTree's. Raises
+    when one differs, or when the runner called a host search."""
+    from baryonforge_torch import native
+    from baryonforge_torch.ops import snapshot
+    before = _HOST_SEARCHES[0]
+    _, _, _, R_q, hpos, _ = runner._host_prep()
+    (_, _, parts), _ = runner._neighbour_pairs(hpos, R_q)
+    if _HOST_SEARCHES[0] != before or runner._tree is not None:
+        raise AssertionError(f"K24 [{label}]: the card runner searched on "
+                             "the host")
+    counts = np.diff(runner._pairs[1])
+    coords = runner._device_coords()
+    n, ndim = coords.shape
+    L = runner.ParticleSnapshot.L
+    dev = torch.device(DEVICE)
+    pc, _, pp = snapshot.cell_query_plain(
+        coords, L, torch.as_tensor(hpos, device=dev),
+        torch.as_tensor(R_q, device=dev))
+    if pc.cpu().numpy().tolist() != counts.tolist() \
+            or not same_sets(torch, counts, parts, pp, n):
+        raise AssertionError(f"K24 [{label}]: not its plain version's sets")
+    if ndim == 3:
+        hc, hp = native.cell_query(runner._coords, L, hpos, R_q)
+        host = "native.cell_query"
+    else:
+        from scipy.spatial import cKDTree
+        lists = cKDTree(np.mod(runner._coords, L), boxsize=L) \
+            .query_ball_point(np.mod(hpos, L), R_q)
+        hc = np.array([len(x) for x in lists], dtype=np.int64)
+        hp = np.concatenate([np.asarray(x, np.int64) for x in lists])
+        host = "cKDTree"
+    if hc.tolist() != counts.tolist() or not same_sets(torch, counts, parts,
+                                                       hp, n):
+        raise AssertionError(f"K24 [{label}]: not {host}'s sets")
+    log(f"  K24 cell list [{label}, {int(counts.sum())} pairs of "
+        f"{len(counts)} halos, radii up to {R_q.max():.2f}]: the sets of its "
+        f"plain version and of {host}, halo for halo; no host search")
+
+
+def k24_bench(bf, torch, gpu, runner):
+    """K24 at the bench, on the runner's own positions and radii: one whole
+    search by wrapper (the build, the count pass, the write pass of all
+    halos), each launch on the device alone (CUDA graphs of 20), beside its
+    plain version on the card and the host cell list on the same input;
+    the sets checked against both. Returns K24's kernel row."""
+    from baryonforge_torch import native
+    from baryonforge_torch.ops import _build, snapshot
+    _, _, _, R_q, hpos, _ = runner._host_prep()
+    coords = runner._device_coords()
+    n, ndim = coords.shape
+    nh = len(R_q)
+    L = runner.ParticleSnapshot.L
+    dev = torch.device(DEVICE)
+    ncell, cell = snapshot.cell_grid(n, ndim, L, R_q)
+
+    def search():
+        cells = snapshot.cell_build(coords, L, ncell)
+        q = snapshot.cell_count(cells, hpos, R_q)
+        return cells, q, snapshot.cell_write(cells, q, 0, nh)
+    cells, q, parts = search()
+    counts = np.diff(q.offsets)
+    n_pairs = int(q.offsets[-1])
+    ms = time_ms(torch, search, 5)
+    hits = torch.empty(int(q.items[-1]), dtype=torch.int32, device=dev)
+    lib = _build.library()
+
+    def count_alone():
+        lib.bf_cell_count(
+            ndim, 0, hits.numel(), 0, nh, float(L), ncell,
+            _build.ptr(cells.start), _build.ptr(cells.pos),
+            _build.ptr(q.centers), _build.ptr(q.radii), _build.ptr(q.win),
+            _build.ptr(q.item_start), _build.ptr(hits),
+            _build.stream_of(hits))
+    alone = [graph_ms(torch, lambda: snapshot.cell_build(coords, L, ncell)),
+             graph_ms(torch, count_alone),
+             graph_ms(torch, lambda: snapshot.cell_write(cells, q, 0, nh))]
+    (pc, _, pp), plain_s = timed(torch, lambda: snapshot.cell_query_plain(
+        coords, L, torch.as_tensor(hpos, device=dev),
+        torch.as_tensor(R_q, device=dev)))
+    (hc, hp), host_s = timed(torch, lambda: native.cell_query(
+        runner._coords, L, hpos, R_q))
+    err = float(np.abs(pc.cpu().numpy() - counts).max())
+    if err != 0 or not same_sets(torch, counts, parts, pp, n):
+        raise AssertionError("K24 at the bench: not its plain version's sets")
+    if hc.tolist() != counts.tolist() or not same_sets(torch, counts, parts,
+                                                       hp, n):
+        raise AssertionError("K24 at the bench: not native.cell_query's sets")
+    # bytes: the positions, centres and radii read once, the counts and
+    # offsets (int64) and the pairs' particles (int32) written once;
+    # operations: a pair's distance at least, ~10 float64
+    nb = coords.numel() * 8 + nh * (ndim + 1) * 8 + (2 * nh + 1) * 8 \
+        + 4 * n_pairs
+    b_ms, b_by = bound(nb, 10 * n_pairs, F64_FLOPS)
+    log(f"  K24 cell list [bench, {n_pairs} pairs, {ncell}^3 cells of "
+        f"{cell:.3f}, {int(q.items[-1])} items]: the sets of its plain "
+        "version and of native.cell_query, halo for halo")
+    log(f"[{gpu}] K24 cell list at the bench: a whole search by wrapper "
+        f"{ms:.4f} ms (build, count, write); the device alone: build "
+        f"{alone[0]:.4f} ms, count {alone[1]:.4f} ms, write {alone[2]:.4f} "
+        f"ms; plain (brute force on the card) {plain_s * 1e3:.1f} ms; the "
+        f"host cell list on the same input {host_s * 1e3:.1f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return {"cell_list": (err, ms, plain_s * 1e3, b_ms, b_by, None)}
+
+
+def snapshot_chunks(bf, torch, gpu, model, cat, snap):
+    """The snapshot bench in chunks: PAIR_BUDGET lowered to a quarter of
+    its pairs (4 chunks or more), every run bit for bit the one-chunk run,
+    on the curve path and the direct path (the model behind HideCurves),
+    in float32 and float64."""
+    from baryonforge_torch.Runners import SnapshotRunner as SR
+    budget = SR.PAIR_BUDGET
+    for direct in (False, True):
+        m = HideCurves(model) if direct else model
+        for dt in (torch.float32, torch.float64):
+            kw = dict(epsilon_max=20, model=m, dtype=dt, verbose=False,
+                      device=DEVICE)
+            one = bf.BaryonifySnapshot(cat, snap, **kw)
+            want = one.process()
+            n_pairs = int(one._pairs[1][-1])
+            del one
+            SR.PAIR_BUDGET = n_pairs // 4
+            try:
+                r = bf.BaryonifySnapshot(cat, snap, **kw)
+                t0 = time.perf_counter()
+                got = r.process()
+                wall = time.perf_counter() - t0
+                n_chunks = len(r._shard_chunks(1)[0])
+            finally:
+                SR.PAIR_BUDGET = budget
+            label = (f"snapshot bench in {n_chunks} chunks of at most "
+                     f"{n_pairs // 4} pairs, {'direct' if direct else 'curve'}"
+                     f" path, {str(dt).replace('torch.', '')}")
+            if n_chunks < 4:
+                raise AssertionError(f"{label}: fewer than 4 chunks")
+            for c in "xyz":
+                if not np.array_equal(got[c], want[c]):
+                    raise AssertionError(f"{label}: not the one-chunk run's")
+            log(f"  {label}: bitwise the one-chunk run (first call "
+                f"{wall * 1e3:.1f} ms)")
+
+
+def brute_force_subset(bf, torch, model, cat, snap, pidx, eps=20,
+                       hchunk=2000):
+    """tests/test_snapshot.py:50-64 for the particles ``pidx`` on the card:
+    each one's min-image displacement by every halo within min(eps R / a,
+    L / 2), from the model's table readout in float64 (one vmapped readout
+    of all the pairs, a row each), summed in float64. Returns (3,
+    len(pidx)) numpy."""
+    from baryonforge_torch.ops.direct import readout, uniform_layout
+    dev = torch.device(DEVICE)
+    m = model.with_dtype(torch.float64, device=dev)
+    L = snap.L
+    a = 1.0 / (1.0 + cat.redshift)
+    M = np.asarray(cat.cat["M"], float)
+    R = m.mass_def.get_radius(bf.cosmo.cosmology_from_dict(COSMO), M,
+                              a).numpy()
+    lim = torch.as_tensor(np.minimum(eps * R / a, L / 2), device=dev)
+    pos = torch.as_tensor(np.stack([snap.cat[c][pidx] for c in "xyz"], 1),
+                          device=dev)
+    hpos = torch.as_tensor(np.stack([cat.cat[c] for c in "xyz"], 1),
+                           device=dev)
+    found = []
+    for h0 in range(0, len(M), hchunk):
+        dx = pos[:, None, :] - hpos[None, h0:h0 + hchunk, :]
+        dx = torch.where(dx > L / 2, dx - L, dx)
+        dx = torch.where(dx < -L / 2, dx + L, dx)
+        d = torch.sqrt((dx ** 2).sum(-1))
+        p, h = torch.nonzero(d < lim[None, h0:h0 + hchunk], as_tuple=True)
+        found.append((p, h + h0, dx[p, h], d[p, h]))
+    p, h, dx, d = (torch.cat(x) for x in zip(*found))
+    vals = readout(lambda r, M: m.displacement(r, M, a), d,
+                   uniform_layout(d.numel(), 1),
+                   {"M": torch.as_tensor(M, device=dev)[h]}, torch.float64)
+    vals = torch.where(torch.isfinite(vals), vals, torch.zeros_like(vals))
+    want = torch.zeros_like(pos)
+    want.index_add_(0, p, vals[:, None] * dx / d[:, None])
+    return want.T.cpu().numpy(), int(d.numel())
+
+
+def large_snapshot(bf, torch, gpu, model):
+    """BaryonifySnapshot past 2^31 - 1 pairs: tools/snapshot_bench.py:57-65's
+    generator at 512^3 particles and 40,000 halos (L 512, seed 11, z 0.2,
+    float32, the bench table), the first call and BIG_CALLS steady calls
+    with their phases and the launch counts (K24 and K17 in every chunk,
+    no host search), the pairs, chunks and peak device memory; 4,096
+    random particles' offsets against a brute-force float64 sum over all
+    40,000 halos on the card (tests/test_snapshot.py:67) and 256 random
+    halos' counts against a brute-force count on the card; then two more
+    calls of that runner with the chunks kept (PAIR_CACHE_BYTES raised
+    above them: the first keeps them, the second reads them), the other
+    choice of the cache. Returns the launches of the first run."""
+    import gc
+    from baryonforge_torch.Runners import SnapshotRunner as SR
+    from baryonforge_torch.ops import _build, snapshot
+    t_phase = time.perf_counter()
+    cat, snap = snapshot_inputs(bf, 3, SNAP_L, BIG_PARTS, BIG_HALOS,
+                                SNAP_SEED)
+    log(f"large snapshot: {BIG_PARTS} particles, {BIG_HALOS} halos, L "
+        f"{SNAP_L:g}, made in {time.perf_counter() - t_phase:.1f} s")
+    rng = np.random.default_rng(5)
+    pidx = np.sort(rng.choice(BIG_PARTS, BIG_CHECK_PARTS, replace=False))
+    hidx = np.sort(rng.choice(BIG_HALOS, BIG_CHECK_HALOS, replace=False))
+    fmt = (lambda p: ", ".join(f"{k} {v:.1f}" for k, v in p.items()))
+
+    def drive(runner, label, calls, counted):
+        """``calls`` + 1 calls of ``runner``, checked and logged; K24's
+        build and count pass expected when ``counted`` (a new runner)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = _HOST_SEARCHES[0]
+        _build.reset_launches()
+        walls, phases = [], []
+        for _ in range(1 + calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runner.process()
+            walls.append(time.perf_counter() - t0)
+            phases.append(runner.timings)
+        launches = dict(_build.launches)
+        first = runner._pairs[1]
+        n_pairs = int(first[-1])
+        n_chunks = sum(1 for a, b in snapshot.pair_chunks(
+            np.diff(first), SR.PAIR_BUDGET) if first[b] > first[a])
+        peak = torch.cuda.max_memory_allocated()
+        if _HOST_SEARCHES[0] != before or runner._tree is not None:
+            raise AssertionError("large snapshot: the card runner searched "
+                                 "on the host")
+        for k, want in (("cell_build", counted), ("cell_count", counted),
+                        ("cell_write", n_chunks),
+                        ("collapse_curves", 1 + calls),
+                        ("snapshot_displace", n_chunks * (1 + calls))):
+            if launches.get(k, 0) < want:
+                raise AssertionError(f"large snapshot: {k} launched fewer "
+                                     f"than {want} times: {launches}")
+        label += (", the chunks kept" if 1 in runner._pairs[3]
+                  else ", the chunks made anew each call")
+        log(f"[{gpu}] large snapshot, {label}: {n_pairs} pairs (2^31 - 1 = "
+            f"{2 ** 31 - 1}) in {n_chunks} chunks of at most "
+            f"{SR.PAIR_BUDGET}; first call {walls[0] * 1e3:.1f} ms "
+            f"(phases: {fmt(phases[0])}); steady calls " + "; ".join(
+                f"{w * 1e3:.1f} ms ({fmt(p)})"
+                for w, p in zip(walls[1:], phases[1:]))
+            + f"; peak device memory {peak / 2 ** 30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); launches {launches}")
+        return out, n_pairs, launches
+
+    runner = bf.BaryonifySnapshot(cat, snap, epsilon_max=20, model=model,
+                                  device=DEVICE)
+    out, n_pairs, launches = drive(
+        runner, f"PAIR_CACHE_BYTES {SR.PAIR_CACHE_BYTES} ("
+        f"{SR.KEPT_PAIR_BYTES} bytes a pair kept)", BIG_CALLS, 1)
+    if n_pairs <= 2 ** 31 - 1:
+        raise AssertionError(f"large snapshot: {n_pairs} pairs, not past "
+                             "2^31 - 1")
+    got = np.stack([np.asarray(out[c][pidx]) - snap.cat[c][pidx]
+                    for c in "xyz"])
+    got = np.where(got > SNAP_L / 2, got - SNAP_L, got)
+    got = np.where(got < -SNAP_L / 2, got + SNAP_L, got)
+    if not np.isfinite(got).all():
+        raise AssertionError("large snapshot: output not finite")
+    want, n_bf = brute_force_subset(bf, torch, model, cat, snap, pidx)
+    snapshot_f32_check(f"large snapshot, {BIG_CHECK_PARTS} particles ("
+                       f"{n_bf} pairs) vs the brute-force float64 sum over "
+                       f"{BIG_HALOS} halos on the card", got, want)
+    _, _, _, R_q, hpos, _ = runner._host_prep()
+    dev = torch.device(DEVICE)
+    pc = snapshot.cell_query_plain(
+        runner._device_coords(), SNAP_L,
+        torch.as_tensor(hpos[hidx], device=dev),
+        torch.as_tensor(R_q[hidx], device=dev), block=1 << 26)[0]
+    counts = np.diff(runner._pairs[1])[hidx]
+    if pc.cpu().numpy().tolist() != counts.tolist():
+        raise AssertionError("large snapshot: K24's counts are not the "
+                             "brute-force counts")
+    log(f"  large snapshot: {BIG_CHECK_HALOS} halos' counts ({counts.min()}"
+        f"-{counts.max()} pairs) equal the brute-force counts on the card")
+    del out
+    kept = SR.PAIR_CACHE_BYTES
+    SR.PAIR_CACHE_BYTES = 1 << 40
+    try:
+        drive(runner, "the same runner, PAIR_CACHE_BYTES raised to 2^40", 1,
+              0)
+    finally:
+        SR.PAIR_CACHE_BYTES = kept
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{gpu}] large snapshot phase: {time.perf_counter() - t_phase:.1f} "
+        "s wall")
+    return launches
 
 
 def brute_force_moves(bf, torch, model, cat, snap, eps=20, chunk=8):
@@ -2772,6 +3127,7 @@ def snapshot_bench(bf, torch, gpu):
     log(f"main path (snapshot): BaryonifySnapshot(epsilon_max=20, "
         f"Baryonification3D).process(), {SNAP_PARTS} particles, "
         f"{SNAP_HALOS} halos, L {SNAP_L:g}")
+    searches = _HOST_SEARCHES[0]
     _build.reset_launches()
     walls, phases = [], []
     for _ in range(1 + SNAP_CALLS):
@@ -2781,10 +3137,16 @@ def snapshot_bench(bf, torch, gpu):
         walls.append(time.perf_counter() - t0)
         phases.append(runner.timings)
     launches = dict(_build.launches)
-    for k in ("collapse_curves", "snapshot_displace"):
-        if launches.get(k, 0) < 1 + SNAP_CALLS:
-            raise AssertionError(f"the snapshot path did not launch {k}: "
-                                 f"{launches}")
+    for k, n in (("collapse_curves", 1 + SNAP_CALLS),
+                 ("snapshot_displace", 1 + SNAP_CALLS), ("cell_build", 1),
+                 ("cell_count", 1), ("cell_write", 1)):
+        if launches.get(k, 0) < n:
+            raise AssertionError(f"the snapshot path did not launch {k} "
+                                 f"{n} times: {launches}")
+    if _HOST_SEARCHES[0] != searches or runner._tree is not None:
+        raise AssertionError("the snapshot path searched on the host")
+    if len(runner._shard_chunks(1)[0]) != 1 or 1 not in runner._pairs[3]:
+        raise AssertionError("the snapshot bench is not one kept chunk")
     for c in "xyz":
         if not np.isfinite(out[c]).all():
             raise AssertionError("snapshot bench: output not finite")
@@ -2800,7 +3162,10 @@ def snapshot_bench(bf, torch, gpu):
         "CUDA events): " + ", ".join(
             f"{k} {np.median([p[k] for p in phases[1:]]):.3f}"
             for k in phases[1]))
-    log(f"launches in the snapshot path's {1 + SNAP_CALLS} calls: {launches}")
+    log(f"launches in the snapshot path's {1 + SNAP_CALLS} calls: {launches}"
+        "; one chunk, kept; no host search")
+    k24 = k24_bench(bf, torch, gpu, runner)
+    snapshot_chunks(bf, torch, gpu, model, cat, snap)
 
     sub = cat[np.arange(256)]
     got = moves(bf.BaryonifySnapshot(sub, snap, epsilon_max=20, model=model,
@@ -2864,7 +3229,8 @@ def snapshot_bench(bf, torch, gpu):
         f"ms), plain {plain_ms:.3f} ms, index_add_ {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     return launches, {"snapshot_displace": (err, ms, plain_ms, b_ms, b_by,
-                                            library_ms)}, (model, cat, snap)
+                                            library_ms), **k24}, \
+        (model, cat, snap)
 
 
 def rfft_per_ring(torch, hmap, nside):
@@ -3128,8 +3494,8 @@ def tile_pairs_shape(mode, dtype_bytes):
 
 def ptxas_report(bf):
     """Registers and spills of K1's, K3's, K4's (and K10's, K12's), K5's,
-    K6's, K8's, K9's, K11's, K13's, K16's, K17's, K19's, K22's and K23's
-    kernels (nvcc -Xptxas -v with the
+    K6's, K8's, K9's, K11's, K13's, K16's, K17's, K19's, K22's, K23's and
+    K24's kernels (nvcc -Xptxas -v with the
     build's own flags, their sources at once) and the warps an SM holds at
     the bench's launch shapes (the stencil with its dynamic shared memory,
     K4's template with its rows and halo chunk (tile_pairs_shape), K8
@@ -3150,7 +3516,8 @@ def ptxas_report(bf):
                "table_rows_kernel": 512, "stencil_complement_kernel": 256,
                "stencil_geo_kernel": 256, "grid_direct_kernel": 512,
                "grid_radii_kernel": 256, "snapshot_direct_kernel": 128,
-               "snapshot_radii_kernel": 256}
+               "snapshot_radii_kernel": 256, "cell_query_kernel": 256,
+               "cell_bin_kernel": 256, "cell_place_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
@@ -3165,7 +3532,7 @@ def ptxas_report(bf):
     sources = ("stencil.cu", "sht.cu", "fftlog.cu", "disc_paint.cu",
                "grid_deposit.cu", "snapshot.cu", "tile_deposit.cu",
                "regrid.cu", "curves.cu", "table_rows.cu",
-               "stencil_finish.cu", "grid_cutout.cu")
+               "stencil_finish.cu", "grid_cutout.cu", "cell_list.cu")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [_build._nvcc()] + flags + ["-Xptxas", "-v", "-c",
@@ -3223,6 +3590,8 @@ def ptxas_report(bf):
                 args = ["Bluestein" if flag == "1" else "power of two"]
             elif key == "tile_pairs_kernel":
                 args += [("K4", "K10", "K12")[int(dim)]]
+            elif key == "cell_query_kernel":
+                args += [f"{dim}D", "write" if flag == "1" else "count"]
             else:
                 args += [("displace", "paint", "anis")[int(mode)]] \
                     if mode else []
@@ -4347,6 +4716,11 @@ KERNELS = [
     ("snapshot_direct", ("snapshot_radii", "snapshot_direct"),
      "baryonforge_torch/csrc/snapshot.cu",
      "baryonforge_tpu/Runners/SnapshotRunner.py:196", "direct"),
+    # the JAX package's cell list is host C++ (no TPU kernel); K24 finds
+    # its sets on the card
+    ("cell_list", ("cell_build", "cell_count", "cell_write"),
+     "baryonforge_torch/csrc/cell_list.cu",
+     "baryonforge_tpu/native/kernels.cpp:87", "snapshot"),
 ]
 
 
@@ -4602,9 +4976,13 @@ def main():
     launches_family = family_paths(bf, torch, gpu, cat, shell, gm3)
 
     log("snapshot path: the snapshot bench's table built on the card")
+    count_host_searches()
     launches_snap, snap_measured, snap_inputs = snapshot_bench(bf, torch,
                                                                gpu)
     measured.update(snap_measured)
+    log(f"the large snapshot: {BIG_PARTS} particles, {BIG_HALOS} halos, past "
+        "2^31 - 1 pairs, in chunks")
+    launches_big = large_snapshot(bf, torch, gpu, snap_inputs[0])
 
     log("the direct readout (models without halo_curves) of every runner "
         "at full width")
@@ -4642,7 +5020,8 @@ def main():
     launches = {"scatter": launches_s, "tiled": launches_t,
                 "table": launches_table, "paint": launches_paint,
                 "anis": launches_anis, "grid": launches_grid,
-                "snapshot": launches_snap, "delta_cl": launches_cl,
+                "snapshot": launches_snap, "large_snapshot": launches_big,
+                "delta_cl": launches_cl,
                 **launches_family, **launches_val,
                 "correlation_hook": launches_hook, "halomodel": launches_hm,
                 "mesh": launches_mesh, "fits": launches_fits,

@@ -184,3 +184,72 @@ def test_fmod_near_is_fmod(dt):
         assert (torch.signbit(thp.fmod_near(-nn[None], n)).all()
                 and torch.signbit(thp.fmod_near(torch.tensor([-0.0],
                                                              dtype=dt), n)))
+
+
+HELPERS = ["pix2vec", "ang2vec", "vec2ang", "lonlat2thetaphi", "ring_above",
+           "interp_values", "disc_pixels"]
+
+
+def _helper(name, nside, jdt, tdt):
+    """(torch outputs, JAX outputs) of one public helper on seeded inputs
+    in the dtype: pixels, angles (with _angles' special points), vectors of
+    any length, sky coordinates in degrees, ring heights z, a map, discs."""
+    rng = np.random.default_rng(HELPERS.index(name) + 10)
+    theta, phi = _angles(nside, seed=5)
+    if name == "pix2vec":
+        p = rng.integers(0, 12 * nside * nside, 3000).astype(np.int32)
+        return (thp.pix2vec(nside, torch.as_tensor(p), tdt),
+                jhp.pix2vec(nside, jnp.asarray(p), jdt))
+    if name == "ang2vec":
+        return (thp.ang2vec(torch.as_tensor(theta).to(tdt),
+                            torch.as_tensor(phi).to(tdt)),
+                jhp.ang2vec(jnp.asarray(theta, jdt), jnp.asarray(phi, jdt)))
+    if name == "vec2ang":
+        v = rng.normal(size=(2000, 3)) * rng.uniform(0.1, 10, (2000, 1))
+        return (thp.vec2ang(torch.as_tensor(v).to(tdt)),
+                jhp.vec2ang(jnp.asarray(v, jdt)))
+    if name == "lonlat2thetaphi":
+        ra, dec = rng.uniform(0, 360, 2000), rng.uniform(-90, 90, 2000)
+        return (thp.lonlat2thetaphi(torch.as_tensor(ra).to(tdt),
+                                    torch.as_tensor(dec).to(tdt)),
+                jhp.lonlat2thetaphi(jnp.asarray(ra, jdt),
+                                    jnp.asarray(dec, jdt)))
+    if name == "ring_above":
+        z = np.concatenate([rng.uniform(-1, 1, 4000), np.cos(theta),
+                            [1.0, -1.0, 2.0 / 3.0, -2.0 / 3.0, 0.0]])
+        return (thp.ring_above(nside, torch.as_tensor(z).to(tdt)),
+                jhp.ring_above(nside, jnp.asarray(z, jdt)))
+    if name == "interp_values":
+        hmap = rng.exponential(1.0, 12 * nside * nside)
+        return (thp.interp_values(nside, torch.as_tensor(hmap).to(tdt),
+                                  torch.as_tensor(theta).to(tdt),
+                                  torch.as_tensor(phi).to(tdt)),
+                jhp.interp_values(nside, jnp.asarray(hmap, jdt),
+                                  jnp.asarray(theta, jdt),
+                                  jnp.asarray(phi, jdt)))
+    theta, phi = theta[::8], phi[::8]
+    radius = rng.uniform(0.2, 6.0, theta.size) * np.sqrt(
+        thp.nside2pixarea(nside))
+    K_ring, K_phi = thp.disc_pad_sizes(nside, float(radius.max()))
+    return (thp.disc_pixels(nside, torch.as_tensor(theta),
+                            torch.as_tensor(phi), torch.as_tensor(radius),
+                            K_ring, K_phi, tdt),
+            jax.vmap(lambda t, p, r: jhp.disc_pixels(
+                nside, t, p, r, K_ring, K_phi, jdt))(
+                jnp.asarray(theta), jnp.asarray(phi), jnp.asarray(radius)))
+
+
+@pytest.mark.parametrize("dts", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("name", HELPERS)
+def test_public_helpers(name, dts):
+    """The rest of the JAX module's public names, NSIDE 64: integers
+    (rings, pixels, masks) equal; floats to _close's tolerances (float64
+    rtol 1e-12, float32 atol 2e-6; interp_values weighs in float64 in both,
+    also for float32 maps and angles)."""
+    jdt, tdt = dts
+    got, want = _helper(name, 64, jdt, tdt)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for t, j in zip(got, want):
+        _close(t, j, tdt)
