@@ -28,7 +28,12 @@
 // chirp's spectrum too, formed once a block and used by both DFTs). A row
 // too long for the shared memory a block may have (on the H100 a power of
 // two over 4096, any other N over 2048) runs the same code on a slot of
-// device memory, kLongBlocks blocks walking the rows.
+// device memory, at most kLongBlocks blocks walking the rows (as many as
+// the wrapper's slots: it sizes them to the free memory). A slot's arrays
+// are addressed from 64-bit offsets, so M may reach 2^30 points (a slot of
+// 32 GiB, 48 GiB with Bluestein's chirp); the indices inside an array stay
+// below M. The wrapper takes M up to ops.fftlog.FHT_MAX_M (2^27), the
+// longest FFT held against its plain version on the card.
 // The second forward DFT of a power-of-two row comes from the inverse FFT:
 // Re DFT(d) = Re conj(IDFT(conj d)) = Re IDFT(conj d), so each d_m is
 // conjugated where the forward FFT left c_m (bit-reversed order) and
@@ -158,8 +163,9 @@ fht_kernel(int B, int N, int M, const double* __restrict__ a,
            double* __restrict__ k, double* __restrict__ out) {
   extern __shared__ double smem[];
   double* buf = scratch ? scratch + (long long)blockIdx.x * slot : smem;
-  double *re = buf, *im = buf + M, *twr = buf + 2 * M, *twi = buf + 3 * M;
-  double *br = buf + 4 * M, *bi = buf + 5 * M;  // Bluestein: chirp spectrum
+  const long long lm = M;
+  double *re = buf, *im = buf + lm, *twr = buf + 2 * lm, *twi = buf + 3 * lm;
+  double *br = buf + 4 * lm, *bi = buf + 5 * lm;  // Bluestein: chirp spectrum
   const double lx0 = log(x[0]), lxn = log(x[N - 1]);
   const double dln = (lxn - lx0) / (N - 1);
   const double ln_k0x0 = ln_kcrc - lxn + lx0;
@@ -269,7 +275,7 @@ fht_kernel(int B, int N, int M, const double* __restrict__ a,
 }
 
 template <bool kBluestein>
-int launch(int B, int N, int M, bool in_shared, const double* a,
+int launch(int B, int N, int M, bool in_shared, int slots, const double* a,
            const double* x, double mu, double q, double ln_kcrc,
            double* scratch, double* k, double* out, cudaStream_t stream) {
   const long long slot = (kBluestein ? 6LL : 4LL) * M;
@@ -284,8 +290,9 @@ int launch(int B, int N, int M, bool in_shared, const double* a,
     fht_kernel<kBluestein><<<max(B, 1), kThreads, smem, stream>>>(
         B, N, M, a, x, mu, q, ln_kcrc, nullptr, 0, k, out);
   } else {
-    if (scratch == nullptr) return int(cudaErrorInvalidValue);
-    const int blocks = min(max(B, 1), kLongBlocks);
+    if (scratch == nullptr || slots < 1 || slots > kLongBlocks)
+      return int(cudaErrorInvalidValue);
+    const int blocks = min(max(B, 1), slots);
     fht_kernel<kBluestein><<<blocks, kThreads, 0, stream>>>(
         B, N, M, a, x, mu, q, ln_kcrc, scratch, slot, k, out);
   }
@@ -301,22 +308,22 @@ extern "C" {
 // block runs when B is 0).
 // M and the route from ops.fftlog.fht_plan: M = N for a power of two,
 // else Bluestein's (the least power of two >= 2 N - 1); in_shared puts the
-// row's arrays in shared memory, else scratch holds min(max(B, 1),
-// kLongBlocks) slots of 4 M doubles (6 M for Bluestein)
-int bf_fht_f64(int B, int N, int M, int bluestein, int in_shared,
+// row's arrays in shared memory, else scratch holds `slots` slots (1 to
+// kLongBlocks) of 4 M doubles (6 M for Bluestein), and min(max(B, 1),
+// slots) blocks walk the rows
+int bf_fht_f64(int B, int N, int M, int bluestein, int in_shared, int slots,
                const double* a, const double* x, double mu, double q,
                double ln_kcrc, double* scratch, double* k, double* out,
                void* stream) {
-  // the slot's arrays start at up to 5 M doubles: int indices hold M <=
-  // 2^28
-  const bool pow2 = M >= 2 && M <= (1 << 28) && (M & (M - 1)) == 0;
+  // int indices inside an array of M points, 64-bit offsets between them
+  const bool pow2 = M >= 2 && M <= (1 << 30) && (M & (M - 1)) == 0;
   if (B < 0 || N < 2 || !pow2 || (bluestein ? M < 2LL * N - 1 : M != N))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = (cudaStream_t)stream;
-  return bluestein ? launch<true>(B, N, M, in_shared != 0, a, x, mu, q,
-                                  ln_kcrc, scratch, k, out, s)
-                   : launch<false>(B, N, M, in_shared != 0, a, x, mu, q,
-                                   ln_kcrc, scratch, k, out, s);
+  return bluestein ? launch<true>(B, N, M, in_shared != 0, slots, a, x, mu,
+                                  q, ln_kcrc, scratch, k, out, s)
+                   : launch<false>(B, N, M, in_shared != 0, slots, a, x, mu,
+                                   q, ln_kcrc, scratch, k, out, s);
 }
 
 int bf_fht_long_blocks(void) { return kLongBlocks; }

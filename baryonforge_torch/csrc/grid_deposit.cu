@@ -34,6 +34,19 @@
 // at most window / tile a source, 1.66 in 3D and 1.16 in 2D, against 2^d.
 // The float64 remainders take an exact path for |pos| < 2N (no library
 // fmod loop). Sums by atomics change order from run to run.
+//
+// The list entry (deposit_list_kernel, bf_deposit_list_*) is the public
+// deposit_2d / deposit_3d of baryonforge_tpu/ops/scatter.py:28, 47 (the
+// port's ops.scatter.deposit_2d / deposit_3d): M sources at any positions
+// (M, d) with values (M,), all in the grid's type R, added onto a copy of
+// the grid with the same per-axis arithmetic as above (the position itself
+// taken mod N). Bound: bytes (positions and values read once, the grid
+// read and written once). Design: a thread a source (a grid-stride loop),
+// its 2^d shares added straight into the grid by global atomics, a share
+// of exactly 0 skipped as above. The sources come in no order, so a tile's
+// window would gain nothing without sorting them first.
+
+#include <algorithm>
 
 #include "healpix.cuh"
 
@@ -232,9 +245,79 @@ int launch(int ndim, int N, const P* po, const R* orig, R* out,
   return int(cudaGetLastError());
 }
 
+// the list entry: source s at pos[s * NDIM + d], value val[s]; its corners
+// weighted v w_0 w_1 (w_2), left to right, into grid (row-major, the last
+// axis fastest)
+template <typename R, int NDIM>
+__global__ void __launch_bounds__(kThreads)
+deposit_list_kernel(int N, long long M, const R* __restrict__ pos,
+                    const R* __restrict__ val, R* __restrict__ grid) {
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long s = (long long)blockIdx.x * kThreads + threadIdx.x; s < M;
+       s += step) {
+    R wgt[NDIM][2];
+    long long gd[NDIM][2];
+    long long stride = 1;
+    for (int d = NDIM - 1; d >= 0; --d) {
+      // jnp.mod: in [0, N], N itself when a tiny negative remainder rounds
+      // up (then i0 = N wraps to 0 with weight 1)
+      R p = bf::fmod_near(pos[s * NDIM + d], R(N));
+      if (p != R(0) && p < R(0)) p = p + R(N);
+      const int i0 = int(bf::m_floor(p));
+      const R frac = p - R(i0);
+      wgt[d][0] = R(1) - frac;
+      wgt[d][1] = frac;
+      gd[d][0] = (long long)(i0 < N ? i0 : i0 - N) * stride;
+      gd[d][1] = (long long)(i0 + 1 < N ? i0 + 1 : i0 + 1 - N) * stride;
+      stride *= N;
+    }
+    const R v = val[s];
+    for (int c = 0; c < (1 << NDIM); ++c) {
+      R x = v;
+      long long g = 0;
+      for (int d = 0; d < NDIM; ++d) {
+        const int a = (c >> (NDIM - 1 - d)) & 1;
+        x = x * wgt[d][a];
+        g += gd[d][a];
+      }
+      if (x != R(0)) atomicAdd(grid + g, x);  // NaN != 0 is kept
+    }
+  }
+}
+
+template <typename R>
+int launch_list(int ndim, int N, long long M, const R* pos, const R* val,
+                R* grid, void* stream) {
+  if ((ndim != 2 && ndim != 3) || N < 1 || M < 0)
+    return int(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const long long blocks =
+      std::min<long long>((M + kThreads - 1) / kThreads, (1LL << 31) - 1);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndim == 3)
+    deposit_list_kernel<R, 3>
+        <<<int(blocks), kThreads, 0, s>>>(N, M, pos, val, grid);
+  else
+    deposit_list_kernel<R, 2>
+        <<<int(blocks), kThreads, 0, s>>>(N, M, pos, val, grid);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// the list entry: grid (N^ndim) holds the map the sources are added to;
+// pos (M, ndim), val (M,)
+int bf_deposit_list_f32(int ndim, int N, long long M, const float* pos,
+                        const float* val, float* grid, void* stream) {
+  return launch_list<float>(ndim, N, M, pos, val, grid, stream);
+}
+
+int bf_deposit_list_f64(int ndim, int N, long long M, const double* pos,
+                        const double* val, double* grid, void* stream) {
+  return launch_list<double>(ndim, N, M, pos, val, grid, stream);
+}
 
 // offsets in the first type, the maps in the second; out starts at 0
 #define BF_GRID_DEPOSIT(P, R, SUF)                                           \

@@ -1,4 +1,5 @@
-"""Host C++: the periodic cell-list neighbour search of BaryonifySnapshot.
+"""Host code: the periodic cell-list neighbour search of BaryonifySnapshot,
+and the JAX package's CPU cross-checks.
 
 ``cell_list.cpp`` is the port's counterpart of the JAX package's cell list
 (``baryonforge_tpu/native/kernels.cpp:87-164``): the same neighbour sets,
@@ -8,7 +9,16 @@ and cells sized by the median radius, particles stored cell by cell and
 the queries split over threads. At first use it is compiled with ``g++ -O3
 -shared -fPIC`` into ``baryonforge_torch/_build/``, keyed by a hash of the
 source, and loaded with ``ctypes``. There is no fallback: without g++, or
-when the build fails, ``cell_query`` raises.
+when the build fails, ``cell_query`` raises. ``cell_query`` returns the
+neighbours grouped by query (CSR), where the JAX function returns a padded
+(nq, pad) array; ``cell_query_counts`` gives the counts alone.
+
+``regrid_hpix_cpu``, ``deposit_2d_cpu`` and ``deposit_3d_cpu`` are the JAX
+package's CPU cross-checks (``baryonforge_tpu/native/kernels.cpp:23-84``),
+with its names, arguments and numpy float64 returns: the redeposit in
+numpy (each source's shares in the C loop's order, added one after the
+other by ``np.add.at``), the deposits by the plain versions of
+``ops.scatter`` on a float64 CPU grid.
 """
 
 import ctypes
@@ -20,8 +30,12 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
 
-__all__ = ["cell_query", "library"]
+from ..ops import scatter
+
+__all__ = ["cell_query", "cell_query_counts", "regrid_hpix_cpu",
+           "deposit_2d_cpu", "deposit_3d_cpu", "library"]
 
 _SRC = Path(__file__).resolve().parent / "cell_list.cpp"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -70,6 +84,29 @@ def library():
     return _lib
 
 
+def _query(positions, L, centers, radii):
+    """Run the search: (counts (nq,) int64, the library's handle of the
+    neighbour lists, None for no query)."""
+    lib = library()
+    positions = np.ascontiguousarray(np.mod(positions, L), dtype=np.float64)
+    centers = np.ascontiguousarray(np.mod(centers, L), dtype=np.float64)
+    radii = np.ascontiguousarray(radii, dtype=np.float64)
+    nq = radii.size
+    counts = np.zeros(nq, dtype=np.int64)
+    if nq == 0:
+        return counts, None
+    # cells of about the median radius: each query walks the cells its own
+    # radius reaches
+    pos_r = radii[radii > 0]
+    size = float(np.median(pos_r)) if pos_r.size else float(L)
+    handle = lib.bf_cell_query(positions.ctypes.data, len(positions),
+                               float(L), centers.ctypes.data,
+                               radii.ctypes.data, nq, size,
+                               _THREADS if nq >= 256 else 1,
+                               counts.ctypes.data)
+    return counts, handle
+
+
 def cell_query(positions, L, centers, radii):
     """Periodic fixed-radius neighbour search in 3D.
 
@@ -80,26 +117,57 @@ def cell_query(positions, L, centers, radii):
     Returns (counts (nq,) int64, indices (counts.sum(),) int32): the
     neighbours of query 0, then of query 1, ..., in cell order.
     """
-    lib = library()
-    positions = np.ascontiguousarray(np.mod(positions, L), dtype=np.float64)
-    centers = np.ascontiguousarray(np.mod(centers, L), dtype=np.float64)
-    radii = np.ascontiguousarray(radii, dtype=np.float64)
-    nq = radii.size
-    counts = np.zeros(nq, dtype=np.int64)
-    if nq == 0:
+    counts, handle = _query(positions, L, centers, radii)
+    if handle is None:
         return counts, np.zeros(0, dtype=np.int32)
-    # cells of about the median radius: each query walks the cells its own
-    # radius reaches
-    pos_r = radii[radii > 0]
-    size = float(np.median(pos_r)) if pos_r.size else float(L)
-    handle = lib.bf_cell_query(positions.ctypes.data, len(positions),
-                               float(L), centers.ctypes.data,
-                               radii.ctypes.data, nq, size,
-                               _THREADS if nq >= 256 else 1,
-                               counts.ctypes.data)
+    lib = library()
     try:
         idx = np.empty(int(counts.sum()), dtype=np.int32)
         lib.bf_cell_query_fetch(handle, idx.ctypes.data)
     finally:
         lib.bf_cell_query_free(handle)
     return counts, idx
+
+
+def cell_query_counts(positions, L, centers, radii):
+    """The neighbour counts (nq,) int64 of :func:`cell_query`, as the JAX
+    function of this name returns them (its own double-count a cell once
+    rmax > L / 3, this one visits each cell once, as cKDTree does)."""
+    counts, handle = _query(positions, L, centers, radii)
+    if handle is not None:
+        library().bf_cell_query_free(handle)
+    return counts
+
+
+def regrid_hpix_cpu(npix, parent_vals, child_pix, child_weights):
+    """CPU 4-neighbour redeposit: parent i's value times child_weights[i,
+    j] added to pixel child_pix[i, j] of an (npix,) float64 map, in the
+    order i, then j."""
+    parent_vals = np.ascontiguousarray(parent_vals, dtype=np.float64)
+    child_pix = np.ascontiguousarray(child_pix, dtype=np.int64)
+    child_weights = np.ascontiguousarray(child_weights, dtype=np.float64)
+    hmap = np.zeros(npix, dtype=np.float64)
+    np.add.at(hmap, child_pix.reshape(-1),
+              (child_weights.reshape(len(parent_vals), 4)
+               * parent_vals[:, None]).reshape(-1))
+    return hmap
+
+
+def _deposit_cpu(N, positions, values, ndim):
+    plain = scatter.deposit_2d_plain if ndim == 2 else \
+        scatter.deposit_3d_plain
+    grid = torch.zeros((N,) * ndim, dtype=torch.float64)
+    return plain(grid, torch.as_tensor(np.asarray(positions, np.float64)),
+                 torch.as_tensor(np.asarray(values, np.float64))).numpy()
+
+
+def deposit_2d_cpu(N, positions, values):
+    """Unit squares at ``positions`` (M, 2) with ``values`` (M,) deposited
+    onto a periodic (N, N) float64 grid of zeros (``deposit_2d_plain``)."""
+    return _deposit_cpu(N, positions, values, 2)
+
+
+def deposit_3d_cpu(N, positions, values):
+    """The unit-cube deposit onto a periodic (N, N, N) float64 grid of
+    zeros (``deposit_3d_plain``)."""
+    return _deposit_cpu(N, positions, values, 3)

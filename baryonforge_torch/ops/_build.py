@@ -20,7 +20,9 @@ K10 ``tile_paint``, K12 ``tile_paint2``), ``ops/stencil.py`` (K5
 check kernel ``pixel_angles``),
 ``ops/grid.py`` (K15 ``grid_cutout`` and its lists' ``tile_pairs``),
 ``ops/scatter.py`` (K16
-``grid_deposit``), ``ops/snapshot.py`` (K17 ``snapshot_displace``),
+``grid_deposit``, and its list entry ``deposit_list`` behind the public
+``deposit_2d`` / ``deposit_3d``), ``ops/snapshot.py`` (K17
+``snapshot_displace``),
 ``ops/sht.py`` (K18 ``ring_modes``, K19 ``legendre_alm``) and, for the
 direct readout of models without ``halo_curves``, ``ops/deposit.py`` (K20
 ``disc_radii``), ``ops/paint.py`` (K21 ``disc_apply``), ``ops/grid.py``
@@ -72,6 +74,9 @@ def _signatures():
     sig = {
         "bf_collapse_curves_f32": [_P, _P, _P, _I, _F, _P, _P],
         "bf_collapse_curves_f64": [_P, _P, _P, _I, _D, _P, _P],
+        "bf_collapse_curves_axes": [],
+        "bf_deposit_list_f32": [_I, _I, _LL, _P, _P, _P, _P],
+        "bf_deposit_list_f64": [_I, _I, _LL, _P, _P, _P, _P],
         "bf_disc_deposit_f32": [_I, _I] + [_P] * 8 + [_I, _F, _F, _F, _P, _P],
         "bf_disc_deposit_f64": [_I, _I] + [_P] * 8 + [_I, _D, _D, _D, _P, _P],
         "bf_tile_deposit_f32": [_I] * 5 + [_P] * 14 + [_I, _F, _F, _P, _P],
@@ -82,7 +87,7 @@ def _signatures():
         + [_I, _F, _F, _I, _F, _F, _I, _P, _P],
         "bf_tile_paint2_f64": [_I] * 5 + [_P] * 14
         + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
-        "bf_fht_f64": [_I] * 5 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
+        "bf_fht_f64": [_I] * 6 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
         "bf_fht_long_blocks": [],
         "bf_table_rows_f64": [_I, _I, _I] + [_P] * 8,
         "bf_enclosed_mass_f64": [_I, _I, _I] + [_P] * 6,
@@ -252,5 +257,15 @@ def stream_of(t):
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+class _Ptr(ctypes.c_void_p):
+    """A tensor's device pointer that holds the tensor: an argument such as
+    ``ptr(x.contiguous())`` keeps its copy alive until the launcher it is
+    passed to returns, so the caching allocator cannot hand that memory to
+    the next argument's copy before the kernel is queued (a later reuse is
+    ordered after the kernel on the same stream)."""
+
+
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    p = _Ptr(t.data_ptr())
+    p.tensor = t
+    return p

@@ -23,7 +23,8 @@ from . import _build
 from .interp import interp
 from .sht import shared_memory_optin
 
-__all__ = ["loggamma", "fht", "fht_plain", "fht_plan", "FHT_MAX_M",
+__all__ = ["loggamma", "fht", "fht_plain", "fht_plan", "fht_slots",
+           "FHT_MAX_M",
            "sph_fourier_3d", "sph_inverse_3d", "proj_fourier_2d",
            "proj_inverse_2d", "xi_from_pk", "convolve_profile"]
 
@@ -163,11 +164,13 @@ def fht_plain(a, lx, mu, q, ln_kcrc):
 
 
 # the longest FFT K8 runs for a row (its M): a power of two up to this
-# length, any other N up to half of it (Bluestein's M >= 2 N - 1). The
-# card tests hold both ends within 1e-11. At this M a row's one block
-# takes ~50 ms and a device-memory slot 32 or 48 bytes a point (64 or 100
-# MB); the kernel's int indices would hold M up to 2^28
-FHT_MAX_M = 1 << 21
+# length, any other N up to half of it (Bluestein's M >= 2 N - 1). It is
+# the longest FFT held against fht_plain on the card (a power of two and
+# Bluestein); the kernel's own index math (int inside an array of M points,
+# 64-bit offsets between arrays) would take M up to 2^30. Its device-memory
+# slot is 32 bytes a point (48 with Bluestein): 4 GiB (6) at this M. Rows
+# whose slot does not fit the free memory are refused too (fht_slots).
+FHT_MAX_M = 1 << 27
 
 
 def fht_plan(N, smem_bytes):
@@ -183,12 +186,35 @@ def fht_plan(N, smem_bytes):
     return M, bluestein, slot * 8 <= smem_bytes
 
 
+def fht_slots(B, M, bluestein, free_bytes, most):
+    """Device-memory slots for K8's long rows: one a block, at most
+    ``most`` (the kernel's block count) and at most the B rows, as many as
+    9/10 of ``free_bytes`` hold, each 4 M doubles (6 M with Bluestein).
+    Raises MemoryError when not even one fits."""
+    slot = (6 if bluestein else 4) * M * 8
+    fit = int(0.9 * free_bytes) // slot
+    if fit < 1:
+        raise MemoryError(f"fht on CUDA: an FFT of M = {M} points needs a "
+                          f"device-memory slot of {slot} bytes; "
+                          f"{int(free_bytes)} bytes are free")
+    return min(max(B, 1), most, fit)
+
+
+def _free_bytes(device):
+    """Device memory a new tensor can take: the driver's free memory and
+    what PyTorch's caching allocator holds unused."""
+    free = torch.cuda.mem_get_info(device)[0]
+    return free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+
+
 def _fht_kernel(x, a, mu, q, ln_kcrc, smem_bytes=None):
     """K8 on CUDA tensors: one block a row, one launch for the transform
     and the k grid. ``q`` is already off the Gamma poles; ``smem_bytes``
     overrides the shared memory a block may take (the card's opt-in by
-    default), so a test can force the device-memory route. Returns (k,
-    the (..., N) transform)."""
+    default), so a test can force the device-memory route, whose slots
+    are sized to the free memory after the outputs are allocated
+    (:func:`fht_slots`). Returns (k, the (..., N) transform)."""
     N = x.shape[-1]
     if N < 2:
         raise ValueError(f"fht on CUDA: N = {N} < 2")
@@ -202,16 +228,17 @@ def _fht_kernel(x, a, mu, q, ln_kcrc, smem_bytes=None):
     x = x.to(device=a.device, dtype=torch.float64).contiguous()
     B = rows.shape[0]
     lib = _build.library()
-    scratch = None
-    if not in_shared:
-        slots = min(max(B, 1), lib.bf_fht_long_blocks())
-        scratch = torch.empty(slots * (6 if bluestein else 4) * M,
-                              dtype=torch.float64, device=a.device)
     k = torch.empty_like(x)
     out = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    scratch, slots = None, 0
+    if not in_shared:
+        slots = fht_slots(B, M, bluestein, _free_bytes(a.device),
+                          lib.bf_fht_long_blocks())
+        scratch = torch.empty(slots * (6 if bluestein else 4) * M,
+                              dtype=torch.float64, device=a.device)
     with torch.cuda.device(a.device):
         err = lib.bf_fht_f64(
-            B, N, M, int(bluestein), int(in_shared), _build.ptr(rows),
+            B, N, M, int(bluestein), int(in_shared), slots, _build.ptr(rows),
             _build.ptr(x), float(mu), float(q), float(ln_kcrc),
             None if scratch is None else _build.ptr(scratch),
             _build.ptr(k), _build.ptr(out), _build.stream_of(rows))

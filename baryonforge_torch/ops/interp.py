@@ -30,10 +30,15 @@ __all__ = ["searchsorted_right", "pchip_derivatives", "pchip_eval",
            "cubic_spline_derivative_eval",
            "interp", "interp1d_linear", "multilinear_interp",
            "collapse_curves", "collapse_curves_plain", "halo_corners_plain",
-           "CurveTable", "cast_copy", "curve_table", "MAX_P_AXES"]
+           "CurveTable", "cast_copy", "curve_table", "drop_casts",
+           "MAX_P_AXES"]
 
-# parameter axes K1 takes besides z and M (kMaxAxes - 2 in csrc/curves.cu)
-MAX_P_AXES = 4
+# parameter axes K1 takes besides z and M (kAxesCap - 2 in csrc/curves.cu):
+# as many as a table of fewer than 2^31 values can have, 2 points an axis
+MAX_P_AXES = 27
+# past this many parameter axes K1's wide kernel runs, on a copy of the
+# table with the radial axis last (kMaxAxes - 2 in csrc/curves.cu)
+_FIXED_P_AXES = 4
 
 
 def _lt_nan_last(a, b):
@@ -451,7 +456,9 @@ class CurveTable:
     device sync. Columns on the
     card are read as they are (float64 or the table's type); host columns
     go up as float64 through pinned memory in one asynchronous copy. The
-    kernel rounds float64 values to the table's type. The model classes
+    kernel rounds float64 values to the table's type. Past four parameter
+    axes the set-up keeps a copy of the table with the radial axis last,
+    (z, M, p1, ..., pP, r), which K1's wide kernel reads. The model classes
     keep theirs (:func:`curve_table`). A table on the CPU runs the plain
     version."""
 
@@ -470,10 +477,9 @@ class CurveTable:
             raise ValueError("collapse_curves: the table must be (z, M, r, "
                              "p...) with one trailing axis per p_key")
         if len(p_keys) > MAX_P_AXES:
-            raise NotImplementedError(
-                f"collapse_curves on CUDA: {len(p_keys)} parameter axes; "
-                f"the kernel keeps each axis' bracket on a lane and takes at"
-                f" most {MAX_P_AXES}")
+            raise ValueError(
+                f"collapse_curves on CUDA: {len(p_keys)} parameter axes; a "
+                f"table of fewer than 2^31 values has at most {MAX_P_AXES}")
         dt = table.dtype
         if dt not in (torch.float32, torch.float64):
             raise TypeError(f"collapse_curves: unsupported dtype {dt}")
@@ -492,7 +498,12 @@ class CurveTable:
         if table.numel() >= 2 ** 31:
             raise ValueError("collapse_curves: the table holds 2^31 values "
                              "or more (int32 index math)")
-        self._table = table.contiguous()
+        if len(p_keys) > _FIXED_P_AXES:
+            # (z, M, p1, ..., pP, r): each corner row contiguous
+            self._table = table.permute(
+                (0, 1) + tuple(range(3, table.dim())) + (2,)).contiguous()
+        else:
+            self._table = table.contiguous()
         self._grids = [axes[d].contiguous()
                        for d in [0, 1] + list(range(3, table.dim()))]
         self._axes_c = _CurveAxes()
@@ -505,6 +516,9 @@ class CurveTable:
         self._lock = threading.Lock()
         self._device = table.device.index
         lib = _build.library()
+        if lib.bf_collapse_curves_axes() != 2 + MAX_P_AXES:
+            raise RuntimeError("collapse_curves: csrc/curves.cu's kAxesCap "
+                               "is not 2 + MAX_P_AXES")
         self._fn = (lib.bf_collapse_curves_f32 if dt == torch.float32
                     else lib.bf_collapse_curves_f64)
 
@@ -573,7 +587,9 @@ class CurveTable:
             else:
                 err = self._launch(n, fill, out)
             _build.check(err, "collapse_curves")
-            _build.count("collapse_curves")
+            _build.count("collapse_curves_wide"
+                         if len(self.p_keys) > _FIXED_P_AXES
+                         else "collapse_curves")
         return out, self.ln_r0, self.dlnr
 
     def _launch(self, n, fill, out):
@@ -630,6 +646,14 @@ def cast_copy(model, names, dtype, device):
     return new
 
 
+def drop_casts(model):
+    """Forget the casts (and their K1 set-ups) that :func:`cast_copy` keeps
+    on ``model``: the next copy is cast anew from the model's tensors, so
+    an edit made to them in place is seen (a runner's ``invalidate``)."""
+    with _cast_lock:
+        model.__dict__.pop("_casts", None)
+
+
 def curve_table(model, name):
     """The :class:`CurveTable` of ``model``'s table ``name`` (radial axis
     at 2, axes ``model._axes``). On a copy made by :func:`cast_copy` it is
@@ -658,7 +682,8 @@ def collapse_curves(table, axes, r_axis, M, a, p_keys, kwargs, fill=0.0):
     model classes keep theirs.
 
     The kernel takes float32 or float64 (z, M, r, p1, ...) tables with the
-    radial axis at index 2 and at most ``MAX_P_AXES`` parameter axes.
+    radial axis at index 2, fewer than 2^31 values and any number of
+    parameter axes (at most ``MAX_P_AXES`` fit such a table).
     """
     return CurveTable(table, axes, r_axis, p_keys).collapse(M, a, kwargs,
                                                             fill)

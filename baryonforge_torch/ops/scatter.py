@@ -1,7 +1,11 @@
 """The grid deposit: conservative unit-cell deposits on periodic grids.
 
-``deposit_2d_plain`` and ``deposit_3d_plain`` port
-``baryonforge_tpu.ops.scatter.deposit_2d`` and ``deposit_3d``: a unit
+``deposit_2d`` and ``deposit_3d`` are ``baryonforge_tpu.ops.scatter``'s
+public functions, with its names and arguments ``(grid, positions (M, d),
+values (M,))``: the list entry of kernel K16 (``bf_deposit_list_*`` in
+``csrc/grid_deposit.cu``, a thread a source and 2^d atomics) for tensors
+on CUDA, and their plain versions ``deposit_2d_plain`` and
+``deposit_3d_plain`` for tensors on the CPU. Either way: a unit
 square (cube) at fractional position p overlaps its 2^d neighbouring cells
 with per-axis weights (1 - frac, frac), p taken mod N with jnp.mod's
 semantics (fmod moved into the divisor's sign), i0 = floor(p), i1 = (i0 +
@@ -26,8 +30,9 @@ import torch
 
 from . import _build
 
-__all__ = ["deposit_2d_plain", "deposit_3d_plain", "grid_deposit",
-           "grid_deposit_plain", "grid_deposit_windows_plain", "TILE"]
+__all__ = ["deposit_2d", "deposit_3d", "deposit_2d_plain",
+           "deposit_3d_plain", "grid_deposit", "grid_deposit_plain",
+           "grid_deposit_windows_plain", "TILE"]
 
 # K16's tile of sources a block, the last axis fastest (``Tile`` in
 # csrc/grid_deposit.cu; bf_grid_deposit_tile reports the kernel's)
@@ -79,6 +84,65 @@ def deposit_3d_plain(grid, positions, values):
                 flat.index_add_(0, (xi * N + yi) * N + zi,
                                 values * wxi * wyi * wzi)
     return flat.reshape(N, N, N)
+
+
+def _deposit(grid, positions, values, ndim):
+    """The list entry of K16 for CUDA tensors, the plain version for CPU
+    ones; returns the updated grid as a new tensor."""
+    name = f"deposit_{ndim}d"
+    if grid.dim() != ndim or len(set(grid.shape)) != 1:
+        raise ValueError(f"{name}: grid must be (N,) * {ndim}, not "
+                         f"{tuple(grid.shape)}")
+    if positions.dim() != 2 or positions.shape[1] != ndim:
+        raise ValueError(f"{name}: positions must be (M, {ndim}), not "
+                         f"{tuple(positions.shape)}")
+    if tuple(values.shape) != (positions.shape[0],):
+        raise ValueError(f"{name}: values must be ({positions.shape[0]},), "
+                         f"not {tuple(values.shape)}")
+    dt, dev = grid.dtype, grid.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: unsupported dtype {dt}")
+    for what, x in (("positions", positions), ("values", values)):
+        if x.dtype != dt or x.device != dev:
+            raise TypeError(f"{name}: {what} must be {dt} on {dev}, like "
+                            f"the grid, not {x.dtype} on {x.device}")
+    if dev.type == "cpu":
+        plain = deposit_2d_plain if ndim == 2 else deposit_3d_plain
+        return plain(grid, positions, values)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    out = grid.contiguous().clone()
+    M = positions.shape[0]
+    if M == 0:
+        return out
+    fn = getattr(_build.library(), "bf_deposit_list_{}".format(
+        "f32" if dt == torch.float32 else "f64"))
+    pos, val = positions.contiguous(), values.contiguous()
+    with torch.cuda.device(dev):
+        err = fn(ndim, grid.shape[0], M, _build.ptr(pos), _build.ptr(val),
+                 _build.ptr(out), _build.stream_of(out))
+    _build.check(err, name)
+    _build.count("deposit_list")
+    return out
+
+
+def deposit_2d(grid, positions, values):
+    """Deposit unit squares at ``positions`` (M, 2) with ``values`` (M,)
+    onto a periodic (N, N) ``grid``; returns the updated grid (a new
+    tensor). Positions are in pixel units: position (i, j) with zero
+    fractional part deposits fully into cell (i, j). The three tensors
+    share one dtype (float32 or float64) and one device: the list entry
+    of K16 on CUDA (its sums by atomics, in no fixed order), the plain
+    version on the CPU. Positions must be finite: a non-finite one lands
+    where the float-to-int conversion puts it, in JAX as well."""
+    return _deposit(grid, positions, values, 2)
+
+
+def deposit_3d(grid, positions, values):
+    """Trilinear unit-cube deposit of ``values`` (M,) at ``positions`` (M,
+    3) onto a periodic (N, N, N) ``grid``; returns the updated grid (a new
+    tensor). As :func:`deposit_2d`."""
+    return _deposit(grid, positions, values, 3)
 
 
 def lattice(npix, ndim, device):

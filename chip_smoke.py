@@ -245,7 +245,25 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      device's and torch's ring colatitudes explains, its layout (formed
      on the card) to row_layout's bit for bit and its pad slots to the
      fills they replace;
- 20. prints the registers, spills and resident warps of K1's, K3's, K4's
+ 20. closes the last gaps to the JAX package: after the tSZ paint, the
+     paint with five per-halo properties (a ParamTabulatedProfile of the
+     bench's Schneider19 Gas profile over theta_ej, theta_co, M_c, mu_beta
+     and delta, two or three values each, built on the card and timed, a
+     small one card vs CPU; the bench catalog with five columns of its
+     own, some halos off an axis: K1's wide kernel (counted apart as
+     collapse_curves_wide) as the runner calls it, timed with its bound,
+     the tiled (K1, K10, K7) and disc (K1, K11) paints through drive(),
+     their agreement, and the paint card vs CPU in float64 at NSIDE 64);
+     K1 also at 5 and 6 parameter axes against its plain version (with the
+     2-axis case, at NSIDE 64's 400 halos and the bench's 18,512, timed
+     with its bound); at the end, the public ops.scatter.deposit_3d (256^3
+     sources onto 256^3) and deposit_2d (2048^2 onto 2048^2), float32 and
+     float64, with the launch counts set to 0 just before and read just
+     after, against their plain versions and timed (3D float64 beside one
+     torch.index_add of the corner shares); and fht of one row of 2^22
+     points and one Bluestein row of 2^20 + 1 (M = 2^22), then the same at
+     FHT_MAX_M (2^27 points; 2^26 - 1, M = 2^27) against fht_plain;
+ 21. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
      K16's, K17's, K19's and K24's kernels (nvcc -Xptxas -v on their
      sources), one JSON line with each kernel's launches, error, times, bound and
@@ -1060,36 +1078,75 @@ def k6_shares(torch, tiling, acc, og, geo, hot):
     return idx, vals, slot.numel(), int(moved.sum())
 
 
-def p_key_curves(torch, n, timing):
-    """K1 against its plain version on a table with two parameter axes
-    (made from a seed), for ``n`` halos; returns (err, ms, plain_ms)."""
-    from baryonforge_torch.ops import interp
+# the parameter axes' sizes of p_key_curves' tables (their first P)
+P_SHAPE = (4, 3, 2, 3, 2, 3)
+
+
+def k1_name(n_p):
+    """K1's launch count for a table of ``n_p`` parameter axes: the wide
+    kernel's from five on."""
+    return "collapse_curves_wide" if n_p > 4 else "collapse_curves"
+
+
+def p_key_curves(torch, n, timing, n_ps=(2,)):
+    """K1 against its plain version on tables of the bench table's 8 x 20 x
+    64 with P parameter axes (P_SHAPE's first P; P of ``n_ps``; 5 and 6
+    run the wide kernel), made from a seed, for ``n`` halos, a few of them
+    off each parameter axis (rows of 0), in float64 and float32 (to 1e-12
+    and 1e-6 of the largest |curve|), one launch a call. Returns {P: (err,
+    ms, plain_ms, bound_ms, bound_by, alone_ms)} of the float32 tables
+    when ``timing``: timed from host columns, and on the device alone (the
+    columns on the card, a CUDA graph of 20 calls)."""
+    from baryonforge_torch.ops import _build, interp
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
-    shape = (8, 20, 64, 4, 3)
-    res = None
-    for dt in (torch.float64, torch.float32):
-        axes = tuple(torch.as_tensor(np.cumsum(rng.uniform(0.2, 1.0, k)),
-                                     dtype=dt, device=dev) for k in shape)
-        table = torch.as_tensor(rng.normal(size=shape), dtype=dt, device=dev)
-        M = np.exp(rng.uniform(axes[1][0].item(), axes[1][-1].item(), n))
-        a = 1.0 / np.exp(rng.uniform(axes[0][0].item(), axes[0][-1].item(),
-                                     n))
-        p = {f"p{k}": rng.uniform(axes[3 + k][0].item(),
-                                  axes[3 + k][-1].item(), n) for k in (0, 1)}
-        args = (table, axes, 2, M, a, ["p0", "p1"], p)
-        ck = interp.collapse_curves(*args)[0]
-        cp = interp.collapse_curves_plain(*args)[0]
-        torch.cuda.synchronize()
-        err = (ck - cp).abs().max().item()
-        rel = 1e-6 if dt == torch.float32 else 1e-12
-        check(f"K1 collapse_curves, 2 parameter axes [{n} halos, {dt}]", err,
-              rel * cp.abs().max().item())
-        if timing and dt == torch.float32:
-            ct = interp.CurveTable(table, axes, 2, ["p0", "p1"])
-            res = (err, time_ms(torch, lambda: ct.collapse(M, a, p), 20),
-                   time_ms(torch, lambda: interp.collapse_curves_plain(*args),
-                           5))
+    res = {}
+    for n_p in n_ps:
+        shape = (8, 20, 64) + P_SHAPE[:n_p]
+        keys = [f"p{k}" for k in range(n_p)]
+        for dt in (torch.float64, torch.float32):
+            axes = tuple(torch.as_tensor(np.cumsum(rng.uniform(0.2, 1.0, k)),
+                                         dtype=dt, device=dev)
+                         for k in shape)
+            table = torch.as_tensor(rng.normal(size=shape), dtype=dt,
+                                    device=dev)
+            lo = [ax[0].item() for ax in axes]
+            hi = [ax[-1].item() for ax in axes]
+            M = np.exp(rng.uniform(lo[1], hi[1], n))
+            a = 1.0 / np.exp(rng.uniform(lo[0], hi[0], n))
+            p = {k: rng.uniform(lo[3 + j], hi[3 + j], n)
+                 for j, k in enumerate(keys)}
+            for j, k in enumerate(keys):
+                p[k][j] = hi[3 + j] + 0.1
+            args = (table, axes, 2, M, a, keys, p)
+            _build.reset_launches()
+            ck = interp.collapse_curves(*args)[0]
+            if dict(_build.launches) != {k1_name(n_p): 1}:
+                raise AssertionError(f"K1 with {n_p} parameter axes: "
+                                     f"{dict(_build.launches)}")
+            cp = interp.collapse_curves_plain(*args)[0]
+            torch.cuda.synchronize()
+            if not ((cp[:n_p] == 0).all() and (cp[n_p:] != 0).any(1).all()):
+                raise AssertionError(f"K1 with {n_p} parameter axes: the "
+                                     "rows off an axis are not the fill")
+            err = (ck - cp).abs().max().item()
+            rel = 1e-6 if dt == torch.float32 else 1e-12
+            check(f"K1 collapse_curves, {n_p} parameter axes [{n} halos, "
+                  f"{dt}]", err, rel * cp.abs().max().item())
+            if timing and dt == torch.float32:
+                ct = interp.CurveTable(table, axes, 2, keys)
+                # the table, the host columns and the curves once; per
+                # output value a multiply and an add a corner
+                on = {k: torch.as_tensor(v, device=dev) for k, v in p.items()}
+                Md, ad = (torch.as_tensor(v, device=dev) for v in (M, a))
+                res[n_p] = (err, time_ms(torch, lambda: ct.collapse(M, a, p),
+                                         20),
+                            time_ms(torch, lambda:
+                                    interp.collapse_curves_plain(*args),
+                                    3)) + bound(
+                    nbytes(table, axes, cp) + 8 * n * (2 + n_p),
+                    2 * cp.numel() * 2 ** (2 + n_p), F32_FLOPS) + (
+                    graph_ms(torch, lambda: ct.collapse(Md, ad, on)),)
     return res
 
 
@@ -3517,7 +3574,8 @@ def ptxas_report(bf):
                "stencil_geo_kernel": 256, "grid_direct_kernel": 512,
                "grid_radii_kernel": 256, "snapshot_direct_kernel": 128,
                "snapshot_radii_kernel": 256, "cell_query_kernel": 256,
-               "cell_bin_kernel": 256, "cell_place_kernel": 256}
+               "cell_bin_kernel": 256, "cell_place_kernel": 256,
+               "collapse_curves_wide": 256, "deposit_list_kernel": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
@@ -4654,12 +4712,277 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
     return launches, measured
 
 
+# -- the last gaps to the JAX package: a five-key ParamTabulatedProfile
+# paint (K1's wide kernel), the public grid deposits (K16's list entry) and
+# FFTLog rows past 2^21 points (K8) ------------------------------------------
+# five parameters of the bench's Schneider19 gas profile, two or three
+# values each; each halo draws its own from the seed, over each axis
+# widened by P5_REACH of its span a side, so some fall off an axis (fill 0)
+P5_KEYS = {"theta_ej": (3.0, 4.0, 5.0), "theta_co": (0.05, 0.1),
+           "M_c": (5e13 / H, 2e14 / H), "mu_beta": (0.3, 0.5),
+           "delta": (6.0, 8.0)}
+P5_REACH = 0.02
+P5_SMALL = dict(BENCH_GRID, N_samples_z=1, N_samples_Mass=3, N_samples_R=16)
+DEPOSIT_CALLS = 10
+
+
+def p5_table(bf, device, grid):
+    """The five-key ParamTabulatedProfile of the bench's gas profile,
+    built on ``device`` over ``grid``."""
+    tab = bf.utils.ParamTabulatedProfile(
+        bf.Profiles.Gas(**BPAR, proj_cutoff=100),
+        bf.cosmo.cosmology_from_dict(COSMO), device=device)
+    return tab.setup_interpolator(
+        other_params={k: np.array(v) for k, v in P5_KEYS.items()}, **grid)
+
+
+def p5_inputs(bf, nside, n_halos, seed):
+    """bench_inputs' catalog and map with the five per-halo columns (from
+    seed + 1), and which halos lie off an axis."""
+    cat, shell = bench_inputs(bf, nside, n_halos, seed)
+    rng = np.random.default_rng(seed + 1)
+    cols = {k: np.asarray(cat.cat[k], dtype=float)
+            for k in ("ra", "dec", "M", "z")}
+    off = np.zeros(n_halos, dtype=bool)
+    for k, v in P5_KEYS.items():
+        lo, hi = min(v), max(v)
+        cols[k] = rng.uniform(lo - P5_REACH * (hi - lo),
+                              hi + P5_REACH * (hi - lo), n_halos)
+        off |= (cols[k] < lo) | (cols[k] > hi)
+    return (bf.utils.HaloLightConeCatalog(**cols, cosmo=COSMO), shell,
+            cols, off)
+
+
+def p5_paint(bf, torch, gpu):
+    """The paint shell with five per-halo properties: the table built on
+    the card (timed, its shape logged; a small one card vs CPU to 1e-9),
+    K1 as the runner calls it on the bench's columns (the halos off an axis
+    rows of 0), the tiled (K1, K10, K7) and disc (K1, K11) paints at the
+    bench configuration through drive(), their agreement, and the paint
+    card vs CPU in float64 on a small catalog. Returns (the two paths'
+    launches, summed; the kernels line's row of K1's wide kernel: that
+    call's error against the plain version, its time from host columns,
+    the plain version's, its bound, no library call)."""
+    from baryonforge_torch.ops import _build, interp
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab = p5_table(bf, DEVICE, BENCH_GRID)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    shape = tuple(tab._tab2D.shape)
+    log(f"[{gpu}] five-key table ParamTabulatedProfile(Gas(bench bpar, "
+        f"proj_cutoff=100)) over {list(P5_KEYS)} built on the card: shape "
+        f"{shape} ({tab._tab2D.numel()} values a table), "
+        f"{build_s:.2f} s, launches {dict(_build.launches)}")
+    for name in ("_tab2D", "_tab3D"):
+        t = getattr(tab, name)
+        if not (torch.isfinite(t).all() and (t != 0).any()):
+            raise AssertionError(f"five-key table {name} not finite")
+    small_g = p5_table(bf, DEVICE, P5_SMALL)
+    small_c = p5_table(bf, "cpu", P5_SMALL)
+    for name in ("_tab2D", "_tab3D"):
+        g, c = getattr(small_g, name), getattr(small_c, name)
+        check(f"five-key table {name} {tuple(c.shape)}, card vs CPU",
+              (g.cpu() - c).abs().max().item(), 1e-9 * c.abs().max().item())
+
+    cat, shell, cols, off = p5_inputs(bf, NSIDE, N_HALOS, SEED)
+    log(f"  five-key catalog: {int(off.sum())} of {N_HALOS} halos off an "
+        "axis (fill 0)")
+    m32 = tab.with_dtype(torch.float32, device=DEVICE)
+    hd = bf.PaintProfilesShell(cat, shell, epsilon_max=PAINT_EPS, model=tab,
+                               device=DEVICE)._host_halo_data(
+        bf.cosmo.cosmology_from_dict(COSMO))
+    pk = {k: cols[k] for k in P5_KEYS}
+    _build.reset_launches()
+    ck = m32.halo_curves(hd["M"], hd["a"], **pk)[0]
+    if dict(_build.launches) != {"collapse_curves_wide": 1}:
+        raise AssertionError(f"five-key curves: {dict(_build.launches)}")
+    p_args = (m32._tab2D, m32._axes, 2, hd["M"], hd["a"], list(P5_KEYS), pk)
+    cp = interp.collapse_curves_plain(*p_args)[0]
+    torch.cuda.synchronize()
+    offk = torch.as_tensor(off, device=ck.device)
+    if not ((ck[offk] == 0).all() and (ck[~offk] != 0).any(1).all()):
+        raise AssertionError("five-key curves: the halos off an axis are "
+                             "not the fill")
+    err = (ck - cp).abs().max().item()
+    check("K1 collapse_curves_wide, five-key table, bench columns "
+          "[float32]", err, 1e-6 * cp.abs().max().item())
+    ms = time_ms(torch, lambda: m32.halo_curves(hd["M"], hd["a"], **pk), 20)
+    plain_ms = time_ms(torch, lambda: interp.collapse_curves_plain(*p_args),
+                       3)
+    dev_cols = {k: torch.as_tensor(v, device=DEVICE)
+                for k, v in dict(pk, M=hd["M"], a=hd["a"]).items()}
+    alone = graph_ms(torch, lambda: m32.halo_curves(**dev_cols))
+    # the table, the axes and the curves once, seven float64 host columns;
+    # per output value a multiply and an add a corner
+    bnd = bound(nbytes(m32._tab2D, m32._axes, ck) + 8 * N_HALOS *
+                (2 + len(P5_KEYS)), 2 * ck.numel() * 2 ** (2 + len(P5_KEYS)),
+                F32_FLOPS)
+    log(f"[{gpu}] K1's wide kernel on the five-key table as the paint "
+        f"runner calls it (host columns, {N_HALOS} halos, "
+        f"{ck.shape[1]} radii, 128 corners): {ms:.4f} ms; the device alone "
+        f"(columns on the card) {alone:.4f} ms; plain {plain_ms:.3f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    kw = dict(epsilon_max=PAINT_EPS, model=tab, device=DEVICE)
+    out_t, l_t = drive(bf, torch, bf.PaintProfilesShell(cat, shell, **kw),
+                       ("collapse_curves_wide", "tile_paint", "flat_view"),
+                       "five-key tiled paint", gpu, paint=True)
+    out_s, l_s = drive(bf, torch, bf.PaintProfilesShell(
+        cat, shell, deposit="scatter", **kw), ("collapse_curves_wide",
+                                               "disc_paint"),
+        "five-key scatter paint", gpu, paint=True)
+    paint_bound_check("five-key paint: tiled vs scatter, per pixel", out_t,
+                      out_s)
+    cat_s, shell_s, _, _ = p5_inputs(bf, 64, 400, SEED)
+    paint_card_vs_cpu(bf, torch, tab, cat_s, shell_s, 60,
+                      "five-key, NSIDE 64")
+    launches = {k: l_t.get(k, 0) + l_s.get(k, 0)
+                for k in set(l_t) | set(l_s)}
+    return launches, (err, ms, plain_ms) + bnd + (None,)
+
+
+def public_deposits(bf, torch, gpu):
+    """ops.scatter.deposit_3d of 256^3 sources onto a 256^3 grid and
+    deposit_2d of 2048^2 onto 2048^2, float32 and float64, positions from a
+    seed in [-N/4, 5N/4) (a tenth exact integers), on a random grid: the
+    four calls with the launch counts set to 0 just before and read just
+    after (K16's list entry, no other kernel), each against its plain
+    version on the card (float64 to 1e-12 of the largest value, float32 to
+    1e-5; the mass added the values' sum), timed beside it and, 3D float64
+    (the kernels line's row), beside one torch.index_add of the 8 corner
+    shares formed beforehand, untimed. Returns (launches, the row)."""
+    from baryonforge_torch.ops import _build, scatter
+    dev = torch.device(DEVICE)
+    cases = []
+    for ndim, N in ((3, GRID3D_N), (2, GRID2D_N)):
+        g = torch.Generator(device=dev).manual_seed(SEED + ndim)
+        M = N ** ndim
+        pos = (torch.rand((M, ndim), dtype=torch.float64, device=dev,
+                          generator=g) * 1.5 - 0.25) * N
+        pos[::10] = torch.floor(pos[::10])
+        vals = 2 * torch.rand(M, dtype=torch.float64, device=dev,
+                              generator=g)
+        grid = torch.rand((N,) * ndim, dtype=torch.float64, device=dev,
+                          generator=g)
+        for dt in (torch.float32, torch.float64):
+            cases.append((ndim, N, dt, grid.to(dt), pos.to(dt), vals.to(dt)))
+        del pos, vals, grid
+    fns = {2: (scatter.deposit_2d, scatter.deposit_2d_plain),
+           3: (scatter.deposit_3d, scatter.deposit_3d_plain)}
+    _build.reset_launches()
+    outs = [fns[c[0]][0](*c[3:]) for c in cases]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    if launches != {"deposit_list": len(cases)}:
+        raise AssertionError(f"the public deposits launched {launches}")
+    row = None
+    for (ndim, N, dt, grid, pos, vals), ok in zip(cases, outs):
+        tag = f"{ndim}D, {N}^{ndim} sources and cells, " + \
+            str(dt).replace("torch.", "")
+        fn, plain = fns[ndim]
+        op = plain(grid, pos, vals)
+        torch.cuda.synchronize()
+        err = (ok - op).abs().max().item()
+        rel = 1e-12 if dt == torch.float64 else 1e-5
+        check(f"deposit_list [{tag}]", err, rel * op.abs().max().item())
+        added = (ok.double().sum() - grid.double().sum()).item()
+        check(f"deposit_list mass [{tag}]",
+              abs(added / vals.double().sum().item() - 1), 10 * rel)
+        ms = time_ms(torch, lambda: fn(grid, pos, vals), DEPOSIT_CALLS)
+        plain_ms = time_ms(torch, lambda: plain(grid, pos, vals), 3)
+        # positions and values read once, the grid read and the new one
+        # written; ~15 operations an axis and one a corner
+        bnd = bound(nbytes(grid, pos, vals, grid), (15 * ndim + 2 ** ndim)
+                    * vals.numel(), F32_FLOPS if dt == torch.float32
+                    else F64_FLOPS)
+        line = (f"[{gpu}] deposit_{ndim}d [{tag}]: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if ndim == 3 and dt == torch.float64:
+            idx, share = deposit_shares(torch, pos, vals, N, ndim)
+            flat = grid.reshape(-1)
+            check(f"deposit_list library yardstick [{tag}]",
+                  (torch.index_add(flat, 0, idx, share).reshape(grid.shape)
+                   - op).abs().max().item(), rel * op.abs().max().item())
+            lib_ms = time_ms(torch, lambda: torch.index_add(flat, 0, idx,
+                                                            share), 3)
+            del idx, share
+            line += f", library {lib_ms:.4f} ms (index_add of the shares)"
+            row = (err, ms, plain_ms) + bnd + (lib_ms,)
+        log(line)
+    return launches, row
+
+
+def deposit_shares(torch, pos, vals, N, ndim):
+    """The 2^d corner shares of each source (flat cell, value), as the
+    plain deposits form them: the library call's input."""
+    from baryonforge_torch.ops.scatter import _corner_weights_1d
+    cw = [_corner_weights_1d(pos[:, d], N) for d in range(ndim)]
+    idx, share = [], []
+    for corner in range(2 ** ndim):
+        g, v = 0, vals
+        for d in range(ndim):
+            a = (corner >> (ndim - 1 - d)) & 1
+            g = g * N + cw[d][a]
+            v = v * cw[d][2 + a]
+        idx.append(g)
+        share.append(v)
+    return torch.cat(idx), torch.cat(share)
+
+
+def long_fht(bf, torch, gpu):
+    """fht of one row past an FFT of 2^21 points on the card: N = 2^22 (a
+    power of two) and N = 2^20 + 1 (Bluestein, M = 2^22), then at
+    FHT_MAX_M: N = 2^27 and N = 2^26 - 1 (Bluestein, M = 2^27); mu 0.5, q
+    -0.5, with the launch counts set to 0 just before and read just after;
+    each against fht_plain on the card to 1e-11 of the row's largest
+    value, and timed beside it (3 calls at 2^22, 1 at 2^27). Returns the
+    launches."""
+    from baryonforge_torch.ops import _build, fftlog
+    dev = torch.device(DEVICE)
+    launches = {}
+    if fftlog.FHT_MAX_M != 1 << 27:
+        raise AssertionError("FHT_MAX_M is not the longest FFT checked")
+    for N, reps in ((1 << 22, 3), ((1 << 20) + 1, 3), (1 << 27, 1),
+                    ((1 << 26) - 1, 1)):
+        x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
+        a = torch.exp(-x * 1.3)[None] * x ** 0.5
+        _build.reset_launches()
+        k, ok = fftlog.fht(x, a, 0.5, -0.5)
+        torch.cuda.synchronize()
+        for name, n in _build.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        if _build.launches["fht"] != 1:
+            raise AssertionError(f"fht N = {N}: {dict(_build.launches)}")
+        lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
+        M, blue, _ = fftlog.fht_plan(N, fftlog.shared_memory_optin(dev))
+        op = fftlog.fht_plain(a, lx, 0.5, -0.5, ln_kcrc)
+        torch.cuda.synchronize()
+        rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max().item()
+        check(f"K8 fht, one row of N = {N} (M = {M}, "
+              f"{'Bluestein' if blue else 'power of two'}), relative to the "
+              "row's largest value", rel, 1e-11)
+        ms = time_ms(torch, lambda: fftlog.fht(x, a, 0.5, -0.5), reps)
+        plain_ms = time_ms(torch, lambda: fftlog.fht_plain(
+            a, lx, 0.5, -0.5, ln_kcrc), reps)
+        log(f"[{gpu}] K8 fht 1 x {N} (M = {M}): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms")
+        del x, a, k, ok, op
+        torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     # name, entry points, source, TPU kernel replaced, its main path (the
     # kernels line names every path that launched it, the main one first)
     ("collapse_curves", ("collapse_curves",),
      "baryonforge_torch/csrc/curves.cu",
      "baryonforge_tpu/ops/interp.py:252", "tiled"),
+    # K1 past four parameter axes (a ParamTabulatedProfile of five p_keys)
+    ("collapse_curves_wide", ("collapse_curves_wide",),
+     "baryonforge_torch/csrc/curves.cu",
+     "baryonforge_tpu/ops/interp.py:252", "p5_paint"),
     ("disc_deposit", ("disc_deposit",), "baryonforge_torch/csrc/deposit.cu",
      "baryonforge_tpu/Runners/HealpixRunner.py:849", "scatter"),
     ("regrid", ("regrid",), "baryonforge_torch/csrc/regrid.cu",
@@ -4699,6 +5022,10 @@ KERNELS = [
     ("grid_deposit", ("grid_deposit",),
      "baryonforge_torch/csrc/grid_deposit.cu",
      "baryonforge_tpu/ops/scatter.py:28", "grid"),
+    # the public deposit_2d / deposit_3d: K16's list entry
+    ("deposit_list", ("deposit_list",),
+     "baryonforge_torch/csrc/grid_deposit.cu",
+     "baryonforge_tpu/ops/scatter.py:47", "deposits"),
     ("snapshot_displace", ("snapshot_displace",),
      "baryonforge_torch/csrc/snapshot.cu",
      "baryonforge_tpu/Runners/SnapshotRunner.py:175", "snapshot"),
@@ -4799,7 +5126,7 @@ def main():
     pole_regrid(bf, torch, 64)
     compare_tiled_kernels(bf, torch, model, cat_p, shell_p, "NSIDE 64 poles",
                           False)
-    p_key_curves(torch, 400, False)
+    p_key_curves(torch, 400, False, (2, 5, 6))
     log("K7 on every tiling the runners build, K2 on poles, phi = 0, "
         "discs under 4 members and discs of several degrees")
     layout_cases(torch)
@@ -4829,9 +5156,11 @@ def main():
                                           f"NSIDE {NSIDE}", True))
     measured.update(compare_paint_kernels(bf, torch, tsz_file, cat, shell,
                                           PAINT_EPS, f"NSIDE {NSIDE}", True))
-    k1p = p_key_curves(torch, N_HALOS, True)
-    log(f"[{gpu}] collapse_curves, 2 parameter axes, {N_HALOS} halos: "
-        f"kernel {k1p[1]:.3f} ms, plain {k1p[2]:.3f} ms")
+    for n_p, k1p in p_key_curves(torch, N_HALOS, True, (2, 5, 6)).items():
+        log(f"[{gpu}] collapse_curves, {n_p} parameter axes, {N_HALOS} "
+            f"halos, float32, from host columns: kernel {k1p[1]:.4f} ms, "
+            f"the device alone {k1p[5]:.4f} ms, plain {k1p[2]:.3f} ms, "
+            f"bound {k1p[3]:.4f} ms ({k1p[4]})")
 
     log("whole paths on the card against the plain versions on the CPU "
         "(float64)")
@@ -4952,6 +5281,10 @@ def main():
     paint_bound_check("tiled paint: card-built tSZ table vs the JAX file's",
                       out_pt, out_pf)
     north_star_paint(bf, torch, tsz_card, gpu)
+    log("the paint with five per-halo properties: a five-key "
+        "ParamTabulatedProfile built on the card, both engines")
+    launches_p5, measured["collapse_curves_wide"] = p5_paint(bf, torch,
+                                                             gpu)
 
     log("anisotropic paint kernels against their plain versions, polar "
         "catalog (NSIDE 64, epsilon_max 60), the JAX file's tSZ table")
@@ -5015,6 +5348,12 @@ def main():
     log("a FITS shell through LightconeShell(path=...)")
     launches_fits = fits_shell(bf, torch, gpu, model, cat, shell)
 
+    log("the public grid deposits (ops.scatter.deposit_2d / deposit_3d) "
+        "at full width")
+    launches_dep, measured["deposit_list"] = public_deposits(bf, torch, gpu)
+    log("FFTLog rows past an FFT of 2^21 points")
+    launches_fht = long_fht(bf, torch, gpu)
+
     launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
                       for k in set(launches_pt) | set(launches_ps)}
     launches = {"scatter": launches_s, "tiled": launches_t,
@@ -5025,7 +5364,8 @@ def main():
                 **launches_family, **launches_val,
                 "correlation_hook": launches_hook, "halomodel": launches_hm,
                 "mesh": launches_mesh, "fits": launches_fits,
-                "direct": launches_direct}
+                "direct": launches_direct, "p5_paint": launches_p5,
+                "deposits": launches_dep, "fht_long": launches_fht}
     kernels = kernel_rows(measured, launches, gpu)
     hot_ms, st_ms, live = measured["stencil_entries"]
     log(f"[{gpu}] K5 entries apart at the bench: stencil_hot {hot_ms:.4f} "

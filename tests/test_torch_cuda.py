@@ -382,15 +382,16 @@ def test_collapse_curves_kernel_p_keys(dev, dt, n_p):
     assert (cp == -3.0).any() and (cp != -3.0).any()
 
 
-@pytest.mark.parametrize("n_p", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("n_p", [0, 1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
 @pytest.mark.parametrize("a_kind", ["per_halo", "scalar", "device"])
 def test_collapse_curves_kernel_cases(dev, dt, n_p, a_kind):
-    """K1 against its plain version for 0 to 4 parameter axes, with a per
-    halo (host), one scalar a, and a and M on the card; every axis has
-    halos below and above it, which get ``fill``; 0 and 1 halos."""
+    """K1 against its plain version for 0 to 6 parameter axes (5 and 6:
+    the wide kernel, its corners in groups, counted apart), with a per halo (host), one
+    scalar a, and a and M on the card; every axis has halos below and
+    above it, which get ``fill``; 0 and 1 halos; one launch a call."""
     rng = np.random.default_rng(40 + n_p)
-    shape = (5, 7, 16) + (4, 3, 2, 3)[:n_p]
+    shape = (5, 7, 16) + (4, 3, 2, 3, 2, 3)[:n_p]
     axes = tuple(torch.as_tensor(np.cumsum(rng.uniform(0.2, 1.0, k)),
                                  dtype=dt, device=dev) for k in shape)
     table = torch.as_tensor(rng.normal(size=shape), dtype=dt, device=dev)
@@ -412,6 +413,7 @@ def test_collapse_curves_kernel_cases(dev, dt, n_p, a_kind):
         a = torch.as_tensor(a, dtype=dt, device=dev)
         M = torch.as_tensor(M, dtype=dt, device=dev)
     keys = sorted(p)
+    kernel = "collapse_curves_wide" if n_p > 4 else "collapse_curves"
     rel = 1e-6 if dt == torch.float32 else 1e-12
     full = None
     for m in (slice(None), slice(0, 1), slice(0, 0)):
@@ -421,7 +423,8 @@ def test_collapse_curves_kernel_cases(dev, dt, n_p, a_kind):
         args = (table, axes, 2, Mm, am, keys, pm)
         _build.reset_launches()
         ck, r0, dl = interp.collapse_curves(*args, fill=-3.0)
-        assert _build.launches["collapse_curves"] == (1 if len(Mm) else 0)
+        assert _build.launches[kernel] == (1 if len(Mm) else 0)
+        assert sum(_build.launches.values()) == (1 if len(Mm) else 0)
         cp, rp, dp = interp.collapse_curves_plain(*args, fill=-3.0)
         assert ck.shape == cp.shape and (r0, dl) == (float(rp), float(dp))
         if len(Mm):
@@ -737,17 +740,20 @@ def test_stencil_ring_table_is_pix2ang(dev, dt, nside):
     (20, 1024, 0.0, -0.5, None), (3, 100, 0.0, -1.0, 2048),
     (200, 128, 0.5, -0.5, 2048), (1, 16384, 0.5, -0.5, None),
     (2, 32768, 0.0, -0.5, None), (1, 20000, 0.5, -0.5, None),
-    (1, fftlog.FHT_MAX_M, 0.5, -0.5, None),
-    (1, fftlog.FHT_MAX_M // 2 - 1, 0.0, -0.5, None)])
+    (1, 1 << 21, 0.5, -0.5, None), (1, (1 << 20) - 1, 0.0, -0.5, None),
+    (1, 1 << 22, 0.5, -0.5, None), (1, (1 << 20) + 1, 0.0, -0.5, None),
+    (1, 1 << 27, 0.5, -0.5, None), (1, (1 << 26) - 1, 0.0, -0.5, None)])
 def test_fht_kernel(dev, B, N, mu, q, smem):
     """K8 on correlation_3d's grid (B = 1, N = 1024: the S19 and tSZ table
     builds' only shape), on a Fourier-like batch (B = 20, N = 2048), on
     a Pixel convolution's batch (20 x 1024), on a length that is no power
     of two with q on a Gamma pole, on the longest power of two whose row
     fits shared memory (4096), and on the device-memory route: Bluestein at
-    N = 3000, 12288 and 20000, powers of two at 8192, 16384 and 32768, the
-    longest rows of FHT_MAX_M (a power of two of that length, and Bluestein
-    just under half of it, of that M), and both routes forced at small N
+    N = 3000, 12288 and 20000, powers of two at 8192, 16384 and 32768,
+    rows of an FFT of 2^21 points (a power of two of that length, and
+    Bluestein just under half of it) and past it, of 2^22 points (a power
+    of two, and Bluestein just over 2^20) and of FHT_MAX_M = 2^27 points
+    (a power of two, and Bluestein just under 2^26), and both routes forced at small N
     with 2048 bytes of shared memory (200 rows: more than the route's
     blocks, so a block takes several); against its plain version."""
     rng = np.random.default_rng(N)
@@ -1340,6 +1346,53 @@ def test_grid_deposit_kernel_non_finite(dev, ndim, npix):
     assert int((~fin).sum()) > 1
     torch.testing.assert_close(ok[fin], op[fin], rtol=0,
                                atol=1e-12 * op[fin].abs().max().item())
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("ndim,N,M", [(2, 256, 100_000), (3, 64, 200_000),
+                                      (2, 33, 5000), (3, 5, 3000)])
+def test_deposit_list_kernel(dev, dt, ndim, N, M):
+    """The public deposit_2d / deposit_3d on the card: the list entry of
+    K16, one launch a call, against the plain version on the card
+    (index_add_), positions in [-N/4, 5N/4) with a tenth exact integers
+    and -N, N, a tiny negative value and 0 among them, on a random grid:
+    float64 to 1e-12 of the largest value, float32 to 1e-5 of it (sums in
+    another order); the input grid untouched, the mass added the values'
+    sum; positions and values given as column slices of one tensor the
+    same; no sources give the grid back."""
+    from baryonforge_torch.ops import scatter
+    rng = np.random.default_rng(ndim * 1000 + N)
+    grid = torch.as_tensor(rng.uniform(0, 1, (N,) * ndim), dtype=dt,
+                           device=dev)
+    pos = rng.uniform(-N / 4, 5 * N / 4, (M, ndim))
+    pos[: M // 10] = np.floor(pos[: M // 10])
+    pos[-4:] = np.array([-N, N, -1e-9, 0.0])[:, None]
+    pos = torch.as_tensor(pos, dtype=dt, device=dev)
+    vals = torch.as_tensor(rng.uniform(0, 2, M), dtype=dt, device=dev)
+    keep = grid.clone()
+    fn = scatter.deposit_2d if ndim == 2 else scatter.deposit_3d
+    plain = scatter.deposit_2d_plain if ndim == 2 else \
+        scatter.deposit_3d_plain
+    _build.reset_launches()
+    ok = fn(grid, pos, vals)
+    assert _build.launches["deposit_list"] == 1
+    op = plain(grid, pos, vals)
+    assert ok.dtype == dt and ok.shape == grid.shape
+    assert torch.equal(grid, keep)
+    rel = 1e-12 if dt == torch.float64 else 1e-5
+    torch.testing.assert_close(ok, op, rtol=0,
+                               atol=rel * op.abs().max().item())
+    added = (ok.double().sum() - grid.double().sum()).item()
+    assert abs(added / vals.double().sum().item() - 1) < 10 * rel
+    # column slices of one (M, d + 1) tensor: two contiguous copies made
+    # by the wrapper, both alive at the launch
+    data = torch.cat([pos, vals[:, None]], 1)
+    cols = fn(grid, data[:, :ndim], data[:, ndim])
+    assert _build.launches["deposit_list"] == 2
+    torch.testing.assert_close(cols, op, rtol=0,
+                               atol=rel * op.abs().max().item())
+    empty = fn(grid, pos[:0], vals[:0])
+    assert torch.equal(empty, grid) and _build.launches["deposit_list"] == 2
 
 
 def _grid_case(ndim, ell, dev, npix=64, n=40):

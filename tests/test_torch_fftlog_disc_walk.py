@@ -4,8 +4,9 @@ checked on the CPU against the JAX package.
 K8 runs a row as one FFT in shared memory (a power of two up to 4096
 points on the H100), as Bluestein's chirp convolution in shared memory
 (any other N up to 2048), or as either on a slot of device memory (longer
-rows, up to an FFT of ``FHT_MAX_M`` points); ``ops.fftlog.fht_plan``
-picks the route. Its plain version,
+rows, up to an FFT of ``FHT_MAX_M`` points, as many slots as the free
+memory holds: ``ops.fftlog.fht_slots``); ``ops.fftlog.fht_plan`` picks the
+route. Its plain version,
 ``fht_plain``, is held against the JAX ``fht`` at the lengths where the
 route changes: N = 2048 (a power of two in shared memory) and N = 3000
 (Bluestein on device memory), to tests/test_torch_fftlog.py's tolerance
@@ -86,12 +87,13 @@ def test_fht_plan_routes(N, route):
 @pytest.mark.parametrize("N", [tf.FHT_MAX_M // 2 + 1, 2 * tf.FHT_MAX_M])
 def test_fht_kernel_refuses_rows_past_its_longest_fft(N):
     """Past FHT_MAX_M points of FFT (Bluestein's M for N just over half of
-    it, or a longer power of two) K8's wrapper raises before it builds or
-    launches anything; the CPU's plain version takes any N."""
-    x = torch.as_tensor(np.geomspace(1e-4, 1e4, N))
+    it, or a longer power of two) K8's wrapper raises before it builds,
+    allocates or launches anything, from the shapes alone (the rows here
+    are broadcast views: such a row would take 4 to 16 GiB); the CPU's
+    plain version takes any N."""
+    x = torch.ones(1, dtype=torch.float64).expand(N)
     with pytest.raises(ValueError, match="FHT_MAX_M"):
-        tf._fht_kernel(x, torch.exp(-x)[None], 0.5, -0.5, 0.0,
-                       smem_bytes=H100_SMEM)
+        tf._fht_kernel(x, x[None], 0.5, -0.5, 0.0, smem_bytes=H100_SMEM)
 
 
 @pytest.mark.parametrize("N", [2048, 3000])
