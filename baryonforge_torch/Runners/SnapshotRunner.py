@@ -12,8 +12,9 @@ SnapshotRunner.py:162-275):
               every halo, cell_write a chunk), on the CPU the port's host
               cell list in 3D (``native``) and scipy's cKDTree in 2D. The
               halos are cut, in index order, into chunks of at most
-              PAIR_BUDGET pairs (ops/snapshot.pair_chunks: int64 totals on
-              the host, int32 rows within a chunk), and each chunk's pairs
+              PAIR_BUDGET pairs, a halo of more pairs across chunks
+              (ops/snapshot.pair_chunks: int64 totals on the host, int32
+              rows within a chunk), and each chunk's pairs
               are laid out particle-major for K17 (ops/snapshot.
               particle_major_plain, a sort on the device, in the particle
               order made once per runner). The counts are kept, keyed by
@@ -78,7 +79,9 @@ __all__ = ["DefaultRunnerSnapshot", "BaryonifySnapshot", "PAIR_BUDGET",
 # (K23's layout: int64 rows, slots and a second sort, its 8-byte records
 # and 4-byte places; then the readout's float64 radii and values on up to
 # 1.5 slots a pair). 2^28 pairs are ~10 GB and ~27 GB, within an 80 GB card
-# beside a snapshot's own arrays, and keep a chunk's rows int32.
+# beside a snapshot's own arrays, and keep a chunk's rows int32. A halo of
+# more pairs is cut across chunks (on the card each of its chunks writes
+# the halo's whole row first, 4 bytes a pair, and keeps its range).
 PAIR_BUDGET = 1 << 28
 # The chunks are kept with the counts while they cost at most this many
 # device bytes: KEPT_PAIR_BYTES a pair (the int32 particles and
@@ -231,20 +234,25 @@ class DefaultRunnerSnapshot:
             np.cumsum(counts, out=offsets[1:])
         self._pairs = (key, offsets, source, {})
 
-    def _chunk(self, h0, h1):
-        """The pairs of halos [h0, h1) on the runner's device: the
-        halo-major CSR (halos, offsets from 0, parts) int32, as ops.tiles.
-        pairs_csr groups them (halos without pairs have no row), and its
-        particle-major layout (order, poff, prow). K24's write pass on the
-        card; a slice of the host search's particles on the CPU."""
+    def _chunk(self, h0, h1, p0, p1):
+        """The pairs [p0, p1) of halos [h0, h1) (indices into the
+        halo-major list; a halo cut across chunks gives a range of its own
+        pairs) on the runner's device: the halo-major CSR (halos, offsets
+        from 0, parts) int32, as ops.tiles.pairs_csr groups them (halos
+        without pairs here have no row), and its particle-major layout
+        (order, poff, prow). K24's write pass on the card (the halos'
+        whole rows, cut to the range); a slice of the host search's
+        particles on the CPU."""
         _, first, source, _ = self._pairs
         dev = self.device
-        counts = np.diff(first[h0:h1 + 1])
+        counts = np.diff(np.clip(first[h0:h1 + 1], p0, p1))
         rows = np.flatnonzero(counts)
         if dev.type == "cuda":
             parts = cell_write(self._cells, source, h0, h1)
+            if p0 > first[h0] or p1 < first[h1]:
+                parts = parts[p0 - first[h0]:p1 - first[h0]].clone()
         else:
-            parts = torch.as_tensor(source[first[h0]:first[h1]])
+            parts = torch.as_tensor(source[p0:p1])
         off = np.zeros(rows.size + 1, dtype=np.int64)
         np.cumsum(counts[rows], out=off[1:])
         halos = torch.as_tensor((rows + h0).astype(np.int32), device=dev)
@@ -255,7 +263,8 @@ class DefaultRunnerSnapshot:
 
     def _shard_chunks(self, n_shards):
         """Each shard's chunks (the halos np.array_split into ``n_shards``,
-        each shard's cut by PAIR_BUDGET, chunks without pairs left out), as
+        each shard's pairs cut by PAIR_BUDGET, a halo of more pairs across
+        chunks, chunks without pairs left out), as
         :meth:`_chunk` makes them: lists, kept with the pairs for this shard
         count and budget when they fit PAIR_CACHE_BYTES, else iterators that
         make each chunk when it is reached."""
@@ -266,15 +275,17 @@ class DefaultRunnerSnapshot:
         bounds = []
         for idx in np.array_split(np.arange(first.size - 1), n_shards):
             s0 = int(idx[0]) if idx.size else 0
-            bounds.append([(s0 + a, s0 + b) for a, b in pair_chunks(
-                np.diff(first[s0:s0 + idx.size + 1]), PAIR_BUDGET)
-                if first[s0 + b] > first[s0 + a]])
+            f0 = int(first[s0])
+            bounds.append([(s0 + a, s0 + b, f0 + p0, f0 + p1)
+                           for a, b, p0, p1 in pair_chunks(
+                               np.diff(first[s0:s0 + idx.size + 1]),
+                               PAIR_BUDGET) if p1 > p0])
         n_chunks = sum(len(b) for b in bounds)
         kept = (int(first[-1]) * KEPT_PAIR_BYTES
                 + 4 * n_chunks * (len(self._coords) + 1))
         if kept > PAIR_CACHE_BYTES:
-            return [(self._chunk(h0, h1) for h0, h1 in b) for b in bounds]
-        out = [[self._chunk(h0, h1) for h0, h1 in b] for b in bounds]
+            return [(self._chunk(*c) for c in b) for b in bounds]
+        out = [[self._chunk(*c) for c in b] for b in bounds]
         cache[n_shards] = (PAIR_BUDGET, out)
         return out
 

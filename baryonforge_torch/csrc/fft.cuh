@@ -19,6 +19,12 @@
 // Bluestein's chirp). A transform of n points that is no power of two is
 // Bluestein's chirp convolution, by FFTs of fft_size(n, true) >= 2n - 1
 // points.
+//
+// With tb > 0 the same code runs T = 2^tb transforms of R = M / T points at
+// once, interleaved: element j of transform s at j T + s. Their stages are
+// the stages of half-size >= T of the M-point transform, with the twiddle
+// index scaled down by T (p >> tb of h >> tb), so a block holds T columns
+// of a longer FFT side by side (K8's passes over device memory).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,18 +76,20 @@ __device__ __forceinline__ void bfly_dit(double& ur, double& ui, double& xr,
   ui = ui + vi;
 }
 
-// one radix-2 stage of half-size h = 2^hb
+// one radix-2 stage of half-size h = 2^hb (of transforms of M >> tb
+// points interleaved, h >= 2^tb)
 template <bool kDif>
 __device__ void pass2(double* re, double* im, const double* twr,
-                      const double* twi, int M, int h, int hb) {
+                      const double* twi, int M, int h, int hb, int tb = 0) {
   for (int t = threadIdx.x; t < M / 2; t += blockDim.x) {
     const int i = first_of(t, h, hb, M), p = i & (h - 1);
     const int a = swz(i), b = swz(i + h);
+    const int w = (h >> tb) - 1 + (p >> tb);
     double ur = re[a], ui = im[a], vr = re[b], vi = im[b];
     if (kDif)
-      bfly_dif(ur, ui, vr, vi, twr[h - 1 + p], twi[h - 1 + p]);
+      bfly_dif(ur, ui, vr, vi, twr[w], twi[w]);
     else
-      bfly_dit(ur, ui, vr, vi, twr[h - 1 + p], twi[h - 1 + p]);
+      bfly_dit(ur, ui, vr, vi, twr[w], twi[w]);
     re[a] = ur;
     im[a] = ui;
     re[b] = vr;
@@ -97,7 +105,7 @@ __device__ void pass2(double* re, double* im, const double* twr,
 // sixteen consecutive elements, so each access meets sixteen bank pairs
 template <bool kDif>
 __device__ void pass4(double* re, double* im, const double* twr,
-                      const double* twi, int M, int q, int qb) {
+                      const double* twi, int M, int q, int qb, int tb = 0) {
   for (int t = threadIdx.x; t < M / 4; t += blockDim.x) {
     const int p = t & (q - 1);
     const int i = ((t >> qb) << (qb + 2)) + p;
@@ -108,17 +116,17 @@ __device__ void pass4(double* re, double* im, const double* twr,
       xr[k] = re[e[k]];
       xi[k] = im[e[k]];
     }
-    const int w1 = q - 1 + p, w2 = 2 * q - 1 + p;
+    const int qs = q >> tb, w1 = qs - 1 + (p >> tb), w2 = qs + w1;
     if (kDif) {
       bfly_dif(xr[0], xi[0], xr[2], xi[2], twr[w2], twi[w2]);
-      bfly_dif(xr[1], xi[1], xr[3], xi[3], twr[w2 + q], twi[w2 + q]);
+      bfly_dif(xr[1], xi[1], xr[3], xi[3], twr[w2 + qs], twi[w2 + qs]);
       bfly_dif(xr[0], xi[0], xr[1], xi[1], twr[w1], twi[w1]);
       bfly_dif(xr[2], xi[2], xr[3], xi[3], twr[w1], twi[w1]);
     } else {
       bfly_dit(xr[0], xi[0], xr[1], xi[1], twr[w1], twi[w1]);
       bfly_dit(xr[2], xi[2], xr[3], xi[3], twr[w1], twi[w1]);
       bfly_dit(xr[0], xi[0], xr[2], xi[2], twr[w2], twi[w2]);
-      bfly_dit(xr[1], xi[1], xr[3], xi[3], twr[w2 + q], twi[w2 + q]);
+      bfly_dit(xr[1], xi[1], xr[3], xi[3], twr[w2 + qs], twi[w2 + qs]);
     }
     for (int k = 0; k < 4; ++k) {
       re[e[k]] = xr[k];
@@ -130,34 +138,37 @@ __device__ void pass4(double* re, double* im, const double* twr,
 
 // in-place forward FFT, natural order in, bit-reversed order out: the
 // stages of half-size >= 16 in radix-4 passes (the first alone when their
-// count is odd), then radix-2 down to 1
+// count is odd), then radix-2 down to 1 (down to 2^tb: T = 2^tb transforms
+// of M / T points, interleaved, each bit-reversed within itself)
 __device__ inline void fft_dif(double* re, double* im, const double* twr,
-                        const double* twi, int M) {
+                        const double* twi, int M, int tb = 0) {
   int hb = __ffs(M) - 2;
-  if (hb >= 4 && ((hb - 3) & 1)) {
-    pass2<true>(re, im, twr, twi, M, 1 << hb, hb);
+  const int lo = tb > 4 ? tb : 4;
+  if (hb >= lo && ((hb - lo + 1) & 1)) {
+    pass2<true>(re, im, twr, twi, M, 1 << hb, hb, tb);
     --hb;
   }
-  for (; hb >= 5; hb -= 2)
-    pass4<true>(re, im, twr, twi, M, 1 << (hb - 1), hb - 1);
-  for (; hb >= 0; --hb) pass2<true>(re, im, twr, twi, M, 1 << hb, hb);
+  for (; hb >= lo + 1; hb -= 2)
+    pass4<true>(re, im, twr, twi, M, 1 << (hb - 1), hb - 1, tb);
+  for (; hb >= tb; --hb) pass2<true>(re, im, twr, twi, M, 1 << hb, hb, tb);
 }
 
 // in-place inverse FFT (unnormalised), bit-reversed order in, natural out:
-// fft_dif's passes in reverse
+// fft_dif's stages in reverse (from half-size 2^tb, as fft_dif)
 __device__ inline void ifft_dit(double* re, double* im, const double* twr,
-                         const double* twi, int M) {
+                         const double* twi, int M, int tb = 0) {
   const int lg = __ffs(M) - 1;
-  int hb = 0;
+  int hb = tb;
   for (; hb < lg && hb < 4; ++hb)
-    pass2<false>(re, im, twr, twi, M, 1 << hb, hb);
+    pass2<false>(re, im, twr, twi, M, 1 << hb, hb, tb);
   for (; hb + 1 < lg; hb += 2)
-    pass4<false>(re, im, twr, twi, M, 1 << hb, hb);
-  if (hb < lg) pass2<false>(re, im, twr, twi, M, 1 << hb, hb);
+    pass4<false>(re, im, twr, twi, M, 1 << hb, hb, tb);
+  if (hb < lg) pass2<false>(re, im, twr, twi, M, 1 << hb, hb, tb);
 }
 
-// e^{-i pi (j^2 mod 2n) / n}
-__device__ __forceinline__ void chirp(long long j, int n, double* c,
+// e^{-i pi (j^2 mod 2n) / n} (j^2 in 64 bits: j < n < 2^31.5, past any
+// row whose Bluestein scratch fits a card)
+__device__ __forceinline__ void chirp(long long j, long long n, double* c,
                                       double* s) {
   const long long ph = (j * j) % (2LL * n);
   sincospi(double(ph) / double(n), s, c);

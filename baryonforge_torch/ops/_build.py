@@ -89,6 +89,11 @@ def _signatures():
         + [_I, _D, _D, _I, _D, _D, _I, _P, _P],
         "bf_fht_f64": [_I] * 6 + [_P, _P, _D, _D, _D, _P, _P, _P, _P],
         "bf_fht_long_blocks": [],
+        "bf_fht_setup_f64": [_LL, _LL, _I, _I, _P, _D, _P, _P, _P, _P],
+        "bf_fht_pass_f64": [_I, _I, _I, _LL, _LL, _I, _I, _LL, _P, _P, _D,
+                            _D, _P, _P, _P, _P, _P],
+        "bf_fht_coeff_f64": [_I, _LL, _LL, _I, _I, _LL, _P, _D, _D, _D, _P,
+                             _P],
         "bf_table_rows_f64": [_I, _I, _I] + [_P] * 8,
         "bf_enclosed_mass_f64": [_I, _I, _I] + [_P] * 6,
         "bf_displacement_rows_f64": [_I, _I] + [_P] * 5,

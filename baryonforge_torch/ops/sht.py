@@ -143,10 +143,15 @@ def ring_modes(hmap, nside, lmax):
 
 def shared_memory_optin(device):
     """The dynamic shared memory a block may opt in to on the CUDA
-    ``device`` (bytes), as the card reports it."""
+    ``device`` (bytes), as the card reports it (asked once a device)."""
     index = device.index
     if index is None:
         index = torch.cuda.current_device()
+    return _optin(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _optin(index):
     v = _build.library().bf_shared_memory_optin(index)
     _build.check(min(v, 0), "shared_memory_optin")
     return v

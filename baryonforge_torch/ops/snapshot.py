@@ -35,8 +35,9 @@ gather reading each entry's value from its slot: the value in T, zeroed
 where not finite, times T(dx / d_safe). ``snapshot_radii_plain`` and
 ``snapshot_direct_plain`` are their plain versions.
 
-The pairs may come in chunks of the halos, in ascending halo order (the
-runner cuts a snapshot's halos by its ``PAIR_BUDGET``, :func:`pair_chunks`):
+The pairs may come in chunks of the halos, in ascending halo order, a
+halo of more pairs than a chunk takes cut across chunks (the runner cuts a
+snapshot's pairs by its ``PAIR_BUDGET``, :func:`pair_chunks`):
 ``snapshot_displace`` and ``snapshot_direct`` given ``acc`` continue each
 particle's sum from it, so a run in chunks equals the one-chunk run bit for
 bit.
@@ -350,9 +351,9 @@ def direct_layout(coords, halos, offsets, parts, order, rank=None,
     ``order`` (K17's layout; ``rank`` its inverse and ``ordered`` the
     positions in it, formed here when None; a runner forms them once for
     all its chunks): one copy of the row counts to the host, then torch on
-    the pairs' device. The records are int32: the runner's chunks keep
-    them under 2^31, save a chunk of one halo of more than 2^30 pairs,
-    which raises."""
+    the pairs' device. The records are int32: the runner's chunks of at
+    most its PAIR_BUDGET pairs keep them far under 2^31; the check below
+    guards a caller of its own."""
     dev = offsets.device
     counts = (offsets[1:] - offsets[:-1]).cpu().numpy().astype(np.int64)
     rows = row_layout(counts)
@@ -518,17 +519,25 @@ def snapshot_direct(hpos, layout, dlay, vals, L, acc=None):
 
 def pair_chunks(counts, budget):
     """Cut the halos, in index order, into runs whose pairs stay within
-    ``budget``; a halo of more pairs than that is a run of its own.
-    ``counts`` (n,) int the pairs a halo (int64 totals). Returns the runs'
-    bounds [(h0, h1), ...], covering 0 .. n once, in order."""
+    ``budget``; a halo of more pairs than that is cut into runs of its own
+    pairs (contiguous ranges of its halo-major pairs, in order, ``budget``
+    each and the rest last). ``counts`` (n,) int the pairs a halo (int64
+    totals). Returns the chunks [(h0, h1, p0, p1), ...]: halos [h0, h1)
+    and their pairs [p0, p1) of the halo-major list (from 0 at halo 0); a
+    run of a halo's own pairs has h1 = h0 + 1. They cover the halos 0 .. n
+    and the pairs once, in order."""
     counts = np.asarray(counts, dtype=np.int64)
     cum = np.concatenate([[0], np.cumsum(counts)])
     out = []
     h = 0
     while h < counts.size:
-        h1 = max(h + 1, int(np.searchsorted(cum, cum[h] + budget,
-                                            side="right")) - 1)
-        out.append((h, h1))
+        if counts[h] > budget:
+            out += [(h, h + 1, p0, min(p0 + budget, int(cum[h + 1])))
+                    for p0 in range(int(cum[h]), int(cum[h + 1]), budget)]
+            h += 1
+            continue
+        h1 = int(np.searchsorted(cum, cum[h] + budget, side="right")) - 1
+        out.append((h, h1, int(cum[h]), int(cum[h1])))
         h = h1
     return out
 

@@ -4,15 +4,16 @@ regrid), K1 (curve collapse), K9, K6, K20-K23 (the shell, grid and
 snapshot direct readout) on the card, at the bench inputs of
 chip_smoke.py.
 
-    python3 chip_probes.py [K4] [K3] [K1] [K22] [K23] [K21]  # builds included
+    python3 chip_probes.py [K4] [K3] [K1] [K22] [K23] [K21] [K8]  # builds included
     python3 chip_probes.py --tree DIR calls
     python3 chip_probes.py --tree DIR direct
     python3 chip_probes.py --tree DIR K20
+    python3 chip_probes.py --tree DIR K8shared
 
 With no argument it runs the variant sections: K4 (tile_deposit.cu with
 K10, K12, and disc_paint.cu), K3 (regrid.cu), K1 (curves.cu), K9
-(table_rows.cu), K6 (stencil_finish.cu), K22 (grid_cutout.cu), K23
-(snapshot.cu) and K21 (disc_direct.cu). The
+(table_rows.cu), K6 (stencil_finish.cu), K8 (fftlog.cu), K22
+(grid_cutout.cu), K23 (snapshot.cu) and K21 (disc_direct.cu). The
 section ``calls`` builds no variant: it times K1 and K3 as the scatter
 shell runner calls them, with the ``baryonforge_torch`` package of the
 tree DIR (this checkout's by default; another one, such as a ``git
@@ -111,6 +112,19 @@ snapshot.cu (K23 at the snapshot bench, float32, random values):
   timing only: radii_no_coords, gather_no_coords (a stand-in for each
   position read), gather_no_vals (a stand-in for each value)
 
+fftlog.cu (K8's passes over device memory, float64, mu 0.5, q -0.5):
+  kernel       the kernel as it stands: 512 threads a pass's block, the
+               coefficient pass's registers capped at 128 (two blocks of
+               256 an SM)
+  coeff1       the coefficient pass uncapped (one block an SM)
+  coeff3       capped for three blocks an SM
+  pass256      256 threads a pass's block
+  then the kernel's one-block-a-row route on device memory against its
+  passes at batches of 132 rows or more (the plan's choice), and the
+  shared-memory route at 1 x 1024.
+K8shared (the package of --tree, no variant): K8's shared-memory route by
+wrapper call at 1 x 1024, 20 x 2048 and 3 x 100, and the host's time a
+call (run it for two trees in turns to compare their wrappers).
 disc_direct.cu (K21 at the bench shell, displacement, float32, on K20's
 rows and random values; each variant that keeps the results held to the
 plain version first; also the wrapper's memset of the accumulator alone,
@@ -698,6 +712,21 @@ PARENT_VARIANTS["disc_direct.cu"] = {
                     "  acc[2 * (long long)p + 1] = t_ph;\n")],
     "no_geo": [_K21_GEO],
     "no_halo": [_K21_HALO],
+}
+VARIANTS["fftlog.cu"] = {
+    "kernel": [],
+    # the coefficient pass's registers uncapped (one block of 256 an SM)
+    # or capped for three
+    "coeff1": [("__global__ void __launch_bounds__(kCoeffThreads, 2)\n"
+                "fht_coeff(",
+                "__global__ void __launch_bounds__(kCoeffThreads)\n"
+                "fht_coeff(")],
+    "coeff3": [("__global__ void __launch_bounds__(kCoeffThreads, 2)\n"
+                "fht_coeff(",
+                "__global__ void __launch_bounds__(kCoeffThreads, 3)\n"
+                "fht_coeff(")],
+    # 256 threads a pass's block
+    "pass256": [_const("kPassThreads", 512, 256)],
 }
 TIMING_ONLY = {"no_row_trig", "no_rows", "no_slot_geometry", "no_stage",
                "no_zero", "no_pairs", "no_move", "init_plain", "move_list",
@@ -1898,6 +1927,125 @@ def probe_rows(bf, torch, b, libs, gpu):
     return out
 
 
+def _fht_inputs(torch, dev, B, N):
+    """long_fht's rows: B exponentials on N log-spaced points, times x^0.5."""
+    import numpy as np
+    x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
+    a = (torch.exp(-x[None] * torch.linspace(
+        0.5, 2.0, B, dtype=torch.float64, device=dev)[:, None])
+        * x ** 0.5).contiguous()
+    return x, a
+
+
+def _fht_rows(torch, x, a, ln_kcrc):
+    """K8's one-block-a-row kernel on device-memory slots for any rows
+    (mu 0.5, q -0.5; the wrapper takes it only where fht_plan does)."""
+    from baryonforge_torch.ops import _build, fftlog
+    B, N = a.shape
+    plan = fftlog.fht_plan(N, 0)
+    lib = _build.library()
+    slots = min(B, lib.bf_fht_long_blocks())
+    scratch = torch.empty(slots * (6 if plan.bluestein else 4) * plan.M,
+                          dtype=torch.float64, device=a.device)
+    k, out = torch.empty_like(x), torch.empty_like(a)
+    _build.check(lib.bf_fht_f64(
+        B, N, plan.M, int(plan.bluestein), 0, slots, _build.ptr(a),
+        _build.ptr(x), 0.5, -0.5, float(ln_kcrc), _build.ptr(scratch),
+        _build.ptr(k), _build.ptr(out), _build.stream_of(a)), "fht rows")
+    return out
+
+
+def probe_fftlog(bf, torch, b, libs, gpu):
+    """K8 (fftlog.cu), mu 0.5, q -0.5: the variants on the passes (1 x
+    2^22, Bluestein N = 2^20 + 1, 20 x 16,384) by wrapper call and on the
+    device alone, each held to fht_plain first (1e-11 of a row's largest
+    value); then, with the kernel as it stands, the one-block-a-row route
+    on device memory against the passes, on the device alone, at batches
+    of 132 rows or more (powers of two of 8192 to 65,536 points, and
+    Bluestein at M = 8192 and 16,384), each held to fht_plain; last, the
+    shared-memory route at 1 x 1024 (correlation_3d's shape) by wrapper
+    call and alone."""
+    from baryonforge_torch.ops import _build, fftlog
+    dev = b.dev
+    out = {}
+    # the card's limits, asked once through the build's own library (a
+    # variant holds fftlog.cu alone)
+    _build._lib = None
+    fftlog.shared_memory_optin(dev)
+    fftlog._sm_count(torch.cuda.current_device())
+
+    def rel(got, want):
+        return ((got - want).abs() / want.abs().amax(-1, keepdim=True)
+                ).max().item()
+    names = list(VARIANTS["fftlog.cu"])
+    for B, N in ((1, 1 << 22), (1, (1 << 20) + 1), (20, 16384)):
+        x, a = _fht_inputs(torch, dev, B, N)
+        lx, lk = fftlog._fht_grids(x, 1.0)
+        want = fftlog.fht_plain(a, lx, 0.5, -0.5, lk)
+        fns = {}
+        for name in names:
+            def run(lib=libs[("fftlog.cu", name)]):
+                _build._lib = lib
+                return fftlog.fht(x, a, 0.5, -0.5)[1]
+            cs.check(f"K8 [{name}, {B} x {N}]", rel(run(), want), 1e-11)
+            fns[name] = run
+        tag = f" {B} x {N}"
+        out["K8" + tag] = report(gpu, "K8", timed_in_turns(
+            torch, fns, reps=10), tag)
+        out["K8" + tag + " alone"] = report(gpu, "K8", timed_in_turns(
+            torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+            tag + " (device alone)")
+    _build._lib = libs[("fftlog.cu", "kernel")]
+    for B, N in ((132, 8192), (200, 8192), (1000, 8192), (132, 16384),
+                 (264, 16384), (200, 32768), (132, 65536), (200, 3000),
+                 (1000, 3000), (1000, 4097)):
+        x, a = _fht_inputs(torch, dev, B, N)
+        lx, lk = fftlog._fht_grids(x, 1.0)
+        want = fftlog.fht_plain(a, lx, 0.5, -0.5, lk)
+        fns = {"one block a row": lambda: _fht_rows(torch, x, a, lk),
+               "passes": lambda: fftlog._fht_kernel(
+                   x, a, 0.5, -0.5, lk, sms=1 << 30)[1]}
+        for name, fn in fns.items():
+            cs.check(f"K8 [{name}, {B} x {N}]", rel(fn(), want), 1e-11)
+        tag = f" {B} x {N} (device alone)"
+        out["K8 route" + tag] = report(gpu, "K8", timed_in_turns(
+            torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)), tag)
+        del x, a, want
+        torch.cuda.empty_cache()
+    x, a = _fht_inputs(torch, dev, 1, 1024)
+    fns = {"shared memory": lambda: fftlog.fht(x, a, 0.5, -0.5)}
+    out["K8 1 x 1024"] = report(gpu, "K8", timed_in_turns(torch, fns,
+                                                          reps=200),
+                                " 1 x 1024")
+    out["K8 1 x 1024 alone"] = report(gpu, "K8", timed_in_turns(
+        torch, fns, timer=lambda fn: cs.graph_ms(torch, fn)),
+        " 1 x 1024 (device alone)")
+    return out
+
+
+def probe_fht_shared(bf, torch, b, libs, gpu):
+    """K8's shared-memory route by wrapper call, as the table builds call
+    it (the package of --tree; no variant): 1 x 1024 (correlation_3d's
+    shape), 20 x 2048 and Bluestein 3 x 100, mu 0.5, q -0.5, the mean of
+    200 calls three times, and the host's time a call (perf_counter over
+    200 calls, no synchronisation between them)."""
+    from baryonforge_torch.ops import fftlog
+    out = {}
+    for B, N in ((1, 1024), (20, 2048), (3, 100)):
+        x, a = _fht_inputs(torch, b.dev, B, N)
+        fns = {"wrapper": lambda: fftlog.fht(x, a, 0.5, -0.5)}
+        got = timed_in_turns(torch, fns, reps=200, rounds=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fns["wrapper"]()
+        host = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        got["host"] = [host]
+        out[f"K8 {B} x {N}"] = report(gpu, "K8", got, f" {B} x {N}")
+    return out
+
+
 SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
                    probe_tile_deposit_paint),
             "K3": (("regrid.cu",), probe_regrid),
@@ -1907,6 +2055,8 @@ SECTIONS = {"K4": (("tile_deposit.cu", "disc_paint.cu"),
             "calls": ((), probe_calls),
             "rows": ((), probe_rows),
             "direct": ((), probe_direct),
+            "K8": (("fftlog.cu",), probe_fftlog),
+            "K8shared": ((), probe_fht_shared),
             "K22": (("grid_cutout.cu",), probe_grid_direct),
             "K23": (("snapshot.cu",), probe_snapshot_direct),
             "K20": ((), probe_disc_radii),
@@ -1932,7 +2082,7 @@ def main(argv):
     cs.log(f"baryonforge_torch from {os.path.dirname(bf.__file__)}")
     want = argv or [k for k in SECTIONS
                     if k not in ("calls", "rows", "direct", "K9p", "K6p",
-                                 "K20", "K21p")]
+                                 "K20", "K21p", "K8shared")]
     if not set(want) <= set(SECTIONS):
         print(f"chip_probes: sections are {list(SECTIONS)}", file=sys.stderr)
         return 2

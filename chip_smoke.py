@@ -179,7 +179,9 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      its plain version and the host cell list on the same input, the sets
      of both); the bench with PAIR_BUDGET lowered to a quarter of its
      pairs, bitwise the one-chunk run on the curve and direct paths in
-     float32 and float64; K17's particle-major layout (pairs a particle:
+     float32 and float64; a box whose largest halo holds more pairs than
+     a lowered PAIR_BUDGET, that halo cut across three chunks or more,
+     bitwise the one-chunk run on both paths; K17's particle-major layout (pairs a particle:
      mean, 99th percentile, max; its build time), K17 on the runner's own
      inputs (two launches bitwise equal) timed against its plain version,
      the 0.30 ms target and an index_add_ of the same pair vectors;
@@ -260,9 +262,11 @@ repository's ``baryonforge_torch`` package; it imports nothing of JAX. It
      sources onto 256^3) and deposit_2d (2048^2 onto 2048^2), float32 and
      float64, with the launch counts set to 0 just before and read just
      after, against their plain versions and timed (3D float64 beside one
-     torch.index_add of the corner shares); and fht of one row of 2^22
-     points and one Bluestein row of 2^20 + 1 (M = 2^22), then the same at
-     FHT_MAX_M (2^27 points; 2^26 - 1, M = 2^27) against fht_plain;
+     torch.index_add of the corner shares); and fht past shared memory
+     (1 x 16,384, 20 x 16,384, 200 x 8192, 1 x 2^22 and Bluestein at M =
+     2^22, 1 x 2^28 and Bluestein at M = 2^28) against fht_plain, with the
+     launches its plan predicts, timed beside fht_plain and the partial
+     library call;
  21. prints the registers, spills and resident warps of K1's, K3's, K4's
      (with K10's and K12's, the same template), K5's, K8's, K11's, K13's,
      K16's, K17's, K19's and K24's kernels (nvcc -Xptxas -v on their
@@ -1194,8 +1198,8 @@ def compare_table_kernels(bf, torch, gpu):
         lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
         qs = fftlog._safe_q(mu, q)
         B, N = a.shape
-        M, bluestein, in_shared = fftlog.fht_plan(
-            N, fftlog.shared_memory_optin(dev))
+        plan = fftlog.fht_plan(N, fftlog.shared_memory_optin(dev), B,
+                               sm_count(torch))
 
         def kern():
             return fftlog.fht(x, a, mu, q)[1]
@@ -1212,9 +1216,7 @@ def compare_table_kernels(bf, torch, gpu):
         # (tests/test_torch_fftlog.py::test_fht_summation_orders), so the
         # bound is 1e-11
         rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max()
-        route = ("Bluestein" if bluestein else "power of two") + (
-            f", M = {M}, " + ("shared" if in_shared else "device")
-            + " memory")
+        route = fht_route(plan)
         check(f"K8 fht [{label}; {route}] (per row, of the row's largest "
               "value)", rel.item(), 1e-11)
         # what the function needs: per row two real-data FFTs (2.5 N log2 N
@@ -1261,9 +1263,9 @@ def compare_table_kernels(bf, torch, gpu):
     rows = bf.Profiles.DarkMatter(**BPAR).real(cosmo, x, M20, a0)
     for mu in (0.0, 0.5):
         fht_case(f"20 x 2048, mu = {mu}", x, rows * x ** 1.5, mu, -0.5, 10)
-    # Bluestein in shared memory (q on a Gamma pole) and powers of two on
-    # the device-memory route (16,384: past the 12,288 points of K8's
-    # former limit), on the DarkMatter profile of the first mass
+    # Bluestein in shared memory (q on a Gamma pole) and powers of two in
+    # the passes over device memory, on the DarkMatter profile of the
+    # first mass
     for B, N, mu, q in ((3, 100, 0.0, -1.0), (1, 8192, 0.5, -0.5),
                         (1, 16384, 0.5, -0.5)):
         xs = torch.as_tensor(np.geomspace(1e-7, 1e9, N), device=dev)
@@ -2981,6 +2983,55 @@ def snapshot_chunks(bf, torch, gpu, model, cat, snap):
                 f"{wall * 1e3:.1f} ms)")
 
 
+def snapshot_halo_cut(bf, torch, gpu, model):
+    """A halo of more pairs than a chunk takes, cut across chunks: a box of
+    200,000 particles and 24 halos (L 96, logM 13-14.8, the bench's
+    seed), PAIR_BUDGET lowered to a third of its largest halo's pairs, so
+    that halo runs in three chunks or more of its own pairs; every chunk
+    within the budget, K24's write pass launched once a chunk, and the run
+    bit for bit the one-chunk run, on the curve path and the direct path
+    (the model behind HideCurves), float32."""
+    from baryonforge_torch.Runners import SnapshotRunner as SR
+    from baryonforge_torch.ops import _build, snapshot
+    cat, snap = snapshot_inputs(bf, 3, 96.0, 200_000, 24, SNAP_SEED)
+    budget = SR.PAIR_BUDGET
+    for direct in (False, True):
+        kw = dict(epsilon_max=20, model=HideCurves(model) if direct
+                  else model, dtype=torch.float32, verbose=False,
+                  device=DEVICE)
+        one = bf.BaryonifySnapshot(cat, snap, **kw)
+        want = one.process()
+        counts = np.diff(one._pairs[1])
+        del one
+        cut = int(counts.max()) // 3
+        chunks = snapshot.pair_chunks(counts, cut)
+        big = int(np.argmax(counts))
+        pieces = sum(1 for c in chunks if c[:2] == (big, big + 1))
+        label = (f"snapshot, {counts.size} halos, {int(counts.sum())} pairs, "
+                 f"the largest halo's {int(counts[big])} in {pieces} chunks "
+                 f"of at most {cut} ({len(chunks)} chunks), "
+                 f"{'direct' if direct else 'curve'} path, float32")
+        if pieces < 3 or max(c[3] - c[2] for c in chunks) > cut:
+            raise AssertionError(f"{label}: not cut as planned")
+        SR.PAIR_BUDGET = cut
+        try:
+            r = bf.BaryonifySnapshot(cat, snap, **kw)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = r.process()
+            wall = time.perf_counter() - t0
+            writes = _build.launches["cell_write"]
+        finally:
+            SR.PAIR_BUDGET = budget
+        if writes != len(chunks):
+            raise AssertionError(f"{label}: {writes} write passes")
+        for c in "xyz":
+            if not np.array_equal(got[c], want[c]):
+                raise AssertionError(f"{label}: not the one-chunk run's")
+        log(f"  {label}: bitwise the one-chunk run, {writes} write passes "
+            f"(first call {wall * 1e3:.1f} ms)")
+
+
 def brute_force_subset(bf, torch, model, cat, snap, pidx, eps=20,
                        hchunk=2000):
     """tests/test_snapshot.py:50-64 for the particles ``pidx`` on the card:
@@ -3062,8 +3113,8 @@ def large_snapshot(bf, torch, gpu, model):
         launches = dict(_build.launches)
         first = runner._pairs[1]
         n_pairs = int(first[-1])
-        n_chunks = sum(1 for a, b in snapshot.pair_chunks(
-            np.diff(first), SR.PAIR_BUDGET) if first[b] > first[a])
+        n_chunks = sum(1 for c in snapshot.pair_chunks(
+            np.diff(first), SR.PAIR_BUDGET) if c[3] > c[2])
         peak = torch.cuda.max_memory_allocated()
         if _HOST_SEARCHES[0] != before or runner._tree is not None:
             raise AssertionError("large snapshot: the card runner searched "
@@ -3223,6 +3274,7 @@ def snapshot_bench(bf, torch, gpu):
         "; one chunk, kept; no host search")
     k24 = k24_bench(bf, torch, gpu, runner)
     snapshot_chunks(bf, torch, gpu, model, cat, snap)
+    snapshot_halo_cut(bf, torch, gpu, model)
 
     sub = cat[np.arange(256)]
     got = moves(bf.BaryonifySnapshot(sub, snap, epsilon_max=20, model=model,
@@ -3557,7 +3609,9 @@ def ptxas_report(bf):
     the bench's launch shapes (the stencil with its dynamic shared memory,
     K4's template with its rows and halo chunk (tile_pairs_shape), K8
     with correlation_3d's 1 x 1024 row, 32 KB, and its Bluestein route
-    with N = 100's, 12 KB; K16's window and K11's and K13's flat-walk
+    with N = 100's, 12 KB, and its passes' 4096 points a block, 64 KB
+    (the mode of a pass is not parsed: its lines are in build order);
+    K16's window and K11's and K13's flat-walk
     layout are static shared memory, which ptxas reports)."""
     import re
     import tempfile
@@ -3575,13 +3629,16 @@ def ptxas_report(bf):
                "grid_radii_kernel": 256, "snapshot_direct_kernel": 128,
                "snapshot_radii_kernel": 256, "cell_query_kernel": 256,
                "cell_bin_kernel": 256, "cell_place_kernel": 256,
-               "collapse_curves_wide": 256, "deposit_list_kernel": 256}
+               "collapse_curves_wide": 256, "deposit_list_kernel": 256,
+               "fht_pass": 512, "fht_coeff": 256, "fht_setup": 256}
     smem = {("stencil_kernel", "f"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 0),
             ("stencil_kernel", "d"): lib.bf_stencil_smem_bytes(
                 16, 32, 2, 5, 1),
             ("fht_kernel", "0"): 4 * 1024 * 8,
             ("fht_kernel", "1"): 6 * 256 * 8,
+            # K8's passes: 4096 points a block, Re and Im
+            ("fht_pass", ""): 2 * 4096 * 8,
             # K9 at the bench (500 grid points, 64 radii): the inversion's
             # 8 doubles and 2 flags a radius, the grid's logs, each curve's
             # 3 doubles and a flag a grid point
@@ -3644,7 +3701,7 @@ def ptxas_report(bf):
                          SM_BLOCKS, SM_SMEM // (sm + 1024) if sm
                          else SM_BLOCKS)
             args = ["float" if c == "f" else "double" for c in types or ""]
-            if key == "fht_kernel":
+            if key in ("fht_kernel", "fht_coeff"):
                 args = ["Bluestein" if flag == "1" else "power of two"]
             elif key == "tile_pairs_kernel":
                 args += [("K4", "K10", "K12")[int(dim)]]
@@ -4714,7 +4771,7 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
 
 # -- the last gaps to the JAX package: a five-key ParamTabulatedProfile
 # paint (K1's wide kernel), the public grid deposits (K16's list entry) and
-# FFTLog rows past 2^21 points (K8) ------------------------------------------
+# FFTLog rows past shared memory (K8) ---------------------------------------
 # five parameters of the bench's Schneider19 gas profile, two or three
 # values each; each halo draws its own from the seed, over each axis
 # widened by P5_REACH of its span a side, so some fall off an axis (fill 0)
@@ -4931,46 +4988,88 @@ def deposit_shares(torch, pos, vals, N, ndim):
     return torch.cat(idx), torch.cat(share)
 
 
+def sm_count(torch):
+    """The card's SM count (K8's plan takes it)."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def fht_route(plan):
+    """K8's route in words, from ops.fftlog.fht_plan."""
+    how = ("shared memory" if plan.in_shared else
+           f"{len(plan.passes)} passes {plan.passes}" if plan.passes else
+           "one block a row on device memory")
+    return (f"{'Bluestein' if plan.bluestein else 'power of two'}, M = "
+            f"{plan.M}, {how}")
+
+
 def long_fht(bf, torch, gpu):
-    """fht of one row past an FFT of 2^21 points on the card: N = 2^22 (a
-    power of two) and N = 2^20 + 1 (Bluestein, M = 2^22), then at
-    FHT_MAX_M: N = 2^27 and N = 2^26 - 1 (Bluestein, M = 2^27); mu 0.5, q
-    -0.5, with the launch counts set to 0 just before and read just after;
-    each against fht_plain on the card to 1e-11 of the row's largest
-    value, and timed beside it (3 calls at 2^22, 1 at 2^27). Returns the
-    launches."""
+    """fht past shared memory on the card, mu 0.5, q -0.5, B rows of N
+    points: 1 x 16,384 and 20 x 16,384, 200 x 8192 (one block a row), 1 x
+    2^22 and Bluestein N = 2^20 + 1 (M = 2^22), 1 x 2^28 and Bluestein N =
+    2^27 - 1 (M = 2^28). Each with the launch counts set to 0 just before
+    and read just after (they must be the plan's, ops.fftlog.fht_launches),
+    against fht_plain on the card to 1e-11 of the row's largest value,
+    timed beside fht_plain and the partial library call (torch.fft.fft of
+    the biased rows, the product with the coefficients formed beforehand,
+    torch.fft.fft again), with its bound (the row's own formula:
+    compare_table_kernels' fht_case); at 2^22 K8 no slower than fht_plain.
+    Returns the launches and the rows [B, N, plan, err, ms, plain_ms,
+    bound_ms, bound_by, library_ms]."""
     from baryonforge_torch.ops import _build, fftlog
     dev = torch.device(DEVICE)
-    launches = {}
-    if fftlog.FHT_MAX_M != 1 << 27:
-        raise AssertionError("FHT_MAX_M is not the longest FFT checked")
-    for N, reps in ((1 << 22, 3), ((1 << 20) + 1, 3), (1 << 27, 1),
-                    ((1 << 26) - 1, 1)):
+    smem, sms = fftlog.shared_memory_optin(dev), sm_count(torch)
+    launches, rows = {}, []
+    for B, N, reps in ((1, 16384, 20), (20, 16384, 20), (200, 8192, 10),
+                       (1, 1 << 22, 5), (1, (1 << 20) + 1, 5),
+                       (1, 1 << 28, 1), (1, (1 << 27) - 1, 1)):
         x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
-        a = torch.exp(-x * 1.3)[None] * x ** 0.5
+        a = (torch.exp(-x[None] * torch.linspace(
+            0.5, 2.0, B, dtype=torch.float64, device=dev)[:, None])
+            * x ** 0.5).contiguous()
+        plan = fftlog.fht_plan(N, smem, B, sms)
         _build.reset_launches()
         k, ok = fftlog.fht(x, a, 0.5, -0.5)
         torch.cuda.synchronize()
         for name, n in _build.launches.items():
             launches[name] = launches.get(name, 0) + n
-        if _build.launches["fht"] != 1:
-            raise AssertionError(f"fht N = {N}: {dict(_build.launches)}")
+        want = fftlog.fht_launches(plan, B, B)
+        if _build.launches["fht"] != want:
+            raise AssertionError(f"fht {B} x {N}: {dict(_build.launches)}, "
+                                 f"the plan {want}")
+        del k
         lx, ln_kcrc = fftlog._fht_grids(x, 1.0)
-        M, blue, _ = fftlog.fht_plan(N, fftlog.shared_memory_optin(dev))
         op = fftlog.fht_plain(a, lx, 0.5, -0.5, ln_kcrc)
         torch.cuda.synchronize()
         rel = ((ok - op).abs() / op.abs().amax(-1, keepdim=True)).max().item()
-        check(f"K8 fht, one row of N = {N} (M = {M}, "
-              f"{'Bluestein' if blue else 'power of two'}), relative to the "
-              "row's largest value", rel, 1e-11)
+        label = f"{B} x {N} ({fht_route(plan)})"
+        check(f"K8 fht, {label}, relative to the row's largest value", rel,
+              1e-11)
+        ops = (B * (5.0 * N * math.log2(N) + 8.0 * N) + 40.0 * N
+               + 450.0 * (N // 2 + 1))
+        bnd = bound(nbytes(a, lx, op), ops, F64_FLOPS)
+        del ok, op
+        torch.cuda.empty_cache()
         ms = time_ms(torch, lambda: fftlog.fht(x, a, 0.5, -0.5), reps)
         plain_ms = time_ms(torch, lambda: fftlog.fht_plain(
             a, lx, 0.5, -0.5, ln_kcrc), reps)
-        log(f"[{gpu}] K8 fht 1 x {N} (M = {M}): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms")
-        del x, a, k, ok, op
+        dln = (lx[-1] - lx[0]) / (N - 1)
+        u = fftlog._u_coefficients(N, dln, 0.5, -0.5,
+                                   ln_kcrc - lx[-1] + lx[0], dev) / N
+        b = (a * torch.exp(0.5 * (lx - lx[0]))).to(torch.float64)
+        lib_ms = time_ms(torch, lambda: torch.fft.fft(
+            torch.fft.fft(b) * u).real, reps)
+        del u, b
         torch.cuda.empty_cache()
-    return launches
+        log(f"[{gpu}] K8 fht {label}: kernel {ms:.4f} ms, {want} launches; "
+            f"plain {plain_ms:.4f} ms; library (torch.fft.fft twice, "
+            f"partial) {lib_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
+        if N in (1 << 22, (1 << 20) + 1) and ms > plain_ms:
+            raise AssertionError(f"K8 fht {label}: {ms:.4f} ms, slower "
+                                 f"than fht_plain's {plain_ms:.4f} ms")
+        rows.append([B, N, plan, rel, ms, plain_ms, bnd[0], bnd[1], lib_ms])
+        del x, a, lx
+        torch.cuda.empty_cache()
+    return launches, rows
 
 
 KERNELS = [
@@ -5351,8 +5450,8 @@ def main():
     log("the public grid deposits (ops.scatter.deposit_2d / deposit_3d) "
         "at full width")
     launches_dep, measured["deposit_list"] = public_deposits(bf, torch, gpu)
-    log("FFTLog rows past an FFT of 2^21 points")
-    launches_fht = long_fht(bf, torch, gpu)
+    log("FFTLog rows past shared memory: the passes over the whole card")
+    launches_fht, _ = long_fht(bf, torch, gpu)
 
     launches_paint = {k: launches_pt.get(k, 0) + launches_ps.get(k, 0)
                       for k in set(launches_pt) | set(launches_ps)}

@@ -752,10 +752,10 @@ def test_fht_kernel(dev, B, N, mu, q, smem):
     N = 3000, 12288 and 20000, powers of two at 8192, 16384 and 32768,
     rows of an FFT of 2^21 points (a power of two of that length, and
     Bluestein just under half of it) and past it, of 2^22 points (a power
-    of two, and Bluestein just over 2^20) and of FHT_MAX_M = 2^27 points
-    (a power of two, and Bluestein just under 2^26), and both routes forced at small N
-    with 2048 bytes of shared memory (200 rows: more than the route's
-    blocks, so a block takes several); against its plain version."""
+    of two, and Bluestein just over 2^20) and of 2^27 points (a power of
+    two, and Bluestein just under 2^26), and the pass route forced at small
+    N with 2048 bytes of shared memory (one pass of M points; 200 rows);
+    against its plain version, with the launches the plan predicts."""
     rng = np.random.default_rng(N)
     x = torch.as_tensor(np.geomspace(1e-4, 1e4, N), device=dev)
     a = torch.as_tensor(np.exp(-np.geomspace(1e-4, 1e4, N)[None]
@@ -768,13 +768,14 @@ def test_fht_kernel(dev, B, N, mu, q, smem):
         smem = fftlog.shared_memory_optin(dev)
     else:
         k, ok = fftlog._fht_kernel(x, a, mu, qs, ln_kcrc, smem_bytes=smem)
-    assert _build.launches["fht"] == 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fftlog.fht_plan(N, smem, B, sms)
+    assert _build.launches["fht"] == fftlog.fht_launches(plan, B, B)
     # the k grid, written by the kernel
     kp = torch.exp(ln_kcrc - lx[-1] + torch.arange(N, device=dev)
                    * ((lx[-1] - lx[0]) / (N - 1)))
     torch.testing.assert_close(k, kp, rtol=1e-14, atol=0)
-    _, _, in_shared = fftlog.fht_plan(N, smem)
-    assert in_shared == (N in (100, 1024, 2048, 4096) and smem > 2048)
+    assert plan.in_shared == (N in (100, 1024, 2048, 4096) and smem > 2048)
     op = fftlog.fht_plain(a, lx, mu, qs, ln_kcrc)
     # each row to 1e-11 of its own largest value (two correct summation
     # orders differ by 2.2e-12: test_torch_fftlog.py)

@@ -3,10 +3,9 @@ checked on the CPU against the JAX package.
 
 K8 runs a row as one FFT in shared memory (a power of two up to 4096
 points on the H100), as Bluestein's chirp convolution in shared memory
-(any other N up to 2048), or as either on a slot of device memory (longer
-rows, up to an FFT of ``FHT_MAX_M`` points, as many slots as the free
-memory holds: ``ops.fftlog.fht_slots``); ``ops.fftlog.fht_plan`` picks the
-route. Its plain version,
+(any other N up to 2048), or as either in passes over device memory
+(longer rows, any M, as many rows at once as the free memory holds:
+``ops.fftlog.fht_slots``); ``ops.fftlog.fht_plan`` picks the route. Its plain version,
 ``fht_plain``, is held against the JAX ``fht`` at the lengths where the
 route changes: N = 2048 (a power of two in shared memory) and N = 3000
 (Bluestein on device memory), to tests/test_torch_fftlog.py's tolerance
@@ -68,31 +67,35 @@ H100_SMEM = 232448
     (4096, (4096, False, True)), (8192, (8192, False, False)),
     (12288, (32768, True, False)), (16384, (16384, False, False)),
     (20000, (65536, True, False)), (32768, (32768, False, False)),
-    (tf.FHT_MAX_M // 2 - 1, (tf.FHT_MAX_M, True, False)),
-    (tf.FHT_MAX_M, (tf.FHT_MAX_M, False, False))])
+    ((1 << 26) - 1, (1 << 27, True, False)),
+    (1 << 27, (1 << 27, False, False))])
 def test_fht_plan_routes(N, route):
     """A power of two runs its own FFT in 4 M doubles, any other N
     Bluestein's of the least power of two M >= 2 N - 1 in 6 M; shared
     memory holds M <= 4096 (power of two) or M <= 4096 with Bluestein
-    (N <= 2048) of the H100's 232,448 bytes; longer rows run on device
-    memory, up to M = FHT_MAX_M."""
-    M, bluestein, in_shared = tf.fht_plan(N, H100_SMEM)
-    assert (M, bluestein, in_shared) == route
+    (N <= 2048) of the H100's 232,448 bytes; longer rows run in the passes
+    over device memory (ops.fftlog.fht_passes), whatever their M."""
+    plan = tf.fht_plan(N, H100_SMEM)
+    M, bluestein, in_shared = route
+    assert plan[:3] == route
     assert M & (M - 1) == 0
     assert M >= 2 * N - 1 if bluestein else M == N
     assert in_shared == ((6 if bluestein else 4) * M * 8 <= H100_SMEM)
-    assert M <= tf.FHT_MAX_M
+    assert plan.passes == (() if in_shared else tf.fht_passes(M))
 
 
-@pytest.mark.parametrize("N", [tf.FHT_MAX_M // 2 + 1, 2 * tf.FHT_MAX_M])
-def test_fht_kernel_refuses_rows_past_its_longest_fft(N):
-    """Past FHT_MAX_M points of FFT (Bluestein's M for N just over half of
-    it, or a longer power of two) K8's wrapper raises before it builds,
-    allocates or launches anything, from the shapes alone (the rows here
-    are broadcast views: such a row would take 4 to 16 GiB); the CPU's
-    plain version takes any N."""
+@pytest.mark.parametrize("N", [(1 << 26) + 1, 1 << 28])
+def test_fht_kernel_refuses_rows_past_its_longest_fft(N, monkeypatch):
+    """K8's wrapper has no longest FFT: its only refusal is MemoryError,
+    when the pass route's scratch (16 M bytes a row, 16 M more for
+    Bluestein's chirp) and the call's own tensors do not fit the free
+    memory (here 4 GiB, monkeypatched). It raises before it builds,
+    allocates or launches anything, from the shapes and the free memory
+    alone (the rows here are broadcast views: such a row would take 2 to 4
+    GiB); the CPU's plain version takes any N."""
     x = torch.ones(1, dtype=torch.float64).expand(N)
-    with pytest.raises(ValueError, match="FHT_MAX_M"):
+    monkeypatch.setattr(tf, "_free_bytes", lambda device, need=0: 4 << 30)
+    with pytest.raises(MemoryError, match="device-memory scratch"):
         tf._fht_kernel(x, x[None], 0.5, -0.5, 0.0, smem_bytes=H100_SMEM)
 
 

@@ -1,8 +1,9 @@
 """BaryonifySnapshot past one chunk of pairs, on the CPU: the plain version
 of the card's cell list (K24, ops.snapshot.cell_query_plain) against the
-host searches, the chunk planner on counts past 2^31, and the runner with
-its PAIR_BUDGET cut to a few hundred pairs against its one-chunk run and
-the JAX runner.
+host searches, the chunk planner on counts past 2^31 (a halo of more pairs
+than the budget cut across chunks), and the runner with its PAIR_BUDGET
+cut to a few hundred pairs, or under its largest halo's pairs, against its
+one-chunk run and the JAX runner.
 
 Tolerances: the neighbour sets equal, halo for halo; the wrap bitwise
 np.mod's; a run in chunks bitwise the one-chunk run (each chunk's sums go
@@ -93,9 +94,11 @@ def test_cell_query_plain_equals_ckdtree_2d(radius):
 
 def test_pair_chunks_past_int32():
     """40,000 halos of 10^2-10^5 pairs and a few of more than the budget,
-    2.6 x 10^9 pairs in all (int64 counts only): every halo in exactly one
-    chunk, in order; each chunk within the budget, or one halo; no chunk
-    could have taken its next halo."""
+    2.6 x 10^9 pairs in all (int64 counts only): every chunk within the
+    budget; the chunks cover every halo's pairs once, in order, each halo
+    in one run of chunks; a halo of more pairs than the budget cut into
+    runs of its own pairs, the budget each and the rest last; a chunk of
+    whole halos could not have taken its next halo."""
     rng = np.random.default_rng(19)
     counts = (10 ** rng.uniform(2, 5, 40000)).astype(np.int64)
     counts[rng.integers(0, counts.size, 300)] = 0
@@ -103,18 +106,34 @@ def test_pair_chunks_past_int32():
     budget = 1 << 28
     assert counts.sum() > np.iinfo(np.int32).max
     chunks = tsnap.pair_chunks(counts, budget)
-    bounds = np.array(chunks)
-    assert bounds[0, 0] == 0 and bounds[-1, 1] == counts.size
-    np.testing.assert_array_equal(bounds[1:, 0], bounds[:-1, 1])
+    bounds = np.array(chunks, dtype=np.int64)
+    h0, h1, p0, p1 = bounds.T
     cum = np.concatenate([[0], np.cumsum(counts)])
-    pairs = cum[bounds[:, 1]] - cum[bounds[:, 0]]
-    alone = bounds[:, 1] - bounds[:, 0] == 1
-    assert np.all((pairs <= budget) | alone)
-    more = cum[np.minimum(bounds[:-1, 1] + 1, counts.size)] \
-        - cum[bounds[:-1, 0]]
-    assert np.all(more > budget)
-    assert pairs.max() < np.iinfo(np.int32).max
+    assert np.all(p1 - p0 <= budget) and np.all(p1 > p0)
+    # the pairs once, in order, and each chunk's pairs its halos' own
+    assert p0[0] == 0 and p1[-1] == cum[-1]
+    np.testing.assert_array_equal(p0[1:], p1[:-1])
+    assert np.all(cum[h0] <= p0) and np.all(p1 <= cum[h1])
+    # the halos in order: a chunk starts where the last one ended, or on
+    # the same halo when that halo is cut across both
+    assert h0[0] == 0 and h1[-1] == counts.size
+    cut = h1 - h0 == 1
+    same = (h0[1:] == h0[:-1]) & cut[1:] & cut[:-1]
+    np.testing.assert_array_equal(h0[1:][~same], h1[:-1][~same])
+    big = np.flatnonzero(counts > budget)
+    for h in big:
+        mine = (h0 == h) & cut
+        np.testing.assert_array_equal(p1[mine] - p0[mine], (
+            [budget] * int(counts[h] // budget)
+            + ([int(counts[h] % budget)] if counts[h] % budget else [])))
+    assert np.all(~cut | (p0 == cum[h0]) | np.isin(h0, big))
+    # a run of whole halos could not have taken its next halo
+    whole = ~np.isin(h0, big) & (h1 < counts.size)
+    assert np.all(cum[h1[whole] + 1] - p0[whole] > budget)
     assert tsnap.pair_chunks(np.zeros(0, np.int64), budget) == []
+    assert tsnap.pair_chunks(np.array([0, 5, 0]), 2) == [
+        (0, 1, 0, 0), (1, 2, 0, 2), (1, 2, 2, 4), (1, 2, 4, 5),
+        (2, 3, 5, 5)]
 
 
 def _runner(ndim, dt, direct, tm, **kw):
@@ -130,14 +149,28 @@ def _out(out, ndim):
     return np.stack([np.asarray(out[c]) for c in "xyz"[:ndim]])
 
 
+@pytest.mark.parametrize("cut", ["budget", "largest"])
 @pytest.mark.parametrize("direct", [False, True], ids=["curve", "direct"])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 @pytest.mark.parametrize("ndim", [3, 2])
 def test_chunked_runner_equals_one_chunk(models, monkeypatch, ndim, dt,
-                                         direct):
+                                         direct, cut):
+    """The runner in 4 chunks or more, bit for bit its one-chunk run, and
+    close to the JAX runner. ``cut`` "budget": BUDGET pairs a chunk (the
+    2D box's largest halos hold more, and are cut across chunks);
+    "largest": a third of the largest halo's pairs, so that halo is cut
+    into three chunks or more of its own pairs."""
     jm, tm = models[ndim]
-    one = _out(_runner(ndim, dt, direct, tm).process(), ndim)
-    monkeypatch.setattr(SnapshotRunner, "PAIR_BUDGET", BUDGET)
+    whole = _runner(ndim, dt, direct, tm)
+    one = _out(whole.process(), ndim)
+    counts = np.diff(whole._pairs[1])
+    budget = BUDGET if cut == "budget" else int(counts.max()) // 3
+    bounds = tsnap.pair_chunks(counts, budget)
+    assert max(c[3] - c[2] for c in bounds) <= budget
+    big = int(np.argmax(counts))
+    assert (sum(c[:2] == (big, big + 1) for c in bounds) >= 3) == (
+        cut == "largest")
+    monkeypatch.setattr(SnapshotRunner, "PAIR_BUDGET", budget)
     runner = _runner(ndim, dt, direct, tm)
     got = runner.process()
     n_chunks = len(runner._shard_chunks(1)[0])
