@@ -76,7 +76,6 @@ and then
               halo's weighted painting on its disc's pixels, then K14
 """
 
-import time
 import warnings
 
 import numpy as np
@@ -96,43 +95,11 @@ from ..ops.regrid import regrid as _regrid
 from ..ops.tile_deposit import (tile_deposit, tile_paint, tile_paint2,
                                 PAINT_KEYS)
 from ..parallel.mesh import check_mesh, sharded_sum, to_device
+from ..utils import trace
+from ..utils.trace import PhaseClock
 
 __all__ = ["DefaultRunner", "BaryonifyShell", "PaintProfilesShell",
            "PaintProfilesAnisShell"]
-
-
-class _PhaseClock:
-    """Milliseconds between successive marks: CUDA events on the device's
-    current stream for a CUDA runner (a mark after host work measures that
-    work too, since the stream idles meanwhile), the host clock for a CPU
-    runner."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-        self.names = []
-        self.stamps = [self._stamp()]
-
-    def _stamp(self):
-        if not self.cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def mark(self, name):
-        self.names.append(name)
-        self.stamps.append(self._stamp())
-
-    def milliseconds(self):
-        """Milliseconds by name; a name marked more than once (a chunked
-        phase) sums its intervals."""
-        if self.cuda:
-            self.stamps[-1].synchronize()
-        out = {}
-        for n, a, b in zip(self.names, self.stamps, self.stamps[1:]):
-            ms = a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
-            out[n] = out.get(n, 0.0) + ms
-        return out
 
 
 class DefaultRunner:
@@ -212,11 +179,14 @@ class DefaultRunner:
         self.n_size_buckets = n_size_buckets
         self.pixel_budget = pixel_budget
         self.transfer = transfer
-        # milliseconds of each phase of the last process() call (see
-        # _PhaseClock): host_prep, curves (K1), [binning (tiled engine)],
-        # deposit (phase A) and regrid (phase B), or paint, and download;
-        # the direct readout's radii (K20), readout and apply (K21) instead
-        # of curves and deposit or paint
+        # the last process() call's trace (utils.trace.PhaseClock): the
+        # phases in ms under dotless keys, host_prep, curves (K1),
+        # [binning (tiled engine)], deposit (phase A) and regrid (phase B),
+        # or paint, and download (the direct readout's radii (K20), readout
+        # and apply (K21) instead of curves and deposit or paint); the
+        # spans' self times in ms under dotted keys (host_prep.cosmology,
+        # binning.refine, cache.tiling, copy.h2d, ...); the counters under
+        # count.<name> (h2d_bytes, pairs_kept, cache_fills, ...)
         self.timings = {}
         # pure functions of (NSIDE, dtype), built at first use: the tiling,
         # the stencil's tables and its geometric source list
@@ -253,7 +223,7 @@ class DefaultRunner:
         rows = next(iter(x.values())) if isinstance(x, dict) else x
         if idx.size == rows.shape[0]:
             return to_device(x, dev)
-        sel = torch.as_tensor(idx, device=self.device)
+        sel = trace.upload(idx, self.device)
         if isinstance(x, dict):
             return {k: v[sel].to(dev) for k, v in x.items()}
         return x[sel].to(dev)
@@ -274,20 +244,29 @@ class DefaultRunner:
         (reference HealpixRunner.py:212-232)."""
         return np.vstack([np.asarray(a).flatten() for a in args]).T
 
+    def _cosmology(self):
+        """The runner's cosmology (``host_prep.cosmology``)."""
+        with trace.span("host_prep.cosmology"):
+            return _core.cosmology_from_dict(self.cosmo)
+
     def _host_halo_data(self, cosmo):
-        """Per-halo static data computed on the host (numpy float64)."""
-        cat = self.HaloLightConeCatalog.cat
-        z = np.asarray(cat["z"], dtype=float)
-        if z.max() > 30:
-            raise ValueError(f"max(z) = {z.max()} exceeds the z <= 30 "
-                             "range of the cosmology integrals")
-        M = np.asarray(cat["M"], dtype=float)
-        a = 1.0 / (1.0 + z)
-        R = self.mass_def.get_radius(cosmo, M, a).numpy()        # physical
-        D = _core.angular_diameter_distance(cosmo, a).numpy()
-        theta = np.radians(90.0 - np.asarray(cat["dec"], dtype=float))
-        phi = np.radians(np.asarray(cat["ra"], dtype=float))
-        radius = R * self.epsilon_max / D
+        """Per-halo static data computed on the host (numpy float64): the
+        catalog's columns (``host_prep.columns``), R_Delta and D_A
+        (``host_prep.cosmology``)."""
+        with trace.span("host_prep.columns"):
+            cat = self.HaloLightConeCatalog.cat
+            z = np.asarray(cat["z"], dtype=float)
+            if z.max() > 30:
+                raise ValueError(f"max(z) = {z.max()} exceeds the z <= 30 "
+                                 "range of the cosmology integrals")
+            M = np.asarray(cat["M"], dtype=float)
+            a = 1.0 / (1.0 + z)
+            with trace.span("host_prep.cosmology"):
+                R = self.mass_def.get_radius(cosmo, M, a).numpy()  # physical
+                D = _core.angular_diameter_distance(cosmo, a).numpy()
+            theta = np.radians(90.0 - np.asarray(cat["dec"], dtype=float))
+            phi = np.radians(np.asarray(cat["ra"], dtype=float))
+            radius = R * self.epsilon_max / D
         return dict(M=M, z=z, a=a, R=R, D=D, theta=theta, phi=phi,
                     radius=radius)
 
@@ -302,13 +281,13 @@ class DefaultRunner:
         """The halo columns of ``disc_deposit``, and M, as float64 tensors
         on the runner's device, from :meth:`_host_halo_data`'s arrays: rows
         of one (8, n) upload."""
-        cols = (("theta", hd["theta"]), ("phi", hd["phi"]),
-                ("radius", hd["radius"]), ("D", hd["D"]), ("a", hd["a"]),
-                ("Rcom", hd["R"] / hd["a"]), ("rscale", self._rscale(hd)),
-                ("M", hd["M"]))
-        rows = torch.as_tensor(np.stack([np.asarray(v, dtype=np.float64)
-                                         for _, v in cols]),
-                               device=self.device)
+        with trace.span("host_prep.columns"):
+            cols = (("theta", hd["theta"]), ("phi", hd["phi"]),
+                    ("radius", hd["radius"]), ("D", hd["D"]),
+                    ("a", hd["a"]), ("Rcom", hd["R"] / hd["a"]),
+                    ("rscale", self._rscale(hd)), ("M", hd["M"]))
+            rows = trace.upload(np.stack([np.asarray(v, dtype=np.float64)
+                                          for _, v in cols]), self.device)
         return {k: rows[i] for i, (k, _) in enumerate(cols)}
 
     def _use_curves(self):
@@ -331,7 +310,7 @@ class DefaultRunner:
         (None: no marks); prints the row groups when ``verbose``."""
         rows, layout = disc_radii(NSIDE, halos, mode, self.dtype)
         if clock is not None:
-            clock.mark("radii")
+            clock.mark("radii", then="readout")
         if self.verbose:
             print(f"[baryonforge_torch] {type(self).__name__}: "
                   f"{layout.describe()}")
@@ -340,17 +319,19 @@ class DefaultRunner:
         vals = [readout(fn, rows["r"], layout, cols, out_dtype)
                 for fn in fns]
         if clock is not None:
-            clock.mark("readout")
+            clock.mark("readout", then="apply")
         return rows, vals
 
     def _direct_halos(self, hd):
         """K20's halo columns and the readout's per-halo scalars (M, a,
         the model's p_keys) as float64 tensors on the runner's device."""
-        cols = {k: hd[k] for k in ("theta", "phi", "radius", "D", "a", "M")}
-        cols.update(self._p_key_kwargs())
-        rows = torch.as_tensor(np.stack([np.asarray(v, dtype=np.float64)
-                                         for v in cols.values()]),
-                               device=self.device)
+        with trace.span("host_prep.columns"):
+            cols = {k: hd[k]
+                    for k in ("theta", "phi", "radius", "D", "a", "M")}
+            cols.update(self._p_key_kwargs())
+            rows = trace.upload(np.stack([np.asarray(v, dtype=np.float64)
+                                          for v in cols.values()]),
+                                self.device)
         return {k: rows[i] for i, k in enumerate(cols)}
 
     def _check_nside(self, NSIDE):
@@ -362,33 +343,33 @@ class DefaultRunner:
     # -- the tiled engine's per-NSIDE state (reference HealpixRunner.py:
     # 581-593, 1047-1179) --------------------------------------------------
     def _get_tiling(self, NSIDE, shape=None):
-        """The (cached) SkyTiling: 16 x 32 by default, shared by the tiled
-        phases; ``shape`` = (ring_block, seg_slots) for another."""
-        key = ("tiling", NSIDE, shape)
-        if key not in self._cache:
-            kw = ({} if shape is None
-                  else dict(ring_block=shape[0], seg_slots=shape[1]))
-            self._cache[key] = _tiles.SkyTiling(NSIDE, **kw)
-        return self._cache[key]
+        """The (cached: ``cache.tiling``) SkyTiling: 16 x 32 by default,
+        shared by the tiled phases; ``shape`` = (ring_block, seg_slots) for
+        another."""
+        kw = ({} if shape is None
+              else dict(ring_block=shape[0], seg_slots=shape[1]))
+        with trace.span("binning.tiling"):
+            return trace.cached(self._cache, ("tiling", NSIDE, shape),
+                                "tiling",
+                                lambda: _tiles.SkyTiling(NSIDE, **kw))
 
     def _stencil_tables(self, NSIDE):
-        """(cached) ops.stencil.stencil_tables of the tiling, on the
-        runner's device."""
-        key = ("stencil", NSIDE)
-        if key not in self._cache:
+        """(cached: ``cache.stencil_tables``) ops.stencil.stencil_tables of
+        the tiling, on the runner's device."""
+        def build():
             tiling = self._get_tiling(NSIDE)
-            self._cache[key] = _stencil.stencil_tables(
+            return _stencil.stencil_tables(
                 tiling, _tiles.stencil_host_info(tiling), self.device)
-        return self._cache[key]
+        return trace.cached(self._cache, ("stencil", NSIDE),
+                            "stencil_tables", build)
 
     def _stencil_geo(self, NSIDE, rdt):
-        """(cached) the complement's geometric source list
-        (ops.stencil.stencil_geo: kernel K6 on CUDA)."""
-        key = ("stencil_geo", NSIDE, rdt)
-        if key not in self._cache:
-            self._cache[key] = _stencil.stencil_geo(
-                self._get_tiling(NSIDE), self._stencil_tables(NSIDE), rdt)
-        return self._cache[key]
+        """(cached: ``cache.stencil_geo``) the complement's geometric
+        source list (ops.stencil.stencil_geo: kernel K6 on CUDA)."""
+        return trace.cached(
+            self._cache, ("stencil_geo", NSIDE, rdt), "stencil_geo",
+            lambda: _stencil.stencil_geo(self._get_tiling(NSIDE),
+                                         self._stencil_tables(NSIDE), rdt))
 
     def _small_disc_mask(self, hd, NSIDE):
         """Halos whose discs are so small (< ~9 px) that the reference's
@@ -401,19 +382,45 @@ class DefaultRunner:
         """Per-halo columns of the tile deposit on the runner's device
         (reference HealpixRunner.py:774-793): vh in float64; crit2, lnDa
         = ln(D/a) + ln(rscale), invD and afac = a cast to the deposit dtype
-        on the host."""
+        on the host (``binning.pack``)."""
         npdt = np.float32 if self.dtype == torch.float32 else np.float64
-        theta, phi, radius = hd["theta"], hd["phi"], hd["radius"]
-        st, ct = np.sin(theta), np.cos(theta)
-        vh = np.stack([st * np.cos(phi), st * np.sin(phi), ct], axis=1)
-        sinr2 = 2.0 * np.sin(np.minimum(radius, np.pi) / 2.0)
-        lnDa = np.log(hd["D"] / hd["a"]) + np.log(self._rscale(hd))
-        cols = dict(vh=vh, crit2=(sinr2 ** 2).astype(npdt),
-                    lnDa=lnDa.astype(npdt),
-                    invD=(1.0 / hd["D"]).astype(npdt),
-                    afac=hd["a"].astype(npdt))
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in cols.items()}
+        with trace.span("binning.pack"):
+            theta, phi, radius = hd["theta"], hd["phi"], hd["radius"]
+            st, ct = np.sin(theta), np.cos(theta)
+            vh = np.stack([st * np.cos(phi), st * np.sin(phi), ct], axis=1)
+            sinr2 = 2.0 * np.sin(np.minimum(radius, np.pi) / 2.0)
+            lnDa = np.log(hd["D"] / hd["a"]) + np.log(self._rscale(hd))
+            cols = dict(vh=vh, crit2=(sinr2 ** 2).astype(npdt),
+                        lnDa=lnDa.astype(npdt),
+                        invD=(1.0 / hd["D"]).astype(npdt),
+                        afac=hd["a"].astype(npdt))
+            return {k: trace.upload(v, self.device) for k, v in cols.items()}
+
+    def _refine(self, tiling, theta, phi, radius, t_ids, h_ids):
+        """``ops.tiles.refine_pairs`` of the binned pairs of the discs
+        (theta, phi, radius) (``binning.refine``)."""
+        with trace.span("binning.refine"):
+            st = np.sin(theta)
+            vh = np.stack([st * np.cos(phi), st * np.sin(phi),
+                           np.cos(theta)], axis=1)
+            chord_rad = 2.0 * np.sin(np.minimum(radius, np.pi) / 2.0)
+            return _tiles.refine_pairs(tiling, t_ids, h_ids, vh, chord_rad)
+
+    def _csr(self, t_ids, h_ids, dev):
+        """``ops.tiles.pairs_csr`` of the pairs, on ``dev``
+        (``binning.csr``)."""
+        with trace.span("binning.csr"):
+            return tuple(trace.upload(x, dev)
+                         for x in _tiles.pairs_csr(t_ids, h_ids))
+
+    def _fetch(self, x):
+        """``x`` on the host: the device's stream synchronised first
+        (``download.wait``), so that the copy (``copy.d2h``) is timed
+        alone."""
+        with trace.span("download.wait"):
+            if x.device.type == "cuda":
+                torch.cuda.current_stream(x.device).synchronize()
+        return trace.download(x)
 
 
 class BaryonifyShell(DefaultRunner):
@@ -446,34 +453,44 @@ class BaryonifyShell(DefaultRunner):
 
         Raises RuntimeError when the regridded map does not conserve the
         input's total mass (np.isclose, as the reference's check)."""
-        clock = _PhaseClock(self.device)
-        cosmo = _core.cosmology_from_dict(self.cosmo)
-        orig_map = np.asarray(self.LightconeShell.map, dtype=np.float64)
-        NSIDE = self.LightconeShell.NSIDE
-        self._check_nside(NSIDE)
-        dev = self.device
-        orig64 = torch.as_tensor(orig_map, device=dev)
+        with PhaseClock(self.device, first="host_prep") as clock:
+            return self._process(clock)
+
+    def _process(self, clock):
+        cosmo = self._cosmology()
+        with trace.span("host_prep.map_upload"):
+            orig_map = np.asarray(self.LightconeShell.map, dtype=np.float64)
+            NSIDE = self.LightconeShell.NSIDE
+            self._check_nside(NSIDE)
+            dev = self.device
+            orig64 = trace.upload(orig_map, dev)
         # np.allclose(map, 0) as the reference tests it, on the device: one
         # pass there instead of ~0.3 s of host temporaries at NSIDE 1024
-        if orig64.abs().max().item() <= 1e-8:
+        with trace.span("host_prep.empty_check"):
+            empty = orig64.abs().max().item() <= 1e-8
+        if empty:
+            self.timings = clock.timings()
             return orig_map
         hd = self._host_halo_data(cosmo)
         if not self._use_curves():
             halos = self._direct_halos(hd)
             orig_dev = orig64.to(self.regrid_dtype)
-            clock.mark("host_prep")
+            clock.mark("host_prep", then="radii" if self._mesh() is None
+                       else "apply")
             pix_offsets = self._direct_deposit(NSIDE, halos, clock)
             new_dev = _regrid(NSIDE, pix_offsets, orig_dev)
             return self._finish(new_dev, orig_map, clock)
         halos = self._halo_tensors(hd)
         orig_dev = orig64.to(self.regrid_dtype)
-        clock.mark("host_prep")
+        clock.mark("host_prep", then="curves")
         curves, ln_r0, dlnr = self._halo_curves(halos)
-        clock.mark("curves")
-        if self.deposit == "scatter":
+        tiled = self.deposit != "scatter"
+        clock.mark("curves", then="binning" if tiled and self._mesh() is None
+                   else "deposit")
+        if not tiled:
             pix_offsets = self._disc_deposit(NSIDE, halos, curves, ln_r0,
                                              dlnr)
-            clock.mark("deposit")
+            clock.mark("deposit", then="regrid")
             new_dev = _regrid(NSIDE, pix_offsets, orig_dev)
         else:
             tiling = self._get_tiling(NSIDE)
@@ -483,26 +500,29 @@ class BaryonifyShell(DefaultRunner):
                 pix_offsets = tiling.flat_view(acc)
                 if po_small is not None:
                     pix_offsets = pix_offsets + po_small
-                clock.mark("deposit")
+                clock.mark("deposit", then="regrid")
                 new_dev = _regrid(NSIDE, pix_offsets, orig_dev)
             else:
                 if po_small is not None:
                     acc = acc + tiling.tile_view(po_small)
-                clock.mark("deposit")
+                clock.mark("deposit", then="regrid")
                 new_dev = self._regrid_stencil(NSIDE, acc, orig_dev)
         return self._finish(new_dev, orig_map, clock)
 
     def _finish(self, new_dev, orig_map, clock):
         """Mark regrid, download the new map, mark download and check that
-        it conserves the input's mass."""
-        clock.mark("regrid")
-        out = new_dev.cpu().numpy().astype(np.float64)
+        it conserves the input's mass (``process.check``)."""
+        clock.mark("regrid", then="download")
+        host = self._fetch(new_dev)
+        with trace.span("download.convert"):
+            out = host.numpy().astype(np.float64)
         clock.mark("download")
-        self.timings = clock.milliseconds()
-
-        old_sum = orig_map.sum()
-        new_sum = float(out.sum())
-        if not np.isclose(new_sum, old_sum):
+        with trace.span("process.check"):
+            old_sum = orig_map.sum()
+            new_sum = float(out.sum())
+            ok = np.isclose(new_sum, old_sum)
+        self.timings = clock.timings()
+        if not ok:
             raise RuntimeError(
                 "ERROR in pixel regridding, sum(new_map) [%0.14e] != "
                 "sum(oldmap) [%0.14e]" % (new_sum, old_sum))
@@ -527,7 +547,7 @@ class BaryonifyShell(DefaultRunner):
                 torch.float64, mark)
             return (disc_apply("displace", NSIDE, rows, vals, h),)
         po = self._sharded(halos["M"].shape[0], work)[0]
-        clock.mark("apply")
+        clock.mark("apply", then="regrid")
         return po
 
     def _disc_deposit(self, NSIDE, halos, curves, ln_r0, dlnr):
@@ -561,22 +581,18 @@ class BaryonifyShell(DefaultRunner):
         ``dev``; ``pack`` holds every halo's columns (K4 reads its halos by
         their index)."""
         tiling = self._get_tiling(NSIDE)
-        small = self._small_disc_mask(hd, NSIDE)[idx]
-        idx_big = idx[~small]
-        theta_b, phi_b = hd["theta"][idx_big], hd["phi"][idx_big]
-        rad_b = hd["radius"][idx_big]
-        t_ids, h_ids = _tiles.bin_halos_to_tiles(tiling, theta_b, phi_b,
-                                                 rad_b)
-        st = np.sin(theta_b)
-        vh = np.stack([st * np.cos(phi_b), st * np.sin(phi_b),
-                       np.cos(theta_b)], axis=1)
-        chord_rad = 2.0 * np.sin(np.minimum(rad_b, np.pi) / 2.0)
-        t_ids, h_ids = _tiles.refine_pairs(tiling, t_ids, h_ids, vh,
-                                           chord_rad)
-        csr = tuple(torch.as_tensor(x, device=dev) for x in
-                    _tiles.pairs_csr(t_ids, idx_big[h_ids]))
+        with trace.span("binning.bin"):
+            small = self._small_disc_mask(hd, NSIDE)[idx]
+            idx_big = idx[~small]
+            theta_b, phi_b = hd["theta"][idx_big], hd["phi"][idx_big]
+            rad_b = hd["radius"][idx_big]
+            t_ids, h_ids = _tiles.bin_halos_to_tiles(tiling, theta_b, phi_b,
+                                                     rad_b)
+        t_ids, h_ids = self._refine(tiling, theta_b, phi_b, rad_b, t_ids,
+                                    h_ids)
+        csr = self._csr(t_ids, idx_big[h_ids], dev)
         if clock is not None:
-            clock.mark("binning")
+            clock.mark("binning", then="deposit")
         acc = tile_deposit(tiling, csr, to_device(pack, dev), ln_r0,
                            1.0 / dlnr)
         if not small.any():
@@ -599,8 +615,9 @@ class BaryonifyShell(DefaultRunner):
         excl = _stencil.hot_tiles(acc, tables)
         out_tiled = _stencil.stencil_regrid(tiling, tables, acc, orig_tiled,
                                             excl)
-        hot_ids = torch.nonzero(excl & ~tables["D_geom"])[:, 0].to(
-            torch.int32)
+        with trace.span("regrid.hot_tiles"):
+            hot_ids = torch.nonzero(excl & ~tables["D_geom"])[:, 0].to(
+                torch.int32)
         out = tiling.flat_view(out_tiled)
         geo = self._stencil_geo(NSIDE, orig_dev.dtype)
         return _stencil.stencil_complement(tiling, out, acc, orig_tiled, geo,
@@ -632,17 +649,19 @@ class PaintProfilesShell(DefaultRunner):
         the 16 x 32 tile (a pair costs P slots, and small discs leave most
         of a large tile's slots masked), else the 16 x 32 tile."""
         tile_th = 16.0 * np.pi / (4.0 * NSIDE)
-        if float(np.median(hd["radius"])) * 2.0 < 1.5 * tile_th:
-            return self._get_tiling(NSIDE, (8, 16))
-        return self._get_tiling(NSIDE)
+        with trace.span("binning.tiling"):
+            small = float(np.median(hd["radius"])) * 2.0 < 1.5 * tile_th
+            return self._get_tiling(NSIDE, (8, 16) if small else None)
 
     def process(self):
         """Paint the shell; returns the painted map as float64 numpy."""
-        clock = _PhaseClock(self.device)
-        out_dev = self._paint_device(clock)
-        out = out_dev.cpu().numpy().astype(np.float64)
-        clock.mark("download")
-        self.timings = clock.milliseconds()
+        with PhaseClock(self.device, first="host_prep") as clock:
+            out_dev = self._paint_device(clock)
+            host = self._fetch(out_dev)
+            with trace.span("download.convert"):
+                out = host.numpy().astype(np.float64)
+            clock.mark("download")
+            self.timings = clock.timings()
         return out
 
     def _paint_device(self, clock=None, hd=None):
@@ -652,25 +671,27 @@ class PaintProfilesShell(DefaultRunner):
         consumes its Mtot canvas this way, with its own halo data ``hd``).
         Marks host_prep, curves, [binning] and paint on ``clock`` (host_prep,
         radii, readout and apply for the direct readout)."""
-        clock = _PhaseClock(self.device) if clock is None else clock
+        clock = PhaseClock(self.device) if clock is None else clock
         NSIDE = self.LightconeShell.NSIDE
         self._check_nside(NSIDE)
         if hd is None:
-            hd = self._host_halo_data(_core.cosmology_from_dict(self.cosmo))
+            hd = self._host_halo_data(self._cosmology())
         if not self._use_curves():
             return self._direct_paint(NSIDE, hd, clock)
-        if self.deposit == "scatter":
-            halos = {k: torch.as_tensor(hd[k], dtype=torch.float64,
-                                        device=self.device)
-                     for k in _PAINT_COLUMNS}
-        clock.mark("host_prep")
+        tiled = self.deposit != "scatter"
+        if not tiled:
+            with trace.span("host_prep.columns"):
+                halos = {k: trace.upload(hd[k], self.device, torch.float64)
+                         for k in _PAINT_COLUMNS}
+        clock.mark("host_prep", then="curves")
         model = self.model.with_dtype(self.dtype, device=self.device)
         curves, ln_r0, dlnr = model.halo_curves(
             hd["M"], hd["a"], kind="projected", **self._p_key_kwargs())
         ln_r0, dlnr = float(ln_r0), float(dlnr)
         log_curves = bool(getattr(self.model, "curves_are_log", False))
-        clock.mark("curves")
-        if self.deposit == "scatter":
+        clock.mark("curves", then="binning" if tiled and self._mesh() is None
+                   else "paint")
+        if not tiled:
             def paint(h, c):
                 return disc_paint(NSIDE, h, c, ln_r0, dlnr, log_curves,
                                   self.include_pixel_size, self.regrid_dtype)
@@ -680,7 +701,7 @@ class PaintProfilesShell(DefaultRunner):
         else:
             out_dev = self._tiled_paint(hd, curves, ln_r0, dlnr, log_curves,
                                         NSIDE, clock)
-        clock.mark("paint")
+        clock.mark("paint", then="download")
         return out_dev
 
     def _direct_paint(self, NSIDE, hd, clock):
@@ -691,10 +712,10 @@ class PaintProfilesShell(DefaultRunner):
         radii, readout and apply (radii and readout without a mesh)."""
         require(self.model, "projected", runner=type(self).__name__)
         halos = self._direct_halos(hd)
-        clock.mark("host_prep")
-        model = readout_model(self.model, self.dtype, self.device)
-        cosmo = _core.cosmology_from_dict(self.cosmo)
         mark = clock if self._mesh() is None else None
+        clock.mark("host_prep", then="apply" if mark is None else "radii")
+        model = readout_model(self.model, self.dtype, self.device)
+        cosmo = self._cosmology()
 
         def work(i, idx, dev):
             h = self._take(halos, idx, dev)
@@ -706,7 +727,7 @@ class PaintProfilesShell(DefaultRunner):
                                pixel_size=self.include_pixel_size,
                                acc_dtype=self.regrid_dtype),)
         out = self._sharded(halos["M"].shape[0], work)[0]
-        clock.mark("apply")
+        clock.mark("apply", then="download")
         return out
 
     def _tiled_paint(self, hd, curves, ln_r0, dlnr, log_curves, NSIDE,
@@ -723,7 +744,7 @@ class PaintProfilesShell(DefaultRunner):
         def work(i, idx, dev):
             tiling, csr = self._paint_pairs(hd, NSIDE, idx, dev)
             if mark is not None:
-                mark.mark("binning")
+                mark.mark("binning", then="paint")
             return (tile_paint(tiling, csr, to_device(pack, dev), ln_r0,
                                1.0 / dlnr, log_curves),)
         acc = self._sharded(curves.shape[0], work)[0]
@@ -735,18 +756,14 @@ class PaintProfilesShell(DefaultRunner):
         ``idx`` (numpy; all by default) binned to the paint's tiles on the
         host and pruned (there is no small-disc route)."""
         tiling = self._paint_tiling(NSIDE, hd)
-        theta, phi, radius = ((hd[k] if idx is None else hd[k][idx])
-                              for k in ("theta", "phi", "radius"))
-        t_ids, h_ids = _tiles.bin_halos_to_tiles(tiling, theta, phi, radius)
-        st = np.sin(theta)
-        vh = np.stack([st * np.cos(phi), st * np.sin(phi), np.cos(theta)],
-                      axis=1)
-        chord_rad = 2.0 * np.sin(np.minimum(radius, np.pi) / 2.0)
-        t_ids, h_ids = _tiles.refine_pairs(tiling, t_ids, h_ids, vh,
-                                           chord_rad)
-        csr = tuple(torch.as_tensor(x, device=dev or self.device)
-                    for x in _tiles.pairs_csr(
-                        t_ids, h_ids if idx is None else idx[h_ids]))
+        with trace.span("binning.bin"):
+            theta, phi, radius = ((hd[k] if idx is None else hd[k][idx])
+                                  for k in ("theta", "phi", "radius"))
+            t_ids, h_ids = _tiles.bin_halos_to_tiles(tiling, theta, phi,
+                                                     radius)
+        t_ids, h_ids = self._refine(tiling, theta, phi, radius, t_ids, h_ids)
+        csr = self._csr(t_ids, h_ids if idx is None else idx[h_ids],
+                        dev or self.device)
         return tiling, csr
 
     def _tile_paint_inputs(self, hd, curves, log_curves, NSIDE):
@@ -762,11 +779,11 @@ class PaintProfilesShell(DefaultRunner):
         log curves clamped at -80 or non-finite raw values zeroed."""
         base = self._tile_base_pack(hd)
         pack = {k: base[k] for k in PAINT_KEYS if k in base}
-        afac = 1.0 / hd["a"]                  # the curves hold Sigma * a
-        if self.include_pixel_size:
-            afac = afac * hpx.nside2pixarea(NSIDE) * hd["D"] ** 2
-        pack["afac"] = torch.as_tensor(afac, device=self.device).to(
-            self.dtype)
+        with trace.span("binning.pack"):
+            afac = 1.0 / hd["a"]              # the curves hold Sigma * a
+            if self.include_pixel_size:
+                afac = afac * hpx.nside2pixarea(NSIDE) * hd["D"] ** 2
+            pack["afac"] = trace.upload(afac, self.device).to(self.dtype)
         pack["curves"] = (torch.clamp(curves, min=-80.0) if log_curves else
                           torch.where(torch.isfinite(curves), curves,
                                       torch.zeros_like(curves)))
@@ -841,12 +858,15 @@ class PaintProfilesAnisShell(PaintProfilesShell):
 
     def process(self):
         """Paint the shell; returns the map as float64 numpy."""
-        from ..utils.Tabulate import _get_parameter
         if self.LightconeShell.redshift is None:
             raise ValueError("PaintProfilesAnisShell needs the shell's "
                              "redshift")
-        clock = _PhaseClock(self.device)
-        cosmo = _core.cosmology_from_dict(self.cosmo)
+        with PhaseClock(self.device, first="host_prep") as clock:
+            return self._process(clock)
+
+    def _process(self, clock):
+        from ..utils.Tabulate import _get_parameter
+        cosmo = self._cosmology()
         shell = self.LightconeShell
         NSIDE = shell.NSIDE
         self._check_nside(NSIDE)
@@ -854,12 +874,14 @@ class PaintProfilesAnisShell(PaintProfilesShell):
         pixarea = hpx.nside2pixarea(NSIDE)
         dev = self.device
         hd = self._host_halo_data(cosmo)
-        orig = torch.as_tensor(np.asarray(shell.map, dtype=np.float64),
-                               device=dev)
-        clock.mark("host_prep")
+        with trace.span("host_prep.map_upload"):
+            orig = trace.upload(np.asarray(shell.map, dtype=np.float64), dev)
+        clock.mark("host_prep", then="canvas")
 
         mtot = self._mtot_runner()._paint_device(hd=hd)
-        clock.mark("canvas")
+        use_curves = self._use_curves()
+        clock.mark("canvas", then="curves" if use_curves
+                   else "radii" if self._mesh() is None else "apply")
 
         dL = 2 * _get_parameter(self.Mtot_model, "proj_cutoff")
         a_shell = 1.0 / (1.0 + shell.redshift)
@@ -877,15 +899,17 @@ class PaintProfilesAnisShell(PaintProfilesShell):
                           "density allows; check Mtot_model / cosmology")
         add = dV * drho_m
         bgw = self.background_val * self.global_tracer_fraction
-        if self._use_curves():
+        if use_curves:
             new = self._curve_anis(NSIDE, hd, mtot, orig, add, bgw, clock)
         else:
             new = self._direct_anis(NSIDE, hd, cosmo, mtot, orig, add, bgw,
                                     clock)
-        clock.mark("finish")
-        out = new.cpu().numpy()
+        clock.mark("finish", then="download")
+        host = self._fetch(new)
+        with trace.span("download.convert"):
+            out = host.numpy()
         clock.mark("download")
-        self.timings = clock.milliseconds()
+        self.timings = clock.timings()
         return out
 
     def _curve_anis(self, NSIDE, hd, mtot, orig, add, bgw, clock):
@@ -900,10 +924,12 @@ class PaintProfilesAnisShell(PaintProfilesShell):
                 hd["M"], hd["a"], kind="projected", **pkw)
             curves.append((c, float(r0), float(dl),
                            bool(getattr(m, "curves_are_log", False))))
-        clock.mark("curves")
-        if self.deposit == "scatter":
-            halos = {k: torch.as_tensor(hd[k], dtype=torch.float64,
-                                        device=dev) for k in _PAINT_COLUMNS}
+        tiled = self.deposit != "scatter"
+        clock.mark("curves", then="binning" if tiled and self._mesh() is None
+                   else "paint")
+        if not tiled:
+            halos = {k: trace.upload(hd[k], dev, torch.float64)
+                     for k in _PAINT_COLUMNS}
             mt = mtot.double() + add
             painting, canvas = ((c.to(self.dtype),) + tuple(rest)
                                 for c, *rest in curves)
@@ -916,11 +942,11 @@ class PaintProfilesAnisShell(PaintProfilesShell):
             halo_sum = self._sharded(hd["M"].shape[0], lambda i, idx, d: (
                 paint(self._take(halos, idx, d), sub(painting, idx, d),
                       sub(canvas, idx, d), d),))[0]
-            clock.mark("paint")
+            clock.mark("paint", then="finish")
             new = anis_finish(halo_sum, mt, orig, add, bgw)
         else:
             halo_sum = self._tiled_paint2(hd, curves, NSIDE, clock)
-            clock.mark("paint")
+            clock.mark("paint", then="finish")
             new = anis_finish(halo_sum, mtot, orig, add, bgw, tiled=True)
         return new
 
@@ -950,7 +976,7 @@ class PaintProfilesAnisShell(PaintProfilesShell):
             return (disc_apply("anis", NSIDE, rows, vp, h, vt, mt.to(d),
                                orig.to(d), self.include_pixel_size),)
         halo_sum = self._sharded(halos["M"].shape[0], work)[0]
-        clock.mark("apply")
+        clock.mark("apply", then="finish")
         return anis_finish(halo_sum, mt, orig, add, bgw)
 
     def _tiled_paint2(self, hd, curves, NSIDE, clock):
@@ -966,7 +992,7 @@ class PaintProfilesAnisShell(PaintProfilesShell):
         def work(i, idx, dev):
             tiling, csr = self._paint_pairs(hd, NSIDE, idx, dev)
             if mark is not None:
-                mark.mark("binning")
+                mark.mark("binning", then="paint")
             return (tile_paint2(tiling, csr, to_device(pack, dev), *grid),)
         acc = self._sharded(hd["M"].shape[0], work)[0]
         return self._paint_tiling(NSIDE, hd).flat_view(acc)
@@ -990,11 +1016,11 @@ class PaintProfilesAnisShell(PaintProfilesShell):
         both_log = log_p and log_t
         base = self._tile_base_pack(hd)
         pack = {k: base[k] for k in PAINT_KEYS if k != "curves"}
-        afac = 1.0 / hd["a"] ** 2
-        if self.include_pixel_size:
-            afac = afac * hpx.nside2pixarea(NSIDE) * hd["D"] ** 2
-        pack["afac"] = torch.as_tensor(afac, device=self.device).to(
-            self.dtype)
+        with trace.span("binning.pack"):
+            afac = 1.0 / hd["a"] ** 2
+            if self.include_pixel_size:
+                afac = afac * hpx.nside2pixarea(NSIDE) * hd["D"] ** 2
+            pack["afac"] = trace.upload(afac, self.device).to(self.dtype)
 
         def fix(c, is_log):
             if both_log:

@@ -65,7 +65,7 @@ from ..ops.grid import grid_cutout, grid_direct, grid_radii
 from ..ops.paint import anis_finish
 from ..ops.scatter import grid_deposit
 from ..parallel.mesh import check_mesh, sharded_sum, to_device
-from .HealpixRunner import _PhaseClock
+from ..utils.trace import PhaseClock
 
 __all__ = ["DefaultRunnerGrid", "BaryonifyGrid", "PaintProfilesGrid",
            "PaintProfilesAnisGrid", "GRID_CELL_BUDGET", "GRID_VALUE_BUDGET",
@@ -196,10 +196,10 @@ class DefaultRunnerGrid:
         self.pixel_budget = pixel_budget
         self.transfer = transfer
         # milliseconds of each phase of the last process() call (see
-        # _PhaseClock): host_prep, curves (K1), deposit (K15) and regrid
-        # (K16), or paint (K15 and the finish), and download; the direct
-        # readout's radii, readout and apply (K22, summed over its chunks)
-        # instead of curves and deposit or paint
+        # utils.trace.PhaseClock): host_prep, curves (K1), deposit (K15)
+        # and regrid (K16), or paint (K15 and the finish), and download;
+        # the direct readout's radii, readout and apply (K22, summed over
+        # its chunks) instead of curves and deposit or paint
         self.timings = {}
 
     def build_Rmat(self, A, q):
@@ -419,7 +419,7 @@ class BaryonifyGrid(DefaultRunnerGrid):
         grid centre, and RuntimeError when the regridded map does not
         conserve the input's total mass (np.isclose, as the reference's
         check)."""
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         inp = self._cutout_inputs(clock)
         gm = self.GriddedMap
         acc = self._all_cutouts(inp)
@@ -499,7 +499,7 @@ class PaintProfilesGrid(DefaultRunnerGrid):
     def process(self):
         """Paint the grid; returns the map as float64 numpy of the input
         map's shape."""
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         out_dev = self._paint_device(clock)
         out = out_dev.cpu().numpy()
         clock.mark("download")
@@ -511,7 +511,7 @@ class PaintProfilesGrid(DefaultRunnerGrid):
         pixel-size scaling included (PaintProfilesAnisGrid consumes its
         Mtot canvas this way). Marks host_prep, curves and paint on
         ``clock``."""
-        clock = _PhaseClock(self.device) if clock is None else clock
+        clock = PhaseClock(self.device) if clock is None else clock
         inp = self._cutout_inputs(clock)
         acc = self._all_cutouts(inp)
         if self.include_pixel_size:
@@ -585,7 +585,7 @@ class PaintProfilesAnisGrid(PaintProfilesGrid):
     def process(self):
         """Paint the grid; returns the map as float64 numpy of the input
         map's shape."""
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         inp = self._cutout_inputs(clock)
         acc = self._all_cutouts(inp)
         new_dev = anis_finish(acc, inp["kw"]["mtot"], inp["kw"]["orig"],

@@ -67,7 +67,7 @@ from ..ops.snapshot import (cell_build, cell_count, cell_grid, cell_write,
                             particle_order, particle_rank, snapshot_direct,
                             snapshot_displace, snapshot_radii)
 from ..parallel.mesh import check_mesh, sharded_sum, to_device
-from .HealpixRunner import _PhaseClock
+from ..utils.trace import PhaseClock
 
 __all__ = ["DefaultRunnerSnapshot", "BaryonifySnapshot", "PAIR_BUDGET",
            "PAIR_CACHE_BYTES"]
@@ -154,7 +154,7 @@ class DefaultRunnerSnapshot:
         # (budget, each chunk's K23 layout)})
         self._pairs = None
         # milliseconds of each phase of the last process() call (see
-        # _PhaseClock): host_prep, neighbours, curves, displace, download;
+        # PhaseClock): host_prep, neighbours, curves, displace, download;
         # radii, readout and apply instead of curves and displace for the
         # direct readout
         self.timings = {}
@@ -345,7 +345,7 @@ class BaryonifySnapshot(DefaultRunnerSnapshot):
     **p_keys)``, read directly on every pair (see the module docstring)."""
 
     def process(self):
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         snap = self.ParticleSnapshot
         L = snap.L
         if hasattr(self.model, "halo_curves"):

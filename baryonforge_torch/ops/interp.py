@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils import trace
 
 # guards the casts kept on the models and their CurveTables (cast_copy,
 # curve_table): runner threads may share a model
@@ -608,7 +609,7 @@ class CurveTable:
         staged = pinned.numpy()
         for j, (_, arr) in enumerate(host):
             staged[j] = arr
-        buf = pinned.to(self._table.device, non_blocking=True)
+        buf = trace.upload(pinned, self._table.device, non_blocking=True)
         hs = self._halos_c
         for j, (d, _) in enumerate(host):
             hs.col[d] = buf.data_ptr() + 8 * j * n

@@ -42,6 +42,7 @@ import torch
 
 from . import _build
 from . import healpix as hpx
+from ..utils import trace
 from .regrid import displaced_weights, ring_table_plain
 from .tiles import _j0, valid_slot_counts
 
@@ -88,13 +89,12 @@ def stencil_tables(tiling, info, device):
     counts = valid_slot_counts(tiling, g_tids)
     g_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return dict(
-        nbr=torch.as_tensor(info["nbr"].reshape(tiling.n_tiles, 9),
-                            device=device),
-        th_theta=torch.as_tensor(info["th_theta"][tb], device=device),
-        th_phi=torch.as_tensor(info["th_phi"][tb], device=device),
-        D_geom=torch.as_tensor(info["D_geom"], device=device),
-        g_tids=torch.as_tensor(g_tids, device=device), g_off=g_off,
-        g_off_dev=torch.as_tensor(g_off, device=device),
+        nbr=trace.upload(info["nbr"].reshape(tiling.n_tiles, 9), device),
+        th_theta=trace.upload(info["th_theta"][tb], device),
+        th_phi=trace.upload(info["th_phi"][tb], device),
+        D_geom=trace.upload(info["D_geom"], device),
+        g_tids=trace.upload(g_tids, device), g_off=g_off,
+        g_off_dev=trace.upload(g_off, device),
         W=int(info["W"]), Wc=int(info["Wc"]),
         ring=ring_table(tiling.nside, device))
 

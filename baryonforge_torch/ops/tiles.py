@@ -31,6 +31,7 @@ import torch
 
 from . import _build
 from . import healpix as hpx
+from ..utils import trace
 
 __all__ = ["SkyTiling", "bin_halos_to_tiles", "refine_pairs", "pairs_csr",
            "count_valid_slots", "valid_slot_counts", "stencil_host_info"]
@@ -101,7 +102,7 @@ class SkyTiling:
         st, ct = np.sin(th_c), np.cos(th_c)
         self.tile_center = np.stack(
             [st * np.cos(ph_c), st * np.sin(ph_c), ct], axis=1)
-        self._crad = None
+        self._memo = {}
         self._csc = None
         self._dev = {}
 
@@ -118,9 +119,11 @@ class SkyTiling:
     def tile_crad(self):
         """Per-tile circumradius in chord units: an upper bound (float64
         exact + 1e-5 margin) on |v_pixel - tile_center| over the tile's
-        valid slot pixel centres (the pair pruning's bound)."""
-        if self._crad is not None:
-            return self._crad
+        valid slot pixel centres (the pair pruning's bound); made at first
+        use (``cache.crad``)."""
+        return trace.cached(self._memo, "crad", "crad", self._circumradii)
+
+    def _circumradii(self):
         N, RB, K = self.nside, self.RB, self.K
         i = (self.tile_i0[:, None].astype(np.int64)
              + np.arange(RB, dtype=np.int64)[None, :])
@@ -152,9 +155,7 @@ class SkyTiling:
         cosd = (np.sin(th_r) * np.sin(th_c)[:, None] * np.cos(dph)
                 + np.cos(th_r) * np.cos(th_c)[:, None])
         chord2 = np.where(ok, 2.0 - 2.0 * cosd, 0.0)
-        self._crad = (np.sqrt(chord2.max(axis=1)) + 1e-5).astype(
-            np.float64)
-        return self._crad
+        return (np.sqrt(chord2.max(axis=1)) + 1e-5).astype(np.float64)
 
     @property
     def center_sincos(self):
@@ -173,20 +174,19 @@ class SkyTiling:
         (int32 ids, float64 centres), built once per device:
         ``tile_i0``, ``tile_s``, ``tile_S``, ``S`` (per block),
         ``tile_off`` (n_blocks + 1), ``center`` (n_tiles, 3) and ``csc``
-        (n_tiles, 5)."""
-        key = str(torch.device(device))
-        if key not in self._dev:
+        (n_tiles, 5) (``cache.tiling_device``)."""
+        def build():
             def i32(x):
-                return torch.as_tensor(np.asarray(x, np.int32),
-                                       device=device)
+                return trace.upload(np.asarray(x, np.int32), device)
 
-            self._dev[key] = dict(
+            return dict(
                 tile_i0=i32(self.tile_i0), tile_s=i32(self.tile_s),
                 tile_S=i32(self.tile_S), S=i32(self.S),
                 tile_off=i32(self.tile_off),
-                center=torch.as_tensor(self.tile_center, device=device),
-                csc=torch.as_tensor(self.center_sincos, device=device))
-        return self._dev[key]
+                center=trace.upload(self.tile_center, device),
+                csc=trace.upload(self.center_sincos, device))
+        return trace.cached(self._dev, str(torch.device(device)),
+                            "tiling_device", build)
 
     # -- device-side closed-form geometry, batched over tiles ------------
     def _segments(self, i0_t, s_t, S_t):
@@ -513,7 +513,8 @@ def refine_pairs(tiling, tile_ids, halo_ids, vh, chord_rad):
     """Exact pair pruning (host; reference tiles.py:566-612): a pair whose
     tile lies farther from the halo than its circumradius plus the disc's
     chord ``chord_rad`` cannot pass the deposit's chord2 <= crit2 mask, so
-    dropping it changes no value. Returns the kept (tile_ids, halo_ids).
+    dropping it changes no value. Returns the kept (tile_ids, halo_ids),
+    and counts the pairs (``pairs``) and those kept (``pairs_kept``).
 
     The JAX function also sorts the kept pairs into far and near classes
     for its windowed curve sweep; the port runs the full sweep on every
@@ -525,7 +526,10 @@ def refine_pairs(tiling, tile_ids, halo_ids, vh, chord_rad):
     dcen = np.sqrt(np.einsum("ij,ij->i", d, d))
     lo = dcen - crad
     keep = lo <= np.asarray(chord_rad, np.float32)[halo_ids] + 1e-5
-    return tile_ids[keep], halo_ids[keep]
+    tile_ids, halo_ids = tile_ids[keep], halo_ids[keep]
+    trace.count("pairs", keep.size)
+    trace.count("pairs_kept", tile_ids.size)
+    return tile_ids, halo_ids
 
 
 def pairs_csr(tile_ids, halo_ids):

@@ -1446,7 +1446,7 @@ def probe_direct(bf, torch, b, libs, gpu):
     import numpy as np
     from baryonforge_torch.ops import deposit, direct, grid, paint, snapshot
     from baryonforge_torch.ops import healpix as hpx
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     from baryonforge_torch.Runners import Map2DRunner
     from baryonforge_torch.Runners.Map2DRunner import GRID_CELL_BUDGET
     f32, f64 = torch.float32, torch.float64
@@ -1498,7 +1498,7 @@ def probe_direct(bf, torch, b, libs, gpu):
     # grouping runner (whole chunks up to 2^28 cells): the tree's runner
     # takes it in one radii pass and one apply, or chunk by chunk (a tree
     # without Map2DRunner.direct_groups)
-    inp = rb._cutout_inputs(_PhaseClock(dev))
+    inp = rb._cutout_inputs(PhaseClock(dev))
     idx, Ns = rb._buckets(inp["Nsize"])[-1]
     cells = Ns ** 3
     step = max(1, GRID_CELL_BUDGET // cells)
@@ -1593,7 +1593,7 @@ def _direct_bench(bf, torch, dev):
     baryonify's largest size bucket (its first readout chunk, its first
     apply group, random float32 values), and the snapshot bench's pairs
     with K23's layout (random float32 values)."""
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     from baryonforge_torch.Runners.Map2DRunner import direct_groups
     f32, f64 = torch.float32, torch.float64
     cosmo = bf.cosmo.cosmology_from_dict(cs.COSMO)
@@ -1605,7 +1605,7 @@ def _direct_bench(bf, torch, dev):
     rb = bf.BaryonifyGrid(cat3, gm3, epsilon_max=cs.GRID_BARYON_EPS,
                           model=_Hide(b3.with_dtype(f64, device=dev)),
                           dtype=f32, device=dev)
-    inp = rb._cutout_inputs(_PhaseClock(dev))
+    inp = rb._cutout_inputs(PhaseClock(dev))
     idx, Ns = rb._buckets(inp["Nsize"])[-1]
     step, groups = direct_groups(idx.size, Ns ** 3)
     per = groups[0].stop

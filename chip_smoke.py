@@ -2140,11 +2140,11 @@ def compare_grid_kernels(bf, torch, runner, label, timing, deposit=False,
     library_ms)} when ``timing``."""
     from baryonforge_torch.ops import grid as tgrid
     from baryonforge_torch.ops import scatter
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     dev = torch.device(DEVICE)
     gm = runner.GriddedMap
     ndim, npix = (2 if gm.is2D else 3), gm.Npix
-    inp = runner._cutout_inputs(_PhaseClock(dev))
+    inp = runner._cutout_inputs(PhaseClock(dev))
     ak = runner._cutouts(inp, runner._accumulator(inp))
     ak2 = runner._cutouts(inp, runner._accumulator(inp))
     ap = runner._cutouts(inp, runner._accumulator(inp),
@@ -2764,14 +2764,14 @@ def compare_snapshot_kernels(bf, torch, model):
     BaryonifySnapshot on the card against the plain versions on the CPU,
     float64, to 1e-10 of the largest displacement."""
     from baryonforge_torch.ops import snapshot
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     for ndim in (3, 2):
         cat, snap = snapshot_inputs(bf, ndim, 96.0, 20000, 60, 17 + ndim,
                                     logM=(13.0, 15.2))
         kw = dict(epsilon_max=20, model=model)
         for dt in (torch.float64, torch.float32):
             r = bf.BaryonifySnapshot(cat, snap, dtype=dt, device=DEVICE, **kw)
-            args = r._displace_inputs(_PhaseClock(torch.device(DEVICE)))
+            args = r._displace_inputs(PhaseClock(torch.device(DEVICE)))
             if ndim == 3 and not float(args[9].max()) > 96.0 / 3:
                 raise AssertionError("snapshot box: no radius above L / 3")
             got = snapshot.snapshot_displace(*args)
@@ -3220,7 +3220,7 @@ def snapshot_bench(bf, torch, gpu):
     plain version (timed) and a torch index_add_ of the same pair vectors.
     Returns (launches, K17's kernel row)."""
     from baryonforge_torch.ops import _build, snapshot
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     t0 = time.perf_counter()
     model = snapshot_model(bf, DEVICE)
     log(f"[{gpu}] snapshot table on the card (Baryonification3D, 2 z x 12 M "
@@ -3283,7 +3283,7 @@ def snapshot_bench(bf, torch, gpu):
                        "force sum on the card", got,
                        brute_force_moves(bf, torch, model, sub, snap))
 
-    args = runner._displace_inputs(_PhaseClock(torch.device(DEVICE)))
+    args = runner._displace_inputs(PhaseClock(torch.device(DEVICE)))
     coords, hpos, halos, offsets, parts, curves = args[:6]
     layout = args[11]
     n_pairs = int(offsets[-1])
@@ -4529,14 +4529,14 @@ def k22_per_call(torch, gpu, grid_runs):
     float64 operations a cell. The applies are the runner's groups
     (Map2DRunner.direct_groups); fails if the runs launched another
     number. Returns {label: (ms, bound_ms, bound_by)}."""
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     from baryonforge_torch.Runners.Map2DRunner import direct_groups
     out = {}
     for label, runner, vbytes, applies in grid_runs:
         phases = PHASES[label]
         ms = float(np.median([p["radii"] + p["apply"] for p in phases]))
         gm = runner.GriddedMap
-        inp = runner._cutout_inputs(_PhaseClock(torch.device(DEVICE)))
+        inp = runner._cutout_inputs(PhaseClock(torch.device(DEVICE)))
         ndim = 2 if gm.is2D else 3
         cell_b = {"displace": 2 * ndim * (4 if runner.dtype == torch.float32
                                           else 8),
@@ -4732,7 +4732,7 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
 
     # K20-K23 at the bench shapes, on the runners' own inputs
     from baryonforge_torch.ops import direct as _direct, grid
-    from baryonforge_torch.Runners.HealpixRunner import _PhaseClock
+    from baryonforge_torch.utils.trace import PhaseClock
     rd = bf.BaryonifyShell(cat, shell, **kw_shell(True, f32))
     halos = rd._direct_halos(rd._host_halo_data(
         bf.cosmo.cosmology_from_dict(COSMO)))
@@ -4746,7 +4746,7 @@ def direct_paths(bf, torch, gpu, model, tsz, cat, shell, tabs, snap_inputs):
     # bucket: its halos, the readout's values on them and the halos a
     # readout chunk, as Map2DRunner._direct_groups makes them
     from baryonforge_torch.Runners.Map2DRunner import direct_groups
-    inp = rb._cutout_inputs(_PhaseClock(torch.device(DEVICE)))
+    inp = rb._cutout_inputs(PhaseClock(torch.device(DEVICE)))
     idx, Ns = rb._buckets(inp["Nsize"])[-1]
     ix = torch.as_tensor(idx, device=DEVICE)
     part, (gvals,) = next(rb._direct_groups(

@@ -486,7 +486,7 @@ def test_direct_grid_chunk_groups_cuda(dev, monkeypatch, which, ndim, ell):
         if which == "baryonify":
             # K22's offsets: K16's deposit after them sums with atomics,
             # in an order that varies from run to run
-            sums = r._all_cutouts(r._cutout_inputs(Map2DRunner._PhaseClock(
+            sums = r._all_cutouts(r._cutout_inputs(Map2DRunner.PhaseClock(
                 r.device))).cpu().numpy()
             launches = dict(_build.launches)
             return r.process(), sums, launches

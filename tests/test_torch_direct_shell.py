@@ -80,8 +80,10 @@ def test_direct_shell_matches_jax(shell_runs, dt):
     out = runner.process()
     orig = np.asarray(shell.map)
     np.testing.assert_allclose(out.sum(), orig.sum(), rtol=1e-10)
-    assert set(runner.timings) == {"host_prep", "radii", "readout", "apply",
-                                   "regrid", "download"}
+    assert {k for k in runner.timings if "." not in k} == {
+        "host_prep", "radii", "readout", "apply", "regrid", "download"}
+    assert {"host_prep.cosmology", "host_prep.columns", "copy.h2d",
+            "copy.d2h", "process.check"} <= set(runner.timings)
     scale = np.abs(jout["f64"] - orig).max()
     assert scale > 0
     if dt == "f64":

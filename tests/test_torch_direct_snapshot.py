@@ -54,8 +54,8 @@ def test_direct_snapshot_matches_jax(models, ndim, dt):
     out = runner.process()
     assert np.abs(want).max() > 0.05
     _close(_moves(out, pos, L), want, dt)
-    assert set(runner.timings) == {"host_prep", "neighbours", "radii",
-                                   "readout", "apply", "download"}
+    assert {k for k in runner.timings if "." not in k} == {
+        "host_prep", "neighbours", "radii", "readout", "apply", "download"}
 
 
 def test_direct_snapshot_equals_curve_path(models):

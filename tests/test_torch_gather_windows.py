@@ -41,8 +41,7 @@ import baryonforge_torch as bf                              # noqa: E402
 from baryonforge_torch.ops import scatter as tscatter       # noqa: E402
 from baryonforge_torch.ops import snapshot as tsnap         # noqa: E402
 from baryonforge_torch.ops.tiles import pairs_csr           # noqa: E402
-from baryonforge_torch.Runners.HealpixRunner import \
-    _PhaseClock                                             # noqa: E402
+from baryonforge_torch.utils.trace import PhaseClock        # noqa: E402
 
 from test_torch_snapshot import (BOXES, JDT, TDT, _box, _close,  # noqa
                                  _moves, _objects, _query_radii,
@@ -165,7 +164,7 @@ def test_gather_matches_jax_snapshot(models, ndim, dt):
     runner = bf.BaryonifySnapshot(*_objects(bf.utils, ndim, L, pos, hpos, M),
                                   epsilon_max=20, model=tm, dtype=TDT[dt],
                                   device="cpu")
-    args = runner._displace_inputs(_PhaseClock(torch.device("cpu")))
+    args = runner._displace_inputs(PhaseClock(torch.device("cpu")))
     order, poff, prow = args[-1]
     assert poff.numel() == n + 1 and prow.numel() == args[4].numel()
     off = tsnap.snapshot_gather_plain(*args).numpy().T

@@ -195,7 +195,7 @@ def test_grid_runner_matches_jax(models, which, ndim, ell, dt):
               "paint": ("host_prep", "curves", "paint", "download"),
               "anis": ("canvas", "host_prep", "curves", "paint",
                        "download")}[which]
-    assert tuple(r.timings) == phases
+    assert tuple(k for k in r.timings if "." not in k) == phases
     if which == "baryonify":
         scale = np.abs(ref - tgm.map).max()
         np.testing.assert_allclose(out.sum(), tgm.map.sum(), rtol=1e-10)

@@ -31,6 +31,17 @@ def _torch_inputs(cat, shell):
 
 JDT = {"f32": jnp.float32, "f64": jnp.float64}
 TDT = {"f32": torch.float32, "f64": torch.float64}
+# the spans and counters in runner.timings (utils.trace) of every curve
+# path, and of the tiled engine's
+SPANS = ["host_prep.cosmology", "host_prep.columns", "host_prep.map_upload",
+         "host_prep.empty_check", "download.wait", "download.convert",
+         "copy.h2d", "copy.d2h", "process.check", "count.h2d_bytes",
+         "count.d2h_bytes"]
+TILED_SPANS = ["binning.pack", "binning.tiling", "binning.bin",
+               "binning.refine", "binning.csr", "cache.tiling", "cache.crad",
+               "cache.stencil_tables", "cache.stencil_geo",
+               "regrid.hot_tiles", "count.pairs", "count.pairs_kept",
+               "count.cache_fills", "count.cache_hits"]
 
 
 def _inputs(nside, n_halos):
@@ -118,8 +129,9 @@ def test_shell_bench_dtypes_match_jax(nside, n_halos):
     err_t, err_j = np.abs(out_t - out_64), np.abs(out_j - out_64)
     assert err_t.max() <= max(1.25 * err_j.max(), 1e-6 * nside * orig.max())
     assert err_t.sum() <= 1.25 * err_j.sum()
-    assert set(runner.timings) == {"host_prep", "curves", "deposit",
-                                   "regrid", "download"}
+    assert {k for k in runner.timings if "." not in k} == {
+        "host_prep", "curves", "deposit", "regrid", "download"}
+    assert set(SPANS) <= set(runner.timings)
 
 
 def test_host_prep_matches_jax():
@@ -231,8 +243,11 @@ def test_default_shell_f64_matches_jax(default_case):
     scale = np.abs(ref["f64"] - orig).max()
     assert scale > 0
     np.testing.assert_allclose(out_t, ref["f64"], rtol=0, atol=1e-9 * scale)
-    assert set(runner.timings) == {"host_prep", "curves", "binning",
-                                   "deposit", "regrid", "download"}
+    assert {k for k in runner.timings if "." not in k} == {
+        "host_prep", "curves", "binning", "deposit", "regrid", "download"}
+    assert set(SPANS + TILED_SPANS) <= set(runner.timings)
+    assert runner.timings["count.pairs_kept"] <= runner.timings[
+        "count.pairs"]
 
 
 def test_default_shell_bench_dtypes_match_jax(default_case):

@@ -135,8 +135,8 @@ def test_snapshot_matches_jax(models, ndim, dt):
     out = runner.process()
     assert np.abs(want).max() > 0.05
     _close(_moves(out, pos, L), want, dt)
-    assert set(runner.timings) == {"host_prep", "neighbours", "curves",
-                                   "displace", "download"}
+    assert {k for k in runner.timings if "." not in k} == {
+        "host_prep", "neighbours", "curves", "displace", "download"}
     for c in "xyz"[:ndim]:
         assert out[c].min() >= 0 and out[c].max() <= L
 
