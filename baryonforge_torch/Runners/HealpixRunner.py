@@ -83,6 +83,7 @@ import torch
 
 from ..cosmo import core as _core
 from ..cosmo import massdef as _massdef
+from ..ops import geometry as _geometry
 from ..ops import healpix as hpx
 from ..ops import stencil as _stencil
 from ..ops import tiles as _tiles
@@ -188,9 +189,6 @@ class DefaultRunner:
         # binning.refine, cache.tiling, copy.h2d, ...); the counters under
         # count.<name> (h2d_bytes, pairs_kept, cache_fills, ...)
         self.timings = {}
-        # pure functions of (NSIDE, dtype), built at first use: the tiling,
-        # the stencil's tables and its geometric source list
-        self._cache = {}
 
     def invalidate(self):
         """Drop the data-derived state (the JAX runner's, HealpixRunner.py:
@@ -198,8 +196,10 @@ class DefaultRunner:
         runner's models kept for a dtype and device (``ops.interp.
         cast_copy``), so that a model changed in place (its table edited)
         takes effect at the next call. The per-NSIDE geometry (tilings,
-        stencil tables and source lists) and the built kernels are kept;
-        the host prep is made anew at every call anyway."""
+        stencil tables and source lists) lives for the process
+        (``ops.geometry``; ``clear_geometry_cache()`` drops it) and the
+        built kernels are kept; the host prep is made anew at every call
+        anyway."""
         self.__dict__.pop("_mtot", None)
         for name in ("model", "Tracer_model", "Mtot_model"):
             m = getattr(self, name, None)
@@ -341,35 +341,23 @@ class DefaultRunner:
                 "(ROADMAP Queue 3)")
 
     # -- the tiled engine's per-NSIDE state (reference HealpixRunner.py:
-    # 581-593, 1047-1179) --------------------------------------------------
+    # 581-593, 1047-1179), kept for the process (ops/geometry.py) ----------
     def _get_tiling(self, NSIDE, shape=None):
-        """The (cached: ``cache.tiling``) SkyTiling: 16 x 32 by default,
-        shared by the tiled phases; ``shape`` = (ring_block, seg_slots) for
+        """The SkyTiling (``cache.tiling``): 16 x 32 by default, shared by
+        the tiled phases; ``shape`` = (ring_block, seg_slots) for
         another."""
-        kw = ({} if shape is None
-              else dict(ring_block=shape[0], seg_slots=shape[1]))
         with trace.span("binning.tiling"):
-            return trace.cached(self._cache, ("tiling", NSIDE, shape),
-                                "tiling",
-                                lambda: _tiles.SkyTiling(NSIDE, **kw))
+            return _geometry.tiling(NSIDE, shape)
 
     def _stencil_tables(self, NSIDE):
-        """(cached: ``cache.stencil_tables``) ops.stencil.stencil_tables of
-        the tiling, on the runner's device."""
-        def build():
-            tiling = self._get_tiling(NSIDE)
-            return _stencil.stencil_tables(
-                tiling, _tiles.stencil_host_info(tiling), self.device)
-        return trace.cached(self._cache, ("stencil", NSIDE),
-                            "stencil_tables", build)
+        """ops.stencil.stencil_tables of the tiling on the runner's device
+        (``cache.stencil_tables``)."""
+        return _geometry.stencil_tables(NSIDE, self.device)
 
     def _stencil_geo(self, NSIDE, rdt):
-        """(cached: ``cache.stencil_geo``) the complement's geometric
-        source list (ops.stencil.stencil_geo: kernel K6 on CUDA)."""
-        return trace.cached(
-            self._cache, ("stencil_geo", NSIDE, rdt), "stencil_geo",
-            lambda: _stencil.stencil_geo(self._get_tiling(NSIDE),
-                                         self._stencil_tables(NSIDE), rdt))
+        """The complement's geometric source list (ops.stencil.stencil_geo:
+        kernel K6 on CUDA) on the runner's device (``cache.stencil_geo``)."""
+        return _geometry.stencil_geo(NSIDE, rdt, self.device)
 
     def _small_disc_mask(self, hd, NSIDE):
         """Halos whose discs are so small (< ~9 px) that the reference's
@@ -835,9 +823,7 @@ class PaintProfilesAnisShell(PaintProfilesShell):
 
     def _mtot_runner(self):
         """The (cached) nested Mtot paint runner, re-pointed at the current
-        catalog and shell (reference HealpixRunner.py:2226-2247): kept, and
-        sharing this runner's tilings, so that its per-NSIDE state is built
-        once."""
+        catalog and shell (reference HealpixRunner.py:2226-2247)."""
         key = (id(self.Mtot_model), self.epsilon_max, id(self.mass_def),
                self.dtype, self.regrid_dtype, self.deposit)
         if getattr(self, "_mtot", (None,))[0] != key:
@@ -847,7 +833,6 @@ class PaintProfilesAnisShell(PaintProfilesShell):
                 include_pixel_size=True, dtype=self.dtype,
                 regrid_dtype=self.regrid_dtype, deposit=self.deposit,
                 device=self.device, verbose=self.verbose)
-            runner._cache = self._cache
             self._mtot = (key, runner)
         runner = self._mtot[1]
         runner.HaloLightConeCatalog = self.HaloLightConeCatalog

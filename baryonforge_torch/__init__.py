@@ -8,16 +8,18 @@ plain PyTorch version beside it. It imports torch and numpy, never jax.
 Ported (ROADMAP.md lists what remains: runner behaviour, not modules):
   cosmo/      background, distances, growth, linear power, sigma(M),
               xi(r), mass definitions, concentrations (float64)
-  ops/        HEALPix geometry and the sky tiling; integration and
-              interpolation; kernels K1 curve collapse (interp), K2 disc
-              deposit (deposit), K3 scatter regrid (regrid), K4 tile
-              deposit, K10 tile paint and K12 paint2 (tile_deposit), K5
-              stencil regrid and K6 its complement (stencil), K7 tile
-              layout (tiles), K8 FFTLog transform (fftlog), K9 table rows
-              (table_rows), K11 disc paint, K13 its anisotropic form and
-              K14 the anisotropic finish (paint), K15 grid cutouts (grid),
-              K16 grid deposit (scatter), K17 snapshot displacement
-              (snapshot), K18 ring modes and K19 Legendre transform (sht)
+  ops/        HEALPix geometry and the sky tiling (its per-NSIDE tables
+              kept for the process: ``clear_geometry_cache()`` frees them);
+              integration and interpolation; kernels K1 curve collapse
+              (interp), K2 disc deposit (deposit), K3 scatter regrid
+              (regrid), K4 tile deposit, K10 tile paint and K12 paint2
+              (tile_deposit), K5 stencil regrid and K6 its complement
+              (stencil), K7 tile layout (tiles), K8 FFTLog transform
+              (fftlog), K9 table rows (table_rows), K11 disc paint, K13 its
+              anisotropic form and K14 the anisotropic finish (paint), K15
+              grid cutouts (grid), K16 grid deposit (scatter), K17 snapshot
+              displacement (snapshot), K18 ring modes and K19 Legendre
+              transform (sht)
   native/     the snapshot runner's periodic cell list (host C++, g++)
   Profiles/   the profile framework and algebra, the Schneider19,
               Arico20, Mead20 (with its T_AGN calibrations) and Schneider25
@@ -51,6 +53,7 @@ from . import utils
 from . import Profiles
 from . import Runners
 from . import parallel
+from .ops.geometry import clear_geometry_cache
 from .utils.io import (HaloLightConeCatalog, HaloNDCatalog, LightconeShell,
                        GriddedMap, ParticleSnapshot)
 from .Profiles import *       # noqa: F401,F403

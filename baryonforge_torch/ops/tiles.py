@@ -33,10 +33,14 @@ from . import _build
 from . import healpix as hpx
 from ..utils import trace
 
-__all__ = ["SkyTiling", "bin_halos_to_tiles", "refine_pairs", "pairs_csr",
-           "count_valid_slots", "valid_slot_counts", "stencil_host_info"]
+__all__ = ["DEFAULT_SHAPE", "SkyTiling", "bin_halos_to_tiles",
+           "refine_pairs", "pairs_csr", "count_valid_slots",
+           "valid_slot_counts", "stencil_host_info"]
 
 _TWO_PI = 2.0 * math.pi
+
+# SkyTiling's (ring_block, seg_slots) unless told otherwise
+DEFAULT_SHAPE = (16, 32)
 
 # pixels / tiles per step of the plain re-layouts
 _PIX_CHUNK = 1 << 22
@@ -63,7 +67,8 @@ class SkyTiling:
         when that divides exactly.
     """
 
-    def __init__(self, nside, ring_block=16, seg_slots=32):
+    def __init__(self, nside, ring_block=DEFAULT_SHAPE[0],
+                 seg_slots=DEFAULT_SHAPE[1]):
         self.nside = int(nside)
         self.RB = int(ring_block)
         self.K = int(seg_slots)
@@ -105,6 +110,9 @@ class SkyTiling:
         self._memo = {}
         self._csc = None
         self._dev = {}
+        # fills the memos (circumradii, device arrays): a tiling shared
+        # across threads (ops.geometry) is given one that locks
+        self._fill = trace.cached
 
     @property
     def P(self):
@@ -121,7 +129,7 @@ class SkyTiling:
         exact + 1e-5 margin) on |v_pixel - tile_center| over the tile's
         valid slot pixel centres (the pair pruning's bound); made at first
         use (``cache.crad``)."""
-        return trace.cached(self._memo, "crad", "crad", self._circumradii)
+        return self._fill(self._memo, "crad", "crad", self._circumradii)
 
     def _circumradii(self):
         N, RB, K = self.nside, self.RB, self.K
@@ -185,8 +193,8 @@ class SkyTiling:
                 tile_off=i32(self.tile_off),
                 center=trace.upload(self.tile_center, device),
                 csc=trace.upload(self.center_sincos, device))
-        return trace.cached(self._dev, str(torch.device(device)),
-                            "tiling_device", build)
+        return self._fill(self._dev, str(torch.device(device)),
+                          "tiling_device", build)
 
     # -- device-side closed-form geometry, batched over tiles ------------
     def _segments(self, i0_t, s_t, S_t):

@@ -50,6 +50,16 @@ JDT = {"f32": jnp.float32, "f64": jnp.float64}
 TDT = {"f32": torch.float32, "f64": torch.float64}
 
 
+@pytest.fixture(autouse=True)
+def _fresh_geometry_cache():
+    """Each test starts and ends with the port's process-wide geometry
+    cache empty (ops.geometry), so that a fresh runner's fills do not
+    depend on which tests ran before it in the same worker."""
+    bf.clear_geometry_cache()
+    yield
+    bf.clear_geometry_cache()
+
+
 def jax_tables():
     """The JAX tSZ table (log curves) and its raw form (raw curves)."""
     jc = jcore.cosmology_from_dict(COSMO_DICT)

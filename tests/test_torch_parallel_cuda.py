@@ -2,9 +2,9 @@
 CUDA device): the runners with ``halo_mesh(4, device="cuda")`` (four
 shards of one card, each on a CUDA stream of its own) against none, and
 against the CPU's sharded run; SimpleParallel's threads sharing a model
-whose casts are not made yet; TabulatedCorrelation3D, the profile cache
-and halomodel_power on the card against the CPU. This file imports no jax:
-on a machine without it run
+whose casts are not made yet, and an empty process-wide geometry cache;
+TabulatedCorrelation3D, the profile cache and halomodel_power on the card
+against the CPU. This file imports no jax: on a machine without it run
 
     python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py
 """
@@ -157,6 +157,49 @@ def test_simple_parallel_shares_a_fresh_model(dev):
     assert _build.launches["tile_deposit"] == 4
     for a, b in zip(par, seq):
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["shell", "paint"])
+def test_simple_parallel_fills_the_geometry_once(dev, kind):
+    """Four tiled runners through SimpleParallel(njobs=4) from an empty
+    process-wide geometry cache, so that their threads ask for its entries
+    at once: the four calls fill it once between them (their fills add up
+    to one cold runner's) and give the sequential maps: the paint's bit
+    for bit, the shell's to the order of K6's atomic sums, which changes
+    from run to run (1e-12, as the test above)."""
+    if kind == "shell":
+        model = _model()
+    else:
+        model = bf.utils.TabulatedProfile(bf.Profiles.DarkMatter(
+            **BPAR, proj_cutoff=100), bf.cosmo.cosmology_from_dict(COSMO),
+            device=dev).setup_interpolator(
+            z_min=0.7, z_max=1.1, N_samples_z=2, M_min=5e12, M_max=2e15,
+            N_samples_Mass=4, R_min=1e-3, R_max=60, N_samples_R=32)
+    cases = [_inputs(128, 800, 20 + i) for i in range(4)]
+
+    def make(cat, shell):
+        if kind == "shell":
+            return bf.BaryonifyShell(cat, shell, epsilon_max=20,
+                                     model=model, device=dev)
+        return bf.PaintProfilesShell(cat, shell, epsilon_max=5, model=model,
+                                     device=dev)
+    bf.clear_geometry_cache()
+    seq, fills = [], []
+    for c in cases:
+        r = make(*c)
+        seq.append(r.process())
+        fills.append(r.timings.get("count.cache_fills", 0))
+    assert fills[0] > 0 and not any(fills[1:])
+    bf.clear_geometry_cache()
+    runners = [make(*c) for c in cases]
+    par = parallel.SimpleParallel(runners, njobs=4).process()
+    assert sum(r.timings.get("count.cache_fills", 0)
+               for r in runners) == fills[0]
+    for a, b in zip(par, seq):
+        if kind == "paint":
+            assert np.array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
 
 
 def test_last_utils_on_the_card(dev):

@@ -154,7 +154,7 @@ def test_invalidate_sees_an_edited_mtot_table(models):
     the Mtot model's table is edited in place (its projected profile
     doubled), invalidate() drops them and the nested Mtot runner, and the
     next call equals a fresh runner's, while the per-NSIDE geometry stays
-    cached."""
+    cached for the process: the same entries, none filled again."""
     _, dm = models
     cosmo = bf.cosmo.cosmology_from_dict(COSMO_DICT)
     mtot = bf.utils.TabulatedProfile(
@@ -170,13 +170,15 @@ def test_invalidate_sees_an_edited_mtot_table(models):
               global_tracer_fraction=0.1, dtype=torch.float32, device="cpu")
     runner = bf.PaintProfilesAnisShell(cat, shell, EPS, dm, **kw)
     before = runner.process()
-    geometry = dict(runner._cache)
+    geometry = {k: dict(g) for k, g in bf.ops.geometry._groups.items()}
     assert geometry and runner._mtot is not None
     mtot._tab2D += math.log(2.0)            # in place: the same tensor
     runner.invalidate()
     assert "_mtot" not in vars(runner) and "_casts" not in vars(mtot)
-    assert runner._cache == geometry
+    assert {k: dict(g) for k, g in bf.ops.geometry._groups.items()} \
+        == geometry
     after = runner.process()
+    assert runner.timings.get("count.cache_fills", 0) == 0
     fresh = bf.PaintProfilesAnisShell(cat, shell, EPS, dm, **kw).process()
     assert np.array_equal(after, fresh)
     assert not np.allclose(after, before)

@@ -14,6 +14,7 @@ import jax.numpy as jnp                                     # noqa: E402
 from baryonforge_tpu import Runners as JRunners             # noqa: E402
 from baryonforge_tpu.cosmo.core import cosmology_from_dict  # noqa: E402
 from baryonforge_torch import BaryonifyShell                # noqa: E402
+from baryonforge_torch import clear_geometry_cache          # noqa: E402
 from baryonforge_torch import utils as tutils               # noqa: E402
 from baryonforge_torch.cosmo import core as tcore           # noqa: E402
 from baryonforge_torch.Runners import HealpixRunner as THR  # noqa: E402
@@ -42,6 +43,16 @@ TILED_SPANS = ["binning.pack", "binning.tiling", "binning.bin",
                "cache.stencil_tables", "cache.stencil_geo",
                "regrid.hot_tiles", "count.pairs", "count.pairs_kept",
                "count.cache_fills", "count.cache_hits"]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_geometry_cache():
+    """Each test starts and ends with the port's process-wide geometry
+    cache empty (ops.geometry), so that a fresh runner's fills do not
+    depend on which tests ran before it in the same worker."""
+    clear_geometry_cache()
+    yield
+    clear_geometry_cache()
 
 
 def _inputs(nside, n_halos):
