@@ -187,7 +187,10 @@ class DefaultRunner:
         # and apply (K21) instead of curves and deposit or paint); the
         # spans' self times in ms under dotted keys (host_prep.cosmology,
         # binning.refine, cache.tiling, copy.h2d, ...); the counters under
-        # count.<name> (h2d_bytes, pairs_kept, cache_fills, ...)
+        # count.<name> (h2d_bytes, pairs_kept, cache_fills, ...). The Anis
+        # runner adds canvas and finish, its Mtot canvas's keys under the
+        # scope canvas. (canvas.binning.bin, count.canvas.pairs, ...),
+        # anis.background and count.pair_searches
         self.timings = {}
 
     def invalidate(self):
@@ -778,7 +781,21 @@ class PaintProfilesShell(DefaultRunner):
         return pack
 
 
-class PaintProfilesAnisShell(PaintProfilesShell):
+class _CountedSearches:
+    """Counts each host (tile, halo) pair search of the anisotropic paint,
+    its canvas's too, in the call's ``pair_searches`` (outside the canvas's
+    ``canvas.`` scope)."""
+
+    def _paint_pairs(self, hd, NSIDE, idx=None, dev=None):
+        trace.count("pair_searches", scoped=False)
+        return super()._paint_pairs(hd, NSIDE, idx, dev)
+
+
+class _MtotCanvas(_CountedSearches, PaintProfilesShell):
+    """The Anis runner's nested Mtot paint."""
+
+
+class PaintProfilesAnisShell(_CountedSearches, PaintProfilesShell):
     """Anisotropic painting: the painted profile weighted by the per-pixel
     tracer mass fraction of an Mtot model plus a uniform background
     (reference HealpixRunner.py:487-640; the JAX runner's 2185-2516).
@@ -827,7 +844,7 @@ class PaintProfilesAnisShell(PaintProfilesShell):
         key = (id(self.Mtot_model), self.epsilon_max, id(self.mass_def),
                self.dtype, self.regrid_dtype, self.deposit)
         if getattr(self, "_mtot", (None,))[0] != key:
-            runner = PaintProfilesShell(
+            runner = _MtotCanvas(
                 self.HaloLightConeCatalog, self.LightconeShell,
                 self.epsilon_max, self.Mtot_model, mass_def=self.mass_def,
                 include_pixel_size=True, dtype=self.dtype,
@@ -863,19 +880,21 @@ class PaintProfilesAnisShell(PaintProfilesShell):
             orig = trace.upload(np.asarray(shell.map, dtype=np.float64), dev)
         clock.mark("host_prep", then="canvas")
 
-        mtot = self._mtot_runner()._paint_device(hd=hd)
+        with trace.scope("canvas."):
+            mtot = self._mtot_runner()._paint_device(hd=hd)
         use_curves = self._use_curves()
         clock.mark("canvas", then="curves" if use_curves
                    else "radii" if self._mesh() is None else "apply")
 
-        dL = 2 * _get_parameter(self.Mtot_model, "proj_cutoff")
-        a_shell = 1.0 / (1.0 + shell.redshift)
-        dD = float(_core.angular_diameter_distance(cosmo, a_shell)[0])
-        rho_m = float(_core.rho_x(cosmo, a_shell, "matter",
-                                  is_comoving=False))
-        dV = pixarea * ((dD + dL) ** 3 - dD ** 3)
-        rho_halos = mtot.double().sum().item() / (dV * npix)
-        drho_m = float(np.clip(rho_m - rho_halos, 0, None))
+        with trace.span("anis.background"):
+            dL = 2 * _get_parameter(self.Mtot_model, "proj_cutoff")
+            a_shell = 1.0 / (1.0 + shell.redshift)
+            dD = float(_core.angular_diameter_distance(cosmo, a_shell)[0])
+            rho_m = float(_core.rho_x(cosmo, a_shell, "matter",
+                                      is_comoving=False))
+            dV = pixarea * ((dD + dL) ** 3 - dD ** 3)
+            rho_halos = mtot.double().sum().item() / (dV * npix)
+            drho_m = float(np.clip(rho_m - rho_halos, 0, None))
         if self.verbose:
             print(f"Inputted halos contribute {100 * rho_halos / rho_m:0.2f}%"
                   " of the total matter density.")

@@ -16,11 +16,16 @@ PhaseClock(...) as clock``); ``runner.timings`` is then
   interval twice;
 * counters (``count.<name>``): ``count(name, n)``, summed over the call.
 
+A nested runner's work records under a prefix of its own while a
+:func:`scope` is open (the Anis runner's Mtot canvas: ``canvas.binning.bin``,
+``count.canvas.pairs``), so that it reads apart from the caller's; a
+counter of the whole call (``count(name, scoped=False)``) keeps its name.
+
 Code below the runner (``ops/``) records through the module functions
-:func:`span`, :func:`count`, :func:`upload`, :func:`download` and
-:func:`cached`, which find the thread's tracer; with none installed they
-do nothing but that lookup. ``parallel.SimpleParallel``'s threads each
-keep their own.
+:func:`span`, :func:`count`, :func:`upload`, :func:`download`,
+:func:`cached` and :func:`scope`, which find the thread's tracer; with
+none installed they do nothing but that lookup. ``parallel.SimpleParallel``'s
+threads each keep their own.
 
 While a ``torch.profiler`` is active (``torch.autograd._profiler_enabled``,
 read when the clock is installed), each span also opens a range
@@ -40,7 +45,8 @@ import time
 
 import torch
 
-__all__ = ["PhaseClock", "span", "count", "upload", "download", "cached"]
+__all__ = ["PhaseClock", "span", "count", "upload", "download", "cached",
+           "scope"]
 
 _local = threading.local()
 _NULL = contextlib.nullcontext()
@@ -102,6 +108,7 @@ class PhaseClock:
         self._first = first
         self._prev = None
         self.profiling = False   # ranges too (set at installation)
+        self.prefix = ""         # the open scope's (see scope)
 
     def __enter__(self):
         """Install the clock as this thread's tracer."""
@@ -156,7 +163,9 @@ class PhaseClock:
         return out
 
     def span(self, name):
-        """A context manager: a span ``name`` on the host clock."""
+        """A context manager: a span ``name`` (under the open scope's
+        prefix) on the host clock."""
+        name = self.prefix + name
         sp = self._spans.get(name)
         if sp is None:
             sp = self._spans[name] = _Span(self, name)
@@ -171,6 +180,7 @@ class PhaseClock:
         children (cheaper than a ``span``: a call makes dozens of copies)
         and count the bytes of ``out`` in ``counter``."""
         dt = _now() - t0
+        name, counter = self.prefix + name, self.prefix + counter
         self._self[name] = self._self.get(name, 0) + dt
         if self._open:
             self._open[-1][1] += dt
@@ -193,10 +203,14 @@ def span(name):
     return _NULL if tr is None else tr.span(name)
 
 
-def count(name, n=1):
-    """Add ``n`` to counter ``name`` of this thread's tracer, if any."""
+def count(name, n=1, scoped=True):
+    """Add ``n`` to counter ``name`` of this thread's tracer, if any: under
+    the open scope's prefix, or with ``scoped`` False under ``name`` itself
+    (a count of the whole call)."""
     tr = getattr(_local, "tracer", None)
     if tr is not None:
+        if scoped:
+            name = tr.prefix + name
         c = tr._counts
         c[name] = c.get(name, 0) + n
 
@@ -215,7 +229,7 @@ def upload(x, device, dtype=None, non_blocking=False):
     tr = getattr(_local, "tracer", None)
     if tr is None:
         return _to(x, device, dtype, non_blocking)
-    rng = _range("copy.h2d") if tr.profiling else None
+    rng = _range(tr.prefix + "copy.h2d") if tr.profiling else None
     t0 = _now()
     out = _to(x, device, dtype, non_blocking)
     tr._copied("copy.h2d", t0, rng, "h2d_bytes", out)
@@ -228,7 +242,7 @@ def download(x):
     tr = getattr(_local, "tracer", None)
     if tr is None:
         return x.cpu()
-    rng = _range("copy.d2h") if tr.profiling else None
+    rng = _range(tr.prefix + "copy.d2h") if tr.profiling else None
     t0 = _now()
     out = x.cpu()
     tr._copied("copy.d2h", t0, rng, "d2h_bytes", out)
@@ -246,3 +260,20 @@ def cached(store, key, name, build):
         store[key] = build()
     count("cache_fills")
     return store[key]
+
+
+@contextlib.contextmanager
+def scope(prefix):
+    """While open, this thread's tracer records spans and counters (the
+    copies', the caches' too) under ``prefix`` + name; scopes nest, their
+    prefixes joined. Nothing without a tracer."""
+    tr = getattr(_local, "tracer", None)
+    if tr is None:
+        yield
+        return
+    outer = tr.prefix
+    tr.prefix = outer + prefix
+    try:
+        yield
+    finally:
+        tr.prefix = outer

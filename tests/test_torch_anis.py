@@ -140,11 +140,18 @@ def test_anis_shell_matches_jax(models, deposit, dt):
     assert [k for k in r.timings if "." not in k] == phases
     spans = {"host_prep.cosmology", "host_prep.columns",
              "host_prep.map_upload", "download.wait", "download.convert",
-             "copy.h2d", "copy.d2h", "count.h2d_bytes", "count.d2h_bytes"}
+             "copy.h2d", "copy.d2h", "count.h2d_bytes", "count.d2h_bytes",
+             "anis.background"}
     if deposit != "scatter":
         spans |= {"binning.pack", "binning.bin", "binning.refine",
-                  "binning.csr", "count.pairs", "count.pairs_kept"}
+                  "binning.csr", "count.pairs", "count.pairs_kept",
+                  "canvas.binning.pack", "canvas.binning.bin",
+                  "canvas.binning.refine", "canvas.binning.csr",
+                  "count.canvas.pairs", "count.canvas.pairs_kept",
+                  "count.pair_searches"}
     assert spans <= set(r.timings)
+    assert r.timings.get("count.pair_searches", 0) == (
+        0 if deposit == "scatter" else 2)
     halo = torch_anis(tm, tm, cols, m, deposit, dt, background_val=0.0)
     assert np.abs(halo).max() > 0.9 * np.abs(out).max()
 

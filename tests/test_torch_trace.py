@@ -162,6 +162,38 @@ def test_copies_and_caches_are_recorded():
     assert {"copy.h2d", "copy.d2h"} <= set(t)
 
 
+def test_scopes_prefix_spans_and_counters():
+    """Inside a scope the spans, counters, copies and caches record under
+    its prefix, nested scopes join theirs, an unscoped counter keeps its
+    name, and the prefix is dropped when the scope closes (an exception
+    too); without a tracer a scope does nothing."""
+    with trace.scope("none."):
+        trace.count("n")
+    with PhaseClock(CPU) as clock:
+        with trace.scope("canvas."):
+            with trace.span("binning.bin"):
+                trace.count("pairs", 3)
+                trace.count("searches", scoped=False)
+            trace.upload(np.zeros(2), CPU)
+            trace.cached({}, "k", "tiling", lambda: 1)
+            with trace.scope("inner."):
+                trace.count("pairs")
+        with pytest.raises(KeyError):
+            with trace.scope("lost."):
+                raise KeyError
+        with trace.span("binning.bin"):
+            trace.count("pairs", 5)
+            trace.count("searches")
+    t = clock.timings()
+    assert {"canvas.binning.bin", "binning.bin", "canvas.copy.h2d",
+            "canvas.cache.tiling"} <= set(t)
+    assert {k: v for k, v in t.items() if k.startswith("count.")} == {
+        "count.canvas.pairs": 3, "count.searches": 2,
+        "count.canvas.h2d_bytes": 16, "count.canvas.cache_fills": 1,
+        "count.canvas.inner.pairs": 1, "count.pairs": 5}
+    assert clock.prefix == ""
+
+
 def test_thread_local_tracers_keep_calls_apart():
     """Two threads' calls, run at once, each record only their own."""
     barrier = threading.Barrier(2, timeout=30)
